@@ -1,0 +1,121 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and bind them
+with ``ctypes``.
+
+All sources under ``tensorflowasr_tpu_torch/csrc/`` compile in ONE ``nvcc``
+call into one shared library with a plain C interface (no PyTorch headers,
+so the build takes seconds, not minutes). The library lands in
+``tensorflowasr_tpu_torch/_build/`` under a name keyed on the sources' and
+flags' hash, so an edited source never loads a stale build. Every C entry
+point returns ``cudaGetLastError()``; :func:`check` raises when it is not 0.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "tfasr_log_mel": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "tfasr_rel_attention": [_P] * 8 + [_I] * 12 + [_P],
+    "tfasr_fused_ff": [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P],
+    "tfasr_conv_front": [_P] * 8 + [_I, _I, _F, _I, _P],
+    "tfasr_conv_back": [_P] * 9 + [_I, _I, _F, _F, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the first build() in this process
+build_log: str = ""  # nvcc/ptxas output of that build (registers, shared memory, spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the port's CUDA kernels build on a machine with the CUDA toolkit")
+    return str(path)
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libtfasr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; idempotent."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    path = library_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{build_log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_seconds = time.perf_counter() - t0
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def require(t: torch.Tensor, name: str, *, device: torch.device, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this device, dtype and shape."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def compute_dtype(t: torch.Tensor, name: str) -> int:
+    if t.dtype not in DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {t.dtype} not supported by the kernel (float32 or bfloat16)")
+    return DTYPE_CODE[t.dtype]
