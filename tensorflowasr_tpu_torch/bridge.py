@@ -1,9 +1,13 @@
-"""JAX/flax variables → the port's ``state_dict``.
+"""JAX/flax variables → the port's ``state_dict``, and BatchNorm running
+statistics back.
 
-Takes ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
-arrays (``jax.tree_util.tree_map(np.asarray, variables)`` on the JAX side;
-this module imports no JAX) and returns a ``state_dict`` for the port's
-module of the same name tree (``model.load_state_dict(sd)``). Rules:
+:func:`state_dict_from_flax` takes ``{"params": ..., "batch_stats": ...}``
+as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+variables)`` on the JAX side; this module imports no JAX) and returns a
+``state_dict`` for the port's module of the same name tree
+(``model.load_state_dict(sd)``). :func:`batch_stats_to_flax` carries the
+running statistics (which training updates) back into a flax
+``batch_stats`` tree. Rules:
 
 - path segments join with "."; the single unnamed child scopes flax adds
   (``Conv_0`` inside Conv1D/Conv2D wrappers, ``BatchNorm_0``/``LayerNorm_0`` inside Norm)
@@ -32,6 +36,7 @@ import torch
 _DROP = {"Conv_0", "BatchNorm_0", "LayerNorm_0"}
 _HEAD_IN = {"query", "key", "value", "encoding"}
 _GATES = ("i", "f", "g", "o")
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -93,5 +98,22 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
             continue
         emit(*_convert_param(path, value))
     for path, value in _flatten(variables.get("batch_stats", {})).items():
-        emit(path[:-1] + ({"mean": "running_mean", "var": "running_var"}[path[-1]],), value)
+        emit(path[:-1] + (_STATS[path[-1]],), value)
     return out
+
+
+def batch_stats_to_flax(state_dict: Mapping[str, torch.Tensor], like: Mapping) -> dict:
+    """The port's running statistics as a flax ``batch_stats`` tree with
+    the paths of ``like`` (an existing ``batch_stats`` tree), numpy f32."""
+
+    def walk(node: Mapping, path: tuple) -> dict:
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                out[k] = walk(v, path + (k,))
+            else:
+                key = ".".join(p for p in path + (_STATS[k],) if p not in _DROP)
+                out[k] = state_dict[key].detach().cpu().numpy().astype(np.float32)
+        return out
+
+    return walk(like, ())

@@ -74,4 +74,42 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// In-kernel dropout, the counter hash of attention_kernel._dropout_mask:
+// murmur3's finaliser over (row * 2654435761) ^ (col * 97538843) ^ seed in
+// uint32, kept iff the hash >= thresh = rate * 2^32, kept values scaled by
+// 1 / (1 - rate) (computed by the wrapper as an f32 division, as JAX
+// does). The forward and the backward regenerate the same mask from the
+// same (seed, row, col); it never reaches device memory.
+struct Dropout {
+  unsigned int seed, thresh;
+  float scale;
+  int on;  // rate > 0
+};
+
+__device__ __forceinline__ float dropout_keep(const Dropout& dp, unsigned int seed, unsigned int row, unsigned int col) {
+  unsigned int x = (row * 2654435761u) ^ (col * 97538843u) ^ seed;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= dp.thresh ? dp.scale : 0.f;
+}
+
+// C[M, K] = sum over rows n of A[n, M]^T B[n, K] (A == nullptr: a column of
+// ones, so C[1, K] is B's column sum), f32, deterministic: the rows are cut
+// into `splits` fixed chunks, each block sums its chunk in row order into
+// partial[split], and a second pass adds the partials in split order.
+// With splits <= 0 the split is atb_splits(N, M, K), and partial holds
+// atb_splits(N, M, K) * M * K floats. Defined in row_reduce.cu.
+inline int atb_splits(int N, int M, int K) {
+  const int tiles = ((M + 31) / 32) * ((K + 31) / 32);
+  int s = (264 + tiles - 1) / tiles;  // ~2 blocks per SM of the 132
+  const int most = (N + 63) / 64;    // at least 64 rows per chunk
+  return s < 1 ? 1 : (s > most ? (most < 1 ? 1 : most) : s);
+}
+
+int launch_atb(const float* A, const float* B, float* out, float* partial, int N, int M, int K, int splits,
+               cudaStream_t stream);
+
 }  // namespace tfasr

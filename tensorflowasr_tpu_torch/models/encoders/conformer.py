@@ -8,9 +8,14 @@ fused kernels under the JAX package's structural conditions
 attention mask); the TPU shape gates and environment switches are not
 ported. Configurations outside those conditions (post-norm modules,
 trainable residual factors, group or layer-norm conv modules, vanilla
-MHA), streaming memory and training are not ported yet and raise.
-Parameter names mirror the JAX tree, so ``bridge.py`` maps one onto the
-other.
+MHA) and streaming memory are not ported yet and raise. Parameter names
+mirror the JAX tree, so ``bridge.py`` maps one onto the other.
+
+``train=True`` is the JAX training branch: dropout at the encoder's rate
+(in-kernel in the FF, attention and conv kernels, each under a seed drawn
+once per call site from the step's ``generator``; plain ``dr.dropout`` after
+the input linear and on the MHSA output, as flax ``nn.Dropout`` there), and
+BatchNorm on batch statistics with the running-statistics update.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from tensorflowasr_tpu_torch.models.layers.general import BatchNorm, Dense, Laye
 from tensorflowasr_tpu_torch.models.layers.positional import RelativeSinusoidalPositionalEncoding
 from tensorflowasr_tpu_torch.models.layers.residual import residual
 from tensorflowasr_tpu_torch.models.layers.subsampling import Conv2dSubsampling
+from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda.conv_kernel import conv_back, conv_front, depthwise_conv1d
 from tensorflowasr_tpu_torch.ops.cuda.ff_kernel import fused_ff
 from tensorflowasr_tpu_torch.utils import math_util
@@ -57,20 +63,21 @@ def build_subsampling(config: dict, in_features: int, dtype=torch.float32) -> Co
 class FFModule(nn.Module):
     """Half-step feed-forward module, pre-norm: the fused ``fused_ff`` path."""
 
-    def __init__(self, input_dim: int, scale_factor: int = 4, residual_factor: float = 0.5, dtype=torch.float32):
+    def __init__(self, input_dim: int, scale_factor: int = 4, residual_factor: float = 0.5, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.residual_factor, self.dtype = float(residual_factor), dtype
+        self.residual_factor, self.dropout, self.dtype = float(residual_factor), float(dropout), dtype
         self.ln = LayerNorm(input_dim, dtype=dtype)
         self.dense_1 = Dense(input_dim, scale_factor * input_dim, dtype)
         self.dense_2 = Dense(scale_factor * input_dim, input_dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         w = lambda dense: dense.weight.t().contiguous().to(dt)  # [in, out], the JAX kernel layout
+        rate = dr.active_rate(self.dropout, train, generator)
         out = fused_ff(
             x.reshape(-1, x.shape[-1]).contiguous(), self.ln.weight, self.ln.bias,
             w(self.dense_1), self.dense_1.bias.to(dt), w(self.dense_2), self.dense_2.bias.to(dt),
-            0, 0.0, self.residual_factor, 1e-3,
+            dr.draw_seed(generator) if rate > 0.0 else 0, rate, self.residual_factor, 1e-3,
         )
         return out.reshape(x.shape)
 
@@ -80,17 +87,19 @@ class MHSAModule(nn.Module):
     (the reference masks query rows only, ``mask_kv=False``)."""
 
     def __init__(self, dmodel: int, head_size: int, num_heads: int, residual_factor: float = 1.0, relmha_causal: bool = False,
-                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dtype=torch.float32):
+                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.residual_factor = residual_factor
+        self.residual_factor, self.dropout = residual_factor, float(dropout)
         self.ln = LayerNorm(dmodel, dtype=dtype)
         self.mhsa = MultiHeadRelativeAttention(dmodel, num_heads, head_size, dmodel, causal=relmha_causal, chunk_size=chunk_size,
-                                               history_size=history_size, dtype=dtype)
+                                               history_size=history_size, dropout=dropout, dtype=dtype)
 
-    def forward(self, x, relpe, *, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False):
+    def forward(self, x, relpe, *, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         y = self.ln(x)
         out = self.mhsa(y, y, relpe=relpe, content_attention_bias=content_attention_bias, positional_attention_bias=positional_attention_bias,
-                        query_mask=mask, use_causal_mask=use_causal_mask)
+                        query_mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
+        out = dr.dropout(out, dr.active_rate(self.dropout, train, generator), generator)
         return residual(x, out, self.residual_factor)
 
 
@@ -98,11 +107,12 @@ class ConvModule(nn.Module):
     """Pre-norm conv module with batch norm: ``conv_front`` → library
     depthwise conv → ``conv_back`` with the running statistics."""
 
-    def __init__(self, input_dim: int, kernel_size: int = 32, padding: str = "causal", residual_factor: float = 1.0, dtype=torch.float32):
+    def __init__(self, input_dim: int, kernel_size: int = 32, padding: str = "causal", residual_factor: float = 1.0, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         if padding not in ("causal", "same"):
             raise ValueError(f"conv-module padding {padding!r} must be causal or same")
-        self.padding, self.residual_factor, self.dtype = padding, float(residual_factor), dtype
+        self.padding, self.residual_factor, self.dropout, self.dtype = padding, float(residual_factor), float(dropout), dtype
         d = input_dim
         self.ln = LayerNorm(d, dtype=dtype)
         self.pw_conv_1 = _PointwiseConv(d, 2 * d)
@@ -110,7 +120,7 @@ class ConvModule(nn.Module):
         self.dw_norm = BatchNorm(d, dtype=dtype)
         self.pw_conv_2 = _PointwiseConv(d, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt, d = self.dtype, x.shape[-1]
         w1 = self.pw_conv_1.weight[:, :, 0].t()  # [D, 2D], the JAX kernel layout
         b1 = self.pw_conv_1.bias
@@ -118,8 +128,12 @@ class ConvModule(nn.Module):
                          w1[:, d:].contiguous().to(dt), b1[d:].to(dt))
         y1 = depthwise_conv1d(glu, self.dw_conv.weight, self.dw_conv.bias, self.padding).contiguous()
         bn = self.dw_norm
-        return conv_back(x.contiguous(), y1, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         self.pw_conv_2.weight[:, :, 0].t().contiguous().to(dt), self.pw_conv_2.bias.to(dt), 0, 0.0, self.residual_factor)
+        # training: batch statistics over all B·T frames, padding included,
+        # with the fast variance unclipped (conformer.py:368-371)
+        mean, var = bn.batch_stats(y1, clip=False) if train else (bn.running_mean, bn.running_var)
+        rate = dr.active_rate(self.dropout, train, generator)
+        return conv_back(x.contiguous(), y1, mean, var, bn.weight, bn.bias, self.pw_conv_2.weight[:, :, 0].t().contiguous().to(dt),
+                         self.pw_conv_2.bias.to(dt), dr.draw_seed(generator) if rate > 0.0 else 0, rate, self.residual_factor)
 
 
 class _PointwiseConv(nn.Module):
@@ -135,20 +149,22 @@ class _PointwiseConv(nn.Module):
 class ConformerBlock(nn.Module):
     def __init__(self, input_dim: int, ffm_scale_factor: int = 4, ffm_residual_factor: float = 0.5, head_size: int = 36, num_heads: int = 4,
                  mhsam_residual_factor: float = 1.0, mhsam_causal: bool = False, kernel_size: int = 32, padding: str = "causal",
-                 convm_residual_factor: float = 1.0, chunk_size: Optional[int] = None, history_size: Optional[int] = None, dtype=torch.float32):
+                 convm_residual_factor: float = 1.0, chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
-        self.ff_module_1 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dtype)
-        self.mhsa_module = MHSAModule(input_dim, head_size, num_heads, mhsam_residual_factor, mhsam_causal, chunk_size, history_size, dtype)
-        self.conv_module = ConvModule(input_dim, kernel_size, padding, convm_residual_factor, dtype)
-        self.ff_module_2 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dtype)
+        self.ff_module_1 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dropout, dtype)
+        self.mhsa_module = MHSAModule(input_dim, head_size, num_heads, mhsam_residual_factor, mhsam_causal, chunk_size, history_size, dropout, dtype)
+        self.conv_module = ConvModule(input_dim, kernel_size, padding, convm_residual_factor, dropout, dtype)
+        self.ff_module_2 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dropout, dtype)
         self.ln_post = LayerNorm(input_dim, dtype=dtype)
 
-    def forward(self, x, relpe, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False):
-        x = self.ff_module_1(x)
+    def forward(self, x, relpe, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        x = self.ff_module_1(x, train, generator)
         x = self.mhsa_module(x, relpe, mask=mask, content_attention_bias=content_attention_bias,
-                             positional_attention_bias=positional_attention_bias, use_causal_mask=use_causal_mask)
-        x = self.conv_module(x)
-        x = self.ff_module_2(x)
+                             positional_attention_bias=positional_attention_bias, use_causal_mask=use_causal_mask, train=train, generator=generator)
+        x = self.conv_module(x, train, generator)
+        x = self.ff_module_2(x, train, generator)
         return self.ln_post(x)
 
 
@@ -173,8 +189,8 @@ class ConformerEncoder(nn.Module):
                 raise TypeError(f"unknown ConformerEncoder option {key!r}")
             if value != _UNPORTED[key]:
                 raise NotImplementedError(f"ConformerEncoder {key}={value!r} is not ported yet")
-        del dropout, use_remat  # training-only options
-        self.num_blocks, self.num_heads, self.head_size = num_blocks, num_heads, head_size
+        del use_remat  # a memory knob of the JAX step; PyTorch keeps the activations
+        self.num_blocks, self.num_heads, self.head_size, self.dropout = num_blocks, num_heads, head_size, float(dropout)
         self.use_attention_causal_mask = use_attention_causal_mask
         self.subsampling = build_subsampling(subsampling, in_features, dtype)
         self.linear = Dense(self.subsampling.output_dim, dmodel, dtype)
@@ -184,7 +200,7 @@ class ConformerEncoder(nn.Module):
         for i in range(num_blocks):
             self.add_module(f"block_{i}", ConformerBlock(
                 dmodel, ffm_scale_factor, ffm_residual_factor, head_size, num_heads, mhsam_residual_factor, mhsam_causal, kernel_size,
-                padding, convm_residual_factor, chunk_size, history_size, dtype,
+                padding, convm_residual_factor, chunk_size, history_size, dropout, dtype,
             ))
 
     @property
@@ -194,13 +210,16 @@ class ConformerEncoder(nn.Module):
     def output_length(self, length):
         return self.subsampling.output_length(length)
 
-    def forward(self, features: torch.Tensor, features_length: torch.Tensor):
+    def forward(self, features: torch.Tensor, features_length: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
+        """``train``: the training branch; dropout needs a ``generator`` too (without one it is off)."""
         if features.dim() == 3:
             features = features[..., None]
-        x, lengths = self.subsampling(features, features_length)
+        x, lengths = self.subsampling(features, features_length, train=train)
         x = self.linear(x)
+        x = dr.dropout(x, dr.active_rate(self.dropout, train, generator), generator)
         x, relpe = self.relpe(x, lengths)
         mask = math_util.sequence_mask(lengths, x.shape[1])
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, relpe, mask, self.content_attention_bias, self.positional_attention_bias, self.use_attention_causal_mask)
+            x = getattr(self, f"block_{i}")(x, relpe, mask, self.content_attention_bias, self.positional_attention_bias, self.use_attention_causal_mask,
+                                            train, generator)
         return x, lengths

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.models.layers.general import Dense
+from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda.attention_kernel import fused_rel_attention
 
 
@@ -69,9 +70,9 @@ def _merge_masks(t: int, s: int, query_mask, kv_mask, attention_mask, use_causal
 
 class MultiHeadRelativeAttention(nn.Module):
     def __init__(self, input_dim: int, num_heads: int, key_dim: int, output_dim: Optional[int] = None, causal: bool = False,
-                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dtype=torch.float32):
+                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.num_heads, self.key_dim, self.causal, self.dtype = num_heads, key_dim, causal, dtype
+        self.num_heads, self.key_dim, self.causal, self.dropout, self.dtype = num_heads, key_dim, causal, float(dropout), dtype
         self.chunk_size, self.history_size = chunk_size, history_size
         inner = num_heads * key_dim
         self.query = Dense(input_dim, inner, dtype)
@@ -82,7 +83,9 @@ class MultiHeadRelativeAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, value: torch.Tensor, *, relpe: torch.Tensor, content_attention_bias=None, positional_attention_bias=None,
                 query_mask: Optional[torch.Tensor] = None, kv_mask: Optional[torch.Tensor] = None, attention_mask: Optional[torch.Tensor] = None,
-                use_causal_mask: bool = False) -> torch.Tensor:
+                use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train`` with a ``generator``: probability dropout at the layer's
+        rate, in-kernel, under one seed drawn from the generator."""
         if attention_mask is not None:
             raise NotImplementedError("an explicit attention_mask is not ported (the fused kernel rebuilds visibility from its parameters)")
         b, t = query.shape[:2]
@@ -104,7 +107,9 @@ class MultiHeadRelativeAttention(nn.Module):
         if kv_mask is not None:
             kv_bias = ((~kv_mask).float() * -1e9)[:, None, :].contiguous()
         q_len = query_mask.sum(dim=1, dtype=torch.int32) if query_mask is not None else None
-        out = fused_rel_attention(fold(content_q), fold(positional_q), fold(k), fold(v), fold(pos), kv_bias, q_len, 0, 0.0,
+        rate = dr.active_rate(self.dropout, train, generator)
+        seed = dr.draw_seed(generator) if rate > 0.0 else 0
+        out = fused_rel_attention(fold(content_q), fold(positional_q), fold(k), fold(v), fold(pos), kv_bias, q_len, seed, rate,
                                   bool(use_causal_mask), self.chunk_size, self.history_size, bool(self.causal))
         out = out.reshape(b, n, t, hd).transpose(1, 2).reshape(b, t, n * hd)
         return self.output(out)

@@ -1,6 +1,6 @@
 """Label embedding for the transducer prediction network (counterpart of
-``models/layers/embedding.py:Embedding``): a table lookup in ``dtype``.
-Zeroing positions past a length (the training forward) is not ported yet."""
+``models/layers/embedding.py:Embedding``): a table lookup in ``dtype``,
+with positions at or past a row's length zeroed when lengths are given."""
 
 from __future__ import annotations
 
@@ -14,5 +14,9 @@ class Embedding(nn.Module):
         self.dtype = dtype
         self.embeddings = nn.Embedding(vocab_size, embed_dim)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embeddings.weight.to(self.dtype)[tokens.long()]
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+        out = self.embeddings.weight.to(self.dtype)[tokens.long()]
+        if lengths is not None:
+            valid = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths.to(tokens.device)[:, None]
+            out = out * valid[..., None].to(out.dtype)
+        return out

@@ -62,22 +62,45 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis with running
-    statistics (``nn.BatchNorm(use_running_average=True, epsilon=1e-3)``):
-    f32 math, output in ``dtype``. Training statistics arrive with the
-    training slice."""
+    """BatchNorm over the last (channel) axis (flax ``nn.BatchNorm``,
+    momentum 0.99, epsilon 1e-3): f32 math, output in ``dtype``.
 
-    def __init__(self, features: int, eps: float = 1e-3, dtype=torch.float32):
+    Inference normalises with the running statistics. Training normalises
+    with the batch statistics over every other axis (padding included) —
+    the fast variance E[x²] − E[x]², clipped at 0 — and updates the running
+    statistics in place as flax does, with the biased variance:
+    ``running = m·running + (1 − m)·batch``. (``torch.nn.BatchNorm`` keeps
+    the unbiased variance, so it is not used.)"""
+
+    def __init__(self, features: int, eps: float = 1e-3, momentum: float = 0.99, dtype=torch.float32):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(self.dtype)
+    def batch_stats(self, x: torch.Tensor, clip: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, var) over all axes but the last, in f32; updates the running statistics."""
+        x32 = x.float()
+        axes = tuple(range(x.dim() - 1))
+        mean = x32.mean(dim=axes)
+        var = (x32 * x32).mean(dim=axes) - mean * mean
+        if clip:
+            var = torch.clamp(var, min=0.0)
+        self.update_running(mean, var)
+        return mean, var
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.detach())
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var.detach())
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        mean, var = self.batch_stats(x) if train else (self.running_mean, self.running_var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean) * mul + self.bias).to(self.dtype)
 
 
 def make_norm(kind: Optional[str], features: int, dtype=torch.float32) -> nn.Module:

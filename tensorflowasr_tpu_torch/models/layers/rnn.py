@@ -7,8 +7,8 @@ projections carry the bias), each product in ``dtype``;
 ``c' = f·c + i·g``, ``h' = o·tanh(c')``; the carry is ``(c, h)``. As in
 JAX, a bf16 gate times an f32 carry promotes to f32, so the carry stays
 f32. ``step`` is the single-step path the decode loop uses; ``forward``
-scans a sequence with per-row lengths: the state stops at each row's
-length, and outputs past it are not meaningful.
+scans a whole sequence (the prediction net's training forward) as a
+Python loop over the cell, as JAX's default ``nn.RNN`` scan does.
 """
 
 from __future__ import annotations
@@ -58,14 +58,19 @@ class RNN(nn.Module):
         return y, new_state
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None, initial_state=None):
+        """flax ``nn.RNN`` semantics: the scan runs over every step (so
+        outputs past a row's length are those of the continued scan), and
+        with ``lengths`` the returned state is the one after step
+        ``length − 1`` of each row."""
         b, t = x.shape[:2]
         state = initial_state if initial_state is not None else self.init_state(b, x.device)
-        ys = []
+        ys, states = [], []
         for i in range(t):
-            new_state, y = self.cell(state, x[:, i])
-            if lengths is not None:
-                keep = (i < lengths.to(x.device))[:, None]
-                new_state = tuple(torch.where(keep, n, o) for n, o in zip(new_state, state))
-            state = new_state
+            state, y = self.cell(state, x[:, i])
             ys.append(y)
+            states.append(state)
+        if lengths is not None and t > 0:
+            last = (lengths.to(x.device).long() - 1) % t  # a zero length takes the last step, as flax's index −1 does
+            rows = torch.arange(b, device=x.device)
+            state = tuple(torch.stack(parts)[last, rows] for parts in zip(*states))
         return torch.stack(ys, dim=1), state

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 
 from tensorflowasr_tpu_torch.models.layers.convolution import Conv2D
-from tensorflowasr_tpu_torch.models.layers.general import get_activation, make_norm
+from tensorflowasr_tpu_torch.models.layers.general import BatchNorm, get_activation, make_norm
 from tensorflowasr_tpu_torch.utils import math_util
 
 
@@ -53,10 +53,12 @@ class Conv2dSubsampling(nn.Module):
             length = math_util.conv_output_length(length, self.kernels[i][0], self.paddings[i], self.strides[i][0])
         return length
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """x: [B, T, F, C] → ([B, T', F'·C'], lengths')."""
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, T, F, C] → ([B, T', F'·C'], lengths'). ``train``: BatchNorm
+        takes the batch statistics and updates its running ones."""
         for i in range(self.num_layers):
             x = getattr(self, f"conv_{i}")(x)
-            x = getattr(self, f"norm_{i}")(x)
+            norm = getattr(self, f"norm_{i}")
+            x = norm(x, train=train) if isinstance(norm, BatchNorm) else norm(x)
             x = self.activations[i](x)
         return math_util.merge_two_last_dims(x), self.output_length(lengths)

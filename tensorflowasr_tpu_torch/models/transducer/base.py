@@ -1,13 +1,14 @@
-"""Transducer (RNN-T) model, serving path (counterpart of
+"""Transducer (RNN-T) model (counterpart of
 ``tensorflowasr_tpu/models/transducer/base.py``).
 
-``TransducerPrediction`` (embedding → LSTM → LayerNorm, single-step
-``step``), ``TransducerJoint`` (add/mul merge, activation, vocab
-projection), ``Transducer`` with ``encode``, ``pred_step``,
+``TransducerPrediction`` (embedding → LSTM → LayerNorm, over whole label
+sequences or one ``step``), ``TransducerJoint`` (add/mul merge,
+activation, vocab projection), ``Transducer`` with the training forward
+(``forward`` → [B, T, U+1, V] logits), ``encode``, ``pred_step``,
 ``joint_window``, ``decode_step`` and ``init_decoder_states``, and the
-``recognize`` entry point (greedy WIND or frame-synchronous). The
-training forward over whole label sequences, the losses and beam search
-are not ported yet.
+``recognize`` entry point (greedy WIND or frame-synchronous). The model is
+built on the card unless ``device="cpu"`` is given. Beam search is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtr
 from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation
 from tensorflowasr_tpu_torch.models.layers.rnn import RNN
 from tensorflowasr_tpu_torch.ops import transducer_decode
+from tensorflowasr_tpu_torch.utils import device as device_util
 
 JOINT_MODES = ("add", "mul")
 
@@ -51,6 +53,14 @@ class TransducerPrediction(nn.Module):
             x = getattr(self, f"ln_{i}")(x)
         if self.projection_units > 0:
             x = getattr(self, f"projection_{i}")(x)
+        return x
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+        """[B, U] tokens → [B, U, P]; positions at or past ``lengths`` embed to 0."""
+        x = self.embedding(tokens, lengths)
+        for i in range(self.num_rnns):
+            x, _ = getattr(self, f"rnn_{i}")(x, lengths)
+            x = self._post(i, x)
         return x
 
     def step(self, token: torch.Tensor, states):
@@ -88,17 +98,24 @@ class TransducerJoint(nn.Module):
             out = self.ffn(out)
         return self.vocab(self.act(out))
 
+    def forward(self, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+        """[B, T, E] × [B, U, P] → [B, T, U, V]."""
+        return self.merge(self.project_encoder(enc)[:, :, None, :], self.project_prediction(pred)[:, None, :, :])
+
     def step(self, enc_frame: torch.Tensor, pred_step: torch.Tensor) -> torch.Tensor:
         """[B, E] × [B, P] → [B, V]."""
         return self.merge(self.project_encoder(enc_frame), self.project_prediction(pred_step))
 
 
 class Transducer(nn.Module):
-    """Generic transducer; subclasses provide ``make_encoder``."""
+    """Generic transducer; subclasses provide ``make_encoder``. Built on
+    ``device`` (None: the CUDA card, raising without one; ``"cpu"`` runs the
+    kernels' plain versions)."""
 
     def __init__(self, speech_config: dict, encoder_config: dict, prediction_config: dict, joint_config: dict, blank: int = 0, vocab_size: int = 1000,
-                 dtype=torch.float32):
+                 dtype=torch.float32, device=None):
         super().__init__()
+        dev = device_util.resolve(device)
         self.blank, self.vocab_size, self.dtype = blank, vocab_size, dtype
         self.speech_config, self.encoder_config = dict(speech_config), dict(encoder_config)
         self.prediction_config, self.joint_config = dict(prediction_config), dict(joint_config)
@@ -108,6 +125,7 @@ class Transducer(nn.Module):
         pc = self.prediction_config
         pred_dim = pc.get("projection_units", 0) or pc.get("rnn_units", 512)
         self.joint = TransducerJoint(vocab_size, self.encoder_output_dim, pred_dim, dtype=dtype, **self.joint_config)
+        self.to(dev)
 
     def make_encoder(self) -> nn.Module:
         raise NotImplementedError
@@ -138,6 +156,18 @@ class Transducer(nn.Module):
                 p.zero_()
         for name, b in self.named_buffers():
             b.fill_(1.0 if name.endswith("running_var") else 0.0)
+
+    # ------------------------------- training ------------------------------- #
+
+    def forward(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None) -> schemas.TrainOutput:
+        """Training forward (JAX ``Transducer.__call__``): raw audio and
+        blank-prepended labels [B, U+1] → logits [B, T, U+1, V] and their
+        lengths. ``train``: BatchNorm on batch statistics (updating the
+        running ones) and, with a ``generator``, the encoder's dropout."""
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length)
+        enc, elens = self.encoder(feats, flens, train=train, generator=generator)
+        pred = self.prediction(inputs.predictions, inputs.predictions_length)
+        return schemas.TrainOutput(logits=self.joint(enc, pred), logits_length=elens)
 
     # ------------------------------ inference ------------------------------- #
 

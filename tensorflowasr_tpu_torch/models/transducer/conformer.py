@@ -63,7 +63,8 @@ class Conformer(Transducer):
         return self.encoder_config.get("dmodel", 144)
 
     @classmethod
-    def from_config(cls, config: dict, vocab_size: int | None = None, dtype=torch.float32) -> "Conformer":
+    def from_config(cls, config: dict, vocab_size: int | None = None, dtype=torch.float32, device=None) -> "Conformer":
+        """Build from a reference-style config dict on ``device`` (None: the CUDA card)."""
         enc = filter_kwargs(strip_prefix(config, "encoder_"), _ENC_KEYS)
         return cls(
             speech_config=dict(config.get("speech_config", {})),
@@ -73,4 +74,5 @@ class Conformer(Transducer):
             blank=config.get("blank", 0),
             vocab_size=vocab_size or config.get("vocab_size", 1000),
             dtype=dtype,
+            device=device,
         )

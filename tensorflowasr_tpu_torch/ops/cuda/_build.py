@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and bind them
 with ``ctypes``.
 
-All sources under ``tensorflowasr_tpu_torch/csrc/`` compile in ONE ``nvcc``
-call into one shared library with a plain C interface (no PyTorch headers,
-so the build takes seconds, not minutes). The library lands in
-``tensorflowasr_tpu_torch/_build/`` under a name keyed on the sources' and
-flags' hash, so an edited source never loads a stale build. Every C entry
-point returns ``cudaGetLastError()``; :func:`check` raises when it is not 0.
+Each source under ``tensorflowasr_tpu_torch/csrc/`` compiles to an object
+in its own ``nvcc -c`` process, all started together, and one more ``nvcc``
+links the objects into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds, not minutes). The library
+lands in ``tensorflowasr_tpu_torch/_build/`` under a name keyed on the
+sources' and flags' hash, so an edited source never loads a stale build.
+Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
+when it is not 0.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -27,19 +29,26 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu")
+SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, on
 _SIGNATURES = {
-    "tfasr_log_mel": [_P] * 5 + [_I] * 7 + [_F, _P],
-    "tfasr_rel_attention": [_P] * 8 + [_I] * 12 + [_P],
-    "tfasr_fused_ff": [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P],
-    "tfasr_conv_front": [_P] * 8 + [_I, _I, _F, _I, _P],
-    "tfasr_conv_back": [_P] * 9 + [_I, _I, _F, _F, _I, _P],
+    "tfasr_log_mel": ([_P] * 5 + [_I] * 7 + [_F, _P], ctypes.c_int),
+    "tfasr_rel_attention": ([_P] * 8 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_rel_attention_bwd": ([_P] * 16 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_fused_ff": ([_P] * 8 + [_I] * 3 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_fused_ff_bwd": ([_P] * 15 + [_I] * 3 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_fused_ff_bwd_scratch": ([_I] * 3, ctypes.c_longlong),
+    "tfasr_conv_front": ([_P] * 8 + [_I, _I, _F, _I, _P], ctypes.c_int),
+    "tfasr_conv_front_bwd": ([_P] * 16 + [_I, _I, _F, _I, _P], ctypes.c_int),
+    "tfasr_conv_back": ([_P] * 9 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_conv_back_bwd": ([_P] * 15 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_conv_bwd_scratch": ([_I] * 2, ctypes.c_longlong),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -73,18 +82,28 @@ def build() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        build_log = proc.stdout + proc.stderr
+        nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(f"== {s}\n{log}" for s, log in zip(SOURCES, logs))
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = path.with_name(f"{tag}.tmp.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True, check=False)
+        build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{build_log}")
+            raise RuntimeError(f"nvcc link failed with exit code {proc.returncode}:\n{build_log}")
         os.replace(tmp, path)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

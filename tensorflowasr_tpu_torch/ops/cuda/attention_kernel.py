@@ -1,36 +1,42 @@
-"""Fused relative-position attention kernel, forward (``csrc/rel_attention.cu``).
+"""Fused relative-position attention kernel, forward and backward (``csrc/rel_attention.cu``).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/attention_kernel.py:fused_rel_attention``
-(kernel B) on the serving path: content scores ``qc·kᵀ``, the
+(kernel B) with its ``custom_vjp``: content scores ``qc·kᵀ``, the
 Transformer-XL term ``qp·posᵀ`` read at its relative column, the Keras
-−1e9 mask merge, f32 softmax and P·V.
+−1e9 mask merge, f32 softmax, probability dropout and P·V.
 
-What bounds it on the card: at the flagship (B·H=32, T=S=250, dh=36) the
-products are ~0.3 GFLOP per call, far below the card's rate; the cost
-is the score-shaped intermediates a plain version writes to device memory
-(content scores, the [T, R] positional product, the shifted copy, masks,
-the f32 softmax — ~10 passes of B·H·T·S floats). The kernel keeps them all
-in shared memory: one block per (b·h, 16 query rows) stages key tiles and
-exactly the window of relative positions those rows read, so the rel
-shift is index arithmetic (no [T, R] product, no barrel shift as on the
-TPU), and the row's scores stay resident for a two-pass softmax whose
-normalised probabilities are rounded to v's type before P·V as in the
-reference. Only q/k/v/pos are read and the context written.
+What bounds it on the card: at the flagship (B·H=64, T=S=400, dh=36 in
+training) the products are ~0.8 GFLOP per call, far below the card's rate;
+the cost is the score-shaped intermediates a plain version writes to device
+memory (content scores, the [T, R] positional product, the shifted copy,
+masks, the f32 softmax — ~10 passes of B·H·T·S floats). The forward kernel
+keeps them all in shared memory: one block per (b·h, 16 query rows) stages
+key tiles and exactly the window of relative positions those rows read, so
+the rel shift is index arithmetic (no [T, R] product, no barrel shift as on
+the TPU), and the row's scores stay resident for a two-pass softmax whose
+normalised probabilities (times the dropout keep factor) are rounded to v's
+type before P·V as in the reference. Dropout uses the counter hash of
+``ops/dropout.py`` indexed by (b·h, row, column) under the seed
+``seed + b·h·40499``, so its masks equal JAX's bit for bit.
 
-Dropout (``rate > 0``) is a training feature and arrives with the backward
-kernel; this forward raises on it.
+The backward (:class:`_RelAttention`) saves the inputs and the output;
+three kernel passes recompute the probabilities, write ds and the dropped
+probabilities once to device memory, and form dqc, dqp, dk, dv and dpos
+(see ``csrc/rel_attention.cu``). :func:`fused_rel_attention_plain_bwd` is
+its plain twin with the explicit formulas of the Pallas ``_rel_bwd_kernel``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda import _build
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
+bwd_launches = 0  # backward kernel launches since the last reset
 
-NEG_PAD = -1e30
-_TQ, _KT, _OUT_PER_THREAD, _THREADS = 16, 64, 4, 256  # csrc/rel_attention.cu
+_TQ, _KT, _OUT_PER_THREAD, _KV_PER_THREAD, _THREADS = 16, 64, 4, 16, 256  # csrc/rel_attention.cu
 _MAX_SMEM = 227 * 1024
 
 
@@ -48,14 +54,17 @@ def _heads(bh: int, kv_bias, q_len) -> int:
     return max(1, bh // max(1, b))
 
 
-def _check_rate(rate: float) -> None:
-    if rate > 0.0:
-        raise ValueError("attention dropout (rate > 0) is a training feature; the forward kernel takes rate == 0")
+def dropout_mask(seed: int, bh: int, t: int, s: int, rate: float, device=None) -> torch.Tensor:
+    """[BH, T, S] keep factors: row/column hash under ``seed + b·h·40499``."""
+    seeds = (int(seed) + torch.arange(bh, dtype=torch.int64, device=device) * dr.SALT_BH)[:, None, None]
+    rows = torch.arange(t, dtype=torch.int64, device=device)[None, :, None]
+    cols = torch.arange(s, dtype=torch.int64, device=device)[None, None, :]
+    return dr.keep_mask(seeds, rows, cols, rate)
 
 
-def fused_rel_attention_plain(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None, history_size=None, pe_causal: bool = False):
-    """Plain PyTorch version of :func:`fused_rel_attention` (same arguments)."""
-    _check_rate(rate)
+def _scores(qc, qp, k, pos, kv_bias, q_len, causal, chunk_size, history_size, pe_causal):
+    """f32 scores [BH, T, S] (attention_kernel._rel_scores) and the relative
+    index map (idx [T, S], the positional column row i reads at key s)."""
     bh, t, _ = qc.shape
     s, r = k.shape[1], pos.shape[1]
     extra = _shift_extra(t, s, r, pe_causal)
@@ -94,33 +103,60 @@ def fused_rel_attention_plain(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: f
         scores = scores + add
     elif qvalid is not None:
         scores = scores + torch.where(qvalid, 0.0, -1e9).to(f32)
+    return scores, idx
 
+
+def _softmax(scores):
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
-    pn = p / p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(pn.to(v.dtype).to(f32), v.to(f32))
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def fused_rel_attention_plain(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None, history_size=None, pe_causal: bool = False):
+    """Plain PyTorch version of :func:`fused_rel_attention` (same arguments; differentiable by autograd)."""
+    scores, _ = _scores(qc, qp, k, pos, kv_bias, q_len, causal, chunk_size, history_size, pe_causal)
+    pn = _softmax(scores)
+    if rate > 0.0:
+        pn = pn * dropout_mask(seed, qc.shape[0], qc.shape[1], k.shape[1], rate, qc.device)
+    out = torch.matmul(pn.to(v.dtype).float(), v.float())
     return out.to(qc.dtype)
 
 
-def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None, history_size=None, pe_causal: bool = False):
-    """Transformer-XL relative attention, fused (JAX argument order minus
-    ``interpret``).
+def fused_rel_attention_plain_bwd(qc, qp, k, v, pos, kv_bias, q_len, dout, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None,
+                                  history_size=None, pe_causal: bool = False):
+    """Gradients (dqc, dqp, dk, dv, dpos) of :func:`fused_rel_attention` with
+    the explicit formulas of the Pallas ``_rel_bwd_kernel``
+    (attention_kernel.py:406-449), recomputing the forward; each returned in
+    its input's dtype."""
+    f32 = torch.float32
+    bh, t, _ = qc.shape
+    s, r = k.shape[1], pos.shape[1]
+    scores, idx = _scores(qc, qp, k, pos, kv_bias, q_len, causal, chunk_size, history_size, pe_causal)
+    pn = _softmax(scores)
+    keep = dropout_mask(seed, bh, t, s, rate, qc.device) if rate > 0.0 else None
+    pd = pn if keep is None else pn * keep
+    do = dout.to(f32)
+    dv = pd.transpose(1, 2) @ do
+    dpn = do @ v.to(f32).transpose(1, 2)
+    if keep is not None:
+        dpn = dpn * keep
+    o = (pd.to(v.dtype).to(f32) @ v.to(f32)).to(qc.dtype).to(f32)  # the forward's output, recomputed
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = pn * (dpn - delta)
+    dsc = ds.to(qc.dtype).to(f32)  # every product reads ds rounded to the input type
+    dqc = dsc @ k.to(f32)
+    dk = dsc.transpose(1, 2) @ qc.to(f32)
+    # rel term: dW[i, idx[i, s]] = ds[i, s] where idx < R (the reverse shift)
+    in_r = idx < r
+    dw = torch.zeros((bh, t, r), dtype=f32, device=qc.device)
+    dw.scatter_add_(2, idx.clamp(max=r - 1).expand(bh, t, s), torch.where(in_r, dsc, torch.zeros((), dtype=f32, device=qc.device)))
+    dqp = dw @ pos.to(f32)
+    dpos = dw.transpose(1, 2) @ qp.to(f32)
+    return dqc.to(qc.dtype), dqp.to(qp.dtype), dk.to(k.dtype), dv.to(v.dtype), dpos.to(pos.dtype)
 
-    qc/qp: [BH, T, D] content/positional queries (bias-added, scaled);
-    k/v: [BH, S, D]; pos: [BH, R, D] projected relative PE (R = M+2T−1
-    non-causal, M+T with ``pe_causal``); kv_bias: [B, 1, S] additive f32
-    or None; q_len: int [B] query valid lengths (rows ≥ q_len[b] get −1e9
-    on every column) or None; seed: unused at rate 0. Visibility (causal,
-    chunk_size/history_size streaming) is rebuilt in-kernel. Returns
-    [BH, T, D] in qc.dtype. A CUDA tensor launches the kernel; a CPU tensor
-    takes :func:`fused_rel_attention_plain`.
-    """
-    global launches
-    _check_rate(rate)
-    if qc.device.type == "cpu":
-        return fused_rel_attention_plain(qc, qp, k, v, pos, kv_bias, q_len, seed, rate, causal, chunk_size, history_size, pe_causal)
-    if qc.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qc.device}")
+
+def _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal):
+    """Validate kernel inputs; returns the launch arguments shared by both kernels."""
     if qc.dim() != 3 or k.dim() != 3 or pos.dim() != 3:
         raise ValueError("qc/qp/k/v/pos must be [BH, ·, D]")
     bh, t, d = qc.shape
@@ -136,27 +172,106 @@ def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float =
         _build.require(kv_bias, "kv_bias", device=dev, dtype=torch.float32, shape=(b, 1, s))
     if q_len is not None:
         _build.require(q_len, "q_len", device=dev, dtype=torch.int32, shape=(b,))
-    if _TQ * d > _THREADS * _OUT_PER_THREAD:
+    if _TQ * d > _THREADS * _OUT_PER_THREAD or _KT * d > _THREADS * _KV_PER_THREAD:
         raise ValueError(f"head size {d} > {_THREADS * _OUT_PER_THREAD // _TQ} is not supported by the kernel")
     sp = -(-s // _KT) * _KT
-    smem = 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp)
+    smem = 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp) + 4 * (_TQ * d + _TQ)  # backward's
     if smem > _MAX_SMEM:
         raise ValueError(f"key length {s} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     has_chunk = chunk_size is not None and history_size is not None
     if has_chunk and chunk_size <= 0:
         raise ValueError("chunk_size must be positive")
-    out = torch.empty((bh, t, d), dtype=dt, device=dev)
-    if bh == 0 or t == 0:
-        return out
-    if s == 0:
+    if s == 0 and bh * t > 0:
         raise ValueError("attention over zero keys")
+    return (bh, heads, t, s, r, d, extra), has_chunk, code
+
+
+def fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None, history_size=None,
+                               pe_causal: bool = False):
+    """The forward kernel on CUDA tensors (no autograd)."""
+    global launches
+    dims, has_chunk, code = _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal)
+    out = torch.empty_like(qc)
+    if out.numel() == 0:
+        return out
     lib = _build.build()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(qc.device):
         err = lib.tfasr_rel_attention(
             qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
-            bh, heads, t, s, r, d, extra, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
-            code, _build.stream_of(qc),
+            *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
+            *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
         )
     _build.check(err, "fused_rel_attention")
     launches += 1
     return out
+
+
+def fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None,
+                                   history_size=None, pe_causal: bool = False):
+    """The backward kernel on CUDA tensors: ``out`` is the forward's output;
+    same results as :func:`fused_rel_attention_plain_bwd`."""
+    global bwd_launches
+    dims, has_chunk, code = _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal)
+    for name, x in (("out", out), ("dout", dout)):
+        _build.require(x, name, device=qc.device, dtype=qc.dtype, shape=tuple(qc.shape))
+    bh, _, t, s, _, _, _ = dims
+    grads = [torch.zeros_like(x) for x in (qc, qp, k, v, pos)]
+    if qc.numel() == 0:
+        return tuple(grads)
+    ds = torch.empty((bh, t, s), dtype=qc.dtype, device=qc.device)
+    pd = torch.empty((bh, t, s), dtype=torch.float32, device=qc.device)
+    lib = _build.build()
+    with torch.cuda.device(qc.device):
+        err = lib.tfasr_rel_attention_bwd(
+            qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
+            dout.data_ptr(), ds.data_ptr(), pd.data_ptr(), *(g.data_ptr() for g in grads),
+            *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
+            *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
+        )
+    _build.check(err, "fused_rel_attention backward")
+    bwd_launches += 1
+    return tuple(grads)
+
+
+class _RelAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qc, qp, k, v, pos, kv_bias, q_len, seed, rate, causal, chunk_size, history_size, pe_causal):
+        ctx.cfg = (seed, rate, causal, chunk_size, history_size, pe_causal)
+        if qc.device.type == "cpu":
+            out = fused_rel_attention_plain(qc, qp, k, v, pos, kv_bias, q_len, *ctx.cfg)
+        else:
+            out = fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, *ctx.cfg)
+        ctx.save_for_backward(qc, qp, k, v, pos, kv_bias, q_len, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qc, qp, k, v, pos, kv_bias, q_len, out = ctx.saved_tensors
+        dout = dout.to(qc.dtype).contiguous()
+        if qc.device.type == "cpu":
+            grads = fused_rel_attention_plain_bwd(qc, qp, k, v, pos, kv_bias, q_len, dout, *ctx.cfg)
+        else:
+            grads = fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout, *ctx.cfg)
+        return (*grads,) + (None,) * 8
+
+
+def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None, history_size=None,
+                        pe_causal: bool = False):
+    """Transformer-XL relative attention, fused (JAX argument order minus
+    ``interpret``); differentiable in qc, qp, k, v and pos.
+
+    qc/qp: [BH, T, D] content/positional queries (bias-added, scaled);
+    k/v: [BH, S, D]; pos: [BH, R, D] projected relative PE (R = M+2T−1
+    non-causal, M+T with ``pe_causal``); kv_bias: [B, 1, S] additive f32
+    or None; q_len: int [B] query valid lengths (rows ≥ q_len[b] get −1e9
+    on every column) or None; seed: int for the probability dropout, rate
+    in [0, 1). Visibility (causal, chunk_size/history_size streaming) is
+    rebuilt in-kernel. Returns [BH, T, D] in qc.dtype. A CUDA tensor
+    launches the kernels (forward, and backward under autograd); a CPU
+    tensor takes :func:`fused_rel_attention_plain` and
+    :func:`fused_rel_attention_plain_bwd`.
+    """
+    if qc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {qc.device}")
+    dr.keep_params(rate)
+    return _RelAttention.apply(qc, qp, k, v, pos, kv_bias, q_len, int(seed), float(rate), bool(causal), chunk_size, history_size, bool(pe_causal))

@@ -1,10 +1,36 @@
-"""Typed inference IO (counterpart of ``tensorflowasr_tpu/schemas.py``)."""
+"""Typed IO (counterpart of ``tensorflowasr_tpu/schemas.py``)."""
 
 from __future__ import annotations
 
 import typing
 
 import torch
+
+
+class TrainInput(typing.NamedTuple):
+    inputs: torch.Tensor  # [B, nsamples] raw audio
+    inputs_length: torch.Tensor  # [B]
+    predictions: torch.Tensor  # [B, U+1] blank-prepended labels
+    predictions_length: torch.Tensor  # [B]
+
+
+class TrainOutput(typing.NamedTuple):
+    logits: torch.Tensor  # [B, T, U+1, V]
+    logits_length: torch.Tensor  # [B]
+
+
+class TrainLabel(typing.NamedTuple):
+    labels: torch.Tensor  # [B, U]
+    labels_length: torch.Tensor  # [B]
+
+
+class TrainData(typing.NamedTuple):
+    inputs: TrainInput
+    labels: TrainLabel
+
+    def to(self, device) -> "TrainData":
+        """Every tensor of the batch on ``device``."""
+        return TrainData(TrainInput(*(t.to(device) for t in self.inputs)), TrainLabel(*(t.to(device) for t in self.labels)))
 
 
 class PredictInput(typing.NamedTuple):

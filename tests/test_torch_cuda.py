@@ -113,6 +113,105 @@ def test_conv_kernels(dev, dtype, b, t, d):
     torch.testing.assert_close(ck.conv_back(*back), ck.conv_back_plain(*back), **TOL[dtype])
 
 
+def _grads_close(got, ref, rel: float, what: str) -> None:
+    """Each gradient within ``rel`` of its largest reference magnitude: the
+    weight gradients are sums over all rows, where an elementwise relative
+    bound would fail on the elements that cancel to ~0."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), f"{what} grad {i}: non-finite"
+        err, scale = (g - r).abs().max().item(), r.abs().max().item()
+        assert err <= rel * max(scale, 1e-6), f"{what} grad {i}: max abs err {err} > {rel} x {scale}"
+
+
+# backward: f32 differs from the plain version in summation order only; bf16
+# rounds ds/dh/dz operands at the same places, so a summation-order flip of
+# one bf16 rounding (2^-8) propagates into the sums
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _ff_args(dev, dtype, n, d, f, seed=2):
+    g = _gen(dev, seed)
+    return (_r(g, dev, (n, d), 1.0, dtype), 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, f), d ** -0.5, dtype),
+            _r(g, dev, (f,), 0.1, dtype), _r(g, dev, (f, d), f ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype)), _r(g, dev, (n, d), 1.0, dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d,f", [(6400, 144, 576), (37, 16, 64), (5, 144, 100)])
+def test_ff_backward_kernel(dev, dtype, n, d, f, rate):
+    args, dout = _ff_args(dev, dtype, n, d, f)
+    torch.testing.assert_close(fk.fused_ff(*args, 77, rate), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
+    before = fk.bwd_launches
+    got = fk.fused_ff_bwd_kernel(*args[:6], dout, 77, rate)
+    assert fk.bwd_launches == before + 1
+    _grads_close(got, fk.fused_ff_plain_bwd(*args[:6], dout, 77, rate), GRAD_REL[dtype], f"ff {n}x{d}x{f}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,d", [(16, 400, 144), (3, 17, 16), (1, 5, 100)])
+def test_conv_backward_kernels(dev, dtype, b, t, d, rate):
+    g = _gen(dev, 5)
+    x, dout = _r(g, dev, (b, t, d), 1.0, dtype), _r(g, dev, (b, t, d), 1.0, dtype)
+    front = (x, 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, d), d ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype),
+             _r(g, dev, (d, d), d ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype))
+    before = ck.front_bwd_launches
+    got = ck.conv_front_bwd_kernel(*front, dout)
+    assert ck.front_bwd_launches == before + 1
+    _grads_close(got, ck.conv_front_plain_bwd(*front, dout), GRAD_REL[dtype], "conv_front")
+    back = (_r(g, dev, (b, t, d), 1.0, dtype), _r(g, dev, (d,), 0.1), 1.0 + torch.rand((d,), generator=g, device=dev),
+            1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, d), d ** -0.5, dtype))
+    b2 = _r(g, dev, (d,), 0.1, dtype)
+    torch.testing.assert_close(ck.conv_back(x, *back, b2, 9, rate), ck.conv_back_plain(x, *back, b2, 9, rate), **TOL[dtype])
+    before = ck.back_bwd_launches
+    got = ck.conv_back_bwd_kernel(*back, dout, 9, rate)
+    assert ck.back_bwd_launches == before + 1
+    _grads_close(got, ck.conv_back_plain_bwd(*back, dout, 9, rate), GRAD_REL[dtype], "conv_back")
+
+
+ATT_BWD_CASES = {
+    "flagship_train": (16, 4, 400, 400, 799, 36, False, True, False, None, None, False),
+    "kv_bias_causal": ATT_CASES["kv_bias_causal"],
+    "chunked_memory": ATT_CASES["chunked_memory"],
+    "extra_shift": ATT_CASES["extra_shift"],
+    "causal_pe": ATT_CASES["causal_pe"],
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(ATT_BWD_CASES))
+def test_rel_attention_backward_kernel(dev, case, dtype, rate):
+    b, h, t, s, r, d, with_kvb, with_qlen, causal, chunk, hist, pe_causal = ATT_BWD_CASES[case]
+    g = _gen(dev, 6)
+    qc, qp = _r(g, dev, (b * h, t, d), 0.3, dtype), _r(g, dev, (b * h, t, d), 0.3, dtype)
+    k, v, pos = _r(g, dev, (b * h, s, d), 1.0, dtype), _r(g, dev, (b * h, s, d), 1.0, dtype), _r(g, dev, (b * h, r, d), 1.0, dtype)
+    dout = _r(g, dev, (b * h, t, d), 1.0, dtype)
+    kvb = None
+    if with_kvb:
+        valid = torch.arange(s, device=dev)[None, :] >= torch.arange(b, device=dev)[:, None] * 7
+        kvb = torch.where(valid, 0.0, -1e9).float()[:, None, :].contiguous()
+    q_len = torch.tensor([max(1, t - 17 * i) for i in range(b)], dtype=torch.int32, device=dev) if with_qlen else None
+    inputs, cfg = (qc, qp, k, v, pos, kvb, q_len), (123, rate, causal, chunk, hist, pe_causal)
+    out = ak.fused_rel_attention_kernel(*inputs, *cfg)
+    torch.testing.assert_close(out, ak.fused_rel_attention_plain(*inputs, *cfg), **TOL[dtype])
+    before = ak.bwd_launches
+    got = ak.fused_rel_attention_bwd_kernel(*inputs, out, dout, *cfg)
+    assert ak.bwd_launches == before + 1
+    _grads_close(got, ak.fused_rel_attention_plain_bwd(*inputs, dout, *cfg), GRAD_REL[dtype], f"attention {case}")
+
+
+def test_autograd_routes_cuda_tensors_through_the_kernels(dev):
+    """Under autograd a CUDA tensor launches the forward and the backward kernel once each."""
+    args, dout = _ff_args(dev, torch.float32, 40, 16, 64)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    f0, b0 = fk.launches, fk.bwd_launches
+    fk.fused_ff(*leaves, 3, 0.1).backward(dout)
+    assert (fk.launches, fk.bwd_launches) == (f0 + 1, b0 + 1)
+    _grads_close([x.grad for x in leaves[:6]], fk.fused_ff_plain_bwd(*args[:6], dout, 3, 0.1), GRAD_REL[torch.float32], "ff autograd")
+
+
 def test_ff_kernel_misaligned_weights(dev):
     """Weights that are contiguous but not 16-byte aligned take the CUDA-core kernel."""
     g = _gen(dev, 4)
@@ -144,7 +243,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 def test_flagship_encoder_card_matches_cpu(dev):
     """f32, TF32 off: the encoder through the kernels equals the CPU copy
     through the plain versions, 2 blocks of the flagship widths."""
-    model = Conformer.from_config(conformer_small_config(num_blocks=2))
+    model = Conformer.from_config(conformer_small_config(num_blocks=2), device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(0))
     cpu_model = copy.deepcopy(model).eval()
     model = model.to(dev).eval()

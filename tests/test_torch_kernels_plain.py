@@ -205,15 +205,24 @@ def _small_calls():
 
 @pytest.mark.parametrize("name", ["fused_rel_attention", "fused_ff", "conv_back"])
 def test_dropout_rate_raises(name):
+    """Dropout rates in [0, 1) run (the kernels take training dropout); others raise."""
     call = _small_calls()[name]
     assert torch.isfinite(call(0.0)).all()
-    with pytest.raises(ValueError, match="dropout"):
-        call(0.1)
+    assert torch.isfinite(call(0.1)).all()
+    for bad in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout"):
+            call(bad)
+
+
+def _counts():
+    return (ak.launches, ak.bwd_launches, fk.launches, fk.bwd_launches, ck.front_launches, ck.front_bwd_launches, ck.back_launches, ck.back_bwd_launches)
 
 
 def test_cpu_tensors_take_plain_path_without_counting():
-    before = (ak.launches, fk.launches, ck.front_launches, ck.back_launches)
+    before = _counts()
     for call in _small_calls().values():
         call(0.0)
     ck.conv_front(torch.randn(1, 4, 8), torch.ones(8), torch.zeros(8), torch.randn(8, 8), torch.zeros(8), torch.randn(8, 8), torch.zeros(8))
-    assert (ak.launches, fk.launches, ck.front_launches, ck.back_launches) == before
+    x = torch.randn(4, 8, requires_grad=True)
+    fk.fused_ff(x, torch.ones(8), torch.zeros(8), torch.randn(8, 16), torch.zeros(16), torch.randn(16, 8), torch.zeros(8), 0, 0.1).sum().backward()
+    assert x.grad is not None and _counts() == before

@@ -5,6 +5,7 @@ Encoder outputs agree to summation order (2e-5 absolute on LayerNorm'd,
 unit-scale outputs); greedy tokens agree exactly.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -65,7 +66,7 @@ def models():
     ti = jschemas.TrainInput(jnp.asarray(sig), jnp.asarray(lens), jnp.zeros((b, 3), jnp.int32), jnp.full((b,), 3, jnp.int32))
     v = jax.tree_util.tree_map(np.asarray, jm.init({"params": jax.random.PRNGKey(1)}, ti, train=False))
     v["batch_stats"] = jax.tree_util.tree_map(lambda a: (a + 0.2 * rng.random(a.shape)).astype(np.float32), v["batch_stats"])
-    tm = Conformer.from_config(TINY_CFG)
+    tm = Conformer.from_config(TINY_CFG, device="cpu")
     tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
     return jm, v, tm.eval(), sig, lens
 
@@ -104,7 +105,7 @@ def test_wind_equals_sync_greedy(models):
 
 
 def test_bf16_model_serves():
-    model = Conformer.from_config(TINY_CFG, dtype=torch.bfloat16)
+    model = Conformer.from_config(TINY_CFG, dtype=torch.bfloat16, device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(0))
     sig = torch.tensor((np.random.default_rng(2).standard_normal((2, 4000)) * 0.3).astype(np.float32))
     lens = torch.tensor([4000, 2500])
@@ -123,15 +124,15 @@ def test_flagship_config_matches_graft_entry(monkeypatch):
     monkeypatch.setattr(JConformer, "from_config", classmethod(lambda cls, config, **kw: captured.setdefault("config", config)))
     __graft_entry__._conformer_small()
     assert conformer_small_config() == captured["config"]
-    model = Conformer.from_config(captured["config"])
+    model = Conformer.from_config(captured["config"], device="cpu")
     assert model.encoder.num_blocks == 16 and model.vocab_size == 256
     assert sum(p.numel() for p in model.parameters()) > 0
 
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="mha_type"):
-        Conformer.from_config({**TINY_CFG, "encoder_mha_type": "mha"})
-    model = Conformer.from_config(TINY_CFG)
+        Conformer.from_config({**TINY_CFG, "encoder_mha_type": "mha"}, device="cpu")
+    model = Conformer.from_config(TINY_CFG, device="cpu")
     with pytest.raises(NotImplementedError, match="beam"):
         recognize(model, schemas.PredictInput(torch.zeros(1, 1600), torch.tensor([1600])), beam_width=2)
 
@@ -143,10 +144,17 @@ def test_port_imports_no_jax_flax_yaml_tokenizers():
         "import tensorflowasr_tpu_torch\n"
         "for m in pkgutil.walk_packages(tensorflowasr_tpu_torch.__path__, 'tensorflowasr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'tokenizers', 'jinja2', 'tensorflowasr_tpu'))\n"
-        "print(len([m for m in sys.modules if m.startswith('tensorflowasr_tpu_torch')]))\n"
+        "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'tokenizers', 'jinja2', 'tensorflowasr_tpu'))\n"
+        "print(' '.join(sorted(m for m in sys.modules if m.startswith('tensorflowasr_tpu_torch'))))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) > 20  # every module of the package was imported
+    imported = set(proc.stdout.split())
+    assert len(imported) > 25  # every module of the package was imported, the training slice's among them
+    assert {f"tensorflowasr_tpu_torch.{m}" for m in ("training.trainer", "optimizers", "ops.rnnt_loss", "ops.dropout", "utils.device")} <= imported
+    # chip_smoke.py (which runs where JAX is absent) imports none of it either
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    roots = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "tensorflowasr_tpu"}, roots
