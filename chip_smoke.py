@@ -9,15 +9,21 @@ Phases, each printing its lines: device; kernel build (nvcc, from
 PyTorch version at the serving shapes (f32 with TF32 off, and bf16), with
 times; each forward kernel at rate 0.1 and each backward kernel against its
 plain version at the flagship training shapes (f32 and bf16), with times
-and bounds; three served requests of 8 utterances through ``recognize`` on
-the flagship Conformer-Transducer Small (random weights from a seed, bf16
-compute), with the kernels' launch counts; six training steps of the
-flagship (bf16, dropout 0.1, Adam 1e-4, 16 utterances of up to 16 s, one
-fixed batch) through ``Trainer.train_step``, with per-step times, loss,
-gradient norm, peak memory and launch counts, and one profiled step for the
-card's busy share; f32 encoder parity and f32 training-step parity (loss
-and every gradient) between the card (kernels) and a CPU copy (plain
-versions). Any failure raises. The last two lines are the kernels' JSON
+and bounds, and the loss kernels (the RNN-T DP, the fused joint forward and
+backward) at the flagship loss shapes (B 16, T 400, U+1 129, J 320, V 256,
+ragged lengths); three served requests of 8 utterances through
+``recognize`` on the flagship Conformer-Transducer Small (random weights
+from a seed, bf16 compute), with the kernels' launch counts; six training
+steps of the flagship in the default configuration (``loss_impl="auto"``:
+the fused joint+loss; bf16, dropout 0.1, Adam 1e-4, 16 utterances of up to
+16 s, one fixed batch) through ``Trainer.train_step``, with per-step times,
+loss, gradient norm, peak memory and launch counts, and one profiled step
+for the card's busy share; two steps of the ``loss_impl="xla"``
+configuration (logits and the plain DP) with their own launch counts; f32
+encoder parity and f32 training-step parity (loss and every gradient)
+between the card (kernels) and a CPU copy (plain versions), and the f32
+fused-path loss against the ``xla``-path loss on the card. Any failure
+raises. The last two lines are the kernels' JSON
 summary and ``{"ok": true, "device": {...}}``. Without a card it exits
 non-zero.
 """
@@ -112,6 +118,27 @@ def cost_conv_back(n: int, d: int, elt: int, bwd: bool):
     return 3 * n * d * elt + params, 2 * n * d * d
 
 
+def cost_rnnt_dp(t_len: np.ndarray, u_len: np.ndarray, t: int, u1: int):
+    """lp_blank and lp_emit read over each row's lattice (T_b·(U_b+1) cells),
+    gbl, gem [B, T, U+1] and the loss written, f32; per lattice cell two
+    log-add-exps (7 operations each) and two gradient exponentials (5 each)."""
+    cells = float(np.sum(t_len * (u_len + 1)))
+    return 8 * cells + 8 * len(t_len) * t * u1 + 4 * len(t_len), 24 * cells
+
+
+def cost_joint(b: int, t: int, u1: int, j: int, v: int, elt: int, bwd: bool):
+    """fwd: enc_p, pred_p, Wv, bv, labels → lse, lp_blank, lp_emit; the vocab
+    product, add + tanh per (cell, j), ~3 per logit for the log-sum-exp.
+    bwd: + lse, gbl, gem → d_enc_p, d_pred_p and f32 dWv, dbv; three products
+    (the logits, da, dWv) and ~5 per logit for d_logits."""
+    cells = b * t * u1
+    params = v * j * elt + 4 * v
+    inputs = (b * t + b * u1) * j * elt + params + 4 * b * (u1 - 1)
+    if bwd:
+        return inputs + 12 * cells + (b * t + b * u1) * j * elt + 4 * (v * j + v), 6.0 * cells * j * v + 2.0 * cells * j + 5.0 * cells * v
+    return inputs + 12 * cells, 2.0 * cells * j * v + 2.0 * cells * j + 3.0 * cells * v
+
+
 def _close(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
     got, ref = got.float(), ref.float()
     if not torch.isfinite(got).all():
@@ -164,6 +191,9 @@ SOURCES = {
     "conv_front_bwd": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:194"),
     "conv_back": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:329"),
     "conv_back_bwd": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:375"),
+    "rnnt_dp": ("tensorflowasr_tpu_torch/csrc/rnnt_dp.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:310"),
+    "rnnt_fused_joint": ("tensorflowasr_tpu_torch/csrc/joint_loss.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:351"),
+    "rnnt_fused_joint_bwd": ("tensorflowasr_tpu_torch/csrc/joint_loss.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:329"),
 }
 
 
@@ -261,6 +291,7 @@ def phase_kernels(dev) -> dict:
 # the flagship train step: 16 utterances, array width 16 s → 1600 frames → T = 400 encoder frames
 TRAIN_B, TRAIN_SECS, TRAIN_U = 16, 16.0, 128
 T_ENC, D_MODEL, HEADS, HEAD, FF_DIM = 400, 144, 4, 36, 576
+JOINT, VOCAB = 320, 256
 TRAIN_RATE = 0.1
 
 
@@ -270,15 +301,15 @@ def _row(name: str, errs: dict, ms: float, plain_ms: float, b: tuple[float, str]
                 ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, dtype="bfloat16" if "bf16" in errs else "float32")
 
 
-def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost) -> list[dict]:
+def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost, what: str = f"train, rate {TRAIN_RATE}") -> list[dict]:
     """Forward (rate 0.1: the kernel's mask equals the plain one) and backward
     kernel vs plain at one shape, f32 and bf16; times and bounds in bf16.
     ``cost(elt, bwd)`` gives the (bytes, operations) of the work."""
     errs_f, errs_b, times = {}, {}, {}
     for tag, dt in DTYPES:
         fargs, bargs = make(dt)
-        errs_f[tag] = _close(f"{name} fwd {tag} rate {TRAIN_RATE}", fwd(*fargs), fwd_plain(*fargs), *TOL[tag])
-        errs_b[tag] = _grads_close(f"{name} bwd {tag} rate {TRAIN_RATE}", bwd(*bargs), bwd_plain(*bargs), GRAD_REL[tag])
+        errs_f[tag] = _close(f"{name} fwd {tag} ({what})", fwd(*fargs), fwd_plain(*fargs), *TOL[tag])
+        errs_b[tag] = _grads_close(f"{name} bwd {tag} ({what})", bwd(*bargs), bwd_plain(*bargs), GRAD_REL[tag])
         if tag == "bf16":
             times = dict(fwd=(time_ms(fwd, *fargs), time_ms(fwd_plain, *fargs)), bwd=(time_ms(bwd, *bargs), time_ms(bwd_plain, *bargs)))
             bounds = dict(fwd=bound(*cost(2, False), "bf16"), bwd=bound(*cost(2, True), "bf16"))
@@ -286,7 +317,7 @@ def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost) -> list[dic
     for part, errs, row_name in (("fwd", errs_f, name), ("bwd", errs_b, f"{name}_bwd")):
         ms, plain_ms = times[part]
         b = bounds[part]
-        print(f"kernel {row_name} (train, rate {TRAIN_RATE}): max_abs_err f32 {errs['f32']:.3e} bf16 {errs['bf16']:.3e} "
+        print(f"kernel {row_name} ({what}): max_abs_err f32 {errs['f32']:.3e} bf16 {errs['bf16']:.3e} "
               f"(tol {TOL if part == 'fwd' else GRAD_REL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}) bf16")
         rows.append(_row(row_name, errs, ms, plain_ms, b))
     return rows
@@ -368,6 +399,63 @@ def phase_train_kernels(dev) -> list[dict]:
 
     rows += _check_fwd_bwd("conv_back", ck.conv_back_kernel, ck.conv_back_plain, ck.conv_back_bwd_kernel, ck.conv_back_plain_bwd, back_make,
                            lambda elt, bwd: cost_conv_back(n, D_MODEL, elt, bwd))
+    return rows + phase_loss_kernels(dev)
+
+
+# the DP (f32 only) chains T+U log-add-exps: loss to 1e-5 relative; the
+# gradients (occupancies in [−1, 0]) to 1e-5 absolute
+DP_LOSS_TOL, DP_GRAD_TOL = (1e-5, 1e-5), (1e-5, 0.0)
+
+
+def loss_lengths(rng, batch: int):
+    """Ragged lattice lengths as :func:`train_batch` draws them: T_b the
+    encoder frames of each utterance (10 ms frames, 4× subsampling), U_b its
+    8 tokens per second."""
+    secs = np.clip(rng.lognormal(mean=np.log(12.0), sigma=0.35, size=batch), 1.5, TRAIN_SECS)
+    return np.clip(np.ceil(secs * 25.0).astype(np.int64), 1, T_ENC), np.clip((secs * 8.0).astype(np.int64), 1, TRAIN_U)
+
+
+def phase_loss_kernels(dev) -> list[dict]:
+    """The loss kernels at the flagship loss shapes: the RNN-T DP (f32) and
+    the fused joint forward and backward (f32 and bf16)."""
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+    from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
+    t_len, u_len = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev)
+    u1 = TRAIN_U + 1
+
+    lp = torch.log_softmax(_randn(gen, (TRAIN_B, T_ENC, u1, 3), 2.0), dim=-1)
+    lpb, lpe = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    lpe[..., TRAIN_U] = LOG_0
+    got, ref = rk.rnnt_dp_kernel(lpb, lpe, t_len, u_len), rnnt_loss_from_logprobs_plain(lpb, lpe, t_len, u_len)
+    err = max(_close("rnnt_dp loss", got[0], ref[0], *DP_LOSS_TOL), _close("rnnt_dp gbl", got[1], ref[1], *DP_GRAD_TOL),
+              _close("rnnt_dp gem", got[2], ref[2], *DP_GRAD_TOL))
+    ms, plain_ms = time_ms(rk.rnnt_dp_kernel, lpb, lpe, t_len, u_len), time_ms(rnnt_loss_from_logprobs_plain, lpb, lpe, t_len, u_len)
+    b = bound(*cost_rnnt_dp(t_np, u_np, T_ENC, u1), "f32")
+    print(f"kernel rnnt_dp (train loss): [{TRAIN_B}, {T_ENC}, {u1}] f32, T_b {t_np.min()}-{t_np.max()}, U_b {u_np.min()}-{u_np.max()}, "
+          f"diagonals per row ≤ {int((t_np + u_np).max())}; max_abs_err {err:.3e} (loss tol {DP_LOSS_TOL}, gradients {DP_GRAD_TOL}) "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]})")
+    rows = [_row("rnnt_dp", {"f32": err}, ms, plain_ms, b)]
+
+    labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
+    labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
+
+    def joint_make(dt):
+        enc_p, pred_p = _randn(gen, (TRAIN_B, T_ENC, JOINT), 1.0, dt), _randn(gen, (TRAIN_B, u1, JOINT), 1.0, dt)
+        wv, bv = _randn(gen, (VOCAB, JOINT), JOINT ** -0.5, dt), _randn(gen, (VOCAB,), 0.1)
+        fargs = (enc_p, pred_p, wv, bv, labels)
+        _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*fargs[:4], t_len, labels, u_len)
+        return fargs, (*fargs, lse, gbl / TRAIN_B, gem / TRAIN_B)  # the masked mean's cotangent
+
+    def stats(fn):
+        return lambda *a: torch.stack(fn(*a))
+
+    rows += _check_fwd_bwd("rnnt_fused_joint", stats(jk.joint_logprobs_kernel), stats(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
+                           jk.rnnt_loss_fused_joint_plain_bwd, joint_make, lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, JOINT, VOCAB, elt, bwd),
+                           what=f"train loss, [{TRAIN_B}, {T_ENC}, {u1}] cells, J {JOINT}, V {VOCAB}")
     return rows
 
 
@@ -377,25 +465,34 @@ def phase_train_kernels(dev) -> list[dict]:
 # attention per block, two FF modules per block, one conv module per block;
 # no backward kernel
 PER_REQUEST = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_rel_attention_bwd": 0, "fused_ff": 32, "fused_ff_bwd": 0,
-               "conv_front": 16, "conv_front_bwd": 0, "conv_back": 16, "conv_back_bwd": 0}
-# per training step: the same forwards, and each encoder kernel's backward once per forward
+               "conv_front": 16, "conv_front_bwd": 0, "conv_back": 16, "conv_back_bwd": 0, "rnnt_dp": 0, "rnnt_fused_joint": 0,
+               "rnnt_fused_joint_bwd": 0}
+# per default (auto) training step: the same forwards, each encoder kernel's
+# backward once per forward, and the fused joint forward, the DP and the
+# fused joint backward once each
 PER_STEP = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_rel_attention_bwd": 16, "fused_ff": 32, "fused_ff_bwd": 32,
-            "conv_front": 16, "conv_front_bwd": 16, "conv_back": 16, "conv_back_bwd": 16}
+            "conv_front": 16, "conv_front_bwd": 16, "conv_back": 16, "conv_back_bwd": 16, "rnnt_dp": 1, "rnnt_fused_joint": 1,
+            "rnnt_fused_joint_bwd": 1}
+# per xla step: the encoder's kernels; the loss is the plain DP over the logits
+PER_STEP_XLA = {**PER_STEP, "rnnt_dp": 0, "rnnt_fused_joint": 0, "rnnt_fused_joint_bwd": 0}
 
 
 def launch_counts() -> dict:
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ff_kernel as fk, frontend_kernel as fek
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, rnnt_kernel as rk
 
     return {"log_mel_spectrogram": fek.launches, "fused_rel_attention": ak.launches, "fused_rel_attention_bwd": ak.bwd_launches, "fused_ff": fk.launches,
             "fused_ff_bwd": fk.bwd_launches, "conv_front": ck.front_launches, "conv_front_bwd": ck.front_bwd_launches, "conv_back": ck.back_launches,
-            "conv_back_bwd": ck.back_bwd_launches}
+            "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches}
 
 
 def reset_launch_counts() -> None:
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ff_kernel as fk, frontend_kernel as fek
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, rnnt_kernel as rk
 
     fek.launches = ak.launches = ak.bwd_launches = fk.launches = fk.bwd_launches = 0
     ck.front_launches = ck.front_bwd_launches = ck.back_launches = ck.back_bwd_launches = 0
+    rk.launches = jk.launches = jk.bwd_launches = 0
 
 
 def flagship(dtype, device, num_blocks: int = 16, dropout: float = 0.1) -> torch.nn.Module:
@@ -483,11 +580,14 @@ def train_batch(rng, batch: int, max_secs: float, max_u: int, vocab: int):
     return schemas.TrainData(schemas.TrainInput(t(audio), t(lens), t(preds), t(u + 1)), schemas.TrainLabel(t(labels), t(u)))
 
 
-TRAIN_STEPS = 6
+TRAIN_STEPS, XLA_STEPS = 6, 2
 
 
-def phase_train(dev) -> dict:
-    """The flagship training step through ``Trainer.train_step``: bf16, dropout 0.1, Adam 1e-4."""
+def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str):
+    """``steps`` flagship training steps through ``Trainer.train_step`` (bf16,
+    dropout 0.1, Adam 1e-4, one fixed batch) with launch counts set to 0
+    just before and read just after; each step's launches must equal
+    ``per_step``. Returns (counts, losses, walls, trainer, state, batch)."""
     from tensorflowasr_tpu_torch.training.trainer import Trainer
 
     events = {}
@@ -497,17 +597,17 @@ def phase_train(dev) -> dict:
         events[phase].record()
 
     model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE)
-    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev, on_phase=mark)
+    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev, on_phase=mark, loss_impl=loss_impl)
     state = trainer.init_state(seed=SEED)
     batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
-    print(f"train batch: {TRAIN_B} utterances, audio {batch.inputs.inputs_length.sum().item() / 16000:.2f} s "
+    print(f"{tag} batch: {TRAIN_B} utterances, audio {batch.inputs.inputs_length.sum().item() / 16000:.2f} s "
           f"(lengths {batch.inputs.inputs_length.min().item() / 16000:.2f}-{batch.inputs.inputs_length.max().item() / 16000:.2f} s, array {TRAIN_SECS} s), "
-          f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U})")
+          f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U}); loss_impl {loss_impl!r}")
     torch.cuda.synchronize()
 
     reset_launch_counts()
     losses, walls = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         before = launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         start = torch.cuda.Event(enable_timing=True)
@@ -519,18 +619,25 @@ def phase_train(dev) -> dict:
         loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != PER_STEP:
-            raise AssertionError(f"train step {step}: kernel launches {delta}, expected {PER_STEP}")
+        if delta != per_step:
+            raise AssertionError(f"{tag} step {step}: kernel launches {delta}, expected {per_step}")
         fwd, los, upd = start.elapsed_time(events["forward"]), events["forward"].elapsed_time(events["loss"]), events["loss"].elapsed_time(events["update"])
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
-        print(f"train step {step}: {wall:.1f} ms (host clock, ends in a synchronise); forward {fwd:.1f} ms, loss {los:.1f} ms, backward+update {upd:.1f} ms "
+        print(f"{tag} step {step}: {wall:.1f} ms (host clock, ends in a synchronise); forward {fwd:.1f} ms, loss {los:.1f} ms, backward+update {upd:.1f} ms "
               f"(CUDA events); loss {loss:.4f} grad_norm {gnorm:.4f}; peak memory {peak:.0f} MiB")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            raise AssertionError(f"train step {step}: non-finite loss {loss} or grad_norm {gnorm}")
+            raise AssertionError(f"{tag} step {step}: non-finite loss {loss} or grad_norm {gnorm}")
         losses.append(loss)
         walls.append(wall)
     counts = launch_counts()
-    print(f"train launches over {TRAIN_STEPS} steps: {counts} (per step {PER_STEP})")
+    print(f"{tag} launches over {steps} steps: {counts} (per step {per_step})")
+    return counts, losses, walls, trainer, state, batch
+
+
+def phase_train(dev) -> dict:
+    """The default (auto: fused joint+loss) flagship training step, 6 steps,
+    then one profiled step; then 2 steps of the xla configuration."""
+    counts, losses, walls, trainer, state, batch = run_train(dev, "auto", TRAIN_STEPS, PER_STEP, "train")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall over {TRAIN_STEPS} steps: {losses}")
 
@@ -551,6 +658,12 @@ def phase_train(dev) -> dict:
           f"median unprofiled step ({steady:.1f} ms; {wall:.1f} ms under the profiler)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d} calls  {e.key[:100]}")
+    del trainer, state
+
+    # the xla configuration stays driven: logits and the plain DP
+    _, xla_losses, _, _, _, _ = run_train(dev, "xla", XLA_STEPS, PER_STEP_XLA, "train xla")
+    if abs(xla_losses[0] - losses[0]) > 1e-2 * abs(losses[0]):
+        raise AssertionError(f"first step loss: xla {xla_losses[0]} vs auto {losses[0]} (bf16, same weights and batch)")
     return counts
 
 
@@ -578,16 +691,18 @@ def phase_parity(dev) -> None:
 
 
 def phase_train_parity(dev) -> None:
-    """One f32 training step's loss and gradients, card vs CPU: 2 blocks at full width, batch 2 × ≤ 4 s, dropout 0."""
+    """One f32 default (auto) training step's loss and gradients, card vs
+    CPU, 2 blocks at full width, batch 2 × ≤ 4 s, dropout 0; and on the card
+    the fused path's loss against the xla path's on the same batch."""
     from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss_masked_mean
+    from tensorflowasr_tpu_torch.training.trainer import fused_joint_loss
 
     cpu_model = flagship(torch.float32, "cpu", num_blocks=2, dropout=0.0)
     model = copy.deepcopy(cpu_model).to(dev)
     batch = train_batch(np.random.default_rng(SEED + 3), 2, 4.0, 32, cpu_model.vocab_size)
     results = []
     for m, b in ((model, batch.to(dev)), (cpu_model, batch)):
-        out = m(b.inputs, train=True)
-        loss = rnnt_loss_masked_mean(out.logits, out.logits_length, b.labels.labels, b.labels.labels_length)
+        loss = fused_joint_loss(m, b.inputs, b.labels)
         loss.backward()
         results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
@@ -603,9 +718,19 @@ def phase_train_parity(dev) -> None:
         worst = max(worst, (err / allowed, name))
         if scale > TRAIN_PARITY_FLOOR * gmax:
             worst_rel = max(worst_rel, (err / scale, name))
-    print(f"parity f32 train step card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs {loss_cpu:.6f}; "
+    print(f"parity f32 train step (auto) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs {loss_cpu:.6f}; "
           f"{len(g_cpu)} gradients within {TRAIN_PARITY_REL} of their scale + {TRAIN_PARITY_FLOOR} x {gmax:.3e} (largest share of that allowance "
           f"{worst[0]:.3f} at {worst[1]}; largest error relative to scale among gradients above the floor {worst_rel[0]:.3e} at {worst_rel[1]}), TF32 off")
+
+    b = batch.to(dev)
+    with torch.no_grad():
+        out = model(b.inputs, train=True)
+        xla = rnnt_loss_masked_mean(out.logits, out.logits_length, b.labels.labels, b.labels.labels_length).item()
+        fused = fused_joint_loss(model, b.inputs, b.labels).item()
+    if not abs(fused - xla) <= 1e-5 * abs(xla):
+        raise AssertionError(f"f32 loss on the card: fused joint {fused} vs xla {xla}")
+    print(f"parity f32 loss on the card, fused joint+loss (kernels) vs xla (logits, plain DP): {fused:.6f} vs {xla:.6f} "
+          f"(rel {abs(fused - xla) / abs(xla):.2e}, tol 1e-5)")
 
 
 def main() -> int:

@@ -112,4 +112,7 @@ inline int atb_splits(int N, int M, int K) {
 int launch_atb(const float* A, const float* B, float* out, float* partial, int N, int M, int K, int splits,
                cudaStream_t stream);
 
+// out[i] = sum over p of partial[p * mk + i], p in order (deterministic). Defined in row_reduce.cu.
+int launch_sum_partials(const float* partial, float* out, int splits, size_t mk, cudaStream_t stream);
+
 }  // namespace tfasr

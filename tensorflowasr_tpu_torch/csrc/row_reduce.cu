@@ -68,6 +68,11 @@ int launch_atb(const float* A, const float* B, float* out, float* partial, int N
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t mk = (size_t)M * K;
+  return launch_sum_partials(partial, out, splits, mk, stream);
+}
+
+int launch_sum_partials(const float* partial, float* out, int splits, size_t mk, cudaStream_t stream) {
+  if (mk == 0) return 0;
   sum_partials_kernel<<<(unsigned)((mk + 255) / 256), 256, 0, stream>>>(partial, out, splits, mk);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@
 sequences or one ``step``), ``TransducerJoint`` (add/mul merge,
 activation, vocab projection), ``Transducer`` with the training forward
 (``forward`` → [B, T, U+1, V] logits), ``encode``, ``pred_step``,
-``joint_window``, ``decode_step`` and ``init_decoder_states``, and the
+``joint_window``, ``decode_step`` and ``init_decoder_states``, the fused
+loss's ``forward_joint_inputs`` (→ the prejoint projections), and the
 ``recognize`` entry point (greedy WIND or frame-synchronous). The model is
 built on the card unless ``device="cpu"`` is given. Beam search is not
 ported yet.
@@ -168,6 +169,17 @@ class Transducer(nn.Module):
         enc, elens = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return schemas.TrainOutput(logits=self.joint(enc, pred), logits_length=elens)
+
+    def forward_joint_inputs(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None):
+        """Training forward that stops before the joint's merge (JAX
+        ``Transducer.forward_joint_inputs``): (enc_p [B, T, J], pred_p
+        [B, U+1, J], logits_length), the inputs of the fused joint+loss
+        (``ops/cuda/joint_loss_kernel.py``), which never materialises the
+        [B, T, U+1, V] logits. ``train`` and ``generator`` as in :meth:`forward`."""
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length)
+        enc, elens = self.encoder(feats, flens, train=train, generator=generator)
+        pred = self.prediction(inputs.predictions, inputs.predictions_length)
+        return self.joint.project_encoder(enc), self.joint.project_prediction(pred), elens
 
     # ------------------------------ inference ------------------------------- #
 

@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu")
+SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,10 @@ _SIGNATURES = {
     "tfasr_conv_back": ([_P] * 9 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_conv_back_bwd": ([_P] * 15 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_conv_bwd_scratch": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_rnnt_dp": ([_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
+    "tfasr_joint_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "tfasr_joint_bwd": ([_P] * 13 + [_I] * 6 + [_P], ctypes.c_int),
+    "tfasr_joint_bwd_scratch": ([_I] * 6, ctypes.c_longlong),
 }
 
 _lib: ctypes.CDLL | None = None

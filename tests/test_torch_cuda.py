@@ -8,7 +8,9 @@ imports no JAX, so it also runs on a machine without it:
 Tolerances: f32 with TF32 off differs from the plain version only in
 summation order (1e-4 absolute on unit-scale outputs); bf16 may flip one
 rounding of an operand or output (2^-8 relative), so 2e-2; the log-mel
-frontend compares a direct DFT with an FFT in f32, 1e-3 in log.
+frontend compares a direct DFT with an FFT in f32, 1e-3 in log. The RNN-T
+DP (f32 only) chains T+U log-add-exps: its loss to 1e-5 relative, its
+gradients (occupancies in [−1, 0]) to 1e-5 absolute.
 """
 
 import copy
@@ -25,6 +27,9 @@ from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
 from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
 from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
 from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
+from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
+from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -256,3 +261,73 @@ def test_flagship_encoder_card_matches_cpu(dev):
     torch.testing.assert_close(enc.cpu(), ref, rtol=0, atol=1e-4)
     assert torch.equal(enc_len.cpu(), ref_len)
     assert tuple(out.tokens.shape) == (2, 2 * enc.shape[1] + 1)
+
+
+# (B, T, U, J, V): the flagship training shapes, then ragged and odd sizes (U ≥ T, U = 0, J and V off the tiles)
+LOSS_CASES = [(16, 400, 128, 320, 256), (3, 13, 6, 16, 20), (2, 37, 50, 40, 70), (1, 1, 0, 8, 5)]
+
+
+def _lengths(dev, b, t, u, seed):
+    g = torch.Generator().manual_seed(seed)
+    t_len = torch.randint(1, t + 1, (b,), generator=g)
+    u_len = torch.randint(0, u + 1, (b,), generator=g)
+    t_len[0], u_len[0] = t, u
+    return t_len.to(dev), u_len.to(dev)
+
+
+@pytest.mark.parametrize("b,t,u,j,v", LOSS_CASES)
+def test_rnnt_dp_kernel(dev, b, t, u, j, v):
+    g = _gen(dev, 7)
+    lp = torch.log_softmax(_r(g, dev, (b, t, u + 1, 3), 2.0), dim=-1)
+    lpb, lpe = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    lpe[..., u] = LOG_0
+    t_len, u_len = _lengths(dev, b, t, u, 1)
+    before = rk.launches
+    loss, gbl, gem = rk.rnnt_dp_kernel(lpb, lpe, t_len, u_len)
+    assert rk.launches == before + 1
+    ref_loss, ref_gbl, ref_gem = rnnt_loss_from_logprobs_plain(lpb, lpe, t_len, u_len)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gbl, ref_gbl, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gem, ref_gem, rtol=0, atol=1e-5)
+
+
+def _joint_args(dev, dtype, b, t, u, j, v, seed=8):
+    g = _gen(dev, seed)
+    enc_p, pred_p = _r(g, dev, (b, t, j), 1.0, dtype), _r(g, dev, (b, u + 1, j), 1.0, dtype)
+    wv, bv = _r(g, dev, (v, j), j ** -0.5, dtype), _r(g, dev, (v,), 0.1)
+    labels = torch.randint(1, v, (b, u), generator=torch.Generator().manual_seed(seed)).to(dev)
+    return enc_p, pred_p, wv, bv, labels
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,u,j,v", LOSS_CASES)
+def test_joint_loss_kernels(dev, dtype, b, t, u, j, v):
+    args = _joint_args(dev, dtype, b, t, u, j, v)
+    before = jk.launches
+    got = jk.joint_logprobs_kernel(*args)
+    assert jk.launches == before + 1
+    for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, jk.joint_logprobs_plain(*args)):
+        torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
+    t_len, u_len = _lengths(dev, b, t, u, 2)
+    _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
+    scale = torch.linspace(0.5, 1.5, b, device=dev)[:, None, None]
+    bargs = (*args, lse, (gbl * scale).contiguous(), (gem * scale).contiguous())
+    before = jk.bwd_launches
+    grads = jk.rnnt_loss_fused_joint_bwd_kernel(*bargs)
+    assert jk.bwd_launches == before + 1
+    _grads_close(grads, jk.rnnt_loss_fused_joint_plain_bwd(*bargs), GRAD_REL[dtype], f"joint {b}x{t}x{u + 1}x{j}x{v}")
+
+
+def test_fused_joint_loss_autograd_runs_the_three_kernels(dev):
+    """Under autograd a CUDA tensor launches the joint forward, the DP and the joint backward once each."""
+    b, t, u, j, v = 3, 13, 6, 16, 20
+    args = _joint_args(dev, torch.float32, b, t, u, j, v)
+    t_len, u_len = _lengths(dev, b, t, u, 3)
+    leaves = [a.clone().requires_grad_(True) for a in args[:4]]
+    counts = (jk.launches, rk.launches, jk.bwd_launches)
+    loss = jk.rnnt_loss_fused_joint(*leaves, t_len, args[4], u_len)
+    loss.sum().backward()
+    assert (jk.launches, rk.launches, jk.bwd_launches) == tuple(c + 1 for c in counts)
+    ref_loss, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
+    _grads_close([x.grad for x in leaves], jk.rnnt_loss_fused_joint_plain_bwd(*args, lse, gbl, gem), GRAD_REL[torch.float32], "fused joint autograd")

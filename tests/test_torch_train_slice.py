@@ -1,8 +1,9 @@
 """The port's training step vs the JAX package's, on the CPU.
 
-The JAX side runs ``make_train_step`` with ``TFASR_LOSS_IMPL=xla`` (the
-configuration the port takes: the scan DP loss, the four fused encoder
-kernels in Pallas interpret mode). Both sides start from the same weights
+The JAX side runs ``make_train_step`` with ``TFASR_LOSS_IMPL=xla`` and the
+port ``loss_impl="xla"`` (the scan DP loss over the logits, the four fused
+encoder kernels in Pallas interpret mode); ``test_torch_train_default.py``
+runs the same checks on the default fused joint+loss step. Both sides start from the same weights
 and BatchNorm statistics (``bridge.py``) and a fresh Adam, f32, dropout 0.
 
 Tolerances (f32, summation order only): the loss and ``grad_norm`` to 1e-5
@@ -88,12 +89,12 @@ def _record_grads():
     return optax.GradientTransformation(lambda params: params, lambda updates, state, params=None: (updates, updates))
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """K Adam steps on both sides from the same start; per step (loss,
-    grad_norm, grads), and the final params and batch_stats."""
+def run_both(loss_impl: str):
+    """K Adam steps on both sides from the same start, JAX with
+    ``TFASR_LOSS_IMPL=loss_impl`` and the port with ``loss_impl``; per step
+    (loss, grad_norm, grads), and the final params and batch_stats."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TFASR_LOSS_IMPL", "xla")
+        mp.setenv("TFASR_LOSS_IMPL", loss_impl)
         rng = np.random.default_rng(0)
         arrs = _batch(rng)
         jm = JConformer.from_config(TINY_CFG)
@@ -113,7 +114,7 @@ def runs():
 
     tm = Conformer.from_config(TINY_CFG, device="cpu")
     tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
-    trainer = Trainer(tm, ADAM, device="cpu")
+    trainer = Trainer(tm, ADAM, device="cpu", loss_impl=loss_impl)
     tstate = trainer.init_state(seed=0)
     tstate.optimizer = build_optimizer(ADAM, [p for n, p in tm.named_parameters() if not n.endswith(FROZEN)])
     tb = _torch_batch(arrs)
@@ -125,14 +126,19 @@ def runs():
     return jax_steps, jax_final, torch_steps, tm, v
 
 
-def test_first_step_loss_and_grad_norm_match_jax(runs):
+@pytest.fixture(scope="module")
+def runs():
+    return run_both("xla")
+
+
+def check_first_step_loss_and_grad_norm(runs):
     jax_steps, _, torch_steps, _, _ = runs
     (jl, jn, _), (tl, tn, _) = jax_steps[0], torch_steps[0]
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
     np.testing.assert_allclose(tn, jn, rtol=1e-5)
 
 
-def test_first_step_every_gradient_matches_jax(runs):
+def check_first_step_every_gradient(runs):
     jax_steps, _, torch_steps, tm, _ = runs
     ref = bridge.state_dict_from_flax({"params": jax_steps[0][2]})
     got = torch_steps[0][2]
@@ -143,7 +149,7 @@ def test_first_step_every_gradient_matches_jax(runs):
     assert _zero_grad_params({k: ref[k] for k in got}) == {k for k in got if k.endswith(FROZEN)}
 
 
-def test_k_adam_steps_match_jax(runs):
+def check_k_adam_steps(runs):
     jax_steps, jax_final, torch_steps, tm, _ = runs
     for k in range(K_STEPS):
         np.testing.assert_allclose(torch_steps[k][0], jax_steps[k][0], rtol=1e-5, err_msg=f"loss at step {k}")
@@ -164,6 +170,18 @@ def test_k_adam_steps_match_jax(runs):
         assert np.abs(value - want)[noisy].max(initial=0.0) <= 2 * K_STEPS * ADAM["config"]["learning_rate"], name
     assert noisy_total < 0.01 * sum(v.numel() for v in got.values())
     assert jax_steps[-1][0] < jax_steps[0][0] and torch_steps[-1][0] < torch_steps[0][0]
+
+
+def test_first_step_loss_and_grad_norm_match_jax(runs):
+    check_first_step_loss_and_grad_norm(runs)
+
+
+def test_first_step_every_gradient_matches_jax(runs):
+    check_first_step_every_gradient(runs)
+
+
+def test_k_adam_steps_match_jax(runs):
+    check_k_adam_steps(runs)
 
 
 def test_batch_stats_round_trip_through_bridge(runs):
