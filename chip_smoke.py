@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch port on one CUDA card: serving and training.
+"""Chip smoke test of the PyTorch port on one CUDA card: serving, training and evaluation.
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
@@ -9,23 +9,31 @@ Phases, each printing its lines: device; kernel build (nvcc, from
 PyTorch version at the serving shapes (f32 with TF32 off, and bf16), with
 times; each forward kernel at rate 0.1 and each backward kernel against its
 plain version at the flagship training shapes (f32 and bf16), with times
-and bounds, and the loss kernels (the RNN-T DP, the fused joint forward and
-backward) at the flagship loss shapes (B 16, T 400, U+1 129, J 320, V 256,
-ragged lengths); three served requests of 8 utterances through
-``recognize`` on the flagship Conformer-Transducer Small (random weights
-from a seed, bf16 compute), with the kernels' launch counts; six training
-steps of the flagship in the default configuration (``loss_impl="auto"``:
-the fused joint+loss; bf16, dropout 0.1, Adam 1e-4, 16 utterances of up to
-16 s, one fixed batch) through ``Trainer.train_step``, with per-step times,
-loss, gradient norm, peak memory and launch counts, and one profiled step
-for the card's busy share; two steps of the ``loss_impl="xla"``
-configuration (logits and the plain DP) with their own launch counts; f32
-encoder parity and f32 training-step parity (loss and every gradient)
-between the card (kernels) and a CPU copy (plain versions), and the f32
-fused-path loss against the ``xla``-path loss on the card. Any failure
-raises. The last two lines are the kernels' JSON
-summary and ``{"ok": true, "device": {...}}``. Without a card it exits
-non-zero.
+and bounds, the loss kernels (the RNN-T DP, the fused joint forward and
+backward, the unfused loss's log-probability and d_logits row kernels) at
+the flagship loss shapes (B 16, T 400, U+1 129, J 320, V 256, ragged
+lengths), and the LSTM forward and backward kernels at the prediction
+net's shape (B 16, T 129, H 320) beside cuDNN's ``torch.nn.LSTM``; three
+served requests of 8 utterances through ``recognize`` on the flagship
+Conformer-Transducer Small (random weights from a seed, bf16 compute), with
+the kernels' launch counts; six training steps of the flagship in the
+default configuration (``loss_impl="auto"``: the fused joint+loss; bf16,
+dropout 0.1, Adam 1e-4, 16 utterances of up to 16 s, one fixed batch)
+through ``Trainer.train_step``, with per-step times, loss, gradient norm,
+peak memory and launch counts, and one profiled step for the card's busy
+share; two steps of the ``loss_impl="xla"`` configuration (logits and the
+plain DP); three eval steps (``Trainer.eval_step``, default ``loss_impl``:
+logits, the log-probability row kernel and the DP) against the plain-DP
+eval; two steps of ``loss_impl="pallas"`` with ``rnn_impl="pallas"`` (the
+unfused loss and the LSTM kernels) and two ``auto`` steps with
+``rnn_impl="pallas"``; f32 encoder parity and f32 training-step parity
+(loss and every gradient; the ``auto`` step and the ``pallas`` step with
+the LSTM kernels) between the card (kernels) and a CPU copy (plain
+versions), and the f32 fused-path and unfused-path losses against the
+``xla``-path loss on the card. Every kernel must launch on at least one
+driven path; its launches are recorded per path. Any failure raises. The
+last two lines are the kernels' JSON summary and ``{"ok": true, "device":
+{...}}``. Without a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -139,6 +147,27 @@ def cost_joint(b: int, t: int, u1: int, j: int, v: int, elt: int, bwd: bool):
     return inputs + 12 * cells, 2.0 * cells * j * v + 2.0 * cells * j + 3.0 * cells * v
 
 
+def cost_rows(rows: int, v: int, b: int, u: int, elt: int, bwd: bool):
+    """The unfused loss's row kernels over [rows, V] logits. fwd: logits and
+    labels → lp_blank, lp_emit, lse (f32); ~4 operations per logit (max,
+    subtract, exp, add). bwd: + lse, gbl, gem, g → d_logits in the logits'
+    dtype; ~6 per logit."""
+    if bwd:
+        return 2 * rows * v * elt + 12 * rows + 4 * b * u + 4 * b, 6.0 * rows * v
+    return rows * v * elt + 4 * b * u + 12 * rows, 4.0 * rows * v
+
+
+def cost_lstm(b: int, t: int, h: int, elt: int, bwd: bool):
+    """The LSTM recurrence. fwd: xg, Wh, h0, c0 → y, cseq, gates; the
+    recurrent product (2·B·T·H·4H) and ~10 operations per cell and step.
+    bwd: dy, dc (f32), gates, cseq, c0, Wh → dxg (f32), dh0, dc0; the
+    product da·Whᵀ and ~20 per cell and step. (The kernels are bound by
+    their 2·T dependent steps, not by either count.)"""
+    if bwd:
+        return 8 * b * t * h + 5 * b * t * h * elt + (b * h + 4 * h * h) * elt + 16 * b * t * h + 8 * b * h, 8.0 * b * t * h * h + 20.0 * b * t * h
+    return 4 * b * t * h * elt + 4 * h * h * elt + 2 * b * h * elt + 6 * b * t * h * elt, 8.0 * b * t * h * h + 10.0 * b * t * h
+
+
 def _close(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
     got, ref = got.float(), ref.float()
     if not torch.isfinite(got).all():
@@ -194,6 +223,10 @@ SOURCES = {
     "rnnt_dp": ("tensorflowasr_tpu_torch/csrc/rnnt_dp.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:310"),
     "rnnt_fused_joint": ("tensorflowasr_tpu_torch/csrc/joint_loss.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:351"),
     "rnnt_fused_joint_bwd": ("tensorflowasr_tpu_torch/csrc/joint_loss.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:329"),
+    "rnnt_logprobs": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:413"),
+    "rnnt_dlogits": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:438"),
+    "lstm": ("tensorflowasr_tpu_torch/csrc/lstm.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:178"),
+    "lstm_bwd": ("tensorflowasr_tpu_torch/csrc/lstm.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:237"),
 }
 
 
@@ -301,24 +334,26 @@ def _row(name: str, errs: dict, ms: float, plain_ms: float, b: tuple[float, str]
                 ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, dtype="bfloat16" if "bf16" in errs else "float32")
 
 
-def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost, what: str = f"train, rate {TRAIN_RATE}") -> list[dict]:
+def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost, what: str = f"train, rate {TRAIN_RATE}", bwd_name: str | None = None,
+                   fwd_tol: dict = TOL) -> list[dict]:
     """Forward (rate 0.1: the kernel's mask equals the plain one) and backward
     kernel vs plain at one shape, f32 and bf16; times and bounds in bf16.
-    ``cost(elt, bwd)`` gives the (bytes, operations) of the work."""
+    ``cost(elt, bwd)`` gives the (bytes, operations) of the work; the
+    backward's row is ``bwd_name`` (default ``name + "_bwd"``)."""
     errs_f, errs_b, times = {}, {}, {}
     for tag, dt in DTYPES:
         fargs, bargs = make(dt)
-        errs_f[tag] = _close(f"{name} fwd {tag} ({what})", fwd(*fargs), fwd_plain(*fargs), *TOL[tag])
+        errs_f[tag] = _close(f"{name} fwd {tag} ({what})", fwd(*fargs), fwd_plain(*fargs), *fwd_tol[tag])
         errs_b[tag] = _grads_close(f"{name} bwd {tag} ({what})", bwd(*bargs), bwd_plain(*bargs), GRAD_REL[tag])
         if tag == "bf16":
             times = dict(fwd=(time_ms(fwd, *fargs), time_ms(fwd_plain, *fargs)), bwd=(time_ms(bwd, *bargs), time_ms(bwd_plain, *bargs)))
             bounds = dict(fwd=bound(*cost(2, False), "bf16"), bwd=bound(*cost(2, True), "bf16"))
     rows = []
-    for part, errs, row_name in (("fwd", errs_f, name), ("bwd", errs_b, f"{name}_bwd")):
+    for part, errs, row_name in (("fwd", errs_f, name), ("bwd", errs_b, bwd_name or f"{name}_bwd")):
         ms, plain_ms = times[part]
         b = bounds[part]
         print(f"kernel {row_name} ({what}): max_abs_err f32 {errs['f32']:.3e} bf16 {errs['bf16']:.3e} "
-              f"(tol {TOL if part == 'fwd' else GRAD_REL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}) bf16")
+              f"(tol {fwd_tol if part == 'fwd' else GRAD_REL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}) bf16")
         rows.append(_row(row_name, errs, ms, plain_ms, b))
     return rows
 
@@ -416,11 +451,12 @@ def loss_lengths(rng, batch: int):
 
 
 def phase_loss_kernels(dev) -> list[dict]:
-    """The loss kernels at the flagship loss shapes: the RNN-T DP (f32) and
-    the fused joint forward and backward (f32 and bf16)."""
+    """The loss kernels at the flagship loss shapes: the RNN-T DP (f32), the
+    fused joint forward and backward, and the unfused loss's two row kernels
+    (f32 and bf16)."""
     from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
     from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
-    from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
@@ -456,6 +492,74 @@ def phase_loss_kernels(dev) -> list[dict]:
     rows += _check_fwd_bwd("rnnt_fused_joint", stats(jk.joint_logprobs_kernel), stats(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
                            jk.rnnt_loss_fused_joint_plain_bwd, joint_make, lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, JOINT, VOCAB, elt, bwd),
                            what=f"train loss, [{TRAIN_B}, {T_ENC}, {u1}] cells, J {JOINT}, V {VOCAB}")
+
+    # the unfused loss's row kernels over materialised logits [16, 400, 129, 256]
+    def rows_make(dt):
+        logits = _randn(gen, (TRAIN_B, T_ENC, u1, VOCAB), 2.0, dt)
+        lpb, lpe, lse = logits_to_logprobs_plain(logits, labels)
+        _, gbl, gem = rnnt_loss_from_logprobs_plain(lpb, lpe, t_len, u_len)
+        g = torch.full((TRAIN_B,), 1.0 / TRAIN_B, device=dev)  # the masked mean's cotangent
+        return (logits, labels), (logits, lse, gbl, gem, labels, g)
+
+    rows += _check_fwd_bwd("rnnt_logprobs", stats(rk.logits_to_logprobs_kernel), stats(logits_to_logprobs_plain), lambda *a: (rk.dlogits_assemble_kernel(*a),),
+                           lambda *a: (dlogits_assemble_plain(*a),), rows_make,
+                           lambda elt, bwd: cost_rows(TRAIN_B * T_ENC * u1, VOCAB, TRAIN_B, TRAIN_U, elt, bwd),
+                           what=f"eval/pallas loss, logits [{TRAIN_B}, {T_ENC}, {u1}, {VOCAB}]", bwd_name="rnnt_dlogits", fwd_tol=ROWS_TOL)
+    return rows
+
+
+# the log-probability row kernel computes in f32 from the same inputs in either dtype: summation order only
+ROWS_TOL = {"f32": (1e-4, 1e-4), "bf16": (1e-4, 1e-4)}
+LSTM_B, LSTM_T, LSTM_H = TRAIN_B, TRAIN_U + 1, 320  # the prediction net at the flagship: U+1 = 129 steps, embedding = units = 320
+
+
+def phase_lstm_kernels(dev) -> list[dict]:
+    """The LSTM forward and backward kernels at the prediction net's flagship
+    shape (B 16, T 129, H 320), f32 and bf16, against their plain versions;
+    and cuDNN's ``torch.nn.LSTM`` over x [16, 129, 320] at the same shape as
+    the library yardstick (its time includes the x·Wx product, which the
+    kernel row's input xg already holds)."""
+    from tensorflowasr_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, t, h = LSTM_B, LSTM_T, LSTM_H
+
+    def make(dt):
+        xg, wh = _randn(gen, (b, t, 4 * h), 1.0, dt), _randn(gen, (h, 4 * h), h ** -0.5, dt)
+        h0, c0 = _randn(gen, (b, h), 0.3, dt), _randn(gen, (b, h), 0.3, dt)
+        _, cseq, gates = lk.lstm_fwd_plain(xg, wh, h0, c0)
+        dy, dc = _randn(gen, (b, t, h), 1.0 / b, dt), _randn(gen, (b, t, h), 0.1 / b, dt)
+        return (xg, wh, h0, c0), (gates, cseq, c0, wh, dy, dc)
+
+    def flat(fn):
+        return lambda *a: torch.cat([x.float().flatten() for x in fn(*a)])
+
+    rows = _check_fwd_bwd("lstm", flat(lk.lstm_fwd_kernel), flat(lk.lstm_fwd_plain), lk.lstm_bwd_kernel, lk.lstm_bwd_plain, make,
+                          lambda elt, bwd: cost_lstm(b, t, h, elt, bwd), what=f"pallas rnn, B {b} T {t} H {h}")
+    print(f"kernel lstm (pallas rnn): the chain bounds it: 2 x {t} dependent steps, one grid barrier each")
+    fargs, bargs = make(torch.bfloat16)
+    sweep = [f"{u}: fwd {time_ms(lambda: lk.lstm_fwd_kernel(*fargs, units=u)):.4f} ms, bwd {time_ms(lambda: lk.lstm_bwd_kernel(*bargs, units=u)):.4f} ms"
+             for u in (3, 4, 8)]
+    print(f"kernel lstm (pallas rnn) by hidden units per block, bf16: {'; '.join(sweep)} (the default takes {lk._units(h, dev, None)})")
+
+    library = {}
+    for tag, dt in DTYPES:
+        lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev, dt)
+        lstm.flatten_parameters()
+        x = _randn(gen, (b, t, h), 1.0, dt).requires_grad_(True)
+        try:
+            out, _ = lstm(x)
+        except RuntimeError as e:  # cuDNN's RNN may not take this dtype
+            print(f"library torch.nn.LSTM {tag}: not available ({str(e).splitlines()[0][:120]})")
+            continue
+        dout = torch.randn_like(out)
+        inputs = [x, *lstm.parameters()]
+        library[tag] = (time_ms(lambda: lstm(x)), time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)))
+        print(f"library torch.nn.LSTM (cuDNN) {tag}: x [{b}, {t}, {h}] forward {library[tag][0]:.4f} ms, backward {library[tag][1]:.4f} ms")
+    lib = library.get("bf16")
+    for row, part in zip(rows, (0, 1)):
+        row["library_ms"] = None if lib is None else lib[part]
+        row["library_ms_f32"] = library["f32"][part] if "f32" in library else None
     return rows
 
 
@@ -463,42 +567,54 @@ def phase_loss_kernels(dev) -> list[dict]:
 
 # launches per served request of the 16-block flagship: frontend once, one
 # attention per block, two FF modules per block, one conv module per block;
-# no backward kernel
-PER_REQUEST = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_rel_attention_bwd": 0, "fused_ff": 32, "fused_ff_bwd": 0,
-               "conv_front": 16, "conv_front_bwd": 0, "conv_back": 16, "conv_back_bwd": 0, "rnnt_dp": 0, "rnnt_fused_joint": 0,
-               "rnnt_fused_joint_bwd": 0}
-# per default (auto) training step: the same forwards, each encoder kernel's
-# backward once per forward, and the fused joint forward, the DP and the
-# fused joint backward once each
-PER_STEP = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_rel_attention_bwd": 16, "fused_ff": 32, "fused_ff_bwd": 32,
-            "conv_front": 16, "conv_front_bwd": 16, "conv_back": 16, "conv_back_bwd": 16, "rnnt_dp": 1, "rnnt_fused_joint": 1,
-            "rnnt_fused_joint_bwd": 1}
+# no backward kernel, no loss kernel, no sequence LSTM (decode steps the cell)
+ENCODER_FWD = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_ff": 32, "conv_front": 16, "conv_back": 16}
+ENCODER_BWD = {"fused_rel_attention_bwd": 16, "fused_ff_bwd": 32, "conv_front_bwd": 16, "conv_back_bwd": 16}
+KERNELS = ("log_mel_spectrogram", "fused_rel_attention", "fused_rel_attention_bwd", "fused_ff", "fused_ff_bwd", "conv_front", "conv_front_bwd",
+           "conv_back", "conv_back_bwd", "rnnt_dp", "rnnt_fused_joint", "rnnt_fused_joint_bwd", "rnnt_logprobs", "rnnt_dlogits", "lstm", "lstm_bwd")
+
+
+def _per(**counts) -> dict:
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+PER_REQUEST = _per(**ENCODER_FWD)
+# per default (auto) training step: the encoder's forwards, each one's
+# backward, and the fused joint forward, the DP and the fused joint backward once each
+PER_STEP = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_dp=1, rnnt_fused_joint=1, rnnt_fused_joint_bwd=1)
 # per xla step: the encoder's kernels; the loss is the plain DP over the logits
-PER_STEP_XLA = {**PER_STEP, "rnnt_dp": 0, "rnnt_fused_joint": 0, "rnnt_fused_joint_bwd": 0}
+PER_STEP_XLA = _per(**ENCODER_FWD, **ENCODER_BWD)
+# per eval step (default loss_impl): the encoder's forwards, the log-probability row kernel and the DP
+PER_EVAL = _per(**ENCODER_FWD, rnnt_logprobs=1, rnnt_dp=1)
+# per pallas step with rnn_impl="pallas": the unfused loss (log-probabilities, DP, d_logits) and the LSTM forward and backward
+PER_STEP_PALLAS = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_logprobs=1, rnnt_dp=1, rnnt_dlogits=1, lstm=1, lstm_bwd=1)
+# per auto step with rnn_impl="pallas": the default step's kernels and the LSTM forward and backward
+PER_STEP_AUTO_LSTM = {**PER_STEP, "lstm": 1, "lstm_bwd": 1}
 
 
 def launch_counts() -> dict:
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ff_kernel as fk, frontend_kernel as fek
-    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
 
     return {"log_mel_spectrogram": fek.launches, "fused_rel_attention": ak.launches, "fused_rel_attention_bwd": ak.bwd_launches, "fused_ff": fk.launches,
             "fused_ff_bwd": fk.bwd_launches, "conv_front": ck.front_launches, "conv_front_bwd": ck.front_bwd_launches, "conv_back": ck.back_launches,
-            "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches}
+            "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches,
+            "rnnt_logprobs": rk.logprobs_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches, "lstm_bwd": lk.bwd_launches}
 
 
 def reset_launch_counts() -> None:
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ff_kernel as fk, frontend_kernel as fek
-    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
 
     fek.launches = ak.launches = ak.bwd_launches = fk.launches = fk.bwd_launches = 0
     ck.front_launches = ck.front_bwd_launches = ck.back_launches = ck.back_bwd_launches = 0
-    rk.launches = jk.launches = jk.bwd_launches = 0
+    rk.launches = jk.launches = jk.bwd_launches = rk.logprobs_launches = rk.dlogits_launches = lk.launches = lk.bwd_launches = 0
 
 
-def flagship(dtype, device, num_blocks: int = 16, dropout: float = 0.1) -> torch.nn.Module:
+def flagship(dtype, device, num_blocks: int = 16, dropout: float = 0.1, rnn_impl: str = "auto") -> torch.nn.Module:
     from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_small_config
 
-    model = Conformer.from_config(conformer_small_config(num_blocks=num_blocks, dropout=dropout), dtype=dtype, device=device)
+    model = Conformer.from_config(conformer_small_config(num_blocks=num_blocks, dropout=dropout), dtype=dtype, device=device, rnn_impl=rnn_impl)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     return model
 
@@ -583,11 +699,12 @@ def train_batch(rng, batch: int, max_secs: float, max_u: int, vocab: int):
 TRAIN_STEPS, XLA_STEPS = 6, 2
 
 
-def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str):
+def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_impl: str = "auto"):
     """``steps`` flagship training steps through ``Trainer.train_step`` (bf16,
     dropout 0.1, Adam 1e-4, one fixed batch) with launch counts set to 0
     just before and read just after; each step's launches must equal
-    ``per_step``. Returns (counts, losses, walls, trainer, state, batch)."""
+    ``per_step``. Returns (counts, losses, walls, trainer, state, batch,
+    splits), ``splits`` the (forward, loss, backward+update) ms of each step."""
     from tensorflowasr_tpu_torch.training.trainer import Trainer
 
     events = {}
@@ -596,17 +713,18 @@ def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str):
         events[phase] = torch.cuda.Event(enable_timing=True)
         events[phase].record()
 
-    model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE)
+    model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE, rnn_impl=rnn_impl)
     trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev, on_phase=mark, loss_impl=loss_impl)
     state = trainer.init_state(seed=SEED)
     batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
     print(f"{tag} batch: {TRAIN_B} utterances, audio {batch.inputs.inputs_length.sum().item() / 16000:.2f} s "
           f"(lengths {batch.inputs.inputs_length.min().item() / 16000:.2f}-{batch.inputs.inputs_length.max().item() / 16000:.2f} s, array {TRAIN_SECS} s), "
-          f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U}); loss_impl {loss_impl!r}")
+          f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U}); loss_impl {loss_impl!r}, "
+          f"rnn_impl {rnn_impl!r}")
     torch.cuda.synchronize()
 
     reset_launch_counts()
-    losses, walls = [], []
+    losses, walls, splits = [], [], []
     for step in range(steps):
         before = launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -629,15 +747,17 @@ def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str):
             raise AssertionError(f"{tag} step {step}: non-finite loss {loss} or grad_norm {gnorm}")
         losses.append(loss)
         walls.append(wall)
+        splits.append((fwd, los, upd))
     counts = launch_counts()
     print(f"{tag} launches over {steps} steps: {counts} (per step {per_step})")
-    return counts, losses, walls, trainer, state, batch
+    return counts, losses, walls, trainer, state, batch, splits
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev):
     """The default (auto: fused joint+loss) flagship training step, 6 steps,
-    then one profiled step; then 2 steps of the xla configuration."""
-    counts, losses, walls, trainer, state, batch = run_train(dev, "auto", TRAIN_STEPS, PER_STEP, "train")
+    then one profiled step; then 2 steps of the xla configuration. Returns
+    the launch counts of both paths and the auto run's (losses, walls, splits)."""
+    counts, losses, walls, trainer, state, batch, splits = run_train(dev, "auto", TRAIN_STEPS, PER_STEP, "train")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall over {TRAIN_STEPS} steps: {losses}")
 
@@ -661,10 +781,76 @@ def phase_train(dev) -> dict:
     del trainer, state
 
     # the xla configuration stays driven: logits and the plain DP
-    _, xla_losses, _, _, _, _ = run_train(dev, "xla", XLA_STEPS, PER_STEP_XLA, "train xla")
+    xla_counts, xla_losses, *_ = run_train(dev, "xla", XLA_STEPS, PER_STEP_XLA, "train xla")
     if abs(xla_losses[0] - losses[0]) > 1e-2 * abs(losses[0]):
         raise AssertionError(f"first step loss: xla {xla_losses[0]} vs auto {losses[0]} (bf16, same weights and batch)")
+    return {"train": counts, "train_xla": xla_counts}, (losses, walls, splits)
+
+
+EVAL_STEPS, PALLAS_STEPS = 3, 2
+
+
+def phase_eval(dev) -> dict:
+    """Three flagship eval steps through ``Trainer.eval_step`` with the
+    default ``loss_impl`` (bf16, the training batch): the inference forward to
+    logits, the log-probability row kernel and the DP; wall, peak memory and
+    launches per step; the loss against the plain-DP (xla) eval of the same batch."""
+    from tensorflowasr_tpu_torch.training.trainer import Trainer, make_eval_step
+
+    model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE)
+    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev)
+    state = trainer.init_state(seed=SEED)
+    batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for step in range(EVAL_STEPS):
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = trainer.eval_step(state, batch)["loss"].item()
+        wall = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != PER_EVAL:
+            raise AssertionError(f"eval step {step}: kernel launches {delta}, expected {PER_EVAL}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"eval step {step}: non-finite loss {loss}")
+        print(f"eval step {step}: {wall:.1f} ms (host clock, ends in the loss's .item()); loss {loss:.6f}; "
+              f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+        losses.append(loss)
+    counts = launch_counts()
+    print(f"eval launches over {EVAL_STEPS} steps: {counts} (per step {PER_EVAL})")
+    t0 = time.perf_counter()
+    xla = make_eval_step(model, "xla")(state, batch)["loss"].item()
+    xla_wall = (time.perf_counter() - t0) * 1e3
+    if not abs(losses[0] - xla) <= 1e-5 * abs(xla):
+        raise AssertionError(f"eval loss: default (kernels) {losses[0]} vs xla (plain DP) {xla}")
+    print(f"eval loss default (row kernel + DP kernel) {losses[0]:.6f} vs xla (plain DP) {xla:.6f} (rel {abs(losses[0] - xla) / abs(xla):.2e}, "
+          f"tol 1e-5); the xla eval step took {xla_wall:.1f} ms")
     return counts
+
+
+def phase_pallas(dev, auto: tuple) -> dict:
+    """Two flagship steps of ``loss_impl="pallas"`` with ``rnn_impl="pallas"``
+    (the unfused loss and the LSTM kernels), the first loss within 1e-2 of
+    the auto step's; then two auto steps with ``rnn_impl="pallas"`` and the
+    split of their wall against the auto step's."""
+    auto_losses, auto_walls, auto_splits = auto
+    counts, losses, *_ = run_train(dev, "pallas", PALLAS_STEPS, PER_STEP_PALLAS, "train pallas", rnn_impl="pallas")
+    if abs(losses[0] - auto_losses[0]) > 1e-2 * abs(auto_losses[0]):
+        raise AssertionError(f"first step loss: pallas {losses[0]} vs auto {auto_losses[0]} (bf16, same weights and batch)")
+    lstm_counts, lstm_losses, walls, _, _, _, splits = run_train(dev, "auto", PALLAS_STEPS, PER_STEP_AUTO_LSTM, "train auto+lstm", rnn_impl="pallas")
+    if abs(lstm_losses[0] - auto_losses[0]) > 1e-2 * abs(auto_losses[0]):
+        raise AssertionError(f"first step loss: auto with the LSTM kernels {lstm_losses[0]} vs auto {auto_losses[0]}")
+
+    def median_split(w, sp):
+        return float(np.median(w[1:])), *(float(np.median([x[i] for x in sp[1:]])) for i in range(3))
+
+    a, k = median_split(auto_walls, auto_splits), median_split(walls, splits)
+    print(f"train auto step, median after the first: wall {a[0]:.1f} ms (forward {a[1]:.1f}, loss {a[2]:.1f}, backward+update {a[3]:.1f}) with the LSTM "
+          f"loop; {k[0]:.1f} ms (forward {k[1]:.1f}, loss {k[2]:.1f}, backward+update {k[3]:.1f}) with the LSTM kernels (rnn_impl 'pallas')")
+    return {"train_pallas": counts, "train_auto_lstm": lstm_counts}
 
 
 # f32, card vs CPU: summation-order differences (~1e-6 per op) compound over
@@ -690,47 +876,68 @@ def phase_parity(dev) -> None:
     print(f"parity f32 encoder card (kernels) vs CPU (plain): shape {tuple(enc_cpu.shape)} max_abs_err {err:.3e} (tol {PARITY_ATOL}), TF32 off")
 
 
-def phase_train_parity(dev) -> None:
-    """One f32 default (auto) training step's loss and gradients, card vs
-    CPU, 2 blocks at full width, batch 2 × ≤ 4 s, dropout 0; and on the card
-    the fused path's loss against the xla path's on the same batch."""
-    from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss_masked_mean
-    from tensorflowasr_tpu_torch.training.trainer import fused_joint_loss
+def _step_parity(dev, loss_impl: str, rnn_impl: str):
+    """One f32 training step's loss and gradients, card (kernels) vs CPU
+    (plain versions), 2 blocks at full width, batch 2 × ≤ 4 s, dropout 0.
+    Returns the card model and its batch."""
+    from tensorflowasr_tpu_torch.training.trainer import make_train_loss
 
-    cpu_model = flagship(torch.float32, "cpu", num_blocks=2, dropout=0.0)
+    cpu_model = flagship(torch.float32, "cpu", num_blocks=2, dropout=0.0, rnn_impl=rnn_impl)
     model = copy.deepcopy(cpu_model).to(dev)
     batch = train_batch(np.random.default_rng(SEED + 3), 2, 4.0, 32, cpu_model.vocab_size)
+    train_loss = make_train_loss(cpu_model, loss_impl)
     results = []
     for m, b in ((model, batch.to(dev)), (cpu_model, batch)):
-        loss = fused_joint_loss(m, b.inputs, b.labels)
+        loss = train_loss(m, b.inputs, b.labels)
         loss.backward()
         results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
+    what = f"f32 train parity ({loss_impl}, rnn_impl {rnn_impl})"
     if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
-        raise AssertionError(f"f32 train parity: loss card {loss_gpu} vs CPU {loss_cpu}")
+        raise AssertionError(f"{what}: loss card {loss_gpu} vs CPU {loss_cpu}")
     gmax = max(g.abs().max().item() for g in g_cpu.values())
     worst = worst_rel = (0.0, "")
     for name, ref in g_cpu.items():
         err, scale = (g_gpu[name] - ref).abs().max().item(), ref.abs().max().item()
         allowed = TRAIN_PARITY_REL * scale + TRAIN_PARITY_FLOOR * gmax
         if err > allowed:
-            raise AssertionError(f"f32 train parity {name}: max abs err {err} > {TRAIN_PARITY_REL} x {scale} + {TRAIN_PARITY_FLOOR} x {gmax}")
+            raise AssertionError(f"{what} {name}: max abs err {err} > {TRAIN_PARITY_REL} x {scale} + {TRAIN_PARITY_FLOOR} x {gmax}")
         worst = max(worst, (err / allowed, name))
         if scale > TRAIN_PARITY_FLOOR * gmax:
             worst_rel = max(worst_rel, (err / scale, name))
-    print(f"parity f32 train step (auto) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs {loss_cpu:.6f}; "
-          f"{len(g_cpu)} gradients within {TRAIN_PARITY_REL} of their scale + {TRAIN_PARITY_FLOOR} x {gmax:.3e} (largest share of that allowance "
-          f"{worst[0]:.3f} at {worst[1]}; largest error relative to scale among gradients above the floor {worst_rel[0]:.3e} at {worst_rel[1]}), TF32 off")
+    print(f"parity f32 train step ({loss_impl}, rnn_impl {rnn_impl}) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs "
+          f"{loss_cpu:.6f}; {len(g_cpu)} gradients within {TRAIN_PARITY_REL} of their scale + {TRAIN_PARITY_FLOOR} x {gmax:.3e} (largest share of that "
+          f"allowance {worst[0]:.3f} at {worst[1]}; largest error relative to scale among gradients above the floor {worst_rel[0]:.3e} at {worst_rel[1]}), "
+          f"TF32 off")
+    return model, batch.to(dev)
 
-    b = batch.to(dev)
+
+def phase_train_parity(dev) -> None:
+    """The f32 default (auto) step and the pallas step with the LSTM kernels,
+    card vs CPU; and on the card the fused path's loss and the unfused
+    (pallas) loss against the xla path's on the same batch and logits."""
+    from tensorflowasr_tpu_torch.ops.losses import get_rnnt_loss_fn
+    from tensorflowasr_tpu_torch.training.trainer import fused_joint_loss
+
+    model, b = _step_parity(dev, "auto", "auto")
     with torch.no_grad():
         out = model(b.inputs, train=True)
-        xla = rnnt_loss_masked_mean(out.logits, out.logits_length, b.labels.labels, b.labels.labels_length).item()
+        xla = get_rnnt_loss_fn("xla")(out.logits, out.logits_length, b.labels.labels, b.labels.labels_length).item()
         fused = fused_joint_loss(model, b.inputs, b.labels).item()
     if not abs(fused - xla) <= 1e-5 * abs(xla):
         raise AssertionError(f"f32 loss on the card: fused joint {fused} vs xla {xla}")
     print(f"parity f32 loss on the card, fused joint+loss (kernels) vs xla (logits, plain DP): {fused:.6f} vs {xla:.6f} "
           f"(rel {abs(fused - xla) / abs(xla):.2e}, tol 1e-5)")
+
+    model, b = _step_parity(dev, "pallas", "pallas")
+    with torch.no_grad():
+        out = model(b.inputs, train=True)
+        args = (out.logits, out.logits_length, b.labels.labels, b.labels.labels_length)
+        xla, pallas = get_rnnt_loss_fn("xla")(*args).item(), get_rnnt_loss_fn("pallas")(*args).item()
+    if not abs(pallas - xla) <= 1e-5 * abs(xla):
+        raise AssertionError(f"f32 loss on the card: pallas {pallas} vs xla {xla}")
+    print(f"parity f32 loss on the card, unfused pallas loss (row kernels + DP kernel) vs xla (plain DP) over the same logits: {pallas:.6f} vs "
+          f"{xla:.6f} (rel {abs(pallas - xla) / abs(xla):.2e}, tol 1e-5)")
 
 
 def main() -> int:
@@ -749,16 +956,22 @@ def main() -> int:
     print(f"build: {_build.build_seconds:.2f} s (nvcc, {len(_build.SOURCES)} sources compiled in parallel, one link)")
 
     serve_kernels = phase_kernels(dev)
-    rows = phase_train_kernels(dev)
-    serve_counts = phase_serve(dev)
-    train_counts = phase_train(dev)
+    rows = phase_train_kernels(dev) + phase_lstm_kernels(dev)
+    paths = {"serve": phase_serve(dev)}
+    train_paths, auto = phase_train(dev)
+    paths.update(train_paths)
+    paths["eval"] = phase_eval(dev)
+    paths.update(phase_pallas(dev, auto))
     for row in rows:
-        row["launches"] = train_counts[row["name"]]
-        row["serve_launches"] = serve_counts[row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         if row["name"] in serve_kernels:
             row["serve_ms"], row["serve_plain_ms"] = serve_kernels[row["name"]][2:]
         if row["launches"] == 0:
-            raise AssertionError(f"{row['name']}: no launch on the training path")
+            raise AssertionError(f"{row['name']}: no launch on any driven path")
+    if {row["name"] for row in rows} != set(KERNELS):
+        raise AssertionError(f"kernel rows {sorted(row['name'] for row in rows)} differ from the counted kernels {sorted(KERNELS)}")
+    print("launches by path (" + ", ".join(paths) + "): " + "; ".join(f"{row['name']} {list(row['launches_by_path'].values())}" for row in rows))
     phase_parity(dev)
     phase_train_parity(dev)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -32,7 +32,8 @@ JOINT_MODES = ("add", "mul")
 
 class TransducerPrediction(nn.Module):
     def __init__(self, blank: int, vocab_size: int, label_encoder_mode: str = "embedding", embed_dim: int = 0, num_rnns: int = 1, rnn_units: int = 512,
-                 rnn_type: str = "lstm", rnn_unroll: bool = False, layer_norm: bool = True, projection_units: int = 0, dtype=torch.float32):
+                 rnn_type: str = "lstm", rnn_unroll: bool = False, layer_norm: bool = True, projection_units: int = 0, dtype=torch.float32,
+                 rnn_impl: str = "auto"):
         super().__init__()
         if label_encoder_mode != "embedding":
             raise NotImplementedError(f"label_encoder_mode {label_encoder_mode!r} is not ported yet")
@@ -41,7 +42,7 @@ class TransducerPrediction(nn.Module):
         self.embedding = Embedding(vocab_size, embed_dim, dtype)
         dim = embed_dim
         for i in range(num_rnns):
-            self.add_module(f"rnn_{i}", RNN(dim, rnn_units, rnn_type, dtype))
+            self.add_module(f"rnn_{i}", RNN(dim, rnn_units, rnn_type, dtype, rnn_impl))
             dim = rnn_units
             if layer_norm:
                 self.add_module(f"ln_{i}", LayerNorm(rnn_units, dtype=dtype))
@@ -111,10 +112,12 @@ class TransducerJoint(nn.Module):
 class Transducer(nn.Module):
     """Generic transducer; subclasses provide ``make_encoder``. Built on
     ``device`` (None: the CUDA card, raising without one; ``"cpu"`` runs the
-    kernels' plain versions)."""
+    kernels' plain versions). ``rnn_impl`` selects the prediction net's
+    sequence LSTM (``models/layers/rnn.py``: ``"auto"``, ``"xla"`` or
+    ``"pallas"``, the JAX package's ``TFASR_RNN_IMPL``)."""
 
     def __init__(self, speech_config: dict, encoder_config: dict, prediction_config: dict, joint_config: dict, blank: int = 0, vocab_size: int = 1000,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, rnn_impl: str = "auto"):
         super().__init__()
         dev = device_util.resolve(device)
         self.blank, self.vocab_size, self.dtype = blank, vocab_size, dtype
@@ -122,7 +125,7 @@ class Transducer(nn.Module):
         self.prediction_config, self.joint_config = dict(prediction_config), dict(joint_config)
         self.feature_extraction = FeatureExtraction(dtype=dtype, **self.speech_config)
         self.encoder = self.make_encoder()
-        self.prediction = TransducerPrediction(blank=blank, vocab_size=vocab_size, dtype=dtype, **self.prediction_config)
+        self.prediction = TransducerPrediction(blank=blank, vocab_size=vocab_size, dtype=dtype, rnn_impl=rnn_impl, **self.prediction_config)
         pc = self.prediction_config
         pred_dim = pc.get("projection_units", 0) or pc.get("rnn_units", 512)
         self.joint = TransducerJoint(vocab_size, self.encoder_output_dim, pred_dim, dtype=dtype, **self.joint_config)

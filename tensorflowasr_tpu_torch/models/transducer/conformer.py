@@ -63,8 +63,9 @@ class Conformer(Transducer):
         return self.encoder_config.get("dmodel", 144)
 
     @classmethod
-    def from_config(cls, config: dict, vocab_size: int | None = None, dtype=torch.float32, device=None) -> "Conformer":
-        """Build from a reference-style config dict on ``device`` (None: the CUDA card)."""
+    def from_config(cls, config: dict, vocab_size: int | None = None, dtype=torch.float32, device=None, rnn_impl: str = "auto") -> "Conformer":
+        """Build from a reference-style config dict on ``device`` (None: the
+        CUDA card), with the prediction net's LSTM as ``rnn_impl`` selects."""
         enc = filter_kwargs(strip_prefix(config, "encoder_"), _ENC_KEYS)
         return cls(
             speech_config=dict(config.get("speech_config", {})),
@@ -75,4 +76,5 @@ class Conformer(Transducer):
             vocab_size=vocab_size or config.get("vocab_size", 1000),
             dtype=dtype,
             device=device,
+            rnn_impl=rnn_impl,
         )

@@ -28,7 +28,7 @@ import torch
 
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel
-from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain
+from tensorflowasr_tpu_torch.ops.rnnt_loss import labels_per_cell, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
 
 launches = 0  # forward (joint statistics) kernel launches since the last reset (set to 0 to reset)
 bwd_launches = 0  # backward kernel launches since the last reset
@@ -42,12 +42,6 @@ def _activations(enc_p: torch.Tensor, pred_p: torch.Tensor) -> torch.Tensor:
     return torch.tanh(enc_p[:, :, None, :] + pred_p[:, None, :, :])
 
 
-def _labels_per_cell(labels: torch.Tensor, u1: int) -> torch.Tensor:
-    """[B, U] → [B, U+1] int64 with −1 at u = U (no label to emit there)."""
-    lab = labels.to(torch.int64)
-    return torch.cat([lab, torch.full((lab.shape[0], 1), -1, dtype=torch.int64, device=lab.device)], dim=1)[:, :u1]
-
-
 def _logits(a: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor) -> torch.Tensor:
     """a in wv's dtype times wvᵀ, accumulated in f32, plus f32 bv: [B, T, U+1, V] f32."""
     return torch.matmul(a.float(), wv.float().t()) + bv.float()
@@ -55,12 +49,7 @@ def _logits(a: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor) -> torch.Tensor
 
 def joint_logprobs_plain(enc_p, pred_p, wv, bv, labels):
     """(lp_blank, lp_emit, lse) [B, T, U+1] f32 of the joint's logits; lp_emit is LOG_0 at u = U."""
-    logits = _logits(_activations(enc_p, pred_p), wv, bv)
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = _labels_per_cell(labels, logits.shape[2])
-    sel = torch.gather(logits, 3, lab.clamp(min=0)[:, None, :, None].expand(*logits.shape[:3], 1))[..., 0]
-    lpe = torch.where(lab[:, None, :] >= 0, sel - lse, torch.full((), LOG_0, device=logits.device))
-    return logits[..., 0] - lse, lpe, lse
+    return logits_to_logprobs_plain(_logits(_activations(enc_p, pred_p), wv, bv), labels)
 
 
 def rnnt_loss_fused_joint_plain(enc_p, pred_p, wv, bv, logit_length, labels, label_length):
@@ -81,7 +70,7 @@ def rnnt_loss_fused_joint_plain_bwd(enc_p, pred_p, wv, bv, labels, lse, gbl, gem
     logits = _logits(a, wv, bv)
     gsum = (gbl + gem)[..., None]
     v_idx = torch.arange(logits.shape[-1], device=logits.device)
-    lab = _labels_per_cell(labels, logits.shape[2])[:, None, :, None]
+    lab = labels_per_cell(labels, logits.shape[2])[:, None, :, None]
     zero = torch.zeros((), device=logits.device)
     dlog = (torch.where(v_idx == 0, gbl[..., None], zero) + torch.where(v_idx == lab, gem[..., None], zero)
             - torch.exp(logits - lse[..., None]) * gsum)

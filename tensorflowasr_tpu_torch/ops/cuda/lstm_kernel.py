@@ -1,0 +1,207 @@
+"""Whole-sequence LSTM layer, forward and backward (``csrc/lstm.cu``).
+
+Replaces ``tensorflowasr_tpu/ops/pallas/lstm_kernel.py``: :func:`lstm_core`
+(the recurrence over a full sequence, ``_fwd_kernel`` and ``_bwd_kernel``
+under a ``custom_vjp``) and :func:`lstm_layer_fused` (the input
+projection as one matrix product, the recurrence, and JAX's fused-path
+length semantics). Gate order i, f, g, o; ``c' = σ(f)·c + σ(i)·tanh(g)``,
+``h' = σ(o)·tanh(c')``, flax ``OptimizedLSTMCell``'s.
+
+The forward saves the activated gates and the cell sequence (no
+recompute); the backward runs BPTT over them and returns d(pre-activation)
+``dxg`` in f32 with dh0 and dc0; the weight gradient ``hprevᵀ·dxg`` over
+all B·T rows is one f32 matrix product outside the kernels, as JAX leaves
+it to XLA. h (and the backward's dxg row) enters the recurrent product
+rounded to the input dtype, with f32 accumulation; the carries stay f32;
+y, cseq and the gates are stored in the input dtype; cotangents come back
+in the primal dtypes.
+
+What bounds the kernels on the card: the chain of T dependent steps each
+way, one grid-wide barrier per step (``csrc/lstm.cu``), not the recurrent
+products (1.7 GFLOP at B 16, T 129, H 320) or their ~13 MB of traffic.
+The plain versions (:func:`lstm_fwd_plain`, :func:`lstm_bwd_plain`) repeat
+the kernels' arithmetic as Python loops over the steps.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tensorflowasr_tpu_torch.ops.cuda import _build
+
+launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
+bwd_launches = 0  # backward kernel launches since the last reset
+
+MAX_UNITS = 8  # csrc/lstm.cu: hidden units per block; the grid holds ceil(H / units) co-resident blocks
+
+
+def _split(g: torch.Tensor):
+    return g.chunk(4, dim=-1)
+
+
+def lstm_fwd_plain(xg: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+    """(y, cseq [B, T, H], gates [B, T, 4H]) in xg's dtype from xg [B, T, 4H],
+    wh [H, 4H], h0, c0 [B, H], all in one dtype (JAX ``_fwd_kernel``)."""
+    dt = xg.dtype
+    whf = wh.float()
+    h, c = h0.float(), c0.float()
+    ys, cs, gs = [], [], []
+    for t in range(xg.shape[1]):
+        a = xg[:, t].float() + h.to(dt).float() @ whf
+        ai, af, ag, ao = _split(a)
+        ig, fg, gg, og = torch.sigmoid(ai), torch.sigmoid(af), torch.tanh(ag), torch.sigmoid(ao)
+        c = fg * c + ig * gg
+        h = og * torch.tanh(c)
+        ys.append(h.to(dt))
+        cs.append(c.to(dt))
+        gs.append(torch.cat([ig, fg, gg, og], dim=-1).to(dt))
+    return torch.stack(ys, 1), torch.stack(cs, 1), torch.stack(gs, 1)
+
+
+def lstm_bwd_plain(gates: torch.Tensor, cseq: torch.Tensor, c0: torch.Tensor, wh: torch.Tensor, dy: torch.Tensor, dcseq: torch.Tensor):
+    """(dxg [B, T, 4H], dh0, dc0 [B, H]) in f32: BPTT over the saved gates and
+    cell sequence (JAX ``_bwd_kernel``), given the cotangents dy, dcseq of
+    y and cseq. The recurrent product takes dxg rounded to the saved dtype."""
+    dt = cseq.dtype
+    whf = wh.float()
+    dh = dc = torch.zeros(cseq.shape[0], cseq.shape[2], device=cseq.device)
+    dxg = []
+    for t in range(cseq.shape[1] - 1, -1, -1):
+        ig, fg, gg, og = _split(gates[:, t].float())
+        tc = torch.tanh(cseq[:, t].float())
+        dh = dy[:, t].float() + dh
+        do = dh * tc
+        dct = dh * og * (1.0 - tc * tc) + dc + dcseq[:, t].float()
+        cprev = (cseq[:, t - 1] if t > 0 else c0.to(dt)).float()
+        da = torch.cat([dct * gg * ig * (1.0 - ig), dct * cprev * fg * (1.0 - fg), dct * ig * (1.0 - gg * gg), do * og * (1.0 - og)], dim=-1)
+        dxg.append(da)
+        dh = da.to(dt).float() @ whf.t()
+        dc = dct * fg
+    return torch.stack(dxg[::-1], 1), dh, dc
+
+
+def weight_grad(y: torch.Tensor, h0: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
+    """dWh [H, 4H] f32 = hprevᵀ·dxg over all B·T rows, hprev = (h0, y[:, :-1]) in y's dtype."""
+    hprev = torch.cat([h0.to(y.dtype)[:, None], y[:, :-1]], dim=1).float()
+    return hprev.reshape(-1, hprev.shape[-1]).t() @ dxg.reshape(-1, dxg.shape[-1])
+
+
+def _units(h: int, dev: torch.device, units: int | None) -> int:
+    """Hidden units per block: ``units``, or by default the fewest that keep
+    the grid of ceil(H / units) co-resident blocks within one block per SM
+    (3 at H 320 on 132 SMs; each block's product phase grows with its units)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    units = units or -(-h // sms)
+    if units > MAX_UNITS or -(-h // units) > sms:
+        raise ValueError(f"H = {h} at {units} hidden units per block needs {-(-h // units)} blocks on {sms} SMs; the kernel takes at most "
+                         f"{MAX_UNITS} units per block and one block per SM")
+    return units
+
+
+def _check(xg, wh, h0, c0, units=None):
+    if xg.dim() != 3 or xg.shape[2] % 4:
+        raise ValueError("xg must be [B, T, 4H]")
+    b, t, g4 = xg.shape
+    h = g4 // 4
+    code = _build.compute_dtype(xg, "xg")
+    for name, x, shape in (("xg", xg, (b, t, g4)), ("wh", wh, (h, g4)), ("h0", h0, (b, h)), ("c0", c0, (b, h))):
+        _build.require(x, name, device=xg.device, dtype=xg.dtype, shape=shape)
+    if b * t * h == 0:
+        raise ValueError(f"empty LSTM input [B, T, 4H] = {tuple(xg.shape)}")
+    return b, t, h, code, _units(h, xg.device, units)
+
+
+def lstm_fwd_kernel(xg, wh, h0, c0, units: int | None = None):
+    """The forward kernel on CUDA tensors: (y, cseq, gates) as :func:`lstm_fwd_plain`.
+    ``units``: hidden units per block (default as :func:`_units` picks)."""
+    global launches
+    b, t, h, code, units = _check(xg, wh, h0, c0, units)
+    y, cseq = torch.empty((b, t, h), dtype=xg.dtype, device=xg.device), torch.empty((b, t, h), dtype=xg.dtype, device=xg.device)
+    gates = torch.empty_like(xg)
+    counter = torch.zeros(1, dtype=torch.int32, device=xg.device)
+    vec = int(h * xg.element_size() % 16 == 0 and h0.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)  # 16-byte loads of h rows
+    lib = _build.build()
+    with torch.cuda.device(xg.device):
+        err = lib.tfasr_lstm_fwd(xg.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(), cseq.data_ptr(), gates.data_ptr(),
+                                 counter.data_ptr(), b, t, h, units, code, vec, _build.stream_of(xg))
+    _build.check(err, "lstm_fwd")
+    launches += 1
+    return y, cseq, gates
+
+
+def lstm_bwd_kernel(gates, cseq, c0, wh, dy, dcseq, units: int | None = None):
+    """The backward kernel on CUDA tensors: (dxg, dh0, dc0) as :func:`lstm_bwd_plain`.
+    ``units`` as :func:`lstm_fwd_kernel`."""
+    global bwd_launches
+    b, t, h, code, units = _check(gates, wh, c0, c0, units)
+    _build.require(cseq, "cseq", device=gates.device, dtype=gates.dtype, shape=(b, t, h))
+    dy, dcseq = dy.float().contiguous(), dcseq.float().contiguous()
+    for name, x in (("dy", dy), ("dcseq", dcseq)):
+        _build.require(x, name, device=gates.device, dtype=torch.float32, shape=(b, t, h))
+    f32 = dict(dtype=torch.float32, device=gates.device)
+    dxg, dh0, dc0 = torch.empty((b, t, 4 * h), **f32), torch.empty((b, h), **f32), torch.empty((b, h), **f32)
+    counter = torch.zeros(1, dtype=torch.int32, device=gates.device)
+    lib = _build.build()
+    with torch.cuda.device(gates.device):
+        err = lib.tfasr_lstm_bwd(dy.data_ptr(), dcseq.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), wh.data_ptr(), dxg.data_ptr(),
+                                 dh0.data_ptr(), dc0.data_ptr(), counter.data_ptr(), b, t, h, units, code, _build.stream_of(gates))
+    _build.check(err, "lstm_bwd")
+    bwd_launches += 1
+    return dxg, dh0, dc0
+
+
+class _LSTMCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xg, wh, h0, c0):
+        dt = xg.dtype
+        whc, h0c, c0c = wh.to(dt).contiguous(), h0.to(dt).contiguous(), c0.to(dt).contiguous()
+        fwd = lstm_fwd_plain if xg.device.type == "cpu" else lstm_fwd_kernel
+        y, cseq, gates = fwd(xg.contiguous(), whc, h0c, c0c)
+        ctx.save_for_backward(y, cseq, gates, whc, h0c, c0c)
+        ctx.dtypes = (xg.dtype, wh.dtype, h0.dtype, c0.dtype)
+        return y, cseq
+
+    @staticmethod
+    def backward(ctx, dy, dcseq):
+        y, cseq, gates, whc, h0c, c0c = ctx.saved_tensors
+        bwd = lstm_bwd_plain if y.device.type == "cpu" else lstm_bwd_kernel
+        dxg, dh0, dc0 = bwd(gates, cseq, c0c, whc, dy, dcseq)
+        dwh = weight_grad(y, h0c, dxg)
+        return tuple(g.to(dt) for g, dt in zip((dxg, dwh, dh0, dc0), ctx.dtypes))
+
+
+def lstm_core(xg: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+    """The LSTM recurrence over a full sequence (JAX argument order minus
+    ``interpret``): xg [B, T, 4H] = x·Wx + b (gate order i, f, g, o), wh
+    [H, 4H], h0, c0 [B, H]. Returns (y, cseq) [B, T, H] in xg's dtype: the
+    hidden and cell sequences. Differentiable in all four inputs. A CUDA
+    tensor launches the kernels; a CPU tensor takes the plain versions."""
+    if xg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LSTM kernel for device {xg.device}")
+    return _LSTMCore.apply(xg, wh, h0, c0)
+
+
+def lstm_layer_fused(x: torch.Tensor, weight_ih: torch.Tensor, weight_hh: torch.Tensor, bias: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                     lengths: torch.Tensor | None = None, dtype=torch.float32):
+    """A full LSTM layer on the port's ``LSTMCell`` parameters (weight_ih
+    [4H, E], weight_hh [4H, H], bias [4H] on the hidden side): xg = x·Wx + b
+    as one product in ``dtype`` (the weights and bias cast to it first, as
+    JAX does), then :func:`lstm_core`. Returns (y [B, T, H], (c_T, h_T)).
+
+    JAX's fused semantics, not flax's scan's: with ``lengths``, outputs
+    past each row's length are 0, the final carry is the one at
+    ``length − 1``, and a row of length 0 keeps (c0, h0)."""
+    wx, wh, b = weight_ih.t().to(dtype), weight_hh.t().to(dtype), bias.to(dtype)
+    xg = torch.matmul(x.to(dtype), wx) + b
+    y, cseq = lstm_core(xg, wh, h0.to(dtype), c0.to(dtype))
+    if lengths is None:
+        return y, (cseq[:, -1], y[:, -1])
+    t = x.shape[1]
+    lens = lengths.to(x.device, torch.int64)
+    steps = torch.arange(t, device=x.device)[None, :]
+    onehot = (steps == (lens - 1)[:, None]).to(y.dtype)
+    empty = (lens == 0)[:, None]
+    zero = torch.zeros((), dtype=y.dtype, device=x.device)
+    h_t = torch.einsum("bt,bth->bh", onehot, y) + torch.where(empty, h0.to(y.dtype), zero)
+    c_t = torch.einsum("bt,bth->bh", onehot, cseq) + torch.where(empty, c0.to(y.dtype), zero)
+    return torch.where((steps < lens[:, None])[..., None], y, zero), (c_t, h_t)

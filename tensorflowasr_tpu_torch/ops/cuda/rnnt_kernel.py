@@ -1,17 +1,27 @@
-"""RNN-T loss over per-cell log-probabilities, with its gradients
-(``csrc/rnnt_dp.cu``).
+"""The RNN-T loss kernels: the DP over per-cell log-probabilities
+(``csrc/rnnt_dp.cu``) and, for the unfused loss over materialised logits,
+the two row kernels around it (``csrc/rnnt_rows.cu``).
 
-Replaces ``tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:rnnt_loss_from_logprobs``
+The DP replaces ``tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:rnnt_loss_from_logprobs``
 (the α/β anti-diagonal DP kernel, ``_rnnt_kernel``): the loss per row and,
 in the same call, the gradients ``gbl``/``gem`` of the loss with respect
 to ``lp_blank``/``lp_emit`` in natural (t, u) coordinates. The autograd
 backward only scales them by the upstream cotangent, as the JAX VJP
-(``_rnnt_bwd``) does.
+(``_rnnt_bwd``) does. What bounds it on the card: the chain of dependent
+diagonals (2·(T_b+U_b) barriers per row, one block per row), not the 13 MB
+it reads and writes at the flagship (B 16, T 400, U+1 129).
+:func:`rnnt_loss_from_logprobs_plain` (``ops/rnnt_loss.py``) is its plain twin.
 
-What bounds it on the card: the chain of dependent diagonals (2·(T_b+U_b)
-barriers per row, one block per row), not the 13 MB it reads and writes at
-the flagship (B 16, T 400, U+1 129). :func:`rnnt_loss_from_logprobs_plain`
-(``ops/rnnt_loss.py``) is its plain twin.
+:func:`rnnt_loss_pallas` replaces the JAX ``rnnt_loss_pallas`` and its
+``custom_vjp``: the forward turns the logits [B, T, U+1, V] into
+lp_blank, lp_emit and lse (``_logits_to_logprobs``; one warp per lattice
+cell) and runs the DP on them directly, in natural coordinates (no skew);
+it keeps the logits in their own dtype, lse, gbl and gem for the backward,
+which assembles the dense d_logits in the logits' dtype
+(``_dlogits_assemble``). Both row kernels are bound by bytes: 423 MB of
+bf16 logits read at the flagship (0.13 ms at 3.35 TB/s), and as much again
+written by the backward. :func:`logits_to_logprobs_plain` and
+:func:`dlogits_assemble_plain` are their plain twins.
 """
 
 from __future__ import annotations
@@ -19,9 +29,11 @@ from __future__ import annotations
 import torch
 
 from tensorflowasr_tpu_torch.ops.cuda import _build
-from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss_from_logprobs_plain
+from tensorflowasr_tpu_torch.ops.rnnt_loss import dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0  # DP kernel launches since the last reset (set to 0 to reset)
+logprobs_launches = 0  # log-probability row kernel launches
+dlogits_launches = 0  # d_logits row kernel launches
 
 MAX_U1 = 1024  # one thread per label position
 
@@ -86,3 +98,85 @@ def rnnt_loss_from_logprobs(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit
     order minus ``interpret``. A CUDA tensor launches the kernel; a CPU
     tensor takes the plain version."""
     return _RnntLossFromLogprobs.apply(lp_blank, lp_emit, logit_length, label_length)
+
+
+def _check_logits(logits: torch.Tensor, labels: torch.Tensor):
+    if logits.dim() != 4:
+        raise ValueError("logits must be [B, T, U+1, V]")
+    b, t, u1, v = logits.shape
+    code = _build.compute_dtype(logits, "logits")
+    _build.require(logits, "logits", device=logits.device, dtype=logits.dtype, shape=(b, t, u1, v))
+    if tuple(labels.shape) != (b, u1 - 1):
+        raise ValueError(f"labels: shape {tuple(labels.shape)}, expected {(b, u1 - 1)}")
+    # 16-byte loads need 16-byte aligned rows; other rows take the kernel's one-element loads
+    vec = int(logits.data_ptr() % 16 == 0 and v * logits.element_size() % 16 == 0)
+    return b, t, u1, v, code, vec, labels.to(logits.device, torch.int32).contiguous()
+
+
+def logits_to_logprobs_kernel(logits: torch.Tensor, labels: torch.Tensor):
+    """The log-probability row kernel on CUDA tensors: (lp_blank, lp_emit, lse) as :func:`logits_to_logprobs_plain`."""
+    global logprobs_launches
+    b, t, u1, v, code, vec, lab = _check_logits(logits, labels)
+    lpb, lpe, lse = (torch.empty((b, t, u1), dtype=torch.float32, device=logits.device) for _ in range(3))
+    if b * t * u1 == 0:
+        return lpb, lpe, lse
+    lib = _build.build()
+    with torch.cuda.device(logits.device):
+        err = lib.tfasr_rnnt_logprobs(logits.data_ptr(), lab.data_ptr(), lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), b, t, u1, v, code, vec,
+                                      _build.stream_of(logits))
+    _build.check(err, "rnnt_logprobs")
+    logprobs_launches += 1
+    return lpb, lpe, lse
+
+
+def dlogits_assemble_kernel(logits, lse, gbl, gem, labels, g):
+    """The d_logits row kernel on CUDA tensors: as :func:`dlogits_assemble_plain`."""
+    global dlogits_launches
+    b, t, u1, v, code, vec, lab = _check_logits(logits, labels)
+    for name, x in (("lse", lse), ("gbl", gbl), ("gem", gem)):
+        _build.require(x, name, device=logits.device, dtype=torch.float32, shape=(b, t, u1))
+    gs = g.to(logits.device, torch.float32).contiguous()
+    _build.require(gs, "g", device=logits.device, dtype=torch.float32, shape=(b,))
+    out = torch.empty_like(logits)
+    if b * t * u1 == 0:
+        return out
+    lib = _build.build()
+    with torch.cuda.device(logits.device):
+        err = lib.tfasr_rnnt_dlogits(logits.data_ptr(), lse.data_ptr(), gbl.data_ptr(), gem.data_ptr(), lab.data_ptr(), gs.data_ptr(), out.data_ptr(),
+                                     b, t, u1, v, code, vec, _build.stream_of(logits))
+    _build.check(err, "rnnt_dlogits")
+    dlogits_launches += 1
+    return out
+
+
+class _RnntLossPallas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, logit_length, labels, label_length):
+        if logits.device.type == "cpu":
+            lpb, lpe, lse = logits_to_logprobs_plain(logits, labels)
+            loss, gbl, gem = rnnt_loss_from_logprobs_plain(lpb, lpe, logit_length, label_length)
+        else:
+            lpb, lpe, lse = logits_to_logprobs_kernel(logits, labels)
+            loss, gbl, gem = rnnt_dp_kernel(lpb, lpe, logit_length, label_length)
+        ctx.save_for_backward(logits, lse, gbl, gem, labels)  # the logits in their own dtype, no f32 copy
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, gbl, gem, labels = ctx.saved_tensors
+        assemble = dlogits_assemble_plain if logits.device.type == "cpu" else dlogits_assemble_kernel
+        return assemble(logits, lse, gbl, gem, labels, g), None, None, None
+
+
+def rnnt_loss_pallas(logits: torch.Tensor, logit_length: torch.Tensor, labels: torch.Tensor, label_length: torch.Tensor, blank: int = 0) -> torch.Tensor:
+    """Per-row RNN-T loss [B] f32 from joint logits [B, T, U+1, V] (f32 or
+    bf16), labels [B, U] and lengths [B] (1 ≤ T_b ≤ T, 0 ≤ U_b ≤ U);
+    differentiable in the logits, whose gradient comes back in their dtype.
+    JAX argument order minus ``interpret``. A CUDA tensor launches the
+    kernels (log-probabilities and DP forward, d_logits under autograd); a
+    CPU tensor takes the plain versions."""
+    if blank != 0:
+        raise ValueError("blank is fixed to 0 (reference parity)")
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no RNN-T loss kernel for device {logits.device}")
+    return _RnntLossPallas.apply(logits, logit_length, labels, label_length)

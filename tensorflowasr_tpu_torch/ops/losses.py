@@ -1,0 +1,42 @@
+"""RNN-T loss dispatch (counterpart of ``tensorflowasr_tpu/ops/losses.py``).
+
+``loss_impl`` takes the values of the JAX package's ``TFASR_LOSS_IMPL``, as
+an argument instead of an environment variable. For a loss over
+materialised logits (the evaluation step, and the training steps that do
+not take the fused joint+loss):
+
+- ``"xla"``: the plain anti-diagonal DP with autograd (``ops/rnnt_loss.py:rnnt_loss``);
+- ``"auto"`` (the default), ``"fused-joint"`` and ``"pallas"``: the
+  unfused Pallas loss (``ops/cuda/rnnt_kernel.py:rnnt_loss_pallas``: the
+  log-probability row kernel, the DP kernel, and the d_logits row kernel
+  in the backward).
+
+The CTC losses are not ported yet.
+"""
+
+from __future__ import annotations
+
+from tensorflowasr_tpu_torch.ops.cuda.rnnt_kernel import rnnt_loss_pallas
+from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss, sanitize_lengths, valid_mean
+
+LOSS_IMPLS = ("auto", "fused-joint", "xla", "pallas")
+
+
+def masked_mean(loss_fn):
+    """Batch mean over valid rows only: rows with ``logit_length <= 0`` are
+    left out, and the lengths are sanitised first (:func:`sanitize_lengths`)
+    so the per-row DP stays finite."""
+
+    def fn(logits, logit_length, labels, label_length, blank: int = 0):
+        valid, safe_t, safe_u = sanitize_lengths(logit_length.to(logits.device), label_length, logits.shape[1])
+        return valid_mean(loss_fn(logits, safe_t, labels, safe_u, blank), valid)
+
+    fn.__name__ = f"{getattr(loss_fn, '__name__', 'loss')}_masked_mean"
+    return fn
+
+
+def get_rnnt_loss_fn(loss_impl: str = "auto"):
+    """The masked-mean RNN-T loss over logits for ``loss_impl``."""
+    if loss_impl not in LOSS_IMPLS:
+        raise ValueError(f"loss_impl {loss_impl!r} is not one of {LOSS_IMPLS}")
+    return masked_mean(rnnt_loss if loss_impl == "xla" else rnnt_loss_pallas)

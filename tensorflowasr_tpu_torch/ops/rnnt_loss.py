@@ -1,7 +1,9 @@
 """RNN-T (transducer) loss: the anti-diagonal DP in log space (counterpart
 of ``tensorflowasr_tpu/ops/rnnt_loss.py``, the JAX ``TFASR_LOSS_IMPL=xla``
-loss), the batch mean over valid rows (``ops/losses.py:masked_mean``), and
-the plain version of the DP kernel over log-probabilities.
+loss), the length sanitation of the batch mean over valid rows
+(``ops/losses.py:masked_mean``), and the plain versions of the unfused
+Pallas loss's kernels: the DP over log-probabilities and the two row
+passes over the logits.
 
 :func:`rnnt_loss` is plain PyTorch with autograd: one Python step per
 anti-diagonal (T+U−1 steps), each vectorised over the batch and the label
@@ -11,7 +13,9 @@ through the JAX scan does. It is the ``xla`` configuration's loss.
 :func:`rnnt_loss_from_logprobs_plain` is the plain version of the DP kernel
 (``ops/cuda/rnnt_kernel.py``, the JAX ``rnnt_kernel.py``): α forward along
 the anti-diagonals, then β backward with the occupancy gradients of the
-log-probabilities, explicit, not autograd.
+log-probabilities, explicit, not autograd. :func:`logits_to_logprobs_plain`
+and :func:`dlogits_assemble_plain` are the plain versions of the row
+kernels around it (``csrc/rnnt_rows.cu``).
 
 Conventions (reference parity): blank is 0; ``logits`` are the joint
 outputs [B, T, U+1, V]; bf16 logits are cast to f32 for the DP.
@@ -180,15 +184,38 @@ def valid_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, per, torch.zeros((), device=per.device)).sum() / valid.float().sum().clamp(min=1.0)
 
 
-def masked_mean(loss_fn):
-    """Batch mean over valid rows only, lengths sanitised first (:func:`sanitize_lengths`)."""
-
-    def fn(logits, logit_length, labels, label_length, blank: int = 0):
-        valid, safe_t, safe_u = sanitize_lengths(logit_length.to(logits.device), label_length, logits.shape[1])
-        return valid_mean(loss_fn(logits, safe_t, labels, safe_u, blank), valid)
-
-    fn.__name__ = f"{getattr(loss_fn, '__name__', 'loss')}_masked_mean"
-    return fn
+def labels_per_cell(labels: torch.Tensor, u1: int) -> torch.Tensor:
+    """[B, U] → [B, U+1] int64 with −1 at u = U (no label left to emit there)."""
+    lab = labels.to(torch.int64)
+    return torch.cat([lab, torch.full((lab.shape[0], 1), -1, dtype=torch.int64, device=lab.device)], dim=1)[:, :u1]
 
 
-rnnt_loss_masked_mean = masked_mean(rnnt_loss)
+def logits_to_logprobs_plain(logits: torch.Tensor, labels: torch.Tensor):
+    """(lp_blank, lp_emit, lse) [B, T, U+1] f32 of logits [B, T, U+1, V]
+    (f32 or bf16, upcast) and labels [B, U] (JAX ``rnnt_kernel.py:_logits_to_logprobs``):
+    lse = logsumexp over V, lp_blank = logits[..., 0] − lse, lp_emit =
+    logits[..., labels[b, u]] − lse and LOG_0 at u = U. A label outside
+    [0, V) selects 0, as the Pallas kernel's select-and-sum does."""
+    x = logits.float()
+    b, t, u1, v = x.shape
+    lse = torch.logsumexp(x, dim=-1)
+    lab = labels_per_cell(labels.to(x.device), u1)[:, None, :]  # [B, 1, U+1]
+    sel = torch.gather(x, 3, lab.clamp(0, v - 1).expand(b, t, u1)[..., None])[..., 0]
+    sel = torch.where(lab < v, sel, torch.zeros((), device=x.device))
+    lpe = torch.where(lab >= 0, sel - lse, torch.full((), LOG_0, device=x.device))
+    return x[..., 0] - lse, lpe, lse
+
+
+def dlogits_assemble_plain(logits: torch.Tensor, lse: torch.Tensor, gbl: torch.Tensor, gem: torch.Tensor, labels: torch.Tensor,
+                           g: torch.Tensor) -> torch.Tensor:
+    """d loss / d logits [B, T, U+1, V] in the logits' dtype (JAX
+    ``rnnt_kernel.py:_dlogits_assemble``): (1[v=0]·gbl + 1[v=lab]·gem −
+    softmax·(gbl+gem))·g[b], computed in f32 from the f32 lse, gbl, gem
+    [B, T, U+1] and the upstream cotangent g [B]."""
+    x = logits.float()
+    v_idx = torch.arange(x.shape[-1], device=x.device)
+    lab = labels_per_cell(labels.to(x.device), x.shape[2])[:, None, :, None]
+    gb, ge = gbl.float()[..., None], gem.float()[..., None]
+    zero = torch.zeros((), device=x.device)
+    d = torch.where(v_idx == 0, gb, zero) + torch.where(v_idx == lab, ge, zero) - torch.exp(x - lse[..., None]) * (gb + ge)
+    return (d * g.float()[:, None, None, None]).to(logits.dtype)

@@ -16,12 +16,16 @@ as an argument instead of an environment variable:
   joint's prejoint projections (``Transducer.forward_joint_inputs``) and
   the fused joint+loss (``ops/cuda/joint_loss_kernel.py``) computes the
   loss without the [B, T, U+1, V] logits — for the add/tanh joint with
-  both prejoint linears. Any other joint takes the unfused Pallas loss in
-  JAX (``rnnt_kernel.py:rnnt_loss_pallas``), which is not ported yet: it
-  raises here.
+  both prejoint linears. Any other joint takes the unfused Pallas loss, as
+  in JAX.
 - ``"xla"``: the forward to [B, T, U+1, V] logits and the plain
   anti-diagonal DP with autograd (``ops/rnnt_loss.py``).
-- ``"pallas"``: the unfused Pallas loss; not ported yet, raises.
+- ``"pallas"``: the forward to logits and the unfused Pallas loss
+  (``ops/cuda/rnnt_kernel.py:rnnt_loss_pallas``).
+
+``make_eval_step`` computes the loss over logits as ``get_rnnt_loss_fn``
+(``ops/losses.py``) dispatches it: the plain DP for ``"xla"``, the
+unfused Pallas loss for every other value.
 
 One device: no mesh, no data parallelism, no checkpoints, no gaussian
 weight noise, no callbacks — each raises or is absent; they are listed in
@@ -40,7 +44,8 @@ import torch
 from tensorflowasr_tpu_torch import schemas
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 from tensorflowasr_tpu_torch.ops.cuda.joint_loss_kernel import rnnt_loss_fused_joint
-from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss_masked_mean, sanitize_lengths, valid_mean
+from tensorflowasr_tpu_torch.ops.losses import get_rnnt_loss_fn
+from tensorflowasr_tpu_torch.ops.rnnt_loss import sanitize_lengths, valid_mean
 from tensorflowasr_tpu_torch.optimizers import build_optimizer
 from tensorflowasr_tpu_torch.utils import device as device_util
 
@@ -61,10 +66,6 @@ class TrainState:
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """√(Σ g²) over every gradient, in f32."""
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
-
-
-LOSS_IMPLS = ("auto", "fused-joint", "xla", "pallas")
-_UNPORTED = "the unfused Pallas RNN-T loss (rnnt_kernel.py:rnnt_loss_pallas, TPU kernel row 10) is not ported yet"
 
 
 def fused_joint_supported(model: torch.nn.Module) -> bool:
@@ -89,28 +90,44 @@ def fused_joint_loss(model: Transducer, inputs: schemas.TrainInput, labels: sche
     return valid_mean(rnnt_loss_fused_joint(enc_p, pred_p, wv, bv, safe_t, labels.labels, safe_u), valid)
 
 
+def _loss_for(model: torch.nn.Module, loss_impl: str) -> Callable:
+    """The masked-mean loss over logits (JAX ``trainer._loss_for``): the
+    RNN-T loss that ``loss_impl`` selects; CTC models are not ported yet."""
+    if not isinstance(model, Transducer):
+        raise NotImplementedError("only transducer models train in the port yet")
+    return get_rnnt_loss_fn(loss_impl)
+
+
+def make_train_loss(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
+    """``loss(model, inputs, labels, generator=None, mark=...)``: the
+    training forward and the masked-mean loss of one batch, as the train step
+    computes it (JAX ``trainer.py:119-187``): the fused joint+loss for
+    ``"auto"``/``"fused-joint"`` with a joint it takes, else the loss over
+    the logits that :func:`_loss_for` selects. ``mark("forward")`` is called
+    after the forward."""
+    loss_fn = _loss_for(model, loss_impl)
+    if loss_impl in ("auto", "fused-joint") and fused_joint_supported(model):
+        return fused_joint_loss
+
+    def loss(model, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None):
+        out = model(inputs, train=True, generator=generator)
+        mark("forward")
+        return loss_fn(out.logits, out.logits_length, labels.labels, labels.labels_length)
+
+    return loss
+
+
 def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], None]] = None, loss_impl: str = "auto") -> Callable:
     """Returns ``step_fn(state, batch: TrainData) -> (state, metrics)``; the
     state is updated in place and returned. ``on_phase`` (for timing) is
     called with "forward", "loss" and "update" as each phase is enqueued.
     ``loss_impl``: see the module docstring."""
-    if not isinstance(model, Transducer):
-        raise NotImplementedError("only transducer models train in the port yet")
-    if loss_impl not in LOSS_IMPLS:
-        raise ValueError(f"loss_impl {loss_impl!r} is not one of {LOSS_IMPLS}")
-    if loss_impl == "pallas" or (loss_impl in ("auto", "fused-joint") and not fused_joint_supported(model)):
-        raise NotImplementedError(f"loss_impl {loss_impl!r} with joint {model.joint_config}: {_UNPORTED}")
-    fused = loss_impl != "xla"
+    train_loss = make_train_loss(model, loss_impl)
     mark = on_phase or (lambda phase: None)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):
         state.optimizer.zero_grad(set_to_none=True)
-        if fused:
-            loss = fused_joint_loss(state.model, batch.inputs, batch.labels, state.generator, mark)
-        else:
-            out = state.model(batch.inputs, train=True, generator=state.generator)
-            mark("forward")
-            loss = rnnt_loss_masked_mean(out.logits, out.logits_length, batch.labels.labels, batch.labels.labels_length)
+        loss = train_loss(state.model, batch.inputs, batch.labels, state.generator, mark)
         mark("loss")
         loss.backward()
         grad_norm = global_norm(p.grad for p in state.model.parameters() if p.grad is not None)
@@ -122,16 +139,17 @@ def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], N
     return step_fn
 
 
-def make_eval_step(model: torch.nn.Module) -> Callable:
-    """The loss without gradients: the forward to [B, T, U+1, V] logits and
-    the plain DP (``rnnt_loss_masked_mean``). The JAX package's default
-    evaluation runs the unfused Pallas loss over the same logits (TPU kernel
-    row 10, ``rnnt_loss_pallas``), the next slice of the port."""
+def make_eval_step(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
+    """The loss without gradients (JAX ``make_eval_step``): the inference
+    forward to [B, T, U+1, V] logits and the masked-mean loss that
+    ``get_rnnt_loss_fn(loss_impl)`` selects — by default the unfused Pallas
+    loss (TPU kernel row 10 and the DP kernel on the card)."""
+    loss_fn = _loss_for(model, loss_impl)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):
         with torch.no_grad():
             out = state.model(batch.inputs, train=False)
-            return {"loss": rnnt_loss_masked_mean(out.logits, out.logits_length, batch.labels.labels, batch.labels.labels_length)}
+            return {"loss": loss_fn(out.logits, out.logits_length, batch.labels.labels, batch.labels.labels_length)}
 
     return step_fn
 
@@ -140,7 +158,7 @@ class Trainer:
     """Step/epoch orchestrator on one device (None: the CUDA card, raising
     without one; ``"cpu"`` runs the kernels' plain versions). The model is
     moved to the device; batches are moved there at each step.
-    ``loss_impl`` as :func:`make_train_step`."""
+    ``loss_impl`` as :func:`make_train_step`, for the train and the eval step."""
 
     def __init__(self, model: torch.nn.Module, optimizer_config: dict, device=None, on_phase: Optional[Callable[[str], None]] = None,
                  loss_impl: str = "auto"):
@@ -148,7 +166,7 @@ class Trainer:
         self.model = model.to(self.device)
         self.optimizer_config = dict(optimizer_config)
         self._train_step = make_train_step(self.model, on_phase, loss_impl)
-        self._eval_step = make_eval_step(self.model)
+        self._eval_step = make_eval_step(self.model, loss_impl)
 
     def init_state(self, seed: int = 42) -> TrainState:
         """A fresh optimizer over the model's parameters and a dropout generator seeded with ``seed``."""

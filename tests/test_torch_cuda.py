@@ -10,7 +10,12 @@ summation order (1e-4 absolute on unit-scale outputs); bf16 may flip one
 rounding of an operand or output (2^-8 relative), so 2e-2; the log-mel
 frontend compares a direct DFT with an FFT in f32, 1e-3 in log. The RNN-T
 DP (f32 only) chains T+U log-add-exps: its loss to 1e-5 relative, its
-gradients (occupancies in [−1, 0]) to 1e-5 absolute.
+gradients (occupancies in [−1, 0]) to 1e-5 absolute. The log-probability
+row kernel computes in f32 from the same inputs as its plain version in
+either dtype: 1e-4. The LSTM kernels chain T steps; bf16 rounds y, the
+cell sequence and the gates at the same places on both sides, so a
+summation-order flip of one rounding carries into later steps: 2e-2
+forward, 3e-2 of each gradient's scale backward.
 """
 
 import copy
@@ -28,8 +33,9 @@ from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
 from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
 from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
 from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+from tensorflowasr_tpu_torch.ops.cuda import lstm_kernel as lk
 from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
-from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain
+from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -331,3 +337,104 @@ def test_fused_joint_loss_autograd_runs_the_three_kernels(dev):
     ref_loss, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
     _grads_close([x.grad for x in leaves], jk.rnnt_loss_fused_joint_plain_bwd(*args, lse, gbl, gem), GRAD_REL[torch.float32], "fused joint autograd")
+
+
+# (B, T, U, V): V = 29 and 12 take the one-element loads in bf16 (29 also in f32), 256 the 16-byte ones; U = 0
+ROW_CASES = [(2, 5, 3, 29), (3, 7, 4, 256), (2, 4, 3, 12), (1, 3, 0, 8)]
+
+
+def _row_args(dev, dtype, b, t, u, v, seed=9):
+    g = _gen(dev, seed)
+    logits = _r(g, dev, (b, t, u + 1, v), 2.0, dtype)
+    labels = torch.randint(0, v, (b, u), generator=torch.Generator().manual_seed(seed)).to(dev)
+    return logits, labels
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,u,v", ROW_CASES)
+def test_rnnt_row_kernels(dev, dtype, b, t, u, v):
+    logits, labels = _row_args(dev, dtype, b, t, u, v)
+    before = rk.logprobs_launches
+    got = rk.logits_to_logprobs_kernel(logits, labels)
+    assert rk.logprobs_launches == before + 1
+    ref = logits_to_logprobs_plain(logits, labels)
+    for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, ref):
+        torch.testing.assert_close(x, r, **TOL[torch.float32], msg=name)
+    t_len, u_len = _lengths(dev, b, t, u, 4)
+    _, gbl, gem = rnnt_loss_from_logprobs_plain(*ref[:2], t_len, u_len)
+    cot = torch.linspace(0.5, 1.5, b, device=dev)
+    before = rk.dlogits_launches
+    d = rk.dlogits_assemble_kernel(logits, ref[2], gbl, gem, labels, cot)
+    assert rk.dlogits_launches == before + 1 and d.dtype == dtype
+    torch.testing.assert_close(d, dlogits_assemble_plain(logits, ref[2], gbl, gem, labels, cot), **TOL[dtype])
+
+
+def test_rnnt_loss_pallas_autograd_runs_the_three_kernels(dev):
+    """Under autograd a CUDA tensor launches the log-probability kernel, the
+    DP and the d_logits kernel once each, and equals the plain path on the CPU."""
+    b, t, u, v = 3, 11, 5, 29
+    logits, labels = _row_args(dev, torch.float32, b, t, u, v)
+    t_len, u_len = _lengths(dev, b, t, u, 5)
+    x = logits.clone().requires_grad_(True)
+    counts = (rk.logprobs_launches, rk.launches, rk.dlogits_launches)
+    loss = rk.rnnt_loss_pallas(x, t_len, labels, u_len)
+    loss.sum().backward()
+    assert (rk.logprobs_launches, rk.launches, rk.dlogits_launches) == tuple(c + 1 for c in counts)
+    xc = logits.cpu().requires_grad_(True)
+    ref = rk.rnnt_loss_pallas(xc, t_len.cpu(), labels.cpu(), u_len.cpu())
+    ref.sum().backward()
+    torch.testing.assert_close(loss.detach().cpu(), ref.detach(), rtol=1e-5, atol=1e-5)
+    _grads_close([x.grad.cpu()], [xc.grad], GRAD_REL[torch.float32], "rnnt_loss_pallas autograd")
+
+
+# (B, T, H): unaligned, the prediction net's flagship shape, a width that takes 8 units per block,
+# and H = 20, whose bf16 rows (40 bytes) take the one-element staging loads
+LSTM_CASES = [(3, 17, 24), (2, 33, 32), (16, 129, 320), (2, 9, 1000), (3, 11, 20)]
+
+
+def _lstm_args(dev, dtype, b, t, h, seed=10):
+    g = _gen(dev, seed)
+    xg, wh = _r(g, dev, (b, t, 4 * h), 1.0, dtype), _r(g, dev, (h, 4 * h), h ** -0.5, dtype)
+    h0, c0 = _r(g, dev, (b, h), 0.3, dtype), _r(g, dev, (b, h), 0.3, dtype)
+    dy, dc = _r(g, dev, (b, t, h), 1.0, dtype), _r(g, dev, (b, t, h), 0.1, dtype)
+    return (xg, wh, h0, c0), (dy, dc)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,h", LSTM_CASES)
+def test_lstm_kernels(dev, dtype, b, t, h):
+    (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, dtype, b, t, h)
+    before = lk.launches
+    got = lk.lstm_fwd_kernel(xg, wh, h0, c0)
+    assert lk.launches == before + 1
+    ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
+    for name, x, r in zip(("y", "cseq", "gates"), got, ref):
+        assert x.dtype == dtype
+        torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
+    _, cseq, gates = ref
+    before = lk.bwd_launches
+    grads = lk.lstm_bwd_kernel(gates, cseq, c0, wh, dy, dc)
+    assert lk.bwd_launches == before + 1
+    _grads_close(grads, lk.lstm_bwd_plain(gates, cseq, c0, wh, dy, dc), GRAD_REL[dtype], f"lstm {b}x{t}x{h}")
+
+
+def test_lstm_layer_autograd_runs_the_kernels(dev):
+    """Under autograd a CUDA tensor launches the LSTM forward and backward
+    kernels once each; values and every gradient equal the CPU plain path
+    (f32), lengths 0 and past-length zeros included."""
+    b, t, e, h = 3, 13, 20, 24
+    g = torch.Generator().manual_seed(11)
+    params = [torch.randn(4 * h, e, generator=g) * e ** -0.5, torch.randn(4 * h, h, generator=g) * h ** -0.5, torch.randn(4 * h, generator=g) * 0.1]
+    x, h0, c0 = torch.randn(b, t, e, generator=g), torch.randn(b, h, generator=g) * 0.3, torch.randn(b, h, generator=g) * 0.3
+    lengths = torch.tensor([13, 0, 6])
+    results = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [a.to(d).requires_grad_(True) for a in (x, *params, h0, c0)]
+        counts = (lk.launches, lk.bwd_launches)
+        y, (c_t, h_t) = lk.lstm_layer_fused(*leaves, lengths.to(d))
+        (y.square().sum() + (c_t * h_t).sum()).backward()
+        if d.type == "cuda":
+            assert (lk.launches, lk.bwd_launches) == (counts[0] + 1, counts[1] + 1)
+        results.append([y.detach().cpu(), c_t.detach().cpu(), h_t.detach().cpu()] + [a.grad.cpu() for a in leaves])
+    for got, ref in zip(*results):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

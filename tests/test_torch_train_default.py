@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer
-from tensorflowasr_tpu_torch.training.trainer import Trainer, make_train_step
+from tensorflowasr_tpu_torch.training.trainer import Trainer, fused_joint_supported, make_train_step
 from tests.test_torch_slice import TINY_CFG
 from tests.test_torch_train_slice import (ADAM, _batch, _torch_batch, check_first_step_every_gradient, check_first_step_loss_and_grad_norm,
                                           check_k_adam_steps, run_both)
@@ -61,17 +61,22 @@ def test_default_and_xla_steps_agree():
 
 
 def test_unported_loss_configurations_raise():
-    """"pallas", and an unsupported joint under "auto" or "fused-joint", name
-    the unported unfused Pallas loss (TPU kernel row 10); they never fall back
-    to the plain DP. An unknown name is refused."""
+    """Loss dispatch as in JAX: "pallas", and an unsupported joint under
+    "auto" or "fused-joint", now build and train through the unfused Pallas
+    loss (TPU kernel row 10), not the fused joint+loss and not the plain DP;
+    an unknown name is still refused."""
+    batch = _torch_batch(_batch(np.random.default_rng(13)))
     model = Conformer.from_config(TINY_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="row 10"):
-        make_train_step(model, loss_impl="pallas")
+    make_train_step(model, loss_impl="pallas")
     with pytest.raises(ValueError, match="loss_impl"):
         make_train_step(model, loss_impl="fused")
+    with pytest.raises(ValueError, match="loss_impl"):
+        Trainer(model, ADAM, device="cpu", loss_impl="fused")
     for joint in ({"joint_mode": "mul"}, {"joint_activation": "relu"}, {"prejoint_prediction_linear": False}):
         other = Conformer.from_config({**TINY_CFG, **joint}, device="cpu")
-        for impl in ("auto", "fused-joint"):
-            with pytest.raises(NotImplementedError, match="row 10"):
-                Trainer(other, ADAM, device="cpu", loss_impl=impl)
-        Trainer(other, ADAM, device="cpu", loss_impl="xla")
+        other.reset_parameters(torch.Generator().manual_seed(14))
+        assert not fused_joint_supported(other)
+        for impl in ("auto", "fused-joint", "xla"):
+            trainer = Trainer(other, ADAM, device="cpu", loss_impl=impl)
+            _, metrics = trainer.train_step(trainer.init_state(seed=0), batch)
+            assert np.isfinite(float(metrics["loss"])), (joint, impl)

@@ -39,7 +39,8 @@ from tensorflowasr_tpu.optimizers import build_optimizer as jbuild_optimizer
 from tensorflowasr_tpu.training import trainer as jtrainer
 from tensorflowasr_tpu_torch import bridge, schemas
 from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer
-from tensorflowasr_tpu_torch.ops.rnnt_loss import masked_mean, rnnt_loss
+from tensorflowasr_tpu_torch.ops.losses import masked_mean
+from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss
 from tensorflowasr_tpu_torch.optimizers import build_optimizer
 from tensorflowasr_tpu_torch.training.trainer import Trainer
 from tests.test_torch_slice import TINY_CFG
@@ -89,15 +90,18 @@ def _record_grads():
     return optax.GradientTransformation(lambda params: params, lambda updates, state, params=None: (updates, updates))
 
 
-def run_both(loss_impl: str):
+def run_both(loss_impl: str, rnn_impl: str = "auto", cfg: dict = TINY_CFG):
     """K Adam steps on both sides from the same start, JAX with
-    ``TFASR_LOSS_IMPL=loss_impl`` and the port with ``loss_impl``; per step
-    (loss, grad_norm, grads), and the final params and batch_stats."""
+    ``TFASR_LOSS_IMPL=loss_impl`` and ``TFASR_RNN_IMPL=rnn_impl`` (held
+    around the whole JAX run: JAX reads them when it applies and traces) and
+    the port with ``loss_impl`` and ``rnn_impl``; per step (loss, grad_norm,
+    grads), and the final params and batch_stats."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TFASR_LOSS_IMPL", loss_impl)
+        mp.setenv("TFASR_RNN_IMPL", rnn_impl)
         rng = np.random.default_rng(0)
         arrs = _batch(rng)
-        jm = JConformer.from_config(TINY_CFG)
+        jm = JConformer.from_config(cfg)
         jb = _jax_batch(arrs)
         v = jax.tree_util.tree_map(np.asarray, jm.init({"params": jax.random.PRNGKey(1)}, jb.inputs, train=False))
         v["batch_stats"] = jax.tree_util.tree_map(lambda a: (a + 0.2 * rng.random(a.shape)).astype(np.float32), v["batch_stats"])
@@ -112,7 +116,7 @@ def run_both(loss_impl: str):
             jax_steps.append((float(metrics["loss"]), float(metrics["grad_norm"]), jax.tree_util.tree_map(np.asarray, state.opt_state[0])))
         jax_final = jax.tree_util.tree_map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats})
 
-    tm = Conformer.from_config(TINY_CFG, device="cpu")
+    tm = Conformer.from_config(cfg, device="cpu", rnn_impl=rnn_impl)
     tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
     trainer = Trainer(tm, ADAM, device="cpu", loss_impl=loss_impl)
     tstate = trainer.init_state(seed=0)
