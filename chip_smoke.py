@@ -1,4 +1,5 @@
-"""Chip smoke test of the PyTorch port on one CUDA card: serving, training and evaluation.
+"""Chip smoke test of the PyTorch port on one CUDA card: serving, training and evaluation
+of the Conformer-Transducer and the CTC models.
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
@@ -30,10 +31,21 @@ unfused loss and the LSTM kernels) and two ``auto`` steps with
 (loss and every gradient; the ``auto`` step and the ``pallas`` step with
 the LSTM kernels) between the card (kernels) and a CPU copy (plain
 versions), and the f32 fused-path and unfused-path losses against the
-``xla``-path loss on the card. Every kernel must launch on at least one
-driven path; its launches are recorded per path. Any failure raises. The
-last two lines are the kernels' JSON summary and ``{"ok": true, "device":
-{...}}``. Without a card it exits non-zero.
+``xla``-path loss on the card. Then the CTC family: the CTC loss kernel
+(TPU kernel row 11) at the CTC training shapes (B 16, T 400, U_b 40–128,
+V 256) beside ``F.ctc_loss``, kernel A (row 4, vanilla attention) forward
+and backward at the Transformer-CTC training shape (B·H 64, T = S 400,
+head 128, rate 0.1, the padded-row bias of a ragged batch) beside
+``F.scaled_dot_product_attention``, and the four encoder kernels at
+Conformer-CTC Small's widths (D 176, head 44); three greedy requests of 8
+utterances through each CTC model's ``recognize`` (Conformer-CTC Small and
+Transformer-CTC base at full width); four default (``auto``) training steps
+of each (one profiled), one ``xla`` step from the same start held to the
+first ``auto`` loss, three eval steps held to the ``xla`` eval; and the f32
+card/CPU parity of each 2-block CTC model's step. Every kernel must launch
+on at least one driven path; its launches are recorded per path. Any
+failure raises. The last two lines are the kernels' JSON summary and
+``{"ok": true, "device": {...}}``. Without a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -227,6 +239,9 @@ SOURCES = {
     "rnnt_dlogits": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:438"),
     "lstm": ("tensorflowasr_tpu_torch/csrc/lstm.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:178"),
     "lstm_bwd": ("tensorflowasr_tpu_torch/csrc/lstm.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:237"),
+    "ctc_loss": ("tensorflowasr_tpu_torch/csrc/ctc.cu", "tensorflowasr_tpu/ops/pallas/ctc_kernel.py:242"),
+    "fused_attention": ("tensorflowasr_tpu_torch/csrc/attention.cu", "tensorflowasr_tpu/ops/pallas/attention_kernel.py:175"),
+    "fused_attention_bwd": ("tensorflowasr_tpu_torch/csrc/attention.cu", "tensorflowasr_tpu/ops/pallas/attention_kernel.py:242"),
 }
 
 
@@ -361,9 +376,6 @@ def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost, what: str =
 def phase_train_kernels(dev) -> list[dict]:
     """Every kernel of the training step at its flagship training shapes."""
     from tensorflowasr_tpu_torch.ops import frontend
-    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
-    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
-    from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
     from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -380,61 +392,72 @@ def phase_train_kernels(dev) -> list[dict]:
           f"plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]})")
     rows.append(_row("log_mel_spectrogram", {"f32": err}, ms, plain_ms, b))
 
-    # attention: B·H = 64, T = S = 400, R = 799, dh 36; ragged query lengths
+    return rows + encoder_kernel_rows(dev, gen, D_MODEL, HEAD, FF_DIM) + phase_loss_kernels(dev)
+
+
+def encoder_kernel_rows(dev, gen, d_model: int, head: int, ff_dim: int, what: str = f"train, rate {TRAIN_RATE}") -> list[dict]:
+    """The four encoder kernels forward (rate 0.1) and backward at the training
+    batch (16 × 400 frames) and the given widths, f32 and bf16."""
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+    from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
+
+    rows = []
+    # attention: B·H = 64, T = S = 400, R = 799; ragged query lengths
     bh, t, r = TRAIN_B * HEADS, T_ENC, 2 * T_ENC - 1
     q_len = torch.tensor([max(40, T_ENC - 23 * i) for i in range(TRAIN_B)], dtype=torch.int32, device=dev)
 
     def att_make(dt):
-        qc, qp = _randn(gen, (bh, t, HEAD), 0.3, dt), _randn(gen, (bh, t, HEAD), 0.3, dt)
-        k, v, pos = _randn(gen, (bh, t, HEAD), 1.0, dt), _randn(gen, (bh, t, HEAD), 1.0, dt), _randn(gen, (bh, r, HEAD), 1.0, dt)
+        qc, qp = _randn(gen, (bh, t, head), 0.3, dt), _randn(gen, (bh, t, head), 0.3, dt)
+        k, v, pos = _randn(gen, (bh, t, head), 1.0, dt), _randn(gen, (bh, t, head), 1.0, dt), _randn(gen, (bh, r, head), 1.0, dt)
         cfg_ = (11, TRAIN_RATE, False, None, None, False)
         out = ak.fused_rel_attention_kernel(qc, qp, k, v, pos, None, q_len, *cfg_)
-        dout = _randn(gen, (bh, t, HEAD), 1.0, dt)
+        dout = _randn(gen, (bh, t, head), 1.0, dt)
         return (qc, qp, k, v, pos, None, q_len, *cfg_), (qc, qp, k, v, pos, None, q_len, out, dout, *cfg_)
 
     def att_bwd_plain(qc, qp, k, v, pos, kvb, ql, out, dout, *cfg_):
         return ak.fused_rel_attention_plain_bwd(qc, qp, k, v, pos, kvb, ql, dout, *cfg_)
 
     rows += _check_fwd_bwd("fused_rel_attention", ak.fused_rel_attention_kernel, ak.fused_rel_attention_plain, ak.fused_rel_attention_bwd_kernel,
-                           att_bwd_plain, att_make, lambda elt, bwd: cost_attention(bh, t, t, r, HEAD, elt, bwd))
+                           att_bwd_plain, att_make, lambda elt, bwd: cost_attention(bh, t, t, r, head, elt, bwd), what)
 
-    # FF: N = 16·400 rows, 144 → 576 → 144
+    # FF: N = 16·400 rows, D → F → D
     n = TRAIN_B * T_ENC
 
     def ff_make(dt):
-        x = _randn(gen, (n, D_MODEL), 1.0, dt)
-        gamma, beta = 1.0 + _randn(gen, (D_MODEL,), 0.1), _randn(gen, (D_MODEL,), 0.1)
-        w1, b1 = _randn(gen, (D_MODEL, FF_DIM), D_MODEL ** -0.5, dt), _randn(gen, (FF_DIM,), 0.1, dt)
-        w2, b2 = _randn(gen, (FF_DIM, D_MODEL), FF_DIM ** -0.5, dt), _randn(gen, (D_MODEL,), 0.1, dt)
-        dout = _randn(gen, (n, D_MODEL), 1.0, dt)
+        x = _randn(gen, (n, d_model), 1.0, dt)
+        gamma, beta = 1.0 + _randn(gen, (d_model,), 0.1), _randn(gen, (d_model,), 0.1)
+        w1, b1 = _randn(gen, (d_model, ff_dim), d_model ** -0.5, dt), _randn(gen, (ff_dim,), 0.1, dt)
+        w2, b2 = _randn(gen, (ff_dim, d_model), ff_dim ** -0.5, dt), _randn(gen, (d_model,), 0.1, dt)
+        dout = _randn(gen, (n, d_model), 1.0, dt)
         return (x, gamma, beta, w1, b1, w2, b2, 13, TRAIN_RATE, 0.5, 1e-3), (x, gamma, beta, w1, b1, w2, dout, 13, TRAIN_RATE, 0.5, 1e-3)
 
     rows += _check_fwd_bwd("fused_ff", fk.fused_ff_kernel, fk.fused_ff_plain, fk.fused_ff_bwd_kernel, fk.fused_ff_plain_bwd, ff_make,
-                           lambda elt, bwd: cost_ff(n, D_MODEL, FF_DIM, elt, bwd))
+                           lambda elt, bwd: cost_ff(n, d_model, ff_dim, elt, bwd), what)
 
-    # conv module halves: [16, 400, 144]
-    shape = (TRAIN_B, T_ENC, D_MODEL)
+    # conv module halves: [16, 400, D]
+    shape = (TRAIN_B, T_ENC, d_model)
 
     def front_make(dt):
         x = _randn(gen, shape, 1.0, dt)
-        p = (1.0 + _randn(gen, (D_MODEL,), 0.1), _randn(gen, (D_MODEL,), 0.1), _randn(gen, (D_MODEL, D_MODEL), D_MODEL ** -0.5, dt),
-             _randn(gen, (D_MODEL,), 0.1, dt), _randn(gen, (D_MODEL, D_MODEL), D_MODEL ** -0.5, dt), _randn(gen, (D_MODEL,), 0.1, dt))
+        p = (1.0 + _randn(gen, (d_model,), 0.1), _randn(gen, (d_model,), 0.1), _randn(gen, (d_model, d_model), d_model ** -0.5, dt),
+             _randn(gen, (d_model,), 0.1, dt), _randn(gen, (d_model, d_model), d_model ** -0.5, dt), _randn(gen, (d_model,), 0.1, dt))
         return (x, *p, 1e-3), (x, *p, _randn(gen, shape, 1.0, dt), 1e-3)
 
     rows += _check_fwd_bwd("conv_front", ck.conv_front_kernel, ck.conv_front_plain, ck.conv_front_bwd_kernel, ck.conv_front_plain_bwd, front_make,
-                           lambda elt, bwd: cost_conv_front(n, D_MODEL, elt, bwd))
+                           lambda elt, bwd: cost_conv_front(n, d_model, elt, bwd), what)
 
     def back_make(dt):
         x, y1 = _randn(gen, shape, 1.0, dt), _randn(gen, shape, 1.0, dt)
-        stats = (_randn(gen, (D_MODEL,), 0.1), 1.0 + torch.rand((D_MODEL,), generator=gen, device=dev), 1.0 + _randn(gen, (D_MODEL,), 0.1),
-                 _randn(gen, (D_MODEL,), 0.1))
-        w2, b2 = _randn(gen, (D_MODEL, D_MODEL), D_MODEL ** -0.5, dt), _randn(gen, (D_MODEL,), 0.1, dt)
+        stats = (_randn(gen, (d_model,), 0.1), 1.0 + torch.rand((d_model,), generator=gen, device=dev), 1.0 + _randn(gen, (d_model,), 0.1),
+                 _randn(gen, (d_model,), 0.1))
+        w2, b2 = _randn(gen, (d_model, d_model), d_model ** -0.5, dt), _randn(gen, (d_model,), 0.1, dt)
         cfg_ = (17, TRAIN_RATE, 1.0, 1e-3)
         return (x, y1, *stats, w2, b2, *cfg_), (y1, *stats, w2, _randn(gen, shape, 1.0, dt), *cfg_)
 
     rows += _check_fwd_bwd("conv_back", ck.conv_back_kernel, ck.conv_back_plain, ck.conv_back_bwd_kernel, ck.conv_back_plain_bwd, back_make,
-                           lambda elt, bwd: cost_conv_back(n, D_MODEL, elt, bwd))
-    return rows + phase_loss_kernels(dev)
+                           lambda elt, bwd: cost_conv_back(n, d_model, elt, bwd), what)
+    return rows
 
 
 # the DP (f32 only) chains T+U log-add-exps: loss to 1e-5 relative; the
@@ -571,7 +594,8 @@ def phase_lstm_kernels(dev) -> list[dict]:
 ENCODER_FWD = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_ff": 32, "conv_front": 16, "conv_back": 16}
 ENCODER_BWD = {"fused_rel_attention_bwd": 16, "fused_ff_bwd": 32, "conv_front_bwd": 16, "conv_back_bwd": 16}
 KERNELS = ("log_mel_spectrogram", "fused_rel_attention", "fused_rel_attention_bwd", "fused_ff", "fused_ff_bwd", "conv_front", "conv_front_bwd",
-           "conv_back", "conv_back_bwd", "rnnt_dp", "rnnt_fused_joint", "rnnt_fused_joint_bwd", "rnnt_logprobs", "rnnt_dlogits", "lstm", "lstm_bwd")
+           "conv_back", "conv_back_bwd", "rnnt_dp", "rnnt_fused_joint", "rnnt_fused_joint_bwd", "rnnt_logprobs", "rnnt_dlogits", "lstm", "lstm_bwd",
+           "ctc_loss", "fused_attention", "fused_attention_bwd")
 
 
 def _per(**counts) -> dict:
@@ -593,22 +617,24 @@ PER_STEP_AUTO_LSTM = {**PER_STEP, "lstm": 1, "lstm_bwd": 1}
 
 
 def launch_counts() -> dict:
-    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ff_kernel as fk, frontend_kernel as fek
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ctc_kernel as ctk, ff_kernel as fk, frontend_kernel as fek
     from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
 
     return {"log_mel_spectrogram": fek.launches, "fused_rel_attention": ak.launches, "fused_rel_attention_bwd": ak.bwd_launches, "fused_ff": fk.launches,
             "fused_ff_bwd": fk.bwd_launches, "conv_front": ck.front_launches, "conv_front_bwd": ck.front_bwd_launches, "conv_back": ck.back_launches,
             "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches,
-            "rnnt_logprobs": rk.logprobs_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches, "lstm_bwd": lk.bwd_launches}
+            "rnnt_logprobs": rk.logprobs_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches, "lstm_bwd": lk.bwd_launches,
+            "ctc_loss": ctk.launches, "fused_attention": ak.attention_launches, "fused_attention_bwd": ak.attention_bwd_launches}
 
 
 def reset_launch_counts() -> None:
-    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ff_kernel as fk, frontend_kernel as fek
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ctc_kernel as ctk, ff_kernel as fk, frontend_kernel as fek
     from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
 
     fek.launches = ak.launches = ak.bwd_launches = fk.launches = fk.bwd_launches = 0
     ck.front_launches = ck.front_bwd_launches = ck.back_launches = ck.back_bwd_launches = 0
     rk.launches = jk.launches = jk.bwd_launches = rk.logprobs_launches = rk.dlogits_launches = lk.launches = lk.bwd_launches = 0
+    ctk.launches = ak.attention_launches = ak.attention_bwd_launches = 0
 
 
 def flagship(dtype, device, num_blocks: int = 16, dropout: float = 0.1, rnn_impl: str = "auto") -> torch.nn.Module:
@@ -699,12 +725,13 @@ def train_batch(rng, batch: int, max_secs: float, max_u: int, vocab: int):
 TRAIN_STEPS, XLA_STEPS = 6, 2
 
 
-def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_impl: str = "auto"):
-    """``steps`` flagship training steps through ``Trainer.train_step`` (bf16,
-    dropout 0.1, Adam 1e-4, one fixed batch) with launch counts set to 0
-    just before and read just after; each step's launches must equal
-    ``per_step``. Returns (counts, losses, walls, trainer, state, batch,
-    splits), ``splits`` the (forward, loss, backward+update) ms of each step."""
+def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_impl: str = "auto", model=None, lr: float = 1e-4):
+    """``steps`` training steps of ``model`` (default: the flagship) through
+    ``Trainer.train_step`` (bf16, dropout 0.1, Adam at ``lr``, one fixed batch)
+    with launch counts set to 0 just before and read just after; each step's
+    launches must equal ``per_step``. Returns (counts, losses, walls,
+    trainer, state, batch, splits), ``splits`` the (forward, loss,
+    backward+update) ms of each step."""
     from tensorflowasr_tpu_torch.training.trainer import Trainer
 
     events = {}
@@ -713,14 +740,14 @@ def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_imp
         events[phase] = torch.cuda.Event(enable_timing=True)
         events[phase].record()
 
-    model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE, rnn_impl=rnn_impl)
-    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev, on_phase=mark, loss_impl=loss_impl)
+    model = model or flagship(torch.bfloat16, dev, dropout=TRAIN_RATE, rnn_impl=rnn_impl)
+    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": lr}}, device=dev, on_phase=mark, loss_impl=loss_impl)
     state = trainer.init_state(seed=SEED)
     batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
     print(f"{tag} batch: {TRAIN_B} utterances, audio {batch.inputs.inputs_length.sum().item() / 16000:.2f} s "
           f"(lengths {batch.inputs.inputs_length.min().item() / 16000:.2f}-{batch.inputs.inputs_length.max().item() / 16000:.2f} s, array {TRAIN_SECS} s), "
           f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U}); loss_impl {loss_impl!r}, "
-          f"rnn_impl {rnn_impl!r}")
+          f"rnn_impl {rnn_impl!r}, Adam lr {lr:g}")
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -753,16 +780,9 @@ def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_imp
     return counts, losses, walls, trainer, state, batch, splits
 
 
-def phase_train(dev):
-    """The default (auto: fused joint+loss) flagship training step, 6 steps,
-    then one profiled step; then 2 steps of the xla configuration. Returns
-    the launch counts of both paths and the auto run's (losses, walls, splits)."""
-    counts, losses, walls, trainer, state, batch, splits = run_train(dev, "auto", TRAIN_STEPS, PER_STEP, "train")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss did not fall over {TRAIN_STEPS} steps: {losses}")
-
-    # one more step under the profiler: the card's kernel time in a step, its
-    # share of the unprofiled steps' median wall, and the kernels by time
+def profile_step(trainer, state, batch, walls, tag: str, top: int = 15) -> None:
+    """One more step under the profiler: the card's kernel time in a step, its
+    share of the unprofiled steps' median wall, and the kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -774,10 +794,21 @@ def phase_train(dev):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     steady = float(np.median(walls[1:]))
-    print(f"train profile: card kernel time {busy_ms:.1f} ms in one step ({len(kernels)} kernel names) → card busy {100 * busy_ms / steady:.1f}% of the "
+    print(f"{tag} profile: card kernel time {busy_ms:.1f} ms in one step ({len(kernels)} kernel names) → card busy {100 * busy_ms / steady:.1f}% of the "
           f"median unprofiled step ({steady:.1f} ms; {wall:.1f} ms under the profiler)")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d} calls  {e.key[:100]}")
+
+
+def phase_train(dev):
+    """The default (auto: fused joint+loss) flagship training step, 6 steps,
+    then one profiled step; then 2 steps of the xla configuration. Returns
+    the launch counts of both paths and the auto run's (losses, walls, splits)."""
+    counts, losses, walls, trainer, state, batch, splits = run_train(dev, "auto", TRAIN_STEPS, PER_STEP, "train")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall over {TRAIN_STEPS} steps: {losses}")
+
+    profile_step(trainer, state, batch, walls, "train")
     del trainer, state
 
     # the xla configuration stays driven: logits and the plain DP
@@ -876,13 +907,13 @@ def phase_parity(dev) -> None:
     print(f"parity f32 encoder card (kernels) vs CPU (plain): shape {tuple(enc_cpu.shape)} max_abs_err {err:.3e} (tol {PARITY_ATOL}), TF32 off")
 
 
-def _step_parity(dev, loss_impl: str, rnn_impl: str):
+def _step_parity(dev, loss_impl: str, rnn_impl: str, cpu_model=None, what: str = ""):
     """One f32 training step's loss and gradients, card (kernels) vs CPU
-    (plain versions), 2 blocks at full width, batch 2 × ≤ 4 s, dropout 0.
-    Returns the card model and its batch."""
+    (plain versions), 2 blocks at full width (``cpu_model``, default the
+    flagship), batch 2 × ≤ 4 s, dropout 0. Returns the card model and its batch."""
     from tensorflowasr_tpu_torch.training.trainer import make_train_loss
 
-    cpu_model = flagship(torch.float32, "cpu", num_blocks=2, dropout=0.0, rnn_impl=rnn_impl)
+    cpu_model = cpu_model or flagship(torch.float32, "cpu", num_blocks=2, dropout=0.0, rnn_impl=rnn_impl)
     model = copy.deepcopy(cpu_model).to(dev)
     batch = train_batch(np.random.default_rng(SEED + 3), 2, 4.0, 32, cpu_model.vocab_size)
     train_loss = make_train_loss(cpu_model, loss_impl)
@@ -892,7 +923,7 @@ def _step_parity(dev, loss_impl: str, rnn_impl: str):
         loss.backward()
         results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
-    what = f"f32 train parity ({loss_impl}, rnn_impl {rnn_impl})"
+    what = what or f"{loss_impl}, rnn_impl {rnn_impl}"
     if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
         raise AssertionError(f"{what}: loss card {loss_gpu} vs CPU {loss_cpu}")
     gmax = max(g.abs().max().item() for g in g_cpu.values())
@@ -901,11 +932,11 @@ def _step_parity(dev, loss_impl: str, rnn_impl: str):
         err, scale = (g_gpu[name] - ref).abs().max().item(), ref.abs().max().item()
         allowed = TRAIN_PARITY_REL * scale + TRAIN_PARITY_FLOOR * gmax
         if err > allowed:
-            raise AssertionError(f"{what} {name}: max abs err {err} > {TRAIN_PARITY_REL} x {scale} + {TRAIN_PARITY_FLOOR} x {gmax}")
+            raise AssertionError(f"f32 train parity ({what}) {name}: max abs err {err} > {TRAIN_PARITY_REL} x {scale} + {TRAIN_PARITY_FLOOR} x {gmax}")
         worst = max(worst, (err / allowed, name))
         if scale > TRAIN_PARITY_FLOOR * gmax:
             worst_rel = max(worst_rel, (err / scale, name))
-    print(f"parity f32 train step ({loss_impl}, rnn_impl {rnn_impl}) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs "
+    print(f"parity f32 train step ({what}) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs "
           f"{loss_cpu:.6f}; {len(g_cpu)} gradients within {TRAIN_PARITY_REL} of their scale + {TRAIN_PARITY_FLOOR} x {gmax:.3e} (largest share of that "
           f"allowance {worst[0]:.3f} at {worst[1]}; largest error relative to scale among gradients above the floor {worst_rel[0]:.3e} at {worst_rel[1]}), "
           f"TF32 off")
@@ -939,6 +970,283 @@ def phase_train_parity(dev) -> None:
     print(f"parity f32 loss on the card, unfused pallas loss (row kernels + DP kernel) vs xla (plain DP) over the same logits: {pallas:.6f} vs "
           f"{xla:.6f} (rel {abs(pallas - xla) / abs(xla):.2e}, tol 1e-5)")
 
+# ------------------------------------- the CTC models ------------------------------------- #
+
+CTC_MODELS = ("conformer_ctc", "transformer_ctc")
+CTC_D_MODEL, CTC_HEAD, CTC_FF_DIM = 176, 44, 704  # Conformer-CTC Small
+TCTC_HEADS, TCTC_HEAD = 4, 128  # Transformer-CTC base
+# the CTC DP (f32 only) chains 2·T log-sum-exps of three: loss to 1e-5 relative; occupancies (in [−1, 0]) to 1e-5 absolute
+CTC_LOSS_TOL, CTC_OCC_TOL = (0.0, 1e-5), (1e-5, 0.0)
+
+
+def ctc_model(name: str, dtype, device, num_blocks: int | None = None, dropout: float = TRAIN_RATE, conditioned: bool = False) -> torch.nn.Module:
+    """A CTC model at its published widths, random weights from SEED. With
+    ``conditioned`` (the card/CPU parity) the Transformer's input linear is
+    drawn 1/√dmodel smaller: its output is scaled by √dmodel before the PE,
+    and with lecun-normal weights the attention scores are otherwise O(500),
+    the softmax near one-hot and the gradients ill-conditioned (a 1e-6
+    input change moves them by 5e-3 on the CPU alone)."""
+    from tensorflowasr_tpu_torch.models.ctc.conformer import ConformerCtc, conformer_ctc_small_config
+    from tensorflowasr_tpu_torch.models.ctc.transformer import TransformerCtc, transformer_ctc_base_config
+
+    cls, make_cfg = {"conformer_ctc": (ConformerCtc, conformer_ctc_small_config), "transformer_ctc": (TransformerCtc, transformer_ctc_base_config)}[name]
+    cfg = make_cfg(dropout=dropout, **({} if num_blocks is None else {"num_blocks": num_blocks}))
+    model = cls.from_config(cfg, dtype=dtype, device=device)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    if conditioned and name == "transformer_ctc":
+        with torch.no_grad():
+            model.encoder.linear.weight.mul_(cfg["encoder_dmodel"] ** -0.5)
+    return model
+
+
+def cost_ctc(t_len: np.ndarray, u_len: np.ndarray, t: int, s: int):
+    """lp_ext read over each row's lattice (T_b·(2U_b+1) cells) and the skip
+    row, the occupancy [B, T, S] and the loss written, f32; per lattice cell
+    two log-sum-exps of three (~12 operations each) and the occupancy's
+    exponential (~4)."""
+    cells = float(np.sum(t_len * (2 * u_len + 1)))
+    b = len(t_len)
+    return 4 * cells + 4 * b * s + 4 * b * t * s + 4 * b, 28 * cells
+
+
+def cost_vanilla_attention(bh: int, t: int, s: int, d: int, elt: int, bias_bytes: int, bwd: bool):
+    """fwd: q, k, v, bias → out; QKᵀ and PV (4·BH·T·S·D). bwd: q, k, v, bias,
+    out, dout → dq, dk, dv (no dbias: the path's bias is a constant mask);
+    QKᵀ recomputed, do·vᵀ, dv, dq, dk (10·BH·T·S·D)."""
+    if bwd:
+        return (4 * t + 4 * s) * bh * d * elt + bias_bytes, 10 * bh * t * s * d
+    return (2 * t + 2 * s) * bh * d * elt + bias_bytes, 4 * bh * t * s * d
+
+
+def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
+    """The CTC kernel (row 11) and kernel A (row 4) at the CTC training
+    shapes, with their library yardsticks; and the four encoder kernels at
+    Conformer-CTC's widths (D 176, head 44), whose numbers go onto the
+    existing rows under ``conformer_ctc``. Returns the new rows."""
+    import torch.nn.functional as F
+
+    from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+    from tensorflowasr_tpu_torch.ops.cuda import ctc_kernel as ctk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
+    t_len, u_len = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev)
+    labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
+    labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
+    s = 2 * TRAIN_U + 1
+    occ_err, loss_err = {}, {}
+    for tag, dt in DTYPES:
+        logits = _randn(gen, (TRAIN_B, T_ENC, VOCAB), 2.0, dt)
+        lp_ext, skip, _ = ctc_prep(logits, labels)
+        occ, loss = ctk.ctc_kernel(lp_ext, skip, t_len, u_len)
+        ref_occ, ref_loss = ctc_occupancy_plain(lp_ext, skip, t_len, u_len)
+        occ_err[tag] = _close(f"ctc occupancy {tag}", occ, ref_occ, *CTC_OCC_TOL)
+        _close(f"ctc loss {tag}", loss, ref_loss, *CTC_LOSS_TOL)
+        loss_err[tag] = ((loss - ref_loss).abs() / ref_loss.abs()).max().item()
+    ms, plain_ms = time_ms(ctk.ctc_kernel, lp_ext, skip, t_len, u_len), time_ms(ctc_occupancy_plain, lp_ext, skip, t_len, u_len)
+    bd = bound(*cost_ctc(t_np, u_np, T_ENC, s), "f32")
+    # the library yardstick: F.ctc_loss over log_softmax output, per row (reduction none), forward and forward+backward
+    lp = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1).contiguous().requires_grad_(True)
+    lib = lambda: F.ctc_loss(lp, labels, t_len, u_len, blank=0, reduction="none")
+    with torch.no_grad():
+        lib_loss = lib()
+    lib_fwd = time_ms(lambda: lib().detach())
+    lib_fb = time_ms(lambda: torch.autograd.grad(lib().sum(), lp))
+    x = logits.detach().requires_grad_(True)
+    op_fwd = time_ms(lambda: ctk.ctc_loss_pallas(x, t_len, labels, u_len).detach())
+    op_fb = time_ms(lambda: torch.autograd.grad(ctk.ctc_loss_pallas(x, t_len, labels, u_len).sum(), x))
+    lib_rel = ((lib_loss - loss) / loss).abs().max().item()
+    print(f"kernel ctc_loss (ctc train loss): lp_ext [{TRAIN_B}, {T_ENC}, {s}] f32 from V {VOCAB} logits, T_b {t_np.min()}-{t_np.max()}, U_b "
+          f"{u_np.min()}-{u_np.max()}; occupancy max_abs_err f32 {occ_err['f32']:.3e} bf16 {occ_err['bf16']:.3e} (tol {CTC_OCC_TOL}), loss rel err "
+          f"{max(loss_err.values()):.3e} (tol {CTC_LOSS_TOL}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bd[0]:.4f} ms ({bd[1]})")
+    print(f"library F.ctc_loss (ctc train loss, bf16 logits' log_softmax, reduction none): forward {lib_fwd:.4f} ms, forward+backward {lib_fb:.4f} ms "
+          f"(loss rel diff to the kernel {lib_rel:.2e}); the port's whole ctc_loss_pallas on the logits (prep, kernel, softmax − occupancy): forward "
+          f"{op_fwd:.4f} ms, forward+backward {op_fb:.4f} ms")
+    row = _row("ctc_loss", {"f32": occ_err["f32"], "bf16": occ_err["bf16"]}, ms, plain_ms, bd)
+    row.update(dtype="float32", loss_rel_err=max(loss_err.values()), library_ms=lib_fb, library_fwd_ms=lib_fwd, op_fwd_ms=op_fwd, op_fwd_bwd_ms=op_fb)
+    new = [row]
+
+    # kernel A at the Transformer-CTC training shape: B·H 64, T = S = 400, head 128, rate 0.1, the padded-row bias of a ragged batch
+    bh, t, d = TRAIN_B * TCTC_HEADS, T_ENC, TCTC_HEAD
+    valid = torch.arange(t, device=dev)[None, :] < t_len.repeat_interleave(TCTC_HEADS)[:, None]  # [BH, T]
+
+    def att_make(dt):
+        q, k, v = _randn(gen, (bh, t, d), 0.3, dt), _randn(gen, (bh, t, d), 1.0, dt), _randn(gen, (bh, t, d), 1.0, dt)
+        bias = torch.where(valid, 0.0, -1e9)[:, :, None].expand(bh, t, t).to(dt).contiguous()
+        cfg_ = (19, TRAIN_RATE)
+        out = ak.fused_attention_kernel(q, k, v, bias, *cfg_)
+        return (q, k, v, bias, *cfg_), (q, k, v, bias, out, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
+
+    def bwd_kernel(q, k, v, bias, out, dout, seed, rate):
+        return ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed, rate, bias_grad=False)[:3]
+
+    def bwd_plain(q, k, v, bias, out, dout, seed, rate):
+        return ak.fused_attention_plain_bwd(q, k, v, bias, dout, seed, rate, bias_grad=False)[:3]
+
+    att = _check_fwd_bwd("fused_attention", ak.fused_attention_kernel, ak.fused_attention_plain, bwd_kernel, bwd_plain, att_make,
+                         lambda elt, bwd: cost_vanilla_attention(bh, t, t, d, elt, bh * t * t * elt, bwd),
+                         what=f"transformer-ctc train, BH {bh} T = S {t} head {d}, rate {TRAIN_RATE}")
+    (q, k, v, bias, *_), _ = att_make(torch.bfloat16)
+    q, k, v = (a.requires_grad_(True) for a in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    dout = torch.randn_like(out)
+    sdpa_fwd = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias).detach())
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))
+    print(f"library F.scaled_dot_product_attention (transformer-ctc train, bf16, attn_mask = the bias, rate 0): forward {sdpa_fwd:.4f} ms, "
+          f"backward {sdpa_bwd:.4f} ms")
+    att[0]["library_ms"], att[1]["library_ms"] = sdpa_fwd, sdpa_bwd
+    new += att
+
+    ctc_width = encoder_kernel_rows(dev, gen, CTC_D_MODEL, CTC_HEAD, CTC_FF_DIM, f"conformer-ctc train, D {CTC_D_MODEL} head {CTC_HEAD}, rate {TRAIN_RATE}")
+    by_name = {r["name"]: r for r in rows}
+    for r in ctc_width:
+        by_name[r["name"]]["conformer_ctc"] = {k: r[k] for k in ("max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return new
+
+
+PER_REQUEST_CTC = {"conformer_ctc": _per(**ENCODER_FWD), "transformer_ctc": _per(log_mel_spectrogram=1, fused_attention=6)}
+PER_STEP_CTC_XLA = {"conformer_ctc": _per(**ENCODER_FWD, **ENCODER_BWD),
+                    "transformer_ctc": _per(log_mel_spectrogram=1, fused_attention=6, fused_attention_bwd=6)}
+PER_STEP_CTC = {name: {**counts, "ctc_loss": 1} for name, counts in PER_STEP_CTC_XLA.items()}
+PER_EVAL_CTC = {name: {**counts, "ctc_loss": 1} for name, counts in PER_REQUEST_CTC.items()}
+CTC_STEPS = 4
+# Adam without warm-up: the post-norm Transformer-CTC with random weights diverges at 1e-4 (its input is scaled by √dmodel;
+# a CPU probe at 6 blocks, 4 × 4 s: 2293 → 3684 over 4 steps at 1e-4, 2293 → 1894 at 1e-5). Its published recipe warms up over 10k steps.
+CTC_LR = {"conformer_ctc": 1e-4, "transformer_ctc": 1e-5}
+
+
+def phase_ctc_serve(dev) -> dict:
+    """Each CTC model at full width (bf16): 3 requests of 8 × 6–10 s through
+    greedy ``recognize``, launches checked per request; wall, encode and
+    decode ms."""
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.models.ctc.base import recognize
+    from tensorflowasr_tpu_torch.ops.ctc_decode import ctc_greedy_decode
+
+    paths = {}
+    for name in CTC_MODELS:
+        model = ctc_model(name, torch.bfloat16, dev).eval()
+        rng = np.random.default_rng(SEED)
+        requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
+        recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        walls, outs = [], []
+        for r, (audio, lens) in enumerate(requests):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            outs.append(recognize(model, schemas.PredictInput(audio, lens)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if delta != PER_REQUEST_CTC[name]:
+                raise AssertionError(f"ctc serve {name} request {r}: kernel launches {delta}, expected {PER_REQUEST_CTC[name]}")
+        counts = launch_counts()
+        # encode and decode timed apart, on the same requests (after the counted run)
+        for r, ((audio, lens), out) in enumerate(zip(requests, outs)):
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, logits_len, _ = model.encode(audio, lens)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tokens, ntok = ctc_greedy_decode(logits, logits_len)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            if not torch.isfinite(logits.float()).all():
+                raise AssertionError(f"ctc serve {name} request {r}: non-finite logits")
+            if tuple(out.tokens.shape) != tuple(logits.shape[:2]) or not torch.equal(out.tokens, tokens):
+                raise AssertionError(f"ctc serve {name} request {r}: tokens {tuple(out.tokens.shape)} differ from the greedy decode of the logits")
+            if not ((out.tokens >= 0) & (out.tokens < model.vocab_size)).all() or (ntok > logits_len).any():
+                raise AssertionError(f"ctc serve {name} request {r}: token ids outside the vocabulary or more tokens than frames")
+            audio_s = lens.sum().item() / 16000.0
+            print(f"ctc serve {name} request {r}: batch {audio.shape[0]}, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames "
+                  f"{logits.shape[1]}, recognize {walls[r] * 1e3:.3f} ms, encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms, "
+                  f"RTF {walls[r] / audio_s:.6f}, tokens mean {ntok.float().mean().item():.1f}")
+        paths[f"ctc_serve_{name}"] = counts
+        print(f"ctc serve {name} launches over 3 requests: {counts} (per request {PER_REQUEST_CTC[name]})")
+    return paths
+
+
+def phase_ctc_train(dev) -> dict:
+    """Each CTC model at full width: CTC_STEPS default (auto) steps of the
+    training batch (16 × ≤ 16 s, labels 40–128, bf16, dropout 0.1, Adam at
+    CTC_LR), the loss falling, one profiled step; one xla step (the plain α
+    recursion) from the same weights and generator seed, its loss held to
+    the first auto step's (1e-4 relative); then 3 eval steps (default
+    loss_impl) against the xla eval (1e-5 relative)."""
+    from tensorflowasr_tpu_torch.training.trainer import make_eval_step
+
+    paths = {}
+    for name in CTC_MODELS:
+        tag = f"ctc train {name}"
+        counts, losses, walls, trainer, state, batch, splits = run_train(dev, "auto", CTC_STEPS, PER_STEP_CTC[name], tag,
+                                                                         model=ctc_model(name, torch.bfloat16, dev), lr=CTC_LR[name])
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{tag}: loss did not fall over {CTC_STEPS} steps: {losses}")
+        profile_step(trainer, state, batch, walls, tag, top=10)
+        paths[f"ctc_train_{name}"] = counts
+        del trainer, state
+        xla_counts, xla_losses, *_ = run_train(dev, "xla", 1, PER_STEP_CTC_XLA[name], f"{tag} xla", model=ctc_model(name, torch.bfloat16, dev),
+                                               lr=CTC_LR[name])
+        rel = abs(xla_losses[0] - losses[0]) / abs(losses[0])
+        if rel > 1e-4:
+            raise AssertionError(f"{tag}: first step loss xla {xla_losses[0]} vs auto {losses[0]} (rel {rel:.2e} > 1e-4)")
+        print(f"{tag}: first step loss auto (CTC kernel) {losses[0]:.4f} vs xla (plain α recursion) {xla_losses[0]:.4f}, rel {rel:.2e} (tol 1e-4)")
+        paths[f"ctc_train_{name}_xla"] = xla_counts
+
+        # evaluation: the default loss_impl (the CTC kernel) against the plain α recursion
+        from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+        model = ctc_model(name, torch.bfloat16, dev)
+        trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev)
+        state = trainer.init_state(seed=SEED)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        eval_losses = []
+        for step in range(EVAL_STEPS):
+            before = launch_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss = trainer.eval_step(state, batch)["loss"].item()
+            wall = (time.perf_counter() - t0) * 1e3
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if delta != PER_EVAL_CTC[name] or not np.isfinite(loss):
+                raise AssertionError(f"ctc eval {name} step {step}: launches {delta} (expected {PER_EVAL_CTC[name]}), loss {loss}")
+            print(f"ctc eval {name} step {step}: {wall:.1f} ms (host clock, ends in the loss's .item()); loss {loss:.6f}; "
+                  f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+            eval_losses.append(loss)
+        paths[f"ctc_eval_{name}"] = launch_counts()
+        t0 = time.perf_counter()
+        xla = make_eval_step(model, "xla")(state, batch)["loss"].item()
+        xla_wall = (time.perf_counter() - t0) * 1e3
+        if not abs(eval_losses[0] - xla) <= 1e-5 * abs(xla):
+            raise AssertionError(f"ctc eval {name}: default (CTC kernel) {eval_losses[0]} vs xla {xla}")
+        print(f"ctc eval {name} loss default (CTC kernel) {eval_losses[0]:.6f} vs xla (plain α recursion) {xla:.6f} "
+              f"(rel {abs(eval_losses[0] - xla) / abs(xla):.2e}, tol 1e-5); the xla eval step took {xla_wall:.1f} ms")
+        del trainer, state, model
+    return paths
+
+
+def phase_ctc_parity(dev) -> None:
+    """The f32 auto step of each 2-block CTC model, card vs CPU; and on the
+    card the CTC kernel's loss against the plain α recursion's over the same logits."""
+    from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn
+
+    for name in CTC_MODELS:
+        model, b = _step_parity(dev, "auto", "auto", cpu_model=ctc_model(name, torch.float32, "cpu", num_blocks=2, dropout=0.0, conditioned=True),
+                                what=f"{name}, auto")
+        with torch.no_grad():
+            out = model(b.inputs, train=True)
+            args = (out.logits, out.logits_length, b.labels.labels, b.labels.labels_length)
+            xla, kernel = get_ctc_loss_fn("xla")(*args).item(), get_ctc_loss_fn("auto")(*args).item()
+        if not abs(kernel - xla) <= 1e-5 * abs(xla):
+            raise AssertionError(f"f32 CTC loss on the card: kernel {kernel} vs xla {xla}")
+        print(f"parity f32 loss on the card ({name}), CTC kernel vs xla (plain α recursion) over the same logits: {kernel:.6f} vs {xla:.6f} "
+              f"(rel {abs(kernel - xla) / abs(xla):.2e}, tol 1e-5)")
+
+
 
 def main() -> int:
     _need_card()
@@ -957,11 +1265,14 @@ def main() -> int:
 
     serve_kernels = phase_kernels(dev)
     rows = phase_train_kernels(dev) + phase_lstm_kernels(dev)
+    rows += phase_ctc_kernels(dev, rows)
     paths = {"serve": phase_serve(dev)}
     train_paths, auto = phase_train(dev)
     paths.update(train_paths)
     paths["eval"] = phase_eval(dev)
     paths.update(phase_pallas(dev, auto))
+    paths.update(phase_ctc_serve(dev))
+    paths.update(phase_ctc_train(dev))
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -974,6 +1285,7 @@ def main() -> int:
     print("launches by path (" + ", ".join(paths) + "): " + "; ".join(f"{row['name']} {list(row['launches_by_path'].values())}" for row in rows))
     phase_parity(dev)
     phase_train_parity(dev)
+    phase_ctc_parity(dev)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,76 @@
+"""CTC model (counterpart of ``tensorflowasr_tpu/models/ctc/base.py``).
+
+``CtcModel``: feature extraction → encoder → ``vocab`` Dense, with the
+training forward (``forward`` → [B, T, V] logits), ``encode`` and the
+``recognize`` entry point (greedy: ``ops/ctc_decode.py``). The model is
+built on the card unless ``device="cpu"`` is given. Beam search and LM
+fusion are not ported yet (ROADMAP Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from tensorflowasr_tpu_torch import schemas
+from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtraction
+from tensorflowasr_tpu_torch.models.layers.general import Dense, random_init
+from tensorflowasr_tpu_torch.ops import ctc_decode
+from tensorflowasr_tpu_torch.utils import device as device_util
+
+
+class CtcModel(nn.Module):
+    """Generic CTC over any encoder; subclasses provide ``make_encoder``
+    and ``encoder_output_dim``. Built on ``device`` (None: the CUDA card,
+    raising without one; ``"cpu"`` runs the kernels' plain versions)."""
+
+    def __init__(self, speech_config: dict, encoder_config: dict, blank: int = 0, vocab_size: int = 29, dtype=torch.float32, device=None):
+        super().__init__()
+        dev = device_util.resolve(device)
+        self.blank, self.vocab_size, self.dtype = blank, vocab_size, dtype
+        self.speech_config, self.encoder_config = dict(speech_config), dict(encoder_config)
+        self.feature_extraction = FeatureExtraction(dtype=dtype, **self.speech_config)
+        self.encoder = self.make_encoder()
+        self.vocab = Dense(self.encoder_output_dim, vocab_size, dtype)
+        self.to(dev)
+
+    def make_encoder(self) -> nn.Module:
+        raise NotImplementedError
+
+    @property
+    def encoder_output_dim(self) -> int:
+        raise NotImplementedError
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random weights from ``generator`` (``general.random_init``)."""
+        random_init(self, generator)
+
+    def forward(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None) -> schemas.TrainOutput:
+        """Training forward (JAX ``CtcModel.__call__``): raw audio → logits
+        [B, T, V] and their lengths. ``train``: BatchNorm on batch
+        statistics (updating the running ones) and, with a ``generator``,
+        the encoder's dropout."""
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
+        enc, elens = self.encoder(feats, flens, train=train, generator=generator)
+        return schemas.TrainOutput(logits=self.vocab(enc), logits_length=elens)
+
+    def encode(self, signals: torch.Tensor, signals_length: torch.Tensor, initial_state=None):
+        """Raw audio → (logits [B, T, V], logits_length, next_encoder_states)."""
+        if initial_state is not None:
+            raise NotImplementedError("streaming encoder states are not ported yet")
+        feats, flens = self.feature_extraction(signals, signals_length)
+        enc, elens = self.encoder(feats, flens)
+        return self.vocab(enc), elens, None
+
+
+@torch.inference_mode()
+def recognize(model: CtcModel, inputs: schemas.PredictInput, beam_width: int = 0) -> schemas.PredictOutput:
+    """Greedy CTC decode of raw audio (JAX ``recognize`` minus ``variables``:
+    the module holds its weights): tokens [B, T] left-packed and padded
+    with blank; ``next_tokens`` all blank."""
+    if beam_width and beam_width > 0:
+        raise NotImplementedError("CTC beam search and LM fusion are not ported yet (ROADMAP Queue 1 item 5)")
+    logits, logits_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
+    tokens, _ = ctc_decode.ctc_greedy_decode(logits, logits_length, blank=model.blank)
+    next_tokens = torch.full((tokens.shape[0],), model.blank, dtype=torch.int64, device=tokens.device)
+    return schemas.PredictOutput(tokens=tokens, next_tokens=next_tokens, next_encoder_states=next_encoder_states, next_decoder_states=None)

@@ -6,9 +6,11 @@ FF(½) → rel-MHSA → conv module → FF(½) → LN. The modules dispatch to t
 fused kernels under the JAX package's structural conditions
 (``FFModule`` :203, ``ConvModule`` :337-345, rel-MHSA without an explicit
 attention mask); the TPU shape gates and environment switches are not
-ported. Configurations outside those conditions (post-norm modules,
-trainable residual factors, group or layer-norm conv modules, vanilla
-MHA) and streaming memory are not ported yet and raise. Parameter names
+ported. ``MHSAModule`` also takes vanilla MHA and post-norm, for the
+Transformer encoder (``encoders/transformer.py``). Conformer
+configurations outside those conditions (post-norm modules, trainable
+residual factors, group or layer-norm conv modules, vanilla MHA) and
+streaming memory are not ported yet and raise. Parameter names
 mirror the JAX tree, so ``bridge.py`` maps one onto the other.
 
 ``train=True`` is the JAX training branch: dropout at the encoder's rate
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from tensorflowasr_tpu_torch.models.layers.attention import MultiHeadRelativeAttention
+from tensorflowasr_tpu_torch.models.layers.attention import MultiHeadAttention, MultiHeadRelativeAttention
 from tensorflowasr_tpu_torch.models.layers.convolution import DepthwiseConv1D
 from tensorflowasr_tpu_torch.models.layers.general import BatchNorm, Dense, LayerNorm
 from tensorflowasr_tpu_torch.models.layers.positional import RelativeSinusoidalPositionalEncoding
@@ -83,23 +85,40 @@ class FFModule(nn.Module):
 
 
 class MHSAModule(nn.Module):
-    """Pre-norm relative MHSA with residual. Padded keys stay visible
-    (the reference masks query rows only, ``mask_kv=False``)."""
+    """MHSA with residual (JAX ``MHSAModule``): relative (``mha_type="relmha"``,
+    kernel B) or vanilla (``"mha"``, kernel A) attention, LayerNorm before it
+    (``norm_position="pre"``) or after the output dropout, before the
+    residual (``"post"``). Padded keys stay visible (the reference masks
+    query rows only, ``mask_kv=False``)."""
 
     def __init__(self, dmodel: int, head_size: int, num_heads: int, residual_factor: float = 1.0, relmha_causal: bool = False,
-                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32):
+                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32,
+                 mha_type: str = "relmha", norm_position: str = "pre", use_attention_bias: bool = False):
         super().__init__()
-        self.residual_factor, self.dropout = residual_factor, float(dropout)
+        if mha_type not in ("relmha", "mha"):
+            raise ValueError(f"mha_type {mha_type!r} must be relmha or mha")
+        if norm_position not in ("pre", "post"):
+            raise ValueError(f"norm_position {norm_position!r} must be pre or post")
+        self.residual_factor, self.dropout, self.mha_type, self.norm_position = residual_factor, float(dropout), mha_type, norm_position
         self.ln = LayerNorm(dmodel, dtype=dtype)
-        self.mhsa = MultiHeadRelativeAttention(dmodel, num_heads, head_size, dmodel, causal=relmha_causal, chunk_size=chunk_size,
-                                               history_size=history_size, dropout=dropout, dtype=dtype)
+        if mha_type == "relmha":
+            self.mhsa = MultiHeadRelativeAttention(dmodel, num_heads, head_size, dmodel, causal=relmha_causal, chunk_size=chunk_size,
+                                                   history_size=history_size, dropout=dropout, dtype=dtype, use_attention_bias=use_attention_bias)
+        else:
+            self.mhsa = MultiHeadAttention(dmodel, num_heads, head_size, output_dim=dmodel, dropout=dropout, chunk_size=chunk_size,
+                                           history_size=history_size, dtype=dtype)
 
     def forward(self, x, relpe, *, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False,
                 train: bool = False, generator: Optional[torch.Generator] = None):
-        y = self.ln(x)
-        out = self.mhsa(y, y, relpe=relpe, content_attention_bias=content_attention_bias, positional_attention_bias=positional_attention_bias,
-                        query_mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
+        y = self.ln(x) if self.norm_position == "pre" else x
+        if self.mha_type == "relmha":
+            out = self.mhsa(y, y, relpe=relpe, content_attention_bias=content_attention_bias, positional_attention_bias=positional_attention_bias,
+                            query_mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
+        else:
+            out = self.mhsa(y, y, query_mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
         out = dr.dropout(out, dr.active_rate(self.dropout, train, generator), generator)
+        if self.norm_position == "post":
+            out = self.ln(out)
         return residual(x, out, self.residual_factor)
 
 
@@ -150,10 +169,11 @@ class ConformerBlock(nn.Module):
     def __init__(self, input_dim: int, ffm_scale_factor: int = 4, ffm_residual_factor: float = 0.5, head_size: int = 36, num_heads: int = 4,
                  mhsam_residual_factor: float = 1.0, mhsam_causal: bool = False, kernel_size: int = 32, padding: str = "causal",
                  convm_residual_factor: float = 1.0, chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, mhsam_use_attention_bias: bool = False):
         super().__init__()
         self.ff_module_1 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dropout, dtype)
-        self.mhsa_module = MHSAModule(input_dim, head_size, num_heads, mhsam_residual_factor, mhsam_causal, chunk_size, history_size, dropout, dtype)
+        self.mhsa_module = MHSAModule(input_dim, head_size, num_heads, mhsam_residual_factor, mhsam_causal, chunk_size, history_size, dropout, dtype,
+                                      use_attention_bias=mhsam_use_attention_bias)
         self.conv_module = ConvModule(input_dim, kernel_size, padding, convm_residual_factor, dropout, dtype)
         self.ff_module_2 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dropout, dtype)
         self.ln_post = LayerNorm(input_dim, dtype=dtype)
@@ -171,7 +191,7 @@ class ConformerBlock(nn.Module):
 # Options of the JAX ConformerEncoder whose non-default values are not ported yet.
 _UNPORTED = {
     "mha_type": "relmha", "module_norm_position": "pre", "block_norm_position": "post", "convm_scale_factor": 2, "convm_use_group_conv": False,
-    "convm_dw_norm_type": "batch", "mhsam_use_attention_bias": False, "memory_length": None, "use_attention_auto_mask": True,
+    "convm_dw_norm_type": "batch", "memory_length": None, "use_attention_auto_mask": True,
 }
 
 
@@ -182,7 +202,7 @@ class ConformerEncoder(nn.Module):
                  kernel_size: int = 32, padding: str = "causal", interleave_relpe: bool = True, use_attention_causal_mask: bool = False,
                  ffm_scale_factor: int = 4, ffm_residual_factor: float = 0.5, mhsam_residual_factor: float = 1.0, mhsam_causal: bool = False,
                  convm_residual_factor: float = 1.0, dropout: float = 0.1, chunk_size: Optional[int] = None, history_size: Optional[int] = None,
-                 use_remat: bool = False, dtype=torch.float32, **options):
+                 use_remat: bool = False, mhsam_use_attention_bias: bool = False, dtype=torch.float32, **options):
         super().__init__()
         for key, value in options.items():
             if key not in _UNPORTED:
@@ -195,12 +215,16 @@ class ConformerEncoder(nn.Module):
         self.subsampling = build_subsampling(subsampling, in_features, dtype)
         self.linear = Dense(self.subsampling.output_dim, dmodel, dtype)
         self.relpe = RelativeSinusoidalPositionalEncoding(interleave=interleave_relpe, causal=mhsam_causal, dtype=dtype)
-        self.content_attention_bias = nn.Parameter(torch.zeros(num_heads, head_size))
-        self.positional_attention_bias = nn.Parameter(torch.zeros(num_heads, head_size))
+        # encoder-global biases unless each attention layer owns its own (conformer.py:579-583)
+        if mhsam_use_attention_bias:
+            self.content_attention_bias = self.positional_attention_bias = None
+        else:
+            self.content_attention_bias = nn.Parameter(torch.zeros(num_heads, head_size))
+            self.positional_attention_bias = nn.Parameter(torch.zeros(num_heads, head_size))
         for i in range(num_blocks):
             self.add_module(f"block_{i}", ConformerBlock(
                 dmodel, ffm_scale_factor, ffm_residual_factor, head_size, num_heads, mhsam_residual_factor, mhsam_causal, kernel_size,
-                padding, convm_residual_factor, chunk_size, history_size, dropout, dtype,
+                padding, convm_residual_factor, chunk_size, history_size, dropout, dtype, mhsam_use_attention_bias,
             ))
 
     @property

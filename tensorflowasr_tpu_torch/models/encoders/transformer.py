@@ -1,0 +1,97 @@
+"""Transformer encoder (counterpart of ``tensorflowasr_tpu/models/encoders/transformer.py``).
+
+subsampling → linear → dropout → the activations scaled by √dmodel plus
+the absolute sinusoidal PE → N × TransformerBlock, each block the MHSA
+module (vanilla MHA through kernel A, ``ops/cuda/attention_kernel.fused_attention``)
+and a pointwise FFN (plain Dense layers: JAX has no kernel there), with
+LayerNorm before (``norm_position="pre"``) or after (``"post"``) each, and
+the query mask from the lengths. Parameter names mirror the JAX tree, so
+``bridge.py`` maps one onto the other. The relative-PE variant
+(``mha_type="relmha"``) and streaming memory are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from tensorflowasr_tpu_torch.models.encoders.conformer import MHSAModule, build_subsampling
+from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation
+from tensorflowasr_tpu_torch.models.layers.positional import SinusoidalPositionalEncoding
+from tensorflowasr_tpu_torch.models.layers.residual import residual
+from tensorflowasr_tpu_torch.ops import dropout as dr
+from tensorflowasr_tpu_torch.utils import math_util
+
+
+class PointwiseFFN(nn.Module):
+    """Dense(dff) → activation → Dense(dmodel) → dropout, LayerNorm pre or post, residual."""
+
+    def __init__(self, dmodel: int, dff: int, activation: str = "relu", dropout: float = 0.1, norm_position: str = "post", residual_factor: float = 1.0,
+                 dtype=torch.float32):
+        super().__init__()
+        if norm_position not in ("pre", "post"):
+            raise ValueError(f"norm_position {norm_position!r} must be pre or post")
+        self.act, self.dropout, self.norm_position, self.residual_factor = get_activation(activation), float(dropout), norm_position, residual_factor
+        self.ln = LayerNorm(dmodel, dtype=dtype)
+        self.ffn_1 = Dense(dmodel, dff, dtype)
+        self.ffn_2 = Dense(dff, dmodel, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.ln(x) if self.norm_position == "pre" else x
+        out = self.ffn_2(self.act(self.ffn_1(out)))
+        out = dr.dropout(out, dr.active_rate(self.dropout, train, generator), generator)
+        if self.norm_position == "post":
+            out = self.ln(out)
+        return residual(x, out, self.residual_factor)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, dmodel: int, dff: int, num_heads: int, head_size: int, norm_position: str = "post", residual_factor: float = 1.0,
+                 pwffn_activation: str = "relu", dropout: float = 0.1, chunk_size: Optional[int] = None, history_size: Optional[int] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.mhsa_module = MHSAModule(dmodel, head_size, num_heads, residual_factor, chunk_size=chunk_size, history_size=history_size, dropout=dropout,
+                                      dtype=dtype, mha_type="mha", norm_position=norm_position)
+        self.pwffn = PointwiseFFN(dmodel, dff, pwffn_activation, dropout, norm_position, residual_factor, dtype)
+
+    def forward(self, x, mask=None, use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None):
+        x = self.mhsa_module(x, None, mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
+        return self.pwffn(x, train, generator)
+
+
+class TransformerEncoder(nn.Module):
+    """``forward(features [B, T, F], lengths) → (encoded [B, T', D], lengths')``."""
+
+    def __init__(self, subsampling: dict, in_features: int, num_blocks: int = 6, dmodel: int = 512, dff: int = 1024, num_heads: int = 4,
+                 head_size: int = 128, dropout: float = 0.1, mha_type: str = "mha", relmha_causal: bool = False, norm_position: str = "post",
+                 residual_factor: float = 1.0, interleave_relpe: bool = True, use_attention_causal_mask: bool = False,
+                 use_attention_auto_mask: bool = True, use_attention_bias: bool = False, pwffn_activation: str = "relu",
+                 memory_length: Optional[int] = None, history_size: Optional[int] = None, chunk_size: Optional[int] = None, dtype=torch.float32):
+        super().__init__()
+        if mha_type != "mha" or relmha_causal or use_attention_bias:
+            raise NotImplementedError("the relative-PE Transformer encoder (mha_type='relmha') is not ported yet")
+        if memory_length is not None:
+            raise NotImplementedError("KV memory (streaming) is not ported yet (ROADMAP Queue 1 item 4)")
+        self.num_blocks, self.dropout = num_blocks, float(dropout)
+        self.use_attention_causal_mask, self.use_attention_auto_mask = use_attention_causal_mask, use_attention_auto_mask
+        self.subsampling = build_subsampling(subsampling, in_features, dtype)
+        self.linear = Dense(self.subsampling.output_dim, dmodel, dtype)
+        self.pe = SinusoidalPositionalEncoding(scale=float(dmodel) ** 0.5, interleave=interleave_relpe)
+        for i in range(num_blocks):
+            self.add_module(f"block_{i}", TransformerBlock(dmodel, dff, num_heads, head_size, norm_position, residual_factor, pwffn_activation,
+                                                           dropout, chunk_size, history_size, dtype))
+
+    def forward(self, features: torch.Tensor, features_length: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
+        """``train``: the training branch; dropout needs a ``generator`` too (without one it is off)."""
+        if features.dim() == 3:
+            features = features[..., None]
+        x, lengths = self.subsampling(features, features_length, train=train)
+        x = self.linear(x)
+        x = dr.dropout(x, dr.active_rate(self.dropout, train, generator), generator)
+        x, _ = self.pe(x, lengths)
+        mask = math_util.sequence_mask(lengths, x.shape[1]) if self.use_attention_auto_mask else None
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x, mask, self.use_attention_causal_mask, train, generator)
+        return x, lengths

@@ -1,14 +1,19 @@
-"""Transformer-XL relative multi-head attention (counterpart of
-``models/layers/attention.py:MultiHeadRelativeAttention``).
+"""Multi-head attention: vanilla and Transformer-XL relative (counterpart
+of ``models/layers/attention.py``: ``MultiHeadAttention`` and
+``MultiHeadRelativeAttention``).
 
 Projections are the JAX ``DenseGeneral`` layers flattened to ``Dense``:
-query/key/value/encoding [D → N·H], output [N·H → D]. The score, shift,
-mask and softmax chain runs in the fused kernel
-(``ops/cuda/attention_kernel.fused_rel_attention``; plain version on the
-CPU). The XLA-semantics helpers ``rel_left_shift``, the mask builders and
-``_merge_masks`` are kept as plain torch for the tests and for the
-explicit ``attention_mask`` argument, which the kernel does not take.
-Streaming (``call_next``) and KV memory states are not ported yet.
+query/key/value/encoding [D → N·H], output [N·H → D]. Vanilla attention
+merges its masks into the Keras-parity additive bias (−1e9 where masked, in
+q's dtype, broadcast to [B·N, T, S] as JAX's ``_fused_attend`` does) and
+runs the score, softmax and P·V chain in kernel A
+(``ops/cuda/attention_kernel.fused_attention``); relative attention runs
+its score, shift, mask and softmax chain in kernel B
+(``fused_rel_attention``). Each kernel's plain version runs on the CPU.
+The XLA-semantics helpers ``rel_left_shift``, the mask builders and
+``_merge_masks`` are plain torch; kernel B does not take an explicit
+``attention_mask``. Streaming (``call_next``) and KV memory states are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.models.layers.general import Dense
 from tensorflowasr_tpu_torch.ops import dropout as dr
-from tensorflowasr_tpu_torch.ops.cuda.attention_kernel import fused_rel_attention
+from tensorflowasr_tpu_torch.ops.cuda.attention_kernel import fused_attention, fused_rel_attention
 
 
 def rel_left_shift(x: torch.Tensor, causal: bool = False) -> torch.Tensor:
@@ -68,9 +73,65 @@ def _merge_masks(t: int, s: int, query_mask, kv_mask, attention_mask, use_causal
     return mask
 
 
+class MultiHeadAttention(nn.Module):
+    """Vanilla MHA (JAX ``MultiHeadAttention``): ``forward(query, value,
+    key=None, ...) → [B, T, output_dim]``. ``train`` with a ``generator``:
+    probability dropout at the layer's rate, in-kernel, under one seed drawn
+    from the generator. KV memory (streaming) is not ported yet."""
+
+    def __init__(self, input_dim: int, num_heads: int, key_dim: int, output_dim: Optional[int] = None, dropout: float = 0.0,
+                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dtype=torch.float32):
+        super().__init__()
+        self.num_heads, self.key_dim, self.dropout, self.dtype = num_heads, key_dim, float(dropout), dtype
+        self.chunk_size, self.history_size = chunk_size, history_size
+        inner = num_heads * key_dim
+        self.query = Dense(input_dim, inner, dtype)
+        self.key = Dense(input_dim, inner, dtype)
+        self.value = Dense(input_dim, inner, dtype)
+        self.output = Dense(inner, output_dim or input_dim, dtype)
+
+    def _attend(self, q, k, v, mask, train: bool, generator: Optional[torch.Generator]):
+        """[B, T, N, H] q, [B, S, N, H] k/v and the merged mask → [B, T, N, H]
+        through kernel A, with the Keras-parity bias (JAX ``_attend`` and ``_fused_attend``)."""
+        b, t, n, h = q.shape
+        s = k.shape[1]
+        scale = torch.tensor(1.0 / math.sqrt(self.key_dim), dtype=q.dtype)
+        if mask is None:
+            bias = torch.zeros((1, 1, t, s), dtype=q.dtype, device=q.device)
+        else:
+            bias = ((1.0 - mask.float()) * -1e9).expand(*mask.shape[:2], t, s).to(q.dtype)
+        if bias.shape[0] == 1 and bias.shape[1] == 1:
+            bias = bias.reshape(1, t, s)
+        else:
+            bias = bias.expand(b, n, t, s).reshape(b * n, t, s)
+        fold = lambda x: x.transpose(1, 2).reshape(b * n, x.shape[1], h).contiguous()
+        rate = dr.active_rate(self.dropout, train, generator)
+        seed = dr.draw_seed(generator) if rate > 0.0 else 0
+        out = fused_attention(fold(q * scale), fold(k), fold(v), bias.contiguous(), seed, rate)
+        return out.reshape(b, n, t, h).transpose(1, 2)
+
+    def forward(self, query: torch.Tensor, value: torch.Tensor, key: Optional[torch.Tensor] = None, *, query_mask: Optional[torch.Tensor] = None,
+                kv_mask: Optional[torch.Tensor] = None, attention_mask: Optional[torch.Tensor] = None, use_causal_mask: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        key = value if key is None else key
+        b, t = query.shape[:2]
+        n, h = self.num_heads, self.key_dim
+        q = self.query(query).reshape(b, t, n, h)
+        k = self.key(key).reshape(b, key.shape[1], n, h)
+        v = self.value(value).reshape(b, value.shape[1], n, h)
+        mask = _merge_masks(t, key.shape[1], query_mask, kv_mask, attention_mask, use_causal_mask, self.chunk_size, self.history_size, query.device)
+        out = self._attend(q, k, v, mask, train, generator)
+        return self.output(out.reshape(b, t, n * h))
+
+
 class MultiHeadRelativeAttention(nn.Module):
+    """Transformer-XL relative MHA. The content/positional biases [N, H] are
+    the layer's own parameters with ``use_attention_bias`` (JAX
+    ``attention.py:345-350``), else passed in (encoder-global) or zero."""
+
     def __init__(self, input_dim: int, num_heads: int, key_dim: int, output_dim: Optional[int] = None, causal: bool = False,
-                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32):
+                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32,
+                 use_attention_bias: bool = False):
         super().__init__()
         self.num_heads, self.key_dim, self.causal, self.dropout, self.dtype = num_heads, key_dim, causal, float(dropout), dtype
         self.chunk_size, self.history_size = chunk_size, history_size
@@ -80,6 +141,10 @@ class MultiHeadRelativeAttention(nn.Module):
         self.value = Dense(input_dim, inner, dtype)
         self.encoding = Dense(input_dim, inner, dtype)
         self.output = Dense(inner, output_dim or input_dim, dtype)
+        self.use_attention_bias = use_attention_bias
+        if use_attention_bias:
+            self.content_attention_bias = nn.Parameter(torch.zeros(num_heads, key_dim))
+            self.positional_attention_bias = nn.Parameter(torch.zeros(num_heads, key_dim))
 
     def forward(self, query: torch.Tensor, value: torch.Tensor, *, relpe: torch.Tensor, content_attention_bias=None, positional_attention_bias=None,
                 query_mask: Optional[torch.Tensor] = None, kv_mask: Optional[torch.Tensor] = None, attention_mask: Optional[torch.Tensor] = None,
@@ -96,8 +161,11 @@ class MultiHeadRelativeAttention(nn.Module):
         v = heads(self.value(value))
         pos = heads(self.encoding(relpe.to(self.dtype)))
         zeros = torch.zeros((n, hd), device=q.device)
-        cbias = content_attention_bias if content_attention_bias is not None else zeros
-        pbias = positional_attention_bias if positional_attention_bias is not None else zeros
+        if self.use_attention_bias:
+            cbias, pbias = self.content_attention_bias, self.positional_attention_bias
+        else:
+            cbias = content_attention_bias if content_attention_bias is not None else zeros
+            pbias = positional_attention_bias if positional_attention_bias is not None else zeros
         scale = torch.tensor(1.0 / math.sqrt(hd), dtype=q.dtype)
         content_q = (q + cbias.to(q.dtype)) * scale
         positional_q = (q + pbias.to(q.dtype)) * scale

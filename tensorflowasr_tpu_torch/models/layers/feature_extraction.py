@@ -6,7 +6,9 @@ runs in f32). Configurations the fused kernel takes (log-mel, pad_end
 framing, natural log, no librosa-style window) run
 ``ops/cuda/frontend_kernel.log_mel_spectrogram_pallas`` after the
 signal-stage prep; others run the plain chain of ``ops/frontend.py``.
-Train-time augmentation is not ported yet.
+Train-time augmentation (SpecAugment and the signal augmentations) is not
+ported yet: ``forward(..., train=True)`` raises when the config holds one,
+rather than return features JAX would have augmented.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ class FeatureExtraction(nn.Module):
         if unknown:
             raise ValueError(f"unknown speech_config keys {sorted(unknown)}")
         self.config = frontend.FrontendConfig(**{k: v for k, v in speech_config.items() if k in names})
+        aug = dict(speech_config.get("augmentation_config") or {})
+        self.augmentations = sorted(k for k in ("signal_augment", "feature_augment") if aug.get(k))
         self.dtype = dtype
 
     @property
@@ -41,7 +45,11 @@ class FeatureExtraction(nn.Module):
     def get_nframes(self, nsamples):
         return self.config.get_nframes(nsamples)
 
-    def forward(self, signals: torch.Tensor, signals_length: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, signals: torch.Tensor, signals_length: torch.Tensor, train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, N] raw audio → ([B, T, F] features in ``dtype``, [B] lengths).
+        ``train`` with augmentations in the config raises (JAX augments there)."""
+        if train and self.augmentations:
+            raise NotImplementedError(f"train-time augmentation ({', '.join(self.augmentations)}) is not ported yet (ROADMAP Queue 1 item 3)")
         cfg = self.config
         if fused_frontend_supported(cfg):
             sig = frontend.prepare_signal(signals.float(), cfg).contiguous()

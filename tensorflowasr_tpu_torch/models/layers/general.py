@@ -9,6 +9,7 @@ f32); norms take f32 statistics and return ``dtype``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -114,3 +115,23 @@ def make_norm(kind: Optional[str], features: int, dtype=torch.float32) -> nn.Mod
     if kind in ("none", None):
         return nn.Identity()
     raise ValueError(f"Unknown norm kind {kind!r}")
+
+
+@torch.no_grad()
+def random_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator``: lecun-normal matrices and conv
+    kernels (std 1/√fan_in), standard-normal embeddings, unit norm scales,
+    zero biases and attention biases; BatchNorm running stats mean 0, var 1."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.dim() >= 2 and name.endswith("embeddings.weight"):
+            p.copy_(torch.randn(p.shape, generator=generator))
+        elif p.dim() >= 2 and not name.endswith("attention_bias"):
+            fan_in = math.prod(p.shape[1:])
+            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+        elif leaf == "weight" and p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    for name, b in module.named_buffers():
+        b.fill_(1.0 if name.endswith("running_var") else 0.0)

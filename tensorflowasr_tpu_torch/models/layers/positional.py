@@ -1,5 +1,7 @@
-"""Relative sinusoidal positional encoding (counterpart of
-``models/layers/positional.py:RelativeSinusoidalPositionalEncoding``).
+"""Sinusoidal positional encodings (counterpart of
+``models/layers/positional.py``): absolute (``SinusoidalPositionalEncoding``,
+the Transformer encoder's) and relative
+(``RelativeSinusoidalPositionalEncoding``, the Conformer's).
 
 The encoding runs over reversed positions (T+M−1 … −(T−1)), and each
 batch row is rolled by its own length and masked past ``2·len+M−1``
@@ -29,6 +31,25 @@ def compute_sinusoid_position_encoding(position: torch.Tensor, dmodel: int, inte
         angles = position[:, None] * timescales[None, :]
         pe = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
     return pe.to(dtype)
+
+
+class SinusoidalPositionalEncoding(nn.Module):
+    """forward(outputs [B, T, D], lengths [B]) → (outputs·scale + pe, pe):
+    the absolute PE in the outputs' dtype, zero past each row's length."""
+
+    def __init__(self, scale: Optional[float] = None, interleave: bool = False):
+        super().__init__()
+        self.scale, self.interleave = scale, interleave
+
+    def forward(self, outputs: torch.Tensor, outputs_length: torch.Tensor):
+        if self.scale is not None:
+            outputs = outputs * torch.tensor(self.scale, dtype=outputs.dtype)
+        _, length, dmodel = outputs.shape
+        dev = outputs.device
+        pe = compute_sinusoid_position_encoding(torch.arange(length, device=dev), dmodel, self.interleave, outputs.dtype)
+        valid = (torch.arange(length, device=dev)[None, :] < outputs_length.to(dev, torch.int64)[:, None]).to(pe.dtype)
+        pe = pe[None] * valid[:, :, None]
+        return outputs + pe, pe
 
 
 class RelativeSinusoidalPositionalEncoding(nn.Module):

@@ -14,15 +14,13 @@ ported yet.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 
 from tensorflowasr_tpu_torch import schemas
 from tensorflowasr_tpu_torch.models.layers.embedding import Embedding
 from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtraction
-from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation
+from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation, random_init
 from tensorflowasr_tpu_torch.models.layers.rnn import RNN
 from tensorflowasr_tpu_torch.ops import transducer_decode
 from tensorflowasr_tpu_torch.utils import device as device_util
@@ -142,24 +140,9 @@ class Transducer(nn.Module):
     def time_reduction_factor(self) -> int:
         return self.encoder.time_reduction_factor
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator``: lecun-normal matrices and
-        conv kernels (std 1/√fan_in), standard-normal embeddings, unit norm
-        scales, zero biases; BatchNorm running stats mean 0, var 1."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if p.dim() >= 2 and name.endswith("embeddings.weight"):
-                p.copy_(torch.randn(p.shape, generator=generator))
-            elif p.dim() >= 2 and not name.endswith("attention_bias"):
-                fan_in = math.prod(p.shape[1:])
-                p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
-            elif leaf == "weight" and p.dim() == 1:
-                p.fill_(1.0)
-            else:
-                p.zero_()
-        for name, b in self.named_buffers():
-            b.fill_(1.0 if name.endswith("running_var") else 0.0)
+        """Random weights from ``generator`` (``general.random_init``)."""
+        random_init(self, generator)
 
     # ------------------------------- training ------------------------------- #
 
@@ -168,7 +151,7 @@ class Transducer(nn.Module):
         blank-prepended labels [B, U+1] → logits [B, T, U+1, V] and their
         lengths. ``train``: BatchNorm on batch statistics (updating the
         running ones) and, with a ``generator``, the encoder's dropout."""
-        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length)
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
         enc, elens = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return schemas.TrainOutput(logits=self.joint(enc, pred), logits_length=elens)
@@ -179,7 +162,7 @@ class Transducer(nn.Module):
         [B, U+1, J], logits_length), the inputs of the fused joint+loss
         (``ops/cuda/joint_loss_kernel.py``), which never materialises the
         [B, T, U+1, V] logits. ``train`` and ``generator`` as in :meth:`forward`."""
-        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length)
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
         enc, elens = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return self.joint.project_encoder(enc), self.joint.project_prediction(pred), elens

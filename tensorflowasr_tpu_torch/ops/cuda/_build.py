@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu", "rnnt_rows.cu", "lstm.cu")
+SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu", "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +57,9 @@ _SIGNATURES = {
     "tfasr_rnnt_dlogits": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_lstm_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_lstm_bwd": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
+    "tfasr_ctc": ([_P] * 6 + [_I] * 3 + [_P], ctypes.c_int),
+    "tfasr_attention": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_attention_bwd": ([_P] * 12 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
 }
 
 _lib: ctypes.CDLL | None = None

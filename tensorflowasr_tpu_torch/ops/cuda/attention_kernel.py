@@ -1,4 +1,6 @@
-"""Fused relative-position attention kernel, forward and backward (``csrc/rel_attention.cu``).
+"""The fused attention kernels, forward and backward: relative-position
+attention (kernel B, ``csrc/rel_attention.cu``) and attention with an
+additive bias (kernel A, ``csrc/attention.cu``, at the end of this module).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/attention_kernel.py:fused_rel_attention``
 (kernel B) with its ``custom_vjp``: content scores ``qc·kᵀ``, the
@@ -33,8 +35,10 @@ import torch
 from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda import _build
 
-launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
-bwd_launches = 0  # backward kernel launches since the last reset
+launches = 0  # kernel B forward launches since the last reset (set to 0 to reset)
+bwd_launches = 0  # kernel B backward launches since the last reset
+attention_launches = 0  # kernel A forward launches since the last reset
+attention_bwd_launches = 0  # kernel A backward launches since the last reset
 
 _TQ, _KT, _OUT_PER_THREAD, _KV_PER_THREAD, _THREADS = 16, 64, 4, 16, 256  # csrc/rel_attention.cu
 _MAX_SMEM = 227 * 1024
@@ -275,3 +279,173 @@ def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float =
         raise ValueError(f"no attention kernel for device {qc.device}")
     dr.keep_params(rate)
     return _RelAttention.apply(qc, qp, k, v, pos, kv_bias, q_len, int(seed), float(rate), bool(causal), chunk_size, history_size, bool(pe_causal))
+
+
+# --------------------------------------------------------------------------- #
+# Kernel A: softmax(q·kᵀ + bias)·v with an additive bias operand
+#
+# Replaces ``tensorflowasr_tpu/ops/pallas/attention_kernel.py:fused_attention``
+# (``_fwd_kernel``, ``_bwd_kernel``), the vanilla multi-head attention of the
+# Transformer encoders: scores accumulate in f32 and take the bias (read in
+# its own dtype) in f32, a whole-row f32 softmax, the normalised
+# probabilities dropped (the counter hash under ``seed + b·h·40499``, indexed
+# by (row, column), so the masks equal JAX's bit for bit) and rounded to v's
+# dtype before P·V. The backward recomputes the probabilities as the Pallas
+# ``_bwd_kernel`` does: dv = pdᵀ·do with the f32 dropped probabilities,
+# dpn = (do·vᵀ)·keep, delta = Σ do·out (from the saved output, which equals
+# JAX's recomputation), ds = pn·(dpn − delta), dq and dk from ds rounded to
+# the input dtype, and dbias = ds in f32 (summed over b·h for a broadcast
+# bias) only when the bias needs a gradient.
+#
+# What bounds it on the card: at the Transformer-CTC training shape (b·h 64,
+# T = S = 400, head 128) the products, 5.2 GFLOP forward and 13.1 backward,
+# on the CUDA cores in f32 (a first version; wgmma and TMA are later work).
+# --------------------------------------------------------------------------- #
+
+_FA_TQ, _FA_KT, _FA_MAX_D = 16, 64, 128  # csrc/attention.cu
+
+
+def _attention_probs(q, k, bias, seed, rate):
+    """(pn, keep): the f32 softmax of q·kᵀ + bias [BH, T, S] and the dropout keep factors (None at rate 0)."""
+    scores = torch.matmul(q.float(), k.float().transpose(1, 2)) + bias.float()
+    pn = _softmax(scores)
+    keep = dropout_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device) if rate > 0.0 else None
+    return pn, keep
+
+
+def fused_attention_plain(q, k, v, bias, seed=0, rate: float = 0.0):
+    """Plain PyTorch version of :func:`fused_attention` (same arguments; differentiable by autograd)."""
+    pn, keep = _attention_probs(q, k, bias, seed, rate)
+    if keep is not None:
+        pn = pn * keep
+    return torch.matmul(pn.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def fused_attention_plain_bwd(q, k, v, bias, dout, seed=0, rate: float = 0.0, bias_grad: bool = True):
+    """Gradients (dq, dk, dv, dbias) of :func:`fused_attention` with the
+    explicit formulas of the Pallas ``_bwd_kernel`` (attention_kernel.py
+    :118-160), recomputing the forward; dq, dk, dv in their inputs' dtypes,
+    dbias (None unless ``bias_grad``) in the bias's shape and dtype."""
+    f32 = torch.float32
+    pn, keep = _attention_probs(q, k, bias, seed, rate)
+    pd = pn if keep is None else pn * keep
+    do = dout.to(f32)
+    dv = pd.transpose(1, 2) @ do
+    dpn = do @ v.to(f32).transpose(1, 2)
+    if keep is not None:
+        dpn = dpn * keep
+    o = (pd.to(v.dtype).to(f32) @ v.to(f32)).to(q.dtype).to(f32)  # the forward's output, recomputed
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = pn * (dpn - delta)
+    dq = ds.to(k.dtype).to(f32) @ k.to(f32)
+    dk = ds.to(q.dtype).to(f32).transpose(1, 2) @ q.to(f32)
+    dbias = None
+    if bias_grad:
+        dbias = (ds.sum(dim=0, keepdim=True) if bias.shape[0] == 1 else ds).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _attention_check(q, k, v, bias):
+    """Validate kernel A's inputs; returns (bh, t, s, d, dtype code)."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or bias.dim() != 3:
+        raise ValueError("q/k/v must be [BH, ·, D] and bias [BH|1, T, S]")
+    bh, t, d = q.shape
+    s = k.shape[1]
+    dev = q.device
+    code = _build.compute_dtype(q, "q") + 2 * _build.compute_dtype(bias, "bias")
+    _build.require(k, "k", device=dev, dtype=q.dtype, shape=(bh, s, d))
+    _build.require(v, "v", device=dev, dtype=q.dtype, shape=(bh, s, d))
+    _build.require(q, "q", device=dev, dtype=q.dtype, shape=(bh, t, d))
+    if bias.shape[0] not in (1, bh):
+        raise ValueError(f"bias leading dimension {bias.shape[0]} must be 1 or B·H={bh}")
+    _build.require(bias, "bias", device=dev, dtype=bias.dtype, shape=(bias.shape[0], t, s))
+    if d > _FA_MAX_D:
+        raise ValueError(f"head size {d} > {_FA_MAX_D} is not supported by the kernel")
+    sp = -(-s // _FA_KT) * _FA_KT
+    smem = 4 * (_FA_TQ * d + _FA_KT * (d + 1) + _FA_TQ * sp + _FA_TQ * d + _FA_TQ)  # the backward's
+    if smem > _MAX_SMEM:
+        raise ValueError(f"key length {s} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
+    if s == 0 and bh * t > 0:
+        raise ValueError("attention over zero keys")
+    return bh, t, s, d, code
+
+
+def fused_attention_kernel(q, k, v, bias, seed=0, rate: float = 0.0):
+    """Kernel A's forward on CUDA tensors (no autograd)."""
+    global attention_launches
+    bh, t, s, d, code = _attention_check(q, k, v, bias)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.build()
+    with torch.cuda.device(q.device):
+        err = lib.tfasr_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, t, s, d, bias.shape[0],
+                                  *dr.kernel_args(seed, rate), code, _build.stream_of(q))
+    _build.check(err, "fused_attention")
+    attention_launches += 1
+    return out
+
+
+def fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed=0, rate: float = 0.0, bias_grad: bool = True):
+    """Kernel A's backward on CUDA tensors: ``out`` is the forward's output;
+    same results as :func:`fused_attention_plain_bwd`."""
+    global attention_bwd_launches
+    bh, t, s, d, code = _attention_check(q, k, v, bias)
+    for name, x in (("out", out), ("dout", dout)):
+        _build.require(x, name, device=q.device, dtype=q.dtype, shape=tuple(q.shape))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.zeros((bh, t, s), dtype=torch.float32, device=q.device) if bias_grad else None
+    if q.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_(), None if dbias is None else dbias[:bias.shape[0]].to(bias.dtype)
+    ds = torch.empty((bh, t, s), dtype=q.dtype, device=q.device)
+    pd = torch.empty((bh, t, s), dtype=torch.float32, device=q.device)
+    lib = _build.build()
+    with torch.cuda.device(q.device):
+        err = lib.tfasr_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), dout.data_ptr(), ds.data_ptr(),
+                                      pd.data_ptr(), _build.ptr(dbias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, s, d, bias.shape[0],
+                                      *dr.kernel_args(seed, rate), code, _build.stream_of(q))
+    _build.check(err, "fused_attention backward")
+    attention_bwd_launches += 1
+    if dbias is not None:
+        dbias = (dbias.sum(dim=0, keepdim=True) if bias.shape[0] == 1 else dbias).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate):
+        ctx.cfg = (seed, rate)
+        if q.device.type == "cpu":
+            out = fused_attention_plain(q, k, v, bias, seed, rate)
+        else:
+            out = fused_attention_kernel(q, k, v, bias, seed, rate)
+        ctx.save_for_backward(q, k, v, bias, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        bias_grad = ctx.needs_input_grad[3]
+        if q.device.type == "cpu":
+            grads = fused_attention_plain_bwd(q, k, v, bias, dout, *ctx.cfg, bias_grad=bias_grad)
+        else:
+            grads = fused_attention_bwd_kernel(q, k, v, bias, out, dout, *ctx.cfg, bias_grad=bias_grad)
+        return (*grads, None, None)
+
+
+def fused_attention(q, k, v, bias, seed=0, rate: float = 0.0):
+    """softmax(q·kᵀ + bias)·v per leading b·h index (the JAX ``fused_attention``
+    minus ``interpret``); differentiable in q, k, v and bias.
+
+    q: [BH, T, D]; k/v: [BH, S, D] (D ≤ 128 on the card); bias: [BH|1, T, S]
+    additive (a leading 1 broadcasts); seed: int for the probability
+    dropout, rate in [0, 1). Returns [BH, T, D] in q.dtype. A CUDA tensor
+    launches the kernels (forward, and backward under autograd) or raises
+    on a shape they do not take; a CPU tensor takes
+    :func:`fused_attention_plain` and :func:`fused_attention_plain_bwd`.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+    dr.keep_params(rate)
+    return _Attention.apply(q, k, v, bias, int(seed), float(rate))

@@ -1,0 +1,105 @@
+"""The CTC loss kernel (``csrc/ctc.cu``) and the CTC loss built on it.
+
+Replaces ``tensorflowasr_tpu/ops/pallas/ctc_kernel.py:ctc_loss_pallas``
+and its ``custom_vjp``. The forward builds the kernel's inputs in PyTorch
+as ``_prep`` does (``ops/ctc_loss.py:ctc_prep``: the f32 lse, the
+per-state log-probabilities lp_ext [B, T, 2U+1] and the skip addend
+[B, 2U+1]), then one kernel launch computes α, β, the occupancy gradient
+−exp(α+β−ll) and the per-row loss −ll (``_ctc_kernel``). The backward is
+softmax − occupancy (``_ctc_bwd``), PyTorch ops as JAX leaves it to XLA:
+the label occupancies go into their vocabulary bins by ``scatter_add``
+(a repeated label sums into one bin, as JAX's one-hot GEMM does), and the
+gradient comes out in the logits' dtype.
+
+What bounds the kernel on the card: the chain of 2·T_b dependent row
+updates (one barrier each, one block per batch row), not the 13 MB it
+reads and writes at B 16, T 400, S 257. None of the TPU kernel's lane
+packing (``_pack_grid``, G lane groups, ``_padded_lanes``, scalar
+prefetch) is carried over. :func:`ctc_occupancy_plain`
+(``ops/ctc_loss.py``) is its plain twin.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
+from tensorflowasr_tpu_torch.ops.cuda import _build
+
+launches = 0  # kernel launches since the last reset (set to 0 to reset)
+
+MAX_STATES = 1024  # one thread per extended state
+
+
+def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch.Tensor, label_length: torch.Tensor):
+    """The kernel on CUDA tensors: (occupancy [B, T, S], loss [B]), f32; no
+    autograd. Lengths are clamped to the lattice (1 ≤ T_b ≤ T, 2U_b+1 ≤ S)."""
+    global launches
+    if lp_ext.dim() != 3:
+        raise ValueError("lp_ext must be [B, T, S]")
+    b, t, s = lp_ext.shape
+    dev = lp_ext.device
+    _build.require(lp_ext, "lp_ext", device=dev, dtype=torch.float32, shape=(b, t, s))
+    _build.require(skip_add, "skip_add", device=dev, dtype=torch.float32, shape=(b, s))
+    if s > MAX_STATES:
+        raise ValueError(f"S = 2U+1 = {s} > {MAX_STATES} extended states is not supported by the kernel")
+    t_len = logit_length.to(dev, torch.int32).contiguous()
+    u_len = label_length.to(dev, torch.int32).contiguous()
+    for name, x in (("logit_length", t_len), ("label_length", u_len)):
+        _build.require(x, name, device=dev, dtype=torch.int32, shape=(b,))
+    occ = torch.empty_like(lp_ext)
+    loss = torch.empty(b, dtype=torch.float32, device=dev)
+    if b * t * s == 0:
+        return occ.zero_(), loss.zero_()
+    lib = _build.build()
+    with torch.cuda.device(dev):
+        err = lib.tfasr_ctc(lp_ext.data_ptr(), skip_add.data_ptr(), t_len.data_ptr(), u_len.data_ptr(), occ.data_ptr(), loss.data_ptr(), b, t, s,
+                            _build.stream_of(lp_ext))
+    _build.check(err, "ctc")
+    launches += 1
+    return occ, loss
+
+
+def ctc_occupancy(lp_ext, skip_add, logit_length, label_length):
+    """(occupancy, loss): the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if lp_ext.device.type == "cpu":
+        t = lp_ext.shape[1]
+        return ctc_occupancy_plain(lp_ext, skip_add, logit_length.clamp(1, max(t, 1)), label_length.clamp(min=0))
+    if lp_ext.device.type != "cuda":
+        raise ValueError(f"no CTC kernel for device {lp_ext.device}")
+    return ctc_kernel(lp_ext.contiguous(), skip_add.contiguous(), logit_length, label_length)
+
+
+class _CtcLossPallas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, logit_length, labels, label_length):
+        label_length = label_length.to(logits.device, torch.int64)
+        logit_length = torch.maximum(logit_length.to(logits.device, torch.int64), label_length)
+        lp_ext, skip_add, lse = ctc_prep(logits, labels)
+        occ, loss = ctc_occupancy(lp_ext, skip_add, logit_length, label_length)
+        ctx.save_for_backward(logits, lse, occ, labels)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, occ, labels = ctx.saved_tensors
+        x = logits.float()
+        g_blank = occ[..., 0::2].sum(dim=-1)  # [B, T]
+        g_lab = occ[..., 1::2]  # [B, T, U]
+        gsum = g_blank + g_lab.sum(dim=-1)
+        d = torch.zeros_like(x)
+        d.scatter_add_(2, labels.to(x.device, torch.int64)[:, None, :].expand_as(g_lab), g_lab)
+        d[..., 0] += g_blank
+        d = (d - torch.exp(x - lse[..., None]) * gsum[..., None]) * g.float()[:, None, None]
+        return d.to(logits.dtype), None, None, None
+
+
+def ctc_loss_pallas(logits: torch.Tensor, logit_length: torch.Tensor, labels: torch.Tensor, label_length: torch.Tensor, blank: int = 0) -> torch.Tensor:
+    """Per-row CTC loss [B] f32 through the kernel (the JAX ``ctc_loss_pallas``);
+    differentiable in ``logits`` [B, T, V] (f32 or bf16). Conventions as
+    ``ops/ctc_loss.py:ctc_loss``: blank 0, ``logit_length`` raised to
+    ``label_length``, bf16 logits upcast. A CUDA tensor launches the kernel,
+    a CPU tensor takes :func:`ctc_occupancy_plain`."""
+    if blank != 0:
+        raise ValueError("blank is fixed to 0 (reference parity)")
+    return _CtcLossPallas.apply(logits, logit_length, labels, label_length)

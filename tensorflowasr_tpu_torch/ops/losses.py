@@ -1,4 +1,4 @@
-"""RNN-T loss dispatch (counterpart of ``tensorflowasr_tpu/ops/losses.py``).
+"""RNN-T and CTC loss dispatch (counterpart of ``tensorflowasr_tpu/ops/losses.py``).
 
 ``loss_impl`` takes the values of the JAX package's ``TFASR_LOSS_IMPL``, as
 an argument instead of an environment variable. For a loss over
@@ -11,11 +11,18 @@ not take the fused joint+loss):
   log-probability row kernel, the DP kernel, and the d_logits row kernel
   in the backward).
 
-The CTC losses are not ported yet.
+For a CTC model (:func:`get_ctc_loss_fn`, JAX ``get_ctc_loss_fn``):
+``"auto"`` and ``"pallas"`` take the CTC kernel
+(``ops/cuda/ctc_kernel.py:ctc_loss_pallas``); ``"xla"`` and
+``"fused-joint"`` (a transducer-only path, which JAX maps to the scan for a
+CTC model) take the plain α recursion with autograd
+(``ops/ctc_loss.py:ctc_loss``).
 """
 
 from __future__ import annotations
 
+from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_loss
+from tensorflowasr_tpu_torch.ops.cuda.ctc_kernel import ctc_loss_pallas
 from tensorflowasr_tpu_torch.ops.cuda.rnnt_kernel import rnnt_loss_pallas
 from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss, sanitize_lengths, valid_mean
 
@@ -35,8 +42,18 @@ def masked_mean(loss_fn):
     return fn
 
 
-def get_rnnt_loss_fn(loss_impl: str = "auto"):
-    """The masked-mean RNN-T loss over logits for ``loss_impl``."""
+def _check(loss_impl: str) -> None:
     if loss_impl not in LOSS_IMPLS:
         raise ValueError(f"loss_impl {loss_impl!r} is not one of {LOSS_IMPLS}")
+
+
+def get_rnnt_loss_fn(loss_impl: str = "auto"):
+    """The masked-mean RNN-T loss over logits for ``loss_impl``."""
+    _check(loss_impl)
     return masked_mean(rnnt_loss if loss_impl == "xla" else rnnt_loss_pallas)
+
+
+def get_ctc_loss_fn(loss_impl: str = "auto"):
+    """The masked-mean CTC loss over logits [B, T, V] for ``loss_impl``."""
+    _check(loss_impl)
+    return masked_mean(ctc_loss_pallas if loss_impl in ("auto", "pallas") else ctc_loss)

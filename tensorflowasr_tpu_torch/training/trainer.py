@@ -27,6 +27,11 @@ as an argument instead of an environment variable:
 (``ops/losses.py``) dispatches it: the plain DP for ``"xla"``, the
 unfused Pallas loss for every other value.
 
+A CTC model (``models/ctc``) trains and evaluates on the CTC loss over its
+[B, T, V] logits that ``get_ctc_loss_fn(loss_impl)`` selects: the CTC
+kernel for ``"auto"`` and ``"pallas"``, the plain α recursion for
+``"xla"`` and ``"fused-joint"``; the fused joint+loss is transducer-only.
+
 One device: no mesh, no data parallelism, no checkpoints, no gaussian
 weight noise, no callbacks — each raises or is absent; they are listed in
 ROADMAP.md.
@@ -42,9 +47,10 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from tensorflowasr_tpu_torch import schemas
+from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 from tensorflowasr_tpu_torch.ops.cuda.joint_loss_kernel import rnnt_loss_fused_joint
-from tensorflowasr_tpu_torch.ops.losses import get_rnnt_loss_fn
+from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn, get_rnnt_loss_fn
 from tensorflowasr_tpu_torch.ops.rnnt_loss import sanitize_lengths, valid_mean
 from tensorflowasr_tpu_torch.optimizers import build_optimizer
 from tensorflowasr_tpu_torch.utils import device as device_util
@@ -91,11 +97,14 @@ def fused_joint_loss(model: Transducer, inputs: schemas.TrainInput, labels: sche
 
 
 def _loss_for(model: torch.nn.Module, loss_impl: str) -> Callable:
-    """The masked-mean loss over logits (JAX ``trainer._loss_for``): the
-    RNN-T loss that ``loss_impl`` selects; CTC models are not ported yet."""
-    if not isinstance(model, Transducer):
-        raise NotImplementedError("only transducer models train in the port yet")
-    return get_rnnt_loss_fn(loss_impl)
+    """The masked-mean loss over logits (JAX ``trainer._loss_for``) that
+    ``loss_impl`` selects for the model's family: RNN-T for a
+    ``Transducer``, CTC for a ``CtcModel``."""
+    if isinstance(model, Transducer):
+        return get_rnnt_loss_fn(loss_impl)
+    if isinstance(model, CtcModel):
+        return get_ctc_loss_fn(loss_impl)
+    raise TypeError(f"no loss for a {type(model).__name__}: a Transducer or a CtcModel trains")
 
 
 def make_train_loss(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
@@ -141,9 +150,10 @@ def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], N
 
 def make_eval_step(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
     """The loss without gradients (JAX ``make_eval_step``): the inference
-    forward to [B, T, U+1, V] logits and the masked-mean loss that
-    ``get_rnnt_loss_fn(loss_impl)`` selects — by default the unfused Pallas
-    loss (TPU kernel row 10 and the DP kernel on the card)."""
+    forward to logits and the masked-mean loss that :func:`_loss_for`
+    selects — by default, for a transducer, the unfused Pallas loss (TPU
+    kernel row 10 and the DP kernel on the card), and for a CTC model the
+    CTC kernel (row 11)."""
     loss_fn = _loss_for(model, loss_impl)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):

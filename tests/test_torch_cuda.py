@@ -15,7 +15,10 @@ row kernel computes in f32 from the same inputs as its plain version in
 either dtype: 1e-4. The LSTM kernels chain T steps; bf16 rounds y, the
 cell sequence and the gates at the same places on both sides, so a
 summation-order flip of one rounding carries into later steps: 2e-2
-forward, 3e-2 of each gradient's scale backward.
+forward, 3e-2 of each gradient's scale backward. The CTC kernel (f32
+only) chains 2·T log-sum-exps of three: its loss to 1e-5 relative, its
+occupancies (in [−1, 0]) to 1e-5 absolute. Kernel A, like kernel B: 1e-4
+/ 2e-2 forward, 1e-4 / 3e-2 of each gradient's scale backward.
 """
 
 import copy
@@ -30,11 +33,15 @@ from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, confo
 from tensorflowasr_tpu_torch.ops import frontend
 from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
 from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+from tensorflowasr_tpu_torch.ops.cuda import ctc_kernel as ctk
 from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
 from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
 from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
 from tensorflowasr_tpu_torch.ops.cuda import lstm_kernel as lk
 from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
+from tensorflowasr_tpu_torch.models.ctc.conformer import ConformerCtc, conformer_ctc_small_config
+from tensorflowasr_tpu_torch.models.ctc.transformer import TransformerCtc, transformer_ctc_base_config
+from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
 from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
 
 pytestmark = pytest.mark.cuda
@@ -438,3 +445,145 @@ def test_lstm_layer_autograd_runs_the_kernels(dev):
         results.append([y.detach().cpu(), c_t.detach().cpu(), h_t.detach().cpu()] + [a.grad.cpu() for a in leaves])
     for got, ref in zip(*results):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------ CTC ------------------------------------------ #
+
+# (B, T, U, V): the CTC training shape, small ragged ones, a lattice of one frame and no labels
+CTC_CASES = [(16, 400, 128, 256), (3, 13, 4, 20), (2, 37, 50, 70), (1, 1, 0, 5)]
+
+
+def _ctc_args(dev, b, t, u, v, seed=12):
+    g = _gen(dev, seed)
+    logits = _r(g, dev, (b, t, v), 2.0)
+    labels = torch.randint(1, v, (b, u), generator=g, device=dev)
+    u_len = torch.randint(0, u + 1, (b,), generator=g, device=dev)
+    t_len = torch.randint(1, t + 1, (b,), generator=g, device=dev)
+    if b > 1 and u > 1:
+        labels[0, 1] = labels[0, 0]  # a repeated label
+        u_len[0], t_len[0] = u, t
+        u_len[1], t_len[1] = 0, t  # no labels
+    if b > 2:
+        u_len[2], t_len[2] = min(u, 3), 1  # infeasible
+    labels[torch.arange(u, device=dev)[None, :] >= u_len[:, None]] = 0
+    return logits, t_len, labels, u_len
+
+
+@pytest.mark.parametrize("b,t,u,v", CTC_CASES)
+def test_ctc_kernel(dev, b, t, u, v):
+    logits, t_len, labels, u_len = _ctc_args(dev, b, t, u, v)
+    lp_ext, skip, _ = ctc_prep(logits, labels)
+    before = ctk.launches
+    occ, loss = ctk.ctc_kernel(lp_ext, skip, t_len, u_len)
+    assert ctk.launches == before + 1
+    ref_occ, ref_loss = ctc_occupancy_plain(lp_ext, skip, t_len, u_len)
+    assert torch.isfinite(loss).all() and torch.isfinite(occ).all()
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(occ, ref_occ, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ctc_loss_autograd_runs_the_kernel(dev, dtype):
+    """A CUDA tensor launches the CTC kernel once per forward; the loss and
+    the gradient (in the logits' dtype) equal the CPU plain path's."""
+    logits, t_len, labels, u_len = _ctc_args(dev, 4, 29, 7, 33, seed=13)
+    x = logits.to(dtype).requires_grad_(True)
+    before = ctk.launches
+    loss = ctk.ctc_loss_pallas(x, t_len, labels, u_len)
+    (loss[:2].sum() + 0.5 * loss[3]).backward()
+    assert ctk.launches == before + 1 and x.grad.dtype == dtype
+    xc = x.detach().cpu().requires_grad_(True)
+    ref = ctk.ctc_loss_pallas(xc, t_len.cpu(), labels.cpu(), u_len.cpu())
+    (ref[:2].sum() + 0.5 * ref[3]).backward()
+    torch.testing.assert_close(loss.detach().cpu(), ref.detach(), rtol=1e-5, atol=0)
+    _grads_close([x.grad.cpu()], [xc.grad], GRAD_REL[dtype], "ctc_loss_pallas autograd")
+
+
+# --------------------------------- kernel A (vanilla MHA) --------------------------------- #
+
+
+def _attention_args(dev, dtype, bh, t, s, d, bias_bh, seed=14):
+    g = _gen(dev, seed)
+    q, k, v = _r(g, dev, (bh, t, d), 0.3, dtype), _r(g, dev, (bh, s, d), 1.0, dtype), _r(g, dev, (bh, s, d), 1.0, dtype)
+    # the Keras query-row mask of a ragged batch (−1e9 on every column of a padded row) plus a term
+    valid = torch.arange(t, device=dev)[None, :] < torch.randint(1, t + 1, (bias_bh,), generator=g, device=dev)[:, None]
+    bias = (torch.where(valid, 0.0, -1e9)[:, :, None] + _r(g, dev, (bias_bh, t, s), 0.5)).to(dtype)
+    return q, k, v, bias, _r(g, dev, (bh, t, d), 1.0, dtype)
+
+
+# (B·H, T, S, D, bias B·H): head sizes 36, 64 and 128, a broadcast bias, unaligned lengths
+ATTN_CASES = [(64, 400, 400, 128, 64), (8, 250, 250, 36, 1), (6, 77, 93, 64, 6), (3, 5, 130, 128, 1), (2, 17, 17, 44, 2)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,t,s,d,bias_bh", ATTN_CASES)
+def test_attention_kernels(dev, bh, t, s, d, bias_bh, dtype, rate):
+    q, k, v, bias, dout = _attention_args(dev, dtype, bh, t, s, d, bias_bh)
+    before = (ak.attention_launches, ak.attention_bwd_launches)
+    out = ak.fused_attention_kernel(q, k, v, bias, 31, rate)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out, ak.fused_attention_plain(q, k, v, bias, 31, rate), **TOL[dtype])
+    grads = ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate)
+    assert (ak.attention_launches, ak.attention_bwd_launches) == (before[0] + 1, before[1] + 1)
+    _grads_close(grads, ak.fused_attention_plain_bwd(q, k, v, bias, dout, 31, rate), GRAD_REL[dtype], f"attention {bh}x{t}x{s}x{d}")
+
+
+def test_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v, bias, _ = _attention_args(dev, torch.float32, 2, 5, 7, 160, 1)
+    with pytest.raises(ValueError, match="head size"):
+        ak.fused_attention(q, k, v, bias)
+    q, k, v, bias, _ = _attention_args(dev, torch.float32, 2, 5, 7, 16, 1)
+    with pytest.raises(ValueError, match="bias"):
+        ak.fused_attention(q, k, v, bias.expand(3, 5, 7).contiguous())
+
+
+# ------------------------------------- CTC train step ------------------------------------- #
+
+
+@pytest.mark.parametrize("name", ["conformer", "transformer"])
+def test_ctc_train_step_on_the_card(dev, name):
+    """One f32 auto step of a 2-block CTC model at full width on the card
+    (kernels) and on a CPU copy (plain versions): loss to 1e-4 relative,
+    every gradient to 1e-3 of its scale plus 1e-5 of the largest; the CTC
+    kernel launches once, kernel A twice forward and twice backward (the
+    Transformer), kernel B twice each way (the Conformer). The Transformer's
+    input linear is drawn 1/√dmodel smaller: with random weights the ×√dmodel
+    PE scale otherwise makes the attention scores O(500), and its gradients
+    then move by 5e-3 under a 1e-6 input perturbation (on the CPU alone),
+    more than any card/CPU tolerance can hold."""
+    from tensorflowasr_tpu_torch.training.trainer import make_train_loss
+
+    cls, cfg = {"conformer": (ConformerCtc, conformer_ctc_small_config(num_blocks=2, dropout=0.0)),
+                "transformer": (TransformerCtc, transformer_ctc_base_config(num_blocks=2, dropout=0.0))}[name]
+    cpu_model = cls.from_config(cfg, device="cpu")
+    cpu_model.reset_parameters(torch.Generator().manual_seed(0))
+    if name == "transformer":
+        with torch.no_grad():
+            cpu_model.encoder.linear.weight.mul_(cfg["encoder_dmodel"] ** -0.5)
+    model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(1)
+    lens = np.array([64000, 48000])
+    audio = (rng.standard_normal((2, 64000)) * 0.1).astype(np.float32)
+    audio[1, 48000:] = 0.0
+    labels = rng.integers(1, 256, (2, 30))
+    labels[1, 20:] = 0
+    t = torch.tensor
+    batch = schemas.TrainData(schemas.TrainInput(t(audio), t(lens), t(labels), t([30, 20])), schemas.TrainLabel(t(labels), t([30, 20])))
+    train_loss = make_train_loss(cpu_model, "auto")
+    results = []
+    for m, b in ((model, batch.to(dev)), (cpu_model, batch)):
+        counts = (ctk.launches, ak.attention_launches, ak.attention_bwd_launches, ak.launches, ak.bwd_launches)
+        loss = train_loss(m, b.inputs, b.labels)
+        loss.backward()
+        if b.labels.labels.device.type == "cuda":
+            heads = (2, 2, 0, 0) if name == "transformer" else (0, 0, 2, 2)
+            assert tuple(c - c0 for c, c0 in zip((ctk.launches, ak.attention_launches, ak.attention_bwd_launches, ak.launches, ak.bwd_launches),
+                                                   counts)) == (1, *heads)
+        results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), (loss_gpu, loss_cpu)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    for n, ref in g_cpu.items():
+        err = (g_gpu[n] - ref).abs().max().item()
+        assert err <= 1e-3 * ref.abs().max().item() + 1e-5 * gmax, (n, err)
