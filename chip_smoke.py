@@ -42,19 +42,34 @@ utterances through each CTC model's ``recognize`` (Conformer-CTC Small and
 Transformer-CTC base at full width); four default (``auto``) training steps
 of each (one profiled), one ``xla`` step from the same start held to the
 first ``auto`` loss, three eval steps held to the ``xla`` eval; and the f32
-card/CPU parity of each 2-block CTC model's step. Every kernel must launch
-on at least one driven path; its launches are recorded per path. Any
-failure raises. The last two lines are the kernels' JSON summary and
-``{"ok": true, "device": {...}}``. Without a card it exits non-zero.
+card/CPU parity of each 2-block CTC model's step. Then the fused greedy
+decode (TPU kernel row 13): the kernel, its plain version and the eager
+WIND loop on the real encoder output of one flagship request (8 × 6–10 s,
+f32 and bf16), with times and bound; the flagship's served requests decode
+through it (one launch per request), every served request is watched for
+outliers (garbage collection, device allocations; six more requests at new
+lengths run under the profiler); streaming at bench.py's shape (batch 1,
+16 chunks of 16 feature frames, 160 ms each, tokens, decoder and encoder
+states carried) for the flagship and for the small-streaming example with a
+64-frame KV memory, in bf16 with ms per chunk and launches per chunk (one
+fused decode each), and in f32 card against CPU chunk by chunk; and the
+Transformer-CTC referee (its f32 step at the published init, card and CPU,
+against a float64 CPU run). Every kernel must launch on at least one driven
+path; its launches are recorded per path. Any failure raises. The last two
+lines are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
+Without a card it exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -242,6 +257,7 @@ SOURCES = {
     "ctc_loss": ("tensorflowasr_tpu_torch/csrc/ctc.cu", "tensorflowasr_tpu/ops/pallas/ctc_kernel.py:242"),
     "fused_attention": ("tensorflowasr_tpu_torch/csrc/attention.cu", "tensorflowasr_tpu/ops/pallas/attention_kernel.py:175"),
     "fused_attention_bwd": ("tensorflowasr_tpu_torch/csrc/attention.cu", "tensorflowasr_tpu/ops/pallas/attention_kernel.py:242"),
+    "fused_decode": ("tensorflowasr_tpu_torch/csrc/decode.cu", "scripts_dev/decode_kernel.py:435"),
 }
 
 
@@ -536,6 +552,27 @@ ROWS_TOL = {"f32": (1e-4, 1e-4), "bf16": (1e-4, 1e-4)}
 LSTM_B, LSTM_T, LSTM_H = TRAIN_B, TRAIN_U + 1, 320  # the prediction net at the flagship: U+1 = 129 steps, embedding = units = 320
 
 
+def _pack_cudnn_weights(lstm: torch.nn.LSTM) -> str:
+    """Packs an ``nn.LSTM``'s weights into cuDNN's single buffer.
+    ``flatten_parameters()`` returns without packing bf16 weights
+    (``torch.backends.cudnn.is_acceptable`` takes half, float and double
+    only), and cuDNN then copies them into a packed buffer on every call,
+    warning that they are "not part of single contiguous chunk of memory".
+    For such weights this calls the packing routine that
+    ``flatten_parameters()`` calls for the dtypes it accepts."""
+    lstm.flatten_parameters()
+    if len({w.untyped_storage().data_ptr() for w in lstm._flat_weights}) == 1:
+        return "packed by flatten_parameters()"
+    import torch.backends.cudnn.rnn as cudnn_rnn
+
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(lstm._flat_weights, 4, lstm.input_size, cudnn_rnn.get_cudnn_mode(lstm.mode), lstm.hidden_size, lstm.proj_size,
+                                        lstm.num_layers, lstm.batch_first, bool(lstm.bidirectional))
+    if len({w.untyped_storage().data_ptr() for w in lstm._flat_weights}) != 1:
+        raise AssertionError(f"nn.LSTM {lstm._flat_weights[0].dtype}: the weights are still not one buffer after packing")
+    return f"packed by torch._cudnn_rnn_flatten_weight: flatten_parameters() skips {lstm._flat_weights[0].dtype}"
+
+
 def phase_lstm_kernels(dev) -> list[dict]:
     """The LSTM forward and backward kernels at the prediction net's flagship
     shape (B 16, T 129, H 320), f32 and bf16, against their plain versions;
@@ -568,22 +605,149 @@ def phase_lstm_kernels(dev) -> list[dict]:
     library = {}
     for tag, dt in DTYPES:
         lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev, dt)
-        lstm.flatten_parameters()
+        packing = _pack_cudnn_weights(lstm)
         x = _randn(gen, (b, t, h), 1.0, dt).requires_grad_(True)
-        try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
             out, _ = lstm(x)
-        except RuntimeError as e:  # cuDNN's RNN may not take this dtype
-            print(f"library torch.nn.LSTM {tag}: not available ({str(e).splitlines()[0][:120]})")
-            continue
+        repacked = [str(w.message).splitlines()[0] for w in caught if "contiguous chunk" in str(w.message)]
+        if repacked:
+            raise AssertionError(f"library torch.nn.LSTM {tag}: cuDNN still re-packs the weights every call: {repacked[0]}")
         dout = torch.randn_like(out)
         inputs = [x, *lstm.parameters()]
         library[tag] = (time_ms(lambda: lstm(x)), time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)))
-        print(f"library torch.nn.LSTM (cuDNN) {tag}: x [{b}, {t}, {h}] forward {library[tag][0]:.4f} ms, backward {library[tag][1]:.4f} ms")
+        print(f"library torch.nn.LSTM (cuDNN) {tag}: x [{b}, {t}, {h}] forward {library[tag][0]:.4f} ms, backward {library[tag][1]:.4f} ms "
+              f"(weights {packing}; no re-packing warning)")
     lib = library.get("bf16")
     for row, part in zip(rows, (0, 1)):
         row["library_ms"] = None if lib is None else lib[part]
         row["library_ms_f32"] = library["f32"][part] if "f32" in library else None
     return rows
+
+
+# ---------------------------------- the fused greedy decode ---------------------------------- #
+
+DECODE_WINDOW = 16
+DECODE_GAP = 2.0 ** -6  # a bf16 token may differ only where the plain version's top-two logit gap is within this share of the logit scale
+
+
+def cost_decode(t_len: np.ndarray, u_len: np.ndarray, t: int, e: int, h: int, j: int, v: int, elt: int):
+    """bytes: enc_p [B, T, J] and the weights (embedding, the LSTM's two
+    kernels, the prejoint and vocabulary kernels) read once in the compute
+    dtype, biases and the states (f32) read, tokens (int32) and states
+    written. operations, from this run's data: a greedy decision is one
+    joint row (2·J·V for the product, 2·J for add and tanh) and each row
+    needs T_b + U_b of them (a blank moves to the next frame, a token stays
+    on it); each emission (and the first step) is one prediction step:
+    2·(E + H)·4H for the gates, ~10·H for the cell, 2·H·J for the prejoint."""
+    b = len(t_len)
+    decisions, steps = float(np.sum(t_len + u_len)), float(np.sum(u_len) + b)
+    weights = (v * e + 4 * h * (e + h) + j * h + v * j) * elt + 4 * (4 * h + 2 * h + j + v)
+    moved = b * t * j * elt + weights + 4 * b * (2 * t + 1) + 2 * 2 * 4 * b * h
+    return moved, decisions * (2.0 * j * v + 2.0 * j) + steps * (2.0 * (e + h) * 4 * h + 10.0 * h + 2.0 * h * j)
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Mean host-clock time of ``fn()`` over ``reps`` calls after one warm-up,
+    each ending in a synchronise (for host-driven loops: the plain version,
+    the eager WIND loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _first_difference(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor, len_b: torch.Tensor) -> list[int | None]:
+    """Per row, the first token position where two decodes differ (None where they are equal)."""
+    out = []
+    for r in range(a.shape[0]):
+        n = int(max(len_a[r], len_b[r]))
+        diff = (a[r, :n] != b[r, :n]).nonzero()
+        out.append(int(diff[0]) if len(diff) else (None if int(len_a[r]) == int(len_b[r]) else min(int(len_a[r]), int(len_b[r]))))
+    return out
+
+
+def phase_decode_kernel(dev) -> dict:
+    """Row 13, the fused greedy decode, at the flagship serve shape on the
+    real encoder output of one request (8 × 6–10 s): in f32 the kernel, its
+    plain version and the eager WIND loop give equal tokens, lengths and
+    next tokens, and the kernel's states equal the plain version's to 1e-5;
+    in bf16 the kernel equals the plain version exactly on the sharpened
+    encoding (×3, +2 on column 0, the canary's) and on the raw one differs
+    only where the plain version's decision was within DECODE_GAP of the
+    logit scale. Times of all three on the same input."""
+    from tensorflowasr_tpu_torch.ops import transducer_decode
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    audio, lens = make_request(np.random.default_rng(SEED + 5), 8, 6.0, 10.0, dev)
+    res, times = {}, {}
+    for tag, dt in DTYPES:
+        model = flagship(dt, dev).eval()
+        params = model.decode_params()
+        with torch.inference_mode():
+            enc, enc_len, _ = model.encode(audio, lens)
+            b = enc.shape[0]
+            start, states = torch.zeros(b, dtype=torch.int64, device=dev), model.init_decoder_states(b, dev)
+            kernel = lambda x: dk.fused_greedy_decode_kernel(x, enc_len, params, start, states, window=DECODE_WINDOW)
+            plain = lambda x, **kw: dk.fused_greedy_decode_plain(x, enc_len, params, start, states, window=DECODE_WINDOW, **kw)
+            eager = lambda x: transducer_decode.transducer_greedy_decode_wind(x, enc_len, model.pred_step, model.joint_window, start, states,
+                                                                                window=DECODE_WINDOW)
+            got, ref = kernel(enc), plain(enc, gaps=True)
+            torch.cuda.synchronize()
+            state_err = max((x - y).abs().max().item() for g, r in zip(got[3], ref[3]) for x, y in zip(g, r))
+            if tag == "f32":
+                eag = eager(enc)
+                for name, other in (("plain version", ref), ("eager WIND loop", eag)):
+                    if not all(torch.equal(x, y) for x, y in zip(got[:3], other[:3])):
+                        raise AssertionError(f"decode f32: kernel tokens/lengths/next tokens differ from the {name}: rows "
+                                             f"{_first_difference(got[0], other[0], got[1], other[1])}")
+                eager_err = max((x - y).abs().max().item() for g, r in zip(got[3], eag[3]) for x, y in zip(g, r))
+                if state_err > 1e-5 or eager_err > 1e-5:
+                    raise AssertionError(f"decode f32: states differ from the plain version by {state_err}, from the eager loop by {eager_err} (tol 1e-5)")
+                note = f"tokens, lengths, next tokens equal to the plain version's and the eager loop's; states max_abs_err {state_err:.3e} / {eager_err:.3e} (tol 1e-5)"
+            else:
+                sharp = enc.float() * 3.0
+                sharp[..., 0] += 2.0
+                sharp = sharp.to(dt)
+                gs, rs = kernel(sharp), plain(sharp)
+                if not all(torch.equal(x, y) for x, y in zip(gs[:3], rs[:3])):
+                    raise AssertionError(f"decode bf16 (sharpened): kernel differs from the plain version: rows {_first_difference(gs[0], rs[0], gs[1], rs[1])}")
+                pred0, _ = dk._pred_step(params, start, states)
+                z0 = torch.tanh(dk.project_encoder(enc, params).float() + pred0[:, None, :]).to(dt)
+                scale = torch.nn.functional.linear(z0.float(), params.wv.float(), params.bv).abs().max().item()
+                firsts = _first_difference(got[0], ref[0], got[1], ref[1])
+                gap = ref[4]
+                report = []
+                for r, pos in enumerate(firsts):
+                    if pos is None:
+                        continue
+                    g = gap[r, pos].item()
+                    report.append(f"row {r}: position {pos}, plain top-two gap {g:.4g}")
+                    if g > DECODE_GAP * scale:
+                        raise AssertionError(f"decode bf16: row {r} differs at position {pos} where the plain version's top-two logit gap {g} exceeds "
+                                             f"{DECODE_GAP} x the logit scale {scale}")
+                note = (f"sharpened: equal to the plain version; raw: {8 - len(report)} of 8 rows equal, " + ("; ".join(report) or "no difference")
+                        + f" (allowed where the gap <= 2^-6 x logit scale {scale:.3g})")
+            times[tag] = (time_ms(kernel, enc), wall_ms(lambda: plain(enc)), wall_ms(lambda: eager(enc)))
+        t_np, u_np = enc_len.cpu().numpy(), got[1].cpu().numpy()
+        res[tag] = dict(err=state_err, t_np=t_np, u_np=u_np, t=enc.shape[1])
+        print(f"kernel fused_decode {tag} (serve decode, B {b} T {enc.shape[1]} (T_b {t_np.min()}-{t_np.max()}), E 144 J 320 H 320 V 256, window "
+              f"{DECODE_WINDOW}): tokens per row {u_np.min()}-{u_np.max()} of {2 * enc.shape[1] + 1}; {note}; kernel {times[tag][0]:.4f} ms plain "
+              f"{times[tag][1]:.1f} ms eager WIND loop {times[tag][2]:.1f} ms")
+    r32 = res["f32"]
+    bounds = {tag: bound(*cost_decode(res[tag]["t_np"], res[tag]["u_np"], res[tag]["t"], 320, 320, 320, 256, 4 if tag == "f32" else 2), tag)
+              for tag, _ in DTYPES}
+    iters = r32["t_np"] + r32["u_np"]
+    print(f"kernel fused_decode: bound bf16 {bounds['bf16'][0]:.4f} ms ({bounds['bf16'][1]}), f32 {bounds['f32'][0]:.4f} ms ({bounds['f32'][1]}); "
+          f"the chain bounds it: greedy decisions per row T_b + U_b {iters.min()}-{iters.max()}, of which U_b {r32['u_np'].min()}-{r32['u_np'].max()} "
+          f"dependent prediction steps; library: none (no one PyTorch call decodes), eager WIND loop bf16 {times['bf16'][2]:.1f} ms")
+    row = _row("fused_decode", {"f32": res["f32"]["err"], "bf16": res["bf16"]["err"]}, times["bf16"][0], times["bf16"][1], bounds["bf16"])
+    row.update(eager_loop_ms=times["bf16"][2], ms_f32=times["f32"][0], plain_ms_f32=times["f32"][1], eager_loop_ms_f32=times["f32"][2],
+               bound_ms_f32=bounds["f32"][0], decisions_per_row=[int(iters.min()), int(iters.max())])
+    return row
 
 
 # --------------------------------------- counts --------------------------------------- #
@@ -595,14 +759,20 @@ ENCODER_FWD = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_ff": 
 ENCODER_BWD = {"fused_rel_attention_bwd": 16, "fused_ff_bwd": 32, "conv_front_bwd": 16, "conv_back_bwd": 16}
 KERNELS = ("log_mel_spectrogram", "fused_rel_attention", "fused_rel_attention_bwd", "fused_ff", "fused_ff_bwd", "conv_front", "conv_front_bwd",
            "conv_back", "conv_back_bwd", "rnnt_dp", "rnnt_fused_joint", "rnnt_fused_joint_bwd", "rnnt_logprobs", "rnnt_dlogits", "lstm", "lstm_bwd",
-           "ctc_loss", "fused_attention", "fused_attention_bwd")
+           "ctc_loss", "fused_attention", "fused_attention_bwd", "fused_decode")
 
 
 def _per(**counts) -> dict:
     return {k: counts.get(k, 0) for k in KERNELS}
 
 
-PER_REQUEST = _per(**ENCODER_FWD)
+def _launched(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
+# ... and the fused greedy decode once
+PER_REQUEST = _per(**ENCODER_FWD, fused_decode=1)
 # per default (auto) training step: the encoder's forwards, each one's
 # backward, and the fused joint forward, the DP and the fused joint backward once each
 PER_STEP = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_dp=1, rnnt_fused_joint=1, rnnt_fused_joint_bwd=1)
@@ -618,23 +788,24 @@ PER_STEP_AUTO_LSTM = {**PER_STEP, "lstm": 1, "lstm_bwd": 1}
 
 def launch_counts() -> dict:
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ctc_kernel as ctk, ff_kernel as fk, frontend_kernel as fek
-    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk, joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
 
     return {"log_mel_spectrogram": fek.launches, "fused_rel_attention": ak.launches, "fused_rel_attention_bwd": ak.bwd_launches, "fused_ff": fk.launches,
             "fused_ff_bwd": fk.bwd_launches, "conv_front": ck.front_launches, "conv_front_bwd": ck.front_bwd_launches, "conv_back": ck.back_launches,
             "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches,
             "rnnt_logprobs": rk.logprobs_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches, "lstm_bwd": lk.bwd_launches,
-            "ctc_loss": ctk.launches, "fused_attention": ak.attention_launches, "fused_attention_bwd": ak.attention_bwd_launches}
+            "ctc_loss": ctk.launches, "fused_attention": ak.attention_launches, "fused_attention_bwd": ak.attention_bwd_launches,
+            "fused_decode": dk.launches}
 
 
 def reset_launch_counts() -> None:
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ctc_kernel as ctk, ff_kernel as fk, frontend_kernel as fek
-    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk, joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
 
     fek.launches = ak.launches = ak.bwd_launches = fk.launches = fk.bwd_launches = 0
     ck.front_launches = ck.front_bwd_launches = ck.back_launches = ck.back_bwd_launches = 0
     rk.launches = jk.launches = jk.bwd_launches = rk.logprobs_launches = rk.dlogits_launches = lk.launches = lk.bwd_launches = 0
-    ctk.launches = ak.attention_launches = ak.attention_bwd_launches = 0
+    ctk.launches = ak.attention_launches = ak.attention_bwd_launches = dk.launches = 0
 
 
 def flagship(dtype, device, num_blocks: int = 16, dropout: float = 0.1, rnn_impl: str = "auto") -> torch.nn.Module:
@@ -652,10 +823,79 @@ def make_request(rng, batch: int, lo_s: float, hi_s: float, dev):
     return torch.tensor(audio, device=dev), torch.tensor(lens, device=dev)
 
 
+class RequestWatch:
+    """Host events inside one request: the time Python's garbage collector
+    ran, and the device allocations (cudaMalloc) and allocator retries of
+    PyTorch's caching allocator."""
+
+    def __enter__(self):
+        self.gc_ms, self._t = 0.0, None
+        gc.callbacks.append(self._gc)
+        stats = torch.cuda.memory_stats()
+        self._start = (stats.get("num_device_alloc", 0), stats.get("num_alloc_retries", 0))
+        return self
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.gc_ms += (time.perf_counter() - self._t) * 1e3
+            self._t = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._gc)
+        stats = torch.cuda.memory_stats()
+        self.device_allocs = stats.get("num_device_alloc", 0) - self._start[0]
+        self.alloc_retries = stats.get("num_alloc_retries", 0) - self._start[1]
+        return False
+
+    def __str__(self):
+        return f"gc {self.gc_ms:.1f} ms, device allocations {self.device_allocs}, allocator retries {self.alloc_retries}"
+
+
+OUTLIER = 3.0  # a request over this multiple of its phase's median wall is an outlier
+
+
+def flag_outliers(tag: str, walls: list[float], watches: list) -> None:
+    med = float(np.median(walls))
+    for r, (wall, w) in enumerate(zip(walls, watches)):
+        if wall > OUTLIER * med:
+            print(f"{tag} request {r}: OUTLIER {wall * 1e3:.1f} ms > {OUTLIER} x the median {med * 1e3:.1f} ms; {w}")
+
+
+def outlier_hunt(tag: str, model, recognize_fn, rng, dev, n: int = 6) -> None:
+    """``n`` more requests of 8 × 6–10 s at new lengths (new shapes), each
+    under the profiler; for a request over OUTLIER × the median wall, the
+    profiler's summary of that request (host time by operator, with the
+    CUDA runtime calls) and its garbage-collector and allocator events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowasr_tpu_torch import schemas
+
+    walls, runs = [], []
+    for _ in range(n):
+        audio, lens = make_request(rng, 8, 6.0, 10.0, dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, RequestWatch() as watch:
+            t0 = time.perf_counter()
+            recognize_fn(model, schemas.PredictInput(audio, lens))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        runs.append((prof, watch, audio.shape[1]))
+    med = float(np.median(walls))
+    print(f"{tag} outlier hunt: {n} requests at new lengths under the profiler, walls " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          + f" ms (median {med * 1e3:.1f})")
+    for wall, (prof, watch, samples) in zip(walls, runs):
+        if wall > OUTLIER * med:
+            print(f"{tag} outlier: {wall * 1e3:.1f} ms for {samples} samples; {watch}; profiler summary of that request:")
+            print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12, max_name_column_width=60))
+
+
 def phase_serve(dev) -> dict:
     from tensorflowasr_tpu_torch import schemas
     from tensorflowasr_tpu_torch.models.transducer.base import recognize
     from tensorflowasr_tpu_torch.ops import transducer_decode
+    from tensorflowasr_tpu_torch.ops.cuda.decode_kernel import fused_greedy_decode
 
     model = flagship(torch.bfloat16, dev).eval()
     rng = np.random.default_rng(SEED)
@@ -664,13 +904,15 @@ def phase_serve(dev) -> dict:
     torch.cuda.synchronize()
 
     reset_launch_counts()
-    walls = []
+    walls, watches = [], []
     for r, (audio, lens) in enumerate(requests):
         before = launch_counts()
-        t0 = time.perf_counter()
-        out = recognize(model, schemas.PredictInput(audio, lens))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        with RequestWatch() as watch:
+            t0 = time.perf_counter()
+            out = recognize(model, schemas.PredictInput(audio, lens))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        watches.append(watch)
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         if delta != PER_REQUEST:
@@ -681,8 +923,9 @@ def phase_serve(dev) -> dict:
         if not ((out.tokens >= 0) & (out.tokens < model.vocab_size)).all():
             raise AssertionError(f"request {r}: token ids outside the vocabulary")
     counts = launch_counts()
+    flag_outliers("serve", walls, watches)
 
-    # encode and decode timed apart, on the same requests (after the counted run)
+    # encode and decode timed apart, on the same requests (after the counted run): the decode kernel, then the eager loop on the same encoding
     for r, (audio, lens) in enumerate(requests):
         with torch.inference_mode():
             torch.cuda.synchronize()
@@ -692,16 +935,21 @@ def phase_serve(dev) -> dict:
             t1 = time.perf_counter()
             states = model.init_decoder_states(8, dev)
             start = torch.zeros(8, dtype=torch.int64, device=dev)
-            tokens, ntok, _, _ = transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window, start, states)
+            tokens, ntok, _, _ = fused_greedy_decode(enc, enc_len, model.decode_params(), start, states)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window, start, states)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
         if not torch.isfinite(enc.float()).all():
             raise AssertionError(f"request {r}: non-finite encoder output")
         audio_s = lens.sum().item() / 16000.0
         print(f"serve request {r}: batch 8, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames {enc.shape[1]}, "
-              f"recognize {walls[r] * 1e3:.3f} ms, encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms, "
-              f"RTF {walls[r] / audio_s:.6f} (wall / audio seconds), tokens emitted mean {ntok.float().mean().item():.1f}")
+              f"recognize {walls[r] * 1e3:.3f} ms ({watches[r]}), encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms (the fused decode "
+              f"kernel; the eager WIND loop on the same encoding {(t3 - t2) * 1e3:.3f} ms), RTF {walls[r] / audio_s:.6f} (wall / audio seconds), "
+              f"tokens emitted mean {ntok.float().mean().item():.1f}")
     print(f"serve launches over 3 requests: {counts} (per request {PER_REQUEST}); bf16 compute, f32 params, TF32 off")
+    outlier_hunt("serve", model, recognize, np.random.default_rng(SEED + 9), dev)
     return counts
 
 
@@ -970,6 +1218,117 @@ def phase_train_parity(dev) -> None:
     print(f"parity f32 loss on the card, unfused pallas loss (row kernels + DP kernel) vs xla (plain DP) over the same logits: {pallas:.6f} vs "
           f"{xla:.6f} (rel {abs(pallas - xla) / abs(xla):.2e}, tol 1e-5)")
 
+# ----------------------------------------- streaming ----------------------------------------- #
+
+# bench.py:355 bench_streaming: batch 1, 16 feature frames per chunk (2800 samples, a 2560-sample step: 160 ms), 16 chunks
+STREAM_FRAMES, STREAM_CHUNKS, STREAM_PASSES, STREAM_MEMORY = 16, 16, 3, 64
+STREAM_MODELS = ("flagship", "streaming")
+PER_CHUNK = _per(**ENCODER_FWD, fused_decode=1)
+STREAM_STATE_TOL = 1e-4  # f32 decoder states card vs CPU: the LSTM steps' summation order, over up to 16 x 9 steps
+
+
+def streaming_model(name: str, dtype, device) -> torch.nn.Module:
+    """"flagship": the flagship as bench.py streams it (no memory);
+    "streaming": ``conformer_small_streaming_config(memory_length=64)``, the
+    small-streaming example (causal rel-MHSA, chunk 16, history 64, V 1000)
+    with the JAX encoder's KV memory of 64 frames."""
+    from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_small_streaming_config
+
+    if name == "flagship":
+        return flagship(dtype, device).eval()
+    model = Conformer.from_config(conformer_small_streaming_config(memory_length=STREAM_MEMORY), dtype=dtype, device=device)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model.eval()
+
+
+def stream_chunks(model, seed: int, device):
+    """(chunks [1, 2800] each, samples per chunk, step) of one random stream cut by the frontend's chunk math."""
+    from tensorflowasr_tpu_torch.ops import frontend
+
+    size, step = frontend.FrontendConfig(**model.speech_config).get_signal_chunk_size_and_step(STREAM_FRAMES)
+    audio = (np.random.default_rng(seed).standard_normal((1, (STREAM_CHUNKS - 1) * step + size)) * 0.1).astype(np.float32)
+    return [torch.tensor(audio[:, i * step: i * step + size], device=device) for i in range(STREAM_CHUNKS)], size, step
+
+
+def run_stream(model, chunks, size: int, device, per_chunk: dict | None = None) -> list:
+    """One pass over the chunks through ``recognize``, carrying the next
+    tokens, decoder states and encoder states from chunk to chunk; with
+    ``per_chunk``, each chunk's kernel launches must equal it."""
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+
+    enc_states, tokens, dec_states = model.init_encoder_states(1, device), None, None
+    n = torch.tensor([size], device=device)
+    outs = []
+    for i, chunk in enumerate(chunks):
+        before = launch_counts()
+        out = recognize(model, schemas.PredictInput(chunk, n, tokens, enc_states, dec_states))
+        if per_chunk is not None:
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if delta != per_chunk:
+                raise AssertionError(f"stream chunk {i}: kernel launches {delta}, expected {per_chunk}")
+        tokens, enc_states, dec_states = out.next_tokens, out.next_encoder_states, out.next_decoder_states
+        outs.append(out)
+    return outs
+
+
+def phase_streaming(dev) -> dict:
+    """Both streaming models in bf16: a warm-up pass, one counted pass (each
+    chunk's launches checked: the encoder's and one fused decode), then
+    STREAM_PASSES timed passes; ms per chunk (median pass / chunks) and RTF."""
+    paths = {}
+    for name in STREAM_MODELS:
+        model = streaming_model(name, torch.bfloat16, dev)
+        chunks, size, step = stream_chunks(model, SEED + 21, dev)
+        run_stream(model, chunks, size, dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = run_stream(model, chunks, size, dev, PER_CHUNK)
+        torch.cuda.synchronize()
+        paths[f"stream_{name}"] = counts = launch_counts()
+        per_pass = []
+        for _ in range(STREAM_PASSES):
+            t0 = time.perf_counter()
+            run_stream(model, chunks, size, dev)
+            torch.cuda.synchronize()
+            per_pass.append((time.perf_counter() - t0) / STREAM_CHUNKS * 1e3)
+        ms, chunk_ms = float(np.median(per_pass)), step / 16.0
+        emitted = sum(int((o.tokens != model.blank).sum()) for o in outs)
+        mem = getattr(model.encoder, "memory_length", None)
+        print(f"stream {name}: batch 1, {STREAM_CHUNKS} chunks of {STREAM_FRAMES} feature frames ({size} samples, step {step}: {chunk_ms:.0f} ms of audio), "
+              f"encoder frames per chunk {outs[0].tokens.shape[1] // 2}, memory {mem}, vocabulary {model.vocab_size}; {ms:.3f} ms per chunk (median of "
+              f"{STREAM_PASSES} passes: " + ", ".join(f"{p:.3f}" for p in per_pass) + f"), RTF per chunk {ms / chunk_ms:.4f} (wall / audio), "
+              f"{chunk_ms / ms:.2f}x real time; launches per chunk {_launched(PER_CHUNK)}; tokens emitted over the stream {emitted}")
+        print(f"stream {name} launches over {STREAM_CHUNKS} chunks: {_launched(counts)}")
+    return paths
+
+
+def phase_stream_parity(dev) -> None:
+    """Both streaming models in f32: the 16-chunk stream on the card
+    (kernels) and on a CPU copy (plain versions) from the same weights; each
+    chunk's tokens and next token equal, its carried decoder states within
+    STREAM_STATE_TOL and its encoder memories within PARITY_ATOL."""
+    for name in STREAM_MODELS:
+        cpu_model = streaming_model(name, torch.float32, "cpu")
+        model = copy.deepcopy(cpu_model).to(dev)
+        chunks, size, _ = stream_chunks(cpu_model, SEED + 22, "cpu")
+        got, ref = run_stream(model, [c.to(dev) for c in chunks], size, dev), run_stream(cpu_model, chunks, size, "cpu")
+        worst_dec = worst_mem = 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if not (torch.equal(g.tokens.cpu(), r.tokens) and torch.equal(g.next_tokens.cpu(), r.next_tokens)):
+                raise AssertionError(f"stream parity {name} chunk {i}: tokens card {g.tokens.tolist()} vs CPU {r.tokens.tolist()}")
+            for x, y in zip(g.next_decoder_states, r.next_decoder_states):
+                worst_dec = max(worst_dec, _close(f"stream parity {name} chunk {i} decoder state", torch.stack(x).cpu(), torch.stack(y), STREAM_STATE_TOL, 0.0))
+            for x, y in zip(g.next_encoder_states or [], r.next_encoder_states or []):
+                if not torch.equal(x["mask"].cpu(), y["mask"]):
+                    raise AssertionError(f"stream parity {name} chunk {i}: memory masks differ")
+                worst_mem = max(worst_mem, _close(f"stream parity {name} chunk {i} memory", torch.stack([x["k"], x["v"]]).cpu(), torch.stack([y["k"], y["v"]]),
+                                                  PARITY_ATOL, 0.0))
+        print(f"parity f32 stream {name}: {STREAM_CHUNKS} chunks card (kernels) vs CPU (plain): tokens and next tokens equal on every chunk "
+              f"({sum(int((o.tokens != 0).sum()) for o in ref)} tokens); carried decoder states max_abs_err {worst_dec:.3e} (tol {STREAM_STATE_TOL}), "
+              f"encoder memories {worst_mem:.3e} (tol {PARITY_ATOL}), TF32 off")
+
+
 # ------------------------------------- the CTC models ------------------------------------- #
 
 CTC_MODELS = ("conformer_ctc", "transformer_ctc")
@@ -1132,17 +1491,20 @@ def phase_ctc_serve(dev) -> dict:
         recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
         torch.cuda.synchronize()
         reset_launch_counts()
-        walls, outs = [], []
+        walls, outs, watches = [], [], []
         for r, (audio, lens) in enumerate(requests):
             before = launch_counts()
-            t0 = time.perf_counter()
-            outs.append(recognize(model, schemas.PredictInput(audio, lens)))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+            with RequestWatch() as watch:
+                t0 = time.perf_counter()
+                outs.append(recognize(model, schemas.PredictInput(audio, lens)))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            watches.append(watch)
             delta = {k: v - before[k] for k, v in launch_counts().items()}
             if delta != PER_REQUEST_CTC[name]:
                 raise AssertionError(f"ctc serve {name} request {r}: kernel launches {delta}, expected {PER_REQUEST_CTC[name]}")
         counts = launch_counts()
+        flag_outliers(f"ctc serve {name}", walls, watches)
         # encode and decode timed apart, on the same requests (after the counted run)
         for r, ((audio, lens), out) in enumerate(zip(requests, outs)):
             with torch.inference_mode():
@@ -1162,10 +1524,11 @@ def phase_ctc_serve(dev) -> dict:
                 raise AssertionError(f"ctc serve {name} request {r}: token ids outside the vocabulary or more tokens than frames")
             audio_s = lens.sum().item() / 16000.0
             print(f"ctc serve {name} request {r}: batch {audio.shape[0]}, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames "
-                  f"{logits.shape[1]}, recognize {walls[r] * 1e3:.3f} ms, encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms, "
+                  f"{logits.shape[1]}, recognize {walls[r] * 1e3:.3f} ms ({watches[r]}), encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms, "
                   f"RTF {walls[r] / audio_s:.6f}, tokens mean {ntok.float().mean().item():.1f}")
         paths[f"ctc_serve_{name}"] = counts
         print(f"ctc serve {name} launches over 3 requests: {counts} (per request {PER_REQUEST_CTC[name]})")
+        outlier_hunt(f"ctc serve {name}", model, recognize, np.random.default_rng(SEED + 9), dev)
     return paths
 
 
@@ -1248,6 +1611,96 @@ def phase_ctc_parity(dev) -> None:
 
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Within the block, vanilla attention runs kernel A's plain forward under autograd, on any device."""
+    from tensorflowasr_tpu_torch.models.layers import attention
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+
+    fused = attention.fused_attention
+    attention.fused_attention = ak.fused_attention_plain
+    try:
+        yield
+    finally:
+        attention.fused_attention = fused
+
+
+@contextlib.contextmanager
+def float64_plain_path():
+    """Within the block, float64 is the default dtype, ``Tensor.float()``
+    leaves float64 tensors as they are (the port's modules compute their
+    statistics, softmaxes and losses after ``.float()``, which would round a
+    float64 run to float32 there), and vanilla attention takes the plain
+    path (kernel A's explicit plain backward computes in float32)."""
+    to_float, default = torch.Tensor.float, torch.get_default_dtype()
+    torch.Tensor.float = lambda self, *a, **k: self if self.dtype == torch.float64 else to_float(self, *a, **k)
+    torch.set_default_dtype(torch.float64)
+    try:
+        with plain_attention():
+            yield
+    finally:
+        torch.Tensor.float = to_float
+        torch.set_default_dtype(default)
+
+
+def ctc_referee_grads(devices) -> dict:
+    """The Transformer-CTC step of ``phase_ctc_parity`` at the published
+    lecun init (the input linear not shrunk): 2 blocks, batch 2 × ≤ 4 s,
+    dropout 0, from the same log-mel features (the CPU frontend's, f32) on
+    every run, so that only the encoder, the vocabulary projection and the
+    loss differ. Returns {name: (loss, gradients by parameter)} for each
+    (name, device, dtype, loss_impl, plain) in ``devices`` (``plain``: the
+    attention through kernel A's plain version); the float64 run goes
+    through the plain path under ``float64_plain_path``."""
+    from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn
+
+    base = ctc_model("transformer_ctc", torch.float32, "cpu", num_blocks=2, dropout=0.0)
+    batch = train_batch(np.random.default_rng(SEED + 3), 2, 4.0, 32, base.vocab_size)
+    with torch.no_grad():
+        feats, flens = base.feature_extraction(batch.inputs.inputs, batch.inputs.inputs_length)
+    out = {}
+    for name, device, dtype, loss_impl, plain in devices:
+        if dtype == torch.float64:
+            model = ctc_model("transformer_ctc", torch.float64, "cpu", num_blocks=2, dropout=0.0).double()
+            model.load_state_dict(base.state_dict())
+        else:
+            model = copy.deepcopy(base).to(device)
+        with float64_plain_path() if dtype == torch.float64 else plain_attention() if plain else contextlib.nullcontext():
+            enc, elens, _ = model.encoder(feats.to(device, dtype), flens.to(device), train=True)
+            loss = get_ctc_loss_fn(loss_impl)(model.vocab(enc), elens, batch.labels.labels.to(device), batch.labels.labels_length.to(device))
+            loss.backward()
+        out[name] = (loss.item(), {n: p.grad.detach().cpu().double() for n, p in model.named_parameters() if p.grad is not None})
+    return out
+
+
+def phase_ctc_referee(dev) -> None:
+    """Queue 3 item 1: the Transformer-CTC f32 step at the published init on
+    the card (kernels) and on the CPU (plain versions), from the same
+    features, each held to the CPU plain path in float64. Conditioning
+    moves both f32 runs about equally far from float64; a kernel A fault
+    moves the card's alone."""
+    runs = ctc_referee_grads([("card f32", dev, torch.float32, "auto", False), ("card f32 plain attention", dev, torch.float32, "auto", True),
+                              ("cpu f32", "cpu", torch.float32, "auto", False), ("cpu f64", "cpu", torch.float64, "xla", True)])
+    ref_loss, ref = runs["cpu f64"]
+    floor = TRAIN_PARITY_FLOOR * max(g.abs().max().item() for g in ref.values())  # gradients that are zero in exact arithmetic (the key biases)
+    dist = {}
+    for name in ("card f32", "card f32 plain attention", "cpu f32"):
+        loss, grads = runs[name]
+        rel = {n: ((grads[n] - g).abs().max() / (g.abs().max() + floor)).item() for n, g in ref.items()}
+        worst = max(rel, key=rel.get)
+        dist[name] = (rel, worst)
+        print(f"ctc referee (transformer-ctc, 2 blocks, lecun init, batch 2 x <= 4 s): {name} loss {loss:.10g} vs f64 {ref_loss:.10g} "
+              f"(rel {abs(loss - ref_loss) / abs(ref_loss):.2e}); gradients vs f64, max abs error over (scale + {TRAIN_PARITY_FLOOR} x the largest "
+              f"gradient): median {np.median(list(rel.values())):.3e}, largest {rel[worst]:.3e} at {worst}")
+    card, plain, cpu = (dist[n][0] for n in ("card f32", "card f32 plain attention", "cpu f32"))
+    ratio = {n: card[n] / max(plain[n], 1e-30) for n in card}
+    worst = max(ratio, key=ratio.get)
+    verdict = "conditioning" if max(card.values()) <= 4.0 * max(plain.values()) else f"kernel A fault (the card's {worst} gradient)"
+    print(f"ctc referee verdict: {verdict}: kernel A / plain attention distance ratio on the card median {np.median(list(ratio.values())):.3g}, "
+          f"largest {ratio[worst]:.3g} at {worst}; largest distances: card with kernel A {max(card.values()):.3e}, card with plain attention "
+          f"{max(plain.values()):.3e}, CPU {max(cpu.values()):.3e}")
+
+
 def main() -> int:
     _need_card()
     from tensorflowasr_tpu_torch.ops.cuda import _build  # fails here when the package is absent, before any output
@@ -1266,7 +1719,9 @@ def main() -> int:
     serve_kernels = phase_kernels(dev)
     rows = phase_train_kernels(dev) + phase_lstm_kernels(dev)
     rows += phase_ctc_kernels(dev, rows)
+    rows.append(phase_decode_kernel(dev))
     paths = {"serve": phase_serve(dev)}
+    paths.update(phase_streaming(dev))
     train_paths, auto = phase_train(dev)
     paths.update(train_paths)
     paths["eval"] = phase_eval(dev)
@@ -1286,6 +1741,8 @@ def main() -> int:
     phase_parity(dev)
     phase_train_parity(dev)
     phase_ctc_parity(dev)
+    phase_stream_parity(dev)
+    phase_ctc_referee(dev)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": rows}))

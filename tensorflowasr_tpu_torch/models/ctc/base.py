@@ -2,7 +2,8 @@
 
 ``CtcModel``: feature extraction → encoder → ``vocab`` Dense, with the
 training forward (``forward`` → [B, T, V] logits), ``encode`` and the
-``recognize`` entry point (greedy: ``ops/ctc_decode.py``). The model is
+``recognize`` entry point (greedy: ``ops/ctc_decode.py``; a streaming
+encoder's KV memories carried through ``previous_encoder_states``). The model is
 built on the card unless ``device="cpu"`` is given. Beam search and LM
 fusion are not ported yet (ROADMAP Queue 1 item 5).
 """
@@ -51,16 +52,20 @@ class CtcModel(nn.Module):
         statistics (updating the running ones) and, with a ``generator``,
         the encoder's dropout."""
         feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
-        enc, elens = self.encoder(feats, flens, train=train, generator=generator)
+        enc, elens, _ = self.encoder(feats, flens, train=train, generator=generator)
         return schemas.TrainOutput(logits=self.vocab(enc), logits_length=elens)
 
     def encode(self, signals: torch.Tensor, signals_length: torch.Tensor, initial_state=None):
-        """Raw audio → (logits [B, T, V], logits_length, next_encoder_states)."""
-        if initial_state is not None:
-            raise NotImplementedError("streaming encoder states are not ported yet")
+        """Raw audio → (logits [B, T, V], logits_length, next_encoder_states):
+        the encoder's KV memories when ``initial_state`` is given and the
+        encoder keeps a memory, else None."""
         feats, flens = self.feature_extraction(signals, signals_length)
-        enc, elens = self.encoder(feats, flens)
-        return self.vocab(enc), elens, None
+        enc, elens, states = self.encoder(feats, flens, initial_state=initial_state)
+        return self.vocab(enc), elens, states
+
+    def init_encoder_states(self, batch: int, device=None):
+        """The encoder's initial streaming states (one KV memory per block), or None without a memory."""
+        return self.encoder.init_state(batch, device)
 
 
 @torch.inference_mode()

@@ -9,9 +9,12 @@ attention mask); the TPU shape gates and environment switches are not
 ported. ``MHSAModule`` also takes vanilla MHA and post-norm, for the
 Transformer encoder (``encoders/transformer.py``). Conformer
 configurations outside those conditions (post-norm modules, trainable
-residual factors, group or layer-norm conv modules, vanilla MHA) and
-streaming memory are not ported yet and raise. Parameter names
-mirror the JAX tree, so ``bridge.py`` maps one onto the other.
+residual factors, group or layer-norm conv modules, vanilla MHA) are not
+ported yet and raise. With ``memory_length`` each block's attention keeps
+a KV memory (``init_state`` and ``forward(initial_state=...)``, JAX
+``ConformerEncoder.init_state`` / ``__call__``), the streaming state that
+``recognize`` carries from chunk to chunk. Parameter names mirror the JAX
+tree, so ``bridge.py`` maps one onto the other.
 
 ``train=True`` is the JAX training branch: dropout at the encoder's rate
 (in-kernel in the FF, attention and conv kernels, each under a seed drawn
@@ -27,7 +30,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from tensorflowasr_tpu_torch.models.layers.attention import MultiHeadAttention, MultiHeadRelativeAttention
+from tensorflowasr_tpu_torch.models.layers.attention import MemoryState, MultiHeadAttention, MultiHeadRelativeAttention
 from tensorflowasr_tpu_torch.models.layers.convolution import DepthwiseConv1D
 from tensorflowasr_tpu_torch.models.layers.general import BatchNorm, Dense, LayerNorm
 from tensorflowasr_tpu_torch.models.layers.positional import RelativeSinusoidalPositionalEncoding
@@ -93,7 +96,7 @@ class MHSAModule(nn.Module):
 
     def __init__(self, dmodel: int, head_size: int, num_heads: int, residual_factor: float = 1.0, relmha_causal: bool = False,
                  chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32,
-                 mha_type: str = "relmha", norm_position: str = "pre", use_attention_bias: bool = False):
+                 mha_type: str = "relmha", norm_position: str = "pre", use_attention_bias: bool = False, memory_length: Optional[int] = None):
         super().__init__()
         if mha_type not in ("relmha", "mha"):
             raise ValueError(f"mha_type {mha_type!r} must be relmha or mha")
@@ -103,23 +106,27 @@ class MHSAModule(nn.Module):
         self.ln = LayerNorm(dmodel, dtype=dtype)
         if mha_type == "relmha":
             self.mhsa = MultiHeadRelativeAttention(dmodel, num_heads, head_size, dmodel, causal=relmha_causal, chunk_size=chunk_size,
-                                                   history_size=history_size, dropout=dropout, dtype=dtype, use_attention_bias=use_attention_bias)
+                                                   history_size=history_size, dropout=dropout, dtype=dtype, use_attention_bias=use_attention_bias,
+                                                   memory_length=memory_length)
         else:
             self.mhsa = MultiHeadAttention(dmodel, num_heads, head_size, output_dim=dmodel, dropout=dropout, chunk_size=chunk_size,
-                                           history_size=history_size, dtype=dtype)
+                                           history_size=history_size, dtype=dtype, memory_length=memory_length)
 
-    def forward(self, x, relpe, *, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False,
-                train: bool = False, generator: Optional[torch.Generator] = None):
+    def forward(self, x, relpe, *, mask=None, content_attention_bias=None, positional_attention_bias=None, memory_state=None,
+                use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None):
+        """Returns ``(out, new_memory)`` (``new_memory`` None without a memory)."""
         y = self.ln(x) if self.norm_position == "pre" else x
         if self.mha_type == "relmha":
-            out = self.mhsa(y, y, relpe=relpe, content_attention_bias=content_attention_bias, positional_attention_bias=positional_attention_bias,
-                            query_mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
+            out, new_memory = self.mhsa(y, y, relpe=relpe, content_attention_bias=content_attention_bias,
+                                        positional_attention_bias=positional_attention_bias, query_mask=mask, use_causal_mask=use_causal_mask,
+                                        memory_state=memory_state, train=train, generator=generator)
         else:
-            out = self.mhsa(y, y, query_mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
+            out, new_memory = self.mhsa(y, y, query_mask=mask, use_causal_mask=use_causal_mask, memory_state=memory_state, train=train,
+                                        generator=generator)
         out = dr.dropout(out, dr.active_rate(self.dropout, train, generator), generator)
         if self.norm_position == "post":
             out = self.ln(out)
-        return residual(x, out, self.residual_factor)
+        return residual(x, out, self.residual_factor), new_memory
 
 
 class ConvModule(nn.Module):
@@ -169,40 +176,45 @@ class ConformerBlock(nn.Module):
     def __init__(self, input_dim: int, ffm_scale_factor: int = 4, ffm_residual_factor: float = 0.5, head_size: int = 36, num_heads: int = 4,
                  mhsam_residual_factor: float = 1.0, mhsam_causal: bool = False, kernel_size: int = 32, padding: str = "causal",
                  convm_residual_factor: float = 1.0, chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0,
-                 dtype=torch.float32, mhsam_use_attention_bias: bool = False):
+                 dtype=torch.float32, mhsam_use_attention_bias: bool = False, memory_length: Optional[int] = None):
         super().__init__()
         self.ff_module_1 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dropout, dtype)
         self.mhsa_module = MHSAModule(input_dim, head_size, num_heads, mhsam_residual_factor, mhsam_causal, chunk_size, history_size, dropout, dtype,
-                                      use_attention_bias=mhsam_use_attention_bias)
+                                      use_attention_bias=mhsam_use_attention_bias, memory_length=memory_length)
         self.conv_module = ConvModule(input_dim, kernel_size, padding, convm_residual_factor, dropout, dtype)
         self.ff_module_2 = FFModule(input_dim, ffm_scale_factor, ffm_residual_factor, dropout, dtype)
         self.ln_post = LayerNorm(input_dim, dtype=dtype)
 
-    def forward(self, x, relpe, mask=None, content_attention_bias=None, positional_attention_bias=None, use_causal_mask: bool = False,
-                train: bool = False, generator: Optional[torch.Generator] = None):
+    def forward(self, x, relpe, mask=None, content_attention_bias=None, positional_attention_bias=None, memory_state=None,
+                use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None):
+        """Returns ``(out, new_memory)`` (``new_memory`` None without a memory)."""
         x = self.ff_module_1(x, train, generator)
-        x = self.mhsa_module(x, relpe, mask=mask, content_attention_bias=content_attention_bias,
-                             positional_attention_bias=positional_attention_bias, use_causal_mask=use_causal_mask, train=train, generator=generator)
+        x, new_memory = self.mhsa_module(x, relpe, mask=mask, content_attention_bias=content_attention_bias,
+                                         positional_attention_bias=positional_attention_bias, memory_state=memory_state,
+                                         use_causal_mask=use_causal_mask, train=train, generator=generator)
         x = self.conv_module(x, train, generator)
         x = self.ff_module_2(x, train, generator)
-        return self.ln_post(x)
+        return self.ln_post(x), new_memory
 
 
 # Options of the JAX ConformerEncoder whose non-default values are not ported yet.
 _UNPORTED = {
     "mha_type": "relmha", "module_norm_position": "pre", "block_norm_position": "post", "convm_scale_factor": 2, "convm_use_group_conv": False,
-    "convm_dw_norm_type": "batch", "memory_length": None, "use_attention_auto_mask": True,
+    "convm_dw_norm_type": "batch", "use_attention_auto_mask": True,
 }
 
 
 class ConformerEncoder(nn.Module):
-    """``forward(features [B, T, F], lengths) → (encoded [B, T', D], lengths')``."""
+    """``forward(features [B, T, F], lengths, initial_state=None) → (encoded
+    [B, T', D], lengths', new_states)``: ``new_states`` one KV memory per
+    block (``initial_state`` given and ``memory_length`` set), else None."""
 
     def __init__(self, subsampling: dict, in_features: int, dmodel: int = 144, num_blocks: int = 16, head_size: int = 36, num_heads: int = 4,
                  kernel_size: int = 32, padding: str = "causal", interleave_relpe: bool = True, use_attention_causal_mask: bool = False,
                  ffm_scale_factor: int = 4, ffm_residual_factor: float = 0.5, mhsam_residual_factor: float = 1.0, mhsam_causal: bool = False,
                  convm_residual_factor: float = 1.0, dropout: float = 0.1, chunk_size: Optional[int] = None, history_size: Optional[int] = None,
-                 use_remat: bool = False, mhsam_use_attention_bias: bool = False, dtype=torch.float32, **options):
+                 use_remat: bool = False, mhsam_use_attention_bias: bool = False, memory_length: Optional[int] = None, dtype=torch.float32,
+                 **options):
         super().__init__()
         for key, value in options.items():
             if key not in _UNPORTED:
@@ -211,10 +223,11 @@ class ConformerEncoder(nn.Module):
                 raise NotImplementedError(f"ConformerEncoder {key}={value!r} is not ported yet")
         del use_remat  # a memory knob of the JAX step; PyTorch keeps the activations
         self.num_blocks, self.num_heads, self.head_size, self.dropout = num_blocks, num_heads, head_size, float(dropout)
+        self.dmodel, self.memory_length = dmodel, memory_length
         self.use_attention_causal_mask = use_attention_causal_mask
         self.subsampling = build_subsampling(subsampling, in_features, dtype)
         self.linear = Dense(self.subsampling.output_dim, dmodel, dtype)
-        self.relpe = RelativeSinusoidalPositionalEncoding(interleave=interleave_relpe, causal=mhsam_causal, dtype=dtype)
+        self.relpe = RelativeSinusoidalPositionalEncoding(interleave=interleave_relpe, memory_length=memory_length, causal=mhsam_causal, dtype=dtype)
         # encoder-global biases unless each attention layer owns its own (conformer.py:579-583)
         if mhsam_use_attention_bias:
             self.content_attention_bias = self.positional_attention_bias = None
@@ -224,7 +237,7 @@ class ConformerEncoder(nn.Module):
         for i in range(num_blocks):
             self.add_module(f"block_{i}", ConformerBlock(
                 dmodel, ffm_scale_factor, ffm_residual_factor, head_size, num_heads, mhsam_residual_factor, mhsam_causal, kernel_size,
-                padding, convm_residual_factor, chunk_size, history_size, dropout, dtype, mhsam_use_attention_bias,
+                padding, convm_residual_factor, chunk_size, history_size, dropout, dtype, mhsam_use_attention_bias, memory_length,
             ))
 
     @property
@@ -234,7 +247,14 @@ class ConformerEncoder(nn.Module):
     def output_length(self, length):
         return self.subsampling.output_length(length)
 
-    def forward(self, features: torch.Tensor, features_length: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
+    def init_state(self, batch: int, device=None) -> Optional[list]:
+        """One zero KV memory per block, its mask all False (JAX ``init_state``); None without ``memory_length``."""
+        if self.memory_length is None:
+            return None
+        return [MemoryState.init(batch, self.memory_length, self.dmodel, device=device) for _ in range(self.num_blocks)]
+
+    def forward(self, features: torch.Tensor, features_length: torch.Tensor, initial_state: Optional[list] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``train``: the training branch; dropout needs a ``generator`` too (without one it is off)."""
         if features.dim() == 3:
             features = features[..., None]
@@ -243,7 +263,11 @@ class ConformerEncoder(nn.Module):
         x = dr.dropout(x, dr.active_rate(self.dropout, train, generator), generator)
         x, relpe = self.relpe(x, lengths)
         mask = math_util.sequence_mask(lengths, x.shape[1])
+        new_states = []
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, relpe, mask, self.content_attention_bias, self.positional_attention_bias, self.use_attention_causal_mask,
-                                            train, generator)
-        return x, lengths
+            mem = None if initial_state is None else initial_state[i]
+            x, new_mem = getattr(self, f"block_{i}")(x, relpe, mask, self.content_attention_bias, self.positional_attention_bias, mem,
+                                                     self.use_attention_causal_mask, train, generator)
+            if new_mem is not None:
+                new_states.append(new_mem)
+        return x, lengths, (new_states or None)

@@ -5,9 +5,11 @@ the absolute sinusoidal PE → N × TransformerBlock, each block the MHSA
 module (vanilla MHA through kernel A, ``ops/cuda/attention_kernel.fused_attention``)
 and a pointwise FFN (plain Dense layers: JAX has no kernel there), with
 LayerNorm before (``norm_position="pre"``) or after (``"post"``) each, and
-the query mask from the lengths. Parameter names mirror the JAX tree, so
-``bridge.py`` maps one onto the other. The relative-PE variant
-(``mha_type="relmha"``) and streaming memory are not ported yet and raise.
+the query mask from the lengths. With ``memory_length`` each block's
+attention keeps a KV memory (``init_state``, ``forward(initial_state=...)``;
+kernel A then runs with S = M + T keys). Parameter names mirror the JAX
+tree, so ``bridge.py`` maps one onto the other. The relative-PE variant
+(``mha_type="relmha"``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from tensorflowasr_tpu_torch.models.encoders.conformer import MHSAModule, build_subsampling
+from tensorflowasr_tpu_torch.models.layers.attention import MemoryState
 from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation
 from tensorflowasr_tpu_torch.models.layers.positional import SinusoidalPositionalEncoding
 from tensorflowasr_tpu_torch.models.layers.residual import residual
@@ -50,19 +53,22 @@ class PointwiseFFN(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, dmodel: int, dff: int, num_heads: int, head_size: int, norm_position: str = "post", residual_factor: float = 1.0,
                  pwffn_activation: str = "relu", dropout: float = 0.1, chunk_size: Optional[int] = None, history_size: Optional[int] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, memory_length: Optional[int] = None):
         super().__init__()
         self.mhsa_module = MHSAModule(dmodel, head_size, num_heads, residual_factor, chunk_size=chunk_size, history_size=history_size, dropout=dropout,
-                                      dtype=dtype, mha_type="mha", norm_position=norm_position)
+                                      dtype=dtype, mha_type="mha", norm_position=norm_position, memory_length=memory_length)
         self.pwffn = PointwiseFFN(dmodel, dff, pwffn_activation, dropout, norm_position, residual_factor, dtype)
 
-    def forward(self, x, mask=None, use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None):
-        x = self.mhsa_module(x, None, mask=mask, use_causal_mask=use_causal_mask, train=train, generator=generator)
-        return self.pwffn(x, train, generator)
+    def forward(self, x, mask=None, memory_state=None, use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None):
+        """Returns ``(out, new_memory)``."""
+        x, new_memory = self.mhsa_module(x, None, mask=mask, memory_state=memory_state, use_causal_mask=use_causal_mask, train=train,
+                                         generator=generator)
+        return self.pwffn(x, train, generator), new_memory
 
 
 class TransformerEncoder(nn.Module):
-    """``forward(features [B, T, F], lengths) → (encoded [B, T', D], lengths')``."""
+    """``forward(features [B, T, F], lengths, initial_state=None) → (encoded
+    [B, T', D], lengths', new_states)`` (``new_states`` as the Conformer's)."""
 
     def __init__(self, subsampling: dict, in_features: int, num_blocks: int = 6, dmodel: int = 512, dff: int = 1024, num_heads: int = 4,
                  head_size: int = 128, dropout: float = 0.1, mha_type: str = "mha", relmha_causal: bool = False, norm_position: str = "post",
@@ -72,18 +78,23 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         if mha_type != "mha" or relmha_causal or use_attention_bias:
             raise NotImplementedError("the relative-PE Transformer encoder (mha_type='relmha') is not ported yet")
-        if memory_length is not None:
-            raise NotImplementedError("KV memory (streaming) is not ported yet (ROADMAP Queue 1 item 4)")
-        self.num_blocks, self.dropout = num_blocks, float(dropout)
+        self.num_blocks, self.dropout, self.dmodel, self.memory_length = num_blocks, float(dropout), dmodel, memory_length
         self.use_attention_causal_mask, self.use_attention_auto_mask = use_attention_causal_mask, use_attention_auto_mask
         self.subsampling = build_subsampling(subsampling, in_features, dtype)
         self.linear = Dense(self.subsampling.output_dim, dmodel, dtype)
         self.pe = SinusoidalPositionalEncoding(scale=float(dmodel) ** 0.5, interleave=interleave_relpe)
         for i in range(num_blocks):
             self.add_module(f"block_{i}", TransformerBlock(dmodel, dff, num_heads, head_size, norm_position, residual_factor, pwffn_activation,
-                                                           dropout, chunk_size, history_size, dtype))
+                                                           dropout, chunk_size, history_size, dtype, memory_length))
 
-    def forward(self, features: torch.Tensor, features_length: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
+    def init_state(self, batch: int, device=None) -> Optional[list]:
+        """One zero KV memory per block (JAX ``init_state``); None without ``memory_length``."""
+        if self.memory_length is None:
+            return None
+        return [MemoryState.init(batch, self.memory_length, self.dmodel, device=device) for _ in range(self.num_blocks)]
+
+    def forward(self, features: torch.Tensor, features_length: torch.Tensor, initial_state: Optional[list] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``train``: the training branch; dropout needs a ``generator`` too (without one it is off)."""
         if features.dim() == 3:
             features = features[..., None]
@@ -92,6 +103,10 @@ class TransformerEncoder(nn.Module):
         x = dr.dropout(x, dr.active_rate(self.dropout, train, generator), generator)
         x, _ = self.pe(x, lengths)
         mask = math_util.sequence_mask(lengths, x.shape[1]) if self.use_attention_auto_mask else None
+        new_states = []
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, mask, self.use_attention_causal_mask, train, generator)
-        return x, lengths
+            mem = None if initial_state is None else initial_state[i]
+            x, new_mem = getattr(self, f"block_{i}")(x, mask, mem, self.use_attention_causal_mask, train, generator)
+            if new_mem is not None:
+                new_states.append(new_mem)
+        return x, lengths, (new_states or None)

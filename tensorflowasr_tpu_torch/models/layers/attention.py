@@ -12,8 +12,15 @@ its score, shift, mask and softmax chain in kernel B
 (``fused_rel_attention``). Each kernel's plain version runs on the CPU.
 The XLA-semantics helpers ``rel_left_shift``, the mask builders and
 ``_merge_masks`` are plain torch; kernel B does not take an explicit
-``attention_mask``. Streaming (``call_next``) and KV memory states are not
-ported yet.
+``attention_mask``.
+
+Streaming: with ``memory_length`` M and a ``memory_state`` (``MemoryState``:
+the last M raw key/value inputs and their mask), both modules prepend the
+memory to the key/value inputs before projection, concatenate the memory
+mask before the key mask, and return the last M positions as the new
+memory (detached when training), so the kernels run with S = M + T keys;
+the memory columns sit at negative frame coordinates of the causal and
+chunk masks. Both forwards return ``(out, new_memory)`` as JAX's do.
 """
 
 from __future__ import annotations
@@ -53,6 +60,32 @@ def compute_streaming_mask(chunk_size: int, history_size: int, t: int, s: int, d
     return (cols[None, :] >= (chunk_start - hist)[:, None]) & (cols[None, :] < (chunk_start + chunk_size)[:, None])
 
 
+class MemoryState:
+    """The KV memory of one attention layer (JAX ``MemoryState``): a dict
+    ``{"k": [B, M, D], "v": [B, M, D], "mask": [B, M] bool}``."""
+
+    @staticmethod
+    def init(batch: int, memory_length: int, dmodel: int, dtype=torch.float32, device=None) -> dict:
+        zeros = lambda: torch.zeros((batch, memory_length, dmodel), dtype=dtype, device=device)
+        return {"k": zeros(), "v": zeros(), "mask": torch.zeros((batch, memory_length), dtype=torch.bool, device=device)}
+
+
+def _apply_memory(memory_length: Optional[int], key, value, kv_mask, memory_state, train: bool):
+    """Prepend the memory to the raw key/value inputs (JAX ``_apply_memory``):
+    (key, value, kv_mask, new memory), the new memory the last M positions."""
+    if memory_length is None or memory_state is None:
+        return key, value, kv_mask, None
+    mem_k, mem_v, mem_mask = memory_state["k"].to(key.dtype), memory_state["v"].to(value.dtype), memory_state["mask"].to(key.device)
+    if train:
+        mem_k, mem_v = mem_k.detach(), mem_v.detach()
+    key, value = torch.cat([mem_k, key], dim=1), torch.cat([mem_v, value], dim=1)
+    if kv_mask is None:
+        kv_mask = torch.ones(key.shape[0], key.shape[1] - mem_k.shape[1], dtype=torch.bool, device=key.device)
+    kv_mask = torch.cat([mem_mask, kv_mask.to(torch.bool)], dim=1)
+    m = memory_length
+    return key, value, kv_mask, {"k": key[:, -m:], "v": value[:, -m:], "mask": kv_mask[:, -m:]}
+
+
 def _merge_masks(t: int, s: int, query_mask, kv_mask, attention_mask, use_causal_mask: bool, chunk_size, history_size, device=None) -> Optional[torch.Tensor]:
     """AND of all masks → [B|1, 1, T, S] bool, or None."""
     mask = None
@@ -75,15 +108,15 @@ def _merge_masks(t: int, s: int, query_mask, kv_mask, attention_mask, use_causal
 
 class MultiHeadAttention(nn.Module):
     """Vanilla MHA (JAX ``MultiHeadAttention``): ``forward(query, value,
-    key=None, ...) → [B, T, output_dim]``. ``train`` with a ``generator``:
-    probability dropout at the layer's rate, in-kernel, under one seed drawn
-    from the generator. KV memory (streaming) is not ported yet."""
+    key=None, ...) → ([B, T, output_dim], new_memory)``. ``train`` with a
+    ``generator``: probability dropout at the layer's rate, in-kernel, under
+    one seed drawn from the generator."""
 
     def __init__(self, input_dim: int, num_heads: int, key_dim: int, output_dim: Optional[int] = None, dropout: float = 0.0,
-                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dtype=torch.float32):
+                 chunk_size: Optional[int] = None, history_size: Optional[int] = None, dtype=torch.float32, memory_length: Optional[int] = None):
         super().__init__()
         self.num_heads, self.key_dim, self.dropout, self.dtype = num_heads, key_dim, float(dropout), dtype
-        self.chunk_size, self.history_size = chunk_size, history_size
+        self.chunk_size, self.history_size, self.memory_length = chunk_size, history_size, memory_length
         inner = num_heads * key_dim
         self.query = Dense(input_dim, inner, dtype)
         self.key = Dense(input_dim, inner, dtype)
@@ -112,8 +145,9 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, value: torch.Tensor, key: Optional[torch.Tensor] = None, *, query_mask: Optional[torch.Tensor] = None,
                 kv_mask: Optional[torch.Tensor] = None, attention_mask: Optional[torch.Tensor] = None, use_causal_mask: bool = False,
-                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                memory_state: Optional[dict] = None, train: bool = False, generator: Optional[torch.Generator] = None):
         key = value if key is None else key
+        key, value, kv_mask, new_memory = _apply_memory(self.memory_length, key, value, kv_mask, memory_state, train)
         b, t = query.shape[:2]
         n, h = self.num_heads, self.key_dim
         q = self.query(query).reshape(b, t, n, h)
@@ -121,7 +155,10 @@ class MultiHeadAttention(nn.Module):
         v = self.value(value).reshape(b, value.shape[1], n, h)
         mask = _merge_masks(t, key.shape[1], query_mask, kv_mask, attention_mask, use_causal_mask, self.chunk_size, self.history_size, query.device)
         out = self._attend(q, k, v, mask, train, generator)
-        return self.output(out.reshape(b, t, n * h))
+        return self.output(out.reshape(b, t, n * h)), new_memory
+
+    def init_memory(self, batch: int, dmodel: int, device=None) -> Optional[dict]:
+        return None if self.memory_length is None else MemoryState.init(batch, self.memory_length, dmodel, device=device)
 
 
 class MultiHeadRelativeAttention(nn.Module):
@@ -131,10 +168,10 @@ class MultiHeadRelativeAttention(nn.Module):
 
     def __init__(self, input_dim: int, num_heads: int, key_dim: int, output_dim: Optional[int] = None, causal: bool = False,
                  chunk_size: Optional[int] = None, history_size: Optional[int] = None, dropout: float = 0.0, dtype=torch.float32,
-                 use_attention_bias: bool = False):
+                 use_attention_bias: bool = False, memory_length: Optional[int] = None):
         super().__init__()
         self.num_heads, self.key_dim, self.causal, self.dropout, self.dtype = num_heads, key_dim, causal, float(dropout), dtype
-        self.chunk_size, self.history_size = chunk_size, history_size
+        self.chunk_size, self.history_size, self.memory_length = chunk_size, history_size, memory_length
         inner = num_heads * key_dim
         self.query = Dense(input_dim, inner, dtype)
         self.key = Dense(input_dim, inner, dtype)
@@ -148,16 +185,19 @@ class MultiHeadRelativeAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, value: torch.Tensor, *, relpe: torch.Tensor, content_attention_bias=None, positional_attention_bias=None,
                 query_mask: Optional[torch.Tensor] = None, kv_mask: Optional[torch.Tensor] = None, attention_mask: Optional[torch.Tensor] = None,
-                use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``train`` with a ``generator``: probability dropout at the layer's
-        rate, in-kernel, under one seed drawn from the generator."""
+                use_causal_mask: bool = False, memory_state: Optional[dict] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Returns ``(out, new_memory)``. ``train`` with a ``generator``:
+        probability dropout at the layer's rate, in-kernel, under one seed
+        drawn from the generator."""
         if attention_mask is not None:
             raise NotImplementedError("an explicit attention_mask is not ported (the fused kernel rebuilds visibility from its parameters)")
+        key, value, kv_mask, new_memory = _apply_memory(self.memory_length, value, value, kv_mask, memory_state, train)
         b, t = query.shape[:2]
         n, hd = self.num_heads, self.key_dim
         heads = lambda x: x.reshape(b, x.shape[1], n, hd)
         q = heads(self.query(query))
-        k = heads(self.key(value))
+        k = heads(self.key(key))
         v = heads(self.value(value))
         pos = heads(self.encoding(relpe.to(self.dtype)))
         zeros = torch.zeros((n, hd), device=q.device)
@@ -180,4 +220,4 @@ class MultiHeadRelativeAttention(nn.Module):
         out = fused_rel_attention(fold(content_q), fold(positional_q), fold(k), fold(v), fold(pos), kv_bias, q_len, seed, rate,
                                   bool(use_causal_mask), self.chunk_size, self.history_size, bool(self.causal))
         out = out.reshape(b, n, t, hd).transpose(1, 2).reshape(b, t, n * hd)
-        return self.output(out)
+        return self.output(out), new_memory

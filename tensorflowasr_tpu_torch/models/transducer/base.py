@@ -7,9 +7,12 @@ activation, vocab projection), ``Transducer`` with the training forward
 (``forward`` → [B, T, U+1, V] logits), ``encode``, ``pred_step``,
 ``joint_window``, ``decode_step`` and ``init_decoder_states``, the fused
 loss's ``forward_joint_inputs`` (→ the prejoint projections), and the
-``recognize`` entry point (greedy WIND or frame-synchronous). The model is
-built on the card unless ``device="cpu"`` is given. Beam search is not
-ported yet.
+``recognize`` entry point (greedy WIND or frame-synchronous, with the
+streaming carry of tokens, decoder and encoder states). WIND decoding runs
+the fused decode kernel (``ops/cuda/decode_kernel.py``) for every
+configuration it takes (:func:`extract_decode_params`), else the eager
+loop. The model is built on the card unless ``device="cpu"`` is given.
+Beam search is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtr
 from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation, random_init
 from tensorflowasr_tpu_torch.models.layers.rnn import RNN
 from tensorflowasr_tpu_torch.ops import transducer_decode
+from tensorflowasr_tpu_torch.ops.cuda.decode_kernel import FusedDecodeParams, FusedLayer, fused_greedy_decode
 from tensorflowasr_tpu_torch.utils import device as device_util
 
 JOINT_MODES = ("add", "mul")
@@ -152,7 +156,7 @@ class Transducer(nn.Module):
         lengths. ``train``: BatchNorm on batch statistics (updating the
         running ones) and, with a ``generator``, the encoder's dropout."""
         feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
-        enc, elens = self.encoder(feats, flens, train=train, generator=generator)
+        enc, elens, _ = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return schemas.TrainOutput(logits=self.joint(enc, pred), logits_length=elens)
 
@@ -163,19 +167,18 @@ class Transducer(nn.Module):
         (``ops/cuda/joint_loss_kernel.py``), which never materialises the
         [B, T, U+1, V] logits. ``train`` and ``generator`` as in :meth:`forward`."""
         feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
-        enc, elens = self.encoder(feats, flens, train=train, generator=generator)
+        enc, elens, _ = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return self.joint.project_encoder(enc), self.joint.project_prediction(pred), elens
 
     # ------------------------------ inference ------------------------------- #
 
     def encode(self, signals: torch.Tensor, signals_length: torch.Tensor, initial_state=None):
-        """Raw audio → (encoded, encoded_length, next_encoder_states)."""
-        if initial_state is not None:
-            raise NotImplementedError("streaming encoder states are not ported yet")
+        """Raw audio → (encoded, encoded_length, next_encoder_states): the
+        encoder's KV memories when ``initial_state`` is given and the encoder
+        keeps a memory, else None."""
         feats, flens = self.feature_extraction(signals, signals_length)
-        encoded, lengths = self.encoder(feats, flens)
-        return encoded, lengths, None
+        return self.encoder(feats, flens, initial_state=initial_state)
 
     def decode_step(self, enc_frame: torch.Tensor, prev_tokens: torch.Tensor, states):
         pred, new_states = self.prediction.step(prev_tokens, states)
@@ -193,13 +196,68 @@ class Transducer(nn.Module):
         zeros = lambda: torch.zeros((batch, units), device=device)
         return tuple((zeros(), zeros()) for _ in range(self.prediction_config.get("num_rnns", 1)))
 
+    def init_encoder_states(self, batch: int, device=None):
+        """The encoder's initial streaming states (one KV memory per block), or None without a memory."""
+        return self.encoder.init_state(batch, device)
+
+    def decode_params(self) -> FusedDecodeParams | None:
+        """:func:`extract_decode_params` in the model's dtype, cached until a
+        prediction or joint parameter changes (``load_state_dict``,
+        ``reset_parameters``, an in-place update or a move to another device)."""
+        key = tuple((p.device, p.data_ptr(), p._version) for p in (*self.prediction.parameters(), *self.joint.parameters()))
+        cached = getattr(self, "_decode_params_cache", None)
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                cached = (key, extract_decode_params(self, self.dtype))
+            self._decode_params_cache = cached
+        return cached[1]
+
+
+def extract_decode_params(model: Transducer, compute_dtype=torch.float32) -> FusedDecodeParams | None:
+    """The prediction net's and joint's weights in the fused decode kernel's
+    layout and ``compute_dtype`` (JAX ``scripts_dev/decode_kernel.py:93``).
+    None for the configurations the kernel does not take, as JAX's: a label
+    encoder other than the embedding, an RNN other than the LSTM, a joint
+    other than add/tanh, a post-joint linear, a prejoint linear off."""
+    pc, jc = model.prediction_config, model.joint_config
+    if pc.get("label_encoder_mode", "embedding") != "embedding" or pc.get("rnn_type", "lstm") != "lstm":
+        return None
+    if jc.get("joint_mode", "add") != "add" or jc.get("activation", "tanh") != "tanh" or jc.get("postjoint_linear", False):
+        return None
+    if not jc.get("prejoint_encoder_linear", True) or not jc.get("prejoint_prediction_linear", True):
+        return None
+    dt, f32 = compute_dtype, torch.float32
+    cast = lambda w: w.detach().to(dt).contiguous()
+    pred, joint = model.prediction, model.joint
+    layers = []
+    for i in range(pred.num_rnns):
+        cell = getattr(pred, f"rnn_{i}").cell
+        ln = getattr(pred, f"ln_{i}") if pred.layer_norm else None
+        proj = getattr(pred, f"projection_{i}") if pred.projection_units > 0 else None
+        layers.append(FusedLayer(
+            w_ih=cast(cell.weight_ih), w_hh=cast(cell.weight_hh), b=cell.bias.detach().to(dt).to(f32).contiguous(),
+            ln=None if ln is None else torch.stack([ln.weight.detach(), ln.bias.detach()]).to(f32).contiguous(),
+            proj=None if proj is None else (cast(proj.weight), proj.bias.detach().to(f32).contiguous()),
+        ))
+    eps = getattr(pred, "ln_0").eps if pred.layer_norm else 1e-3
+    return FusedDecodeParams(
+        embed=cast(pred.embedding.embeddings.weight), layers=tuple(layers), wp=cast(joint.pred.weight), bp=joint.pred.bias.detach().to(f32).contiguous(),
+        wv=cast(joint.vocab.weight), bv=joint.vocab.bias.detach().to(f32).contiguous(), w_enc=cast(joint.enc.weight),
+        b_enc=joint.enc.bias.detach().to(f32).contiguous(), hidden=cell.units, ln_eps=float(eps),
+    )
+
 
 @torch.inference_mode()
 def recognize(model: Transducer, inputs: schemas.PredictInput, beam_width: int = 0, max_token_factor: int = 2, max_symbols_per_frame=None,
               decode_mode: str = "wind", window: int = 16) -> schemas.PredictOutput:
     """Greedy decode of raw audio (JAX ``recognize`` minus ``variables``:
-    the module holds its weights). ``decode_mode`` "wind" (default) or
-    "sync"; WIND falls back to sync when ``max_symbols_per_frame`` is set."""
+    the module holds its weights), carrying ``previous_tokens``,
+    ``previous_decoder_states`` and ``previous_encoder_states`` into the
+    output's ``next_*`` for streaming. ``decode_mode`` "wind" (default) or
+    "sync"; WIND falls back to sync when ``max_symbols_per_frame`` is set.
+    WIND runs the fused decode (one kernel launch on the card, its plain
+    version on the CPU) for every configuration :func:`extract_decode_params`
+    takes, else the eager loop."""
     if beam_width and beam_width > 0:
         raise NotImplementedError("beam search is not ported yet")
     encoded, encoded_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
@@ -209,7 +267,11 @@ def recognize(model: Transducer, inputs: schemas.PredictInput, beam_width: int =
     states = inputs.previous_decoder_states
     if states is None:
         states = model.init_decoder_states(batch, dev)
-    if decode_mode == "wind" and max_symbols_per_frame is None:
+    params = model.decode_params() if decode_mode == "wind" and max_symbols_per_frame is None else None
+    if params is not None:
+        tokens, _, next_tokens, next_states = fused_greedy_decode(encoded, encoded_length, params, prev_tokens, states, blank=model.blank, window=window,
+                                                                  max_token_factor=max_token_factor)
+    elif decode_mode == "wind" and max_symbols_per_frame is None:
         tokens, _, next_tokens, next_states = transducer_decode.transducer_greedy_decode_wind(
             encoded, encoded_length, model.pred_step, model.joint_window, prev_tokens, states, blank=model.blank, window=window,
             max_token_factor=max_token_factor,

@@ -54,6 +54,24 @@ def conformer_small_config(vocab_size: int = 256, num_blocks: int = 16, dmodel: 
     }
 
 
+def conformer_small_streaming_config(vocab_size: int = 1000, num_blocks: int = 16, dropout: float = 0.1, memory_length: int | None = None) -> dict:
+    """The streaming Conformer-Transducer Small
+    (``examples/models/transducer/conformer/small-streaming.yml.j2``), every
+    width as published: the flagship's frontend, subsampling, D 144, 16
+    blocks of 4×36 heads, 31-tap causal conv, LSTM-320 and joint 320, with
+    causal relative MHSA (``mhsam_causal``) under the chunk mask (chunk 16,
+    history 64) and V 1000. Its SpecAugment is left out, as in the CTC
+    configs (train-time augmentation raises in the port). ``memory_length``
+    (the JAX encoder's KV-memory option; the example leaves it unset) keeps
+    the last M frames of every block's attention input as streaming state."""
+    config = conformer_small_config(vocab_size=vocab_size, num_blocks=num_blocks, dropout=dropout)
+    config["speech_config"]["feature_type"] = "log_mel_spectrogram"
+    config.update(encoder_interleave_relpe=True, encoder_mhsam_causal=True, encoder_chunk_size=16, encoder_history_size=64)
+    if memory_length is not None:
+        config["encoder_memory_length"] = memory_length
+    return config
+
+
 class Conformer(Transducer):
     def make_encoder(self) -> ConformerEncoder:
         return ConformerEncoder(in_features=self.feature_extraction.config.num_feature_bins, dtype=self.dtype, **self.encoder_config)

@@ -113,6 +113,12 @@ class FrontendConfig:
             nsamples, self.frame_length, self.frame_step, pad_end=self.pad_end, use_librosa_like_stft=self.use_librosa_like_stft, nfft=self.fft_length
         )
 
+    def get_signal_chunk_size_and_step(self, nframes: int) -> tuple[int, int]:
+        """(samples per chunk, samples between chunk starts) for streaming
+        ``nframes`` feature frames per chunk whose STFT frames equal the
+        full signal's (the reference's chunk math)."""
+        return (nframes - 1) * self.frame_step + self.frame_length, nframes * self.frame_step
+
 
 def _logarithm(s: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     s = torch.log(s + config.epsilon)

@@ -587,3 +587,72 @@ def test_ctc_train_step_on_the_card(dev, name):
     for n, ref in g_cpu.items():
         err = (g_gpu[n] - ref).abs().max().item()
         assert err <= 1e-3 * ref.abs().max().item() + 1e-5 * gmax, (n, err)
+
+
+# ------------------------------------ fused greedy decode ------------------------------------ #
+
+
+def _decode_model(dev, dtype, num_rnns=1, layer_norm=True, proj=0, vocab=256, seed=0):
+    """A flagship-shaped Conformer-T (2 blocks) with the given prediction net, random weights."""
+    cfg = conformer_small_config(num_blocks=2, vocab_size=vocab)
+    cfg.update(prediction_num_rnns=num_rnns, prediction_layer_norm=layer_norm, prediction_projection_units=proj)
+    model = Conformer.from_config(cfg, dtype=dtype, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+# (B, T, layers, LayerNorm, projection, vocab): the flagship serve shape, the canary's nets, a large vocabulary, one frame
+DECODE_CASES = [(8, 250, 1, True, 0, 256), (3, 37, 2, True, 11, 256), (2, 20, 1, False, 8, 1000), (1, 1, 1, True, 0, 256)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,layers,ln,proj,vocab", DECODE_CASES)
+def test_decode_kernel(dev, b, t, layers, ln, proj, vocab, dtype):
+    """The decode kernel against its plain version on the card, from ragged
+    lengths, a carried token and carried states. Tokens, lengths and next
+    tokens equal (the encoder output sharpened as the canary does at bf16,
+    so no decision sits near a tie); states to 1e-5 at f32, 1e-2 at bf16
+    (an occasional flipped bf16 rounding of h carried through the cell)."""
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    model = _decode_model(dev, dtype, layers, ln, proj, vocab)
+    params = model.decode_params()
+    gen = _gen(dev, 21)
+    enc = _r(gen, dev, (b, t, 144))
+    if dtype == torch.bfloat16:
+        enc = enc * 3.0
+        enc[..., 0] += 2.0
+    lens = torch.randint(0, t + 1, (b,), generator=torch.Generator().manual_seed(3)).to(dev)
+    lens[0] = t
+    tok0 = torch.randint(0, vocab, (b,), generator=torch.Generator().manual_seed(4)).to(dev)
+    states = tuple((_r(gen, dev, (b, 320), 0.5), _r(gen, dev, (b, 320), 0.5)) for _ in range(layers))
+    before = dk.launches
+    got = dk.fused_greedy_decode(enc.to(dtype), lens, params, tok0, states)
+    assert dk.launches == before + 1
+    ref = dk.fused_greedy_decode_plain(enc.to(dtype), lens, params, tok0, states)
+    torch.cuda.synchronize()
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.equal(g, r)
+    tol = dict(rtol=0, atol=1e-5 if dtype == torch.float32 else 1e-2)
+    for (gc, gh), (rc, rh) in zip(got[3], ref[3]):
+        torch.testing.assert_close(gc, rc, **tol)
+        torch.testing.assert_close(gh, rh, **tol)
+
+
+def test_recognize_launches_the_decode_kernel(dev):
+    """``recognize`` on the card decodes through one kernel launch per call,
+    and its f32 tokens equal the eager WIND loop's on the same encoding."""
+    from tensorflowasr_tpu_torch.ops import transducer_decode
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    model = _decode_model(dev, torch.float32)
+    sig = torch.tensor((np.random.default_rng(5).standard_normal((2, 48000)) * 0.1).astype(np.float32), device=dev)
+    lens = torch.tensor([48000, 30000], device=dev)
+    before = dk.launches
+    out = recognize(model, schemas.PredictInput(sig, lens))
+    assert dk.launches == before + 1
+    with torch.inference_mode():
+        enc, enc_len, _ = model.encode(sig, lens)
+        eager = transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window,
+                                                                 torch.zeros(2, dtype=torch.int64, device=dev), model.init_decoder_states(2, dev))
+    assert torch.equal(out.tokens, eager[0]) and torch.equal(out.next_tokens, eager[2])

@@ -131,7 +131,7 @@ def test_mhsa_module(causal_mask):
     v = _init(jmod, jnp.asarray(x), relpe, **kwargs)
     ref, _ = jmod.apply(v, jnp.asarray(x), relpe, **kwargs)
     tmod = _load(tconf.MHSAModule(16, 4, 4), v)
-    got = tmod(torch.tensor(x), torch.tensor(np.asarray(relpe)), mask=torch.tensor(np.asarray(mask)), content_attention_bias=torch.tensor(cb),
+    got, _ = tmod(torch.tensor(x), torch.tensor(np.asarray(relpe)), mask=torch.tensor(np.asarray(mask)), content_attention_bias=torch.tensor(cb),
                positional_attention_bias=torch.tensor(pb), use_causal_mask=causal_mask)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
 
@@ -146,7 +146,7 @@ def test_conformer_block_bf16():
     v = _init(jmod, jnp.asarray(x, jnp.bfloat16), relpe.astype(jnp.bfloat16), mask)
     ref, _ = jmod.apply(v, jnp.asarray(x, jnp.bfloat16), relpe.astype(jnp.bfloat16), mask)
     tmod = _load(tconf.ConformerBlock(16, head_size=4, num_heads=4, kernel_size=7, dtype=torch.bfloat16), v)
-    got = tmod(torch.tensor(x).bfloat16(), torch.tensor(np.asarray(relpe)).bfloat16(), torch.tensor(np.asarray(mask)))
+    got, _ = tmod(torch.tensor(x).bfloat16(), torch.tensor(np.asarray(relpe)).bfloat16(), torch.tensor(np.asarray(mask)))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().detach().numpy(), np.asarray(ref, np.float32), rtol=0, atol=2 ** -4)  # 4 bf16 ulps below |x| = 4
 

@@ -111,7 +111,7 @@ def test_multihead_attention_matches_jax(use_causal_mask):
     tm = MultiHeadAttention(d, n, h, output_dim=d)
     tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
     with torch.no_grad():
-        got = tm(torch.tensor(x), torch.tensor(x), query_mask=torch.tensor(mask), use_causal_mask=use_causal_mask)
+        got, _ = tm(torch.tensor(x), torch.tensor(x), query_mask=torch.tensor(mask), use_causal_mask=use_causal_mask)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
@@ -128,7 +128,7 @@ def test_mhsa_module_vanilla_matches_jax(norm_position):
     tm = MHSAModule(d, h, n, mha_type="mha", norm_position=norm_position)
     tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
     with torch.no_grad():
-        got = tm(torch.tensor(x), None, mask=torch.tensor(np.asarray(mask)))
+        got, _ = tm(torch.tensor(x), None, mask=torch.tensor(np.asarray(mask)))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
