@@ -33,19 +33,23 @@ the LSTM kernels) between the card (kernels) and a CPU copy (plain
 versions), and the f32 fused-path and unfused-path losses against the
 ``xla``-path loss on the card. Then the CTC family: the CTC loss kernel
 (TPU kernel row 11) at the CTC training shapes (B 16, T 400, U_b 40–128,
-V 256) beside ``F.ctc_loss``, kernel A (row 4, vanilla attention) forward
-and backward at the Transformer-CTC training shape (B·H 64, T = S 400,
-head 128, rate 0.1, the padded-row bias of a ragged batch) beside
-``F.scaled_dot_product_attention``, and the four encoder kernels at
+V 256) beside ``F.ctc_loss``, kernel A (row 4, vanilla attention; bf16 on
+the tensor cores) forward and backward at the Transformer-CTC training
+shape (B·H 64, T = S 400, head 128, the padded-row bias of a ragged batch)
+against its plain version at rate 0.1, its row statistics, and its times
+beside ``F.scaled_dot_product_attention`` at rate 0 and at rate 0.1 on the
+same inputs, and the four encoder kernels at
 Conformer-CTC Small's widths (D 176, head 44); three greedy requests of 8
 utterances through each CTC model's ``recognize`` (Conformer-CTC Small and
 Transformer-CTC base at full width); four default (``auto``) training steps
 of each (one profiled), one ``xla`` step from the same start held to the
 first ``auto`` loss, three eval steps held to the ``xla`` eval; and the f32
 card/CPU parity of each 2-block CTC model's step. Then the fused greedy
-decode (TPU kernel row 13): the kernel, its plain version and the eager
-WIND loop on the real encoder output of one flagship request (8 × 6–10 s,
-f32 and bf16), with times and bound; the flagship's served requests decode
+decode (TPU kernel row 13, one thread-block cluster per utterance): the
+kernel, its plain version and the eager WIND loop on the real encoder
+output of one flagship request (8 × 6–10 s, f32 and bf16), with times and
+bound, the chosen cluster size with its occupancy and resident weight
+bytes, and the time at each cluster size; the flagship's served requests decode
 through it (one launch per request), every served request is watched for
 outliers (garbage collection, device allocations; six more requests at new
 lengths run under the profiler); streaming at bench.py's shape (batch 1,
@@ -628,6 +632,7 @@ def phase_lstm_kernels(dev) -> list[dict]:
 # ---------------------------------- the fused greedy decode ---------------------------------- #
 
 DECODE_WINDOW = 16
+DECODE_EARLIER_MS = {"bf16": 27.5624, "f32": 21.2730}  # the earlier one-block-per-utterance kernel (PERF.md row 13), for the printout
 DECODE_GAP = 2.0 ** -6  # a bf16 token may differ only where the plain version's top-two logit gap is within this share of the logit scale
 
 
@@ -691,12 +696,17 @@ def phase_decode_kernel(dev) -> dict:
             enc, enc_len, _ = model.encode(audio, lens)
             b = enc.shape[0]
             start, states = torch.zeros(b, dtype=torch.int64, device=dev), model.init_decoder_states(b, dev)
-            kernel = lambda x: dk.fused_greedy_decode_kernel(x, enc_len, params, start, states, window=DECODE_WINDOW)
+            kernel = lambda x, c=None: dk.fused_greedy_decode_kernel(x, enc_len, params, start, states, window=DECODE_WINDOW, cluster=c)
             plain = lambda x, **kw: dk.fused_greedy_decode_plain(x, enc_len, params, start, states, window=DECODE_WINDOW, **kw)
             eager = lambda x: transducer_decode.transducer_greedy_decode_wind(x, enc_len, model.pred_step, model.joint_window, start, states,
                                                                                 window=DECODE_WINDOW)
             got, ref = kernel(enc), plain(enc, gaps=True)
             torch.cuda.synchronize()
+            auto = dict(dk.last_launch)
+            for c in dk.CLUSTER_SIZES:  # each cluster size gives the same decode
+                other = kernel(enc, c)
+                if not all(torch.equal(x, y) for x, y in zip(got[:3], other[:3])):
+                    raise AssertionError(f"decode {tag}: clusters of {c} give other tokens than the chosen {auto['cluster']}")
             state_err = max((x - y).abs().max().item() for g, r in zip(got[3], ref[3]) for x, y in zip(g, r))
             if tag == "f32":
                 eag = eager(enc)
@@ -732,11 +742,18 @@ def phase_decode_kernel(dev) -> dict:
                 note = (f"sharpened: equal to the plain version; raw: {8 - len(report)} of 8 rows equal, " + ("; ".join(report) or "no difference")
                         + f" (allowed where the gap <= 2^-6 x logit scale {scale:.3g})")
             times[tag] = (time_ms(kernel, enc), wall_ms(lambda: plain(enc)), wall_ms(lambda: eager(enc)))
+            by_cluster = {}
+            for c in dk.CLUSTER_SIZES:
+                by_cluster[c] = dict(ms=time_ms(kernel, enc, c), **{key: dk.last_launch[key] for key in ("smem_bytes", "resident_bytes", "slice_bytes", "whole")})
         t_np, u_np = enc_len.cpu().numpy(), got[1].cpu().numpy()
-        res[tag] = dict(err=state_err, t_np=t_np, u_np=u_np, t=enc.shape[1])
+        res[tag] = dict(err=state_err, t_np=t_np, u_np=u_np, t=enc.shape[1], auto=auto, by_cluster=by_cluster)
         print(f"kernel fused_decode {tag} (serve decode, B {b} T {enc.shape[1]} (T_b {t_np.min()}-{t_np.max()}), E 144 J 320 H 320 V 256, window "
               f"{DECODE_WINDOW}): tokens per row {u_np.min()}-{u_np.max()} of {2 * enc.shape[1] + 1}; {note}; kernel {times[tag][0]:.4f} ms plain "
-              f"{times[tag][1]:.1f} ms eager WIND loop {times[tag][2]:.1f} ms")
+              f"{times[tag][1]:.1f} ms eager WIND loop {times[tag][2]:.1f} ms; the earlier one-block kernel (PERF.md row 13): "
+              f"{DECODE_EARLIER_MS[tag]} ms")
+        print(f"kernel fused_decode {tag} cluster: chosen C {auto['cluster']} for B {b} (co-resident clusters by size {auto['occupancy']}), "
+              f"{auto['resident_bytes']} of {auto['slice_bytes']} weight bytes resident per block, {auto['smem_bytes']} bytes of shared memory; "
+              + "; ".join(f"C {c}: {r['ms']:.4f} ms, {r['resident_bytes']} of {r['slice_bytes']} bytes resident" for c, r in by_cluster.items()))
     r32 = res["f32"]
     bounds = {tag: bound(*cost_decode(res[tag]["t_np"], res[tag]["u_np"], res[tag]["t"], 320, 320, 320, 256, 4 if tag == "f32" else 2), tag)
               for tag, _ in DTYPES}
@@ -746,7 +763,9 @@ def phase_decode_kernel(dev) -> dict:
           f"dependent prediction steps; library: none (no one PyTorch call decodes), eager WIND loop bf16 {times['bf16'][2]:.1f} ms")
     row = _row("fused_decode", {"f32": res["f32"]["err"], "bf16": res["bf16"]["err"]}, times["bf16"][0], times["bf16"][1], bounds["bf16"])
     row.update(eager_loop_ms=times["bf16"][2], ms_f32=times["f32"][0], plain_ms_f32=times["f32"][1], eager_loop_ms_f32=times["f32"][2],
-               bound_ms_f32=bounds["f32"][0], decisions_per_row=[int(iters.min()), int(iters.max())])
+               bound_ms_f32=bounds["f32"][0], decisions_per_row=[int(iters.min()), int(iters.max())],
+               cluster={tag: {"chosen": res[tag]["auto"]["cluster"], "occupancy": res[tag]["auto"]["occupancy"],
+                              "by_size": res[tag]["by_cluster"]} for tag, _ in DTYPES})
     return row
 
 
@@ -1377,6 +1396,43 @@ def cost_vanilla_attention(bh: int, t: int, s: int, d: int, elt: int, bias_bytes
     return (2 * t + 2 * s) * bh * d * elt + bias_bytes, 4 * bh * t * s * d
 
 
+def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """The gap between adjacent bf16 values at |x| (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), torch.frexp(x.float().abs()).exponent - 8)
+
+
+def attention_accuracy(fargs: tuple, bargs: tuple, bwd_kernel, bwd_plain) -> None:
+    """Kernel A in bf16 against its plain version, and both against a float64
+    run of the same function on the same inputs and keep mask (no rounding
+    inside): where the two bf16 versions differ, where they differ by more
+    than one final rounding, and whether the kernel lies farther from the
+    exact result than the plain version does."""
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+
+    q, k, v, bias, seed, rate = fargs
+    dout = bargs[6]
+    keep = ak.dropout_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device).double() if rate > 0 else 1.0
+    x64 = [x.double().requires_grad_(True) for x in (q, k, v)]
+    # the scores pass through f32 as the function defines them: a -1e9 row bias swallows q.k^T there (a uniform row)
+    scores = (x64[0] @ x64[1].transpose(1, 2) + bias.double()).float().double()
+    ref = (torch.softmax(scores, dim=-1) * keep) @ x64[2]
+    refs = (ref.detach(), *torch.autograd.grad(ref, x64, dout.double()))
+    kern = (ak.fused_attention_kernel(*fargs), *bwd_kernel(*bargs))
+    plain = (ak.fused_attention_plain(*fargs), *bwd_plain(*bargs))
+    parts = []
+    for name, g, p, r in zip(("out", "dq", "dk", "dv"), kern, plain, refs):
+        g, p = g.float(), p.float()
+        diff = (g - p).abs()
+        over = diff > bf16_spacing(torch.maximum(g.abs(), p.abs()))  # more than one final rounding apart
+        scale = r.abs().max().item()
+        parts.append(f"{name}: {100.0 * (diff > 0).float().mean().item():.3f}% of elements differ, {100.0 * over.float().mean().item():.3f}% by more "
+                     f"than one bf16 step (largest such |result| {torch.maximum(g.abs(), p.abs())[over].max().item() if over.any() else 0.0:.3g}); "
+                     f"max abs diff {diff.max().item():.3e} (|result| <= {scale:.3g}); vs float64 max abs err kernel "
+                     f"{(g.double() - r).abs().max().item():.3e} plain {(p.double() - r).abs().max().item():.3e}, rms kernel "
+                     f"{(g.double() - r).pow(2).mean().sqrt().item():.3e} plain {(p.double() - r).pow(2).mean().sqrt().item():.3e}")
+    print(f"kernel fused_attention bf16 accuracy (rate {rate}, BH {q.shape[0]} T = S {q.shape[1]} head {q.shape[2]}): " + "; ".join(parts))
+
+
 def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
     """The CTC kernel (row 11) and kernel A (row 4) at the CTC training
     shapes, with their library yardsticks; and the four encoder kernels at
@@ -1430,31 +1486,48 @@ def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
     bh, t, d = TRAIN_B * TCTC_HEADS, T_ENC, TCTC_HEAD
     valid = torch.arange(t, device=dev)[None, :] < t_len.repeat_interleave(TCTC_HEADS)[:, None]  # [BH, T]
 
-    def att_make(dt):
+    def att_make(dt, rate=TRAIN_RATE):
         q, k, v = _randn(gen, (bh, t, d), 0.3, dt), _randn(gen, (bh, t, d), 1.0, dt), _randn(gen, (bh, t, d), 1.0, dt)
         bias = torch.where(valid, 0.0, -1e9)[:, :, None].expand(bh, t, t).to(dt).contiguous()
-        cfg_ = (19, TRAIN_RATE)
-        out = ak.fused_attention_kernel(q, k, v, bias, *cfg_)
-        return (q, k, v, bias, *cfg_), (q, k, v, bias, out, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
+        cfg_ = (19, rate)
+        out, stats = ak.fused_attention_kernel(q, k, v, bias, *cfg_, with_stats=True)
+        return (q, k, v, bias, *cfg_), (q, k, v, bias, out, stats, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
 
-    def bwd_kernel(q, k, v, bias, out, dout, seed, rate):
-        return ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed, rate, bias_grad=False)[:3]
+    def bwd_kernel(q, k, v, bias, out, stats, dout, seed, rate):
+        return ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed, rate, bias_grad=False, stats=stats)[:3]
 
-    def bwd_plain(q, k, v, bias, out, dout, seed, rate):
+    def bwd_plain(q, k, v, bias, out, stats, dout, seed, rate):
         return ak.fused_attention_plain_bwd(q, k, v, bias, dout, seed, rate, bias_grad=False)[:3]
 
     att = _check_fwd_bwd("fused_attention", ak.fused_attention_kernel, ak.fused_attention_plain, bwd_kernel, bwd_plain, att_make,
                          lambda elt, bwd: cost_vanilla_attention(bh, t, t, d, elt, bh * t * t * elt, bwd),
                          what=f"transformer-ctc train, BH {bh} T = S {t} head {d}, rate {TRAIN_RATE}")
-    (q, k, v, bias, *_), _ = att_make(torch.bfloat16)
-    q, k, v = (a.requires_grad_(True) for a in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-    dout = torch.randn_like(out)
-    sdpa_fwd = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias).detach())
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))
-    print(f"library F.scaled_dot_product_attention (transformer-ctc train, bf16, attn_mask = the bias, rate 0): forward {sdpa_fwd:.4f} ms, "
-          f"backward {sdpa_bwd:.4f} ms")
-    att[0]["library_ms"], att[1]["library_ms"] = sdpa_fwd, sdpa_bwd
+    stat_err = {}
+    for tag, dt in DTYPES:  # the row statistics the forward returns for the backward, against the plain ones (f32 sums in another order)
+        (q, k, v, bias, *_), (_, _, _, _, _, stats, *_) = att_make(dt)
+        stat_err[tag] = _close(f"fused_attention stats {tag}", stats, ak.fused_attention_plain_stats(q, k, bias), 1e-5, 1e-5)
+    # kernel and SDPA on the same bf16 inputs at rate 0 and at rate 0.1 (SDPA's own dropout, under autograd); SDPA with scale 1:
+    # the kernel takes q already scaled
+    times = {}
+    for rate in (0.0, TRAIN_RATE):
+        fargs, bargs = att_make(torch.bfloat16, rate)
+        q, k, v, bias = fargs[:4]
+        qs, ks, vs = (a.detach().clone().requires_grad_(True) for a in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias, dropout_p=rate, scale=1.0)
+        out = sdpa()
+        dout = bargs[6]
+        times[rate] = dict(fwd=time_ms(ak.fused_attention_kernel, *fargs), bwd=time_ms(bwd_kernel, *bargs),
+                           sdpa_fwd=time_ms(lambda: sdpa().detach()), sdpa_bwd=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True)))
+        r = times[rate]
+        print(f"kernel fused_attention bf16 at rate {rate} (transformer-ctc train, BH {bh} T = S {t} head {d}): forward {r['fwd']:.4f} ms, backward "
+              f"{r['bwd']:.4f} ms; library F.scaled_dot_product_attention (attn_mask = the bias, dropout_p {rate}, scale 1): forward "
+              f"{r['sdpa_fwd']:.4f} ms, backward {r['sdpa_bwd']:.4f} ms; the earlier CUDA-core kernels (PERF.md row 4, rate 0.1): forward 1.2695 ms, "
+              f"backward 3.3333 ms")
+    print(f"kernel fused_attention row statistics (m, l): max_abs_err f32 {stat_err['f32']:.3e} bf16 {stat_err['bf16']:.3e} (tol 1e-5 + 1e-5 rel)")
+    attention_accuracy(*att_make(torch.bfloat16), bwd_kernel, bwd_plain)
+    att[0]["library_ms"], att[1]["library_ms"] = times[TRAIN_RATE]["sdpa_fwd"], times[TRAIN_RATE]["sdpa_bwd"]
+    att[0].update(ms_rate0=times[0.0]["fwd"], library_ms_rate0=times[0.0]["sdpa_fwd"], stats_max_abs_err=stat_err)
+    att[1].update(ms_rate0=times[0.0]["bwd"], library_ms_rate0=times[0.0]["sdpa_bwd"])
     new += att
 
     ctc_width = encoder_kernel_rows(dev, gen, CTC_D_MODEL, CTC_HEAD, CTC_FF_DIM, f"conformer-ctc train, D {CTC_D_MODEL} head {CTC_HEAD}, rate {TRAIN_RATE}")

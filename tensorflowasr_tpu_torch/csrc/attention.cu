@@ -1,5 +1,7 @@
 // Fused attention with an additive bias: softmax(q.k^T + bias) with
-// probability dropout, then P.V; and its backward.
+// probability dropout, then P.V; and its backward. This file holds the f32
+// kernels (CUDA cores) and the C entry points; bf16 inputs go to the
+// tensor-core kernels of attention_mma.cu.
 //
 // Counterpart of tensorflowasr_tpu/ops/pallas/attention_kernel.py
 // fused_attention (kernel A: _fwd_kernel, _bwd_kernel), the vanilla
@@ -7,32 +9,29 @@
 // (the Keras -1e9 query-row mask, or anything additive) is read in its own
 // dtype and added to the f32 scores, as JAX does.
 //
-// Forward: one block owns FA_TQ query rows of one (b.h). Key tiles are
+// Forward (f32): one block owns FA_TQ query rows of one (b.h). Key tiles are
 // staged in shared memory, and the rows' whole score vectors stay resident
 // there: the softmax is two-pass in f32, and the normalised probabilities
 // (times the dropout keep factor, the counter hash of common.cuh indexed by
 // (row, column) under seed + bh * 40499 as in JAX) are rounded to v's type
 // before P.V exactly where the reference rounds them. Keeping whole rows is
-// what makes the rounding equal to JAX's.
+// what makes the rounding equal to JAX's. The row max m and sum l go to the
+// stats output [2, BH, T], as the bf16 forward's do.
 //
-// Backward (replaces _bwd_kernel), two passes:
+// Backward (f32, replaces _bwd_kernel), two passes:
 //  1. attention_bwd_rows_kernel, per (b.h, FA_TQ query rows): recompute the
 //     probabilities, dp = do . v^T, the keep mask, delta = sum(do * out)
 //     from the saved output (the value JAX recomputes with the forward's
-//     rounding), ds = p * (dp * keep - delta); dq = ds . k with ds rounded
-//     to the input type. ds (rounded) and the dropped probabilities pd (f32)
-//     go to device memory; the f32 ds goes to dbias when the bias needs a
-//     gradient (the wrapper sums it over b.h for a broadcast bias).
+//     rounding), ds = p * (dp * keep - delta); dq = ds . k. ds and the
+//     dropped probabilities pd (f32) go to device memory; ds goes to dbias
+//     when the bias needs a gradient (the wrapper sums it over b.h for a
+//     broadcast bias).
 //  2. attention_bwd_kv_kernel, per (b.h, FA_KVT keys): dk = ds^T . q and
 //     dv = pd^T . do, summing all query rows in order (no atomics).
-// The TPU holds a whole [T, S] tile per (b.h) in VMEM; a block here holds
-// 16 rows, so ds and pd pass through device memory once (bf16 ds + f32 pd:
-// ~61 MB at b.h 64, T = S = 400, in L2 only in part).
 //
-// What bounds it: at b.h 64, T = S = 400, D 128 the products are 4 (fwd) and
-// 10 (bwd) b.h.T.S.D operations, 5.2 and 13.1 GFLOP, on the CUDA cores in
-// f32 (a first version: wgmma and TMA are later work), well above the time
-// the inputs take to read (~3 us at 3.35 TB/s). Head size up to 128.
+// What bounds the f32 path: the products, 4 (fwd) and 10 (bwd) b.h.T.S.D
+// operations on the CUDA cores (67 TFLOP/s at most). f32 stays off the
+// tensor cores: TF32 would break the card/CPU f32 parity. Head size up to 128.
 #include "common.cuh"
 
 namespace tfasr {
@@ -50,7 +49,15 @@ constexpr unsigned int FA_SALT_BH = 40499u;  // per-(b.h) seed salt of the JAX k
 struct AttnArgs {
   int T, S, D;
   size_t bias_bh_stride;  // T * S, or 0 for a broadcast bias
+  float* stats;           // [2, BH, T] row max and sum, or null
+  int BH;
 };
+
+int launch_attention_mma(const void* q, const void* k, const void* v, const void* bias, int bias_bf16, void* out, float* stats, int BH, int T,
+                         int S, int D, int bias_bh, Dropout dp, cudaStream_t stream);
+int launch_attention_mma_bwd(const void* q, const void* k, const void* v, const void* bias, int bias_bf16, const void* out, const void* dout,
+                             const float* stats, float* delta, float* dbias, void* dq, void* dk, void* dv, int BH, int T, int S, int D,
+                             int bias_bh, Dropout dp, cudaStream_t stream);
 
 __host__ __device__ inline int fa_sp(int S) { return ((S + FA_KT - 1) / FA_KT) * FA_KT; }
 
@@ -109,6 +116,10 @@ __device__ void attn_probs_rows(const T* q, const T* k, const TB* bias, const At
     }
     l = warp_sum(l);
     for (int s = lane; s < S; s += 32) row[s] = row[s] / l;
+    if (a.stats != nullptr && lane == 0) {
+      a.stats[(size_t)bh * a.T + i0 + i] = m;
+      a.stats[(size_t)(a.BH + bh) * a.T + i0 + i] = l;
+    }
   }
   __syncthreads();
 }
@@ -366,14 +377,12 @@ int launch_attention_bwd(const void* q, const void* k, const void* v, const void
   return (int)cudaGetLastError();
 }
 
-// dtype: the code of q/k/v (kF32, kBF16) plus 2 x the code of the bias.
+// The f32 kernels; dtype is the code of q/k/v (kF32 here) plus 2 x the code of the bias.
 template <template <typename, typename> class F, typename... Args>
-int dispatch(int dtype, Args... args) {
+int dispatch_f32(int dtype, Args... args) {
   switch (dtype) {
     case kF32 + 2 * kF32: return F<float, float>::run(args...);
     case kF32 + 2 * kBF16: return F<float, __nv_bfloat16>::run(args...);
-    case kBF16 + 2 * kF32: return F<__nv_bfloat16, float>::run(args...);
-    case kBF16 + 2 * kBF16: return F<__nv_bfloat16, __nv_bfloat16>::run(args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -393,28 +402,37 @@ struct Bwd {
 }  // namespace tfasr
 
 // q [BH, T, D], k/v [BH, S, D] of one dtype; bias [BH or 1, T, S] (its own
-// dtype; bias_bh 1 broadcasts it); out [BH, T, D]. Dropout on the
-// probabilities with seed, threshold and keep scale. D <= 128.
-extern "C" int tfasr_attention(const void* q, const void* k, const void* v, const void* bias, void* out, int BH,
-                               int T, int S, int D, int bias_bh, unsigned int seed, unsigned int thresh,
-                               float keep_scale, int drop_on, int dtype, void* stream) {
+// dtype; bias_bh 1 broadcasts it); out [BH, T, D]; stats [2, BH, T] f32 (the
+// rows' softmax max m, then sum l) or NULL. Dropout on the probabilities with seed,
+// threshold and keep scale. D <= 128. dtype: the code of q/k/v (kF32, kBF16)
+// plus 2 x the code of the bias; bf16 q/k/v run the tensor-core kernels.
+extern "C" int tfasr_attention(const void* q, const void* k, const void* v, const void* bias, void* out, float* stats, int BH, int T, int S,
+                               int D, int bias_bh, unsigned int seed, unsigned int thresh, float keep_scale, int drop_on, int dtype,
+                               void* stream) {
   using namespace tfasr;
   if (D > FA_THREADS * FA_OUT_PT / FA_TQ) return (int)cudaErrorInvalidValue;
-  const AttnArgs a{T, S, D, bias_bh == 1 ? (size_t)0 : (size_t)T * S};
   const Dropout dp{seed, thresh, keep_scale, drop_on};
-  return dispatch<Fwd>(dtype, q, k, v, bias, out, BH, a, dp, (cudaStream_t)stream);
+  if (dtype % 2 == kBF16)
+    return launch_attention_mma(q, k, v, bias, dtype / 2 == kBF16, out, stats, BH, T, S, D, bias_bh, dp, (cudaStream_t)stream);
+  const AttnArgs a{T, S, D, bias_bh == 1 ? (size_t)0 : (size_t)T * S, stats, BH};
+  return dispatch_f32<Fwd>(dtype, q, k, v, bias, out, BH, a, dp, (cudaStream_t)stream);
 }
 
-// Gradients of tfasr_attention: out is its output, dout [BH, T, D]; ds
-// [BH, T, S] (input dtype) and pd [BH, T, S] (f32) are scratch; dbias
-// [BH, T, S] f32 or NULL; dq [BH, T, D], dk, dv [BH, S, D] in the input dtype.
-extern "C" int tfasr_attention_bwd(const void* q, const void* k, const void* v, const void* bias, const void* out,
-                                   const void* dout, void* ds, void* pd, void* dbias, void* dq, void* dk, void* dv,
-                                   int BH, int T, int S, int D, int bias_bh, unsigned int seed, unsigned int thresh,
-                                   float keep_scale, int drop_on, int dtype, void* stream) {
+// Gradients of tfasr_attention: out is its output and stats its row
+// statistics, dout [BH, T, D]; dbias [BH, T, S] f32 or NULL; dq [BH, T, D],
+// dk, dv [BH, S, D] in the input dtype. Scratch: bf16 reads stats and uses
+// delta [BH, T] f32; f32 recomputes the statistics and uses ds [BH, T, S]
+// (input dtype) and pd [BH, T, S] f32 (the others may be NULL).
+extern "C" int tfasr_attention_bwd(const void* q, const void* k, const void* v, const void* bias, const void* out, const void* dout,
+                                   const float* stats, float* delta, void* ds, void* pd, void* dbias, void* dq, void* dk, void* dv, int BH,
+                                   int T, int S, int D, int bias_bh, unsigned int seed, unsigned int thresh, float keep_scale, int drop_on,
+                                   int dtype, void* stream) {
   using namespace tfasr;
   if (D > FA_THREADS * FA_OUT_PT / FA_TQ || FA_KVT * D > FA_THREADS * FA_KV_PT) return (int)cudaErrorInvalidValue;
-  const AttnArgs a{T, S, D, bias_bh == 1 ? (size_t)0 : (size_t)T * S};
   const Dropout dp{seed, thresh, keep_scale, drop_on};
-  return dispatch<Bwd>(dtype, q, k, v, bias, out, dout, ds, pd, dbias, dq, dk, dv, BH, a, dp, (cudaStream_t)stream);
+  if (dtype % 2 == kBF16)
+    return launch_attention_mma_bwd(q, k, v, bias, dtype / 2 == kBF16, out, dout, stats, delta, (float*)dbias, dq, dk, dv, BH, T, S, D, bias_bh,
+                                    dp, (cudaStream_t)stream);
+  const AttnArgs a{T, S, D, bias_bh == 1 ? (size_t)0 : (size_t)T * S, nullptr, BH};
+  return dispatch_f32<Bwd>(dtype, q, k, v, bias, out, dout, ds, pd, dbias, dq, dk, dv, BH, a, dp, (cudaStream_t)stream);
 }

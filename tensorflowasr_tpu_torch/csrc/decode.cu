@@ -1,5 +1,5 @@
 // Fused greedy transducer decode: the whole WIND greedy loop of one
-// utterance in one thread block.
+// utterance in one thread-block cluster.
 //
 // Replaces scripts_dev/decode_kernel.py fused_greedy_decode (the Pallas
 // _decode_kernel). Per iteration, for the row's frame pointer t:
@@ -18,30 +18,50 @@
 // The TPU kernel decodes the whole batch in one instance (the rows' products
 // as [B, .] MXU matmuls, 128-lane padding, a one-hot product for the
 // embedding read, a 16-aligned window widened by 16, lengths by scalar
-// prefetch). None of that is carried over: here one block owns one
-// utterance and runs its own loop. A row that finishes early in the JAX
+// prefetch). None of that is carried over: here one cluster of C blocks owns
+// one utterance and runs its own loop. A row that finishes early in the JAX
 // shared loop only idles (its t, idx and states stop moving), so per-row
-// loops give the same outputs with no grid barrier. The window is scored in
-// groups of DEC_GROUP frames, and scoring stops at the first group that
-// holds a valid non-blank frame: the frames after it cannot change the
-// decision (each frame's argmax is independent), so the tokens are those of
-// the whole-window joint.
+// loops give the same outputs. The window is scored in groups of DEC_GROUP
+// frames, and scoring stops at the first group that holds a valid non-blank
+// frame: the frames after it cannot change the decision (each frame's argmax
+// is independent), so the tokens are those of the whole-window joint.
+//
+// The cluster splits the weights: block r owns the four gate rows (i, f, g,
+// o) of its H/C LSTM units in each layer (so the cell update stays local),
+// its P/C rows of each projection, J/C rows of the prejoint Wp and V/C rows
+// of the vocabulary Wv. Each block copies its slices into its own shared
+// memory once, at the start, as far as they fit (the plan, computed by the
+// wrapper: Wv first, then Wp, Whh, Wih, the projections); the rest of its
+// slice it reads from L2 each step. After each product stage every block
+// pushes its slice of the output vector (h, the projection, pred_p) into
+// every block's shared memory (distributed shared memory, st.async counted
+// on the receiver's mbarrier) and waits until its own copy of the whole
+// vector has arrived: no cluster-wide barrier in the loop. LayerNorm runs in
+// every warp of every block on the whole vector in one fixed order, so all
+// agree bit for bit. Each block takes the argmax over its V/C vocabulary
+// rows; the (value, index) pairs are exchanged and every block reduces them
+// in rank order (lowest index on ties). So t, idx, the emissions and the
+// carry-out are identical in every block. Vectors a block may still read
+// while another writes the next step's values (h, the argmax pairs) are
+// double-buffered.
 //
 // Every product is a matrix-vector product against a weight in PyTorch's
-// [out, in] layout: each warp reads 8 rows at once, its lanes along the
-// rows in 16-byte loads (coalesced, many independent loads in flight; single
-// elements where a row length is not a multiple of 16 bytes), and sums each
-// row with shuffles. The block's vectors (x, gates, c, h, the lag states,
-// pred_p, the z rows) live in shared memory, each 16-byte aligned.
+// [out, in] layout: each row's dot product stays inside one warp, its lanes
+// along the row in 16-byte loads (single elements where a row length is not
+// a multiple of 16 bytes) and one shuffle sum per row, in the same order as
+// a single block would take it.
 //
 // What bounds it on the card: the chain of up to (factor + 1) T + 1
-// dependent iterations, each reading the vocabulary weights (and, when it
-// emits, the LSTM and prejoint weights: ~4 MB in f32, ~2 MB in bf16 at the
-// flagship's E = H = J = 320, V = 256) through L2 into one SM per
-// utterance, where the latency of the loads, not the bytes, sets each
-// step's time. Keeping the weights resident in a cluster's distributed
-// shared memory is later work.
+// dependent iterations. Each costs an exchange per stage (one per scored
+// frame group; per emission one per layer, one per projection, one for
+// pred_p) and the block's share of the weight rows (~125 KB per block and
+// emission at the flagship in bf16 with C = 16, or part of them from L2),
+// not the card's bandwidth or its arithmetic.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace tfasr {
 
@@ -49,6 +69,11 @@ constexpr int DEC_THREADS = 512;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_GROUP = 4;  // frames scored together (one read of Wv serves them all)
 constexpr int DEC_MAX_LAYERS = 4;
+constexpr int DEC_MAX_CLUSTER = 16;
+constexpr int DEC_ROWS = 5;  // weight rows one warp reads together (16 warps x 5 = the 80 gate rows of H 320 at C 16)
+constexpr int DEC_VROWS = 2; // vocabulary rows one warp scores together (they share the z reads)
+// Weight matrices in residency order: Wv, Wp, then Whh of each layer, Wih of each layer, the projections.
+constexpr int DEC_MAX_MATS = 2 + 3 * DEC_MAX_LAYERS;
 
 struct DecodeLayer {
   const void* w_ih;    // [4H, In] T
@@ -77,47 +102,80 @@ struct DecodeArgs {
   float* st_out;      // [L, 2, B, H]
   int B, T, E, H, P, J, V, K, max_tokens, step_max, blank;
   float eps;
+  int C;                   // blocks per cluster
+  int res[DEC_MAX_MATS];   // resident rows of each matrix's per-block slice
 };
 
-// Shared-memory layout of one block: each vector starts on a 16-byte
-// boundary (the products read x in float4s); the int tail is separate.
 __host__ __device__ inline int dec_a4(int n) { return (n + 3) & ~3; }
-__host__ __device__ inline int dec_xn(const DecodeArgs& a) {
-  int n = a.E > a.H ? a.E : a.H;
-  return dec_a4(n > a.P ? n : a.P);
-}
-__host__ __device__ inline size_t dec_smem_floats(const DecodeArgs& a) {
-  return (size_t)dec_xn(a) + dec_a4(4 * a.H) + 4 * dec_a4(a.n_layers * a.H) + dec_a4(a.H) + dec_a4(a.J) + dec_a4(DEC_GROUP * a.J) + DEC_WARPS +
-         DEC_WARPS * DEC_GROUP;
+__host__ __device__ inline int dec_split_start(int n, int C, int r) { return r * (n / C) + (r < n % C ? r : n % C); }
+__host__ __device__ inline int dec_split_count(int n, int C, int r) { return n / C + (r < n % C ? 1 : 0); }
+
+// Float offsets of a block's vectors in shared memory (each 16-byte aligned;
+// mirrored by decode_kernel._vec_floats).
+struct DecVec {
+  int xin, hr, y, hbuf, xp, pred, z, gates, grow, cbuf, wbest, wbesti, argv, argi, ids, total;
+};
+__host__ __device__ inline DecVec dec_vec(int E, int H, int P, int J, int L, int C) {
+  DecVec o;
+  const int nu = (H + C - 1) / C;
+  int xn = E > H ? E : H;
+  xn = xn > P ? xn : P;
+  int n = 0;
+  o.xin = n;    n += dec_a4(xn);                // the product input x, rounded
+  o.hr = n;     n += dec_a4(H);                 // h of the layer, rounded (the Whh product's input)
+  o.y = n;      n += dec_a4(H);                 // the layer's output (LayerNorm'd, rounded), the projection's input
+  o.hbuf = n;   n += 2 * L * dec_a4(H);         // [parity][layer] h, written by every block
+  o.xp = n;     n += L * dec_a4(P);             // [layer] projection output, written by every block
+  o.pred = n;   n += dec_a4(J);                 // pred_p, written by every block
+  o.z = n;      n += dec_a4(DEC_GROUP * J);     // tanh(enc_p + pred_p) of a frame group, rounded
+  o.gates = n;  n += dec_a4(4 * nu);            // this block's gate rows
+  o.grow = n;   n += dec_a4(4 * nu);            // (int) the global row of each of its gate rows
+  o.cbuf = n;   n += 2 * L * dec_a4(nu);        // [parity][layer] c of this block's units
+  o.wbest = n;  n += DEC_WARPS * DEC_GROUP;     // per warp best logit of each frame
+  o.wbesti = n; n += DEC_WARPS * DEC_GROUP;     // (int)
+  o.argv = n;   n += 2 * C * DEC_GROUP;         // [parity][rank][frame] best logit, written by every block
+  o.argi = n;   n += 2 * C * DEC_GROUP;         // (int)
+  o.ids = n;    n += DEC_GROUP;                 // (int) the group's argmax
+  o.total = n;
+  return o;
 }
 
-// Sum of one value per thread over the block, in the same order on every thread.
-__device__ __forceinline__ float dec_block_sum(float v, float* red, int warp, int lane) {
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < DEC_WARPS; ++w) s += red[w];
-  __syncthreads();
-  return s;
+// Row length of weight matrix m (the residency order above).
+__host__ __device__ inline int dec_mat_k(int m, int E, int H, int P, int J, int L) {
+  const int in_last = P > 0 ? P : H;
+  if (m == 0) return J;
+  if (m == 1) return in_last;
+  if (m < 2 + L) return H;
+  if (m < 2 + 2 * L) return m == 2 + L ? E : in_last;
+  return H;
 }
 
-// Weight rows one warp reads together. Each load is an L2 round trip in a
-// chain of dependent steps on one SM, so the products are bound by the loads
-// in flight: each lane reads 16 bytes of DEC_ROWS rows at a time.
-constexpr int DEC_ROWS = 8;
+__host__ __device__ inline size_t dec_a16(size_t bytes) { return (bytes + 15) & ~(size_t)15; }
 
-// 16 bytes of T at p (16-byte aligned) as f32 values.
-__device__ __forceinline__ void dec_load16(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
+// Dynamic shared memory of one block: its vectors, then the resident rows of each matrix.
+__host__ __device__ inline size_t dec_smem_bytes(int E, int H, int P, int J, int L, int C, const int* res, int elt) {
+  size_t n = (size_t)dec_vec(E, H, P, J, L, C).total * sizeof(float);
+  for (int m = 0; m < 2 + 3 * L; ++m) n += dec_a16((size_t)res[m] * dec_mat_k(m, E, H, P, J, L) * elt);
+  return n;
 }
-__device__ __forceinline__ void dec_load16(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
+
+__device__ __forceinline__ uint32_t dec_smem(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// 16 bytes at the 32-bit shared-memory address a.
+__device__ __forceinline__ uint4 dec_lds(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
+}
+
+// 16 bytes of T as f32 values.
+__device__ __forceinline__ void dec_unpack(const uint4& q, float (&v)[4]) {
+  v[0] = __uint_as_float(q.x);
+  v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z);
+  v[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void dec_unpack(const uint4& q, float (&v)[8]) {
   const unsigned int w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // a bf16 is the upper half of an f32; the lower address holds the lower half of the word
@@ -126,45 +184,47 @@ __device__ __forceinline__ void dec_load16(const __nv_bfloat16* p, float (&v)[8]
   }
 }
 
-// N f32 values of shared memory at x (16-byte aligned).
+// 16 bytes of T at p (16-byte aligned, shared or global) as f32 values.
+template <typename T, int NV>
+__device__ __forceinline__ void dec_load16(const T* p, float (&v)[NV]) { dec_unpack(*reinterpret_cast<const uint4*>(p), v); }
+
+// N f32 values of shared memory at the shared address x (16-byte aligned).
 template <int N>
-__device__ __forceinline__ void dec_load_x(const float* x, float (&v)[N]) {
+__device__ __forceinline__ void dec_load_x(uint32_t x, float (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
-    const float4 q = reinterpret_cast<const float4*>(x)[i];
-    v[4 * i] = q.x;
-    v[4 * i + 1] = q.y;
-    v[4 * i + 2] = q.z;
-    v[4 * i + 3] = q.w;
+    const uint4 q = dec_lds(x + 16 * i);
+    v[4 * i] = __uint_as_float(q.x);
+    v[4 * i + 1] = __uint_as_float(q.y);
+    v[4 * i + 2] = __uint_as_float(q.z);
+    v[4 * i + 3] = __uint_as_float(q.w);
   }
 }
 
-// A row length K (elements of T) and row base W that 16-byte loads can walk.
 template <typename T>
-__device__ __forceinline__ bool dec_vector_rows(const T* W, int K) {
-  return K % (16 / (int)sizeof(T)) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
-}
+__device__ __forceinline__ bool dec_aligned(const T* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// acc[r] += x . W[n0 + r, :K] per lane, r < R: 16-byte chunks of each row
-// (lane-strided) where the rows allow, else single elements; rows past N
-// re-read row N - 1 and are discarded by the caller.
+// acc[r] += x . rows[r][:K] per lane (x in shared memory; rows in shared or
+// global memory): 16-byte chunks of each row (lane-strided) where every row
+// allows it, else single elements.
 template <typename T, int R>
-__device__ __forceinline__ void dec_dot_rows(const T* __restrict__ W, const float* __restrict__ x, int n0, int N, int K, float (&acc)[R], int lane) {
-  const T* rows[R];
+__device__ __forceinline__ void dec_dot_rows(const T* const (&rows)[R], const float* x, int K, float (&acc)[R], int lane) {
+  constexpr int NV = 16 / sizeof(T);
+  bool vec = K % NV == 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) rows[r] = W + (size_t)min(n0 + r, N - 1) * K;
-  if (dec_vector_rows(W, K)) {
-    constexpr int V = 16 / sizeof(T);
+  for (int r = 0; r < R; ++r) vec = vec && dec_aligned(rows[r]);
+  if (vec) {
+    const uint32_t xs = dec_smem(x);
 #pragma unroll 2
-    for (int c = lane; c < K / V; c += 32) {
-      float xv[V];
-      dec_load_x<V>(x + c * V, xv);
+    for (int c = lane; c < K / NV; c += 32) {
+      float xv[NV];
+      dec_load_x<NV>(xs + c * NV * 4, xv);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float w[V];
-        dec_load16(rows[r] + c * V, w);
+        float w[NV];
+        dec_load16(rows[r] + c * NV, w);
 #pragma unroll
-        for (int i = 0; i < V; ++i) acc[r] = fmaf(xv[i], w[i], acc[r]);
+        for (int i = 0; i < NV; ++i) acc[r] = fmaf(xv[i], w[i], acc[r]);
       }
     }
     return;
@@ -177,105 +237,215 @@ __device__ __forceinline__ void dec_dot_rows(const T* __restrict__ W, const floa
   }
 }
 
-// out[n] = x . W[n, :K] (+ bias[n]) for n < N: each warp DEC_ROWS rows at a time, a shuffle sum per row.
+// One weight slice of this block: local row lr is global row n0 + lr, or for
+// gate rows grow[lr] (a table in shared memory: (lr / nu) * H + u0 + lr % nu,
+// gate lr / nu of unit u0 + lr % nu); rows below res sit in shared memory at base.
 template <typename T>
-__device__ __forceinline__ void dec_gemv(const T* __restrict__ W, const float* x, int N, int K, const float* __restrict__ bias, float* out,
-                                         int warp, int lane) {
-  for (int n0 = warp * DEC_ROWS; n0 < N; n0 += DEC_WARPS * DEC_ROWS) {
-    float acc[DEC_ROWS] = {};
-    dec_dot_rows<T, DEC_ROWS>(W, x, n0, N, K, acc, lane);
+struct DecSlice {
+  const T* w;       // the whole matrix [N, K] in global memory
+  const T* base;    // resident rows [res, K] in shared memory
+  const int* grow;  // gate rows: the global row of each local row; else null
+  int n0, count, res, K;
+  __device__ __forceinline__ int global_row(int lr) const { return grow ? grow[lr] : n0 + lr; }
+  __device__ __forceinline__ const T* row(int lr) const {
+    return lr < res ? base + (size_t)lr * K : w + (size_t)global_row(lr) * K;
+  }
+};
+
+// acc[r] += x . row(lr0 + r) for r < R (rows past the slice re-read its last
+// row), the same sums as dec_dot_rows: where those rows are resident and
+// whole 16-byte chunks, by ld.shared at consecutive row addresses, else
+// through per-row pointers.
+template <typename T, int R>
+__device__ __forceinline__ void dec_dot_slice(const DecSlice<T>& s, int lr0, const float* x, float (&acc)[R], int lane) {
+  constexpr int NV = 16 / sizeof(T);
+  const int last = min(R - 1, s.count - 1 - lr0), K = s.K;
+  if (K % NV == 0 && lr0 + last < s.res) {
+    const uint32_t stride = K * sizeof(T), row0 = dec_smem(s.base) + lr0 * stride, xs = dec_smem(x);
+#pragma unroll 2
+    for (int c = lane; c < K / NV; c += 32) {
+      float xv[NV];
+      dec_load_x<NV>(xs + c * NV * 4, xv);
 #pragma unroll
-    for (int r = 0; r < DEC_ROWS; ++r) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0 && n0 + r < N) out[n0 + r] = bias ? s + bias[n0 + r] : s;
+      for (int r = 0; r < R; ++r) {
+        float w[NV];
+        dec_unpack(dec_lds(row0 + min(r, last) * stride + c * 16), w);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc[r] = fmaf(xv[i], w[i], acc[r]);
+      }
+    }
+    return;
+  }
+  const T* rows[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) rows[r] = s.row(lr0 + min(r, last));
+  dec_dot_rows<T, R>(rows, x, K, acc, lane);
+}
+
+// Copy the resident rows of a slice into shared memory (the whole block).
+template <typename T>
+__device__ void dec_stage(const DecSlice<T>& s) {
+  constexpr int NV = 16 / sizeof(T);
+  const int rows = min(s.res, s.count);
+  T* dst = const_cast<T*>(s.base);
+  if (s.K % NV == 0 && dec_aligned(s.w)) {
+    const int cpr = s.K / NV;
+    for (int i = threadIdx.x; i < rows * cpr; i += DEC_THREADS) {
+      const int lr = i / cpr, c = i - lr * cpr;
+      reinterpret_cast<uint4*>(dst + (size_t)lr * s.K)[c] = reinterpret_cast<const uint4*>(s.w + (size_t)s.global_row(lr) * s.K)[c];
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * s.K; i += DEC_THREADS) {
+      const int lr = i / s.K, k = i - lr * s.K;
+      dst[(size_t)lr * s.K + k] = s.w[(size_t)s.global_row(lr) * s.K + k];
     }
   }
 }
 
-// One prediction-network step on token `tok`: updates c, h (layer l at l*H)
-// and writes pred_p. Ends in a barrier.
+// The exchanges. A block pushes each value it produces into the same place
+// of every block's shared memory with st.async, which counts its bytes on
+// the receiving block's mbarrier; a block waits on its own mbarrier until
+// the whole vector has arrived. No cluster-wide barrier: each exchange is
+// one write and one wait. Each mbarrier serves one exchange (h and the
+// projection of each layer, pred_p, the argmax pairs of each parity);
+// between two uses of one mbarrier by a block, every other block has
+// passed the first use, so the phases never mix.
+enum DecBar : int { kBarH = 0, kBarProj = DEC_MAX_LAYERS, kBarPred = 2 * DEC_MAX_LAYERS, kBarArg, DEC_BARS = kBarArg + 2 };
+
+// Write the 32-bit value `bits` at the shared address `dst` of block `rank`,
+// counting 4 bytes on its barrier `bar` (a local shared address as well).
+__device__ __forceinline__ void dec_push(uint32_t dst, uint32_t bits, uint32_t bar, int rank) {
+  uint32_t rd, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rd) : "r"(dst), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rb) : "r"(bar), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(rd), "r"(bits), "r"(rb) : "memory");
+}
+
+// Wait (every thread) until `bytes` have arrived on barrier i for its current
+// phase; phases holds each barrier's phase parity, the same in every thread.
+__device__ __forceinline__ void dec_wait(unsigned long long* bars, int i, unsigned int bytes, unsigned int& phases) {
+  const uint32_t bar = dec_smem(bars + i);
+  if (threadIdx.x == 0) asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+  const unsigned int parity = (phases >> i) & 1u;
+  unsigned int done = 0, spins = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && ++spins == (1u << 26)) __trap();  // a lost exchange fails the launch instead of hanging the card
+  } while (!done);
+  phases ^= 1u << i;
+}
+
+// out[n0 + lr] = x . row(lr) (+ bias) for the slice's rows, pushed into the
+// vector `dst` (a local shared-memory address) of every block of the
+// cluster on barrier `bar`.
 template <typename T>
-__device__ void dec_pred_step(const DecodeArgs& a, int tok, float* xin, float* gates, float* c, float* h, float* y, float* pred, float* red,
-                              int tid, int warp, int lane) {
-  const int H = a.H;
+__device__ __forceinline__ void dec_rows_to_cluster(const DecSlice<T> s, const float* x, const float* __restrict__ bias, float* dst,
+                                                    unsigned long long* bar, int C, int warp, int lane) {
+  for (int lr0 = warp * DEC_ROWS; lr0 < s.count; lr0 += DEC_WARPS * DEC_ROWS) {
+    float acc[DEC_ROWS] = {};
+    dec_dot_slice<T, DEC_ROWS>(s, lr0, x, acc, lane);
+#pragma unroll
+    for (int r = 0; r < DEC_ROWS; ++r) {
+      const float v = warp_sum(acc[r]);
+      const int n = s.n0 + lr0 + r;
+      if (lr0 + r < s.count && lane < C) dec_push(dec_smem(dst + n), __float_as_uint(bias ? v + bias[n] : v), dec_smem(bar), lane);
+    }
+  }
+}
+
+struct DecShared {
+  float *xin, *hr, *y, *hbuf, *xp, *pred, *z, *gates, *cbuf, *wbest, *argv;
+  int *wbesti, *argi, *ids;
+  unsigned long long* bars;
+};
+
+// One prediction-network step on token `tok` for the cluster: reads h and c
+// at parity par, writes them at par ^ 1 and pred_p into every block.
+template <typename T>
+__device__ void dec_pred_step(const DecodeArgs& a, const DecodeLayer* layers, const DecSlice<T>* ih, const DecSlice<T>* hh, const DecSlice<T>* proj,
+                              const DecSlice<T>& wp, int tok, int par, const DecShared& v, unsigned int& phases, int nu, int u0, int tid, int warp,
+                              int lane) {
+  const int H = a.H, C = a.C, L = a.n_layers;
+  const int hstride = dec_a4(H), cstride = dec_a4(nu), pstride = dec_a4(a.P);
   const T* embed = static_cast<const T*>(a.embed);
   const bool in_table = tok >= 0 && tok < a.V;  // JAX's one-hot read gives 0 for an id outside the table
-  for (int k = tid; k < a.E; k += DEC_THREADS) xin[k] = in_table ? to_f32(embed[(size_t)tok * a.E + k]) : 0.f;
-  __syncthreads();
-  int in_dim = a.E;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const DecodeLayer& L = a.layers[l];
-    const T* wih = static_cast<const T*>(L.w_ih);
-    const T* whh = static_cast<const T*>(L.w_hh);
-    float* cl = c + l * H;
-    float* hl = h + l * H;
-    for (int u = tid; u < H; u += DEC_THREADS) y[u] = round_to<T>(hl[u]);  // h enters its product in T
+  for (int k = tid; k < a.E; k += DEC_THREADS) v.xin[k] = in_table ? to_f32(embed[(size_t)tok * a.E + k]) : 0.f;
+  for (int l = 0; l < L; ++l) {
+    const float* hprev = v.hbuf + (par * L + l) * hstride;
+    float* hnew = v.hbuf + ((par ^ 1) * L + l) * hstride;
+    const float* cprev = v.cbuf + (par * L + l) * cstride;
+    float* cnew = v.cbuf + ((par ^ 1) * L + l) * cstride;
+    for (int u = tid; u < H; u += DEC_THREADS) v.hr[u] = round_to<T>(hprev[u]);  // h enters its product in T
     __syncthreads();
-    // gates = x . Wih^T + h . Whh^T + b, accumulated in f32
-    for (int n0 = warp * DEC_ROWS; n0 < 4 * H; n0 += DEC_WARPS * DEC_ROWS) {
+    // this block's gate rows: x . Wih^T + h . Whh^T + b, accumulated in f32
+    const DecodeLayer& Ly = layers[l];
+    const DecSlice<T> si = ih[l], sh = hh[l];  // in registers for the loop
+    for (int lr0 = warp * DEC_ROWS; lr0 < 4 * nu; lr0 += DEC_WARPS * DEC_ROWS) {
       float acc[DEC_ROWS] = {};
-      dec_dot_rows<T, DEC_ROWS>(wih, xin, n0, 4 * H, in_dim, acc, lane);
-      dec_dot_rows<T, DEC_ROWS>(whh, y, n0, 4 * H, H, acc, lane);
+      dec_dot_slice<T, DEC_ROWS>(si, lr0, v.xin, acc, lane);
+      dec_dot_slice<T, DEC_ROWS>(sh, lr0, v.hr, acc, lane);
 #pragma unroll
       for (int r = 0; r < DEC_ROWS; ++r) {
         const float s = warp_sum(acc[r]);
-        if (lane == 0 && n0 + r < 4 * H) gates[n0 + r] = s + L.b[n0 + r];
+        if (lane == 0 && lr0 + r < 4 * nu) v.gates[lr0 + r] = s + Ly.b[sh.global_row(lr0 + r)];
       }
     }
     __syncthreads();
-    for (int u = tid; u < H; u += DEC_THREADS) {
-      const float gi = sigmoid_f32(gates[u]), gf = sigmoid_f32(gates[H + u]);
-      const float gg = tanhf(gates[2 * H + u]), go = sigmoid_f32(gates[3 * H + u]);
-      const float c2 = gf * cl[u] + gi * gg;
+    // the cell of this block's units; h' into every block (one thread per unit and rank)
+    for (int i = tid; i < nu * C; i += DEC_THREADS) {
+      const int q = i / nu, uu = i - q * nu;
+      const float gi = sigmoid_f32(v.gates[uu]), gf = sigmoid_f32(v.gates[nu + uu]);
+      const float gg = tanhf(v.gates[2 * nu + uu]), go = sigmoid_f32(v.gates[3 * nu + uu]);
+      const float c2 = gf * cprev[uu] + gi * gg;
       const float h2 = go * tanhf(c2);
-      cl[u] = c2;
-      hl[u] = h2;
-      y[u] = h2;
+      if (q == 0) cnew[uu] = c2;
+      dec_push(dec_smem(hnew + u0 + uu), __float_as_uint(h2), dec_smem(v.bars + kBarH + l), q);
     }
-    __syncthreads();
-    if (L.ln) {
+    dec_wait(v.bars, kBarH + l, 4u * H, phases);
+    // LayerNorm statistics (centred variance), computed by every warp over the whole h in one order: every warp of every block agrees
+    float mean = 0.f, rstd = 1.f;
+    if (Ly.ln) {
       float s = 0.f;
-      for (int u = tid; u < H; u += DEC_THREADS) s += y[u];
-      const float mean = dec_block_sum(s, red, warp, lane) / (float)H;
+      for (int u = lane; u < H; u += 32) s += hnew[u];
+      mean = warp_sum(s) / (float)H;
       float q = 0.f;
-      for (int u = tid; u < H; u += DEC_THREADS) {
-        const float d = y[u] - mean;
+      for (int u = lane; u < H; u += 32) {
+        const float d = hnew[u] - mean;
         q = fmaf(d, d, q);
       }
-      const float rstd = rsqrtf(dec_block_sum(q, red, warp, lane) / (float)H + a.eps);
-      for (int u = tid; u < H; u += DEC_THREADS) y[u] = (y[u] - mean) * rstd * L.ln[u] + L.ln[H + u];
-      __syncthreads();
+      rstd = rsqrtf(warp_sum(q) / (float)H + a.eps);
     }
-    if (L.w_proj) {
-      // the projection reads y rounded to T; its output is the next input, rounded when read
-      for (int u = tid; u < H; u += DEC_THREADS) y[u] = round_to<T>(y[u]);
-      __syncthreads();
-      dec_gemv<T>(static_cast<const T*>(L.w_proj), y, a.P, H, L.b_proj, xin, warp, lane);
-      __syncthreads();
-      for (int p = tid; p < a.P; p += DEC_THREADS) xin[p] = round_to<T>(xin[p]);
-      in_dim = a.P;
-    } else {
-      for (int u = tid; u < H; u += DEC_THREADS) xin[u] = round_to<T>(y[u]);
-      in_dim = H;
-    }
+    // the layer's output, rounded to T: the projection's input, or the next product's
+    float* out = Ly.w_proj ? v.y : v.xin;
+    for (int u = tid; u < H; u += DEC_THREADS) out[u] = round_to<T>(Ly.ln ? (hnew[u] - mean) * rstd * Ly.ln[u] + Ly.ln[H + u] : hnew[u]);
     __syncthreads();
+    if (Ly.w_proj) {
+      float* xp = v.xp + l * pstride;
+      dec_rows_to_cluster<T>(proj[l], v.y, Ly.b_proj, xp, v.bars + kBarProj + l, C, warp, lane);
+      dec_wait(v.bars, kBarProj + l, 4u * a.P, phases);
+      for (int p = tid; p < a.P; p += DEC_THREADS) v.xin[p] = round_to<T>(xp[p]);  // the next input, rounded when read
+      __syncthreads();
+    }
   }
-  dec_gemv<T>(static_cast<const T*>(a.wp), xin, a.J, in_dim, a.bp, pred, warp, lane);
-  __syncthreads();
+  dec_rows_to_cluster<T>(wp, v.xin, a.bp, v.pred, v.bars + kBarPred, C, warp, lane);
+  dec_wait(v.bars, kBarPred, 4u * a.J, phases);
 }
 
-// Scores frames s0 .. s0+ng-1 under pred_p: ids[i] = argmax of their logits.
-// Ends in a barrier.
+// Scores frames s0 .. s0+ng-1 under pred_p: v.ids[i] = argmax of their
+// logits over the whole vocabulary. gpar picks the exchange buffers.
 template <typename T>
-__device__ void dec_joint_argmax(const DecodeArgs& a, const T* enc, int s0, int ng, const float* pred, float* z, float* bestv, int* besti,
-                                 int* ids, int tid, int warp, int lane) {
-  const int J = a.J;
+__device__ void dec_joint_argmax(const DecodeArgs& a, const DecSlice<T> wv, const T* enc, int s0, int ng, int gpar, int rank, const DecShared& v,
+                                 unsigned int& phases, int tid, int warp, int lane) {
+  const int J = a.J, C = a.C;
   for (int i = tid; i < ng * J; i += DEC_THREADS) {
     const int f = i / J, j = i - f * J;
-    z[i] = round_to<T>(tanhf(to_f32(enc[(size_t)(s0 + f) * J + j]) + pred[j]));
+    v.z[i] = round_to<T>(tanhf(to_f32(enc[(size_t)(s0 + f) * J + j]) + v.pred[j]));
   }
   __syncthreads();
-  const T* wv = static_cast<const T*>(a.wv);
   float best[DEC_GROUP];
   int arg[DEC_GROUP];
 #pragma unroll
@@ -283,24 +453,32 @@ __device__ void dec_joint_argmax(const DecodeArgs& a, const T* enc, int s0, int 
     best[i] = -INFINITY;
     arg[i] = a.V;
   }
-  constexpr int VR = 4;  // vocabulary rows per warp pass
-  const bool vector_rows = dec_vector_rows(wv, J);
-  for (int v0 = warp * VR; v0 < a.V; v0 += DEC_WARPS * VR) {
-    const T* rows[VR];
+  constexpr int NV = 16 / sizeof(T);
+  const uint32_t zs = dec_smem(v.z), stride = J * sizeof(T), wbase = dec_smem(wv.base);
+  for (int lr0 = warp * DEC_VROWS; lr0 < wv.count; lr0 += DEC_WARPS * DEC_VROWS) {
+    const int last = min(DEC_VROWS - 1, wv.count - 1 - lr0);
+    const T* rows[DEC_VROWS];
+    bool vec = J % NV == 0;
 #pragma unroll
-    for (int r = 0; r < VR; ++r) rows[r] = wv + (size_t)min(v0 + r, a.V - 1) * J;
-    float acc[VR][DEC_GROUP] = {};
-    if (vector_rows) {
-      constexpr int NV = 16 / sizeof(T);
+    for (int r = 0; r < DEC_VROWS; ++r) {
+      rows[r] = wv.row(lr0 + min(r, last));
+      vec = vec && dec_aligned(rows[r]);
+    }
+    const bool shared = lr0 + last < wv.res;  // the rows are consecutive in shared memory
+    float acc[DEC_VROWS][DEC_GROUP] = {};
+    if (vec) {
 #pragma unroll 2
       for (int c = lane; c < J / NV; c += 32) {
         float zk[DEC_GROUP][NV];
 #pragma unroll
-        for (int i = 0; i < DEC_GROUP; ++i) dec_load_x<NV>(z + i * J + c * NV, zk[i]);
+        for (int i = 0; i < DEC_GROUP; ++i) dec_load_x<NV>(zs + (i * J + c * NV) * 4, zk[i]);
 #pragma unroll
-        for (int r = 0; r < VR; ++r) {
+        for (int r = 0; r < DEC_VROWS; ++r) {
           float w[NV];
-          dec_load16(rows[r] + c * NV, w);
+          if (shared)
+            dec_unpack(dec_lds(wbase + (lr0 + min(r, last)) * stride + c * 16), w);
+          else
+            dec_load16(rows[r] + c * NV, w);
 #pragma unroll
           for (int i = 0; i < DEC_GROUP; ++i) {
 #pragma unroll
@@ -313,9 +491,9 @@ __device__ void dec_joint_argmax(const DecodeArgs& a, const T* enc, int s0, int 
       for (int k = lane; k < J; k += 32) {
         float zk[DEC_GROUP];
 #pragma unroll
-        for (int i = 0; i < DEC_GROUP; ++i) zk[i] = z[i * J + k];
+        for (int i = 0; i < DEC_GROUP; ++i) zk[i] = v.z[i * J + k];
 #pragma unroll
-        for (int r = 0; r < VR; ++r) {
+        for (int r = 0; r < DEC_VROWS; ++r) {
           const float w = to_f32(rows[r][k]);
 #pragma unroll
           for (int i = 0; i < DEC_GROUP; ++i) acc[r][i] = fmaf(zk[i], w, acc[r][i]);
@@ -323,15 +501,15 @@ __device__ void dec_joint_argmax(const DecodeArgs& a, const T* enc, int s0, int 
       }
     }
 #pragma unroll
-    for (int r = 0; r < VR; ++r) {
-      const int v = v0 + r;
-      const float bias = a.bv[min(v, a.V - 1)];
+    for (int r = 0; r < DEC_VROWS; ++r) {
+      const int id = wv.n0 + lr0 + min(r, last);
+      const float bias = a.bv[id];
 #pragma unroll
       for (int i = 0; i < DEC_GROUP; ++i) {
         const float s = warp_sum(acc[r][i]) + bias;
-        if (v < a.V && s > best[i]) {  // this warp's v ascend: a tie keeps the lower index
+        if (lr0 + r < wv.count && s > best[i]) {  // this warp's ids ascend: a tie keeps the lower index
           best[i] = s;
-          arg[i] = v;
+          arg[i] = id;
         }
       }
     }
@@ -339,58 +517,124 @@ __device__ void dec_joint_argmax(const DecodeArgs& a, const T* enc, int s0, int 
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < DEC_GROUP; ++i) {
-      bestv[warp * DEC_GROUP + i] = best[i];
-      besti[warp * DEC_GROUP + i] = arg[i];
+      v.wbest[warp * DEC_GROUP + i] = best[i];
+      v.wbesti[warp * DEC_GROUP + i] = arg[i];
     }
   }
   __syncthreads();
-  if (tid < ng) {
+  // this block's best of each frame (warps in order) into every block's slot [gpar][rank][frame]
+  unsigned long long* bar = v.bars + kBarArg + gpar;
+  if (tid < ng * C) {
+    const int q = tid / ng, f = tid - q * ng;
     float bv = -INFINITY;
     int bi = a.V;
     for (int w = 0; w < DEC_WARPS; ++w) {
-      const float v = bestv[w * DEC_GROUP + tid];
-      const int vi = besti[w * DEC_GROUP + tid];
-      if (v > bv || (v == bv && vi < bi)) {
-        bv = v;
-        bi = vi;
+      const float x = v.wbest[w * DEC_GROUP + f];
+      const int xi = v.wbesti[w * DEC_GROUP + f];
+      if (x > bv || (x == bv && xi < bi)) {
+        bv = x;
+        bi = xi;
       }
     }
-    ids[tid] = bi;
+    const int slot = (gpar * C + rank) * DEC_GROUP + f;
+    dec_push(dec_smem(v.argv + slot), __float_as_uint(bv), dec_smem(bar), q);
+    dec_push(dec_smem(v.argi + slot), (uint32_t)bi, dec_smem(bar), q);
+  }
+  dec_wait(v.bars, kBarArg + gpar, 8u * C * ng, phases);
+  if (tid < ng) {
+    float bv = -INFINITY;
+    int bi = a.V;
+    for (int q = 0; q < C; ++q) {  // ranks own ascending id ranges
+      const int slot = (gpar * C + q) * DEC_GROUP + tid;
+      const float x = v.argv[slot];
+      const int xi = v.argi[slot];
+      if (x > bv || (x == bv && xi < bi)) {
+        bv = x;
+        bi = xi;
+      }
+    }
+    v.ids[tid] = bi;
   }
   __syncthreads();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS) greedy_decode_kernel(const DecodeArgs a) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int H = a.H, LH = a.n_layers * a.H;
-  float* xin = sm;
-  float* gates = xin + dec_xn(a);
-  float* c = gates + dec_a4(4 * H);
-  float* h = c + dec_a4(LH);
-  float* lc = h + dec_a4(LH);
-  float* lh = lc + dec_a4(LH);
-  float* y = lh + dec_a4(LH);
-  float* pred = y + dec_a4(H);
-  float* z = pred + dec_a4(a.J);
-  float* red = z + dec_a4(DEC_GROUP * a.J);
-  float* bestv = red + DEC_WARPS;
-  int* besti = reinterpret_cast<int*>(bestv + DEC_WARPS * DEC_GROUP);
-  int* ids = besti + DEC_WARPS * DEC_GROUP;
-
-  for (int i = tid; i < DEC_GROUP * a.J; i += DEC_THREADS) z[i] = 0.f;
-  for (int i = tid; i < LH; i += DEC_THREADS) {
-    const int l = i / H, u = i - l * H;
-    c[i] = lc[i] = a.st0[((size_t)(2 * l) * a.B + b) * H + u];
-    h[i] = lh[i] = a.st0[((size_t)(2 * l + 1) * a.B + b) * H + u];
+__global__ void __launch_bounds__(DEC_THREADS, 1) greedy_decode_kernel(const DecodeArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ unsigned long long bars[DEC_BARS];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.C, rank = (int)cluster.block_rank(), b = blockIdx.x / C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H = a.H, L = a.n_layers, J = a.J;
+  const int nu = dec_split_count(H, C, rank), u0 = dec_split_start(H, C, rank);
+  const DecVec o = dec_vec(a.E, H, a.P, J, L, C);
+  int* grow = reinterpret_cast<int*>(sm + o.grow);
+  for (int lr = tid; lr < 4 * nu; lr += DEC_THREADS) grow[lr] = (lr / nu) * H + u0 + lr % nu;
+  // The block's view of its vectors, weight slices and layers lives in shared
+  // memory: in registers or the stack it would be per thread, and the hot
+  // loops would reload it from local memory.
+  __shared__ DecShared v;
+  __shared__ DecSlice<T> ih[DEC_MAX_LAYERS], hh[DEC_MAX_LAYERS], proj[DEC_MAX_LAYERS], wp, wv;
+  __shared__ DecodeLayer layers[DEC_MAX_LAYERS];
+  if (tid == 0) {
+    v.xin = sm + o.xin;
+    v.hr = sm + o.hr;
+    v.y = sm + o.y;
+    v.hbuf = sm + o.hbuf;
+    v.xp = sm + o.xp;
+    v.pred = sm + o.pred;
+    v.z = sm + o.z;
+    v.gates = sm + o.gates;
+    v.cbuf = sm + o.cbuf;
+    v.wbest = sm + o.wbest;
+    v.wbesti = reinterpret_cast<int*>(sm + o.wbesti);
+    v.argv = sm + o.argv;
+    v.argi = reinterpret_cast<int*>(sm + o.argi);
+    v.ids = reinterpret_cast<int*>(sm + o.ids);
+    v.bars = bars;
+    for (int l = 0; l < L; ++l) layers[l] = a.layers[l];
+    // this block's weight slices, resident rows after the vectors
+    unsigned char* next = reinterpret_cast<unsigned char*>(sm + o.total);
+    auto place = [&](DecSlice<T>& s, const void* w, int m, int n0, int count, const int* rows) {
+      const int K = dec_mat_k(m, a.E, H, a.P, J, L);
+      s = DecSlice<T>{static_cast<const T*>(w), reinterpret_cast<const T*>(next), rows, n0, count, a.res[m], K};
+      next += dec_a16((size_t)a.res[m] * K * sizeof(T));
+    };
+    place(wv, a.wv, 0, dec_split_start(a.V, C, rank), dec_split_count(a.V, C, rank), nullptr);
+    place(wp, a.wp, 1, dec_split_start(J, C, rank), dec_split_count(J, C, rank), nullptr);
+    for (int l = 0; l < L; ++l) place(hh[l], a.layers[l].w_hh, 2 + l, u0, 4 * nu, grow);
+    for (int l = 0; l < L; ++l) place(ih[l], a.layers[l].w_ih, 2 + L + l, u0, 4 * nu, grow);
+    for (int l = 0; l < L; ++l)
+      place(proj[l], a.layers[l].w_proj, 2 + 2 * L + l, dec_split_start(a.P, C, rank), a.layers[l].w_proj ? dec_split_count(a.P, C, rank) : 0,
+            nullptr);
+    for (int i = 0; i < DEC_BARS; ++i) asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(dec_smem(bars + i)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  unsigned int phases = 0;
+  dec_stage(wv);
+  dec_stage(wp);
+  for (int l = 0; l < L; ++l) {
+    dec_stage(hh[l]);
+    dec_stage(ih[l]);
+    if (layers[l].w_proj) dec_stage(proj[l]);
+  }
+  for (int i = tid; i < DEC_GROUP * J; i += DEC_THREADS) v.z[i] = 0.f;
+  const int hstride = dec_a4(H), cstride = dec_a4(nu);
+  for (int i = tid; i < L * H; i += DEC_THREADS) {
+    const int l = i / H, u = i - l * H;
+    v.hbuf[l * hstride + u] = a.st0[((size_t)(2 * l + 1) * a.B + b) * H + u];
+    if (u >= u0 && u < u0 + nu) v.cbuf[l * cstride + u - u0] = a.st0[((size_t)(2 * l) * a.B + b) * H + u];
+  }
+  cluster.sync();  // every block of the cluster has started and set up its barriers: pushes into its shared memory may begin
+
+  int par = 0, gpar = 0;
   int prev = a.tok0[b];
-  dec_pred_step<T>(a, prev, xin, gates, c, h, y, pred, red, tid, warp, lane);
+  dec_pred_step<T>(a, layers, ih, hh, proj, wp, prev, par, v, phases, nu, u0, tid, warp, lane);
+  par ^= 1;
 
   const int len = min(max(a.lens[b], 0), a.T);  // frames past T cannot emit: the outputs are those of the unclamped loop
-  const T* enc = static_cast<const T*>(a.enc_p) + (size_t)b * a.T * a.J;
+  const T* enc = static_cast<const T*>(a.enc_p) + (size_t)b * a.T * J;
   int t = 0, idx = 0;
   for (int step = 0; step < a.step_max && t < len; ++step) {
     const int start = min(t, a.T - a.K);
@@ -400,11 +644,12 @@ __global__ void __launch_bounds__(DEC_THREADS) greedy_decode_kernel(const Decode
         const int s0 = start + g0, ng = min(DEC_GROUP, a.K - g0);
         if (s0 >= len) break;
         if (s0 + ng <= t) continue;
-        dec_joint_argmax<T>(a, enc, s0, ng, pred, z, bestv, besti, ids, tid, warp, lane);
+        dec_joint_argmax<T>(a, wv, enc, s0, ng, gpar, rank, v, phases, tid, warp, lane);
+        gpar ^= 1;
         for (int i = 0; i < ng; ++i) {
-          if (s0 + i >= t && s0 + i < len && ids[i] != a.blank) {
+          if (s0 + i >= t && s0 + i < len && v.ids[i] != a.blank) {
             first = g0 + i;
-            tok = ids[i];
+            tok = v.ids[i];
             break;
           }
         }
@@ -412,48 +657,88 @@ __global__ void __launch_bounds__(DEC_THREADS) greedy_decode_kernel(const Decode
       }
     }
     if (first < a.K) {
-      if (tid == 0) a.tokens[(size_t)b * a.max_tokens + idx] = tok;
+      if (rank == 0 && tid == 0) a.tokens[(size_t)b * a.max_tokens + idx] = tok;
       ++idx;
       prev = tok;
       t = max(start + first, t);
-      for (int i = tid; i < LH; i += DEC_THREADS) {
-        lc[i] = c[i];
-        lh[i] = h[i];
-      }
-      __syncthreads();
-      dec_pred_step<T>(a, prev, xin, gates, c, h, y, pred, red, tid, warp, lane);
+      dec_pred_step<T>(a, layers, ih, hh, proj, wp, prev, par, v, phases, nu, u0, tid, warp, lane);
+      par ^= 1;
     } else {
       t = max(min(start + a.K, len), t);
     }
   }
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     a.out_len[b] = idx;
     a.next_tok[b] = prev;
   }
-  for (int i = tid; i < LH; i += DEC_THREADS) {
-    const int l = i / H, u = i - l * H;
-    a.st_out[((size_t)(2 * l) * a.B + b) * H + u] = lc[i];
-    a.st_out[((size_t)(2 * l + 1) * a.B + b) * H + u] = lh[i];
+  // the carry-out: the states from before the last step (parity par ^ 1), this block's units
+  for (int i = tid; i < L * nu; i += DEC_THREADS) {
+    const int l = i / nu, uu = i - l * nu;
+    a.st_out[((size_t)(2 * l) * a.B + b) * H + u0 + uu] = v.cbuf[((par ^ 1) * L + l) * cstride + uu];
+    a.st_out[((size_t)(2 * l + 1) * a.B + b) * H + u0 + uu] = v.hbuf[((par ^ 1) * L + l) * hstride + u0 + uu];
   }
+  cluster.sync();  // no block leaves while another may still address its shared memory
 }
 
-template <typename T>
-static int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
-  const size_t smem = dec_smem_floats(a) * sizeof(float) + (size_t)(DEC_WARPS * DEC_GROUP + DEC_GROUP) * sizeof(int);
-  cudaError_t err = allow_smem(greedy_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  greedy_decode_kernel<T><<<a.B, DEC_THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+typedef void (*DecodeKernel)(const DecodeArgs);
+
+static DecodeKernel decode_kernel_for(int dtype) {
+  return dtype == kBF16 ? greedy_decode_kernel<__nv_bfloat16> : greedy_decode_kernel<float>;
+}
+
+// Launch configuration of B clusters of C blocks; sets the kernel's attributes.
+static cudaError_t decode_config(DecodeKernel kernel, int B, int C, size_t smem, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                                 cudaLaunchAttribute& attr) {
+  if (C < 1 || C > DEC_MAX_CLUSTER) return cudaErrorInvalidClusterSize;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace tfasr
+
+// Dynamic shared memory (bytes) of one block for these widths, cluster size
+// and resident rows (res: one count per matrix, 2 + 3 * n_layers of them).
+extern "C" long long tfasr_decode_smem_bytes(int E, int H, int P, int J, int n_layers, int C, const int* res, int dtype) {
+  return (long long)tfasr::dec_smem_bytes(E, H, P, J, n_layers, C, res, dtype == tfasr::kBF16 ? 2 : 4);
+}
+
+// How many clusters of C blocks with smem bytes each can be resident at
+// once (cudaOccupancyMaxActiveClusters), or minus the CUDA error code when
+// such a cluster cannot launch at all.
+extern "C" int tfasr_decode_clusters(int C, long long smem, int dtype) {
+  using namespace tfasr;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const DecodeKernel kernel = decode_kernel_for(dtype);
+  cudaError_t err = decode_config(kernel, 1, C, (size_t)smem, nullptr, cfg, attr);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the (non-sticky) error of the refused configuration
+    return -(int)err;
+  }
+  return n;
+}
 
 extern "C" int tfasr_greedy_decode(const void* enc_p, const int* lens, const int* tok0, const void* embed, int n_layers,
                                    const void* const* w_ih, const void* const* w_hh, const void* const* b, const void* const* ln,
                                    const void* const* w_proj, const void* const* b_proj, const void* wp, const float* bp, const void* wv,
                                    const float* bv, const float* st0, int* tokens, int* out_len, int* next_tok, float* st_out, int B, int T,
-                                   int E, int H, int P, int J, int V, int K, int max_tokens, int step_max, int blank, float eps, int dtype,
-                                   cudaStream_t stream) {
+                                   int E, int H, int P, int J, int V, int K, int max_tokens, int step_max, int blank, float eps, int C,
+                                   const int* res, int dtype, cudaStream_t stream) {
   using namespace tfasr;
   if (n_layers < 1 || n_layers > DEC_MAX_LAYERS) return (int)cudaErrorInvalidValue;
   DecodeArgs a{};
@@ -487,6 +772,15 @@ extern "C" int tfasr_greedy_decode(const void* enc_p, const int* lens, const int
   a.step_max = step_max;
   a.blank = blank;
   a.eps = eps;
+  a.C = C;
+  for (int m = 0; m < 2 + 3 * n_layers; ++m) a.res[m] = res[m];
   if (B == 0) return 0;
-  return dtype == kBF16 ? launch_decode<__nv_bfloat16>(a, stream) : launch_decode<float>(a, stream);
+  const DecodeKernel kernel = decode_kernel_for(dtype);
+  const size_t smem = dec_smem_bytes(E, H, P, J, n_layers, C, a.res, dtype == kBF16 ? 2 : 4);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = decode_config(kernel, B, C, smem, stream, cfg, attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu", "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu",
-           "decode.cu")
+           "attention_mma.cu", "decode.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,11 +59,13 @@ _SIGNATURES = {
     "tfasr_lstm_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_lstm_bwd": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
     "tfasr_ctc": ([_P] * 6 + [_I] * 3 + [_P], ctypes.c_int),
-    "tfasr_attention": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
-    "tfasr_attention_bwd": ([_P] * 12 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_attention": ([_P] * 6 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_attention_bwd": ([_P] * 14 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
     # enc_p, lens, tok0, embed; n_layers; six host arrays of per-layer pointers; wp, bp, wv, bv, st0; four outputs;
-    # B, T, E, H, P, J, V, K, max_tokens, step_max, blank; eps; dtype, stream
-    "tfasr_greedy_decode": ([_P] * 4 + [_I] + [_P] * 6 + [_P] * 5 + [_P] * 4 + [_I] * 11 + [_F] + [_I, _P], ctypes.c_int),
+    # B, T, E, H, P, J, V, K, max_tokens, step_max, blank; eps; cluster size, host array of resident rows; dtype, stream
+    "tfasr_greedy_decode": ([_P] * 4 + [_I] + [_P] * 6 + [_P] * 5 + [_P] * 4 + [_I] * 11 + [_F] + [_I, _P] + [_I, _P], ctypes.c_int),
+    "tfasr_decode_smem_bytes": ([_I] * 6 + [_P, _I], ctypes.c_longlong),
+    "tfasr_decode_clusters": ([_I, ctypes.c_longlong, _I], ctypes.c_int),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -297,12 +297,19 @@ def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float =
 # the input dtype, and dbias = ds in f32 (summed over b·h for a broadcast
 # bias) only when the bias needs a gradient.
 #
+# The forward also returns the rows' softmax statistics (max m and sum l,
+# [2, BH, T] f32), which the bf16 backward reads instead of recomputing them.
+#
 # What bounds it on the card: at the Transformer-CTC training shape (b·h 64,
-# T = S = 400, head 128) the products, 5.2 GFLOP forward and 13.1 backward,
-# on the CUDA cores in f32 (a first version; wgmma and TMA are later work).
+# T = S = 400, head 128) the products, 4·b·h·T·S·D operations forward and
+# 10 backward. bf16 runs them on the tensor cores (``csrc/attention_mma.cu``:
+# mma.sync, two forward sweeps so that the probabilities round where JAX's
+# do, a three-launch backward with no score-shaped scratch); f32 keeps the
+# CUDA-core kernels of ``csrc/attention.cu`` (TF32 would break the f32
+# card/CPU parity).
 # --------------------------------------------------------------------------- #
 
-_FA_TQ, _FA_KT, _FA_MAX_D = 16, 64, 128  # csrc/attention.cu
+_FA_TQ, _FA_KT, _FA_MAX_D = 16, 64, 128  # csrc/attention.cu (the f32 kernels)
 
 
 def _attention_probs(q, k, bias, seed, rate):
@@ -311,6 +318,15 @@ def _attention_probs(q, k, bias, seed, rate):
     pn = _softmax(scores)
     keep = dropout_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device) if rate > 0.0 else None
     return pn, keep
+
+
+def fused_attention_plain_stats(q, k, bias):
+    """The rows' softmax statistics [2, BH, T] f32 that the kernel's forward
+    returns: the max m and the sum l = Σ exp(s − m) of s = q·kᵀ + bias (JAX
+    ``_softmax_rows``' m and l)."""
+    scores = torch.matmul(q.float(), k.float().transpose(1, 2)) + bias.float()
+    m = scores.amax(dim=-1)
+    return torch.stack([m, torch.exp(scores - m[..., None]).sum(dim=-1)])
 
 
 def fused_attention_plain(q, k, v, bias, seed=0, rate: float = 0.0):
@@ -362,48 +378,60 @@ def _attention_check(q, k, v, bias):
     if d > _FA_MAX_D:
         raise ValueError(f"head size {d} > {_FA_MAX_D} is not supported by the kernel")
     sp = -(-s // _FA_KT) * _FA_KT
-    smem = 4 * (_FA_TQ * d + _FA_KT * (d + 1) + _FA_TQ * sp + _FA_TQ * d + _FA_TQ)  # the backward's
-    if smem > _MAX_SMEM:
+    smem = 4 * (_FA_TQ * d + _FA_KT * (d + 1) + _FA_TQ * sp + _FA_TQ * d + _FA_TQ)  # the f32 backward's (bf16 needs no S-sized buffer)
+    if q.dtype == torch.float32 and smem > _MAX_SMEM:
         raise ValueError(f"key length {s} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     if s == 0 and bh * t > 0:
         raise ValueError("attention over zero keys")
     return bh, t, s, d, code
 
 
-def fused_attention_kernel(q, k, v, bias, seed=0, rate: float = 0.0):
-    """Kernel A's forward on CUDA tensors (no autograd)."""
+def fused_attention_kernel(q, k, v, bias, seed=0, rate: float = 0.0, with_stats: bool = False):
+    """Kernel A's forward on CUDA tensors (no autograd): the output, and with
+    ``with_stats`` also the rows' statistics [2, BH, T] f32 (as
+    :func:`fused_attention_plain_stats`), which the bf16 backward reads;
+    without it the kernel computes no statistics."""
     global attention_launches
     bh, t, s, d, code = _attention_check(q, k, v, bias)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = _build.build()
-    with torch.cuda.device(q.device):
-        err = lib.tfasr_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, t, s, d, bias.shape[0],
-                                  *dr.kernel_args(seed, rate), code, _build.stream_of(q))
-    _build.check(err, "fused_attention")
-    attention_launches += 1
-    return out
+    stats = torch.empty((2, bh, t), dtype=torch.float32, device=q.device) if with_stats else None
+    if out.numel() > 0:
+        lib = _build.build()
+        with torch.cuda.device(q.device):
+            err = lib.tfasr_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), _build.ptr(stats), bh, t, s, d,
+                                      bias.shape[0], *dr.kernel_args(seed, rate), code, _build.stream_of(q))
+        _build.check(err, "fused_attention")
+        attention_launches += 1
+    return (out, stats) if with_stats else out
 
 
-def fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed=0, rate: float = 0.0, bias_grad: bool = True):
-    """Kernel A's backward on CUDA tensors: ``out`` is the forward's output;
-    same results as :func:`fused_attention_plain_bwd`."""
+def fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed=0, rate: float = 0.0, bias_grad: bool = True, stats=None):
+    """Kernel A's backward on CUDA tensors: ``out`` is the forward's output
+    and ``stats`` its row statistics (required for bf16; f32 recomputes
+    them); same results as :func:`fused_attention_plain_bwd`."""
     global attention_bwd_launches
     bh, t, s, d, code = _attention_check(q, k, v, bias)
     for name, x in (("out", out), ("dout", dout)):
         _build.require(x, name, device=q.device, dtype=q.dtype, shape=tuple(q.shape))
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        if stats is None:
+            raise ValueError("the bf16 backward reads the forward's row statistics: pass stats from fused_attention_kernel(..., with_stats=True)")
+        _build.require(stats, "stats", device=q.device, dtype=torch.float32, shape=(2, bh, t))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.zeros((bh, t, s), dtype=torch.float32, device=q.device) if bias_grad else None
     if q.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_(), None if dbias is None else dbias[:bias.shape[0]].to(bias.dtype)
-    ds = torch.empty((bh, t, s), dtype=q.dtype, device=q.device)
-    pd = torch.empty((bh, t, s), dtype=torch.float32, device=q.device)
+    if bf16:  # the tensor-core kernels: a [BH, T] delta, no score-shaped scratch
+        delta, ds, pd = torch.empty((bh, t), dtype=torch.float32, device=q.device), None, None
+    else:
+        delta, ds = None, torch.empty((bh, t, s), dtype=q.dtype, device=q.device)
+        pd = torch.empty((bh, t, s), dtype=torch.float32, device=q.device)
     lib = _build.build()
     with torch.cuda.device(q.device):
-        err = lib.tfasr_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), dout.data_ptr(), ds.data_ptr(),
-                                      pd.data_ptr(), _build.ptr(dbias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, s, d, bias.shape[0],
-                                      *dr.kernel_args(seed, rate), code, _build.stream_of(q))
+        err = lib.tfasr_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), dout.data_ptr(), _build.ptr(stats),
+                                      _build.ptr(delta), _build.ptr(ds), _build.ptr(pd), _build.ptr(dbias), dq.data_ptr(), dk.data_ptr(),
+                                      dv.data_ptr(), bh, t, s, d, bias.shape[0], *dr.kernel_args(seed, rate), code, _build.stream_of(q))
     _build.check(err, "fused_attention backward")
     attention_bwd_launches += 1
     if dbias is not None:
@@ -416,21 +444,24 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, seed, rate):
         ctx.cfg = (seed, rate)
         if q.device.type == "cpu":
-            out = fused_attention_plain(q, k, v, bias, seed, rate)
+            out, stats = fused_attention_plain(q, k, v, bias, seed, rate), None
         else:
-            out = fused_attention_kernel(q, k, v, bias, seed, rate)
-        ctx.save_for_backward(q, k, v, bias, out)
+            # only the bf16 backward reads the statistics (f32 recomputes them)
+            with_stats = q.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:4])
+            res = fused_attention_kernel(q, k, v, bias, seed, rate, with_stats=with_stats)
+            out, stats = res if with_stats else (res, None)
+        ctx.save_for_backward(q, k, v, bias, out, stats)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, out = ctx.saved_tensors
+        q, k, v, bias, out, stats = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
         bias_grad = ctx.needs_input_grad[3]
         if q.device.type == "cpu":
             grads = fused_attention_plain_bwd(q, k, v, bias, dout, *ctx.cfg, bias_grad=bias_grad)
         else:
-            grads = fused_attention_bwd_kernel(q, k, v, bias, out, dout, *ctx.cfg, bias_grad=bias_grad)
+            grads = fused_attention_bwd_kernel(q, k, v, bias, out, dout, *ctx.cfg, bias_grad=bias_grad, stats=stats)
         return (*grads, None, None)
 
 

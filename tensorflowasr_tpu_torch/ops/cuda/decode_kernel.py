@@ -28,13 +28,19 @@ operations in PyTorch as a batched host loop (one flag read per iteration),
 the recognizer's CPU path; at f32 its LSTM step is the eager
 ``TransducerPrediction.step``'s arithmetic op for op.
 
+The kernel runs one thread-block cluster of C blocks per utterance
+(``csrc/decode.cu``): block r owns the gate rows of its H/C LSTM units, its
+share of the projection, prejoint and vocabulary rows, and holds as much of
+that slice in its shared memory as :func:`decode_plan` assigns (Wv first,
+then Wp, Whh, Wih, the projections); the vectors each stage produces are
+exchanged through distributed shared memory behind a cluster barrier. C is
+16 or 8, chosen from the card's occupancy (:func:`choose_cluster`); larger
+batches run in waves.
+
 What bounds the kernel on the card: the chain of up to (factor + 1)·T + 1
-dependent iterations per utterance; each reads the joint's vocabulary
-weights, and each emission the LSTM and prejoint weights, through L2
-(~4 MB per emitting iteration at the flagship in f32, ~2 MB in bf16) into
-one SM per utterance: the per-SM path from L2 and the loads' latency set
-each step's time, not the card's bandwidth or its arithmetic (times in
-PERF.md, row 13).
+dependent iterations per utterance, each a few cluster barriers and the
+block's share of the weights read from shared memory; not the card's
+bandwidth or its arithmetic (times in PERF.md, row 13).
 """
 
 from __future__ import annotations
@@ -48,8 +54,13 @@ import torch.nn.functional as F
 from tensorflowasr_tpu_torch.ops.cuda import _build
 
 launches = 0  # kernel launches since the last reset (set to 0 to reset)
+last_launch: Optional[dict] = None  # the last launch's cluster size, occupancy and shared-memory plan
 
 MAX_LAYERS = 4  # csrc/decode.cu DEC_MAX_LAYERS
+CLUSTER_SIZES = (16, 8)  # blocks per utterance, in order of preference
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may use on the card
+SMEM_RESERVE = 2048  # kept free of the plan (the kernel's ~1.1 KB of static shared memory, headroom)
+_THREADS, _GROUP = 512, 4  # csrc/decode.cu DEC_THREADS, DEC_GROUP
 
 
 class FusedLayer(NamedTuple):
@@ -174,6 +185,123 @@ def fused_greedy_decode_plain(encoded, encoded_length, params: FusedDecodeParams
     return out
 
 
+# ----------------------------- the cluster's shared-memory plan ----------------------------- #
+
+
+def split(n: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """(start, count) of block ``rank``'s share of n rows (csrc/decode.cu dec_split_*)."""
+    base, rem = divmod(n, cluster)
+    return rank * base + min(rank, rem), base + (rank < rem)
+
+
+class Matrix(NamedTuple):
+    """One weight matrix as the kernel partitions it."""
+
+    name: str
+    rows: int  # rows of the whole matrix
+    k: int  # row length
+    gate: bool  # LSTM gate rows: a block owns the four gate rows of each of its units
+
+
+def matrices(e: int, hidden: int, p: int, j: int, vocab: int, n_layers: int) -> Tuple[Matrix, ...]:
+    """The kernel's weight matrices in residency order: Wv, Wp, Whh of each
+    layer, Wih of each layer, the projections (csrc/decode.cu dec_mat_k)."""
+    last = p or hidden
+    out = [Matrix("wv", vocab, j, False), Matrix("wp", j, last, False)]
+    out += [Matrix(f"w_hh{l}", 4 * hidden, hidden, True) for l in range(n_layers)]
+    out += [Matrix(f"w_ih{l}", 4 * hidden, e if l == 0 else last, True) for l in range(n_layers)]
+    out += [Matrix(f"proj{l}", p, hidden, False) for l in range(n_layers)]
+    return tuple(out)
+
+
+def owned_rows(m: Matrix, hidden: int, cluster: int, rank: int) -> list:
+    """Global rows of ``m`` that block ``rank`` owns, in its local order."""
+    if m.gate:
+        u0, nu = split(hidden, cluster, rank)
+        return [g * hidden + u0 + u for g in range(4) for u in range(nu)]
+    n0, cnt = split(m.rows, cluster, rank)
+    return list(range(n0, n0 + cnt))
+
+
+def _a4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _vec_floats(e: int, hidden: int, p: int, j: int, n_layers: int, cluster: int) -> int:
+    """Floats of one block's vectors (csrc/decode.cu dec_vec)."""
+    nu = -(-hidden // cluster)
+    return (_a4(max(e, hidden, p)) + 2 * _a4(hidden) + 2 * n_layers * _a4(hidden) + n_layers * _a4(p) + _a4(j) + _a4(_GROUP * j) + 2 * _a4(4 * nu)
+            + 2 * n_layers * _a4(nu) + 2 * (_THREADS // 32) * _GROUP + 4 * cluster * _GROUP + _GROUP)
+
+
+class DecodePlan(NamedTuple):
+    cluster: int
+    matrices: Tuple[Matrix, ...]
+    rows: Tuple[int, ...]  # per matrix: rows of the largest block's slice
+    resident: Tuple[int, ...]  # per matrix: rows of each block's slice held in shared memory
+    smem_bytes: int  # dynamic shared memory per block: its vectors, then the resident rows
+    resident_bytes: int  # weight bytes resident per block
+    slice_bytes: int  # weight bytes of the largest block's slices
+
+    @property
+    def whole(self) -> bool:
+        """Every block's whole slice is resident."""
+        return self.resident == self.rows
+
+
+def decode_plan(e: int, hidden: int, p: int, j: int, vocab: int, n_layers: int, cluster: int, elt: int) -> DecodePlan:
+    """How much of each block's weight slice a cluster of ``cluster`` blocks
+    keeps in shared memory at ``elt`` bytes per weight: the vectors first,
+    then rows of Wv, Wp, Whh, Wih and the projections in that order, as many
+    as fit in SMEM_LIMIT − SMEM_RESERVE (each matrix's region 16-byte
+    aligned). Pure function of the widths."""
+    mats = matrices(e, hidden, p, j, vocab, n_layers)
+    a16 = lambda b: (b + 15) & ~15
+    left = SMEM_LIMIT - SMEM_RESERVE - 4 * _vec_floats(e, hidden, p, j, n_layers, cluster)
+    if left < 0:
+        raise ValueError(f"the decode's vectors need more than {SMEM_LIMIT} bytes of shared memory per block")
+    rows, resident, used = [], [], 0
+    for m in mats:
+        n = 4 * -(-hidden // cluster) if m.gate else -(-m.rows // cluster)
+        row_bytes = m.k * elt
+        keep = min(n, left // row_bytes) if row_bytes else n
+        while keep and a16(keep * row_bytes) > left:
+            keep -= 1
+        left -= a16(keep * row_bytes)
+        used += a16(keep * row_bytes)
+        rows.append(n)
+        resident.append(keep)
+    smem = 4 * _vec_floats(e, hidden, p, j, n_layers, cluster) + used
+    slice_bytes = sum(n * m.k * elt for n, m in zip(rows, mats))
+    return DecodePlan(cluster, mats, tuple(rows), tuple(resident), smem, sum(r * m.k * elt for r, m in zip(resident, mats)), slice_bytes)
+
+
+_occupancy: dict = {}
+
+
+def cluster_occupancy(dev: torch.device, code: int, plan: DecodePlan) -> int:
+    """How many clusters of ``plan`` the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``), or minus the CUDA error code when
+    such a cluster cannot launch at all."""
+    key = (dev.index, code, plan.cluster, plan.smem_bytes)
+    if key not in _occupancy:
+        lib = _build.build()
+        with torch.cuda.device(dev):
+            _occupancy[key] = lib.tfasr_decode_clusters(plan.cluster, plan.smem_bytes, code)
+    return _occupancy[key]
+
+
+def choose_cluster(batch: int, occupancy: dict) -> int:
+    """The cluster size for ``batch`` utterances given the co-resident
+    clusters of each size ({16: n16, 8: n8}, 0 where it cannot launch):
+    16 unless 8 lets more of the batch run at once (n16 < min(batch, n8)),
+    then 8; raises when neither can launch."""
+    n16, n8 = occupancy.get(16, 0), occupancy.get(8, 0)
+    if n16 < 1 and n8 < 1:
+        raise RuntimeError(f"fused_greedy_decode: neither a cluster of 16 nor of 8 blocks can launch on this card (occupancy {occupancy})")
+    return 16 if n16 >= 1 and n16 >= min(batch, n8) else 8
+
+
 def _check(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, initial_states):
     dev, dt = encoded.device, params.wv.dtype
     code = _build.compute_dtype(params.wv, "params.wv")
@@ -219,11 +347,13 @@ def _check(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, i
 
 
 def fused_greedy_decode_kernel(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, initial_states, blank: int = 0, window: int = 16,
-                               max_token_factor: int = 2):
-    """The kernel on CUDA tensors: one thread block per utterance runs its
-    own WIND loop (a finished row of the JAX shared loop only idles, so the
-    outputs are the same)."""
-    global launches
+                               max_token_factor: int = 2, cluster: Optional[int] = None):
+    """The kernel on CUDA tensors: one cluster of blocks per utterance runs
+    its own WIND loop (a finished row of the JAX shared loop only idles, so
+    the outputs are the same). ``cluster`` fixes the blocks per utterance
+    (default: :func:`choose_cluster` from the card's occupancy); a size the
+    card cannot launch raises."""
+    global launches, last_launch
     code, (e, hidden, p, j, vocab) = _check(encoded, encoded_length, params, initial_tokens, initial_states)
     dev = encoded.device
     enc_p = project_encoder(encoded, params).contiguous()
@@ -237,11 +367,24 @@ def fused_greedy_decode_kernel(encoded, encoded_length, params: FusedDecodeParam
     st_out = st0.clone()
     if batch > 0:
         n = len(params.layers)
+        elt = params.wv.element_size()
+        sizes = (cluster,) if cluster is not None else CLUSTER_SIZES
+        plans = {c: decode_plan(e, hidden, p, j, vocab, n, c, elt) for c in sizes}
+        occ = {c: cluster_occupancy(dev, code, plans[c]) for c in sizes}
+        if cluster is None:
+            chosen = choose_cluster(batch, {c: max(n, 0) for c, n in occ.items()})
+        elif occ[cluster] < 1:
+            raise RuntimeError(f"fused_greedy_decode: a cluster of {cluster} blocks with {plans[cluster].smem_bytes} bytes of shared memory each "
+                               f"cannot launch on this card (occupancy {occ[cluster]}: a negative value is minus the CUDA error)")
+        else:
+            chosen = cluster
+        plan = plans[chosen]
         arr = lambda ptrs: (ctypes.c_void_p * MAX_LAYERS)(*ptrs)  # host arrays, one pointer per layer
         layers = params.layers
         w_ih, w_hh, b = arr([l.w_ih.data_ptr() for l in layers]), arr([l.w_hh.data_ptr() for l in layers]), arr([l.b.data_ptr() for l in layers])
         ln = arr([_build.ptr(l.ln) for l in layers])
         w_proj, b_proj = arr([_build.ptr(l.proj and l.proj[0]) for l in layers]), arr([_build.ptr(l.proj and l.proj[1]) for l in layers])
+        res = (ctypes.c_int * len(plan.resident))(*plan.resident)
         lib = _build.build()
         with torch.cuda.device(dev):
             err = lib.tfasr_greedy_decode(
@@ -249,10 +392,13 @@ def fused_greedy_decode_kernel(encoded, encoded_length, params: FusedDecodeParam
                 *(ctypes.addressof(a) for a in (w_ih, w_hh, b, ln, w_proj, b_proj)),
                 params.wp.data_ptr(), params.bp.data_ptr(), params.wv.data_ptr(), params.bv.data_ptr(), st0.data_ptr(),
                 tokens.data_ptr(), out_len.data_ptr(), next_tok.data_ptr(), st_out.data_ptr(),
-                batch, t_max, e, hidden, p, j, vocab, k, max_tokens, step_max, int(blank), float(params.ln_eps), code, _build.stream_of(enc_p),
+                batch, t_max, e, hidden, p, j, vocab, k, max_tokens, step_max, int(blank), float(params.ln_eps), plan.cluster, ctypes.addressof(res),
+                code, _build.stream_of(enc_p),
             )
         _build.check(err, "fused_greedy_decode")
         launches += 1
+        last_launch = dict(cluster=plan.cluster, occupancy=occ, smem_bytes=plan.smem_bytes, resident_bytes=plan.resident_bytes,
+                           slice_bytes=plan.slice_bytes, whole=plan.whole, batch=batch)
     states = tuple((st_out[i, 0], st_out[i, 1]) for i in range(st_out.shape[0]))
     return tokens.long(), out_len.long(), next_tok.long(), states
 

@@ -511,22 +511,49 @@ def _attention_args(dev, dtype, bh, t, s, d, bias_bh, seed=14):
     return q, k, v, bias, _r(g, dev, (bh, t, d), 1.0, dtype)
 
 
-# (B·H, T, S, D, bias B·H): head sizes 36, 64 and 128, a broadcast bias, unaligned lengths
-ATTN_CASES = [(64, 400, 400, 128, 64), (8, 250, 250, 36, 1), (6, 77, 93, 64, 6), (3, 5, 130, 128, 1), (2, 17, 17, 44, 2)]
+# (B·H, T, S, D, bias B·H): head sizes 16, 36, 44, 64, 96 and 128, a broadcast bias, lengths that are not multiples of the 64-row tiles
+ATTN_CASES = [(64, 400, 400, 128, 64), (8, 250, 250, 36, 1), (6, 77, 93, 64, 6), (3, 5, 130, 128, 1), (2, 17, 17, 44, 2), (4, 100, 150, 16, 4),
+              (3, 65, 129, 96, 1)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,t,s,d,bias_bh", ATTN_CASES)
 def test_attention_kernels(dev, bh, t, s, d, bias_bh, dtype, rate):
+    """Forward (and its row statistics, 1e-5 relative: the same f32 sums in
+    another order) and backward against the plain versions; the dropout
+    masks are the same hash on both sides."""
     q, k, v, bias, dout = _attention_args(dev, dtype, bh, t, s, d, bias_bh)
     before = (ak.attention_launches, ak.attention_bwd_launches)
-    out = ak.fused_attention_kernel(q, k, v, bias, 31, rate)
+    out, stats = ak.fused_attention_kernel(q, k, v, bias, 31, rate, with_stats=True)
     assert out.dtype == dtype
     torch.testing.assert_close(out, ak.fused_attention_plain(q, k, v, bias, 31, rate), **TOL[dtype])
-    grads = ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate)
+    torch.testing.assert_close(stats, ak.fused_attention_plain_stats(q, k, bias), rtol=1e-5, atol=1e-5)
+    grads = ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate, stats=stats)
     assert (ak.attention_launches, ak.attention_bwd_launches) == (before[0] + 1, before[1] + 1)
     _grads_close(grads, ak.fused_attention_plain_bwd(q, k, v, bias, dout, 31, rate), GRAD_REL[dtype], f"attention {bh}x{t}x{s}x{d}")
+
+
+def test_attention_bf16_backward_needs_the_forward_stats(dev):
+    q, k, v, bias, dout = _attention_args(dev, torch.bfloat16, 2, 9, 11, 16, 1)
+    out = ak.fused_attention_kernel(q, k, v, bias)
+    with pytest.raises(ValueError, match="statistics"):
+        ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_forward_without_stats(dev, dtype):
+    """Without ``with_stats`` the forward computes no statistics and returns
+    the same output; through autograd (statistics only for bf16: the f32
+    backward recomputes them) the gradients match the plain ones."""
+    q, k, v, bias, dout = _attention_args(dev, dtype, 3, 65, 129, 96, 1)
+    out = ak.fused_attention_kernel(q, k, v, bias, 31, 0.1)
+    assert isinstance(out, torch.Tensor)
+    assert torch.equal(out, ak.fused_attention_kernel(q, k, v, bias, 31, 0.1, with_stats=True)[0])
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    got = ak.fused_attention(*leaves, bias, 31, 0.1)
+    grads = torch.autograd.grad(got, leaves, dout)
+    _grads_close(grads, ak.fused_attention_plain_bwd(q, k, v, bias, dout, 31, 0.1)[:3], GRAD_REL[dtype], "attention autograd")
 
 
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -601,8 +628,10 @@ def _decode_model(dev, dtype, num_rnns=1, layer_norm=True, proj=0, vocab=256, se
     return model.to(dev).eval()
 
 
-# (B, T, layers, LayerNorm, projection, vocab): the flagship serve shape, the canary's nets, a large vocabulary, one frame
-DECODE_CASES = [(8, 250, 1, True, 0, 256), (3, 37, 2, True, 11, 256), (2, 20, 1, False, 8, 1000), (1, 1, 1, True, 0, 256)]
+# (B, T, layers, LayerNorm, projection, vocab): the flagship serve shape, the canary's nets, a large vocabulary, one frame, and more
+# utterances than clusters of 16 the card holds at once (they run in waves)
+DECODE_CASES = [(8, 250, 1, True, 0, 256), (3, 37, 2, True, 11, 256), (2, 20, 1, False, 8, 1000), (1, 1, 1, True, 0, 256),
+                (13, 60, 1, True, 0, 256)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -656,3 +685,90 @@ def test_recognize_launches_the_decode_kernel(dev):
         eager = transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window,
                                                                  torch.zeros(2, dtype=torch.int64, device=dev), model.init_decoder_states(2, dev))
     assert torch.equal(out.tokens, eager[0]) and torch.equal(out.next_tokens, eager[2])
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_cluster_sizes(dev, cluster, dtype):
+    """Both cluster sizes (8: part of each slice read from L2) give the plain
+    version's tokens, lengths and next tokens, states as above; 13
+    utterances in clusters of 16 are more than the card holds at once, so
+    they run in waves."""
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    model = _decode_model(dev, dtype)
+    params = model.decode_params()
+    gen = _gen(dev, 22)
+    enc = _r(gen, dev, (13, 120, 144))
+    if dtype == torch.bfloat16:
+        enc = enc * 3.0
+        enc[..., 0] += 2.0
+    lens = torch.randint(1, 121, (13,), generator=torch.Generator().manual_seed(5)).to(dev)
+    lens[0] = 120
+    tok0 = torch.zeros(13, dtype=torch.int64, device=dev)
+    states = model.init_decoder_states(13, dev)
+    got = dk.fused_greedy_decode_kernel(enc.to(dtype), lens, params, tok0, states, cluster=cluster)
+    assert dk.last_launch["cluster"] == cluster
+    ref = dk.fused_greedy_decode_plain(enc.to(dtype), lens, params, tok0, states)
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.equal(g, r)
+    tol = dict(rtol=0, atol=1e-5 if dtype == torch.float32 else 1e-2)
+    for (gc, gh), (rc, rh) in zip(got[3], ref[3]):
+        torch.testing.assert_close(gc, rc, **tol)
+        torch.testing.assert_close(gh, rh, **tol)
+
+
+def test_decode_kernel_chunk_by_chunk(dev):
+    """Batch 1 decoded in chunks of 5 frames (a streaming chunk), the token and
+    the states carried: one launch per chunk, each chunk equal to the plain
+    version's at f32."""
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    model = _decode_model(dev, torch.float32)
+    params = model.decode_params()
+    enc = _r(_gen(dev, 23), dev, (1, 80, 144))
+    tok_k = tok_p = torch.zeros(1, dtype=torch.int64, device=dev)
+    st_k = st_p = model.init_decoder_states(1, dev)
+    for c in range(16):
+        chunk = enc[:, 5 * c:5 * c + 5].contiguous()
+        lens = torch.tensor([5], device=dev)
+        before = dk.launches
+        got = dk.fused_greedy_decode(chunk, lens, params, tok_k, st_k)
+        assert dk.launches == before + 1
+        ref = dk.fused_greedy_decode_plain(chunk, lens, params, tok_p, st_p)
+        for g, r in zip(got[:3], ref[:3]):
+            assert torch.equal(g, r), c
+        for (gc, gh), (rc, rh) in zip(got[3], ref[3]):
+            torch.testing.assert_close(gc, rc, rtol=0, atol=1e-5)
+            torch.testing.assert_close(gh, rh, rtol=0, atol=1e-5)
+        tok_k, st_k, tok_p, st_p = got[2], got[3], ref[2], ref[3]
+
+
+def test_decode_wrapper_raises_on_a_cluster_the_card_cannot_launch(dev):
+    """A cluster of 32 blocks is beyond the card's limit: the wrapper raises
+    and launches nothing (no fallback)."""
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    model = _decode_model(dev, torch.float32)
+    enc = _r(_gen(dev, 24), dev, (2, 10, 144))
+    before = dk.launches
+    with pytest.raises(RuntimeError, match="cannot launch"):
+        dk.fused_greedy_decode_kernel(enc, torch.tensor([10, 7], device=dev), model.decode_params(), torch.zeros(2, dtype=torch.int64, device=dev),
+                                      model.init_decoder_states(2, dev), cluster=32)
+    assert dk.launches == before
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("layers,proj,elt", [(1, 0, 2), (1, 0, 4), (2, 11, 2), (1, 8, 4)])
+def test_decode_plan_matches_the_kernel_layout(dev, cluster, layers, proj, elt):
+    """The Python plan's shared-memory bytes equal the kernel's own count."""
+    import ctypes
+
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    plan = dk.decode_plan(320, 320, proj, 320, 256, layers, cluster, elt)
+    res = (ctypes.c_int * len(plan.resident))(*plan.resident)
+    got = _build.build().tfasr_decode_smem_bytes(320, 320, proj, 320, layers, cluster, ctypes.addressof(res), 1 if elt == 2 else 0)
+    assert got == plan.smem_bytes
+    assert dk.cluster_occupancy(dev, 1 if elt == 2 else 0, plan) >= 1
