@@ -44,21 +44,17 @@
 // TFLOP/s: ~8 and ~13 us), against ~14 and ~22 us of bytes (the bf16 bias
 // [BH, T, S] dominates). mma.sync reaches a fraction of the wgmma rate, and
 // each block re-reads the bias in each sweep from L2.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace tfasr {
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int AM_BLOCK = 64;    // query rows per block (forward, dq); keys per block (dk/dv)
 constexpr int AM_KT = 64;       // key tile of the forward and dq sweeps
 constexpr int AM_QT = 32;       // query tile of the dk/dv sweep
 constexpr int AM_THREADS = 128; // 4 warps of 16 rows (or keys)
-constexpr int AM_PAD = 8;       // bf16 of row padding in shared memory: 8 ldmatrix rows hit distinct banks
 constexpr float AM_NEG_PAD = -1e30f;
-constexpr float AM_LOG2E = 1.4426950408889634f;
 constexpr unsigned int AM_SALT_BH = 40499u;
 
 struct MmaArgs {
@@ -66,113 +62,6 @@ struct MmaArgs {
   size_t bias_bh_stride;  // T * S, or 0 for a broadcast bias
   int vec;                // 16-byte cp.async staging (D % 8 == 0 and aligned bases), else element copies
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Stage rows [r0, r0 + rows) of x ([n, D] bf16; rows past n and columns D..Dp
-// zero) into dst [rows][Dp + AM_PAD]: 16-byte cp.async, or element copies
-// where the rows are not 16-byte aligned. Issued by the whole block.
-__device__ __forceinline__ void am_stage(bf16* dst, const bf16* x, int r0, int n, int rows, const MmaArgs& a) {
-  const int D = a.D, Dp = a.Dp, LD = a.Dp + AM_PAD;
-  if (a.vec) {
-    const int cpr = Dp / 8;
-    for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
-      const int r = i / cpr, c = (i - r * cpr) * 8;
-      const bool ok = r0 + r < n && c < D;
-      cp_async16(smem_u32(dst + r * LD + c), ok ? x + (size_t)(r0 + r) * D + c : x, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * Dp; i += blockDim.x) {
-      const int r = i / Dp, c = i - r * Dp;
-      dst[r * LD + c] = (r0 + r < n && c < D) ? x[(size_t)(r0 + r) * D + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// acc[nt] = A (this warp's 16 rows at a_s) . B^T (NT * 8 rows at b_s), both
-// [rows][Dp] bf16 in shared memory, over the Dp columns.
-template <int DMAX, int NT>
-__device__ __forceinline__ void am_abT(float (&acc)[NT][4], const bf16* a_s, const bf16* b_s, int LD, int nk, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk) {
-    if (kk < nk) {
-      uint32_t af[4];
-      ldsm_x4(af, smem_u32(a_s + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, smem_u32(b_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 + ((lane >> 3) & 1) * 8));
-        mma16816(acc[2 * np], af, bf[0], bf[1]);
-        mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// acc[dt] += P (16 rows x 16 * KS, bf16 A fragments) . X (rows = the summed
-// index at x_s, [16 * KS][Dp] bf16 in shared memory), over Dp output columns.
-template <int DMAX, int KS>
-__device__ __forceinline__ void am_pv(float (&acc)[DMAX / 8][4], const uint32_t (&pa)[KS][4], const bf16* x_s, int LD, int nk, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int dp = 0; dp < DMAX / 16; ++dp) {
-      if (dp < nk) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, smem_u32(x_s + (ks * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8));
-        mma16816(acc[2 * dp], pa[ks], bf[0], bf[1]);
-        mma16816(acc[2 * dp + 1], pa[ks], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// The C fragments of 2 * KS n-tiles (16 rows x 16 * KS columns) as bf16 A fragments.
-template <int KS>
-__device__ __forceinline__ void am_to_a(uint32_t (&pa)[KS][4], const float (&p)[2 * KS][4]) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    pa[ks][0] = pack_bf16(p[2 * ks][0], p[2 * ks][1]);
-    pa[ks][1] = pack_bf16(p[2 * ks][2], p[2 * ks][3]);
-    pa[ks][2] = pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]);
-    pa[ks][3] = pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3]);
-  }
-}
 
 // Scores of a key tile: s += bias, columns past S -1e30. Fragment element e
 // of n-tile nt is (row (e >> 1) of the thread's two rows, column col0 + nt *
@@ -186,37 +75,6 @@ __device__ __forceinline__ void am_scores(float (&s)[NT][4], const TB* b_lo, con
     for (int e = 0; e < 4; ++e) {
       const int col = col0 + nt * 8 + (e & 1);
       s[nt][e] = col < S ? s[nt][e] + to_f32(((e >> 1) ? b_hi : b_lo)[col]) : AM_NEG_PAD;
-    }
-  }
-}
-
-// exp(s - m) as 2^((s - m) log2 e) on the SFU: a few ulp from expf, far
-// inside the bf16 rounding that follows. s - m is formed first, so rows at
-// the -1e9 mask (s and m both ~-1e9) keep their small difference exactly.
-__device__ __forceinline__ float am_exp(float s, float m) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"((s - m) * AM_LOG2E));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Write a [16 rows][Dp] f32 fragment set as bf16 rows of [n, D] at row_lo / row_lo + 8.
-template <int DMAX>
-__device__ __forceinline__ void am_store(bf16* dst, const float (&acc)[DMAX / 8][4], int row_lo, int n, int D, int col0) {
-#pragma unroll
-  for (int dt = 0; dt < DMAX / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row_lo + (e >> 1) * 8, col = col0 + dt * 8 + (e & 1);
-      if (row < n && col < D) dst[(size_t)row * D + col] = __float2bfloat16(acc[dt][e]);
     }
   }
 }
@@ -314,7 +172,7 @@ __global__ void __launch_bounds__(AM_THREADS) attn_mma_fwd(const bf16* __restric
       }
     }
     uint32_t pa[AM_KT / 16][4];
-    am_to_a<AM_KT / 16>(pa, s);
+    frag_to_a<AM_KT / 16>(pa, s);
     am_pv<DMAX, AM_KT / 16>(o, pa, v_s + (j & 1) * AM_KT * LD, LD, nk, lane);
     __syncthreads();
   }
@@ -400,7 +258,7 @@ __global__ void __launch_bounds__(AM_THREADS) attn_mma_dq(const bf16* __restrict
       }
     }
     uint32_t pa[AM_KT / 16][4];
-    am_to_a<AM_KT / 16>(pa, s);
+    frag_to_a<AM_KT / 16>(pa, s);
     am_pv<DMAX, AM_KT / 16>(acc, pa, kt, LD, nk, lane);
     __syncthreads();
   }
@@ -491,9 +349,9 @@ __global__ void __launch_bounds__(AM_THREADS) attn_mma_dkv(const bf16* __restric
       }
     }
     uint32_t pa[AM_QT / 16][4];
-    am_to_a<AM_QT / 16>(pa, sT);
+    frag_to_a<AM_QT / 16>(pa, sT);
     am_pv<DMAX, AM_QT / 16>(adv, pa, dot, LD, nk, lane);
-    am_to_a<AM_QT / 16>(pa, dpT);
+    frag_to_a<AM_QT / 16>(pa, dpT);
     am_pv<DMAX, AM_QT / 16>(adk, pa, qt, LD, nk, lane);
     __syncthreads();
   }

@@ -14,11 +14,8 @@
 // every accumulation are f32; product operands are rounded to the weights'
 // type where the reference casts them.
 //
-// bf16 with 16 | D, 8 | F and 16-byte aligned weights (the serving path)
-// runs ff_fwd_wmma_kernel: the same tiling, with both products on the
-// tensor cores (WMMA 16x16x16 bf16 fragments, f32 accumulation), the
-// operands kept as bf16 in shared memory and the weight chunks staged 16
-// bytes at a time. Anything else runs the CUDA-core ff_fwd_kernel.
+// This file holds the f32 kernels (CUDA cores) and the C entry points; bf16
+// inputs go to the tensor-core kernels of ff_mma.cu.
 //
 // Backward (replaces _bwd_kernel / _vjp_bwd, ff_kernel.py:114-159, 216-253):
 // ff_bwd_rows_kernel recomputes LN, h, swish and both masks from the saved
@@ -33,8 +30,6 @@
 // [D, F] products of the rows kernel on the CUDA cores in f32 (~3.2 GFLOP at
 // 6400 rows) and the two weight-gradient products of the reductions (~2.1
 // GFLOP), with the ~44 MB of f32 scratch written and read once between them.
-#include <mma.h>
-
 #include "common.cuh"
 
 namespace tfasr {
@@ -122,113 +117,6 @@ __global__ void ff_fwd_kernel(const T* __restrict__ x, const float* __restrict__
         if (dp.on) zz *= dropout_keep(dp, dp.seed + FF_SALT_SITE2, row, c);
         out[off] = from_f32<T>(to_f32(x[off]) + factor * zz);
       }
-    }
-  }
-}
-
-constexpr int FFT_PAD = 8;  // bf16 row padding: keeps WMMA tile pointers 32-byte aligned, spreads banks
-constexpr int FFT_ZTILES = 2;  // z accumulator tiles per warp: D / 16 <= 8 warps * 2
-
-__global__ void ff_fwd_wmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                                   const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1,
-                                   const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                                   const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out, int N, int D,
-                                   int F, float eps, float factor, Dropout dp) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 bf16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldy = D + FFT_PAD, ldw1 = FF_FC + FFT_PAD, lda = FF_FC + FFT_PAD, ldw2 = D + FFT_PAD;
-  bf16* y_s = reinterpret_cast<bf16*>(smem_raw);         // [FF_RT][ldy] LN output
-  bf16* w1_s = y_s + FF_RT * ldy;                         // [D][ldw1] W1 chunk
-  bf16* a_s = w1_s + D * ldw1;                            // [FF_RT][lda] swish activation
-  bf16* w2_s = a_s + FF_RT * lda;                         // [FF_FC][ldw2] W2 chunk
-  float* h_s = reinterpret_cast<float*>(w2_s + FF_FC * ldw2);  // [FF_RT][FF_FC] W1 product
-  float* z_s = h_s + FF_RT * FF_FC;                       // [FF_RT][D] W2 product
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int row0 = blockIdx.x * FF_RT;
-  const int ztiles = D / 16;
-
-  for (int r = warp; r < FF_RT; r += nwarps) {
-    bf16* dst = y_s + r * ldy;
-    if (row0 + r < N)
-      ln_row_warp<bf16>(x + (size_t)(row0 + r) * D, gamma, beta, D, eps, dst, lane);
-    else
-      for (int c = lane; c < D; c += 32) dst[c] = __float2bfloat16(0.f);
-  }
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> zacc[FFT_ZTILES];
-#pragma unroll
-  for (int j = 0; j < FFT_ZTILES; ++j) wmma::fill_fragment(zacc[j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += FF_FC) {
-    const int fc = min(FF_FC, F - f0);
-    __syncthreads();
-    // stage the chunk 8 bf16 (16 bytes) at a time: 8 | F, 16 | D and
-    // 16-byte aligned weights are checked by the launcher
-    const uint4 zero8 = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < D * (FF_FC / 8); i += blockDim.x) {
-      const int kk = i / (FF_FC / 8), f = (i % (FF_FC / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1_s + kk * ldw1 + f) =
-          f < fc ? *reinterpret_cast<const uint4*>(w1 + (size_t)kk * F + f0 + f) : zero8;
-    }
-    const int dv = D / 8;
-    for (int i = tid; i < FF_FC * dv; i += blockDim.x) {
-      const int f = i / dv, c = (i % dv) * 8;
-      *reinterpret_cast<uint4*>(w2_s + f * ldw2 + c) =
-          f < fc ? *reinterpret_cast<const uint4*>(w2 + (size_t)(f0 + f) * D + c) : zero8;
-    }
-    __syncthreads();
-    if (warp < FF_FC / 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-      wmma::fill_fragment(hacc, 0.f);
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::load_matrix_sync(af, y_s + kk, ldy);
-        wmma::load_matrix_sync(bf, w1_s + kk * ldw1 + warp * 16, ldw1);
-        wmma::mma_sync(hacc, af, bf, hacc);
-      }
-      wmma::store_matrix_sync(h_s + warp * 16, hacc, FF_FC, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < FF_RT * FF_FC; i += blockDim.x) {
-      const int r = i / FF_FC, f = i % FF_FC;
-      float a = 0.f;
-      if (f < fc) {
-        const float h = h_s[i] + to_f32(b1[f0 + f]);
-        a = h * sigmoid_f32(h);
-        if (dp.on) a *= dropout_keep(dp, dp.seed, row0 + r, f0 + f);
-      }
-      a_s[r * lda + f] = __float2bfloat16(a);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < FFT_ZTILES; ++j) {
-      const int n = warp + j * nwarps;
-      if (n < ztiles) {
-        for (int kk = 0; kk < FF_FC; kk += 16) {
-          wmma::load_matrix_sync(af, a_s + kk, lda);
-          wmma::load_matrix_sync(bf, w2_s + kk * ldw2 + n * 16, ldw2);
-          wmma::mma_sync(zacc[j], af, bf, zacc[j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < FFT_ZTILES; ++j) {
-    const int n = warp + j * nwarps;
-    if (n < ztiles) wmma::store_matrix_sync(z_s + n * 16, zacc[j], D, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = tid; i < FF_RT * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    const int row = row0 + r;
-    if (row < N) {
-      const size_t off = (size_t)row * D + c;
-      float zz = z_s[i] + to_f32(b2[c]);
-      if (dp.on) zz *= dropout_keep(dp, dp.seed + FF_SALT_SITE2, row, c);
-      out[off] = __float2bfloat16(to_f32(x[off]) + factor * zz);
     }
   }
 }
@@ -380,22 +268,6 @@ __global__ void ff_bwd_rows_kernel(const T* __restrict__ x, const float* __restr
   }
 }
 
-int launch_ff_wmma(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2,
-                   const void* b2, void* out, int N, int D, int F, float eps, float factor, Dropout dp,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)(FF_RT * (D + FFT_PAD) + D * (FF_FC + FFT_PAD) + FF_RT * (FF_FC + FFT_PAD) +
-                               FF_FC * (D + FFT_PAD)) * sizeof(__nv_bfloat16) +
-                      (size_t)(FF_RT * FF_FC + FF_RT * D) * sizeof(float);
-  cudaError_t err = allow_smem(ff_fwd_wmma_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + FF_RT - 1) / FF_RT;
-  ff_fwd_wmma_kernel<<<blocks, 256, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const float*)gamma, (const float*)beta, (const __nv_bfloat16*)w1,
-      (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2, (const __nv_bfloat16*)b2, (__nv_bfloat16*)out, N, D, F, eps,
-      factor, dp);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_ff(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2,
               const void* b2, void* out, int N, int D, int F, float eps, float factor, Dropout dp, cudaStream_t stream) {
@@ -409,7 +281,15 @@ int launch_ff(const void* x, const void* gamma, const void* beta, const void* w1
   return (int)cudaGetLastError();
 }
 
-// Scratch layout of the backward, in floats.
+// The bf16 kernels (ff_mma.cu).
+int launch_ff_mma(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* b2, void* out,
+                  int N, int D, int F, int rows, float eps, float factor, Dropout dp, cudaStream_t stream);
+int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* dout,
+                      void* dx, float* cols, float* dw1, float* dw2, float* scratch, int N, int D, int F, float eps, float factor, Dropout dp,
+                      cudaStream_t stream);
+long long ff_mma_bwd_scratch(int N, int D, int F);
+
+// Scratch layout of the f32 backward, in floats.
 struct FFBwdScratch {
   size_t y, dh, ad, dz, dyx, dy, partial, total;
   FFBwdScratch(int N, int D, int F) {
@@ -457,28 +337,28 @@ int launch_ff_bwd(const void* x, const void* gamma, const void* beta, const void
 }  // namespace tfasr
 
 // x [N, D]; gamma/beta [D] f32; w1 [D, F], b1 [F], w2 [F, D], b2 [D] in
-// x's dtype; out [N, D]. Requires FF_RT * D <= 256 * FF_ZPT. Dropout
-// (drop_on) with seed, uint32 threshold and keep scale.
+// x's dtype; out [N, D]. Requires D <= 256. rows: the bf16 forward's row
+// tile, 64, 32 or 16 (f32 ignores it). Dropout (drop_on) with seed, uint32
+// threshold and keep scale.
 extern "C" int tfasr_fused_ff(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
-                              const void* w2, const void* b2, void* out, int N, int D, int F, float eps, float factor,
+                              const void* w2, const void* b2, void* out, int N, int D, int F, int rows, float eps, float factor,
                               unsigned int seed, unsigned int thresh, float keep_scale, int drop_on, int dtype,
                               void* stream) {
   using namespace tfasr;
   const Dropout dp{seed, thresh, keep_scale, drop_on};
-  const bool aligned = ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) & 15) == 0;
-  if (dtype == kBF16 && D % 16 == 0 && F % 8 == 0 && aligned)
-    return launch_ff_wmma(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, eps, factor, dp, (cudaStream_t)stream);
-  if (dtype == kBF16)
-    return launch_ff<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, eps, factor, dp,
-                                    (cudaStream_t)stream);
+  if (dtype == kBF16) return launch_ff_mma(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, rows, eps, factor, dp, (cudaStream_t)stream);
   return launch_ff<float>(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, eps, factor, dp, (cudaStream_t)stream);
 }
 
 // Floats of scratch tfasr_fused_ff_bwd needs.
-extern "C" long long tfasr_fused_ff_bwd_scratch(int N, int D, int F) { return (long long)tfasr::FFBwdScratch(N, D, F).total; }
+extern "C" long long tfasr_fused_ff_bwd_scratch(int N, int D, int F, int dtype) {
+  return dtype == tfasr::kBF16 ? tfasr::ff_mma_bwd_scratch(N, D, F) : (long long)tfasr::FFBwdScratch(N, D, F).total;
+}
 
 // Gradients of tfasr_fused_ff: dout [N, D] in x's dtype → dx [N, D] in x's
 // dtype; dgamma, dbeta [D], dw1 [D, F], db1 [F], dw2 [F, D], db2 [D] in f32.
+// bf16 needs db1, db2, dgamma, dbeta to be consecutive views of one [F + 3D]
+// buffer (the column sums leave the tensor-core kernels as one row).
 extern "C" int tfasr_fused_ff_bwd(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
                                   const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1,
                                   void* db1, void* dw2, void* db2, void* scratch, int N, int D, int F, float eps,
@@ -486,9 +366,12 @@ extern "C" int tfasr_fused_ff_bwd(const void* x, const void* gamma, const void* 
                                   int dtype, void* stream) {
   using namespace tfasr;
   const Dropout dp{seed, thresh, keep_scale, drop_on};
-  if (dtype == kBF16)
-    return launch_ff_bwd<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2,
-                                        (float*)scratch, N, D, F, eps, factor, dp, (cudaStream_t)stream);
+  if (dtype == kBF16) {
+    float* cols = (float*)db1;
+    if ((float*)db2 != cols + F || (float*)dgamma != cols + F + D || (float*)dbeta != cols + F + 2 * D) return (int)cudaErrorInvalidValue;
+    return launch_ff_mma_bwd(x, gamma, beta, w1, b1, w2, dout, dx, cols, (float*)dw1, (float*)dw2, (float*)scratch, N, D, F, eps, factor, dp,
+                             (cudaStream_t)stream);
+  }
   return launch_ff_bwd<float>(x, gamma, beta, w1, b1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2, (float*)scratch,
                               N, D, F, eps, factor, dp, (cudaStream_t)stream);
 }

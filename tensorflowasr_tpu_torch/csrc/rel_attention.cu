@@ -1,6 +1,8 @@
 // Transformer-XL relative attention, fully fused: content scores qc.k^T +
 // the relative term qp.pos^T read at its shifted column, the Keras -1e9
 // mask merge, f32 softmax, probability dropout and P.V; and its backward.
+// This file holds the f32 kernels (CUDA cores) and the C entry points; bf16
+// inputs go to the tensor-core kernels of rel_attention_mma.cu.
 //
 // Counterpart of tensorflowasr_tpu/ops/pallas/attention_kernel.py
 // fused_rel_attention (kernel B). Forward: one block owns AT_TQ query rows
@@ -479,6 +481,15 @@ __global__ void rel_attention_bwd_pos_kernel(const T* __restrict__ qp, const T* 
   }
 }
 
+// The bf16 kernels (rel_attention_mma.cu).
+int launch_rel_attention_mma(const void* qc, const void* qp, const void* k, const void* v, const void* pos, const void* kv_bias, const void* q_len,
+                             void* out, float* stats, int BH, int H, int T, int S, int R, int D, int extra, int causal, int has_chunk, int chunk,
+                             int history, Dropout dp, cudaStream_t stream);
+int launch_rel_attention_mma_bwd(const void* qc, const void* qp, const void* k, const void* v, const void* pos, const void* kv_bias,
+                                 const void* q_len, const void* out, const void* dout, const float* stats, void* ds, void* pd, void* dqc, void* dqp,
+                                 void* dk, void* dv, void* dpos, int BH, int H, int T, int S, int R, int D, int extra, int causal, int has_chunk,
+                                 int chunk, int history, Dropout dp, cudaStream_t stream);
+
 inline size_t fwd_smem(int S, int D) {
   const int Sp = ((S + AT_KT - 1) / AT_KT) * AT_KT;
   return (size_t)(2 * AT_TQ * D + AT_KT * (D + 1) + (AT_KT + AT_TQ - 1) * (D + 1) + AT_TQ * Sp) * sizeof(float);
@@ -525,9 +536,12 @@ int launch_rel_attention_bwd(const void* qc, const void* qp, const void* k, cons
 
 // qc/qp [BH, T, D], k/v [BH, S, D], pos [BH, R, D] of one dtype;
 // kv_bias [B, S] f32 or NULL; q_len [B] int32 or NULL; out [BH, T, D].
-// Dropout on the probabilities with seed, threshold and keep scale.
+// Dropout on the probabilities with seed, threshold and keep scale. bf16
+// runs the tensor-core kernels and writes the rows' softmax statistics to
+// stats [2, BH, T] f32 (m, then l) unless it is NULL; with out NULL it
+// computes only them. f32 ignores stats.
 extern "C" int tfasr_rel_attention(const void* qc, const void* qp, const void* k, const void* v, const void* pos,
-                                   const void* kv_bias, const void* q_len, void* out, int BH, int H, int Tq, int S,
+                                   const void* kv_bias, const void* q_len, void* out, float* stats, int BH, int H, int Tq, int S,
                                    int R, int D, int extra, int causal, int has_chunk, int chunk, int history,
                                    unsigned int seed, unsigned int thresh, float keep_scale, int drop_on, int dtype,
                                    void* stream) {
@@ -535,16 +549,19 @@ extern "C" int tfasr_rel_attention(const void* qc, const void* qp, const void* k
   const RelArgs a{H, Tq, S, R, D, extra, causal, has_chunk, chunk, history};
   const Dropout dp{seed, thresh, keep_scale, drop_on};
   if (dtype == kBF16)
-    return launch_rel_attention<__nv_bfloat16>(qc, qp, k, v, pos, kv_bias, q_len, out, BH, a, dp, (cudaStream_t)stream);
+    return launch_rel_attention_mma(qc, qp, k, v, pos, kv_bias, q_len, out, stats, BH, H, Tq, S, R, D, extra, causal, has_chunk, chunk, history,
+                                    dp, (cudaStream_t)stream);
   return launch_rel_attention<float>(qc, qp, k, v, pos, kv_bias, q_len, out, BH, a, dp, (cudaStream_t)stream);
 }
 
 // Gradients of tfasr_rel_attention: out is its output, dout [BH, T, D];
-// ds [BH, T, S] (input dtype) and pd [BH, T, S] (f32) are scratch; dqc, dqp
-// [BH, T, D], dk, dv [BH, S, D], dpos [BH, R, D] in the input dtype.
+// dqc, dqp [BH, T, D], dk, dv [BH, S, D], dpos [BH, R, D] in the input
+// dtype. Scratch: f32 uses ds [BH, T, S] f32 and pd [BH, T, S] f32; bf16
+// reads the forward's stats and uses ds and pd [BH, T, Sp] bf16, Sp = S
+// rounded up to 8.
 extern "C" int tfasr_rel_attention_bwd(const void* qc, const void* qp, const void* k, const void* v, const void* pos,
                                        const void* kv_bias, const void* q_len, const void* out, const void* dout,
-                                       void* ds, void* pd, void* dqc, void* dqp, void* dk, void* dv, void* dpos,
+                                       const float* stats, void* ds, void* pd, void* dqc, void* dqp, void* dk, void* dv, void* dpos,
                                        int BH, int H, int Tq, int S, int R, int D, int extra, int causal,
                                        int has_chunk, int chunk, int history, unsigned int seed, unsigned int thresh,
                                        float keep_scale, int drop_on, int dtype, void* stream) {
@@ -552,8 +569,8 @@ extern "C" int tfasr_rel_attention_bwd(const void* qc, const void* qp, const voi
   const RelArgs a{H, Tq, S, R, D, extra, causal, has_chunk, chunk, history};
   const Dropout dp{seed, thresh, keep_scale, drop_on};
   if (dtype == kBF16)
-    return launch_rel_attention_bwd<__nv_bfloat16>(qc, qp, k, v, pos, kv_bias, q_len, out, dout, ds, pd, dqc, dqp, dk,
-                                                   dv, dpos, BH, a, dp, (cudaStream_t)stream);
+    return launch_rel_attention_mma_bwd(qc, qp, k, v, pos, kv_bias, q_len, out, dout, stats, ds, pd, dqc, dqp, dk, dv, dpos, BH, H, Tq, S, R, D,
+                                        extra, causal, has_chunk, chunk, history, dp, (cudaStream_t)stream);
   return launch_rel_attention_bwd<float>(qc, qp, k, v, pos, kv_bias, q_len, out, dout, ds, pd, dqc, dqp, dk, dv, dpos,
                                          BH, a, dp, (cudaStream_t)stream);
 }

@@ -29,9 +29,9 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("frontend.cu", "rel_attention.cu", "ff.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu", "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu",
-           "attention_mma.cu", "decode.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("frontend.cu", "rel_attention.cu", "rel_attention_mma.cu", "ff.cu", "ff_mma.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu",
+           "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu", "attention_mma.cu", "decode.cu")
+HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,11 +40,19 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, on
 _SIGNATURES = {
     "tfasr_log_mel": ([_P] * 5 + [_I] * 7 + [_F, _P], ctypes.c_int),
-    "tfasr_rel_attention": ([_P] * 8 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
-    "tfasr_rel_attention_bwd": ([_P] * 16 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
-    "tfasr_fused_ff": ([_P] * 8 + [_I] * 3 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_rel_attention": ([_P] * 9 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_rel_attention_bwd": ([_P] * 17 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
+    "tfasr_rel_mma_smem": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_rel_mma_occupancy": ([_I] * 2, ctypes.c_int),
+    "tfasr_rel_mma_window_base": ([_I] * 4, ctypes.c_int),
+    "tfasr_rel_mma_band_column": ([_I] * 2, ctypes.c_int),
+    "tfasr_rel_mma_dpos_rows": ([_I] * 4 + [_P], ctypes.c_int),
+    "tfasr_fused_ff": ([_P] * 8 + [_I] * 4 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_fused_ff_bwd": ([_P] * 15 + [_I] * 3 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
-    "tfasr_fused_ff_bwd_scratch": ([_I] * 3, ctypes.c_longlong),
+    "tfasr_fused_ff_bwd_scratch": ([_I] * 4, ctypes.c_longlong),
+    "tfasr_ff_mma_smem": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_ff_mma_occupancy": ([_I] * 2, ctypes.c_int),
+    "tfasr_ff_mma_splits": ([_I] * 3 + [_P], ctypes.c_int),
     "tfasr_conv_front": ([_P] * 8 + [_I, _I, _F, _I, _P], ctypes.c_int),
     "tfasr_conv_front_bwd": ([_P] * 16 + [_I, _I, _F, _I, _P], ctypes.c_int),
     "tfasr_conv_back": ([_P] * 9 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),

@@ -11,21 +11,27 @@ What bounds it on the card: at the flagship (B·H=64, T=S=400, dh=36 in
 training) the products are ~0.8 GFLOP per call, far below the card's rate;
 the cost is the score-shaped intermediates a plain version writes to device
 memory (content scores, the [T, R] positional product, the shifted copy,
-masks, the f32 softmax — ~10 passes of B·H·T·S floats). The forward kernel
-keeps them all in shared memory: one block per (b·h, 16 query rows) stages
-key tiles and exactly the window of relative positions those rows read, so
-the rel shift is index arithmetic (no [T, R] product, no barrel shift as on
-the TPU), and the row's scores stay resident for a two-pass softmax whose
-normalised probabilities (times the dropout keep factor) are rounded to v's
-type before P·V as in the reference. Dropout uses the counter hash of
-``ops/dropout.py`` indexed by (b·h, row, column) under the seed
-``seed + b·h·40499``, so its masks equal JAX's bit for bit.
+masks, the f32 softmax — ~10 passes of B·H·T·S floats). The kernels keep
+them on chip: a block stages key tiles and exactly the window of relative
+positions its rows read, so the rel shift is index arithmetic (no [T, R]
+product, no barrel shift as on the TPU), and the normalised probabilities
+(times the dropout keep factor) are rounded to v's type before P·V as in
+the reference. bf16 runs on the tensor cores (``csrc/rel_attention_mma.cu``:
+mma.sync, 64 query rows per block, the relative term as one [16 × 80] band
+product per warp and key tile read back at its skewed column, two forward
+sweeps that keep the rows' softmax statistics for the backward;
+:func:`rel_mma_plan` gives its shared memory); f32 keeps the CUDA-core
+kernels of ``csrc/rel_attention.cu`` (16 rows per block, whole score rows
+resident). Dropout uses the counter hash of ``ops/dropout.py`` indexed by
+(b·h, row, column) under the seed ``seed + b·h·40499``, so its masks equal
+JAX's bit for bit.
 
-The backward (:class:`_RelAttention`) saves the inputs and the output;
-three kernel passes recompute the probabilities, write ds and the dropped
-probabilities once to device memory, and form dqc, dqp, dk, dv and dpos
-(see ``csrc/rel_attention.cu``). :func:`fused_rel_attention_plain_bwd` is
-its plain twin with the explicit formulas of the Pallas ``_rel_bwd_kernel``.
+The backward (:class:`_RelAttention`) saves the inputs, the output and (bf16)
+the statistics; three kernel passes recompute the probabilities, write ds and
+the dropped probabilities once to device memory, and form dqc, dqp, dk, dv
+and dpos (see ``csrc/rel_attention_mma.cu`` and ``csrc/rel_attention.cu``).
+:func:`fused_rel_attention_plain_bwd` is its plain twin with the explicit
+formulas of the Pallas ``_rel_bwd_kernel``.
 """
 
 from __future__ import annotations
@@ -40,8 +46,25 @@ bwd_launches = 0  # kernel B backward launches since the last reset
 attention_launches = 0  # kernel A forward launches since the last reset
 attention_bwd_launches = 0  # kernel A backward launches since the last reset
 
-_TQ, _KT, _OUT_PER_THREAD, _KV_PER_THREAD, _THREADS = 16, 64, 4, 16, 256  # csrc/rel_attention.cu
+_TQ, _KT, _OUT_PER_THREAD, _KV_PER_THREAD, _THREADS = 16, 64, 4, 16, 256  # csrc/rel_attention.cu (the f32 kernels)
 _MAX_SMEM = 227 * 1024
+# csrc/rel_attention_mma.cu (the bf16 kernels): rows (or keys, positions) per block, key tile, query tile of
+# the dk/dv and dpos passes, pos window rows, f32 band row stride, bf16 row padding, threads
+_RB_BLOCK, _RB_KT, _RB_QT, _RB_WIN, _RB_BLD, _RB_PAD, _RB_THREADS = 64, 64, 32, 128, 84, 8, 128
+_SM_SHARED, _BLOCK_RESERVED = 228 * 1024, 1024  # H100 SXM
+
+
+def rel_mma_plan(d: int) -> dict:
+    """Dynamic shared memory (bytes) and blocks per SM, as shared memory
+    allows, of the bf16 kernels at head size D (``csrc/rel_attention_mma.cu``;
+    the card checks the kernels' own byte counts): the forward and the dq,
+    dk/dv and dpos passes. The head is padded to a multiple of 16 in shared
+    memory and rows to Dp + 8; none depends on T, S or R."""
+    ld = -(-d // 16) * 16 + _RB_PAD
+    fwd = 2 * (2 * _RB_BLOCK + 4 * _RB_KT + 2 * _RB_WIN) * ld + 4 * 4 * 16 * _RB_BLD
+    smem = dict(fwd=fwd, dq=fwd + 2 * _RB_BLOCK * ld + 4 * _RB_BLOCK, dkv=2 * (4 * _RB_QT * (_RB_KT + _RB_PAD) + 4 * _RB_QT * ld),
+                dpos=2 * (_RB_QT * (_RB_KT + _RB_PAD) + _RB_QT * ld))
+    return {name: dict(smem_bytes=b, blocks_per_sm=min(_SM_SHARED // (b + _BLOCK_RESERVED), 2048 // _RB_THREADS)) for name, b in smem.items()}
 
 
 def _shift_extra(t: int, s: int, r: int, pe_causal: bool) -> int:
@@ -176,11 +199,11 @@ def _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causa
         _build.require(kv_bias, "kv_bias", device=dev, dtype=torch.float32, shape=(b, 1, s))
     if q_len is not None:
         _build.require(q_len, "q_len", device=dev, dtype=torch.int32, shape=(b,))
-    if _TQ * d > _THREADS * _OUT_PER_THREAD or _KT * d > _THREADS * _KV_PER_THREAD:
+    if _TQ * d > _THREADS * _OUT_PER_THREAD or _KT * d > _THREADS * _KV_PER_THREAD:  # both routes: 64
         raise ValueError(f"head size {d} > {_THREADS * _OUT_PER_THREAD // _TQ} is not supported by the kernel")
     sp = -(-s // _KT) * _KT
-    smem = 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp) + 4 * (_TQ * d + _TQ)  # backward's
-    if smem > _MAX_SMEM:
+    smem = 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp) + 4 * (_TQ * d + _TQ)  # the f32 backward's (bf16 holds no score row)
+    if dt == torch.float32 and smem > _MAX_SMEM:
         raise ValueError(f"key length {s} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
     has_chunk = chunk_size is not None and history_size is not None
     if has_chunk and chunk_size <= 0:
@@ -191,44 +214,60 @@ def _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causa
 
 
 def fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None, history_size=None,
-                               pe_causal: bool = False):
-    """The forward kernel on CUDA tensors (no autograd)."""
+                               pe_causal: bool = False, with_stats: bool = False):
+    """The forward kernel on CUDA tensors (no autograd): the output, and with
+    ``with_stats`` (bf16 only) also the rows' softmax statistics [2, BH, T]
+    f32 (max m, sum l), which the bf16 backward reads."""
     global launches
     dims, has_chunk, code = _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal)
+    if with_stats and qc.dtype != torch.bfloat16:
+        raise ValueError("only the bf16 kernels return the row statistics (f32 recomputes them)")
     out = torch.empty_like(qc)
-    if out.numel() == 0:
-        return out
-    lib = _build.build()
-    with torch.cuda.device(qc.device):
-        err = lib.tfasr_rel_attention(
-            qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
-            *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
-            *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
-        )
-    _build.check(err, "fused_rel_attention")
-    launches += 1
-    return out
+    stats = torch.empty((2, dims[0], dims[2]), dtype=torch.float32, device=qc.device) if with_stats else None
+    if out.numel() > 0:
+        lib = _build.build()
+        with torch.cuda.device(qc.device):
+            err = lib.tfasr_rel_attention(
+                qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
+                _build.ptr(stats), *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
+                *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
+            )
+        _build.check(err, "fused_rel_attention")
+        launches += 1
+    return (out, stats) if with_stats else out
 
 
 def fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout, seed=0, rate: float = 0.0, causal: bool = False, chunk_size=None,
-                                   history_size=None, pe_causal: bool = False):
-    """The backward kernel on CUDA tensors: ``out`` is the forward's output;
-    same results as :func:`fused_rel_attention_plain_bwd`."""
+                                   history_size=None, pe_causal: bool = False, stats=None):
+    """The backward kernel on CUDA tensors: ``out`` is the forward's output
+    and ``stats`` its row statistics (required for bf16; f32 recomputes
+    them); same results as :func:`fused_rel_attention_plain_bwd`."""
     global bwd_launches
     dims, has_chunk, code = _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal)
     for name, x in (("out", out), ("dout", dout)):
         _build.require(x, name, device=qc.device, dtype=qc.dtype, shape=tuple(qc.shape))
     bh, _, t, s, _, _, _ = dims
+    bf16 = qc.dtype == torch.bfloat16
+    if bf16:
+        if stats is None:
+            raise ValueError("the bf16 backward reads the forward's row statistics: pass stats from fused_rel_attention_kernel(..., with_stats=True)")
+        _build.require(stats, "stats", device=qc.device, dtype=torch.float32, shape=(2, bh, t))
+    elif stats is not None:
+        raise ValueError("the f32 backward recomputes the row statistics: pass no stats")
     grads = [torch.zeros_like(x) for x in (qc, qp, k, v, pos)]
     if qc.numel() == 0:
         return tuple(grads)
-    ds = torch.empty((bh, t, s), dtype=qc.dtype, device=qc.device)
-    pd = torch.empty((bh, t, s), dtype=torch.float32, device=qc.device)
     lib = _build.build()
+    if bf16:  # the tensor-core kernels: bf16 ds and pd with rows padded to 8 columns
+        sp = -(-s // 8) * 8
+        ds, pd = (torch.empty((bh, t, sp), dtype=torch.bfloat16, device=qc.device) for _ in range(2))
+    else:
+        ds = torch.empty((bh, t, s), dtype=qc.dtype, device=qc.device)
+        pd = torch.empty((bh, t, s), dtype=torch.float32, device=qc.device)
     with torch.cuda.device(qc.device):
         err = lib.tfasr_rel_attention_bwd(
             qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
-            dout.data_ptr(), ds.data_ptr(), pd.data_ptr(), *(g.data_ptr() for g in grads),
+            dout.data_ptr(), _build.ptr(stats), ds.data_ptr(), pd.data_ptr(), *(g.data_ptr() for g in grads),
             *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
             *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
         )
@@ -241,21 +280,24 @@ class _RelAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qc, qp, k, v, pos, kv_bias, q_len, seed, rate, causal, chunk_size, history_size, pe_causal):
         ctx.cfg = (seed, rate, causal, chunk_size, history_size, pe_causal)
+        stats = None
         if qc.device.type == "cpu":
             out = fused_rel_attention_plain(qc, qp, k, v, pos, kv_bias, q_len, *ctx.cfg)
+        elif qc.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:5]):  # only the bf16 backward reads the statistics
+            out, stats = fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, *ctx.cfg, with_stats=True)
         else:
             out = fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, *ctx.cfg)
-        ctx.save_for_backward(qc, qp, k, v, pos, kv_bias, q_len, out)
+        ctx.save_for_backward(qc, qp, k, v, pos, kv_bias, q_len, out, stats)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qc, qp, k, v, pos, kv_bias, q_len, out = ctx.saved_tensors
+        qc, qp, k, v, pos, kv_bias, q_len, out, stats = ctx.saved_tensors
         dout = dout.to(qc.dtype).contiguous()
         if qc.device.type == "cpu":
             grads = fused_rel_attention_plain_bwd(qc, qp, k, v, pos, kv_bias, q_len, dout, *ctx.cfg)
         else:
-            grads = fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout, *ctx.cfg)
+            grads = fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout, *ctx.cfg, stats=stats)
         return (*grads,) + (None,) * 8
 
 

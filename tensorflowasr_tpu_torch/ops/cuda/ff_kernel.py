@@ -8,24 +8,31 @@ What bounds it on the card: at the flagship (N = 8·250 rows served, 16·400
 trained; D=144, F=576) the two products are ~0.7 GFLOP per 2000 rows,
 small for the card; a plain version is bound by device-memory passes over
 the [N, 576] activation (W1 output, swish, masks, casts) and the [N, 144]
-LN/residual tensors. The forward kernel keeps the [rows, F] intermediate
-out of device memory: one block per 16 rows holds the LN output in shared
-memory and walks F in 64-wide chunks, staging each chunk's W1 and W2
-slices, forming the swish activation in shared memory and accumulating its
-W2 product in registers. In bf16 with 16 | D both products run on the
-tensor cores (WMMA); the CUDA-core version of the same tiling serves f32
-and other widths. Both dropout sites run in-kernel from the counter hash of
-``ops/dropout.py`` (site 1 with ``seed``, site 2 with ``seed + 7919``,
-indexed by global row and column), regenerated in the backward.
+LN/residual tensors. The kernels keep the [rows, F] intermediate out of
+device memory: a block holds its rows' LN output in shared memory and walks
+F in 64-wide chunks, staging each chunk's W1 and W2 slices. bf16 runs on the
+tensor cores (``csrc/ff_mma.cu``: mma.sync, 64 rows per block backward
+and 64 or 32 forward by :func:`ff_fwd_rows`, the weight chunks
+double-buffered with cp.async, any width padded in shared memory;
+:func:`ff_mma_plan` gives its tile and shared memory); f32 keeps the
+CUDA-core kernels of ``csrc/ff.cu`` (16 rows per block; TF32 would break
+the f32 card/CPU parity). Both dropout sites run in-kernel from the counter
+hash of ``ops/dropout.py`` (site 1 with ``seed``, site 2 with ``seed +
+7919``, indexed by global row and column), regenerated in the backward.
 
 The backward (:class:`_FusedFF`) saves the inputs only and recomputes LN,
-h, swish and the masks, as the Pallas VJP does; its kernel writes dx and
-the row activations, and a deterministic row reduction forms the weight
-gradients (see ``csrc/ff.cu``). :func:`fused_ff_plain_bwd` is its plain
-twin with the explicit formulas of the Pallas ``_bwd_kernel``.
+h, swish and the masks, as the Pallas VJP does; its row kernel writes dx
+and the row activations, and a deterministic reduction over a fixed row
+split forms the weight gradients (in bf16 from f32 operands split into
+bf16 high and low parts, three tensor-core products each; see
+``csrc/ff_mma.cu``). :func:`fused_ff_plain_bwd` is its plain twin with the
+explicit formulas of the Pallas ``_bwd_kernel``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -35,7 +42,67 @@ from tensorflowasr_tpu_torch.ops.cuda import _build
 launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
 bwd_launches = 0  # backward kernel launches since the last reset
 
-_RT, _THREADS, _Z_PER_THREAD = 16, 256, 16  # csrc/ff.cu
+_RT, _THREADS, _Z_PER_THREAD = 16, 256, 16  # csrc/ff.cu (the f32 kernels)
+_MMA_ROWS, _MMA_THREADS, _MMA_FC, _MMA_PAD = 64, 256, 64, 8  # csrc/ff_mma.cu (the bf16 kernels)
+FWD_ROWS = (64, 32)  # the bf16 forward's row tiles: 4 row groups of 16 with each chunk split over 2 warps, or 2 over 4
+SM_SHARED_BYTES, BLOCK_RESERVED_BYTES, MAX_BLOCK_SHARED_BYTES, SMS = 228 * 1024, 1024, 227 * 1024, 132  # H100 SXM
+
+
+@dataclasses.dataclass(frozen=True)
+class FFPlan:
+    """The bf16 tensor-core kernels' tile and shared memory at one width."""
+
+    rows: int  # rows per backward block
+    threads: int
+    fwd_rows: int  # rows per forward block: 64 or 32 (8 warps either way)
+    chunk: int  # F columns per chunk (split over 2 warps, or 4 in the 32-row forward)
+    padded_d: int  # D rounded up to 16 in shared memory
+    chunks: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+    fwd_blocks_per_sm: int  # as shared memory allows (the card's occupancy also counts registers)
+    bwd_blocks_per_sm: int
+
+
+def ff_mma_plan(d: int, f: int, fwd_rows: int = _MMA_ROWS) -> FFPlan:
+    """Tile and dynamic shared memory of ``csrc/ff_mma.cu`` at width D and
+    inner width F, with the forward at ``fwd_rows`` rows a block: the LN
+    output (and, backward, dz) as bf16 rows of Dp + 8, two W1 chunks
+    [Dp][72] and two W2 chunks [64][Dp + 8] in bf16, and the backward's row
+    mean and rstd in f32."""
+    if fwd_rows not in FWD_ROWS:
+        raise ValueError(f"the forward takes {FWD_ROWS} rows a block, not {fwd_rows}")
+    dp = -(-d // 16) * 16
+    ldd = dp + _MMA_PAD
+    weights = 2 * dp * (_MMA_FC + _MMA_PAD) + 2 * _MMA_FC * ldd
+    fwd = 2 * (fwd_rows * ldd + weights)
+    bwd = 2 * (_MMA_ROWS * ldd + weights) + 2 * _MMA_ROWS * ldd + 4 * 2 * _MMA_ROWS
+    per_sm = lambda b, threads: min(SM_SHARED_BYTES // (b + BLOCK_RESERVED_BYTES), 2048 // threads, 32)
+    return FFPlan(_MMA_ROWS, _MMA_THREADS, fwd_rows, _MMA_FC, dp, -(-f // _MMA_FC), fwd, bwd, per_sm(fwd, _MMA_THREADS),
+                  per_sm(bwd, _MMA_THREADS))
+
+
+def ff_fwd_rows(n: int, wave: int) -> int:
+    """The bf16 forward's rows per block for N rows, where ``wave`` 32-row
+    blocks run at once on the card (:func:`one_wave_blocks`): 32 when their
+    grid fits in one wave, else 64, which reads the weights half as often.
+    A block's time is its warps' chain over the F chunks, shorter at 32 rows
+    (each chunk split over 4 warps, not 2): the serving N = 2000 and the
+    training N = 6400 at D 144 take 32, N = 6400 at D 176 (one 32-row block
+    per SM) takes 64."""
+    return 32 if -(-n // 32) <= wave else 64
+
+
+@functools.lru_cache(maxsize=None)
+def one_wave_blocks(index: int, d: int) -> int:
+    """32-row forward blocks card ``index`` runs at once at width D: its SMs
+    times the kernel's blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.build()
+    with torch.cuda.device(index):
+        per_sm = lib.tfasr_ff_mma_occupancy(d, 32)
+    if per_sm < 1:
+        raise RuntimeError(f"the card runs no 32-row FF forward block at width {d} (occupancy {per_sm})")
+    return torch.cuda.get_device_properties(index).multi_processor_count * per_sm
 
 
 def layer_norm_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
@@ -89,6 +156,12 @@ def fused_ff_plain_bwd(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 0
     """Gradients (dx, dγ, dβ, dW1, db1, dW2, db2) of :func:`fused_ff` with
     the explicit formulas of the Pallas ``_bwd_kernel`` (ff_kernel.py:114-159),
     recomputing the forward; each returned in its input's dtype."""
+    grads = fused_ff_plain_bwd_f32(x, gamma, beta, w1, b1, w2, dout, seed, rate, factor, eps)
+    return _as_inputs(grads, x, gamma, beta, w1, b1, w2)
+
+
+def fused_ff_plain_bwd_f32(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 0.0, factor: float = 0.5, eps: float = 1e-3):
+    """:func:`fused_ff_plain_bwd` before the final casts: dx and every parameter gradient in f32."""
     keep1, keep2 = _masks(seed, rate, x.shape[0], x.shape[1], w1.shape[1], x.device)
     y, xhat, rstd = _ln_parts(x, gamma, beta, eps)
     h = dot_as(y, w1) + b1.float()
@@ -107,8 +180,13 @@ def fused_ff_plain_bwd(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 0
     db1, dw1 = dh.sum(0), y.t() @ dh
     dy = dot_as(dh, w1.t())
     dx_ln, dg, db = ln_backward(dy, xhat, rstd, gamma)
-    return ((do + dx_ln).to(x.dtype), dg.to(gamma.dtype), db.to(beta.dtype), dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
-            db2.to(w2.dtype))
+    return do + dx_ln, dg, db, dw1, db1, dw2, db2
+
+
+def _as_inputs(grads, x, gamma, beta, w1, b1, w2):
+    """(dx, dγ, dβ, dW1, db1, dW2, db2) cast to their inputs' dtypes (db2 to w2's)."""
+    dx, dg, db, dw1, db1, dw2, db2 = grads
+    return dx.to(x.dtype), dg.to(gamma.dtype), db.to(beta.dtype), dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(w2.dtype)
 
 
 def _check(x, gamma, beta, w1, b1, w2, b2):
@@ -123,23 +201,29 @@ def _check(x, gamma, beta, w1, b1, w2, b2):
         _build.require(p, name, device=dev, dtype=torch.float32, shape=(d,))
     for name, p, shape in (("w1", w1, (d, f)), ("b1", b1, (f,)), ("w2", w2, (f, d)), ("b2", b2, (d,))):
         _build.require(p, name, device=dev, dtype=dt, shape=shape)
-    if _RT * d > _THREADS * _Z_PER_THREAD:
+    if _RT * d > _THREADS * _Z_PER_THREAD:  # both routes: 256
         raise ValueError(f"model width {d} > {_THREADS * _Z_PER_THREAD // _RT} is not supported by the kernel")
     return n, d, f, code
 
 
-def fused_ff_kernel(x, gamma, beta, w1, b1, w2, b2, seed=0, rate: float = 0.0, factor: float = 0.5, eps: float = 1e-3):
-    """The forward kernel on CUDA tensors (no autograd)."""
+def fused_ff_kernel(x, gamma, beta, w1, b1, w2, b2, seed=0, rate: float = 0.0, factor: float = 0.5, eps: float = 1e-3, rows: int | None = None):
+    """The forward kernel on CUDA tensors (no autograd). ``rows``: the bf16
+    forward's rows per block (one of ``FWD_ROWS``; default
+    :func:`ff_fwd_rows` for this N and card)."""
     global launches
     n, d, f, code = _check(x, gamma, beta, w1, b1, w2, b2)
     out = torch.empty_like(x)
     if n == 0:
         return out
+    if rows is None:
+        rows = ff_fwd_rows(n, one_wave_blocks(x.device.index if x.device.index is not None else torch.cuda.current_device(), d))
+    elif rows not in FWD_ROWS:
+        raise ValueError(f"the forward takes {FWD_ROWS} rows a block, not {rows}")
     lib = _build.build()
     with torch.cuda.device(x.device):
         err = lib.tfasr_fused_ff(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            n, d, f, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
+            n, d, f, int(rows), float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
         )
     _build.check(err, "fused_ff")
     launches += 1
@@ -148,16 +232,23 @@ def fused_ff_kernel(x, gamma, beta, w1, b1, w2, b2, seed=0, rate: float = 0.0, f
 
 def fused_ff_bwd_kernel(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 0.0, factor: float = 0.5, eps: float = 1e-3):
     """The backward kernel on CUDA tensors: same results as :func:`fused_ff_plain_bwd`."""
+    grads = fused_ff_bwd_kernel_f32(x, gamma, beta, w1, b1, w2, dout, seed, rate, factor, eps)
+    return _as_inputs(grads, x, gamma, beta, w1, b1, w2)
+
+
+def fused_ff_bwd_kernel_f32(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 0.0, factor: float = 0.5, eps: float = 1e-3):
+    """:func:`fused_ff_bwd_kernel` before the final casts: dx in x's dtype, the parameter gradients in f32."""
     global bwd_launches
     n, d, f, code = _check(x, gamma, beta, w1, b1, w2, b1.new_empty(x.shape[1]))
     _build.require(dout, "dout", device=x.device, dtype=x.dtype, shape=(n, d))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    dg, db, db2 = (torch.zeros(d, **f32) for _ in range(3))
-    dw1, db1, dw2 = torch.zeros((d, f), **f32), torch.zeros(f, **f32), torch.zeros((f, d), **f32)
+    cols = torch.zeros(f + 3 * d, **f32)  # db1, db2, dgamma, dbeta: the bf16 kernels write them as one row
+    db1, db2, dg, db = cols.split((f, d, d, d))
+    dw1, dw2 = torch.zeros((d, f), **f32), torch.zeros((f, d), **f32)
     if n > 0:
         lib = _build.build()
-        scratch = torch.empty(int(lib.tfasr_fused_ff_bwd_scratch(n, d, f)), **f32)
+        scratch = torch.empty(int(lib.tfasr_fused_ff_bwd_scratch(n, d, f, code)), **f32)
         with torch.cuda.device(x.device):
             err = lib.tfasr_fused_ff_bwd(
                 x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
@@ -166,7 +257,7 @@ def fused_ff_bwd_kernel(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 
             )
         _build.check(err, "fused_ff backward")
         bwd_launches += 1
-    return dx, dg, db, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(w2.dtype)
+    return dx, dg, db, dw1, db1, dw2, db2
 
 
 class _FusedFF(torch.autograd.Function):

@@ -31,6 +31,7 @@ from tensorflowasr_tpu_torch import schemas
 from tensorflowasr_tpu_torch.models.transducer.base import recognize
 from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_small_config
 from tensorflowasr_tpu_torch.ops import frontend
+from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
 from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
 from tensorflowasr_tpu_torch.ops.cuda import ctc_kernel as ctk
@@ -108,9 +109,9 @@ def test_rel_attention_kernel(dev, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-# bf16 takes the tensor cores iff 16 | D and 8 | F (and aligned weights): (5, 144, 104) does with a
-# partial F chunk, (5, 144, 100) and (9, 24, 40) take the CUDA-core kernel
-@pytest.mark.parametrize("n,d,f", [(2000, 144, 576), (37, 16, 64), (5, 144, 104), (5, 144, 100), (9, 24, 40)])
+# bf16 always takes the tensor cores (csrc/ff_mma.cu): (5, 144, 104) with a partial F chunk, (5, 144, 100) and
+# (9, 24, 40) with element staging and D or F padded in shared memory; (2000, 176, 704) at Conformer-CTC's width
+@pytest.mark.parametrize("n,d,f", [(2000, 144, 576), (2000, 176, 704), (37, 16, 64), (5, 144, 104), (5, 144, 100), (9, 24, 40)])
 def test_ff_kernel(dev, dtype, n, d, f):
     g = _gen(dev, 2)
     args = (_r(g, dev, (n, d), 1.0, dtype), 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, f), d ** -0.5, dtype),
@@ -156,7 +157,7 @@ def _ff_args(dev, dtype, n, d, f, seed=2):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,d,f", [(6400, 144, 576), (37, 16, 64), (5, 144, 100)])
+@pytest.mark.parametrize("n,d,f", [(6400, 144, 576), (6400, 176, 704), (37, 16, 64), (5, 144, 100), (70, 40, 136)])
 def test_ff_backward_kernel(dev, dtype, n, d, f, rate):
     args, dout = _ff_args(dev, dtype, n, d, f)
     torch.testing.assert_close(fk.fused_ff(*args, 77, rate), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
@@ -190,6 +191,8 @@ def test_conv_backward_kernels(dev, dtype, b, t, d, rate):
 
 ATT_BWD_CASES = {
     "flagship_train": (16, 4, 400, 400, 799, 36, False, True, False, None, None, False),
+    "ctc_width_train": (16, 4, 400, 400, 799, 44, False, True, False, None, None, False),
+    "streaming_memory": (8, 4, 250, 314, 563, 36, True, True, False, 16, 64, False),
     "kv_bias_causal": ATT_CASES["kv_bias_causal"],
     "chunked_memory": ATT_CASES["chunked_memory"],
     "extra_shift": ATT_CASES["extra_shift"],
@@ -212,10 +215,11 @@ def test_rel_attention_backward_kernel(dev, case, dtype, rate):
         kvb = torch.where(valid, 0.0, -1e9).float()[:, None, :].contiguous()
     q_len = torch.tensor([max(1, t - 17 * i) for i in range(b)], dtype=torch.int32, device=dev) if with_qlen else None
     inputs, cfg = (qc, qp, k, v, pos, kvb, q_len), (123, rate, causal, chunk, hist, pe_causal)
-    out = ak.fused_rel_attention_kernel(*inputs, *cfg)
+    bf16 = dtype == torch.bfloat16
+    out, stats = ak.fused_rel_attention_kernel(*inputs, *cfg, with_stats=True) if bf16 else (ak.fused_rel_attention_kernel(*inputs, *cfg), None)
     torch.testing.assert_close(out, ak.fused_rel_attention_plain(*inputs, *cfg), **TOL[dtype])
     before = ak.bwd_launches
-    got = ak.fused_rel_attention_bwd_kernel(*inputs, out, dout, *cfg)
+    got = ak.fused_rel_attention_bwd_kernel(*inputs, out, dout, *cfg, stats=stats)
     assert ak.bwd_launches == before + 1
     _grads_close(got, ak.fused_rel_attention_plain_bwd(*inputs, dout, *cfg), GRAD_REL[dtype], f"attention {case}")
 
@@ -231,7 +235,7 @@ def test_autograd_routes_cuda_tensors_through_the_kernels(dev):
 
 
 def test_ff_kernel_misaligned_weights(dev):
-    """Weights that are contiguous but not 16-byte aligned take the CUDA-core kernel."""
+    """Weights that are contiguous but not 16-byte aligned: the bf16 kernels stage them element by element."""
     g = _gen(dev, 4)
     d, f, bf16 = 144, 576, torch.bfloat16
     w1 = _r(g, dev, (d * f + 1,), d ** -0.5, bf16)[1:].view(d, f)
@@ -239,6 +243,115 @@ def test_ff_kernel_misaligned_weights(dev):
     args = (_r(g, dev, (40, d), 1.0, bf16), 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), w1, _r(g, dev, (f,), 0.1, bf16), w2,
             _r(g, dev, (d,), 0.1, bf16))
     torch.testing.assert_close(fk.fused_ff(*args), fk.fused_ff_plain(*args), **TOL[bf16])
+    dout = _r(g, dev, (40, d), 1.0, bf16)
+    _grads_close(fk.fused_ff_bwd_kernel(*args[:6], dout), fk.fused_ff_plain_bwd(*args[:6], dout), GRAD_REL[bf16], "ff misaligned")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,d,f", [(6400, 144, 576), (6400, 176, 704)])
+def test_ff_bf16_backward_is_deterministic(dev, n, d, f, rate):
+    """Two runs of the bf16 backward give the same bits: a fixed row split, partials summed in order, no atomics."""
+    args, dout = _ff_args(dev, torch.bfloat16, n, d, f, seed=8)
+    first = fk.fused_ff_bwd_kernel(*args[:6], dout, 5, rate)
+    second = fk.fused_ff_bwd_kernel(*args[:6], dout, 5, rate)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["flagship_train", "streaming_memory"])
+def test_rel_attention_bf16_backward_is_deterministic(dev, case, rate):
+    b, h, t, s, r, d, with_kvb, _, causal, chunk, hist, pe_causal = ATT_BWD_CASES[case]
+    g = _gen(dev, 9)
+    bf16 = torch.bfloat16
+    inputs = [_r(g, dev, (b * h, n, d), sc, bf16) for n, sc in ((t, 0.3), (t, 0.3), (s, 1.0), (s, 1.0), (r, 1.0))]
+    kvb = torch.where(torch.arange(s, device=dev)[None, :] >= torch.arange(b, device=dev)[:, None] * 7, 0.0, -1e9).float()[:, None, :].contiguous() \
+        if with_kvb else None
+    q_len = torch.tensor([max(1, t - 17 * i) for i in range(b)], dtype=torch.int32, device=dev)
+    cfg = (31, rate, causal, chunk, hist, pe_causal)
+    out, stats = ak.fused_rel_attention_kernel(*inputs, kvb, q_len, *cfg, with_stats=True)
+    dout = _r(g, dev, (b * h, t, d), 1.0, bf16)
+    first = ak.fused_rel_attention_bwd_kernel(*inputs, kvb, q_len, out, dout, *cfg, stats=stats)
+    second = ak.fused_rel_attention_bwd_kernel(*inputs, kvb, q_len, out, dout, *cfg, stats=stats)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("fwd_rows", fk.FWD_ROWS)
+@pytest.mark.parametrize("d,f", [(144, 576), (176, 704), (40, 136), (256, 1024)])
+def test_ff_mma_plan_matches_the_kernels(dev, d, f, fwd_rows):
+    """The shared-memory plan of the bf16 FF kernels equals the kernels' own
+    count (the forward at each row tile; rows 0 is the backward), and the
+    card fits the planned blocks."""
+    lib = _build.build()
+    plan = fk.ff_mma_plan(d, f, fwd_rows)
+    assert lib.tfasr_ff_mma_smem(d, fwd_rows) == plan.fwd_smem_bytes and lib.tfasr_ff_mma_smem(d, 0) == plan.bwd_smem_bytes
+    for rows, want in ((fwd_rows, plan.fwd_blocks_per_sm), (0, plan.bwd_blocks_per_sm)):
+        got = lib.tfasr_ff_mma_occupancy(d, rows)
+        assert 1 <= got <= want, (rows, got, want)
+
+
+@pytest.mark.parametrize("rows", fk.FWD_ROWS)
+@pytest.mark.parametrize("n,d,f", [(2000, 144, 576), (6400, 176, 704), (37, 40, 136)])
+def test_ff_bf16_forward_at_each_row_tile(dev, n, d, f, rows):
+    """The bf16 forward at 64 and 32 rows a block equals the plain version (rate 0.1), the same bits on two runs."""
+    args, _ = _ff_args(dev, torch.bfloat16, n, d, f, seed=12)
+    got = fk.fused_ff_kernel(*args, 5, 0.1, rows=rows)
+    torch.testing.assert_close(got, fk.fused_ff_plain(*args, 5, 0.1), **TOL[torch.bfloat16])
+    assert torch.equal(got, fk.fused_ff_kernel(*args, 5, 0.1, rows=rows))
+
+
+def test_mma_index_maps_match_the_plain_index(dev):
+    """The library's own index maps of the tensor-core kernels: kernel B's
+    window base plus band column reaches the plain relative index s + (T−1−i)
+    + extra for every row and key (T not a multiple of 16, with and without a
+    KV memory); its dpos row range holds exactly the rows that reach the
+    block's positions; the FF weight-gradient split covers the rows once, in
+    order, in whole 32-row stages."""
+    import ctypes
+
+    lib = _build.build()
+    for t, s, r, pe_causal in ((70, 70, 139, False), (37, 57, 57, True), (37, 57, 93, False), (150, 150, 299, False)):
+        extra = ak._shift_extra(t, s, r, pe_causal)
+        for i0 in range(0, t, 64):
+            for j in range(-(-s // 64)):
+                base = lib.tfasr_rel_mma_window_base(j, i0, t, extra)
+                for w in range(4):
+                    for i in range(i0 + 16 * w, min(t, i0 + 16 * w + 16)):
+                        for sk in range(j * 64, min(s, j * 64 + 64)):
+                            col = lib.tfasr_rel_mma_band_column(sk - j * 64, i - i0 - 16 * w)
+                            assert 0 <= col < 80 and base + (3 - w) * 16 + col == sk + (t - 1 - i) + extra, (t, i, sk)
+        for p0 in range(0, r, 64):
+            hi = ctypes.c_int()
+            lo = lib.tfasr_rel_mma_dpos_rows(p0, t, s, extra, ctypes.byref(hi))
+            reach = {i for i in range(t) for sk in range(s) if p0 <= sk + (t - 1 - i) + extra < p0 + 64}
+            assert reach <= set(range(lo, hi.value)) and (not reach or (min(reach), max(reach) + 1) == (lo, hi.value)), (t, p0)
+    for n, m, k in ((6400, 144, 576), (6400, 576, 144), (6400, 176, 704), (37, 16, 64), (300, 40, 136)):
+        per = ctypes.c_int()
+        splits = lib.tfasr_ff_mma_splits(n, m, k, ctypes.byref(per))
+        assert splits >= 1 and per.value % 32 == 0 and (splits - 1) * per.value < n <= splits * per.value, (n, m, k)
+
+
+@pytest.mark.parametrize("d", [36, 44, 64, 8])
+def test_rel_mma_plan_matches_the_kernels(dev, d):
+    lib = _build.build()
+    plan = ak.rel_mma_plan(d)
+    for which, name in enumerate(("fwd", "dq", "dkv", "dpos")):
+        assert lib.tfasr_rel_mma_smem(d, which) == plan[name]["smem_bytes"], name
+        assert 1 <= lib.tfasr_rel_mma_occupancy(d, which) <= plan[name]["blocks_per_sm"], name
+
+
+def test_rel_attention_bf16_autograd_reads_the_forward_stats(dev):
+    """Under autograd a bf16 CUDA tensor launches the forward (with statistics) and the backward kernel once each."""
+    g = _gen(dev, 10)
+    bf16 = torch.bfloat16
+    inputs = [_r(g, dev, (8, n, 36), sc, bf16).requires_grad_(True) for n, sc in ((50, 0.3), (50, 0.3), (50, 1.0), (50, 1.0), (99, 1.0))]
+    dout = _r(g, dev, (8, 50, 36), 1.0, bf16)
+    f0, b0 = ak.launches, ak.bwd_launches
+    ak.fused_rel_attention(*inputs, None, None, 4, 0.1).backward(dout)
+    assert (ak.launches, ak.bwd_launches) == (f0 + 1, b0 + 1)
+    ref = ak.fused_rel_attention_plain_bwd(*(x.detach() for x in inputs), None, None, dout, 4, 0.1)
+    _grads_close([x.grad for x in inputs], ref, GRAD_REL[bf16], "rel attention bf16 autograd")
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -256,6 +369,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ak.fused_rel_attention(q, q, q, q, torch.randn(2, 7, 8, device=dev), torch.zeros(2, 1, 5, device=dev), None)
     with pytest.raises(ValueError, match="on cpu"):
         ck.conv_front(q, v.cpu(), v, torch.randn(8, 8, device=dev), v, torch.randn(8, 8, device=dev), v)
+    with pytest.raises(ValueError, match="model width"):
+        x, w = torch.randn(4, 272, device=dev, dtype=torch.bfloat16), torch.randn(272, 16, device=dev, dtype=torch.bfloat16)
+        fk.fused_ff(x, torch.ones(272, device=dev), torch.zeros(272, device=dev), w, w[0], w.t().contiguous(), x[0])
+    with pytest.raises(ValueError, match="row statistics"):
+        ak.fused_rel_attention_kernel(q, q, q, q, torch.randn(2, 7, 8, device=dev), None, None, with_stats=True)
+    with pytest.raises(ValueError, match="rows a block"):
+        fk.fused_ff_kernel(torch.randn(4, 8, device=dev), torch.ones(8, device=dev), torch.zeros(8, device=dev), torch.randn(8, 16, device=dev), torch.randn(16, device=dev),
+                           torch.randn(16, 8, device=dev), torch.randn(8, device=dev), rows=48)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="row statistics"):
+        ak.fused_rel_attention_bwd_kernel(qb, qb, qb, qb, torch.randn(2, 7, 8, device=dev).bfloat16(), None, None, qb, qb)
 
 
 def test_flagship_encoder_card_matches_cpu(dev):
