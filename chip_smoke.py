@@ -64,10 +64,20 @@ and 0.1 beside the earlier CUDA-core kernels' (PERF.md), kernel B's
 chunked KV-memory case (S = M + T, kv_bias, chunk mask) forward and
 backward, both kernels' bf16 results against a float64 run, and their
 blocks per SM (the card's occupancy beside the shared-memory plan, whose
-byte counts must equal the kernels'), registers and spills. Every kernel
-must launch on at least one driven path; its launches are recorded per
-path. Any failure raises. The last two lines are the kernels' JSON summary
-and ``{"ok": true, "device": {...}}``. Without a card it exits non-zero.
+byte counts must equal the kernels'), registers and spills. The fused
+joint + RNN-T loss (row 8) and ``conv_front`` (row 6) run bf16 on the
+tensor cores too: beside their earlier kernels' times they print the
+joint backward by pass (rows, weight, sums; profiler), the joint at V 1000
+(the small-streaming vocabulary) against its plain version, conv_front's
+backward by pass, the accuracy of both against float64, and their
+occupancy (against what the shared memory the library reports allows),
+registers and spills. After each phase's set-up and warm-up the garbage
+collector runs once and freezes the survivors (``gc.freeze``); every
+timed step and request records its gen-2 collections, summed in a ``gc
+watch`` line. Every kernel must launch on at least one driven path; its
+launches are recorded per path. Any failure raises. The last two lines
+are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
+Without a card it exits non-zero.
 
 ``python3 chip_smoke.py --compare-parent DIR`` runs only the step numbers
 (:func:`phase_steps`) of this checkout and of the package under DIR (a
@@ -175,16 +185,19 @@ def cost_rnnt_dp(t_len: np.ndarray, u_len: np.ndarray, t: int, u1: int):
     return 8 * cells + 8 * len(t_len) * t * u1 + 4 * len(t_len), 24 * cells
 
 
-def cost_joint(b: int, t: int, u1: int, j: int, v: int, elt: int, bwd: bool):
+def cost_joint(b: int, t: int, u1: int, j: int, v: int, elt: int, bwd: bool, active: int | None = None):
     """fwd: enc_p, pred_p, Wv, bv, labels → lse, lp_blank, lp_emit; the vocab
     product, add + tanh per (cell, j), ~3 per logit for the log-sum-exp.
     bwd: + lse, gbl, gem → d_enc_p, d_pred_p and f32 dWv, dbv; three products
-    (the logits, da, dWv) and ~5 per logit for d_logits."""
+    (the logits, da, dWv) and ~5 per logit for d_logits, over the ``active``
+    cells only (those with a nonzero gbl or gem: every other cell's d_logits
+    is 0, so this run's data needs no work there)."""
     cells = b * t * u1
     params = v * j * elt + 4 * v
     inputs = (b * t + b * u1) * j * elt + params + 4 * b * (u1 - 1)
     if bwd:
-        return inputs + 12 * cells + (b * t + b * u1) * j * elt + 4 * (v * j + v), 6.0 * cells * j * v + 2.0 * cells * j + 5.0 * cells * v
+        act = cells if active is None else active
+        return inputs + 12 * cells + (b * t + b * u1) * j * elt + 4 * (v * j + v), 6.0 * act * j * v + 2.0 * act * j + 5.0 * act * v
     return inputs + 12 * cells, 2.0 * cells * j * v + 2.0 * cells * j + 3.0 * cells * v
 
 
@@ -257,13 +270,13 @@ SOURCES = {
     "fused_rel_attention_bwd": ("tensorflowasr_tpu_torch/csrc/rel_attention_mma.cu", "tensorflowasr_tpu/ops/pallas/attention_kernel.py:588"),
     "fused_ff": ("tensorflowasr_tpu_torch/csrc/ff_mma.cu", "tensorflowasr_tpu/ops/pallas/ff_kernel.py:189"),
     "fused_ff_bwd": ("tensorflowasr_tpu_torch/csrc/ff_mma.cu", "tensorflowasr_tpu/ops/pallas/ff_kernel.py:229"),
-    "conv_front": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:160"),
-    "conv_front_bwd": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:194"),
+    "conv_front": ("tensorflowasr_tpu_torch/csrc/conv_mma.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:160"),
+    "conv_front_bwd": ("tensorflowasr_tpu_torch/csrc/conv_mma.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:194"),
     "conv_back": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:329"),
     "conv_back_bwd": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:375"),
     "rnnt_dp": ("tensorflowasr_tpu_torch/csrc/rnnt_dp.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:310"),
-    "rnnt_fused_joint": ("tensorflowasr_tpu_torch/csrc/joint_loss.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:351"),
-    "rnnt_fused_joint_bwd": ("tensorflowasr_tpu_torch/csrc/joint_loss.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:329"),
+    "rnnt_fused_joint": ("tensorflowasr_tpu_torch/csrc/joint_loss_mma.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:351"),
+    "rnnt_fused_joint_bwd": ("tensorflowasr_tpu_torch/csrc/joint_loss_mma.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:329"),
     "rnnt_logprobs": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:413"),
     "rnnt_dlogits": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:438"),
     "lstm": ("tensorflowasr_tpu_torch/csrc/lstm.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:178"),
@@ -359,7 +372,8 @@ def phase_kernels(dev) -> dict:
         back[tag] = (err, time_ms(ck.conv_back, *args), time_ms(ck.conv_back_plain, *args))
         bf, bb_ = bound(*cost_conv_front(2000, dm, x.element_size(), False), tag), bound(*cost_conv_back(2000, dm, x.element_size(), False), tag)
         print(f"kernel conv_front {tag} (serve): [8, 250, {dm}] max_abs_err {front[tag][0]:.3e} kernel {front[tag][1]:.4f} ms plain {front[tag][2]:.4f} ms "
-              f"bound {bf[0]:.4f} ms ({bf[1]}); conv_back {tag}: max_abs_err {back[tag][0]:.3e} kernel {back[tag][1]:.4f} ms plain {back[tag][2]:.4f} ms "
+              f"bound {bf[0]:.4f} ms ({bf[1]})" + (f" (the earlier CUDA-core kernel, PERF.md row 6: {EARLIER_MS[('conv_front', 'serve')][0]:.4f} ms)"
+                                                  if tag == "bf16" else "") + f"; conv_back {tag}: max_abs_err {back[tag][0]:.3e} kernel {back[tag][1]:.4f} ms plain {back[tag][2]:.4f} ms "
               f"bound {bb_[0]:.4f} ms ({bb_[1]}) (tol {TOL[tag]})")
     res["conv_front"] = (front["f32"][0], front["bf16"][0], *front["bf16"][1:])
     res["conv_back"] = (back["f32"][0], back["bf16"][0], *back["bf16"][1:])
@@ -405,10 +419,11 @@ def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost, what: str =
     return rows
 
 
-# the kernels rows 3 and 5 had before their tensor-core redesign (PERF.md §6: bf16, rate 0.1, forward and backward ms), by width; printed
+# the kernels rows 3, 5, 6 and 8 had before their tensor-core redesign (PERF.md §6: bf16, rate 0.1, forward and backward ms), by width; printed
 # beside this run's times, never written to the kernels' JSON line
 EARLIER_MS = {("fused_rel_attention", 36): (0.5629, 1.7223), ("fused_rel_attention", 44): (0.7083, 2.0996), ("fused_ff", 144): (0.1133, 1.5137),
-              ("fused_ff", 176): (0.1509, 3.0285)}
+              ("fused_ff", 176): (0.1509, 3.0285), ("conv_front", 144): (0.1326, 0.4727), ("conv_front", 176): (0.1722, 0.7880),
+              ("conv_front", "serve"): (0.0587, None), ("rnnt_fused_joint", 320): (2.8144, 17.4508)}
 
 
 def rate0_times(rows: list[dict], make, fwd, bwd, what: str, width: int) -> None:
@@ -518,7 +533,6 @@ def mma_occupancy(rows: list[dict], d_model: int, head: int, ff_dim: int, n: int
     from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
 
     lib = _build.build()
-    usage = ptxas_usage(_build.build_log)
     fwd_rows = fk.ff_fwd_rows(n, fk.one_wave_blocks(0, d_model))
     ffp, relp = fk.ff_mma_plan(d_model, ff_dim, fwd_rows), ak.rel_mma_plan(head)
     dmax = next(m for m in (64, 128, 160, 192, 256) if ffp.padded_d <= m)
@@ -531,6 +545,18 @@ def mma_occupancy(rows: list[dict], d_model: int, head: int, ff_dim: int, n: int
     kernels["ff_mma_bwd_rows"] = (3, f"ff_mma_bwd_rowsILi{dmax}", lib.tfasr_ff_mma_smem(d_model, 0), ffp.bwd_smem_bytes, ffp.bwd_blocks_per_sm,
                                   lib.tfasr_ff_mma_occupancy(d_model, 0))
     kernels["ff_mma_atb"] = (3, "ff_mma_atb", None, None, None, None)  # static shared memory, no plan
+    occupancy_report(rows, kernels, f"D {d_model} F {ff_dim}, head {head}, FF rows N {n}")
+
+
+def occupancy_report(rows: list[dict], kernels: dict, what: str) -> None:
+    """For each kernel (name: (row index, mangled-name fragment, shared memory
+    by the kernel, by the plan, the plan's blocks per SM, the card's)): the
+    kernel's shared memory must equal the plan's and the card's blocks per
+    SM lie in [1, plan]; registers and spills from this process's ptxas log
+    when it ran the build. Recorded under ``mma`` on the kernel's row."""
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+
+    usage = ptxas_usage(_build.build_log)
     parts = []
     for name, (i, frag, smem, plan_smem, plan_blocks, blocks) in kernels.items():
         if smem != plan_smem:
@@ -547,7 +573,7 @@ def mma_occupancy(rows: list[dict], d_model: int, head: int, ff_dim: int, n: int
         parts.append(f"{name}" + (f" {smem} B smem, {blocks} blocks/SM (plan {plan_blocks})" if blocks is not None else "")
                      + (f", {use.get('registers')} registers, {use.get('spill_stores')}/{use.get('spill_loads')} B spilled" if use
                         else ", registers not read (the library was built by another process)"))
-    print(f"kernel occupancy (D {d_model} F {ff_dim}, head {head}, FF rows N {n}): " + "; ".join(parts))
+    print(f"kernel occupancy ({what}): " + "; ".join(parts))
 
 
 def ff_row_tiles(args: tuple, what: str) -> dict:
@@ -565,6 +591,185 @@ def ff_row_tiles(args: tuple, what: str) -> dict:
     print(f"kernel fused_ff bf16 forward by row tile ({what}, N {args[0].shape[0]} D {args[0].shape[1]} F {args[3].shape[1]}): "
           + ", ".join(f"{rows} rows {t:.4f} ms ({-(-args[0].shape[0] // rows)} blocks)" for rows, t in ms.items()) + f"; ff_fwd_rows takes {chosen}")
     return dict(chosen=chosen, ms_by_rows={str(r): t for r, t in ms.items()})
+
+
+def device_ms_by_kernel(fn, args: tuple, groups: dict) -> dict:
+    """Device ms per call of the kernels ``fn(*args)`` launches, summed by
+    group (name: a fragment of the kernel's name; "all": every kernel), from
+    the profiler over ITERS calls after warm-up; a group it did not see is None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {g: None for g in (*groups, "all")}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        for g, frag in (*groups.items(), ("all", "")):
+            if frag in e.key:
+                out[g] = (out[g] or 0.0) + e.self_device_time_total / 1e3 / ITERS
+    return out
+
+
+def _fmt_ms(d: dict) -> str:
+    return ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}" for k, v in d.items())
+
+
+def conv_front_accuracy(fargs: tuple, bargs: tuple, what: str) -> None:
+    """conv_front's bf16 backward: kernel and plain version against a float64
+    run of the same function on the same inputs (the parameter gradients
+    before their final cast, so that the weight gradients' bf16 high/low
+    split shows against the plain f32 products)."""
+    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+
+    x, eps, dout = fargs[0], fargs[7], bargs[7]
+    p64 = [a.double().requires_grad_(True) for a in fargs[:7]]
+    xx, g, bt, wa, ba, wb, bb = p64
+    cx = xx - xx.mean(dim=-1, keepdim=True)
+    y = cx * torch.rsqrt((cx * cx).mean(dim=-1, keepdim=True) + eps) * g + bt
+    ref = (y @ wa + ba) * torch.sigmoid(y @ wb + bb)
+    refs = torch.autograd.grad(ref, p64, dout.double())
+    kern = ck.conv_front_bwd_kernel_f32(*bargs)
+    plain = ck.conv_front_plain_bwd_f32(*bargs)
+    plain = (plain[0].to(x.dtype), *plain[1:])  # dx leaves both in x's dtype
+    print(f"kernel conv_front_bwd bf16 accuracy ({what}, N {x.shape[0] * x.shape[1]} D {x.shape[2]}; dx in bf16, the rest f32): "
+          + accuracy_parts(("dx",), kern[:1], plain[:1], refs[:1]) + "; "
+          + accuracy_parts(("dgamma", "dbeta", "dWa", "dba", "dWb", "dbb"), kern[1:], plain[1:], refs[1:], steps=False))
+
+
+def smem_blocks_per_sm(smem: int, threads: int = 256) -> int:
+    """Blocks per SM of the H100 SXM (228 KB of shared memory, 1 KB reserved a block, 2048 threads) as a kernel's shared memory and threads allow."""
+    return min(228 * 1024 // (smem + 1024), 2048 // threads)
+
+
+def conv_front_extras(make, rows: list[dict], d_model: int, n: int, what: str) -> None:
+    """conv_front in bf16 on the tensor cores: this run's times beside the
+    earlier CUDA-core kernels', the backward by pass, the backward against
+    float64, and the two kernels' occupancy (against what their shared
+    memory, as the library reports it, allows), registers and spills."""
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+
+    fargs, bargs = make(torch.bfloat16)
+    old = EARLIER_MS.get(("conv_front", d_model))
+    passes = device_ms_by_kernel(ck.conv_front_bwd_kernel, bargs, {"rows": "cm_bwd_rows", "weight": "ff_mma_atb", "sums": "sum_partials"})
+    rows[1]["passes_ms"] = passes
+    print(f"kernel conv_front[_bwd] bf16 ({what}): forward {rows[0]['ms']:.4f} ms backward {rows[1]['ms']:.4f} ms (by pass, profiler: "
+          f"{_fmt_ms(passes)}); plain {rows[0]['plain_ms']:.4f} / {rows[1]['plain_ms']:.4f} ms; bound {rows[0]['bound_ms']:.4f} / {rows[1]['bound_ms']:.4f} ms"
+          + (f"; the earlier CUDA-core kernels (PERF.md row 6) {old[0]:.4f} / {old[1]:.4f} ms" if old else ""))
+    conv_front_accuracy(fargs, bargs, what)
+    lib = _build.build()
+    dmax = next(m for m in (64, 128, 160, 192, 256) if -(-d_model // 16) * 16 <= m)
+    kernels = {}
+    for which, name, frag in ((0, "cm_fwd (32 rows)", "cm_fwdE"), (1, "cm_bwd_rows", f"cm_bwd_rowsILi{dmax}E")):
+        smem = lib.tfasr_conv_mma_smem(d_model, which)
+        kernels[name] = (which, frag, smem, smem, smem_blocks_per_sm(smem), lib.tfasr_conv_mma_occupancy(d_model, which))
+    occupancy_report(rows, kernels, f"conv_front D {d_model}, N {n}")
+
+
+def joint_accuracy(fargs: tuple, bargs: tuple, what: str) -> None:
+    """The fused joint in bf16: kernel and plain version against a float64
+    run of the same function on the same inputs (a = tanh(enc_p + pred_p)
+    unrounded, its own lse; the backward from the same gbl, gem), the
+    gradients before their final cast; per utterance to bound the float64
+    memory."""
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import labels_per_cell
+
+    enc_p, pred_p, wv, bv, labels = fargs
+    gbl, gem = bargs[6], bargs[7]
+    b, t, j = enc_p.shape
+    u1, v = pred_p.shape[1], wv.shape[0]
+    w64, bv64 = wv.double(), bv.double()
+    lab = labels_per_cell(labels, u1)
+    f64 = dict(dtype=torch.float64, device=enc_p.device)
+    lse, lpb, lpe = (torch.empty((b, t, u1), **f64) for _ in range(3))
+    denc, dpred, dwv, dbv = torch.empty((b, t, j), **f64), torch.empty((b, u1, j), **f64), torch.zeros((v, j), **f64), torch.zeros(v, **f64)
+    vid = torch.arange(v, device=enc_p.device)
+    for i in range(b):
+        a = torch.tanh(enc_p[i].double()[:, None, :] + pred_p[i].double()[None, :, :])
+        lg = a @ w64.t() + bv64
+        lse[i] = torch.logsumexp(lg, -1)
+        lpb[i] = lg[..., 0] - lse[i]
+        lpe[i] = torch.gather(lg, 2, lab[i].clamp(min=0)[None, :, None].expand(t, u1, 1))[..., 0] - lse[i]
+        gb, ge = gbl[i].double()[..., None], gem[i].double()[..., None]
+        dlog = (vid == 0) * gb + (vid == lab[i][None, :, None]) * ge - torch.exp(lg - lse[i][..., None]) * (gb + ge)
+        dwv += dlog.reshape(-1, v).t() @ a.reshape(-1, j)
+        dbv += dlog.sum((0, 1))
+        dz = (dlog @ w64) * (1.0 - a * a)
+        denc[i], dpred[i] = dz.sum(1), dz.sum(0)
+    kern, plain = jk.joint_logprobs_kernel(*fargs), jk.joint_logprobs_plain(*fargs)
+    rows = lambda x: (x[2], x[0], x[1][..., : u1 - 1])  # lse, lp_blank, lp_emit where a label is left
+    print(f"kernel rnnt_fused_joint bf16 accuracy ({what}): " + accuracy_parts(("lse", "lp_blank", "lp_emit"), rows(kern), rows(plain),
+                                                                                (lse, lpb, lpe[..., : u1 - 1]), steps=False))
+    kern_g, plain_g = jk.rnnt_loss_fused_joint_bwd_kernel_f32(*bargs), jk.rnnt_loss_fused_joint_plain_bwd_f32(*bargs)
+    print(f"kernel rnnt_fused_joint_bwd bf16 accuracy ({what}, f32 gradients): "
+          + accuracy_parts(("d_enc_p", "d_pred_p", "dWv", "dbv"), kern_g, plain_g, (denc, dpred, dwv, dbv), steps=False))
+
+
+def joint_extras(make, rows: list[dict], active: int, cells: int, dev) -> None:
+    """The fused joint in bf16 on the tensor cores: this run's times beside
+    the earlier kernels', the backward by pass, accuracy against float64,
+    V 1000 (the small-streaming config's vocabulary) against the plain
+    version, and the four kernels' occupancy (against what their shared
+    memory, as the library reports it, allows), registers and spills."""
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+
+    fargs, bargs = make(torch.bfloat16)
+    old = EARLIER_MS[("rnnt_fused_joint", JOINT)]
+    passes = device_ms_by_kernel(jk.rnnt_loss_fused_joint_bwd_kernel, bargs, {"rows": "jm_bwd_rows", "weight": "jm_bwd_weight", "sums": "sum_partials"})
+    rows[1].update(passes_ms=passes, active_cells=active, cells=cells)
+    print(f"kernel rnnt_fused_joint[_bwd] bf16 (train loss): forward {rows[0]['ms']:.4f} ms backward {rows[1]['ms']:.4f} ms (by pass, profiler: "
+          f"{_fmt_ms(passes)}); {active} of {cells} cells have a nonzero gbl or gem "
+          f"(the backward's bound counts those); plain {rows[0]['plain_ms']:.4f} / {rows[1]['plain_ms']:.4f} ms; bound {rows[0]['bound_ms']:.4f} / "
+          f"{rows[1]['bound_ms']:.4f} ms; the earlier WMMA kernels (PERF.md row 8) {old[0]:.4f} / {old[1]:.4f} ms")
+    joint_accuracy(fargs, bargs, f"train loss, [{TRAIN_B}, {T_ENC}, {TRAIN_U + 1}] cells, J {JOINT}, V {VOCAB}")
+
+    # V 1000: the small-streaming config's vocabulary (Wv 640 KB streams through shared memory)
+    b, v = 4, 1000
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    t_np, u_np = loss_lengths(np.random.default_rng(SEED + 3), b)
+    t_len, u_len = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev)
+    labels = torch.randint(1, v, (b, TRAIN_U), generator=gen, device=dev)
+    labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
+    res = {}
+    for tag, dt in DTYPES:
+        enc_p, pred_p = _randn(gen, (b, T_ENC, JOINT), 1.0, dt), _randn(gen, (b, TRAIN_U + 1, JOINT), 1.0, dt)
+        wv, bv = _randn(gen, (v, JOINT), JOINT ** -0.5, dt), _randn(gen, (v,), 0.1)
+        fa = (enc_p, pred_p, wv, bv, labels)
+        _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*fa[:4], t_len, labels, u_len)
+        ba = (*fa, lse, gbl / b, gem / b)
+        err_f = _close(f"rnnt_fused_joint V {v} {tag}", torch.stack(jk.joint_logprobs_kernel(*fa)), torch.stack(jk.joint_logprobs_plain(*fa)), *TOL[tag])
+        err_b = _grads_close(f"rnnt_fused_joint_bwd V {v} {tag}", jk.rnnt_loss_fused_joint_bwd_kernel(*ba), jk.rnnt_loss_fused_joint_plain_bwd(*ba),
+                             GRAD_REL[tag])
+        res[tag] = (err_f, err_b)
+    act = int(((gbl != 0) | (gem != 0)).sum())
+    ms_f, ms_b = time_ms(jk.joint_logprobs_kernel, *fa), time_ms(jk.rnnt_loss_fused_joint_bwd_kernel, *ba)
+    bf, bb = bound(*cost_joint(b, T_ENC, TRAIN_U + 1, JOINT, v, 2, False), "bf16"), bound(*cost_joint(b, T_ENC, TRAIN_U + 1, JOINT, v, 2, True, act), "bf16")
+    print(f"kernel rnnt_fused_joint[_bwd] at V {v} (B {b}, T {T_ENC}, U+1 {TRAIN_U + 1}, J {JOINT}): max_abs_err fwd f32 {res['f32'][0]:.3e} bf16 "
+          f"{res['bf16'][0]:.3e}, bwd f32 {res['f32'][1]:.3e} bf16 {res['bf16'][1]:.3e} (tol {TOL} / {GRAD_REL}); bf16 forward {ms_f:.4f} ms "
+          f"(bound {bf[0]:.4f}, {bf[1]}), backward {ms_b:.4f} ms (bound {bb[0]:.4f}, {bb[1]})")
+    rows[0]["v1000"] = dict(ms=ms_f, bound_ms=bf[0], errs=[res["f32"][0], res["bf16"][0]])
+    rows[1]["v1000"] = dict(ms=ms_b, bound_ms=bb[0], errs=[res["f32"][1], res["bf16"][1]])
+
+    lib = _build.build()
+    nh = {128: 8, 256: 16, 320: 20, 384: 24}[next(m for m in (128, 256, 320, 384) if -(-JOINT // 16) * 16 <= m)]
+    kernels = {}  # which: (name, row, mangled-name fragment, threads, the plan's blocks per SM where not set by shared memory)
+    for which, (name, i, frag, threads, plan_blocks) in {0: ("jm_fwd (Wv streamed, V 1000)", 0, "jm_fwdE", 256, None),
+                                                         3: ("jm_fwd_res (Wv resident)", 0, "jm_fwd_resILi16E", 512, 1),  # a persistent grid
+                                                         1: ("jm_bwd_rows", 1, f"jm_bwd_rowsILi{nh // 4}E", 512, None),
+                                                         2: ("jm_bwd_weight", 1, f"jm_bwd_weightILi{nh}E", 256, None)}.items():
+        if which == 3 and lib.tfasr_joint_mma_fwd_resident(JOINT, VOCAB) != 256:
+            continue
+        smem = lib.tfasr_joint_mma_smem(JOINT, which)
+        kernels[name] = (i, frag, smem, smem, plan_blocks or smem_blocks_per_sm(smem, threads), lib.tfasr_joint_mma_occupancy(JOINT, which))
+    occupancy_report(rows, kernels, f"joint J {JOINT}")
 
 
 def phase_train_kernels(dev) -> list[dict]:
@@ -667,6 +872,7 @@ def encoder_kernel_rows(dev, gen, d_model: int, head: int, ff_dim: int, what: st
 
     rows += _check_fwd_bwd("conv_front", ck.conv_front_kernel, ck.conv_front_plain, ck.conv_front_bwd_kernel, ck.conv_front_plain_bwd, front_make,
                            lambda elt, bwd: cost_conv_front(n, d_model, elt, bwd), what)
+    conv_front_extras(front_make, rows[-2:], d_model, n, what)
 
     def back_make(dt):
         x, y1 = _randn(gen, shape, 1.0, dt), _randn(gen, shape, 1.0, dt)
@@ -723,19 +929,24 @@ def phase_loss_kernels(dev) -> list[dict]:
     labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
     labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
 
+    active = {}  # cells with a nonzero gbl or gem, of the last inputs made
+
     def joint_make(dt):
         enc_p, pred_p = _randn(gen, (TRAIN_B, T_ENC, JOINT), 1.0, dt), _randn(gen, (TRAIN_B, u1, JOINT), 1.0, dt)
         wv, bv = _randn(gen, (VOCAB, JOINT), JOINT ** -0.5, dt), _randn(gen, (VOCAB,), 0.1)
         fargs = (enc_p, pred_p, wv, bv, labels)
         _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*fargs[:4], t_len, labels, u_len)
+        active["cells"] = int(((gbl != 0) | (gem != 0)).sum())
         return fargs, (*fargs, lse, gbl / TRAIN_B, gem / TRAIN_B)  # the masked mean's cotangent
 
     def stats(fn):
         return lambda *a: torch.stack(fn(*a))
 
     rows += _check_fwd_bwd("rnnt_fused_joint", stats(jk.joint_logprobs_kernel), stats(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
-                           jk.rnnt_loss_fused_joint_plain_bwd, joint_make, lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, JOINT, VOCAB, elt, bwd),
+                           jk.rnnt_loss_fused_joint_plain_bwd, joint_make,
+                           lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, JOINT, VOCAB, elt, bwd, active["cells"]),
                            what=f"train loss, [{TRAIN_B}, {T_ENC}, {u1}] cells, J {JOINT}, V {VOCAB}")
+    joint_extras(joint_make, rows[-2:], active["cells"], TRAIN_B * T_ENC * u1, dev)
 
     # the unfused loss's row kernels over materialised logits [16, 400, 129, 256]
     def rows_make(dt):
@@ -1043,13 +1254,24 @@ def make_request(rng, batch: int, lo_s: float, hi_s: float, dev):
     return torch.tensor(audio, device=dev), torch.tensor(lens, device=dev)
 
 
+GC_WATCH = {"watched": 0, "gen2": 0, "gen2_ms": 0.0}  # over every RequestWatch of the run
+
+
+def settle() -> None:
+    """After a phase's set-up and warm-up: one collection, then the survivors
+    frozen (``gc.freeze``), so that no gen-2 collection over the objects of
+    earlier phases lands inside a timed step or request."""
+    gc.collect()
+    gc.freeze()
+
+
 class RequestWatch:
     """Host events inside one request or training step: the time Python's garbage collector
-    ran, and the device allocations (cudaMalloc) and allocator retries of
+    ran (and its gen-2 collections), and the device allocations (cudaMalloc) and allocator retries of
     PyTorch's caching allocator."""
 
     def __enter__(self):
-        self.gc_ms, self._t = 0.0, None
+        self.gc_ms, self._t, self.gen2, self.gen2_ms = 0.0, None, 0, 0.0
         gc.callbacks.append(self._gc)
         stats = torch.cuda.memory_stats()
         self._start = (stats.get("num_device_alloc", 0), stats.get("num_alloc_retries", 0))
@@ -1059,18 +1281,26 @@ class RequestWatch:
         if phase == "start":
             self._t = time.perf_counter()
         elif self._t is not None:
-            self.gc_ms += (time.perf_counter() - self._t) * 1e3
+            ms = (time.perf_counter() - self._t) * 1e3
+            self.gc_ms += ms
+            if info.get("generation") == 2:
+                self.gen2 += 1
+                self.gen2_ms += ms
             self._t = None
 
     def __exit__(self, *exc):
         gc.callbacks.remove(self._gc)
+        GC_WATCH["watched"] += 1
+        GC_WATCH["gen2"] += self.gen2
+        GC_WATCH["gen2_ms"] += self.gen2_ms
         stats = torch.cuda.memory_stats()
         self.device_allocs = stats.get("num_device_alloc", 0) - self._start[0]
         self.alloc_retries = stats.get("num_alloc_retries", 0) - self._start[1]
         return False
 
     def __str__(self):
-        return f"gc {self.gc_ms:.1f} ms, device allocations {self.device_allocs}, allocator retries {self.alloc_retries}"
+        return (f"gc {self.gc_ms:.1f} ms ({self.gen2} gen-2, {self.gen2_ms:.1f} ms), device allocations {self.device_allocs}, "
+                f"allocator retries {self.alloc_retries}")
 
 
 OUTLIER = 3.0  # a request over this multiple of its phase's median wall is an outlier
@@ -1093,6 +1323,7 @@ def outlier_hunt(tag: str, model, recognize_fn, rng, dev, n: int = 6) -> None:
     from tensorflowasr_tpu_torch import schemas
 
     walls, runs = [], []
+    settle()
     for _ in range(n):
         audio, lens = make_request(rng, 8, 6.0, 10.0, dev)
         torch.cuda.synchronize()
@@ -1122,6 +1353,7 @@ def phase_serve(dev) -> dict:
     requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
     recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
     torch.cuda.synchronize()
+    settle()
 
     reset_launch_counts()
     walls, watches = [], []
@@ -1217,6 +1449,7 @@ def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_imp
           f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U}); loss_impl {loss_impl!r}, "
           f"rnn_impl {rnn_impl!r}, Adam lr {lr:g}")
     torch.cuda.synchronize()
+    settle()
 
     reset_launch_counts()
     losses, walls, splits = [], [], []
@@ -1757,6 +1990,7 @@ def phase_ctc_serve(dev) -> dict:
         requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
         recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
         torch.cuda.synchronize()
+        settle()
         reset_launch_counts()
         walls, outs, watches = [], [], []
         for r, (audio, lens) in enumerate(requests):
@@ -2004,9 +2238,9 @@ def phase_steps(dev) -> dict:
     kernels, the Conformer-CTC step (wall, kernel time, busy share), the
     flagship's served request (median of 3 after a warm-up) and its
     streaming ms per chunk (median pass; then one pass's main-thread CPU
-    time and one profiled pass's card kernel time, per chunk). Every run
-    checks its launches as the full phases do. The host profile's ops go
-    under ``"host_top"``."""
+    time and one profiled pass's card kernel time, per chunk; the same two
+    for one more served request). Every run checks its launches as the full
+    phases do. The host profile's ops go under ``"host_top"``."""
     from tensorflowasr_tpu_torch import schemas
     from tensorflowasr_tpu_torch.models.transducer.base import recognize
 
@@ -2029,6 +2263,7 @@ def phase_steps(dev) -> dict:
     rng = np.random.default_rng(SEED)
     requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(4)]
     walls = []
+    settle()
     for audio, lens in requests:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2036,6 +2271,18 @@ def phase_steps(dev) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     res["serve_request_ms"] = float(np.median(walls[1:]))
+    from torch.profiler import ProfilerActivity, profile
+
+    audio, lens = requests[1]
+    c0 = time.thread_time()
+    recognize(model, schemas.PredictInput(audio, lens))
+    torch.cuda.synchronize()
+    res["serve_host_cpu_ms"] = (time.thread_time() - c0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        recognize(model, schemas.PredictInput(audio, lens))
+        torch.cuda.synchronize()
+    res["serve_kernel_ms"] = sum(e.self_device_time_total for e in prof.key_averages()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation) / 1e3
     model = streaming_model("flagship", torch.bfloat16, dev)
     chunks, size, _ = stream_chunks(model, SEED + 21, dev)
     per_pass = []
@@ -2049,8 +2296,6 @@ def phase_steps(dev) -> dict:
     run_stream(model, chunks, size, dev)
     torch.cuda.synchronize()
     res["stream_host_cpu_ms_per_chunk"] = (time.thread_time() - c0) / STREAM_CHUNKS * 1e3
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_stream(model, chunks, size, dev)
         torch.cuda.synchronize()
@@ -2136,6 +2381,8 @@ def main(argv: list[str]) -> int:
     phase_ctc_parity(dev)
     phase_stream_parity(dev)
     phase_ctc_referee(dev)
+    print(f"gc watch: {GC_WATCH['watched']} timed steps and requests watched (gc.collect() and gc.freeze() after each phase's set-up and "
+          f"warm-up); gen-2 collections inside them: {GC_WATCH['gen2']} ({GC_WATCH['gen2_ms']:.1f} ms)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": rows}))

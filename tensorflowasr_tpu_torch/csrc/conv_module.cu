@@ -25,6 +25,10 @@
 // the identity. What bounds them: the f32 products on the CUDA cores at 6400
 // rows (conv_front ~1.6 GFLOP, rows kernel and reductions; conv_back ~0.5),
 // and ~15-18 MB of f32 scratch written and read once.
+//
+// conv_front in bf16 runs on the tensor cores (conv_mma.cu), to which its C
+// entry points dispatch; the kernels here run its f32 parity path and
+// conv_back in both types.
 #include "common.cuh"
 
 namespace tfasr {
@@ -428,6 +432,13 @@ int launch_back_bwd(const void* y1, const void* mean, const void* var, const voi
   return (int)cudaGetLastError();
 }
 
+// The bf16 conv_front kernels (conv_mma.cu).
+int launch_conv_front_mma(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb, void* out,
+                          int N, int D, float eps, cudaStream_t stream);
+int launch_conv_front_mma_bwd(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb,
+                              const void* dout, void* dx, float* cols, float* dwa, float* dwb, float* scratch, int N, int D, float eps,
+                              cudaStream_t stream);
+
 }  // namespace tfasr
 
 // x [N, D]; gamma/beta [D] f32; wa/wb [D, D] ([in, out]) and ba/bb [D] in
@@ -436,8 +447,7 @@ extern "C" int tfasr_conv_front(const void* x, const void* gamma, const void* be
                                 const void* wb, const void* bb, void* out, int N, int D, float eps, int dtype,
                                 void* stream) {
   using namespace tfasr;
-  if (dtype == kBF16)
-    return launch_front<__nv_bfloat16>(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
+  if (dtype == kBF16) return launch_conv_front_mma(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
   return launch_front<float>(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
 }
 
@@ -461,15 +471,20 @@ extern "C" long long tfasr_conv_bwd_scratch(int N, int D) {
 }
 
 // Gradients of tfasr_conv_front: dout [N, D] → dx [N, D] in x's dtype;
-// dgamma, dbeta, dba, dbb [D] and dwa, dwb [D, D] in f32.
+// dgamma, dbeta, dba, dbb [D] and dwa, dwb [D, D] in f32. bf16 needs dba,
+// dbb, dgamma, dbeta to be consecutive views of one [4D] row and the scratch
+// of tfasr_conv_front_mma_scratch.
 extern "C" int tfasr_conv_front_bwd(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba,
                                     const void* wb, const void* bb, const void* dout, void* dx, void* dgamma,
                                     void* dbeta, void* dwa, void* dba, void* dwb, void* dbb, void* scratch, int N,
                                     int D, float eps, int dtype, void* stream) {
   using namespace tfasr;
-  if (dtype == kBF16)
-    return launch_front_bwd<__nv_bfloat16>(x, gamma, beta, wa, ba, wb, bb, dout, dx, dgamma, dbeta, dwa, dba, dwb, dbb,
-                                           (float*)scratch, N, D, eps, (cudaStream_t)stream);
+  if (dtype == kBF16) {
+    float* cols = (float*)dba;
+    if ((float*)dbb != cols + D || (float*)dgamma != cols + 2 * D || (float*)dbeta != cols + 3 * D) return (int)cudaErrorInvalidValue;
+    return launch_conv_front_mma_bwd(x, gamma, beta, wa, ba, wb, bb, dout, dx, cols, (float*)dwa, (float*)dwb, (float*)scratch, N, D, eps,
+                                     (cudaStream_t)stream);
+  }
   return launch_front_bwd<float>(x, gamma, beta, wa, ba, wb, bb, dout, dx, dgamma, dbeta, dwa, dba, dwb, dbb,
                                  (float*)scratch, N, D, eps, (cudaStream_t)stream);
 }

@@ -80,29 +80,6 @@ struct FFArgs {
   float eps, factor;
 };
 
-// An f32 operand of the weight-gradient products as bf16 hi + lo ([N][ld]
-// each, ld a multiple of 8): x = hi + lo to ~2^-18 relative.
-struct Split {
-  bf16* hi;
-  bf16* lo;
-  int ld;
-};
-
-__device__ __forceinline__ void put_split(const Split& s, int row, int col, float v) {
-  const bf16 h = __float2bfloat16(v);
-  const size_t off = (size_t)row * s.ld + col;
-  s.hi[off] = h;
-  s.lo[off] = __float2bfloat16(v - __bfloat162float(h));
-}
-
-// Two adjacent columns (col even) in one 4-byte store each.
-__device__ __forceinline__ void put_split2(const Split& s, int row, int col, float v0, float v1) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const size_t off = (size_t)row * s.ld + col;
-  *reinterpret_cast<__nv_bfloat162*>(s.hi + off) = h;
-  *reinterpret_cast<__nv_bfloat162*>(s.lo + off) = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
-}
-
 // Stage the weight chunk c into w1 [Dp][FM_LDF] (W1[:, chunk]) and w2
 // [FM_FC][Dp + AM_PAD] (W2[chunk, :]); rows and columns past D or F zero.
 __device__ __forceinline__ void fm_stage_w(bf16* w1s, bf16* w2s, const bf16* w1, const bf16* w2, int c, const FFArgs& a) {
@@ -527,16 +504,6 @@ int fm_splits(int N, int M, int K) {
 // Rows per split: ceil(N / splits) rounded up to the FM_WR-row stage.
 int fm_rows_per_split(int N, int splits) { return ((N + splits - 1) / splits + FM_WR - 1) / FM_WR * FM_WR; }
 
-int fm_atb(Split A, Split B, float* out, float* partial, int N, int M, int K, cudaStream_t stream) {
-  const int splits = fm_splits(N, M, K);
-  const int rows_per_split = fm_rows_per_split(N, splits);
-  dim3 grid((K + FM_WT - 1) / FM_WT, (M + FM_WT - 1) / FM_WT, splits);
-  ff_mma_atb<<<grid, 128, 0, stream>>>(A, B, partial, N, M, K, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_sum_partials(partial, out, splits, (size_t)M * K, stream);
-}
-
 // Scratch of the backward: the weight-gradient operands y, dz [N, Dq] and ad,
 // dh [N, Fq] as bf16 hi and lo (Dq, Fq: D, F rounded up to 8, so that every
 // row is 16-byte aligned), then f32 column-sum partials and weight-gradient
@@ -647,6 +614,18 @@ struct Occupancy {
 
 }  // namespace
 
+int launch_split_atb(Split A, Split B, float* out, float* partial, int N, int M, int K, cudaStream_t stream) {
+  const int splits = fm_splits(N, M, K);
+  const int rows_per_split = fm_rows_per_split(N, splits);
+  dim3 grid((K + FM_WT - 1) / FM_WT, (M + FM_WT - 1) / FM_WT, splits);
+  ff_mma_atb<<<grid, 128, 0, stream>>>(A, B, partial, N, M, K, rows_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_partials(partial, out, splits, (size_t)M * K, stream);
+}
+
+long long split_atb_partial_floats(int N, int M, int K) { return (long long)fm_splits(N, M, K) * M * K; }
+
 int launch_ff_mma(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* b2, void* out,
                   int N, int D, int F, int rows, float eps, float factor, Dropout dp, cudaStream_t stream) {
   const FFArgs a = fm_args(N, D, F, eps, factor, w1, w2);
@@ -667,8 +646,8 @@ int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const 
   if ((e = launch_sum_partials(scratch + L.part, cols, 4 * ((N + FM_ROWS - 1) / FM_ROWS), (size_t)F + 3 * D, stream))) return e;
   const Split y = FMScratch::split(scratch, L.y, N, L.Dq), dz = FMScratch::split(scratch, L.dz, N, L.Dq);
   const Split ad = FMScratch::split(scratch, L.ad, N, L.Fq), dh = FMScratch::split(scratch, L.dh, N, L.Fq);
-  if ((e = fm_atb(y, dh, dw1, scratch + L.partial, N, D, F, stream))) return e;
-  return fm_atb(ad, dz, dw2, scratch + L.partial, N, F, D, stream);
+  if ((e = launch_split_atb(y, dh, dw1, scratch + L.partial, N, D, F, stream))) return e;
+  return launch_split_atb(ad, dz, dw2, scratch + L.partial, N, F, D, stream);
 }
 
 }  // namespace tfasr

@@ -19,14 +19,10 @@
 // here, rows and vocab columns are masked), the TFASR_FUSED_TT knob and the
 // +1e9 lse padding.
 //
-// Rounding points follow the JAX kernel: with bf16 inputs enc_p + pred_p and
-// tanh round to bf16; the logits product takes bf16 operands with f32
-// accumulation plus an f32 bv; the dWv product takes dlog rounded to bf16;
-// da is f32: dlog enters the tensor cores as three bf16 terms
-// (hi + mid + lo, 24 significant bits) against the bf16-exact Wv, so da
-// equals the f32 product up to summation order. In bf16 every product runs
-// on the tensor cores (WMMA 16x16x16, f32 accumulation, operands in shared
-// memory); f32 inputs (the parity path) run the same tiling on CUDA cores.
+// This file holds the f32 parity path, on the CUDA cores: with f32 inputs
+// (the JAX kernel's HIGHEST products) every product is an f32 fmaf loop.
+// bf16 inputs go to the tensor-core kernels of joint_loss_mma.cu, which the
+// C entry points below dispatch to.
 //
 // joint_fwd_kernel: one block per FR consecutive cells of the flattened
 // [B*T*(U+1)] lattice. The a tile stays in shared memory; Wv is streamed in
@@ -41,36 +37,22 @@
 // for bit from run to run.
 //  - joint_bwd_rows_kernel: block (u tile of BR label positions, chunk of
 //    JL_TT frames, b). Per frame it recomputes a and the logits chunk by
-//    chunk, forms dlog and accumulates da (bf16: in the warps' accumulator
-//    fragments across the chunks, DaAcc), then dz; it writes the frame's
-//    d_enc_p partial over its u tile and keeps the d_pred_p partial over
-//    its frames in shared memory, written once.
+//    chunk, forms dlog and accumulates da in shared memory, then dz; it
+//    writes the frame's d_enc_p partial over its u tile and keeps the
+//    d_pred_p partial over its frames in shared memory, written once.
 //  - joint_bwd_weight_kernel: block (vocab chunk of WV rows, range of cells),
 //    about one block per SM: its Wv chunk stays in shared memory, and it
 //    loops over its cells' tiles recomputing a, the logits and dlog for its
 //    chunk only (lse is saved by the forward), accumulating dWv[chunk] in
 //    shared memory and dbv[chunk] in registers.
 //  - the fixed-order sums of the partials.
-// Scratch (f32, bf16 at the flagship B 16, T 400, U+1 129, J 320, V 256):
-// d_enc_p partials [3 u tiles, B, T, J] 24.6 MB, d_pred_p partials
-// [25 frame chunks, B, U+1, J] 66.0 MB, dWv partials [33 ranges, V, J]
-// 10.8 MB, dbv partials [33, V].
-//
-// What bounds it: operations. Forward 2·B·T·(U+1)·J·V = 1.35e11 (0.137 ms
-// at 989 TFLOP/s bf16); the backward's three products 4.06e11 (0.41 ms). The
-// kernels here recompute the logits once more in the weight pass and run
-// the f32 da product as three bf16 products: 8.1e11 tensor-core operations
-// in all. Shared memory per block: forward ~102 KB, rows ~196 KB, weight
-// ~195 KB (bf16, J 320); J <= 384 and a multiple of 8.
-#include <mma.h>
-
-#include <type_traits>
-
+// What bounds it: the f32 products on the CUDA cores (forward 2·B·T·(U+1)·J·V
+// operations, backward three times that and the logits once more); J <= 384
+// and a multiple of 8.
 #include "common.cuh"
 
 namespace tfasr {
 
-typedef __nv_bfloat16 bf16;
 constexpr float JL_NEG = -1e30f;  // LOG_0
 constexpr float JL_NINF = -3.0e38f;  // below every logit: the empty running max
 constexpr int JL_TT = 16;         // frames per block of the backward rows kernel
@@ -79,20 +61,11 @@ constexpr int JL_SMS = 132;       // the H100's SMs: the weight pass runs about 
 template <typename E>
 struct JL;
 template <>
-struct JL<bf16> {
-  static constexpr int FR = 64, FV = 64;  // forward: cells per block, vocab rows per chunk
-  static constexpr int BR = 48, BV = 32;  // backward rows: label positions per block, vocab rows per chunk
-  static constexpr int WR = 64, WV = 64;  // backward weight: cells per tile, vocab rows per block
-  static constexpr int SPLITS = 3;        // dlog as bf16 terms in the da product
-  static constexpr int PAD = 8;           // row padding of E tiles (WMMA: ld a multiple of 8)
-};
-template <>
 struct JL<float> {
-  static constexpr int FR = 32, FV = 32;
-  static constexpr int BR = 16, BV = 32;
-  static constexpr int WR = 16, WV = 32;
-  static constexpr int SPLITS = 1;
-  static constexpr int PAD = 4;
+  static constexpr int FR = 32, FV = 32;  // forward: cells per block, vocab rows per chunk
+  static constexpr int BR = 16, BV = 32;  // backward rows: label positions per block, vocab rows per chunk
+  static constexpr int WR = 16, WV = 32;  // backward weight: cells per tile, vocab rows per block
+  static constexpr int PAD = 4;           // row padding of the shared-memory tiles
 };
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
@@ -111,34 +84,7 @@ __host__ __device__ inline size_t carved(size_t n) {
 
 // C[M][N] (+)= sum_k A(m,k) B(k,n) over shared-memory operands, the whole
 // block. A(m,k) = A[m*lda + k], or A[k*lda + m] with A_COL; B(k,n) =
-// B[k*ldb + n], or B[n*ldb + k] with B_COL. M, N, K are multiples of 16.
-template <bool A_COL, bool B_COL>
-__device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C, int ldc, int M, int N, int K,
-                   bool accumulate) {
-  using namespace nvcuda;
-  typedef typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type LA;
-  typedef typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type LB;
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int tile = warp; tile < tiles; tile += nwarps) {
-    const int i = tile / tn, j = tile % tn;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    float* cp = C + (size_t)i * 16 * ldc + j * 16;
-    if (accumulate)
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> bfr;
-      wmma::load_matrix_sync(af, A_COL ? A + (size_t)k * lda + i * 16 : A + (size_t)i * 16 * lda + k, lda);
-      wmma::load_matrix_sync(bfr, B_COL ? B + (size_t)j * 16 * ldb + k : B + (size_t)k * ldb + j * 16, ldb);
-      wmma::mma_sync(c, af, bfr, c);
-    }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
+// B[k*ldb + n], or B[n*ldb + k] with B_COL.
 template <bool A_COL, bool B_COL>
 __device__ void mm(const float* A, int lda, const float* B, int ldb, float* C, int ldc, int M, int N, int K,
                    bool accumulate) {
@@ -287,57 +233,6 @@ __device__ __forceinline__ float dlogit(float logit, float lse, float gb, float 
   return (v == 0 ? gb : 0.f) + (v == lab ? ge : 0.f) - p * (gb + ge);
 }
 
-// da [BR, Jp] of one frame in the warps' accumulator fragments (bf16):
-// da += sum_s split_s [BR, BV] . Wv chunk [BV, Jp] for each vocab chunk,
-// stored to shared memory once per frame. Warp w owns the 16 x 16 tiles
-// w, w + 8, ...: at most DA_TILES of them for J <= 384 and 8 warps.
-template <typename E>
-struct DaAcc {  // f32: da accumulates in shared memory through mm
-};
-template <>
-struct DaAcc<bf16> {
-  typedef JL<bf16> C;
-  static constexpr int WARPS = 8, DA_TILES = (C::BR / 16) * (384 / 16) / WARPS;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[DA_TILES];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int q = 0; q < DA_TILES; ++q) nvcuda::wmma::fill_fragment(c[q], 0.f);
-  }
-
-  __device__ void add(const bf16* sp, int lds, const bf16* w_s, int lda, int Jp) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5, tn = Jp / 16, tiles = (C::BR / 16) * tn;
-#pragma unroll
-    for (int q = 0; q < DA_TILES; ++q) {
-      const int tile = warp + q * WARPS;
-      if (tile < tiles) {
-        const int i = tile / tn, j = tile % tn;
-#pragma unroll
-        for (int s = 0; s < C::SPLITS; ++s)
-#pragma unroll
-          for (int k = 0; k < C::BV; k += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(af, sp + ((size_t)s * C::BR + i * 16) * lds + k, lds);
-            wmma::load_matrix_sync(bfr, w_s + (size_t)k * lda + j * 16, lda);
-            wmma::mma_sync(c[q], af, bfr, c[q]);
-          }
-      }
-    }
-  }
-
-  __device__ void store(float* da, int ldz, int Jp) {
-    const int warp = threadIdx.x >> 5, tn = Jp / 16, tiles = (C::BR / 16) * tn;
-#pragma unroll
-    for (int q = 0; q < DA_TILES; ++q) {
-      const int tile = warp + q * WARPS;
-      if (tile < tiles)
-        nvcuda::wmma::store_matrix_sync(da + (size_t)(tile / tn) * 16 * ldz + (tile % tn) * 16, c[q], ldz, nvcuda::wmma::mem_row_major);
-    }
-  }
-};
-
 template <typename E>
 __global__ void joint_bwd_rows_kernel(const E* __restrict__ enc, const E* __restrict__ pred,
                                       const E* __restrict__ wv, const float* __restrict__ bv,
@@ -352,7 +247,7 @@ __global__ void joint_bwd_rows_kernel(const E* __restrict__ enc, const E* __rest
   E* a_s = carve<E>(p, (size_t)C::BR * lda);
   E* w_s = carve<E>(p, (size_t)C::BV * lda);
   float* lg = carve<float>(p, (size_t)C::BR * ldl);
-  E* sp_s = carve<E>(p, (size_t)C::SPLITS * C::BR * lds);
+  E* sp_s = carve<E>(p, (size_t)C::BR * lds);
   float* da = carve<float>(p, (size_t)C::BR * ldz);
   float* dp = carve<float>(p, (size_t)C::BR * ldz);
   float* lse_r = carve<float>(p, C::BR);
@@ -364,7 +259,6 @@ __global__ void joint_bwd_rows_kernel(const E* __restrict__ enc, const E* __rest
   const int tid = threadIdx.x;
   const int ut = blockIdx.x, tc = blockIdx.y, b = blockIdx.z, u0 = ut * C::BR;
   const int t_end = min(T, (tc + 1) * JL_TT);
-  DaAcc<E> da_acc;
 
   for (int o = tid; o < C::BR * ldz; o += blockDim.x) dp[o] = 0.f;
   for (int t = tc * JL_TT; t < t_end; ++t) {
@@ -384,10 +278,7 @@ __global__ void joint_bwd_rows_kernel(const E* __restrict__ enc, const E* __rest
         if (u < U1 - 1) lab_r[i] = labels[(size_t)b * (U1 - 1) + u];
       }
     }
-    if constexpr (std::is_same<E, bf16>::value)
-      da_acc.zero();
-    else
-      for (int o = tid; o < C::BR * ldz; o += blockDim.x) da[o] = 0.f;
+    for (int o = tid; o < C::BR * ldz; o += blockDim.x) da[o] = 0.f;
     __syncthreads();
     build_a<E>(a_s, lda, enc, pred, enc_row, pred_row, C::BR, J, Jp);
     for (int v0 = 0; v0 < V; v0 += C::BV) {
@@ -400,25 +291,10 @@ __global__ void joint_bwd_rows_kernel(const E* __restrict__ enc, const E* __rest
         const int i = o / C::BV, c = o % C::BV, v = v0 + c;
         float d = 0.f;
         if (enc_row[i] >= 0 && v < V) d = dlogit(lg[(size_t)i * ldl + c] + bv[v], lse_r[i], gb_r[i], ge_r[i], v, lab_r[i]);
-        // d as SPLITS terms of E: hi + mid + lo in bf16, d itself in f32
-        float rest = d;
-#pragma unroll
-        for (int s = 0; s < C::SPLITS; ++s) {
-          const E part = from_f32<E>(rest);
-          sp_s[((size_t)s * C::BR + i) * lds + c] = part;
-          rest -= to_f32(part);
-        }
+        sp_s[(size_t)i * lds + c] = d;
       }
       __syncthreads();
-      if constexpr (std::is_same<E, bf16>::value) {
-        da_acc.add(sp_s, lds, w_s, lda, Jp);
-      } else {
-        mm<false, false>(sp_s, lds, w_s, lda, da, ldz, C::BR, Jp, C::BV, true);
-      }
-      __syncthreads();
-    }
-    if constexpr (std::is_same<E, bf16>::value) {
-      da_acc.store(da, ldz, Jp);
+      mm<false, false>(sp_s, lds, w_s, lda, da, ldz, C::BR, Jp, C::BV, true);
       __syncthreads();
     }
     for (int i = 0; i < C::BR; ++i)
@@ -529,7 +405,7 @@ size_t rows_smem(int J) {
   typedef JL<E> C;
   const int Jp = round16(J), lda = Jp + C::PAD;
   return carved<E>((size_t)C::BR * lda) + carved<E>((size_t)C::BV * lda) + carved<float>((size_t)C::BR * (C::BV + 4)) +
-         carved<E>((size_t)C::SPLITS * C::BR * (C::BV + C::PAD)) + 2 * carved<float>((size_t)C::BR * (Jp + 4)) +
+         carved<E>((size_t)C::BR * (C::BV + C::PAD)) + 2 * carved<float>((size_t)C::BR * (Jp + 4)) +
          3 * carved<float>(C::BR) + carved<int>(C::BR) + 2 * carved<long long>(C::BR);
 }
 
@@ -610,6 +486,14 @@ int launch_joint_bwd(const void* enc, const void* pred, const void* wv, const vo
   return launch_sum_partials(scratch + L.dbv, (float*)dbv, L.n_ranges, (size_t)V, stream);
 }
 
+// The bf16 kernels (joint_loss_mma.cu).
+int launch_joint_mma_fwd(const void* enc, const void* pred, const void* wv, const void* bv, const void* labels, void* lpb, void* lpe, void* lse, int B,
+                         int T, int U1, int J, int V, cudaStream_t stream);
+long long joint_mma_bwd_scratch(int B, int T, int U1, int J, int V);
+int launch_joint_mma_bwd(const void* enc, const void* pred, const void* wv, const void* bv, const void* labels, const void* lse, const void* gbl,
+                         const void* gem, void* denc, void* dpred, void* dwv, void* dbv, float* scratch, int B, int T, int U1, int J, int V,
+                         cudaStream_t stream);
+
 }  // namespace tfasr
 
 // enc_p [B, T, J], pred_p [B, U1, J], wv [V, J] in one dtype (f32 or bf16);
@@ -620,16 +504,14 @@ extern "C" int tfasr_joint_fwd(const void* enc, const void* pred, const void* wv
                                void* stream) {
   using namespace tfasr;
   if ((long long)B * T * U1 == 0) return 0;
-  if (dtype == kBF16)
-    return launch_joint_fwd<bf16>(enc, pred, wv, bv, labels, lpb, lpe, lse, B, T, U1, J, V, (cudaStream_t)stream);
+  if (dtype == kBF16) return launch_joint_mma_fwd(enc, pred, wv, bv, labels, lpb, lpe, lse, B, T, U1, J, V, (cudaStream_t)stream);
   return launch_joint_fwd<float>(enc, pred, wv, bv, labels, lpb, lpe, lse, B, T, U1, J, V, (cudaStream_t)stream);
 }
 
 // Floats of scratch tfasr_joint_bwd needs.
 extern "C" long long tfasr_joint_bwd_scratch(int B, int T, int U1, int J, int V, int dtype) {
   using namespace tfasr;
-  return (long long)(dtype == kBF16 ? JointBwdScratch::make<bf16>(B, T, U1, J, V)
-                                    : JointBwdScratch::make<float>(B, T, U1, J, V)).total;
+  return dtype == kBF16 ? joint_mma_bwd_scratch(B, T, U1, J, V) : (long long)JointBwdScratch::make<float>(B, T, U1, J, V).total;
 }
 
 // Gradients of the fused joint + loss: lse, gbl, gem [B, T, U1] f32 (gbl, gem
@@ -642,8 +524,8 @@ extern "C" int tfasr_joint_bwd(const void* enc, const void* pred, const void* wv
   using namespace tfasr;
   if ((long long)B * T * U1 == 0) return 0;
   if (dtype == kBF16)
-    return launch_joint_bwd<bf16>(enc, pred, wv, bv, labels, lse, gbl, gem, denc, dpred, dwv, dbv, (float*)scratch, B,
-                                  T, U1, J, V, (cudaStream_t)stream);
+    return launch_joint_mma_bwd(enc, pred, wv, bv, labels, lse, gbl, gem, denc, dpred, dwv, dbv, (float*)scratch, B, T, U1, J, V,
+                                (cudaStream_t)stream);
   return launch_joint_bwd<float>(enc, pred, wv, bv, labels, lse, gbl, gem, denc, dpred, dwv, dbv, (float*)scratch, B, T,
                                  U1, J, V, (cudaStream_t)stream);
 }

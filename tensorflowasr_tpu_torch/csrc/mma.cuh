@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bf16 kernels (attention_mma.cu,
-// rel_attention_mma.cu, ff_mma.cu): ldmatrix loads from shared memory,
+// rel_attention_mma.cu, ff_mma.cu, conv_mma.cu, joint_loss_mma.cu): ldmatrix loads from shared memory,
 // mma.sync m16n8k16 with bf16 operands and f32 accumulators, cp.async
 // staging and quad reductions over the four threads that share a fragment
 // row.
@@ -193,5 +193,35 @@ __device__ __forceinline__ void am_store(bf16* dst, const float (&acc)[DMAX / 8]
     }
   }
 }
+
+// An f32 operand of a weight-gradient product as bf16 hi + lo ([N][ld]
+// each, ld a multiple of 8): x = hi + lo to ~2^-18 relative.
+struct Split {
+  bf16* hi;
+  bf16* lo;
+  int ld;
+};
+
+__device__ __forceinline__ void put_split(const Split& s, int row, int col, float v) {
+  const bf16 h = __float2bfloat16(v);
+  const size_t off = (size_t)row * s.ld + col;
+  s.hi[off] = h;
+  s.lo[off] = __float2bfloat16(v - __bfloat162float(h));
+}
+
+// Two adjacent columns (col even) in one 4-byte store each.
+__device__ __forceinline__ void put_split2(const Split& s, int row, int col, float v0, float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const size_t off = (size_t)row * s.ld + col;
+  *reinterpret_cast<__nv_bfloat162*>(s.hi + off) = h;
+  *reinterpret_cast<__nv_bfloat162*>(s.lo + off) = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// out[M, K] = A^T B over N rows, A and B given as Split: hi.hi + hi.lo +
+// lo.hi on the tensor cores, f32 accumulation, in a fixed row split summed
+// in order (ff_mma.cu's ff_mma_atb and sum_partials_kernel): the same bits
+// on every run. partial holds split_atb_partial_floats(N, M, K) floats.
+int launch_split_atb(Split A, Split B, float* out, float* partial, int N, int M, int K, cudaStream_t stream);
+long long split_atb_partial_floats(int N, int M, int K);
 
 }  // namespace tfasr

@@ -29,8 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("frontend.cu", "rel_attention.cu", "rel_attention_mma.cu", "ff.cu", "ff_mma.cu", "conv_module.cu", "row_reduce.cu", "rnnt_dp.cu", "joint_loss.cu",
-           "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu", "attention_mma.cu", "decode.cu")
+SOURCES = ("frontend.cu", "rel_attention.cu", "rel_attention_mma.cu", "ff.cu", "ff_mma.cu", "conv_module.cu", "conv_mma.cu", "row_reduce.cu", "rnnt_dp.cu",
+           "joint_loss.cu", "joint_loss_mma.cu", "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu", "attention_mma.cu", "decode.cu")
 HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,10 +58,17 @@ _SIGNATURES = {
     "tfasr_conv_back": ([_P] * 9 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_conv_back_bwd": ([_P] * 15 + [_I, _I, _F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_conv_bwd_scratch": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_conv_front_mma_scratch": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_conv_mma_smem": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_conv_mma_occupancy": ([_I] * 2, ctypes.c_int),
     "tfasr_rnnt_dp": ([_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
     "tfasr_joint_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_joint_bwd": ([_P] * 13 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_joint_bwd_scratch": ([_I] * 6, ctypes.c_longlong),
+    "tfasr_joint_mma_smem": ([_I] * 2, ctypes.c_longlong),
+    "tfasr_joint_mma_occupancy": ([_I] * 2, ctypes.c_int),
+    "tfasr_joint_mma_layout": ([_I] * 5 + [_P], ctypes.c_int),
+    "tfasr_joint_mma_fwd_resident": ([_I] * 2, ctypes.c_int),
     "tfasr_rnnt_logprobs": ([_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_rnnt_dlogits": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_lstm_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),

@@ -1,4 +1,5 @@
-"""Fused Conformer convolution-module kernels, forward and backward (``csrc/conv_module.cu``).
+"""Fused Conformer convolution-module kernels, forward and backward
+(``csrc/conv_module.cu``; ``conv_front`` in bf16: ``csrc/conv_mma.cu``).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/conv_kernel.py:conv_front`` (LN →
 two D×D pointwise products → GLU) and ``:conv_back`` (BatchNorm apply with
@@ -11,19 +12,24 @@ What bounds them on the card: per module ~0.3 GFLOP of products per 2000
 rows, small for the card; a plain version makes ~8 device-memory passes
 over [B·T, 2D] and [B·T, D] tensors (LN, the 2D pointwise output, GLU, BN,
 swish, pointwise, residual). Each forward kernel reads its row tile once
-and writes once: one block per 16 rows keeps the normalised (front) or
-activated (back) tile in shared memory and stages the D×D weights 64
-output columns at a time. Elementwise math and accumulation are f32;
-product operands are rounded to the weights' type as in the reference.
+and writes once: a block keeps the normalised (front) or activated (back)
+tile in shared memory and stages the D×D weights 64 output columns at a
+time. ``conv_front`` in bf16 runs on the tensor cores (``mma.sync``, the
+weight chunks double-buffered with cp.async, 32 rows a block in the
+forward, 64 in the backward); its f32 parity path and ``conv_back`` keep
+the CUDA-core kernels (16 rows a block). Elementwise math and accumulation
+are f32; product operands are rounded to the weights' type as in the
+reference.
 ``conv_back``'s dropout runs in-kernel from the counter hash of
 ``ops/dropout.py`` indexed by (global row b·T + t, column).
 
 The backwards (:class:`_ConvFront`, :class:`_ConvBack`) save the inputs
 and recompute, as the Pallas VJPs do; their kernels write the row
 gradients and activations, and a deterministic row reduction forms the
-parameter gradients. ``conv_back`` emits dmean and dvar, which autograd
-carries into the batch-statistics path; its skip gradient is the
-identity. :func:`conv_front_plain_bwd` and :func:`conv_back_plain_bwd` are
+parameter gradients (``conv_front`` in bf16: from bf16 high and low parts
+on the tensor cores, as the fused FF's). ``conv_back`` emits dmean and
+dvar, which autograd carries into the batch-statistics path; its skip
+gradient is the identity. :func:`conv_front_plain_bwd` and :func:`conv_back_plain_bwd` are
 the plain twins with the explicit formulas of the Pallas backwards.
 """
 
@@ -37,6 +43,7 @@ from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda.ff_kernel import _ln_parts, dot_as, layer_norm_f32, ln_backward
 
 _RT, _THREADS, _PER_THREAD = 16, 256, 16  # csrc/conv_module.cu: rows per block, threads, row-gradient accumulators per thread
+MAX_D = 256  # both routes
 
 front_launches = 0  # conv_front forward kernel launches since the last reset
 back_launches = 0  # conv_back forward kernel launches since the last reset
@@ -69,6 +76,16 @@ def conv_front_plain(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
 def conv_front_plain_bwd(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-3):
     """Gradients (dx, dγ, dβ, dWa, dba, dWb, dbb) of :func:`conv_front` with
     the explicit formulas of the Pallas ``_front_bwd_kernel`` (conv_kernel.py:92-127)."""
+    return _front_as_inputs(conv_front_plain_bwd_f32(x, gamma, beta, wa, ba, wb, bb, dout, eps), x, wa, ba, wb, bb)
+
+
+def _front_as_inputs(grads, x, wa, ba, wb, bb):
+    dx, dg, db, dwa, dba, dwb, dbb = grads
+    return dx.to(x.dtype), dg, db, dwa.to(wa.dtype), dba.to(ba.dtype), dwb.to(wb.dtype), dbb.to(bb.dtype)
+
+
+def conv_front_plain_bwd_f32(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-3):
+    """:func:`conv_front_plain_bwd` before the final casts: every gradient in f32."""
     y, xhat, rstd = _ln_parts(x, gamma, beta, eps)
     ha = dot_as(y, wa) + ba.float()
     hb = dot_as(y, wb) + bb.float()
@@ -80,8 +97,7 @@ def conv_front_plain_bwd(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-3
     y2, dha2, dhb2 = rows(y), rows(dha), rows(dhb)
     dy = dot_as(dha, wa.t()) + dot_as(dhb, wb.t())
     dx, dgam, dbet = ln_backward(rows(dy), rows(xhat), rows(rstd), gamma)
-    return (dx.reshape(x.shape).to(x.dtype), dgam, dbet, (y2.t() @ dha2).to(wa.dtype), dha2.sum(0).to(ba.dtype), (y2.t() @ dhb2).to(wb.dtype),
-            dhb2.sum(0).to(bb.dtype))
+    return dx.reshape(x.shape), dgam, dbet, y2.t() @ dha2, dha2.sum(0), y2.t() @ dhb2, dhb2.sum(0)
 
 
 def _check_front(x, gamma, beta, wa, ba, wb, bb):
@@ -103,6 +119,8 @@ def conv_front_kernel(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
     out = torch.empty_like(x)
     if n == 0:
         return out
+    if x.dtype == torch.bfloat16 and d > MAX_D:
+        raise ValueError(f"model width {d} > {MAX_D} is not supported by the bf16 kernel")
     lib = _build.build()
     with torch.cuda.device(x.device):
         err = lib.tfasr_conv_front(
@@ -116,6 +134,11 @@ def conv_front_kernel(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
 
 def conv_front_bwd_kernel(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-3):
     """The conv_front backward kernel on CUDA tensors: same results as :func:`conv_front_plain_bwd`."""
+    return _front_as_inputs(conv_front_bwd_kernel_f32(x, gamma, beta, wa, ba, wb, bb, dout, eps), x, wa, ba, wb, bb)
+
+
+def conv_front_bwd_kernel_f32(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-3):
+    """:func:`conv_front_bwd_kernel` before the final casts: dx in x's dtype, the parameter gradients in f32."""
     global front_bwd_launches
     n, d, code = _check_front(x, gamma, beta, wa, ba, wb, bb)
     if _RT * d > _THREADS * _PER_THREAD:
@@ -123,11 +146,13 @@ def conv_front_bwd_kernel(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-
     _build.require(dout, "dout", device=x.device, dtype=x.dtype, shape=tuple(x.shape))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    dg, db, dba, dbb = (torch.zeros(d, **f32) for _ in range(4))
+    cols = torch.zeros(4 * d, **f32)  # dba, dbb, dgamma, dbeta: the bf16 kernels write them as one row
+    dba, dbb, dg, db = cols.split(d)
     dwa, dwb = torch.zeros((d, d), **f32), torch.zeros((d, d), **f32)
     if n > 0:
         lib = _build.build()
-        scratch = torch.empty(int(lib.tfasr_conv_bwd_scratch(n, d)), **f32)
+        floats = lib.tfasr_conv_front_mma_scratch(n, d) if x.dtype == torch.bfloat16 else lib.tfasr_conv_bwd_scratch(n, d)
+        scratch = torch.empty(int(floats), **f32)
         with torch.cuda.device(x.device):
             err = lib.tfasr_conv_front_bwd(
                 x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(), bb.data_ptr(), dout.data_ptr(),
@@ -136,7 +161,7 @@ def conv_front_bwd_kernel(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-
             )
         _build.check(err, "conv_front backward")
         front_bwd_launches += 1
-    return dx, dg, db, dwa.to(wa.dtype), dba.to(ba.dtype), dwb.to(wb.dtype), dbb.to(bb.dtype)
+    return dx, dg, db, dwa, dba, dwb, dbb
 
 
 class _ConvFront(torch.autograd.Function):

@@ -1,5 +1,6 @@
 """Fused transducer joint + RNN-T loss, forward and backward
-(``csrc/joint_loss.cu``, with the DP of ``csrc/rnnt_dp.cu``).
+(``csrc/joint_loss_mma.cu`` for bf16, ``csrc/joint_loss.cu`` for f32, with
+the DP of ``csrc/rnnt_dp.cu``).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:rnnt_loss_fused_joint``
 for the add/tanh joint with both prejoint linears: from the projected
@@ -15,8 +16,13 @@ Pallas kernel's ``WvT``); its gradient comes back in the same layout.
 
 What bounds it on the card: the products (forward 2·B·T·(U+1)·J·V =
 1.35e11 operations at the flagship B 16, T 400, U+1 129, J 320, V 256;
-backward 4.06e11), run on the tensor cores in bf16. The forward saves
-lse, gbl and gem [B, T, U+1] f32 (9.9 MB) for the backward.
+backward 4.06e11), run on the tensor cores in bf16: ``mma.sync`` over
+64-cell tiles of 8 frames × 8 label positions, the logits and dlog kept in
+registers; the forward keeps Wv resident in a persistent grid where it fits
+(V ≤ 256 at J 320), else streams it, as the backward does, in vocabulary
+chunks. f32 inputs (the parity path) run the CUDA-core kernels of
+``csrc/joint_loss.cu``. The forward saves lse, gbl and gem [B, T, U+1] f32
+(9.9 MB) for the backward.
 
 :func:`rnnt_loss_fused_joint_plain` and :func:`rnnt_loss_fused_joint_plain_bwd`
 are the plain twins, with the JAX kernel's rounding points.
@@ -33,7 +39,7 @@ from tensorflowasr_tpu_torch.ops.rnnt_loss import labels_per_cell, logits_to_log
 launches = 0  # forward (joint statistics) kernel launches since the last reset (set to 0 to reset)
 bwd_launches = 0  # backward kernel launches since the last reset
 
-MAX_J = 384  # csrc/joint_loss.cu: the backward's shared-memory tiles hold [rows, J]; J a multiple of 8
+MAX_J = 384  # both routes: the backward's shared-memory tiles hold [rows, J]; J a multiple of 8
 
 
 def _activations(enc_p: torch.Tensor, pred_p: torch.Tensor) -> torch.Tensor:
@@ -66,6 +72,15 @@ def rnnt_loss_fused_joint_plain_bwd(enc_p, pred_p, wv, bv, labels, lse, gbl, gem
     d_logits rounded to a's dtype; da = d_logits·Wv in f32; dz = da·(1−a²).
     gbl, gem are already scaled by the upstream cotangent. Each gradient in
     its input's dtype."""
+    return _as_inputs(rnnt_loss_fused_joint_plain_bwd_f32(enc_p, pred_p, wv, bv, labels, lse, gbl, gem), enc_p, pred_p, wv, bv)
+
+
+def _as_inputs(grads, enc_p, pred_p, wv, bv):
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (enc_p, pred_p, wv, bv)))
+
+
+def rnnt_loss_fused_joint_plain_bwd_f32(enc_p, pred_p, wv, bv, labels, lse, gbl, gem):
+    """:func:`rnnt_loss_fused_joint_plain_bwd` before the final casts: every gradient in f32."""
     a = _activations(enc_p, pred_p)
     logits = _logits(a, wv, bv)
     gsum = (gbl + gem)[..., None]
@@ -79,7 +94,7 @@ def rnnt_loss_fused_joint_plain_bwd(enc_p, pred_p, wv, bv, labels, lse, gbl, gem
     dbv = rows.sum(0)
     a32 = a.float()
     dz = torch.matmul(dlog, wv.float()) * (1.0 - a32 * a32)
-    return dz.sum(2).to(enc_p.dtype), dz.sum(1).to(pred_p.dtype), dwv.to(wv.dtype), dbv.to(bv.dtype)
+    return dz.sum(2), dz.sum(1), dwv, dbv
 
 
 def _check(enc_p, pred_p, wv, bv, labels):
@@ -123,6 +138,11 @@ def joint_logprobs_kernel(enc_p, pred_p, wv, bv, labels):
 
 def rnnt_loss_fused_joint_bwd_kernel(enc_p, pred_p, wv, bv, labels, lse, gbl, gem):
     """The backward kernel on CUDA tensors: same results as :func:`rnnt_loss_fused_joint_plain_bwd`."""
+    return _as_inputs(rnnt_loss_fused_joint_bwd_kernel_f32(enc_p, pred_p, wv, bv, labels, lse, gbl, gem), enc_p, pred_p, wv, bv)
+
+
+def rnnt_loss_fused_joint_bwd_kernel_f32(enc_p, pred_p, wv, bv, labels, lse, gbl, gem):
+    """:func:`rnnt_loss_fused_joint_bwd_kernel` before the final casts: every gradient in f32."""
     global bwd_launches
     b, t, u1, j, v, code = _check(enc_p, pred_p, wv, bv, labels)
     for name, x in (("lse", lse), ("gbl", gbl), ("gem", gem)):
@@ -140,7 +160,7 @@ def rnnt_loss_fused_joint_bwd_kernel(enc_p, pred_p, wv, bv, labels, lse, gbl, ge
                                       v, code, _build.stream_of(enc_p))
         _build.check(err, "joint backward")
         bwd_launches += 1
-    return denc.to(enc_p.dtype), dpred.to(pred_p.dtype), dwv.to(wv.dtype), dbv.to(bv.dtype)
+    return denc, dpred, dwv, dbv
 
 
 class _FusedJointLoss(torch.autograd.Function):

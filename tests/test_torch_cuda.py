@@ -341,6 +341,106 @@ def test_rel_mma_plan_matches_the_kernels(dev, d):
         assert 1 <= lib.tfasr_rel_mma_occupancy(d, which) <= plan[name]["blocks_per_sm"], name
 
 
+def _conv_front_args(dev, dtype, b, t, d, seed=13):
+    g = _gen(dev, seed)
+    return (_r(g, dev, (b, t, d), 1.0, dtype), 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, d), d ** -0.5, dtype),
+            _r(g, dev, (d,), 0.1, dtype), _r(g, dev, (d, d), d ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype)), _r(g, dev, (b, t, d), 1.0, dtype)
+
+
+@pytest.mark.parametrize("b,t,d", [(8, 250, 144), (16, 400, 176), (3, 17, 256), (1, 5, 100)])
+def test_conv_front_bf16_forward_at_each_row_tile(dev, b, t, d):
+    """conv_front's bf16 forward (32 rows a block) equals the plain version, the same bits on two runs."""
+    args, _ = _conv_front_args(dev, torch.bfloat16, b, t, d)
+    got = ck.conv_front_kernel(*args)
+    torch.testing.assert_close(got, ck.conv_front_plain(*args), **TOL[torch.bfloat16])
+    assert torch.equal(got, ck.conv_front_kernel(*args))
+
+
+@pytest.mark.parametrize("b,t,d", [(16, 400, 144), (16, 400, 176), (2, 33, 256)])
+def test_conv_front_bf16_backward_is_deterministic(dev, b, t, d):
+    """Two runs of conv_front's bf16 backward give the same bits (partials summed in a fixed order, no atomics), within GRAD_REL of the plain version."""
+    args, dout = _conv_front_args(dev, torch.bfloat16, b, t, d, seed=14)
+    first = ck.conv_front_bwd_kernel(*args, dout)
+    for x, y in zip(first, ck.conv_front_bwd_kernel(*args, dout)):
+        assert torch.equal(x, y)
+    _grads_close(first, ck.conv_front_plain_bwd(*args, dout), GRAD_REL[torch.bfloat16], f"conv_front {d}")
+
+
+@pytest.mark.parametrize("d", [144, 176, 256, 100, 16])
+def test_conv_mma_plan_matches_the_kernels(dev, d):
+    """The library's shared memory of conv_front's bf16 kernels (which 0: the
+    forward, 1: the backward rows pass) equals the plan copied in
+    tests/test_torch_joint_conv_mma.py, and the card fits the planned blocks."""
+    from tests.test_torch_joint_conv_mma import _conv_plan
+
+    lib = _build.build()
+    plan = _conv_plan(d)
+    for which, name in enumerate(("fwd", "bwd")):
+        assert lib.tfasr_conv_mma_smem(d, which) == getattr(plan, f"{name}_smem_bytes"), name
+        assert 1 <= lib.tfasr_conv_mma_occupancy(d, which) <= getattr(plan, f"{name}_blocks_per_sm"), name
+
+
+@pytest.mark.parametrize("j", [320, 384, 40, 8])
+def test_joint_mma_plan_and_layout_match_the_kernels(dev, j):
+    """The library's shared memory of the joint's bf16 kernels equals the
+    plan copied in tests/test_torch_joint_conv_mma.py and the card fits the
+    planned blocks; the library's cell-tile map and weight split are 8
+    frames x 8 label positions, ceil(T/8) x ceil((U+1)/8) tiles an
+    utterance and about one weight block per SM (the copies there walk them)."""
+    import ctypes
+
+    from tests.test_torch_joint_conv_mma import _joint_plan
+
+    lib = _build.build()
+    plan = _joint_plan(j, 256)
+    for which, name in enumerate(("fwd", "rows", "weight")):
+        assert lib.tfasr_joint_mma_smem(j, which) == getattr(plan, f"{name}_smem_bytes"), name
+        assert 1 <= lib.tfasr_joint_mma_occupancy(j, which) <= getattr(plan, f"{name}_blocks_per_sm"), name
+    for v in (256, 1000, 100, 20):
+        assert lib.tfasr_joint_mma_fwd_resident(j, v) == _joint_plan(j, v).fwd_resident_vocab, v
+    if plan.fwd_resident_vocab == 256:
+        assert lib.tfasr_joint_mma_smem(j, 3) == plan.fwd_resident_smem_bytes
+        assert lib.tfasr_joint_mma_occupancy(j, 3) == 1
+    for b, t, u1, v in ((16, 400, 129, 256), (16, 400, 129, 1000), (3, 13, 7, 20), (1, 1, 1, 5)):
+        out = (ctypes.c_int * 5)()
+        assert lib.tfasr_joint_mma_layout(b, t, u1, j, v, out) == 0
+        tiles = b * -(-t // 8) * -(-u1 // 8)
+        per_sm = 2 if -(-j // 16) <= 20 else 1  # the weight pass's blocks per SM
+        assert list(out) == [8, 8, -(-t // 8), -(-u1 // 8), max(1, min(tiles, 132 * per_sm // -(-v // 64)))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,u,j,v", [(4, 120, 48, 320, 1000), (2, 37, 50, 384, 300)])
+def test_joint_loss_kernels_large_vocabulary(dev, dtype, b, t, u, j, v):
+    """The fused joint at V 1000 (the small-streaming config's vocabulary; Wv
+    640 KB streams through shared memory) and at J 384."""
+    args = _joint_args(dev, dtype, b, t, u, j, v)
+    for name, x, r in zip(("lp_blank", "lp_emit", "lse"), jk.joint_logprobs_kernel(*args), jk.joint_logprobs_plain(*args)):
+        torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
+    t_len, u_len = _lengths(dev, b, t, u, 3)
+    _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
+    bargs = (*args, lse, gbl, gem)
+    _grads_close(jk.rnnt_loss_fused_joint_bwd_kernel(*bargs), jk.rnnt_loss_fused_joint_plain_bwd(*bargs), GRAD_REL[dtype], f"joint V {v}")
+
+
+@pytest.mark.parametrize("b,t,u,j,v", [(16, 400, 128, 320, 256), (4, 120, 48, 320, 1000)])
+def test_joint_bf16_backward_is_deterministic(dev, b, t, u, j, v):
+    """Two runs of the joint's bf16 backward give the same bits: fixed-order partials, no atomics."""
+    args = _joint_args(dev, torch.bfloat16, b, t, u, j, v, seed=21)
+    t_len, u_len = _lengths(dev, b, t, u, 4)
+    _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
+    first = jk.rnnt_loss_fused_joint_bwd_kernel(*args, lse, gbl, gem)
+    for x, y in zip(first, jk.rnnt_loss_fused_joint_bwd_kernel(*args, lse, gbl, gem)):
+        assert torch.equal(x, y)
+
+
+def test_joint_and_conv_front_refuse_what_the_kernels_do_not_take(dev):
+    with pytest.raises(ValueError, match="joint width"):
+        jk.joint_logprobs_kernel(*_joint_args(dev, torch.bfloat16, 2, 5, 3, 392, 20))
+    with pytest.raises(ValueError, match="model width"):
+        ck.conv_front_kernel(*_conv_front_args(dev, torch.bfloat16, 1, 3, 264)[0])
+
+
 def test_rel_attention_bf16_autograd_reads_the_forward_stats(dev):
     """Under autograd a bf16 CUDA tensor launches the forward (with statistics) and the backward kernel once each."""
     g = _gen(dev, 10)
