@@ -71,7 +71,16 @@ joint backward by pass (rows, weight, sums; profiler), the joint at V 1000
 (the small-streaming vocabulary) against its plain version, conv_front's
 backward by pass, the accuracy of both against float64, and their
 occupancy (against what the shared memory the library reports allows),
-registers and spills. After each phase's set-up and warm-up the garbage
+registers and spills. ``conv_back`` (row 7) runs bf16 on the tensor cores
+as well: at both widths its times beside the earlier CUDA-core kernels', its
+backward by pass, forward and backward against float64, occupancy, registers
+and spills. The log-mel frontend (rows 1-2) runs as an FFT in shared memory
+for nfft 512: against the plain rfft chain and float64 at the training,
+serving and one-chunk shapes, and the direct-DFT kernel that any other nfft
+takes (nfft None) at the serving shape. ``Trainer.fit`` runs 30 steps in a
+fresh process (``--fit-gc``), as shipped (it freezes the collector's
+survivors after step 1) and with that freeze undone, with the gen-2
+collections inside steps 2-30. After each phase's set-up and warm-up the garbage
 collector runs once and freezes the survivors (``gc.freeze``); every
 timed step and request records its gen-2 collections, summed in a ``gc
 watch`` line. Every kernel must launch on at least one driven path; its
@@ -82,6 +91,7 @@ Without a card it exits non-zero.
 ``python3 chip_smoke.py --compare-parent DIR`` runs only the step numbers
 (:func:`phase_steps`) of this checkout and of the package under DIR (a
 checkout of another commit), each in its own process, in turns.
+``--steps`` and ``--fit-gc`` are those child processes' modes.
 """
 
 from __future__ import annotations
@@ -142,9 +152,11 @@ def bound(moved: float, flops: float, kind: str) -> tuple[float, str]:
 
 # (bytes, operations) of each kernel's work: each input read once, each output
 # written once (weight gradients in f32); products at 2 operations per MAC.
-def cost_frontend(b: int, n: int, frames: int, nfft: int, mels: int):
-    """A real FFT per frame (2.5·n·log2 n), the power spectrum and the mel product, f32."""
-    return 4 * (b * n + b * frames * mels), b * frames * (2.5 * nfft * np.log2(nfft) + 3 * (nfft // 2 + 1) + 2 * (nfft // 2 + 1) * mels)
+def cost_frontend(b: int, n: int, frames: int, nfft: int, mels: int, mel_nnz: int):
+    """A real FFT per frame (2.5·n·log2 n), the power spectrum and the mel
+    product over the filters' ``mel_nnz`` nonzero weights (the rest are
+    zeros the function never needs), f32."""
+    return 4 * (b * n + b * frames * mels), b * frames * (2.5 * nfft * np.log2(nfft) + 3 * (nfft // 2 + 1) + 2 * mel_nnz)
 
 
 def cost_attention(bh: int, t: int, s: int, r: int, d: int, elt: int, bwd: bool):
@@ -272,8 +284,8 @@ SOURCES = {
     "fused_ff_bwd": ("tensorflowasr_tpu_torch/csrc/ff_mma.cu", "tensorflowasr_tpu/ops/pallas/ff_kernel.py:229"),
     "conv_front": ("tensorflowasr_tpu_torch/csrc/conv_mma.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:160"),
     "conv_front_bwd": ("tensorflowasr_tpu_torch/csrc/conv_mma.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:194"),
-    "conv_back": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:329"),
-    "conv_back_bwd": ("tensorflowasr_tpu_torch/csrc/conv_module.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:375"),
+    "conv_back": ("tensorflowasr_tpu_torch/csrc/conv_mma.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:329"),
+    "conv_back_bwd": ("tensorflowasr_tpu_torch/csrc/conv_mma.cu", "tensorflowasr_tpu/ops/pallas/conv_kernel.py:375"),
     "rnnt_dp": ("tensorflowasr_tpu_torch/csrc/rnnt_dp.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:310"),
     "rnnt_fused_joint": ("tensorflowasr_tpu_torch/csrc/joint_loss_mma.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:351"),
     "rnnt_fused_joint_bwd": ("tensorflowasr_tpu_torch/csrc/joint_loss_mma.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:329"),
@@ -302,11 +314,7 @@ def phase_kernels(dev) -> dict:
     # frontend: B=8 utterances of 10 s at 16 kHz
     cfg = frontend.FrontendConfig()
     sig = frontend.preemphasis_signal(_randn(gen, (8, 160000), 0.1), cfg).contiguous()
-    err = _close("frontend f32", fek.log_mel_spectrogram_pallas(sig, cfg), fek.log_mel_spectrogram_plain(sig, cfg), 1e-3, 0.0)
-    ms, plain_ms = time_ms(fek.log_mel_spectrogram_pallas, sig, cfg), time_ms(fek.log_mel_spectrogram_plain, sig, cfg)
-    b = bound(*cost_frontend(8, 160000, cfg.get_nframes(160000), cfg.fft_length, cfg.num_feature_bins), "f32")
-    print(f"kernel frontend (serve): [8, 160000] f32 max_abs_err {err:.3e} (tol 1e-3) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"bound {b[0]:.4f} ms ({b[1]})")
+    err, ms, plain_ms, _ = frontend_line(sig, cfg, "serve")
     res["log_mel_spectrogram"] = (err, None, ms, plain_ms)
 
     # attention: B·H = 32, T = S = 250, R = 499, dh = 36; q_len < T on some rows
@@ -374,7 +382,8 @@ def phase_kernels(dev) -> dict:
         print(f"kernel conv_front {tag} (serve): [8, 250, {dm}] max_abs_err {front[tag][0]:.3e} kernel {front[tag][1]:.4f} ms plain {front[tag][2]:.4f} ms "
               f"bound {bf[0]:.4f} ms ({bf[1]})" + (f" (the earlier CUDA-core kernel, PERF.md row 6: {EARLIER_MS[('conv_front', 'serve')][0]:.4f} ms)"
                                                   if tag == "bf16" else "") + f"; conv_back {tag}: max_abs_err {back[tag][0]:.3e} kernel {back[tag][1]:.4f} ms plain {back[tag][2]:.4f} ms "
-              f"bound {bb_[0]:.4f} ms ({bb_[1]}) (tol {TOL[tag]})")
+              f"bound {bb_[0]:.4f} ms ({bb_[1]})" + (f" (the earlier CUDA-core kernel, PERF.md row 7: {EARLIER_MS[('conv_back', 'serve')][0]:.4f} ms)"
+                                                    if tag == "bf16" else "") + f" (tol {TOL[tag]})")
     res["conv_front"] = (front["f32"][0], front["bf16"][0], *front["bf16"][1:])
     res["conv_back"] = (back["f32"][0], back["bf16"][0], *back["bf16"][1:])
     return res
@@ -419,11 +428,13 @@ def _check_fwd_bwd(name, fwd, fwd_plain, bwd, bwd_plain, make, cost, what: str =
     return rows
 
 
-# the kernels rows 3, 5, 6 and 8 had before their tensor-core redesign (PERF.md §6: bf16, rate 0.1, forward and backward ms), by width; printed
-# beside this run's times, never written to the kernels' JSON line
+# the kernels rows 3, 5, 6, 7 and 8 had before their tensor-core redesign (PERF.md §6: bf16, rate 0.1, forward and backward ms), by width, and
+# the direct-DFT frontend of rows 1-2 before its FFT (f32 ms); printed beside this run's times, never written to the kernels' JSON line
 EARLIER_MS = {("fused_rel_attention", 36): (0.5629, 1.7223), ("fused_rel_attention", 44): (0.7083, 2.0996), ("fused_ff", 144): (0.1133, 1.5137),
               ("fused_ff", 176): (0.1509, 3.0285), ("conv_front", 144): (0.1326, 0.4727), ("conv_front", 176): (0.1722, 0.7880),
-              ("conv_front", "serve"): (0.0587, None), ("rnnt_fused_joint", 320): (2.8144, 17.4508)}
+              ("conv_front", "serve"): (0.0587, None), ("rnnt_fused_joint", 320): (2.8144, 17.4508), ("conv_back", 144): (0.0763, 0.1992),
+              ("conv_back", 176): (0.0996, 0.2643), ("conv_back", "serve"): (0.0467, None), ("log_mel_spectrogram", "train"): (0.6614, None),
+              ("log_mel_spectrogram", "serve"): (0.2243, None)}
 
 
 def rate0_times(rows: list[dict], make, fwd, bwd, what: str, width: int) -> None:
@@ -672,6 +683,114 @@ def conv_front_extras(make, rows: list[dict], d_model: int, n: int, what: str) -
     occupancy_report(rows, kernels, f"conv_front D {d_model}, N {n}")
 
 
+def conv_back_accuracy(fargs: tuple, bargs: tuple, what: str) -> None:
+    """conv_back in bf16: the forward and the backward, kernel and plain
+    version, against a float64 run of the same function on the same inputs
+    and keep mask (a = swish(bn) unrounded; the parameter gradients before
+    their final cast, so that dW2's bf16 high/low split shows against the
+    plain f32 product)."""
+    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+
+    x, y1, mean, var, scale, bias, w2, b2, seed, rate, factor, eps = fargs
+    dout = bargs[6]
+    keep = ck._back_mask(seed, rate, y1)
+    p64 = [a.double().requires_grad_(True) for a in (y1, mean, var, scale, bias, w2, b2)]
+    yy, mu, vv, sc, bi, ww, bb = p64
+    bn = (yy - mu) * torch.rsqrt(vv + eps) * sc + bi
+    z = (bn * torch.sigmoid(bn)) @ ww + bb
+    ref = x.double() + factor * (z if keep is None else z * keep.double())
+    refs = torch.autograd.grad(ref, p64, dout.double())
+    kern = ck.conv_back_bwd_kernel_f32(*bargs)
+    plain = ck.conv_back_plain_bwd_f32(*bargs)
+    plain = (plain[0].to(y1.dtype), *plain[1:])  # dy1 leaves both in y1's dtype
+    print(f"kernel conv_back[_bwd] bf16 accuracy ({what}, N {y1.shape[0] * y1.shape[1]} D {y1.shape[2]}; out and dy1 in bf16, the rest f32): "
+          + accuracy_parts(("out",), (ck.conv_back_kernel(*fargs),), (ck.conv_back_plain(*fargs),), (ref.detach(),)) + "; "
+          + accuracy_parts(("dy1",), kern[:1], plain[:1], refs[:1]) + "; "
+          + accuracy_parts(("dmean", "dvar", "dscale", "dbias", "dW2", "db2"), kern[1:], plain[1:], refs[1:], steps=False))
+
+
+def conv_back_extras(make, rows: list[dict], d_model: int, n: int, what: str) -> None:
+    """conv_back in bf16 on the tensor cores: this run's times beside the
+    earlier CUDA-core kernels', the backward by pass, both against float64,
+    and the two kernels' occupancy (against what their shared memory, as
+    the library reports it, allows), registers and spills."""
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+
+    fargs, bargs = make(torch.bfloat16)
+    old = EARLIER_MS[("conv_back", d_model)]
+    passes = device_ms_by_kernel(ck.conv_back_bwd_kernel, bargs, {"rows": "cb_bwd_rows", "weight": "ff_mma_atb", "sums": "sum_partials",
+                                                                  "bn": "bn_stat_grads"})
+    rows[1]["passes_ms"] = passes
+    print(f"kernel conv_back[_bwd] bf16 ({what}): forward {rows[0]['ms']:.4f} ms backward {rows[1]['ms']:.4f} ms (by pass, profiler: "
+          f"{_fmt_ms(passes)}); plain {rows[0]['plain_ms']:.4f} / {rows[1]['plain_ms']:.4f} ms; bound {rows[0]['bound_ms']:.4f} / {rows[1]['bound_ms']:.4f} ms"
+          f"; the earlier CUDA-core kernels (PERF.md row 7) {old[0]:.4f} / {old[1]:.4f} ms")
+    conv_back_accuracy(fargs, bargs, what)
+    lib = _build.build()
+    kernels = {}
+    for which, name, frag in ((2, "cb_fwd (32 rows)", "cb_fwdE"), (3, "cb_bwd_rows (32 rows)", "cb_bwd_rowsE")):
+        smem = lib.tfasr_conv_mma_smem(d_model, which)
+        kernels[name] = (which - 2, frag, smem, smem, smem_blocks_per_sm(smem), lib.tfasr_conv_mma_occupancy(d_model, which))
+    occupancy_report(rows, kernels, f"conv_back D {d_model}, N {n}")
+
+
+def frontend_float64(sig: torch.Tensor, cfg) -> torch.Tensor:
+    """The log-mel function in float64 on the card: windowed pad_end frames, rfft, power, the dense mel product, log."""
+    from tensorflowasr_tpu_torch.ops import frontend
+
+    s = sig.double()
+    n = np.arange(cfg.frame_length)
+    window = torch.tensor(0.5 - 0.5 * np.cos(2.0 * np.pi * n / cfg.frame_length), dtype=torch.float64, device=sig.device)
+    frames = frontend.frame_signal(s, cfg.frame_length, cfg.frame_step, cfg.pad_end) * window
+    power = torch.fft.rfft(frames, n=cfg.fft_length, dim=-1).abs().square()
+    mel = frontend.linear_to_mel_weight_matrix(cfg.num_feature_bins, power.shape[-1], cfg.sample_rate, cfg.lower_edge_hertz, cfg.upper_edge_hertz)
+    return torch.log(power @ torch.tensor(mel, dtype=torch.float64, device=sig.device) + cfg.epsilon)
+
+
+def frontend_line(sig: torch.Tensor, cfg, what: str) -> tuple:
+    """The frontend kernel for ``cfg`` (the FFT kernel for a power-of-two
+    nfft, else the direct DFT) against its plain version (1e-3 in log), both
+    against float64, their times, the bound, and the earlier kernel's time
+    at this shape where PERF.md has one. Returns (err, ms, plain ms, bound)."""
+    from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
+
+    fft = fek.uses_fft(cfg.fft_length)
+    before = (fek.launches, fek.dft_launches)
+    got = fek.log_mel_spectrogram_pallas(sig, cfg)
+    if (fek.launches - before[0], fek.dft_launches - before[1]) != ((1, 0) if fft else (0, 1)):
+        raise AssertionError(f"frontend ({what}): launched FFT {fek.launches - before[0]}, DFT {fek.dft_launches - before[1]} times")
+    plain = fek.log_mel_spectrogram_plain(sig, cfg)
+    err = _close(f"frontend f32 ({what})", got, plain, 1e-3, 0.0)
+    ref = frontend_float64(sig, cfg)
+    dist = {k: ((v.double() - ref).abs().max().item(), (v.double() - ref).pow(2).mean().sqrt().item()) for k, v in (("kernel", got), ("plain", plain))}
+    ms, plain_ms = time_ms(fek.log_mel_spectrogram_pallas, sig, cfg), time_ms(fek.log_mel_spectrogram_plain, sig, cfg)
+    nnz = int(fek.mel_ranges(fek.frontend.linear_to_mel_weight_matrix(cfg.num_feature_bins, cfg.fft_length // 2 + 1, cfg.sample_rate,
+                                                                      cfg.lower_edge_hertz, cfg.upper_edge_hertz))[2][-1])
+    b = bound(*cost_frontend(sig.shape[0], sig.shape[1], got.shape[1], cfg.fft_length, got.shape[2], nnz), "f32")
+    old = EARLIER_MS.get(("log_mel_spectrogram", what)) if fft else None
+    print(f"kernel log_mel_spectrogram {'FFT' if fft else 'DFT'} ({what}, nfft {cfg.fft_length}): {tuple(sig.shape)} → {tuple(got.shape)} f32 "
+          f"max_abs_err {err:.3e} (tol 1e-3); vs float64 max abs / rms kernel {dist['kernel'][0]:.3e} / {dist['kernel'][1]:.3e}, plain "
+          f"{dist['plain'][0]:.3e} / {dist['plain'][1]:.3e}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]}; {nnz} mel "
+          f"weights)" + (f"; the earlier direct-DFT kernel (PERF.md row 1) {old[0]:.4f} ms" if old else ""))
+    return err, ms, plain_ms, b
+
+
+def frontend_extras(gen) -> dict:
+    """The frontend at a streaming chunk's shape (one block's launch sets
+    its time) and the direct-DFT kernel (nfft None: 400 points) at the
+    serving shape, each against its plain version."""
+    from tensorflowasr_tpu_torch.ops import frontend
+
+    cfg = frontend.FrontendConfig()
+    size, _ = cfg.get_signal_chunk_size_and_step(16)
+    chunk = frontend.preemphasis_signal(_randn(gen, (1, size), 0.1), cfg).contiguous()
+    out = {"chunk": dict(zip(("err", "ms", "plain_ms"), frontend_line(chunk, cfg, "chunk")[:3]))}
+    cfg_dft = frontend.FrontendConfig(nfft=None)
+    sig = frontend.preemphasis_signal(_randn(gen, (8, 160000), 0.1), cfg_dft).contiguous()
+    out["dft"] = dict(zip(("err", "ms", "plain_ms"), frontend_line(sig, cfg_dft, "serve, nfft None")[:3]))
+    return out
+
+
 def joint_accuracy(fargs: tuple, bargs: tuple, what: str) -> None:
     """The fused joint in bf16: kernel and plain version against a float64
     run of the same function on the same inputs (a = tanh(enc_p + pred_p)
@@ -783,13 +902,9 @@ def phase_train_kernels(dev) -> list[dict]:
     # frontend: [16, 256000] f32 → [16, 1600, 80]
     cfg = frontend.FrontendConfig()
     sig = frontend.preemphasis_signal(_randn(gen, (TRAIN_B, int(TRAIN_SECS * 16000)), 0.1), cfg).contiguous()
-    got = fek.log_mel_spectrogram_pallas(sig, cfg)
-    err = _close("frontend f32 (train)", got, fek.log_mel_spectrogram_plain(sig, cfg), 1e-3, 0.0)
-    ms, plain_ms = time_ms(fek.log_mel_spectrogram_pallas, sig, cfg), time_ms(fek.log_mel_spectrogram_plain, sig, cfg)
-    b = bound(*cost_frontend(sig.shape[0], sig.shape[1], got.shape[1], cfg.fft_length, got.shape[2]), "f32")
-    print(f"kernel log_mel_spectrogram (train): {tuple(sig.shape)} → {tuple(got.shape)} f32 max_abs_err {err:.3e} (tol 1e-3) kernel {ms:.4f} ms "
-          f"plain {plain_ms:.4f} ms bound {b[0]:.4f} ms ({b[1]})")
+    err, ms, plain_ms, b = frontend_line(sig, cfg, "train")
     rows.append(_row("log_mel_spectrogram", {"f32": err}, ms, plain_ms, b))
+    rows[-1]["extras"] = frontend_extras(gen)
 
     return rows + encoder_kernel_rows(dev, gen, D_MODEL, HEAD, FF_DIM) + phase_loss_kernels(dev)
 
@@ -874,16 +989,18 @@ def encoder_kernel_rows(dev, gen, d_model: int, head: int, ff_dim: int, what: st
                            lambda elt, bwd: cost_conv_front(n, d_model, elt, bwd), what)
     conv_front_extras(front_make, rows[-2:], d_model, n, what)
 
-    def back_make(dt):
+    def back_make(dt, rate=TRAIN_RATE):
         x, y1 = _randn(gen, shape, 1.0, dt), _randn(gen, shape, 1.0, dt)
         stats = (_randn(gen, (d_model,), 0.1), 1.0 + torch.rand((d_model,), generator=gen, device=dev), 1.0 + _randn(gen, (d_model,), 0.1),
                  _randn(gen, (d_model,), 0.1))
         w2, b2 = _randn(gen, (d_model, d_model), d_model ** -0.5, dt), _randn(gen, (d_model,), 0.1, dt)
-        cfg_ = (17, TRAIN_RATE, 1.0, 1e-3)
+        cfg_ = (17, rate, 1.0, 1e-3)
         return (x, y1, *stats, w2, b2, *cfg_), (y1, *stats, w2, _randn(gen, shape, 1.0, dt), *cfg_)
 
     rows += _check_fwd_bwd("conv_back", ck.conv_back_kernel, ck.conv_back_plain, ck.conv_back_bwd_kernel, ck.conv_back_plain_bwd, back_make,
                            lambda elt, bwd: cost_conv_back(n, d_model, elt, bwd), what)
+    rate0_times(rows[-2:], lambda: back_make(torch.bfloat16, rate=0.0), ck.conv_back_kernel, ck.conv_back_bwd_kernel, what, d_model)
+    conv_back_extras(back_make, rows[-2:], d_model, n, what)
     return rows
 
 
@@ -2304,6 +2421,69 @@ def phase_steps(dev) -> dict:
     return res
 
 
+FIT_STEPS = 30
+
+
+def fit_gc_child(dev) -> dict:
+    """In a fresh process (``--fit-gc``), whose objects the smoke never froze:
+    the flagship through the port's own ``Trainer.fit`` (bf16, dropout 0.1,
+    Adam 1e-4, the training batch) for FIT_STEPS steps, as shipped (fit
+    freezes the collector's survivors after step 1), then FIT_STEPS more
+    with that freeze undone (``gc.unfreeze()`` when batch 2 is drawn): the
+    gen-2 collections and their ms inside steps 2..FIT_STEPS of each, and
+    the step walls (host clock between batch draws, each after a
+    synchronise)."""
+    from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+    model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE)
+    batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
+    res = {}
+    for undo in (False, True):
+        trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev)
+        marks, gen2, t_gc = [], [], [None]
+
+        def watch(phase, info):
+            if phase == "start":
+                t_gc[0] = time.perf_counter()
+            elif info.get("generation") == 2 and t_gc[0] is not None:
+                gen2.append((len(marks), (time.perf_counter() - t_gc[0]) * 1e3))
+
+        def data():
+            for i in range(FIT_STEPS):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                if undo and i == 1:
+                    gc.unfreeze()
+                yield batch
+
+        gc.callbacks.append(watch)
+        try:
+            trainer.fit(trainer.init_state(seed=SEED), data(), log_every=10 ** 9)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        finally:
+            gc.callbacks.remove(watch)
+        walls = np.diff(marks) * 1e3
+        inside = [ms for step, ms in gen2 if step >= 2]  # step k runs after the k-th batch is drawn
+        res["freeze undone" if undo else "as shipped"] = dict(steps=FIT_STEPS, gen2=len(inside), gen2_ms=float(sum(inside)),
+                                                              gen2_ms_max=float(max(inside, default=0.0)), step_ms_median=float(np.median(walls[1:])),
+                                                              step_ms_max=float(walls[1:].max()), frozen_objects=gc.get_freeze_count())
+    return res
+
+
+def phase_fit_gc() -> dict:
+    """:func:`fit_gc_child` in its own process; prints a line per run."""
+    proc = subprocess.run([sys.executable, __file__, "--fit-gc"], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"fit gc run failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["fit_gc"]
+    for run, r in res.items():
+        print(f"fit gc ({run}; Trainer.fit in a fresh process, flagship, {r['steps']} steps): gen-2 collections inside steps 2-{r['steps']}: "
+              f"{r['gen2']} ({r['gen2_ms']:.1f} ms, longest {r['gen2_ms_max']:.1f} ms); step wall median {r['step_ms_median']:.1f} ms, longest "
+              f"{r['step_ms_max']:.1f} ms; objects frozen at the end {r['frozen_objects']}")
+    return res
+
+
 TURNS = ("parent", "this", "this", "parent", "parent", "this")
 
 
@@ -2329,12 +2509,17 @@ def compare_steps(parent: str) -> None:
 def main(argv: list[str]) -> int:
     """No arguments: every phase (the check). ``--steps [--package DIR]``: only
     :func:`phase_steps`, of the package under DIR when given, as one JSON line.
+    ``--fit-gc``: only :func:`fit_gc_child`, as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
         sys.path.insert(0, argv[argv.index("--package") + 1])
     from tensorflowasr_tpu_torch.ops.cuda import _build  # fails here when the package is absent, before any output
 
+    if "--fit-gc" in argv:
+        _no_tf32()
+        print(json.dumps({"fit_gc": fit_gc_child(torch.device("cuda", 0))}))
+        return 0
     if "--steps" in argv:
         _no_tf32()
         print(json.dumps({"steps": phase_steps(torch.device("cuda", 0)), "package": str(_build.CSRC.parent)}))
@@ -2366,6 +2551,7 @@ def main(argv: list[str]) -> int:
     paths.update(phase_pallas(dev, auto))
     paths.update(phase_ctc_serve(dev))
     paths.update(phase_ctc_train(dev))
+    phase_fit_gc()
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

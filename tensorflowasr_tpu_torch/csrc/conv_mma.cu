@@ -1,29 +1,32 @@
-// conv_front in bf16 on the tensor cores, forward and backward:
-//   out = GLU([y . Wa + ba, y . Wb + bb]) = (y . Wa + ba) * sigmoid(y . Wb + bb),  y = LN(x)
-// The f32 instantiation stays on the CUDA-core kernels of conv_module.cu,
+// The Conformer convolution module's two halves in bf16 on the tensor
+// cores, forward and backward:
+//   conv_front: out = GLU([y . Wa + ba, y . Wb + bb]) = (y . Wa + ba) * sigmoid(y . Wb + bb),  y = LN(x)
+//   conv_back:  out = x + factor * drop(swish((y1 - mean) * rsqrt(var + eps) * scale + bias) . W2 + b2)
+// The f32 instantiations stay on the CUDA-core kernels of conv_module.cu,
 // whose C entry points dispatch here for bf16 inputs.
 //
 // Counterpart of tensorflowasr_tpu/ops/pallas/conv_kernel.py conv_front
-// (_front_fwd_kernel, _front_bwd_kernel, conv_kernel.py:80-127). Its maths is
-// the fused FF's first half (ff_mma.cu) with two D x D products and GLU in
-// place of swish, and it takes the FF's design: every product an mma.sync
-// m16n8k16 with bf16 operands and f32 accumulators from shared memory by
-// ldmatrix; Wa and Wb ([in, out]) staged 64 output columns at a time in a
-// cp.async double buffer, so a block reads the weights from L2 once; D padded
-// to a multiple of 16 in shared memory only (D 144 = 9 x 16, 176 = 11 x 16).
-// Rows past N are neither read nor written: the JAX kernel's zeroed padding
-// rows are rows of its tiles, which the card's blocks mask instead.
+// (_front_fwd_kernel, _front_bwd_kernel, conv_kernel.py:80-127) and
+// conv_back (_back_fwd_kernel :268, _back_bwd_kernel :273). Both take the
+// fused FF's design (ff_mma.cu): every product an mma.sync m16n8k16 with
+// bf16 operands and f32 accumulators from shared memory by ldmatrix; the
+// D x D weights staged 64 columns (or rows) at a time in a cp.async double
+// buffer, so a block reads them from L2 once; D padded to a multiple of 16
+// in shared memory only (D 144 = 9 x 16, 176 = 11 x 16). Rows past N are
+// neither read nor written: the JAX kernels' zeroed padding rows are rows of
+// their tiles, which the card's blocks mask instead.
 //
-// Forward (cm_fwd): the LayerNorm in f32 rounded to bf16 into shared memory;
-// warp (rg, fq) of RG x FQ owns 16 rows and 64 / FQ columns of each chunk:
-// ha and hb share the A fragments, GLU in registers, the output written
-// from the accumulators. The row tile is 32 rows (RG 2 x FQ 4 warps): a
-// block's time is its warps' chain over the chunks, and a 64-row tile (RG 4
-// x FQ 2), which reads the weights half as often, was slower at every
-// driven shape on an H100 (N 2000 and 6400 at D 144 and 176; PERF.md §6).
+// conv_front forward (cm_fwd): the LayerNorm in f32 rounded to bf16 into
+// shared memory; warp (rg, fq) of RG x FQ owns 16 rows and 64 / FQ columns
+// of each chunk: ha and hb share the A fragments, GLU in registers, the
+// output written from the accumulators. The row tile is 32 rows (RG 2 x FQ
+// 4 warps): a block's time is its warps' chain over the chunks, and a
+// 64-row tile (RG 4 x FQ 2), which reads the weights half as often, was
+// slower at every driven shape on an H100 (N 2000 and 6400 at D 144 and
+// 176; PERF.md section 6, row 6).
 //
-// Backward (_front_bwd_kernel), recomputing the forward from the saved
-// inputs as the Pallas VJP does:
+// conv_front backward (_front_bwd_kernel), recomputing the forward from the
+// saved inputs as the Pallas VJP does:
 //  1. cm_bwd_rows, 64 rows a block (8 warps, each chunk's 64 columns over 2
 //     warps): ha, hb as in the forward; dha = dg sigma(hb), dhb = dg ha
 //     sigma(hb) (1 - sigma(hb)) in registers; dy += dha_bf16 . Wa_c^T +
@@ -36,11 +39,36 @@
 //     (launch_split_atb: hi.hi + hi.lo + lo.hi, f32 accumulation, a fixed row
 //     split summed in order), and the column-sum partials through
 //     sum_partials_kernel: the same bits on every run, no atomics.
-// What bounds it: at N 6400, D 144 the forward's products are 0.53 GFLOP and
-// the backward's six 1.6 GFLOP of tensor-core work (~2 us at 989 TFLOP/s),
-// beside ~1.8 MB of input and output each way (the bound is bytes:
-// ~1-2 us); a block's chain of LayerNorm, chunk loads and products sets the
-// time.
+//
+// conv_back forward (cb_fwd), 32 rows a block (2 row groups x 4 column
+// parts of each chunk): the BatchNorm apply and swish of the block's rows in
+// f32, rounded to bf16 into shared memory (the reference's
+// a.astype(w2.dtype)); W2 ([in, out]) staged 64 output columns at a time;
+// z = a . W2_c on mma.sync; in registers + b2, the counter-hash dropout by
+// (global row, column), x factor, + x; bf16 written from the accumulators.
+// A 64-row tile was slower at N 6400 (0.0182 against 0.0158 ms at D 144,
+// 0.0209 against 0.0171 at D 176; one NVIDIA H100 80GB HBM3, 700 W).
+// conv_back backward (_back_bwd_kernel):
+//  1. cb_bwd_rows, 32 rows a block as the forward (200 blocks at N 6400, in
+//     one wave; 64-row blocks made the backward 0.0731 against 0.0668 ms at
+//     D 144, 0.0815 against 0.0729 at D 176): y1 staged by cp.async; a = swish(bn) and dz = factor *
+//     dout * keep of every element in f32, a and dz to scratch as bf16 hi +
+//     lo, dz as bf16 into shared memory (the A operand); W2 staged 64 rows
+//     (da's output columns) at a time; da = dz_bf16 . W2_c^T, then dbn = da
+//     swish'(bn) and dy1 = dbn scale rstd in registers, written as bf16; the
+//     column sums db2 (dz), dbias (dbn) and dscale (dbn xhat) leave as one
+//     partial row per 16 rows. No product accumulates across chunks, so the
+//     kernel holds one chunk's fragments, not a [16, D] accumulator.
+//  2. dW2 = a^T . dz through launch_split_atb, the partials through
+//     sum_partials_kernel; conv_module.cu's bn_stat_grads_kernel forms dmean
+//     and dvar from dbias and dscale. The same bits on every run.
+// What bounds them (N 6400, D 144): the products are 0.27 GFLOP
+// (conv_back forward), 0.53 (its backward, da and dW2), 0.53 (conv_front
+// forward) and 1.6 (its backward) of tensor-core work, ~1-2 us at 989
+// TFLOP/s, beside ~2.7 MB of bf16 input and output each way (the bound is
+// bytes: ~1-2 us); a block's chain of elementwise work, chunk loads and
+// products sets the time. Times on one NVIDIA H100 80GB HBM3 at 700 W:
+// PERF.md section 6, rows 6 and 7.
 #include "mma.cuh"
 
 namespace tfasr {
@@ -64,25 +92,28 @@ CMArgs cm_args(int N, int D, float eps, const void* wa, const void* wb) {
   return CMArgs{N, D, (D + 15) / 16 * 16, (D + CM_CC - 1) / CM_CC, D % 8 == 0 && aligned, eps};
 }
 
-// Stage chunk c of Wa and Wb ([D][D], [in][out]) into wa_s, wb_s [Dp][CM_LDC]
-// (Wa[:, chunk]); rows and columns past D zero.
-__device__ __forceinline__ void cm_stage_w(bf16* wa_s, bf16* wb_s, const bf16* wa, const bf16* wb, int c, const CMArgs& a) {
-  const int c0 = c * CM_CC, D = a.D, per = a.Dp * (CM_CC / 8);
-  if (a.vec) {
-    for (int i = threadIdx.x; i < 2 * per; i += blockDim.x) {
-      const int m = i / per, r = i - m * per, d = r / (CM_CC / 8), f = (r % (CM_CC / 8)) * 8;
+// Stage output-column chunk c of one [D][D] ([in][out]) weight into dst
+// [Dp][CM_LDC] (W[:, chunk]); rows and columns past D zero.
+__device__ __forceinline__ void cm_stage_cols(bf16* dst, const bf16* w, int c, int D, int Dp, int vec) {
+  const int c0 = c * CM_CC;
+  if (vec) {
+    for (int i = threadIdx.x; i < Dp * (CM_CC / 8); i += blockDim.x) {
+      const int d = i / (CM_CC / 8), f = (i % (CM_CC / 8)) * 8;
       const bool ok = d < D && c0 + f < D;
-      const bf16* src = m ? wb : wa;
-      cp_async16(smem_u32((m ? wb_s : wa_s) + d * CM_LDC + f), ok ? src + (size_t)d * D + c0 + f : src, ok ? 16 : 0);
+      cp_async16(smem_u32(dst + d * CM_LDC + f), ok ? w + (size_t)d * D + c0 + f : w, ok ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < a.Dp * CM_CC; i += blockDim.x) {
+    for (int i = threadIdx.x; i < Dp * CM_CC; i += blockDim.x) {
       const int d = i / CM_CC, f = i % CM_CC;
-      const bool ok = d < D && c0 + f < D;
-      wa_s[d * CM_LDC + f] = ok ? wa[(size_t)d * D + c0 + f] : __float2bfloat16(0.f);
-      wb_s[d * CM_LDC + f] = ok ? wb[(size_t)d * D + c0 + f] : __float2bfloat16(0.f);
+      dst[d * CM_LDC + f] = (d < D && c0 + f < D) ? w[(size_t)d * D + c0 + f] : __float2bfloat16(0.f);
     }
   }
+}
+
+// Stage chunk c of Wa and Wb into wa_s, wb_s.
+__device__ __forceinline__ void cm_stage_w(bf16* wa_s, bf16* wb_s, const bf16* wa, const bf16* wb, int c, const CMArgs& a) {
+  cm_stage_cols(wa_s, wa, c, a.D, a.Dp, a.vec);
+  cm_stage_cols(wb_s, wb, c, a.D, a.Dp, a.vec);
 }
 
 // ha, hb [16 rows][8 NT columns] = y (16 rows at y_w, [16][ld]) . Wa_c, Wb_c at column col0 ([Dp][CM_LDC]).
@@ -425,6 +456,270 @@ struct BwdOccupancy {
   static int run(int Dp) { return cm_occupancy(cm_bwd_rows<DMAX>, cm_bwd_smem(Dp)); }
 };
 
+// ---------------------------------- conv_back ---------------------------------- //
+
+struct CBArgs {
+  int N, D, Dp, nch;  // Dp: D rounded up to 16; nch: 64-column chunks of W2
+  int vec;            // 16-byte cp.async staging of W2 and y1 rows and 8-wide activation loads (8 | D, aligned)
+  float eps, factor;
+};
+
+CBArgs cb_args(int N, int D, float eps, float factor, const void* w2, const void* y1) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(y1)) & 15) == 0;
+  return CBArgs{N, D, (D + 15) / 16 * 16, (D + CM_CC - 1) / CM_CC, D % 8 == 0 && aligned, eps, factor};
+}
+
+// The BatchNorm apply's per-column constants in shared memory, prm [4][Dp]:
+// mean, rstd = rsqrt(var + eps), scale, bias (pad columns 0).
+__device__ __forceinline__ void cb_stage_bn(float* prm, const float* mean, const float* var, const float* scale, const float* bias, int D, int Dp,
+                                            float eps) {
+  for (int c = threadIdx.x; c < Dp; c += blockDim.x) {
+    const bool ok = c < D;
+    prm[c] = ok ? mean[c] : 0.f;
+    prm[Dp + c] = ok ? rsqrtf(var[c] + eps) : 0.f;
+    prm[2 * Dp + c] = ok ? scale[c] : 0.f;
+    prm[3 * Dp + c] = ok ? bias[c] : 0.f;
+  }
+}
+
+// xhat = (y - mean) * rstd and bn = xhat * scale + bias of column c.
+__device__ __forceinline__ float cb_xhat(const float* prm, int Dp, int c, float y) { return (y - prm[c]) * prm[Dp + c]; }
+__device__ __forceinline__ float cb_bn(const float* prm, int Dp, int c, float xhat) { return xhat * prm[2 * Dp + c] + prm[3 * Dp + c]; }
+
+// z [16 rows][8 NT columns] = a (16 rows at a_w, [16][ld]) . W_c at column col0 ([Dp][CM_LDC]).
+template <int NT>
+__device__ __forceinline__ void cb_times_w(float (&z)[NT][4], const bf16* a_w, int ld, const bf16* w_c, int col0, int nk, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) z[nt][0] = z[nt][1] = z[nt][2] = z[nt][3] = 0.f;
+#pragma unroll 3
+  for (int kk = 0; kk < nk; ++kk) {
+    uint32_t af[4];
+    load_a(af, a_w + kk * 16, ld, lane);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      load_b_kn(b, w_c + kk * 16 * CM_LDC + col0 + np * 16, CM_LDC, lane);
+      mma16816(z[2 * np], af, b[0], b[1]);
+      mma16816(z[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+constexpr int CB_RG = 2, CB_FQ = 4, CB_ROWS = 16 * CB_RG;  // both kernels: row groups of 16 x column parts of each 64-column chunk
+
+// The forward; see the header.
+__global__ void __launch_bounds__(CM_THREADS) cb_fwd(const bf16* __restrict__ x, const bf16* __restrict__ y1, const float* __restrict__ mean,
+                                                      const float* __restrict__ var, const float* __restrict__ scale, const float* __restrict__ bias,
+                                                      const bf16* __restrict__ w2, const bf16* __restrict__ b2, bf16* __restrict__ out, CBArgs a,
+                                                      Dropout dp) {
+  constexpr int RG = CB_RG, ROWS = CB_ROWS, FW = CM_CC / CB_FQ, NT = FW / 8;
+  extern __shared__ __align__(16) unsigned char cm_smem[];
+  const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, N = a.N;
+  bf16* a_s = reinterpret_cast<bf16*>(cm_smem);             // [ROWS][LDD] swish(BN(y1)) rounded to bf16
+  bf16* w_s = a_s + ROWS * LDD;                             // [2][Dp][CM_LDC] W2[:, chunk]
+  float* prm = reinterpret_cast<float*>(w_s + 2 * Dp * CM_LDC);  // [4][Dp]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+  const int rg = warp % RG, fq = warp / RG;
+  const int row0 = blockIdx.x * ROWS, row_lo = row0 + rg * 16 + g;
+
+  cm_stage_cols(w_s, w2, 0, D, Dp, a.vec);
+  cp_async_commit();
+  cb_stage_bn(prm, mean, var, scale, bias, D, Dp, a.eps);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * (Dp / 8); i += blockDim.x) {  // 8 columns a thread
+    const int r = i / (Dp / 8), c0 = (i - r * (Dp / 8)) * 8, row = row0 + r;
+    float v[8];
+    if (row < N && a.vec && c0 < D) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(y1 + (size_t)row * D + c0);
+      const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = to_f32(h[q]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = row < N && c0 + q < D ? to_f32(y1[(size_t)row * D + c0 + q]) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = c0 + q;
+      float s = 0.f;
+      if (row < N && c < D) {
+        const float bn = cb_bn(prm, Dp, c, cb_xhat(prm, Dp, c, v[q]));
+        s = bn * sigmoid_f32(bn);
+      }
+      v[q] = s;
+    }
+    *reinterpret_cast<uint4*>(a_s + r * LDD + c0) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+  const bool pairs = (D & 1) == 0;
+  for (int c = 0; c < a.nch; ++c) {
+    if (c + 1 < a.nch) {
+      cm_stage_cols(w_s + ((c + 1) & 1) * Dp * CM_LDC, w2, c + 1, D, Dp, a.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int col0 = c * CM_CC + fq * FW;
+    if (col0 < D) {
+      float z[NT][4];
+      cb_times_w<NT>(z, a_s + rg * 16 * LDD, LDD, w_s + (c & 1) * Dp * CM_LDC, fq * FW, nk, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = col0 + nt * 8 + 2 * tig;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = row_lo + 8 * hf;
+          if (row >= N || col >= D) continue;
+          const size_t off = (size_t)row * D + col;
+          float o[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int f = col + q < D ? col + q : col;
+            float zz = z[nt][2 * hf + q] + to_f32(b2[f]);
+            if (dp.on) zz *= dropout_keep(dp, dp.seed, row, f);
+            o[q] = to_f32(x[off + (f - col)]) + a.factor * zz;
+          }
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(out + off) = __floats2bfloat162_rn(o[0], o[1]);
+          } else {
+            out[off] = __float2bfloat16(o[0]);
+            if (col + 1 < D) out[off + 1] = __float2bfloat16(o[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // before the next chunk's copy refills this buffer
+  }
+}
+
+// Backward rows pass; see the header. part [CB_RG * blocks][3D]: per 16 rows
+// the column sums of dz (db2), dbn (dbias) and dbn * xhat (dscale).
+__global__ void __launch_bounds__(CM_THREADS) cb_bwd_rows(const bf16* __restrict__ y1, const float* __restrict__ mean, const float* __restrict__ var,
+                                                           const float* __restrict__ scale, const float* __restrict__ bias, const bf16* __restrict__ w2,
+                                                           const bf16* __restrict__ dout, bf16* __restrict__ dy1, Split a_o, Split dz_o,
+                                                           float* __restrict__ part, CBArgs a, Dropout dp) {
+  constexpr int RG = CB_RG, ROWS = CB_ROWS, FW = CM_CC / CB_FQ, NT = FW / 8;
+  extern __shared__ __align__(16) unsigned char cm_smem[];
+  const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, N = a.N;
+  bf16* y_s = reinterpret_cast<bf16*>(cm_smem);  // [ROWS][LDD] y1
+  bf16* dz_s = y_s + ROWS * LDD;                 // [ROWS][LDD] dz rounded to bf16
+  bf16* w_s = dz_s + ROWS * LDD;                 // [2][CM_CC][LDD] W2[chunk, :]
+  float* prm = reinterpret_cast<float*>(w_s + 2 * CM_CC * LDD);  // [4][Dp]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+  const int rg = warp % RG, fq = warp / RG;
+  const int row0 = blockIdx.x * ROWS, row_lo = row0 + rg * 16 + g;
+  float* prow = part + (size_t)(blockIdx.x * RG + rg) * 3 * D;  // this row group's column sums
+
+  am_stage(y_s, y1, row0, N, ROWS, D, Dp, a.vec);
+  cp_async_commit();
+  am_stage(w_s, w2, 0, D, CM_CC, D, Dp, a.vec);
+  cp_async_commit();
+  cb_stage_bn(prm, mean, var, scale, bias, D, Dp, a.eps);
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * (Dp / 2); i += blockDim.x) {  // column pairs
+    const int r = i / (Dp / 2), c = (i - r * (Dp / 2)) * 2, row = row0 + r;
+    float av[2] = {0.f, 0.f}, dz[2] = {0.f, 0.f};
+    if (row < N) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (c + q < D) {
+          const float bn = cb_bn(prm, Dp, c + q, cb_xhat(prm, Dp, c + q, to_f32(y_s[r * LDD + c + q])));
+          av[q] = bn * sigmoid_f32(bn);
+          dz[q] = a.factor * to_f32(dout[(size_t)row * D + c + q]);
+          if (dp.on) dz[q] *= dropout_keep(dp, dp.seed, row, c + q);
+        }
+      }
+      if (c + 1 < D) {
+        put_split2(a_o, row, c, av[0], av[1]);
+        put_split2(dz_o, row, c, dz[0], dz[1]);
+      } else if (c < D) {
+        put_split(a_o, row, c, av[0]);
+        put_split(dz_o, row, c, dz[0]);
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dz_s + r * LDD + c) = __floats2bfloat162_rn(dz[0], dz[1]);
+  }
+  const bool pairs = (D & 1) == 0;
+  const bf16* dzw = dz_s + rg * 16 * LDD;
+  for (int c = 0; c < a.nch; ++c) {
+    if (c + 1 < a.nch) {
+      am_stage(w_s + ((c + 1) & 1) * CM_CC * LDD, w2, (c + 1) * CM_CC, D, CM_CC, D, Dp, a.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int col0 = c * CM_CC + fq * FW;
+    if (col0 < D) {
+      float da[NT][4];  // da = dz_bf16 . W2^T: W2's chunk rows are da's columns
+      am_abT<256, NT>(da, dzw, w_s + (c & 1) * CM_CC * LDD + fq * FW * LDD, LDD, nk, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int fc = col0 + nt * 8 + 2 * tig;
+        float sz[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f}, sx[2] = {0.f, 0.f};  // over rows g and g + 8: dz, dbn, dbn * xhat
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = fc + (e & 1), r = rg * 16 + g + (e >> 1) * 8, row = row0 + r;
+          float d = 0.f;
+          if (f < D && row < N) {
+            const float xh = cb_xhat(prm, Dp, f, to_f32(y_s[r * LDD + f])), bn = cb_bn(prm, Dp, f, xh), sig = sigmoid_f32(bn);
+            const float dbn = da[nt][e] * (sig + bn * sig * (1.f - sig));
+            d = dbn * prm[2 * Dp + f] * prm[Dp + f];
+            float dzv = a.factor * to_f32(dout[(size_t)row * D + f]);
+            if (dp.on) dzv *= dropout_keep(dp, dp.seed, row, f);
+            sz[e & 1] += dzv;
+            sb[e & 1] += dbn;
+            sx[e & 1] += dbn * xh;
+          }
+          da[nt][e] = d;
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = row_lo + 8 * hf;
+          if (fc >= D || row >= N) continue;
+          bf16* o = dy1 + (size_t)row * D + fc;
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(da[nt][2 * hf], da[nt][2 * hf + 1]);
+          } else {
+            o[0] = __float2bfloat16(da[nt][2 * hf]);
+            if (fc + 1 < D) o[1] = __float2bfloat16(da[nt][2 * hf + 1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float s0 = col_sum8(sz[j]), s1 = col_sum8(sb[j]), s2 = col_sum8(sx[j]);
+          if (g == 0 && fc + j < D) prow[fc + j] = s0, prow[D + fc + j] = s1, prow[2 * D + fc + j] = s2;
+        }
+      }
+    }
+    __syncthreads();  // before the next chunk's copy refills this buffer
+  }
+}
+
+size_t cb_fwd_smem(int Dp) { return (size_t)(CB_ROWS * (Dp + AM_PAD) + 2 * Dp * CM_LDC) * sizeof(bf16) + 4 * Dp * sizeof(float); }
+size_t cb_bwd_smem(int Dp) { return (size_t)(2 * CB_ROWS * (Dp + AM_PAD) + 2 * CM_CC * (Dp + AM_PAD)) * sizeof(bf16) + 4 * Dp * sizeof(float); }
+int cb_blocks(int N) { return (N + CB_ROWS - 1) / CB_ROWS; }
+
+// Scratch of the backward, in floats: a, dz [N, Dq] as bf16 hi and lo (Dq:
+// D rounded up to 8), the column-sum partials [CB_RG * blocks][3D], then
+// the weight-gradient partials.
+struct CBScratch {
+  int Dq;
+  size_t a, dz, part, partial, total;
+  CBScratch(int N, int D) {
+    Dq = (D + 7) / 8 * 8;
+    const size_t nd = (size_t)N * Dq;
+    a = 0;
+    dz = a + nd;
+    part = dz + nd;
+    partial = part + (size_t)3 * D * CB_RG * cb_blocks(N);
+    total = partial + (size_t)split_atb_partial_floats(N, D, D);
+  }
+};
+
 }  // namespace
 
 int launch_conv_front_mma(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb, void* out,
@@ -455,21 +750,71 @@ int launch_conv_front_mma_bwd(const void* x, const void* gamma, const void* beta
   return launch_split_atb(y, CMScratch::split(scratch, L.dhb, N, L.Dq), dwb, scratch + L.partial, N, D, D, stream);
 }
 
+int launch_conv_back_mma(const void* x, const void* y1, const void* mean, const void* var, const void* scale, const void* bias, const void* w2,
+                         const void* b2, void* out, int N, int D, float eps, float factor, Dropout dp, cudaStream_t stream) {
+  const CBArgs a = cb_args(N, D, eps, factor, w2, y1);
+  if (a.Dp > 256) return (int)cudaErrorInvalidValue;
+  const size_t smem = cb_fwd_smem(a.Dp);
+  cudaError_t err = allow_smem(cb_fwd, smem);
+  if (err != cudaSuccess) return (int)err;
+  cb_fwd<<<cb_blocks(N), CM_THREADS, smem, stream>>>((const bf16*)x, (const bf16*)y1, (const float*)mean, (const float*)var, (const float*)scale,
+                                                     (const float*)bias, (const bf16*)w2, (const bf16*)b2, (bf16*)out, a, dp);
+  return (int)cudaGetLastError();
+}
+
+long long conv_back_mma_bwd_scratch(int N, int D) { return (long long)CBScratch(N, D).total; }
+
+// cols [3D] f32: db2, dbias, dscale in that order; dw2 [D, D] f32.
+int launch_conv_back_mma_bwd(const void* y1, const void* mean, const void* var, const void* scale, const void* bias, const void* w2, const void* dout,
+                             void* dy1, float* cols, float* dw2, float* scratch, int N, int D, float eps, float factor, Dropout dp,
+                             cudaStream_t stream) {
+  const CBArgs a = cb_args(N, D, eps, factor, w2, y1);
+  if (a.Dp > 256) return (int)cudaErrorInvalidValue;
+  const CBScratch L(N, D);
+  const size_t smem = cb_bwd_smem(a.Dp);
+  cudaError_t err = allow_smem(cb_bwd_rows, smem);
+  if (err != cudaSuccess) return (int)err;
+  const Split as = CMScratch::split(scratch, L.a, N, L.Dq), dzs = CMScratch::split(scratch, L.dz, N, L.Dq);
+  cb_bwd_rows<<<cb_blocks(N), CM_THREADS, smem, stream>>>((const bf16*)y1, (const float*)mean, (const float*)var, (const float*)scale,
+                                                          (const float*)bias, (const bf16*)w2, (const bf16*)dout, (bf16*)dy1, as, dzs, scratch + L.part,
+                                                          a, dp);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  if ((e = launch_sum_partials(scratch + L.part, cols, CB_RG * cb_blocks(N), (size_t)3 * D, stream))) return e;
+  return launch_split_atb(as, dzs, dw2, scratch + L.partial, N, D, D, stream);
+}
+
 }  // namespace tfasr
 
-// Dynamic shared memory (bytes) of the bf16 forward (which 0) or backward
-// rows kernel (1) at width D; tests/test_torch_joint_conv_mma.py plans the same.
+// Dynamic shared memory (bytes) at width D of the bf16 kernels: conv_front's
+// forward (which 0) and backward rows pass (1), conv_back's forward (2) and
+// backward rows pass (3); tests/test_torch_joint_conv_mma.py and
+// tests/test_torch_conv_back_fft.py plan the same.
 extern "C" long long tfasr_conv_mma_smem(int D, int which) {
+  using namespace tfasr;
   const int Dp = (D + 15) / 16 * 16;
-  return (long long)(which == 0 ? tfasr::cm_fwd_smem(Dp, tfasr::CM_FWD_ROWS) : tfasr::cm_bwd_smem(Dp));
+  switch (which) {
+    case 0: return (long long)cm_fwd_smem(Dp, CM_FWD_ROWS);
+    case 1: return (long long)cm_bwd_smem(Dp);
+    case 2: return (long long)cb_fwd_smem(Dp);
+    case 3: return (long long)cb_bwd_smem(Dp);
+    default: return -1;
+  }
 }
 
 // Blocks per SM of that kernel on the current card; a negative value is the CUDA error.
 extern "C" int tfasr_conv_mma_occupancy(int D, int which) {
   using namespace tfasr;
   const int Dp = (D + 15) / 16 * 16;
-  return which == 0 ? cm_occupancy(cm_fwd, cm_fwd_smem(Dp, CM_FWD_ROWS)) : cm_dispatch<BwdOccupancy>(Dp, Dp);
+  switch (which) {
+    case 0: return cm_occupancy(cm_fwd, cm_fwd_smem(Dp, CM_FWD_ROWS));
+    case 1: return cm_dispatch<BwdOccupancy>(Dp, Dp);
+    case 2: return cm_occupancy(cb_fwd, cb_fwd_smem(Dp));
+    case 3: return cm_occupancy(cb_bwd_rows, cb_bwd_smem(Dp));
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
-// Floats of scratch the bf16 backward needs.
+// Floats of scratch the bf16 backwards need.
 extern "C" long long tfasr_conv_front_mma_scratch(int N, int D) { return tfasr::conv_front_mma_bwd_scratch(N, D); }
+extern "C" long long tfasr_conv_back_mma_scratch(int N, int D) { return tfasr::conv_back_mma_bwd_scratch(N, D); }

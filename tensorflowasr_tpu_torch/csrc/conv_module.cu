@@ -1,34 +1,31 @@
-// Fused Conformer convolution module, the two halves around the depthwise
-// conv (which stays a library op, as the reference leaves it to XLA):
+// The Conformer convolution module's two fused halves around the depthwise
+// conv (which stays a library op, as the reference leaves it to XLA), in
+// f32 on the CUDA cores, and the C entry points of both dtypes:
 //   conv_front: GLU([LN(x).Wa + ba, LN(x).Wb + bb]) = a * sigmoid(b)
 //   conv_back:  x + factor * drop(swish((y1 - mean) * rsqrt(var + eps) * scale + bias) . W2 + b2)
 //
-// Counterpart of tensorflowasr_tpu/ops/pallas/conv_kernel.py conv_front and
-// conv_back. Forward: one block owns CV_RT rows: the normalised (front) or
-// activated (back) row tile sits in shared memory, and the D x D pointwise
-// weights are staged CV_CC output columns at a time, so each weight element
-// is read once per row tile. Elementwise math and accumulation are f32.
-// conv_back's dropout uses the counter hash of common.cuh indexed by
-// (global row b*T + t, column), which is the JAX kernel's index whenever it
-// packs the whole batch into one grid step.
-//
-// Backward (replaces _front_bwd_kernel / _front_vjp_bwd, conv_kernel.py:92,
-// 187-219, and _back_bwd_kernel / _back_vjp_bwd, :273-305, 359-400): one
+// Counterpart of tensorflowasr_tpu/ops/pallas/conv_kernel.py conv_front
+// (:160, pallas_call :175 and :194) and conv_back (:329, pallas_call :349
+// and :375). The entry points send bf16 to the tensor-core kernels of
+// conv_mma.cu (both halves, forward and backward); the kernels here are
+// the f32 parity path. Forward: one block owns CV_RT rows, the normalised
+// (front) or activated (back) row tile sits in shared memory, and the D x D
+// weights are staged CV_CC output columns at a time, f32 FMA. Backward (the
+// Pallas VJPs _front_bwd_kernel, :92, and _back_bwd_kernel, :273): one
 // block per CV_RT rows recomputes the forward from the saved inputs, forms
 // the row gradients (dx through the LayerNorm; dy1 through BatchNorm-apply
-// and swish) with the weights staged as in the forward, and writes the row
-// activations the parameter gradients need to f32 scratch. The
-// deterministic row reduction of row_reduce.cu then sums dWa, dWb, dW2 and
-// the vector gradients (the TPU accumulates them in revisited output blocks
-// of a sequential grid). conv_back also emits dmean and dvar, which
-// autograd carries into the batch-statistics path, and its skip gradient is
-// the identity. What bounds them: the f32 products on the CUDA cores at 6400
-// rows (conv_front ~1.6 GFLOP, rows kernel and reductions; conv_back ~0.5),
-// and ~15-18 MB of f32 scratch written and read once.
+// and swish), and writes the row activations the parameter gradients need
+// to f32 scratch; row_reduce.cu's fixed-order row reduction sums dWa, dWb,
+// dW2 and the vector gradients. conv_back also emits dmean and dvar
+// (bn_stat_grads_kernel, for both dtypes), which autograd carries into the
+// batch-statistics path; its skip gradient is the identity. conv_back's
+// dropout is the counter hash of common.cuh indexed by (global row b*T + t,
+// column), in every kernel of both dtypes.
 //
-// conv_front in bf16 runs on the tensor cores (conv_mma.cu), to which its C
-// entry points dispatch; the kernels here run its f32 parity path and
-// conv_back in both types.
+// What bounds the f32 path on an H100: the products on the CUDA cores (67
+// TFLOP/s f32) and ~15-18 MB of f32 scratch at N 6400, D 144. Its times and
+// the bf16 kernels' (one NVIDIA H100 80GB HBM3, 700 W power limit): PERF.md
+// section 6, rows 6 and 7.
 #include "common.cuh"
 
 namespace tfasr {
@@ -351,6 +348,13 @@ __global__ void bn_stat_grads_kernel(const float* __restrict__ dbn_sum, const fl
   dvar[c] = dbnx_sum[c] * scale[c] * -0.5f * rstd * rstd;
 }
 
+inline int launch_bn_stat_grads(const void* dbias, const void* dscale, const void* var, const void* scale, void* dmean, void* dvar, int D, float eps,
+                                cudaStream_t stream) {
+  bn_stat_grads_kernel<<<(D + 127) / 128, 128, 0, stream>>>((const float*)dbias, (const float*)dscale, (const float*)var, (const float*)scale,
+                                                            (float*)dmean, (float*)dvar, D, eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_front(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb,
                  const void* bb, void* out, int N, int D, float eps, cudaStream_t stream) {
@@ -426,18 +430,20 @@ int launch_back_bwd(const void* y1, const void* mean, const void* var, const voi
   if ((e = launch_atb(nullptr, dz, (float*)db2, partial, N, 1, D, 0, stream))) return e;
   if ((e = launch_atb(nullptr, dbnx, (float*)dscale, partial, N, 1, D, 0, stream))) return e;
   if ((e = launch_atb(nullptr, dbn, (float*)dbias, partial, N, 1, D, 0, stream))) return e;
-  bn_stat_grads_kernel<<<(D + 127) / 128, 128, 0, stream>>>((const float*)dbias, (const float*)dscale,
-                                                            (const float*)var, (const float*)scale, (float*)dmean,
-                                                            (float*)dvar, D, eps);
-  return (int)cudaGetLastError();
+  return launch_bn_stat_grads(dbias, dscale, var, scale, dmean, dvar, D, eps, stream);
 }
 
-// The bf16 conv_front kernels (conv_mma.cu).
+// The bf16 kernels of both halves (conv_mma.cu).
 int launch_conv_front_mma(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb, void* out,
                           int N, int D, float eps, cudaStream_t stream);
 int launch_conv_front_mma_bwd(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb,
                               const void* dout, void* dx, float* cols, float* dwa, float* dwb, float* scratch, int N, int D, float eps,
                               cudaStream_t stream);
+int launch_conv_back_mma(const void* x, const void* y1, const void* mean, const void* var, const void* scale, const void* bias, const void* w2,
+                         const void* b2, void* out, int N, int D, float eps, float factor, Dropout dp, cudaStream_t stream);
+int launch_conv_back_mma_bwd(const void* y1, const void* mean, const void* var, const void* scale, const void* bias, const void* w2, const void* dout,
+                             void* dy1, float* cols, float* dw2, float* scratch, int N, int D, float eps, float factor, Dropout dp,
+                             cudaStream_t stream);
 
 }  // namespace tfasr
 
@@ -459,9 +465,7 @@ extern "C" int tfasr_conv_back(const void* x, const void* y1, const void* mean, 
                                int dtype, void* stream) {
   using namespace tfasr;
   const Dropout dp{seed, thresh, keep_scale, drop_on};
-  if (dtype == kBF16)
-    return launch_back<__nv_bfloat16>(x, y1, mean, var, scale, bias, w2, b2, out, N, D, eps, factor, dp,
-                                      (cudaStream_t)stream);
+  if (dtype == kBF16) return launch_conv_back_mma(x, y1, mean, var, scale, bias, w2, b2, out, N, D, eps, factor, dp, (cudaStream_t)stream);
   return launch_back<float>(x, y1, mean, var, scale, bias, w2, b2, out, N, D, eps, factor, dp, (cudaStream_t)stream);
 }
 
@@ -491,7 +495,8 @@ extern "C" int tfasr_conv_front_bwd(const void* x, const void* gamma, const void
 
 // Gradients of tfasr_conv_back except the skip path (the identity): dout
 // [N, D] → dy1 [N, D] in y1's dtype; dmean, dvar, dscale, dbias, db2 [D] and
-// dw2 [D, D] in f32.
+// dw2 [D, D] in f32. bf16 needs db2, dbias, dscale to be consecutive views
+// of one [3D] row and the scratch of tfasr_conv_back_mma_scratch.
 extern "C" int tfasr_conv_back_bwd(const void* y1, const void* mean, const void* var, const void* scale,
                                    const void* bias, const void* w2, const void* dout, void* dy1, void* dmean,
                                    void* dvar, void* dscale, void* dbias, void* dw2, void* db2, void* scratch, int N,
@@ -499,9 +504,14 @@ extern "C" int tfasr_conv_back_bwd(const void* y1, const void* mean, const void*
                                    float keep_scale, int drop_on, int dtype, void* stream) {
   using namespace tfasr;
   const Dropout dp{seed, thresh, keep_scale, drop_on};
-  if (dtype == kBF16)
-    return launch_back_bwd<__nv_bfloat16>(y1, mean, var, scale, bias, w2, dout, dy1, dmean, dvar, dscale, dbias, dw2,
-                                          db2, (float*)scratch, N, D, eps, factor, dp, (cudaStream_t)stream);
+  if (dtype == kBF16) {
+    float* cols = (float*)db2;
+    if ((float*)dbias != cols + D || (float*)dscale != cols + 2 * D) return (int)cudaErrorInvalidValue;
+    int e = launch_conv_back_mma_bwd(y1, mean, var, scale, bias, w2, dout, dy1, cols, (float*)dw2, (float*)scratch, N, D, eps, factor, dp,
+                                     (cudaStream_t)stream);
+    if (e) return e;
+    return launch_bn_stat_grads(dbias, dscale, var, scale, dmean, dvar, D, eps, (cudaStream_t)stream);
+  }
   return launch_back_bwd<float>(y1, mean, var, scale, bias, w2, dout, dy1, dmean, dvar, dscale, dbias, dw2, db2,
                                 (float*)scratch, N, D, eps, factor, dp, (cudaStream_t)stream);
 }

@@ -39,7 +39,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, on
 _SIGNATURES = {
-    "tfasr_log_mel": ([_P] * 5 + [_I] * 7 + [_F, _P], ctypes.c_int),
+    "tfasr_log_mel_fft": ([_P] * 7 + [_I] * 8 + [_F, _P], ctypes.c_int),
+    "tfasr_log_mel_fft_smem": ([_I] * 5, ctypes.c_longlong),
+    "tfasr_log_mel_dft": ([_P] * 7 + [_I] * 7 + [_F, _P], ctypes.c_int),
     "tfasr_rel_attention": ([_P] * 9 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_rel_attention_bwd": ([_P] * 17 + [_I] * 11 + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_rel_mma_smem": ([_I] * 2, ctypes.c_longlong),
@@ -61,6 +63,7 @@ _SIGNATURES = {
     "tfasr_conv_front_mma_scratch": ([_I] * 2, ctypes.c_longlong),
     "tfasr_conv_mma_smem": ([_I] * 2, ctypes.c_longlong),
     "tfasr_conv_mma_occupancy": ([_I] * 2, ctypes.c_int),
+    "tfasr_conv_back_mma_scratch": ([_I] * 2, ctypes.c_longlong),
     "tfasr_rnnt_dp": ([_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
     "tfasr_joint_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_joint_bwd": ([_P] * 13 + [_I] * 6 + [_P], ctypes.c_int),

@@ -1,5 +1,5 @@
 """Fused Conformer convolution-module kernels, forward and backward
-(``csrc/conv_module.cu``; ``conv_front`` in bf16: ``csrc/conv_mma.cu``).
+(bf16: ``csrc/conv_mma.cu``, on the tensor cores; f32: ``csrc/conv_module.cu``).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/conv_kernel.py:conv_front`` (LN →
 two D×D pointwise products → GLU) and ``:conv_back`` (BatchNorm apply with
@@ -14,23 +14,24 @@ over [B·T, 2D] and [B·T, D] tensors (LN, the 2D pointwise output, GLU, BN,
 swish, pointwise, residual). Each forward kernel reads its row tile once
 and writes once: a block keeps the normalised (front) or activated (back)
 tile in shared memory and stages the D×D weights 64 output columns at a
-time. ``conv_front`` in bf16 runs on the tensor cores (``mma.sync``, the
-weight chunks double-buffered with cp.async, 32 rows a block in the
-forward, 64 in the backward); its f32 parity path and ``conv_back`` keep
-the CUDA-core kernels (16 rows a block). Elementwise math and accumulation
-are f32; product operands are rounded to the weights' type as in the
-reference.
+time. In bf16 both halves run on the tensor cores (``mma.sync``, the weight
+chunks double-buffered with cp.async; ``conv_front`` 32 rows a block
+forward, 64 backward); their f32 parity path keeps the CUDA-core kernels
+(16 rows a block). Elementwise math and accumulation are f32; product
+operands are rounded to the weights' type as in the reference.
 ``conv_back``'s dropout runs in-kernel from the counter hash of
 ``ops/dropout.py`` indexed by (global row b·T + t, column).
 
 The backwards (:class:`_ConvFront`, :class:`_ConvBack`) save the inputs
 and recompute, as the Pallas VJPs do; their kernels write the row
-gradients and activations, and a deterministic row reduction forms the
-parameter gradients (``conv_front`` in bf16: from bf16 high and low parts
-on the tensor cores, as the fused FF's). ``conv_back`` emits dmean and
-dvar, which autograd carries into the batch-statistics path; its skip
-gradient is the identity. :func:`conv_front_plain_bwd` and :func:`conv_back_plain_bwd` are
-the plain twins with the explicit formulas of the Pallas backwards.
+gradients and the activations the weight gradients need, and a
+deterministic row reduction forms the parameter gradients (in bf16: from
+bf16 high and low parts on the tensor cores, as the fused FF's; the column
+sums from one partial row per 16 rows, summed in order). ``conv_back``
+emits dmean and dvar, which autograd carries into the batch-statistics
+path; its skip gradient is the identity. :func:`conv_front_plain_bwd` and
+:func:`conv_back_plain_bwd` are the plain twins with the explicit formulas
+of the Pallas backwards.
 """
 
 from __future__ import annotations
@@ -225,6 +226,17 @@ def conv_back_plain_bwd(y1, mean, var, scale, bias, w2, dout, seed=0, rate: floa
     """Gradients (dy1, dmean, dvar, dscale, dbias, dW2, db2) of
     :func:`conv_back` (the skip gradient is ``dout`` itself) with the
     explicit formulas of the Pallas ``_back_bwd_kernel`` (conv_kernel.py:273-305)."""
+    return _back_as_inputs(conv_back_plain_bwd_f32(y1, mean, var, scale, bias, w2, dout, seed, rate, factor, eps), y1, mean, var, scale, bias, w2)
+
+
+def _back_as_inputs(grads, y1, mean, var, scale, bias, w2):
+    dy1, dmean, dvar, dscale, dbias, dw2, db2 = grads
+    return (dy1.to(y1.dtype), dmean.to(mean.dtype), dvar.to(var.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype), dw2.to(w2.dtype),
+            db2.to(w2.dtype))
+
+
+def conv_back_plain_bwd_f32(y1, mean, var, scale, bias, w2, dout, seed=0, rate: float = 0.0, factor: float = 1.0, eps: float = 1e-3):
+    """:func:`conv_back_plain_bwd` before the final casts: every gradient in f32."""
     rstd = torch.rsqrt(var.float() + eps)
     xhat = (y1.float() - mean.float()) * rstd
     bn = xhat * scale.float() + bias.float()
@@ -241,8 +253,7 @@ def conv_back_plain_bwd(y1, mean, var, scale, bias, w2, dout, seed=0, rate: floa
     dy1 = dxhat * rstd
     dmean = rows(-dxhat * rstd).sum(0)
     dvar = rows(dxhat * xhat).sum(0) * -0.5 * rstd * rstd
-    return (dy1.to(y1.dtype), dmean.to(mean.dtype), dvar.to(var.dtype), rows(dbn * xhat).sum(0).to(scale.dtype), rows(dbn).sum(0).to(bias.dtype),
-            (rows(a).t() @ rows(dz)).to(w2.dtype), rows(dz).sum(0).to(w2.dtype))
+    return dy1, dmean, dvar, rows(dbn * xhat).sum(0), rows(dbn).sum(0), rows(a).t() @ rows(dz), rows(dz).sum(0)
 
 
 def _check_back(x, y1, mean, var, scale, bias, w2, b2):
@@ -265,6 +276,8 @@ def conv_back_kernel(x, y1, mean, var, scale, bias, w2, b2, seed=0, rate: float 
     out = torch.empty_like(x)
     if n == 0:
         return out
+    if x.dtype == torch.bfloat16 and d > MAX_D:
+        raise ValueError(f"model width {d} > {MAX_D} is not supported by the bf16 kernel")
     lib = _build.build()
     with torch.cuda.device(x.device):
         err = lib.tfasr_conv_back(
@@ -278,16 +291,26 @@ def conv_back_kernel(x, y1, mean, var, scale, bias, w2, b2, seed=0, rate: float 
 
 def conv_back_bwd_kernel(y1, mean, var, scale, bias, w2, dout, seed=0, rate: float = 0.0, factor: float = 1.0, eps: float = 1e-3):
     """The conv_back backward kernel on CUDA tensors: same results as :func:`conv_back_plain_bwd`."""
+    return _back_as_inputs(conv_back_bwd_kernel_f32(y1, mean, var, scale, bias, w2, dout, seed, rate, factor, eps), y1, mean, var, scale, bias, w2)
+
+
+def conv_back_bwd_kernel_f32(y1, mean, var, scale, bias, w2, dout, seed=0, rate: float = 0.0, factor: float = 1.0, eps: float = 1e-3):
+    """:func:`conv_back_bwd_kernel` before the final casts: dy1 in y1's dtype, the parameter gradients in f32."""
     global back_bwd_launches
     n, d, code = _check_back(y1, y1, mean, var, scale, bias, w2, w2[0])
     _build.require(dout, "dout", device=y1.device, dtype=y1.dtype, shape=tuple(y1.shape))
+    if y1.dtype == torch.bfloat16 and d > MAX_D:
+        raise ValueError(f"model width {d} > {MAX_D} is not supported by the bf16 kernel")
     f32 = dict(dtype=torch.float32, device=y1.device)
     dy1 = torch.empty_like(y1)
-    dmean, dvar, dscale, dbias, db2 = (torch.zeros(d, **f32) for _ in range(5))
+    cols = torch.zeros(3 * d, **f32)  # db2, dbias, dscale: the bf16 kernels write them as one row
+    db2, dbias, dscale = cols.split(d)
+    dmean, dvar = torch.zeros(d, **f32), torch.zeros(d, **f32)
     dw2 = torch.zeros((d, d), **f32)
     if n > 0:
         lib = _build.build()
-        scratch = torch.empty(int(lib.tfasr_conv_bwd_scratch(n, d)), **f32)
+        floats = lib.tfasr_conv_back_mma_scratch(n, d) if y1.dtype == torch.bfloat16 else lib.tfasr_conv_bwd_scratch(n, d)
+        scratch = torch.empty(int(floats), **f32)
         with torch.cuda.device(y1.device):
             err = lib.tfasr_conv_back_bwd(
                 y1.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(), w2.data_ptr(), dout.data_ptr(), dy1.data_ptr(),
@@ -296,7 +319,7 @@ def conv_back_bwd_kernel(y1, mean, var, scale, bias, w2, dout, seed=0, rate: flo
             )
         _build.check(err, "conv_back backward")
         back_bwd_launches += 1
-    return dy1, dmean, dvar, dscale, dbias, dw2.to(w2.dtype), db2.to(w2.dtype)
+    return dy1, dmean, dvar, dscale, dbias, dw2, db2
 
 
 class _ConvBack(torch.autograd.Function):

@@ -1,19 +1,32 @@
-"""Fused log-mel frontend kernel (``csrc/frontend.cu``).
+"""Fused log-mel frontend kernels (``csrc/frontend.cu``).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/frontend_kernel.py``:
 ``log_mel_spectrogram_pallas`` (v1, XLA framing) and
-``log_mel_spectrogram_pallas_v2`` (in-kernel framing) — this one kernel
-frames in-kernel, so it is the counterpart of both.
+``log_mel_spectrogram_pallas_v2`` (in-kernel framing). The kernels frame
+in-kernel, so they are the counterpart of both. The JAX kernels take the
+DFT as dense products against [frame_length, nfft/2+1] bases because the
+MXU is the TPU's only fast unit; the card has no such constraint.
 
-What bounds it on the card: the DFT is ~0.8 MFLOP per frame (400 samples
-× 257 bins × cos and sin), f32 on the CUDA cores, since the reference pins
-its products to HIGHEST and TF32 would round the raw samples. The
-[B·T, 400] framed signal (4× the audio, every sample in ~2.5 frames) is
-the device-memory traffic the design removes: each block copies its
-frames' samples from the signal by index arithmetic into shared memory,
-keeps one (re, im) pair per frame and bin in registers while the windowed
-bases stream from L2, and forms the power spectrum and mel product in
-shared memory. Only the signal is read and only the features written.
+Which kernel runs is decided by the shape, here, never by a failure:
+
+- a power-of-two ``nfft`` from 256 to 2048 (:data:`FFT_SIZES`; every
+  example config takes 512) takes the FFT kernel: one warp per frame windows
+  the frame into nfft/2 complex points, runs a radix-2/4 FFT in shared
+  memory with twiddles from a table built here in float64
+  (:func:`twiddles`), splits it into the nfft/2+1 real bins, and sums each
+  mel filter over its nonzero bins only (:func:`mel_ranges`);
+- any other ``nfft`` (at least frame_length; ``nfft=None`` is the
+  frame_length-point case) takes the direct-DFT kernel against the
+  Hann-windowed bases of :func:`_dft_bases`, with the same sparse mel stage.
+
+What bounds them on the card: the FFT kernel does ~12 kFLOP a frame at
+nfft 512, so its bound is the signal read once and the features written
+once; the DFT is ~0.8 MFLOP a frame (400 samples × 257 bins × cos and sin,
+f32 on the CUDA cores, since the reference pins its products to HIGHEST).
+Only the signal is read and only the features written: each block copies
+its frames' samples from the signal by index arithmetic into shared
+memory. Times on one NVIDIA H100 80GB HBM3 at 700 W: PERF.md section 6,
+rows 1 and 2.
 """
 
 from __future__ import annotations
@@ -24,9 +37,38 @@ import torch
 from tensorflowasr_tpu_torch.ops import frontend
 from tensorflowasr_tpu_torch.ops.cuda import _build
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0  # FFT kernel launches since the last reset (set to 0 to reset)
+dft_launches = 0  # direct-DFT kernel launches since the last reset
 
-_BASES: dict = {}  # (device, frame_length, nfft, mel args) → device tensors
+FFT_SIZES = (256, 512, 1024, 2048)  # the nfft the FFT kernel takes
+
+_CONSTS: dict = {}  # (device, kernel, config fields) → device tensors
+
+
+def uses_fft(nfft: int) -> bool:
+    """Whether ``nfft`` takes the FFT kernel (else the direct-DFT kernel)."""
+    return nfft in FFT_SIZES
+
+
+def twiddles(nfft: int) -> np.ndarray:
+    """W_n^k = exp(−2πik/nfft) for k < nfft, computed in float64 and cast: [nfft, 2] f32 (re, im)."""
+    ang = 2.0 * np.pi * np.arange(nfft, dtype=np.float64) / nfft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def mel_ranges(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The mel filters' nonzero bins: (weights f32 [nnz], first bin int32
+    [nmel], offsets int32 [nmel + 1]); filter m's weights are
+    weights[off[m]:off[m+1]] for bins lo[m] onwards (an all-zero filter has
+    none)."""
+    weights, lo, off = [], [], [0]
+    for m in range(mel.shape[1]):
+        nz = np.flatnonzero(mel[:, m])
+        first, last = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        weights.append(mel[first:last, m])
+        lo.append(first)
+        off.append(off[-1] + last - first)
+    return np.concatenate(weights).astype(np.float32), np.asarray(lo, np.int32), np.asarray(off, np.int32)
 
 
 def _dft_bases(frame_length: int, nfft: int) -> tuple[np.ndarray, np.ndarray]:
@@ -38,14 +80,21 @@ def _dft_bases(frame_length: int, nfft: int) -> tuple[np.ndarray, np.ndarray]:
     return (np.cos(ang) * window[:, None]).astype(np.float32), (-np.sin(ang) * window[:, None]).astype(np.float32)
 
 
-def _device_constants(config: frontend.FrontendConfig, device: torch.device):
-    nbins = config.fft_length // 2 + 1
-    key = (device, config.frame_length, config.fft_length, config.num_feature_bins, config.sample_rate, config.lower_edge_hertz, config.upper_edge_hertz)
-    if key not in _BASES:
-        cos_b, sin_b = _dft_bases(config.frame_length, config.fft_length)
-        mel = frontend.linear_to_mel_weight_matrix(config.num_feature_bins, nbins, config.sample_rate, config.lower_edge_hertz, config.upper_edge_hertz)
-        _BASES[key] = tuple(torch.tensor(a, device=device) for a in (cos_b, sin_b, mel))
-    return _BASES[key]
+def _device_constants(config: frontend.FrontendConfig, device: torch.device) -> tuple:
+    """The kernel's tables on ``device``: FFT (twiddles, window, mel weights,
+    first bins, offsets) or DFT (cos, sin, mel weights, first bins, offsets)."""
+    nfft = config.fft_length
+    key = (device, uses_fft(nfft), config.frame_length, nfft, config.num_feature_bins, config.sample_rate, config.lower_edge_hertz,
+           config.upper_edge_hertz)
+    if key not in _CONSTS:
+        mel = frontend.linear_to_mel_weight_matrix(config.num_feature_bins, nfft // 2 + 1, config.sample_rate, config.lower_edge_hertz,
+                                                   config.upper_edge_hertz)
+        if uses_fft(nfft):
+            head = (twiddles(nfft), frontend.hann_window(config.frame_length).numpy())
+        else:
+            head = _dft_bases(config.frame_length, nfft)
+        _CONSTS[key] = tuple(torch.tensor(a, device=device) for a in (*head, *mel_ranges(mel)))
+    return _CONSTS[key]
 
 
 def _check_config(config: frontend.FrontendConfig) -> None:
@@ -63,9 +112,10 @@ def log_mel_spectrogram_plain(signal: torch.Tensor, config: frontend.FrontendCon
 
 def log_mel_spectrogram_pallas(signal: torch.Tensor, config: frontend.FrontendConfig) -> torch.Tensor:
     """[B, N] f32 (preemphasised) → [B, T, num_feature_bins] f32 log-mel,
-    T = ceil(N / frame_step). A CUDA tensor launches the kernel; a CPU
+    T = ceil(N / frame_step). A CUDA tensor launches the FFT kernel (nfft in
+    :data:`FFT_SIZES`) or the direct-DFT kernel (any other nfft); a CPU
     tensor takes :func:`log_mel_spectrogram_plain`."""
-    global launches
+    global launches, dft_launches
     _check_config(config)
     if signal.device.type == "cpu":
         return log_mel_spectrogram_plain(signal, config)
@@ -76,17 +126,21 @@ def log_mel_spectrogram_pallas(signal: torch.Tensor, config: frontend.FrontendCo
     b, n = signal.shape
     _build.require(signal, "signal", device=signal.device, dtype=torch.float32, shape=(b, n))
     t = config.get_nframes(n)
-    nmel = config.num_feature_bins
+    nmel, nfft = config.num_feature_bins, config.fft_length
     out = torch.empty((b, t, nmel), dtype=torch.float32, device=signal.device)
     if b == 0 or t == 0:
         return out
-    cos_b, sin_b, mel = _device_constants(config, signal.device)
+    consts = _device_constants(config, signal.device)
     lib = _build.build()
+    fft = uses_fft(nfft)
+    sizes = (nfft, nmel, consts[2].numel()) if fft else (nfft // 2 + 1, nmel)
     with torch.cuda.device(signal.device):
-        err = lib.tfasr_log_mel(
-            signal.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), mel.data_ptr(), out.data_ptr(),
-            b, n, t, config.frame_length, config.frame_step, cos_b.shape[1], nmel, float(config.epsilon), _build.stream_of(signal),
-        )
+        launch = lib.tfasr_log_mel_fft if fft else lib.tfasr_log_mel_dft
+        err = launch(signal.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(), b, n, t, config.frame_length, config.frame_step, *sizes,
+                     float(config.epsilon), _build.stream_of(signal))
     _build.check(err, "log_mel_spectrogram_pallas")
-    launches += 1
+    if fft:
+        launches += 1
+    else:
+        dft_launches += 1
     return out

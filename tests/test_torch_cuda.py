@@ -8,7 +8,7 @@ imports no JAX, so it also runs on a machine without it:
 Tolerances: f32 with TF32 off differs from the plain version only in
 summation order (1e-4 absolute on unit-scale outputs); bf16 may flip one
 rounding of an operand or output (2^-8 relative), so 2e-2; the log-mel
-frontend compares a direct DFT with an FFT in f32, 1e-3 in log. The RNN-T
+frontend compares its FFT (or direct DFT) with the plain rfft chain in f32, 1e-3 in log. The RNN-T
 DP (f32 only) chains T+U log-add-exps: its loss to 1e-5 relative, its
 gradients (occupancies in [−1, 0]) to 1e-5 absolute. The log-probability
 row kernel computes in f32 from the same inputs as its plain version in
@@ -68,13 +68,16 @@ def _r(gen, dev, shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
-@pytest.mark.parametrize("shape", [(8, 160000), (1, 16123), (3, 400), (2, 100)])
+@pytest.mark.parametrize("shape", [(8, 160000), (1, 16123), (3, 400), (2, 100), (16, 256000), (1, 2800), (2, 300)])
 def test_frontend_kernel(dev, shape):
+    """The FFT kernel (nfft 512) against the plain rfft chain at the serving,
+    training and one-chunk shapes, N not a multiple of the stride and N
+    below one frame; one launch, no DFT launch."""
     cfg = frontend.FrontendConfig()
     sig = _r(_gen(dev), dev, shape, 0.3)
-    before = fek.launches
+    before = (fek.launches, fek.dft_launches)
     got = fek.log_mel_spectrogram_pallas(sig, cfg)
-    assert fek.launches == before + 1
+    assert (fek.launches, fek.dft_launches) == (before[0] + 1, before[1])
     torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
 
 
@@ -378,6 +381,91 @@ def test_conv_mma_plan_matches_the_kernels(dev, d):
     for which, name in enumerate(("fwd", "bwd")):
         assert lib.tfasr_conv_mma_smem(d, which) == getattr(plan, f"{name}_smem_bytes"), name
         assert 1 <= lib.tfasr_conv_mma_occupancy(d, which) <= getattr(plan, f"{name}_blocks_per_sm"), name
+
+
+def _conv_back_args(dev, dtype, b, t, d, seed=15):
+    g = _gen(dev, seed)
+    x, y1, dout = (_r(g, dev, (b, t, d), 1.0, dtype) for _ in range(3))
+    stats = (_r(g, dev, (d,), 0.1), 1.0 + torch.rand((d,), generator=g, device=dev), 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1))
+    return x, y1, stats, _r(g, dev, (d, d), d ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype), dout
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,d", [(16, 400, 144), (16, 400, 176), (8, 250, 144), (1, 16, 144), (3, 17, 256), (1, 5, 100)])
+def test_conv_back_bf16_kernels(dev, b, t, d, rate):
+    """conv_back's bf16 tensor-core forward and backward (conv_mma.cu) against
+    the plain version at the training widths, serving, a streaming chunk
+    and ragged N, with and without dropout; one launch each."""
+    x, y1, stats, w2, b2, dout = _conv_back_args(dev, torch.bfloat16, b, t, d)
+    before = (ck.back_launches, ck.back_bwd_launches)
+    torch.testing.assert_close(ck.conv_back_kernel(x, y1, *stats, w2, b2, 21, rate, 0.5),
+                               ck.conv_back_plain(x, y1, *stats, w2, b2, 21, rate, 0.5), **TOL[torch.bfloat16])
+    got = ck.conv_back_bwd_kernel(y1, *stats, w2, dout, 21, rate, 0.5)
+    assert (ck.back_launches, ck.back_bwd_launches) == (before[0] + 1, before[1] + 1)
+    _grads_close(got, ck.conv_back_plain_bwd(y1, *stats, w2, dout, 21, rate, 0.5), GRAD_REL[torch.bfloat16], f"conv_back {b}x{t}x{d}")
+
+
+@pytest.mark.parametrize("b,t,d", [(16, 400, 144), (16, 400, 176), (2, 33, 256)])
+def test_conv_back_bf16_is_deterministic(dev, b, t, d):
+    """Two runs of conv_back's bf16 forward and backward give the same bits (partials summed in a fixed order, no atomics)."""
+    x, y1, stats, w2, b2, dout = _conv_back_args(dev, torch.bfloat16, b, t, d, seed=16)
+    assert torch.equal(ck.conv_back_kernel(x, y1, *stats, w2, b2, 3, 0.1), ck.conv_back_kernel(x, y1, *stats, w2, b2, 3, 0.1))
+    first = ck.conv_back_bwd_kernel(y1, *stats, w2, dout, 3, 0.1)
+    for u, v in zip(first, ck.conv_back_bwd_kernel(y1, *stats, w2, dout, 3, 0.1)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("d", [144, 176, 256, 100, 16])
+def test_conv_back_mma_plan_matches_the_kernels(dev, d):
+    """The library's shared memory of conv_back's bf16 kernels (which 2: the
+    forward, 3: the backward rows pass) equals the plan copied in
+    tests/test_torch_conv_back_fft.py, and the card fits the planned blocks."""
+    from tests.test_torch_conv_back_fft import _conv_back_plan
+
+    lib = _build.build()
+    plan = _conv_back_plan(d)
+    for which, name in ((2, "fwd"), (3, "bwd")):
+        assert lib.tfasr_conv_mma_smem(d, which) == getattr(plan, f"{name}_smem_bytes"), name
+        assert 1 <= lib.tfasr_conv_mma_occupancy(d, which) <= getattr(plan, f"{name}_blocks_per_sm"), name
+
+
+def test_conv_back_refuses_what_the_kernels_do_not_take(dev):
+    x, y1, stats, w2, b2, dout = _conv_back_args(dev, torch.bfloat16, 1, 3, 264)
+    with pytest.raises(ValueError, match="model width"):
+        ck.conv_back_kernel(x, y1, *stats, w2, b2)
+    with pytest.raises(ValueError, match="model width"):
+        ck.conv_back_bwd_kernel(y1, *stats, w2, dout)
+
+
+@pytest.mark.parametrize("kw", [dict(nfft=256, frame_ms=15), dict(nfft=1024), dict(nfft=2048)], ids=["nfft256", "nfft1024", "nfft2048"])
+def test_frontend_fft_kernel_sizes(dev, kw):
+    """The FFT kernel at the other power-of-two sizes (a radix-2 stage first at 256 and 1024)."""
+    cfg = frontend.FrontendConfig(**kw)
+    sig = frontend.preemphasis_signal(_r(_gen(dev, 4), dev, (2, 16123), 0.1), cfg).contiguous()
+    before = (fek.launches, fek.dft_launches)
+    got = fek.log_mel_spectrogram_pallas(sig, cfg)
+    assert (fek.launches, fek.dft_launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("nfft,shape", [(None, (8, 160000)), (None, (2, 300)), (600, (2, 16123))])
+def test_frontend_dft_kernel(dev, nfft, shape):
+    """Any other nfft (None: 400 points; 600) takes the direct-DFT kernel, held against the plain chain."""
+    cfg = frontend.FrontendConfig(nfft=nfft)
+    sig = frontend.preemphasis_signal(_r(_gen(dev, 5), dev, shape, 0.1), cfg).contiguous()
+    before = (fek.launches, fek.dft_launches)
+    got = fek.log_mel_spectrogram_pallas(sig, cfg)
+    assert (fek.launches, fek.dft_launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("nfft,fl,fs,nmel", [(512, 400, 160, 80), (256, 240, 160, 80), (2048, 400, 160, 40), (1024, 399, 161, 80)])
+def test_frontend_fft_smem_matches_the_plan(dev, nfft, fl, fs, nmel):
+    """The library's shared memory of the FFT kernel equals the plan copied in tests/test_torch_conv_back_fft.py."""
+    from tests.test_torch_conv_back_fft import _fft_smem_bytes
+
+    nnz = len(fek.mel_ranges(frontend.linear_to_mel_weight_matrix(nmel, nfft // 2 + 1, 16000))[0])
+    assert _build.build().tfasr_log_mel_fft_smem(nfft, fl, fs, nmel, nnz) == _fft_smem_bytes(nfft, fl, fs, nmel, nnz)
 
 
 @pytest.mark.parametrize("j", [320, 384, 40, 8])
