@@ -35,9 +35,10 @@
 //    recomputing S^T, pd = pn * keep and ds, and accumulates dv += pd^T.dout
 //    and dk += ds^T.q in registers.
 // JAX's _bwd_kernel forms dv = pd^T.do and dP = do.v^T with f32 operands;
-// here pd is rounded to bf16 for the tensor cores (do and v are bf16 on this
-// path already, so they lose nothing), and ds is rounded to bf16 for dq and
-// dk as in JAX.
+// here pd enters the dv product as bf16 hi + lo (dv = hi^T.do + lo^T.do,
+// mma.cuh's frag_to_a_split), which keeps its f32 precision (do and v are
+// bf16 on this path already, so they lose nothing), and ds is rounded to
+// bf16 for dq and dk as in JAX.
 //
 // What bounds it: at b.h 64, T = S = 400, D 128 the forward is 6 and the
 // backward 10 b.h.T.S.D tensor-core operations (7.9 and 13.1 GFLOP at 989
@@ -348,9 +349,10 @@ __global__ void __launch_bounds__(AM_THREADS) attn_mma_dkv(const bf16* __restric
         dpT[nt][e] = ds;
       }
     }
-    uint32_t pa[AM_QT / 16][4];
-    frag_to_a<AM_QT / 16>(pa, sT);
+    uint32_t pa[AM_QT / 16][4], plo[AM_QT / 16][4];
+    frag_to_a_split<AM_QT / 16>(pa, plo, sT);
     am_pv<DMAX, AM_QT / 16>(adv, pa, dot, LD, nk, lane);
+    am_pv<DMAX, AM_QT / 16>(adv, plo, dot, LD, nk, lane);
     frag_to_a<AM_QT / 16>(pa, dpT);
     am_pv<DMAX, AM_QT / 16>(adk, pa, qt, LD, nk, lane);
     __syncthreads();

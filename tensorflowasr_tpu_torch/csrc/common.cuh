@@ -99,7 +99,8 @@ __device__ __forceinline__ float dropout_keep(const Dropout& dp, unsigned int se
 // C[M, K] = sum over rows n of A[n, M]^T B[n, K] (A == nullptr: a column of
 // ones, so C[1, K] is B's column sum), f32, deterministic: the rows are cut
 // into `splits` fixed chunks, each block sums its chunk in row order into
-// partial[split], and a second pass adds the partials in split order.
+// partial[split], and a second pass adds the partials as a balanced tree in a
+// fixed order.
 // With splits <= 0 the split is atb_splits(N, M, K), and partial holds
 // atb_splits(N, M, K) * M * K floats. Defined in row_reduce.cu.
 inline int atb_splits(int N, int M, int K) {
@@ -112,7 +113,8 @@ inline int atb_splits(int N, int M, int K) {
 int launch_atb(const float* A, const float* B, float* out, float* partial, int N, int M, int K, int splits,
                cudaStream_t stream);
 
-// out[i] = sum over p of partial[p * mk + i], p in order (deterministic). Defined in row_reduce.cu.
+// out[i] = sum over p of partial[p * mk + i] as a balanced binary tree over p
+// in a fixed order (deterministic). Defined in row_reduce.cu.
 int launch_sum_partials(const float* partial, float* out, int splits, size_t mk, cudaStream_t stream);
 
 }  // namespace tfasr

@@ -37,7 +37,7 @@
 //     16 rows (summed in row order inside the warp).
 //  2. dWa = y^T . dha and dWb = y^T . dhb through ff_mma.cu's split product
 //     (launch_split_atb: hi.hi + hi.lo + lo.hi, f32 accumulation, a fixed row
-//     split summed in order), and the column-sum partials through
+//     split summed as a fixed tree), and the column-sum partials through
 //     sum_partials_kernel: the same bits on every run, no atomics.
 //
 // conv_back forward (cb_fwd), 32 rows a block (2 row groups x 4 column

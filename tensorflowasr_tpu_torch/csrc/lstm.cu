@@ -1,5 +1,6 @@
-// Whole-sequence LSTM recurrence, forward and backward (BPTT), gate order
-// i, f, g, o, in one kernel launch each:
+// Whole-sequence LSTM recurrence in f32 on the CUDA cores (the parity runs;
+// bf16 runs on the tensor cores in lstm_mma.cu), forward and backward
+// (BPTT), gate order i, f, g, o, in one kernel launch each:
 //   a_t = xg[:, t] + h_{t-1} . Wh                  (xg = x . Wx + b, precomputed)
 //   c_t = sig(a_f) c_{t-1} + sig(a_i) tanh(a_g);  h_t = sig(a_o) tanh(c_t)
 // The forward writes y = h, the cell sequence and the activated gates (all
@@ -13,7 +14,7 @@
 // forward _fwd_kernel and the backward _bwd_kernel. The TPU kernels keep
 // the whole of Wh ([Hp, 4Hp], lanes padded to 512) in VMEM and loop over
 // time tiles of a sequential grid. One SM's 227 KB of shared memory does
-// not hold Wh (800 KB in bf16 at H 320), so the design here is a
+// not hold Wh (1.6 MB in f32 at H 320), so the design here is a
 // cooperative grid: each of ceil(H / units) co-resident blocks (107 at
 // H 320, units 3, at most one per SM) owns `units` hidden units with all
 // four of their gates, keeps its slice of Wh (forward: the 4 x units
@@ -48,9 +49,6 @@ constexpr int LSTM_STAGE_LOADS = 8;  // independent loads in flight per thread w
 constexpr size_t LSTM_SMEM_LIMIT = 200 * 1024;  // of the 227 KB a block may use
 
 __device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_l2(const __nv_bfloat16* p) {
-  return __uint_as_float((unsigned int)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
-}
 
 // Stage nb rows of `width` values (row r at src + r * stride) into dst[r * width + k] as f32, reading past
 // L1 (other blocks wrote them in this launch). vec: 16-byte loads (width * sizeof(T) and every row start are
@@ -316,26 +314,22 @@ int lstm_bwd(const void* dy, const void* dc, const void* gates, const void* cseq
 
 }  // namespace tfasr
 
-// xg [B, T, 4H], wh [H, 4H], h0, c0 [B, H] (dtype 0 f32, 1 bf16); y, cseq [B, T, H] and gates [B, T, 4H] in that dtype;
+// xg [B, T, 4H], wh [H, 4H], h0, c0 [B, H] (dtype 0 f32; bf16 is refused); y, cseq [B, T, H] and gates [B, T, 4H] f32;
 // counter: one zeroed uint32. Launches ceil(H / units) co-resident blocks (1 <= units <= 8). vec: h0 and y
 // rows are 16-byte aligned (H * elt a multiple of 16 and aligned h0, y).
 extern "C" int tfasr_lstm_fwd(const void* xg, const void* wh, const void* h0, const void* c0, void* y, void* cseq, void* gates,
                               void* counter, int B, int T, int H, int units, int dtype, int vec, void* stream) {
   using namespace tfasr;
-  if (!lstm_args_ok(B, T, H, units)) return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  return dtype == kBF16 ? lstm_fwd<__nv_bfloat16>(xg, wh, h0, c0, y, cseq, gates, counter, B, T, H, units, vec, s)
-                        : lstm_fwd<float>(xg, wh, h0, c0, y, cseq, gates, counter, B, T, H, units, vec, s);
+  if (!lstm_args_ok(B, T, H, units) || dtype != kF32) return (int)cudaErrorInvalidValue;
+  return lstm_fwd<float>(xg, wh, h0, c0, y, cseq, gates, counter, B, T, H, units, vec, (cudaStream_t)stream);
 }
 
-// dy, dc [B, T, H] f32 (cotangents of y and cseq); gates, cseq, c0, wh as saved by the forward (dtype 0 f32, 1 bf16);
+// dy, dc [B, T, H] f32 (cotangents of y and cseq); gates, cseq, c0, wh as saved by the forward (dtype 0 f32);
 // dxg [B, T, 4H] (16-byte aligned), dh0, dc0 [B, H] f32; counter: one zeroed uint32.
 extern "C" int tfasr_lstm_bwd(const void* dy, const void* dc, const void* gates, const void* cseq, const void* c0, const void* wh,
                               void* dxg, void* dh0, void* dc0, void* counter, int B, int T, int H, int units, int dtype,
                               void* stream) {
   using namespace tfasr;
-  if (!lstm_args_ok(B, T, H, units)) return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  return dtype == kBF16 ? lstm_bwd<__nv_bfloat16>(dy, dc, gates, cseq, c0, wh, dxg, dh0, dc0, counter, B, T, H, units, s)
-                        : lstm_bwd<float>(dy, dc, gates, cseq, c0, wh, dxg, dh0, dc0, counter, B, T, H, units, s);
+  if (!lstm_args_ok(B, T, H, units) || dtype != kF32) return (int)cudaErrorInvalidValue;
+  return lstm_bwd<float>(dy, dc, gates, cseq, c0, wh, dxg, dh0, dc0, counter, B, T, H, units, (cudaStream_t)stream);
 }

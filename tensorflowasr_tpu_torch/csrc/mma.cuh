@@ -82,6 +82,21 @@ __device__ __forceinline__ void frag_to_a(uint32_t (&pa)[KS][4], const float (&p
   }
 }
 
+// An f32 operand held as C fragments, as bf16 A fragments hi + lo (p = hi +
+// lo to ~2^-16 relative, the split of Split below): a product with hi and
+// then with lo keeps p's f32 precision on the tensor cores.
+template <int KS>
+__device__ __forceinline__ void frag_to_a_split(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4], const float (&p)[2 * KS][4]) {
+  float r[2 * KS][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * KS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[nt][e] = p[nt][e] - __bfloat162float(__float2bfloat16(p[nt][e]));
+  }
+  frag_to_a<KS>(hi, p);
+  frag_to_a<KS>(lo, r);
+}
+
 // A fragment (16 rows x 16 k) of a row-major bf16 tile at a (rows along the
 // fragment's rows, k contiguous; leading dimension ld).
 __device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16* a, int ld, int lane) {
@@ -219,7 +234,7 @@ __device__ __forceinline__ void put_split2(const Split& s, int row, int col, flo
 
 // out[M, K] = A^T B over N rows, A and B given as Split: hi.hi + hi.lo +
 // lo.hi on the tensor cores, f32 accumulation, in a fixed row split summed
-// in order (ff_mma.cu's ff_mma_atb and sum_partials_kernel): the same bits
+// as a fixed tree (ff_mma.cu's ff_mma_atb and sum_partials_kernel): the same bits
 // on every run. partial holds split_atb_partial_floats(N, M, K) floats.
 int launch_split_atb(Split A, Split B, float* out, float* partial, int N, int M, int K, cudaStream_t stream);
 long long split_atb_partial_floats(int N, int M, int K);

@@ -37,14 +37,19 @@
 //    m and l, dP = do.v^T, ds = pn * (dP * keep - delta) with delta = sum do
 //    * out from the saved output; dqc += ds_bf16 . k, and dqp from ds
 //    scattered into the same [16 x 80] skewed band (bf16) times the pos
-//    window. ds and pd = pn * keep leave in bf16 ([BH, T, Sp], Sp = S rounded
-//    up to 8): JAX rounds ds to the input type for every product, and pd is
-//    rounded to bf16 for the tensor cores as kernel A does for dv.
+//    window. ds leaves in bf16 ([BH, T, Sp], Sp = S rounded up to 8): JAX
+//    rounds ds to the input type for every product. pd = pn * keep leaves as
+//    two bf16 planes hi + lo ([2, BH, T, Sp], mma.cuh's split), so that dv
+//    keeps JAX's f32 pd operand on the tensor cores, as kernel A does. Each
+//    thread stores its two adjacent columns of ds, hi and lo as one 4-byte
+//    pair per plane (2-byte stores made the second plane cost ~45 us a call
+//    at the flagship shape on an H100, several times its bytes).
 //  - dk, dv: one block per (b.h, 64 keys) walks the query tiles of 32 in
-//    order: dv += pd^T . do, dk += ds^T . qc. Reading pd from the dq pass
-//    costs 20 MB each way at b.h 64, T = S = 400 (~12 us); recomputing it here
-//    would need the rel term in key-major order, a 48 x 32 band per 16 x 32
-//    tile.
+//    order: dv += hi^T . do + lo^T . do, dk += ds^T . qc. Reading pd from the
+//    dq pass costs 2 x 20 MB each way at b.h 64, T = S = 400 (~24 us);
+//    recomputing it here would repeat the forward's score and rel-band
+//    products (the rel term in key-major order, a 48 x 32 band per 16 x 32
+//    tile), most of a forward pass.
 //  - dpos: one block per (b.h, 64 positions) gathers ds along the diagonals
 //    into a band tile, dw[i, p] = ds[i, p - (T-1-i) - extra], over the query
 //    rows that reach those positions, and forms dpos += dw^T . qp.
@@ -392,22 +397,34 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict_
     am_abT<DMAX, RB_KT / 8>(dpa, dow, sm.v + (j & 1) * RB_KT * LD, LD, nk, lane);
 #pragma unroll
     for (int nt = 0; nt < RB_KT / 8; ++nt) {
+      float pd[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1, row = row_lo + h * 8, col = j * RB_KT + tig * 2 + nt * 8 + (e & 1);
         const float pn = am_exp(s[nt][e], m[h]) * inv_l[h];
-        float dpv = dpa[nt][e], pd = pn;
+        float dpv = dpa[nt][e];
+        pd[e] = pn;
         if (dp.on) {
           const float keep = dropout_keep(dp, seed, row, col);
           dpv *= keep;
-          pd *= keep;
+          pd[e] *= keep;
         }
         const float ds = pn * (dpv - dl[h]);
-        if (row < T && col < S) {
-          ds_o[soff + (size_t)row * a.Sp + col] = __float2bfloat16(ds);
-          pd_o[soff + (size_t)row * a.Sp + col] = __float2bfloat16(pd);
-        }
         s[nt][e] = col < S ? ds : 0.f;
+      }
+      // a thread's two adjacent columns as one 4-byte store per plane (col even, Sp % 8 == 0: the pair stays in the
+      // row; a column past S lands in the padding, which no pass reads as a key)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_lo + h * 8, col = j * RB_KT + tig * 2 + nt * 8;
+        if (row < T && col < S) {
+          const size_t o = soff + (size_t)row * a.Sp + col;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(pd[2 * h], pd[2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(ds_o + o) = __floats2bfloat162_rn(s[nt][2 * h], s[nt][2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(pd_o + o) = hi;
+          *reinterpret_cast<__nv_bfloat162*>(pd_o + (size_t)a.BH * T * a.Sp + o) =
+              __floats2bfloat162_rn(pd[2 * h] - __low2float(hi), pd[2 * h + 1] - __high2float(hi));
+        }
       }
     }
     uint32_t pa[RB_KT / 16][4];
@@ -452,8 +469,9 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dkv(const bf16* __restrict
   extern __shared__ __align__(16) unsigned char rb_smem[];
   const int LD = a.Dp + AM_PAD, nk = a.Dp / 16, T = a.T, S = a.S;
   bf16* ds_s = reinterpret_cast<bf16*>(rb_smem);  // [2][32][RB_TLD]
-  bf16* pd_s = ds_s + 2 * RB_QT * RB_TLD;         // [2][32][RB_TLD]
-  bf16* q_s = pd_s + 2 * RB_QT * RB_TLD;          // [2][32][LD]
+  bf16* pd_s = ds_s + 2 * RB_QT * RB_TLD;         // [2][32][RB_TLD] pd's hi plane
+  bf16* pl_s = pd_s + 2 * RB_QT * RB_TLD;         // [2][32][RB_TLD] pd's lo plane
+  bf16* q_s = pl_s + 2 * RB_QT * RB_TLD;          // [2][32][LD]
   bf16* do_s = q_s + 2 * RB_QT * LD;              // [2][32][LD]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
   const int bh = blockIdx.y, s0 = blockIdx.x * RB_BLOCK;
@@ -462,6 +480,7 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dkv(const bf16* __restrict
   auto stage = [&](int buf, int q0) {
     rb_stage_tile(ds_s + buf * RB_QT * RB_TLD, ds + soff, q0, s0, a);
     rb_stage_tile(pd_s + buf * RB_QT * RB_TLD, pd + soff, q0, s0, a);
+    rb_stage_tile(pl_s + buf * RB_QT * RB_TLD, pd + (size_t)a.BH * T * a.Sp + soff, q0, s0, a);
     rb_stage(q_s + buf * RB_QT * LD, qc + qoff, q0, T, RB_QT, a);
     rb_stage(do_s + buf * RB_QT * LD, dout + qoff, q0, T, RB_QT, a);
   };
@@ -486,6 +505,9 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dkv(const bf16* __restrict
     uint32_t pa[RB_QT / 16][4];
 #pragma unroll
     for (int ks = 0; ks < RB_QT / 16; ++ks) load_a_t(pa[ks], pd_s + (cb * RB_QT + ks * 16) * RB_TLD + warp * 16, RB_TLD, lane);
+    am_pv<DMAX, RB_QT / 16>(adv, pa, do_s + cb * RB_QT * LD, LD, nk, lane);
+#pragma unroll
+    for (int ks = 0; ks < RB_QT / 16; ++ks) load_a_t(pa[ks], pl_s + (cb * RB_QT + ks * 16) * RB_TLD + warp * 16, RB_TLD, lane);
     am_pv<DMAX, RB_QT / 16>(adv, pa, do_s + cb * RB_QT * LD, LD, nk, lane);
 #pragma unroll
     for (int ks = 0; ks < RB_QT / 16; ++ks) load_a_t(pa[ks], ds_s + (cb * RB_QT + ks * 16) * RB_TLD + warp * 16, RB_TLD, lane);
@@ -534,7 +556,7 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dpos(const bf16* __restric
 
 size_t rb_fwd_smem(int Dp) { return (size_t)(2 * RB_BLOCK + 4 * RB_KT + 2 * RB_WIN) * (Dp + AM_PAD) * sizeof(bf16) + 4 * 16 * RB_BLD * sizeof(float); }
 size_t rb_dq_smem(int Dp) { return rb_fwd_smem(Dp) + (size_t)RB_BLOCK * (Dp + AM_PAD) * sizeof(bf16) + RB_BLOCK * sizeof(float); }
-size_t rb_dkv_smem(int Dp) { return (size_t)(4 * RB_QT * RB_TLD + 4 * RB_QT * (Dp + AM_PAD)) * sizeof(bf16); }
+size_t rb_dkv_smem(int Dp) { return (size_t)(6 * RB_QT * RB_TLD + 4 * RB_QT * (Dp + AM_PAD)) * sizeof(bf16); }
 size_t rb_dpos_smem(int Dp) { return (size_t)(RB_QT * RB_TLD + RB_QT * (Dp + AM_PAD)) * sizeof(bf16); }
 
 constexpr int RB_DMAX = 64;  // head sizes up to 64
@@ -572,8 +594,8 @@ int launch_rel_attention_mma(const void* qc, const void* qp, const void* k, cons
   return rb_fwd_launch(qc, qp, k, v, pos, out, stats, a, dp, stream);
 }
 
-// Gradients: out, dout [BH, T, D]; stats from the forward; ds, pd [BH, T, Sp]
-// bf16 scratch (Sp = S rounded up to 8); dqc, dqp [BH, T, D], dk, dv [BH, S,
+// Gradients: out, dout [BH, T, D]; stats from the forward; ds [BH, T, Sp] and
+// pd [2, BH, T, Sp] (hi, lo) bf16 scratch (Sp = S rounded up to 8); dqc, dqp [BH, T, D], dk, dv [BH, S,
 // D], dpos [BH, R, D].
 int launch_rel_attention_mma_bwd(const void* qc, const void* qp, const void* k, const void* v, const void* pos, const void* kv_bias,
                                  const void* q_len, const void* out, const void* dout, const float* stats, void* ds, void* pd, void* dqc, void* dqp,

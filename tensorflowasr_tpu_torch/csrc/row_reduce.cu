@@ -6,9 +6,11 @@
 // of a sequential grid (e.g. ff_kernel.py:125-132). Blocks on the card run
 // in parallel and in no order, so instead each block owns one 32 x 32 tile
 // of C and one fixed chunk of rows, sums its chunk in row order into a
-// partial, and a second pass adds the partials in chunk order: the same
-// bits on every run, no atomics. What bounds it: reading A and B once
+// partial, and a second pass adds the partials as a balanced tree in a fixed
+// order (sum_partials_kernel): the same bits on every run, no atomics. What bounds it: reading A and B once
 // (bytes) at large N; the split keeps >= ~2 blocks per SM in flight.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace tfasr {
@@ -50,12 +52,45 @@ __global__ void atb_partial_kernel(const float* __restrict__ A, const float* __r
   }
 }
 
+constexpr int SP_CHUNK = 32;  // partials a lane sums in registers
+constexpr int SP_WARPS = 8;   // warps of a block (over the chunks of its 32 outputs)
+
+// The partials of each output as a balanced binary tree in a fixed order,
+// level by level: at level L the element at a (a multiple of 2^(L+1), the
+// sum of partials a .. a + 2^L - 1) takes in the element at a + 2^L where
+// that exists; an element without a partner moves up as it is. (This is the
+// tree of pairwise summation: complete subtrees over aligned powers of two,
+// the rest joined from the right.) A block owns 32 outputs, one per lane;
+// each warp's lanes sum chunks of 32 partials in registers by the first five
+// levels (32 independent loads in flight), the chunk sums go to shared
+// memory and the levels go on over them there, one block barrier a level.
+// The same bits on every run, no atomics; the rounding error grows with
+// log2(splits), not with splits as a sum in order would.
 __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out, int splits, size_t mk) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mk) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += partial[(size_t)p * mk + i];
-  out[i] = s;
+  extern __shared__ float cs[];  // [chunks][32]: chunk sums, then the levels above
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const size_t i = (size_t)blockIdx.x * 32 + lane;
+  const bool col = i < mk;
+  const int chunks = (splits + SP_CHUNK - 1) / SP_CHUNK;
+  for (int c = warp; c < chunks; c += nw) {
+    const int n = min(SP_CHUNK, splits - c * SP_CHUNK);
+    float v[SP_CHUNK];
+#pragma unroll
+    for (int j = 0; j < SP_CHUNK; ++j) v[j] = col && j < n ? partial[(size_t)(c * SP_CHUNK + j) * mk + i] : 0.f;
+#pragma unroll
+    for (int step = 1; step < SP_CHUNK; step *= 2) {
+#pragma unroll
+      for (int a = 0; a + step < SP_CHUNK; a += 2 * step)
+        if (a + step < n) v[a] += v[a + step];
+    }
+    cs[c * 32 + lane] = v[0];
+  }
+  __syncthreads();
+  for (int step = 1; step < chunks; step *= 2) {
+    for (int a = 2 * step * warp; a + step < chunks; a += 2 * step * nw) cs[a * 32 + lane] += cs[(a + step) * 32 + lane];
+    __syncthreads();
+  }
+  if (warp == 0 && col) out[i] = cs[lane];
 }
 
 int launch_atb(const float* A, const float* B, float* out, float* partial, int N, int M, int K, int splits,
@@ -72,8 +107,12 @@ int launch_atb(const float* A, const float* B, float* out, float* partial, int N
 }
 
 int launch_sum_partials(const float* partial, float* out, int splits, size_t mk, cudaStream_t stream) {
-  if (mk == 0) return 0;
-  sum_partials_kernel<<<(unsigned)((mk + 255) / 256), 256, 0, stream>>>(partial, out, splits, mk);
+  if (mk == 0 || splits <= 0) return 0;
+  const int chunks = (splits + SP_CHUNK - 1) / SP_CHUNK;
+  const size_t smem = (size_t)chunks * 32 * sizeof(float);
+  cudaError_t err = allow_smem(sum_partials_kernel, smem);  // refused past 227 KB: splits > 58112
+  if (err != cudaSuccess) return (int)err;
+  sum_partials_kernel<<<(unsigned)((mk + 31) / 32), 32 * std::min(chunks, SP_WARPS), smem, stream>>>(partial, out, splits, mk);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,7 @@ training forward (``forward`` → [B, T, V] logits), ``encode`` and the
 ``recognize`` entry point (greedy: ``ops/ctc_decode.py``; a streaming
 encoder's KV memories carried through ``previous_encoder_states``). The model is
 built on the card unless ``device="cpu"`` is given. Beam search and LM
-fusion are not ported yet (ROADMAP Queue 1 item 5).
+fusion are not ported yet (ROADMAP Queue 1, "Beam search and the LM").
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def recognize(model: CtcModel, inputs: schemas.PredictInput, beam_width: int = 0
     the module holds its weights): tokens [B, T] left-packed and padded
     with blank; ``next_tokens`` all blank."""
     if beam_width and beam_width > 0:
-        raise NotImplementedError("CTC beam search and LM fusion are not ported yet (ROADMAP Queue 1 item 5)")
+        raise NotImplementedError("CTC beam search and LM fusion are not ported yet (ROADMAP Queue 1, \"Beam search and the LM\")")
     logits, logits_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
     tokens, _ = ctc_decode.ctc_greedy_decode(logits, logits_length, blank=model.blank)
     next_tokens = torch.full((tokens.shape[0],), model.blank, dtype=torch.int64, device=tokens.device)

@@ -20,7 +20,8 @@ def conformer_ctc_small_config(vocab_size: int = 256, num_blocks: int = 16, drop
     176/176 with BatchNorm and swish, D 176, 16 blocks, 4 heads of 44,
     rel-MHA with per-layer attention biases, 31-tap causal conv, dropout
     0.1, blank 0, V 256. The example's ``augmentation_config`` (SpecAugment)
-    is left out: train-time augmentation waits for ROADMAP Queue 1 item 3."""
+    is left out: train-time augmentation waits for ROADMAP Queue 1, "The rest
+    of training"."""
     return {
         "speech_config": {"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": 512, "num_feature_bins": 80,
                           "feature_type": "log_mel_spectrogram"},

@@ -20,7 +20,7 @@ def transformer_ctc_base_config(vocab_size: int = 256, num_blocks: int = 6, drop
     D 512, dff 1024, 6 blocks, 4 heads of 128, vanilla MHA, post-norm,
     residual factor 1, ReLU FFN, absolute PE, dropout 0.1, blank 0, V 256.
     The example's ``augmentation_config`` (SpecAugment) is left out:
-    train-time augmentation waits for ROADMAP Queue 1 item 3."""
+    train-time augmentation waits for ROADMAP Queue 1, "The rest of training"."""
     return {
         "speech_config": {"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": 512, "num_feature_bins": 80,
                           "feature_type": "log_mel_spectrogram"},

@@ -49,7 +49,8 @@ class FeatureExtraction(nn.Module):
         """[B, N] raw audio → ([B, T, F] features in ``dtype``, [B] lengths).
         ``train`` with augmentations in the config raises (JAX augments there)."""
         if train and self.augmentations:
-            raise NotImplementedError(f"train-time augmentation ({', '.join(self.augmentations)}) is not ported yet (ROADMAP Queue 1 item 3)")
+            raise NotImplementedError(f"train-time augmentation ({', '.join(self.augmentations)}) is not ported yet "
+                                      "(ROADMAP Queue 1, \"The rest of training\")")
         cfg = self.config
         if fused_frontend_supported(cfg):
             sig = frontend.prepare_signal(signals.float(), cfg).contiguous()

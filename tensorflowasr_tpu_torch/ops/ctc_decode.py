@@ -4,7 +4,7 @@ Vectorised, with no loop over frames: argmax per frame, repeats
 collapsed, blanks dropped, and the kept tokens left-packed into a dense
 [B, T] tensor padded with blank, with their lengths. Beam search
 (``ctc_beam_search_decode``) and LM fusion are not ported yet (ROADMAP
-Queue 1 item 5).
+Queue 1, "Beam search and the LM").
 """
 
 from __future__ import annotations

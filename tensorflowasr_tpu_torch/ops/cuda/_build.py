@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("frontend.cu", "rel_attention.cu", "rel_attention_mma.cu", "ff.cu", "ff_mma.cu", "conv_module.cu", "conv_mma.cu", "row_reduce.cu", "rnnt_dp.cu",
-           "joint_loss.cu", "joint_loss_mma.cu", "rnnt_rows.cu", "lstm.cu", "ctc.cu", "attention.cu", "attention_mma.cu", "decode.cu")
+           "joint_loss.cu", "joint_loss_mma.cu", "rnnt_rows.cu", "lstm.cu", "lstm_mma.cu", "ctc.cu", "attention.cu", "attention_mma.cu", "decode.cu")
 HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -76,6 +76,9 @@ _SIGNATURES = {
     "tfasr_rnnt_dlogits": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_lstm_fwd": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "tfasr_lstm_bwd": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
+    "tfasr_lstm_mma_plan": ([_I, _P], ctypes.c_int),
+    "tfasr_lstm_mma_fwd": ([_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
+    "tfasr_lstm_mma_bwd": ([_P] * 10 + [_I] * 3 + [_P], ctypes.c_int),
     "tfasr_ctc": ([_P] * 6 + [_I] * 3 + [_P], ctypes.c_int),
     "tfasr_attention": ([_P] * 6 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_attention_bwd": ([_P] * 14 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),

@@ -62,7 +62,7 @@ def rel_mma_plan(d: int) -> dict:
     memory and rows to Dp + 8; none depends on T, S or R."""
     ld = -(-d // 16) * 16 + _RB_PAD
     fwd = 2 * (2 * _RB_BLOCK + 4 * _RB_KT + 2 * _RB_WIN) * ld + 4 * 4 * 16 * _RB_BLD
-    smem = dict(fwd=fwd, dq=fwd + 2 * _RB_BLOCK * ld + 4 * _RB_BLOCK, dkv=2 * (4 * _RB_QT * (_RB_KT + _RB_PAD) + 4 * _RB_QT * ld),
+    smem = dict(fwd=fwd, dq=fwd + 2 * _RB_BLOCK * ld + 4 * _RB_BLOCK, dkv=2 * (6 * _RB_QT * (_RB_KT + _RB_PAD) + 4 * _RB_QT * ld),
                 dpos=2 * (_RB_QT * (_RB_KT + _RB_PAD) + _RB_QT * ld))
     return {name: dict(smem_bytes=b, blocks_per_sm=min(_SM_SHARED // (b + _BLOCK_RESERVED), 2048 // _RB_THREADS)) for name, b in smem.items()}
 
@@ -258,9 +258,9 @@ def fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout,
     if qc.numel() == 0:
         return tuple(grads)
     lib = _build.build()
-    if bf16:  # the tensor-core kernels: bf16 ds and pd with rows padded to 8 columns
+    if bf16:  # the tensor-core kernels: bf16 ds and pd (hi and lo planes) with rows padded to 8 columns
         sp = -(-s // 8) * 8
-        ds, pd = (torch.empty((bh, t, sp), dtype=torch.bfloat16, device=qc.device) for _ in range(2))
+        ds, pd = (torch.empty((n, bh, t, sp), dtype=torch.bfloat16, device=qc.device) for n in (1, 2))
     else:
         ds = torch.empty((bh, t, s), dtype=qc.dtype, device=qc.device)
         pd = torch.empty((bh, t, s), dtype=torch.float32, device=qc.device)

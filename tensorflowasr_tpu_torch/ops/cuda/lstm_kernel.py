@@ -1,4 +1,4 @@
-"""Whole-sequence LSTM layer, forward and backward (``csrc/lstm.cu``).
+"""Whole-sequence LSTM layer, forward and backward (``csrc/lstm_mma.cu`` in bf16, ``csrc/lstm.cu`` in f32).
 
 Replaces ``tensorflowasr_tpu/ops/pallas/lstm_kernel.py``: :func:`lstm_core`
 (the recurrence over a full sequence, ``_fwd_kernel`` and ``_bwd_kernel``
@@ -16,14 +16,29 @@ rounded to the input dtype, with f32 accumulation; the carries stay f32;
 y, cseq and the gates are stored in the input dtype; cotangents come back
 in the primal dtypes.
 
+Two designs, chosen by dtype. bf16 runs on the tensor cores
+(``csrc/lstm_mma.cu``): one thread-block cluster of C blocks per 16 batch
+rows, each block holding its hidden units' slice of Wh in shared memory
+for the whole sequence, one ``mma.sync`` product per warp and step, h (or
+the backward's bf16 dxg row) exchanged through distributed shared memory;
+the library plans C and how much of each slice stays on chip
+(:func:`lstm_mma_plan`), streams the rest from L2 above H 448 and refuses
+H above 1024. f32 (parity runs only) keeps the CUDA-core cooperative grid of
+``csrc/lstm.cu``, one grid-wide barrier per step, ``units`` hidden units per
+block (:func:`_units`).
+
 What bounds the kernels on the card: the chain of T dependent steps each
-way, one grid-wide barrier per step (``csrc/lstm.cu``), not the recurrent
-products (1.7 GFLOP at B 16, T 129, H 320) or their ~13 MB of traffic.
-The plain versions (:func:`lstm_fwd_plain`, :func:`lstm_bwd_plain`) repeat
-the kernels' arithmetic as Python loops over the steps.
+way, not the recurrent products (1.7 GFLOP at B 16, T 129, H 320) or their
+~13 MB of traffic. The plain versions (:func:`lstm_fwd_plain`,
+:func:`lstm_bwd_plain`) repeat the kernels' arithmetic as Python loops
+over the steps.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -32,7 +47,47 @@ from tensorflowasr_tpu_torch.ops.cuda import _build
 launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
 bwd_launches = 0  # backward kernel launches since the last reset
 
-MAX_UNITS = 8  # csrc/lstm.cu: hidden units per block; the grid holds ceil(H / units) co-resident blocks
+MAX_UNITS = 8  # csrc/lstm.cu (f32): hidden units per block; the grid holds ceil(H / units) co-resident blocks
+
+
+@dataclass(frozen=True)
+class LstmMmaPlan:
+    """The bf16 kernels' layout at width H, as ``csrc/lstm_mma.cu``'s
+    ``lm_plan`` picks it: ``cluster`` (C) blocks per 16 batch rows; the H
+    units in groups of 8, at most ``groups_per_block`` (one warp each) a
+    block; of the forward's ``fwd_ksteps`` k-steps of 16 the first
+    ``fwd_resident`` stay in shared memory, of the backward's ``bwd_chunks``
+    chunks of 32 gate columns the first ``bwd_resident``; the rest are read
+    each step from packed copies of ``fwd_pack_bytes`` / ``bwd_pack_bytes``
+    in L2; ``bwd_buffers`` dxg exchange buffers (1: a cluster barrier per
+    step); each block's dynamic shared memory forward and backward."""
+
+    cluster: int
+    groups_per_block: int
+    fwd_ksteps: int
+    fwd_resident: int
+    bwd_chunks: int
+    bwd_resident: int
+    bwd_buffers: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+    fwd_pack_bytes: int
+    bwd_pack_bytes: int
+
+
+@functools.cache
+def lstm_mma_plan(h: int) -> LstmMmaPlan:
+    """The bf16 kernels' plan at width ``h``, read from the library. The rule:
+    C is the smallest of 1, 2, 4, 8, 16 for which a block holds at most 8
+    groups and both kernels keep their whole Wh slices and two exchange
+    buffers in 227 KB of shared memory; where none does (H above 448), C 16,
+    the slices' first k-steps / chunks that fit resident and the rest
+    streamed from L2, and one backward buffer where two do not fit (H above
+    896). H above 1024 (more than 16 × 8 groups) raises."""
+    out = (ctypes.c_longlong * 11)()
+    if _build.build().tfasr_lstm_mma_plan(h, out):
+        raise ValueError(f"bf16 LSTM kernel: H = {h} is wider than a cluster of 16 blocks of 8 groups of 8 units runs (H ≤ 1024)")
+    return LstmMmaPlan(*out)
 
 
 def _split(g: torch.Tensor):
@@ -99,6 +154,7 @@ def _units(h: int, dev: torch.device, units: int | None) -> int:
 
 
 def _check(xg, wh, h0, c0, units=None):
+    """(b, t, h, dtype code, f32 units per block or None, bf16 plan or None)."""
     if xg.dim() != 3 or xg.shape[2] % 4:
         raise ValueError("xg must be [B, T, 4H]")
     b, t, g4 = xg.shape
@@ -108,22 +164,38 @@ def _check(xg, wh, h0, c0, units=None):
         _build.require(x, name, device=xg.device, dtype=xg.dtype, shape=shape)
     if b * t * h == 0:
         raise ValueError(f"empty LSTM input [B, T, 4H] = {tuple(xg.shape)}")
-    return b, t, h, code, _units(h, xg.device, units)
+    if xg.dtype == torch.bfloat16:
+        if units is not None:
+            raise ValueError("units applies to the f32 kernel; the bf16 kernel's blocks follow lstm_mma_plan")
+        return b, t, h, code, None, lstm_mma_plan(h)
+    return b, t, h, code, _units(h, xg.device, units), None
+
+
+def _pack(nbytes: int, dev: torch.device):
+    """The packed copy of the streamed part of Wh (see :class:`LstmMmaPlan`), or None where nothing streams."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
 
 
 def lstm_fwd_kernel(xg, wh, h0, c0, units: int | None = None):
     """The forward kernel on CUDA tensors: (y, cseq, gates) as :func:`lstm_fwd_plain`.
-    ``units``: hidden units per block (default as :func:`_units` picks)."""
+    bf16: the cluster kernel as :func:`lstm_mma_plan` lays it out; f32: the
+    cooperative grid, ``units`` hidden units per block (default as
+    :func:`_units` picks)."""
     global launches
-    b, t, h, code, units = _check(xg, wh, h0, c0, units)
+    b, t, h, code, units, plan = _check(xg, wh, h0, c0, units)
     y, cseq = torch.empty((b, t, h), dtype=xg.dtype, device=xg.device), torch.empty((b, t, h), dtype=xg.dtype, device=xg.device)
     gates = torch.empty_like(xg)
-    counter = torch.zeros(1, dtype=torch.int32, device=xg.device)
-    vec = int(h * xg.element_size() % 16 == 0 and h0.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)  # 16-byte loads of h rows
     lib = _build.build()
     with torch.cuda.device(xg.device):
-        err = lib.tfasr_lstm_fwd(xg.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(), cseq.data_ptr(), gates.data_ptr(),
-                                 counter.data_ptr(), b, t, h, units, code, vec, _build.stream_of(xg))
+        if plan is not None:
+            pack = _pack(plan.fwd_pack_bytes, xg.device)
+            err = lib.tfasr_lstm_mma_fwd(xg.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(), cseq.data_ptr(), gates.data_ptr(),
+                                         pack.data_ptr() if pack is not None else None, b, t, h, _build.stream_of(xg))
+        else:
+            counter = torch.zeros(1, dtype=torch.int32, device=xg.device)
+            vec = int(h * xg.element_size() % 16 == 0 and h0.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)  # 16-byte loads of h rows
+            err = lib.tfasr_lstm_fwd(xg.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(), cseq.data_ptr(), gates.data_ptr(),
+                                     counter.data_ptr(), b, t, h, units, code, vec, _build.stream_of(xg))
     _build.check(err, "lstm_fwd")
     launches += 1
     return y, cseq, gates
@@ -133,18 +205,23 @@ def lstm_bwd_kernel(gates, cseq, c0, wh, dy, dcseq, units: int | None = None):
     """The backward kernel on CUDA tensors: (dxg, dh0, dc0) as :func:`lstm_bwd_plain`.
     ``units`` as :func:`lstm_fwd_kernel`."""
     global bwd_launches
-    b, t, h, code, units = _check(gates, wh, c0, c0, units)
+    b, t, h, code, units, plan = _check(gates, wh, c0, c0, units)
     _build.require(cseq, "cseq", device=gates.device, dtype=gates.dtype, shape=(b, t, h))
     dy, dcseq = dy.float().contiguous(), dcseq.float().contiguous()
     for name, x in (("dy", dy), ("dcseq", dcseq)):
         _build.require(x, name, device=gates.device, dtype=torch.float32, shape=(b, t, h))
     f32 = dict(dtype=torch.float32, device=gates.device)
     dxg, dh0, dc0 = torch.empty((b, t, 4 * h), **f32), torch.empty((b, h), **f32), torch.empty((b, h), **f32)
-    counter = torch.zeros(1, dtype=torch.int32, device=gates.device)
     lib = _build.build()
+    ins = (dy.data_ptr(), dcseq.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), wh.data_ptr())
+    outs = (dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr())
     with torch.cuda.device(gates.device):
-        err = lib.tfasr_lstm_bwd(dy.data_ptr(), dcseq.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), wh.data_ptr(), dxg.data_ptr(),
-                                 dh0.data_ptr(), dc0.data_ptr(), counter.data_ptr(), b, t, h, units, code, _build.stream_of(gates))
+        if plan is not None:
+            pack = _pack(plan.bwd_pack_bytes, gates.device)
+            err = lib.tfasr_lstm_mma_bwd(*ins, pack.data_ptr() if pack is not None else None, *outs, b, t, h, _build.stream_of(gates))
+        else:
+            counter = torch.zeros(1, dtype=torch.int32, device=gates.device)
+            err = lib.tfasr_lstm_bwd(*ins, *outs, counter.data_ptr(), b, t, h, units, code, _build.stream_of(gates))
     _build.check(err, "lstm_bwd")
     bwd_launches += 1
     return dxg, dh0, dc0

@@ -7,10 +7,15 @@ The DP replaces ``tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:rnnt_loss_from_log
 in the same call, the gradients ``gbl``/``gem`` of the loss with respect
 to ``lp_blank``/``lp_emit`` in natural (t, u) coordinates. The autograd
 backward only scales them by the upstream cotangent, as the JAX VJP
-(``_rnnt_bwd``) does. What bounds it on the card: the chain of dependent
-diagonals (2·(T_b+U_b) barriers per row, one block per row), not the 13 MB
-it reads and writes at the flagship (B 16, T 400, U+1 129).
-:func:`rnnt_loss_from_logprobs_plain` (``ops/rnnt_loss.py``) is its plain twin.
+(``_rnnt_bwd``) does. A parallel pass copies the operands into
+diagonal-major order; the α and β sweeps then run at the same time, a
+block of :func:`dp_warps` warps each per row (one label position per lane),
+one diagonal per step, into diagonal-major scratch; a parallel pass forms
+the gradients. What bounds it on the card: the chain of T_b + U_b
+dependent diagonals per row, not the 13 MB it reads and writes at the
+flagship (B 16, T 400, U+1 129).
+:func:`rnnt_loss_from_logprobs_plain` (``ops/rnnt_loss.py``) is its plain
+twin, operation for operation: the two agree bit for bit.
 
 :func:`rnnt_loss_pallas` replaces the JAX ``rnnt_loss_pallas`` and its
 ``custom_vjp``: the forward turns the logits [B, T, U+1, V] into
@@ -35,7 +40,14 @@ launches = 0  # DP kernel launches since the last reset (set to 0 to reset)
 logprobs_launches = 0  # log-probability row kernel launches
 dlogits_launches = 0  # d_logits row kernel launches
 
-MAX_U1 = 1024  # one thread per label position
+MAX_U1 = 1024  # label positions: 32 warps of 32 lanes per sweep
+
+
+def dp_warps(u1: int) -> int:
+    """Warps per sweep at U+1 = ``u1``: one label position per lane."""
+    if u1 > MAX_U1:
+        raise ValueError(f"U+1 = {u1} > {MAX_U1} label positions is not supported by the kernel")
+    return -(-u1 // 32)
 
 
 def rnnt_dp_kernel(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit_length: torch.Tensor, label_length: torch.Tensor):
@@ -47,8 +59,7 @@ def rnnt_dp_kernel(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit_length: 
     dev = lp_blank.device
     for name, x in (("lp_blank", lp_blank), ("lp_emit", lp_emit)):
         _build.require(x, name, device=dev, dtype=torch.float32, shape=(b, t, u1))
-    if u1 > MAX_U1:
-        raise ValueError(f"U+1 = {u1} > {MAX_U1} label positions is not supported by the kernel")
+    w = dp_warps(u1)
     t_len = logit_length.to(dev, torch.int32).contiguous()
     u_len = label_length.to(dev, torch.int32).contiguous()
     for name, x in (("logit_length", t_len), ("label_length", u_len)):
@@ -57,11 +68,12 @@ def rnnt_dp_kernel(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit_length: 
     gbl, gem = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
     if b * t * u1 == 0:
         return loss.zero_(), gbl.zero_(), gem.zero_()
-    alpha = torch.empty_like(lp_blank)
+    # the skewed operands (3) and the α and β lattices, each [B, T + U, 32·W] f32
+    scratch = torch.empty(5 * b * (t + u1 - 1) * 32 * w, dtype=torch.float32, device=dev)
     lib = _build.build()
     with torch.cuda.device(dev):
         err = lib.tfasr_rnnt_dp(lp_blank.data_ptr(), lp_emit.data_ptr(), t_len.data_ptr(), u_len.data_ptr(), loss.data_ptr(), gbl.data_ptr(),
-                                gem.data_ptr(), alpha.data_ptr(), b, t, u1, _build.stream_of(lp_blank))
+                                gem.data_ptr(), scratch.data_ptr(), b, t, u1, _build.stream_of(lp_blank))
     _build.check(err, "rnnt_dp")
     launches += 1
     return loss, gbl, gem

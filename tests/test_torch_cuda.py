@@ -9,8 +9,8 @@ Tolerances: f32 with TF32 off differs from the plain version only in
 summation order (1e-4 absolute on unit-scale outputs); bf16 may flip one
 rounding of an operand or output (2^-8 relative), so 2e-2; the log-mel
 frontend compares its FFT (or direct DFT) with the plain rfft chain in f32, 1e-3 in log. The RNN-T
-DP (f32 only) chains T+U log-add-exps: its loss to 1e-5 relative, its
-gradients (occupancies in [−1, 0]) to 1e-5 absolute. The log-probability
+DP (f32 only) repeats the plain version's operations in the same order:
+loss and gradients bit for bit. The log-probability
 row kernel computes in f32 from the same inputs as its plain version in
 either dtype: 1e-4. The LSTM kernels chain T steps; bf16 rounds y, the
 cell sequence and the gates at the same places on both sides, so a
@@ -611,9 +611,23 @@ def test_rnnt_dp_kernel(dev, b, t, u, j, v):
     loss, gbl, gem = rk.rnnt_dp_kernel(lpb, lpe, t_len, u_len)
     assert rk.launches == before + 1
     ref_loss, ref_gbl, ref_gem = rnnt_loss_from_logprobs_plain(lpb, lpe, t_len, u_len)
-    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(gbl, ref_gbl, rtol=0, atol=1e-5)
-    torch.testing.assert_close(gem, ref_gem, rtol=0, atol=1e-5)
+    for name, x, r in (("loss", loss, ref_loss), ("gbl", gbl, ref_gbl), ("gem", gem, ref_gem)):  # the same operations: max abs error 0
+        assert torch.equal(x, r), f"{name}: max abs err {(x - r).abs().max().item()}"
+
+
+@pytest.mark.parametrize("b,t,u", [(3, 40, 31), (4, 300, 299), (2, 50, 1023)])
+def test_rnnt_dp_kernel_lanes(dev, b, t, u):
+    """U+1 of 32, 300 and 1024 label positions (1, 10 and 32 warps per sweep),
+    ragged lengths with a row of one frame and a row without labels: bit-equal to plain."""
+    g = _gen(dev, 17)
+    lp = torch.log_softmax(_r(g, dev, (b, t, u + 1, 3), 2.0), dim=-1)
+    lpb, lpe = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    lpe[..., u] = LOG_0
+    t_len, u_len = _lengths(dev, b, t, u, 6)
+    t_len[1], u_len[-1] = 1, 0
+    got, ref = rk.rnnt_dp_kernel(lpb, lpe, t_len, u_len), rnnt_loss_from_logprobs_plain(lpb, lpe, t_len, u_len)
+    for name, x, r in zip(("loss", "gbl", "gem"), got, ref):
+        assert torch.equal(x, r), f"{name}: max abs err {(x - r).abs().max().item()}"
 
 
 def _joint_args(dev, dtype, b, t, u, j, v, seed=8):
@@ -722,6 +736,8 @@ def _lstm_args(dev, dtype, b, t, h, seed=10):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,h", LSTM_CASES)
 def test_lstm_kernels(dev, dtype, b, t, h):
+    """bf16 takes the cluster kernels (csrc/lstm_mma.cu; H 1000 streams part of
+    each Wh slice from L2); f32 the cooperative grid."""
     (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, dtype, b, t, h)
     before = lk.launches
     got = lk.lstm_fwd_kernel(xg, wh, h0, c0)
@@ -735,6 +751,104 @@ def test_lstm_kernels(dev, dtype, b, t, h):
     grads = lk.lstm_bwd_kernel(gates, cseq, c0, wh, dy, dc)
     assert lk.bwd_launches == before + 1
     _grads_close(grads, lk.lstm_bwd_plain(gates, cseq, c0, wh, dy, dc), GRAD_REL[dtype], f"lstm {b}x{t}x{h}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 16, 17, 64])
+def test_lstm_kernels_at_the_prediction_net_width(dev, dtype, b):
+    """T 129, H 320 (bf16: clusters of 8 blocks, ceil(B / 16) of them)."""
+    (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, dtype, b, 129, 320, seed=18)
+    got = lk.lstm_fwd_kernel(xg, wh, h0, c0)
+    ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
+    for name, x, r in zip(("y", "cseq", "gates"), got, ref):
+        torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
+    _, cseq, gates = ref
+    _grads_close(lk.lstm_bwd_kernel(gates, cseq, c0, wh, dy, dc), lk.lstm_bwd_plain(gates, cseq, c0, wh, dy, dc), GRAD_REL[dtype], f"lstm B {b}")
+
+
+# the cluster size the library's plan picks where every slice fits (H ≤ 448), and the widths that stream
+LSTM_PLAN_C = {1: 1, 8: 1, 40: 1, 144: 4, 320: 8, 448: 16}
+LSTM_WIDE = [449, 512, 513, 640, 896, 897, 1000, 1024]
+
+
+@pytest.mark.parametrize("h", sorted(LSTM_PLAN_C) + LSTM_WIDE)
+def test_lstm_mma_plan(dev, h):
+    """The library's plan: at most 8 groups (warps) a block, every group owned
+    by one block, each block within 227 KB of shared memory; the whole slices
+    resident up to H 448 at the smallest cluster that holds them, C 16 and
+    part of each slice streamed above (the packed copy sized to the streamed
+    k-steps and chunks), one backward buffer above H 896; H 1025 raises."""
+    plan = lk.lstm_mma_plan(h)
+    groups = -(-h // 8)
+    c, gpb = plan.cluster, plan.groups_per_block
+    assert gpb == -(-groups // c) <= 8 and c <= groups
+    split = [groups // c + (r < groups % c) for r in range(c)]
+    assert sum(split) == groups and min(split) >= 1 and max(split) == gpb
+    assert max(plan.fwd_smem_bytes, plan.bwd_smem_bytes) <= 232448
+    assert (plan.fwd_ksteps, plan.bwd_chunks) == (-(-8 * groups // 16), groups)
+    assert plan.fwd_pack_bytes == groups * (plan.fwd_ksteps - plan.fwd_resident) * 32 * 32
+    assert plan.bwd_pack_bytes == groups * (plan.bwd_chunks - plan.bwd_resident) * 32 * 16
+    streams = plan.fwd_resident < plan.fwd_ksteps or plan.bwd_resident < plan.bwd_chunks
+    if h in LSTM_PLAN_C:
+        assert (c, streams, plan.bwd_buffers) == (LSTM_PLAN_C[h], False, 2)
+    else:
+        assert c == 16 and streams and plan.bwd_buffers == (2 if h <= 896 else 1)
+        assert plan.fwd_resident % 2 == 0 or plan.fwd_resident == plan.fwd_ksteps
+        assert plan.bwd_resident % 2 == 0 or plan.bwd_resident == plan.bwd_chunks
+    if h == 320:  # Wh's 160 columns [320][168] and two h buffers [16][328]; 40 Wh rows [40][1288] and two dxg buffers [16][1288]
+        assert (c, gpb, plan.fwd_smem_bytes, plan.bwd_smem_bytes) == (8, 5, 128512, 185472)
+
+
+def test_lstm_mma_plan_refuses_past_1024(dev):
+    with pytest.raises(ValueError, match="H ≤ 1024"):
+        lk.lstm_mma_plan(1025)
+
+
+@pytest.mark.parametrize("h", LSTM_WIDE)
+@pytest.mark.parametrize("b", [3, 17])
+def test_lstm_mma_streams_wide_widths(dev, b, h):
+    """Widths whose Wh slices do not fit on chip (part read from L2 each step;
+    one backward buffer and a cluster barrier per step above H 896): the
+    kernels against their plain versions, one or two clusters."""
+    (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, torch.bfloat16, b, 7, h, seed=19)
+    ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
+    for name, x, r in zip(("y", "cseq", "gates"), lk.lstm_fwd_kernel(xg, wh, h0, c0), ref):
+        torch.testing.assert_close(x, r, **TOL[torch.bfloat16], msg=name)
+    bargs = (ref[2], ref[1], c0, wh, dy, dc)
+    _grads_close(lk.lstm_bwd_kernel(*bargs), lk.lstm_bwd_plain(*bargs), GRAD_REL[torch.bfloat16], f"lstm streamed H {h}")
+
+
+@pytest.mark.parametrize("h", [40, 144, 320, 448, 512, 1000])
+def test_lstm_mma_same_bits_run_to_run(dev, h):
+    """At each cluster size the plan picks (1, 4, 8, 16; 512 and 1000 streamed):
+    the same bits forward and backward in three runs, and the plain versions'
+    values. The k order is fixed: no atomics."""
+    (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, torch.bfloat16, 17, 23, h, seed=19)
+    runs = []
+    for _ in range(3):
+        fwd = lk.lstm_fwd_kernel(xg, wh, h0, c0)
+        runs.append((*fwd, *lk.lstm_bwd_kernel(fwd[2], fwd[1], c0, wh, dy, dc)))
+    for run in runs[1:]:
+        assert all(torch.equal(x, r) for x, r in zip(run, runs[0]))
+    ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
+    for x, r in zip(runs[0][:3], ref):
+        torch.testing.assert_close(x, r, **TOL[torch.bfloat16])
+    _grads_close(runs[0][3:], lk.lstm_bwd_plain(runs[0][2], runs[0][1], c0, wh, dy, dc), GRAD_REL[torch.bfloat16], f"lstm bits H {h}")
+
+
+@pytest.mark.parametrize("b,h,offset", [(3, 21, 0), (17, 40, 1)])
+def test_lstm_mma_one_element_path(dev, b, h, offset):
+    """The bf16 kernels' per-step loads and stores one element at a time: H
+    odd, or xg and dy one element off their alignment (a view at offset 1)."""
+    (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, torch.bfloat16, b, 13, h, seed=21)
+    if offset:
+        xg = torch.cat([xg.new_zeros(offset), xg.flatten()])[offset:].view(xg.shape)
+        dy = torch.cat([dy.new_zeros(offset), dy.float().flatten()])[offset:].view(dy.shape)
+    ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
+    for x, r in zip(lk.lstm_fwd_kernel(xg, wh, h0, c0), ref):
+        torch.testing.assert_close(x, r, **TOL[torch.bfloat16])
+    bargs = (ref[2], ref[1], c0, wh, dy, dc)
+    _grads_close(lk.lstm_bwd_kernel(*bargs), lk.lstm_bwd_plain(*bargs), GRAD_REL[torch.bfloat16], f"lstm one element H {h}")
 
 
 def test_lstm_layer_autograd_runs_the_kernels(dev):
@@ -844,6 +958,62 @@ def test_attention_kernels(dev, bh, t, s, d, bias_bh, dtype, rate):
     grads = ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate, stats=stats)
     assert (ak.attention_launches, ak.attention_bwd_launches) == (before[0] + 1, before[1] + 1)
     _grads_close(grads, ak.fused_attention_plain_bwd(q, k, v, bias, dout, 31, rate), GRAD_REL[dtype], f"attention {bh}x{t}x{s}x{d}")
+
+
+def _rms64(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return (x.double() - ref).pow(2).mean().sqrt().item()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bf16_dv_as_close_to_float64_as_plain(dev, rate):
+    """Kernel A's bf16 dv (pd as bf16 hi + lo) against a float64 run: its rms
+    within 1.1x the plain version's (f32 pd); the same bits twice."""
+    q, k, v, bias, dout = _attention_args(dev, torch.bfloat16, 64, 400, 400, 128, 64)
+    out, stats = ak.fused_attention_kernel(q, k, v, bias, 31, rate, with_stats=True)
+    dv = ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate, stats=stats)[2]
+    assert torch.equal(dv, ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate, stats=stats)[2])
+    keep = ak.dropout_mask(31, 64, 400, 400, rate, dev).double() if rate > 0 else 1.0
+    p = torch.softmax((q.double() @ k.double().transpose(1, 2) + bias.double()).float().double(), dim=-1) * keep
+    ref = p.transpose(1, 2) @ dout.double()
+    plain = ak.fused_attention_plain_bwd(q, k, v, bias, dout, 31, rate)[2]
+    assert _rms64(dv, ref) <= 1.1 * _rms64(plain, ref), (_rms64(dv, ref), _rms64(plain, ref))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_bf16_dv_as_close_to_float64_as_plain(dev, rate):
+    """Kernel B's bf16 dv (pd through the dq pass as two bf16 planes) at the
+    flagship training shape against a float64 run: rms within 1.1x the plain version's."""
+    b, h, t, s, r, d = 16, 4, 400, 400, 799, 36
+    g = _gen(dev, 20)
+    qc, qp = _r(g, dev, (b * h, t, d), 0.3, torch.bfloat16), _r(g, dev, (b * h, t, d), 0.3, torch.bfloat16)
+    k, v, pos = (_r(g, dev, (b * h, n, d), 1.0, torch.bfloat16) for n in (s, s, r))
+    dout = _r(g, dev, (b * h, t, d), 1.0, torch.bfloat16)
+    q_len = torch.tensor([t - 17 * i for i in range(b)], dtype=torch.int32, device=dev)
+    inputs, cfg = (qc, qp, k, v, pos, None, q_len), (123, rate, False, None, None, False)
+    out, stats = ak.fused_rel_attention_kernel(*inputs, *cfg, with_stats=True)
+    dv = ak.fused_rel_attention_bwd_kernel(*inputs, out, dout, *cfg, stats=stats)[3]
+    zero = torch.zeros_like(qc)
+    add, idx = ak._scores(zero, zero, k, pos, None, q_len, False, None, None, False)
+    rel = torch.gather(qp.double() @ pos.double().transpose(1, 2), 2, idx.clamp(max=r - 1).expand(b * h, t, s)) * (idx < r)
+    scores = (qc.double() @ k.double().transpose(1, 2) + rel + add.double()).float().double()
+    keep = ak.dropout_mask(123, b * h, t, s, rate, dev).double() if rate > 0 else 1.0
+    ref = (torch.softmax(scores, dim=-1) * keep).transpose(1, 2) @ dout.double()
+    plain = ak.fused_rel_attention_plain_bwd(*inputs, dout, *cfg)[3]
+    assert _rms64(dv, ref) <= 1.1 * _rms64(plain, ref), (_rms64(dv, ref), _rms64(plain, ref))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ff_bf16_db2_as_close_to_float64_as_plain(dev, rate):
+    """The bf16 FF backward's db2 (per-16-row partials summed as a fixed
+    tree) against a float64 sum: rms within 1.5x the plain version's; the same bits twice."""
+    n, d, f = 6400, 144, 576
+    args, dout = _ff_args(dev, torch.bfloat16, n, d, f)
+    db2 = fk.fused_ff_bwd_kernel_f32(*args[:6], dout, 77, rate)[6]
+    assert torch.equal(db2, fk.fused_ff_bwd_kernel_f32(*args[:6], dout, 77, rate)[6])
+    keep2 = fk._masks(77, rate, n, d, f, dev)[1]
+    ref = (0.5 * dout.double() * (1.0 if keep2 is None else keep2.double())).sum(0)
+    plain = fk.fused_ff_plain_bwd_f32(*args[:6], dout, 77, rate)[6]
+    assert _rms64(db2, ref) <= 1.5 * _rms64(plain, ref), (_rms64(db2, ref), _rms64(plain, ref))
 
 
 def test_attention_bf16_backward_needs_the_forward_stats(dev):
