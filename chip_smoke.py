@@ -98,10 +98,11 @@ launches are recorded per path. Any failure raises. The last two lines
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero.
 
-``python3 chip_smoke.py --compare-parent DIR`` runs only the step numbers
-(:func:`phase_steps`) of this checkout and of the package under DIR (a
-checkout of another commit), each in its own process, in turns.
-``--steps`` and ``--fit-gc`` are those child processes' modes.
+``python3 chip_smoke.py --compare-parent DIR`` runs only row 10a's times
+(:func:`rows_child`: the call alone and with the stack of its outputs) and
+the step numbers (:func:`phase_steps`) of this checkout and of the package
+under DIR (a checkout of another commit), each in its own process, in
+turns. ``--rows``, ``--steps`` and ``--fit-gc`` are child processes' modes.
 """
 
 from __future__ import annotations
@@ -1072,7 +1073,7 @@ def phase_loss_kernels(dev) -> list[dict]:
     (f32 and bf16)."""
     from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
     from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
-    from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
@@ -1111,16 +1112,29 @@ def phase_loss_kernels(dev) -> list[dict]:
         active["cells"] = int(((gbl != 0) | (gem != 0)).sum())
         return fargs, (*fargs, lse, gbl / TRAIN_B, gem / TRAIN_B)  # the masked mean's cotangent
 
-    def stats(fn):
-        return lambda *a: torch.stack(fn(*a))
-
-    rows += _check_fwd_bwd("rnnt_fused_joint", stats(jk.joint_logprobs_kernel), stats(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
+    rows += _check_fwd_bwd("rnnt_fused_joint", _stacked(jk.joint_logprobs_kernel), _stacked(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
                            jk.rnnt_loss_fused_joint_plain_bwd, joint_make,
                            lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, JOINT, VOCAB, elt, bwd, active["cells"]),
                            what=f"train loss, [{TRAIN_B}, {T_ENC}, {u1}] cells, J {JOINT}, V {VOCAB}")
     joint_extras(joint_make, rows[-2:], active["cells"], TRAIN_B * T_ENC * u1, dev)
 
-    # the unfused loss's row kernels over materialised logits [16, 400, 129, 256]
+    return rows + unfused_rows_kernels(dev, gen, labels, t_len, u_len)
+
+
+def unfused_rows_kernels(dev, gen, labels, t_len, u_len) -> list[dict]:
+    """The unfused loss's two row kernels (rows 10a, 10b) over materialised
+    logits [16, 400, 129, 256], f32 and bf16, then row 10a in both dtypes:
+    the call alone beside the call with the stack of its three outputs (the
+    JSON row's ``ms``, as the check line times it and as the first design
+    was timed), achieved TB/s and share of the bytes bound, its plan, and
+    ``torch.logsumexp`` on the same logits as a yardstick (the same bytes
+    read, one of the three outputs)."""
+    from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
+
+    u1 = TRAIN_U + 1
+    n_rows = TRAIN_B * T_ENC * u1
+
     def rows_make(dt):
         logits = _randn(gen, (TRAIN_B, T_ENC, u1, VOCAB), 2.0, dt)
         lpb, lpe, lse = logits_to_logprobs_plain(logits, labels)
@@ -1128,11 +1142,63 @@ def phase_loss_kernels(dev) -> list[dict]:
         g = torch.full((TRAIN_B,), 1.0 / TRAIN_B, device=dev)  # the masked mean's cotangent
         return (logits, labels), (logits, lse, gbl, gem, labels, g)
 
-    rows += _check_fwd_bwd("rnnt_logprobs", stats(rk.logits_to_logprobs_kernel), stats(logits_to_logprobs_plain), lambda *a: (rk.dlogits_assemble_kernel(*a),),
-                           lambda *a: (dlogits_assemble_plain(*a),), rows_make,
-                           lambda elt, bwd: cost_rows(TRAIN_B * T_ENC * u1, VOCAB, TRAIN_B, TRAIN_U, elt, bwd),
-                           what=f"eval/pallas loss, logits [{TRAIN_B}, {T_ENC}, {u1}, {VOCAB}]", bwd_name="rnnt_dlogits", fwd_tol=ROWS_TOL)
+    rows = _check_fwd_bwd("rnnt_logprobs", _stacked(rk.logits_to_logprobs_kernel), _stacked(logits_to_logprobs_plain),
+                          lambda *a: (rk.dlogits_assemble_kernel(*a),), lambda *a: (dlogits_assemble_plain(*a),), rows_make,
+                          lambda elt, bwd: cost_rows(n_rows, VOCAB, TRAIN_B, TRAIN_U, elt, bwd),
+                          what=f"eval/pallas loss, logits [{TRAIN_B}, {T_ENC}, {u1}, {VOCAB}]", bwd_name="rnnt_dlogits", fwd_tol=ROWS_TOL)
+    print(f"kernel rnnt_dlogits (eval/pallas loss): bf16 {rows[1]['ms']:.4f} ms, the first design (PERF.md row 10b) {ROWS_EARLIER_MS[1]:.4f} ms "
+          f"(not redesigned; {100.0 * (rows[1]['ms'] / ROWS_EARLIER_MS[1] - 1):+.1f}%)")
+    for tag, dt in DTYPES:
+        (logits, _), _ = rows_make(dt)
+        elt = logits.element_size()
+        plan = rk.logprobs_plan(VOCAB, elt)
+        times = rows_times(rk, logits, labels)
+        ms = times["alone_ms"]
+        lse_ms = time_ms(torch.logsumexp, logits, -1)
+        moved, ops = cost_rows(n_rows, VOCAB, TRAIN_B, TRAIN_U, elt, False)
+        bd = bound(moved, ops, "f32")
+        print(f"kernel rnnt_logprobs {tag} (eval/pallas loss, [{TRAIN_B}, {T_ENC}, {u1}, {VOCAB}], {moved / 1e6:.1f} MB moved): the call alone {ms:.4f} ms, "
+              f"{moved / ms / 1e9:.3f} TB/s, {100.0 * bd[0] / ms:.1f}% of the bytes bound {bd[0]:.4f} ms; with the stack of its three outputs "
+              f"{times['stacked_ms']:.4f} ms; one warp a tile of {plan.tile_rows} rows, {plan.lanes} lanes a row, "
+              f"{VOCAB * elt // 16 // plan.lanes} chunks of 16 bytes a lane; library torch.logsumexp (one output of three, same logits) "
+              f"{lse_ms:.4f} ms; the first design (PERF.md row 10a, with the stack) "
+              + (f"{ROWS_EARLIER_MS[0]:.4f} ms" if tag == "bf16" else "not measured in f32"))
+        rows[0][f"kernel_only_ms_{tag}"], rows[0][f"stacked_ms_{tag}"] = ms, times["stacked_ms"]
+        rows[0][f"yardstick_logsumexp_ms_{tag}"] = lse_ms
+        rows[0][f"tb_per_s_{tag}"], rows[0][f"bound_share_{tag}"] = moved / ms / 1e9, bd[0] / ms
+    rows[0]["kernel_only_ms"] = rows[0]["kernel_only_ms_bf16"]
     return rows
+
+
+def _stacked(fn):
+    """``fn``'s outputs as one tensor: the form in which the check lines compare and time a kernel of several outputs."""
+    return lambda *a: torch.stack(fn(*a))
+
+
+def rows_times(rk, logits, labels) -> dict:
+    """Row 10a's call (``rk.logits_to_logprobs_kernel``) alone and with the
+    stack of its three outputs, in ms (:func:`time_ms`)."""
+    return {"alone_ms": time_ms(rk.logits_to_logprobs_kernel, logits, labels),
+            "stacked_ms": time_ms(_stacked(rk.logits_to_logprobs_kernel), logits, labels)}
+
+
+def rows_child(dev) -> dict:
+    """Row 10a of the package on ``sys.path`` at the flagship's logits
+    [16, 400, 129, 256] in bf16 and f32 (int64 labels, as the check phase
+    passes them): :func:`rows_times` of each dtype (``--rows``)."""
+    from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
+    res = {}
+    for tag, dt in DTYPES:
+        logits = _randn(gen, (TRAIN_B, T_ENC, TRAIN_U + 1, VOCAB), 2.0, dt)
+        res.update({f"{key}_{tag}": ms for key, ms in rows_times(rk, logits, labels).items()})
+    return res
+
+
+# rows 10a and 10b before the redesign of 10a (PERF.md §6, bf16), for the printout
+ROWS_EARLIER_MS = (0.3097, 0.3199)
 
 
 # the log-probability row kernel computes in f32 from the same inputs in either dtype: summation order only
@@ -2109,18 +2175,18 @@ def attention_accuracy(fargs: tuple, bargs: tuple, bwd_kernel, bwd_plain) -> Non
           + accuracy_parts(names, kern, plain, refs) + "; " + hold_rms("fused_attention_bwd", names, kern, plain, refs, RMS_LIMITS))
 
 
-def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
-    """The CTC kernel (row 11) and kernel A (row 4) at the CTC training
-    shapes, with their library yardsticks; and the four encoder kernels at
-    Conformer-CTC's widths (D 176, head 44), whose numbers go onto the
-    existing rows under ``conformer_ctc``. Returns the new rows."""
+def ctc_kernel_row(dev, gen) -> dict:
+    """Row 11 at the CTC training shape (B 16, T 400, S 257, ragged T_b and
+    U_b): occupancy and loss against the plain version (max abs error 0
+    required: the kernel repeats its operations), the kernel's time (the
+    whole ``ctc_kernel`` call), its two passes (profiler), µs per dependent
+    row update of the longest row, ``F.ctc_loss`` forward and
+    forward+backward, and the port's whole ``ctc_loss_pallas``."""
     import torch.nn.functional as F
 
     from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
-    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
     from tensorflowasr_tpu_torch.ops.cuda import ctc_kernel as ctk
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
     t_len, u_len = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev)
     labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
@@ -2135,8 +2201,13 @@ def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
         occ_err[tag] = _close(f"ctc occupancy {tag}", occ, ref_occ, *CTC_OCC_TOL)
         _close(f"ctc loss {tag}", loss, ref_loss, *CTC_LOSS_TOL)
         loss_err[tag] = ((loss - ref_loss).abs() / ref_loss.abs()).max().item()
+        if not (torch.equal(occ, ref_occ) and torch.equal(loss, ref_loss)):
+            raise AssertionError(f"ctc_loss {tag}: occupancy max abs err {occ_err[tag]}, loss rel err {loss_err[tag]} against the plain version, "
+                                 "which it repeats operation for operation (0 expected)")
     ms, plain_ms = time_ms(ctk.ctc_kernel, lp_ext, skip, t_len, u_len), time_ms(ctc_occupancy_plain, lp_ext, skip, t_len, u_len)
     bd = bound(*cost_ctc(t_np, u_np, T_ENC, s), "f32")
+    passes = device_ms_by_kernel(ctk.ctc_kernel, (lp_ext, skip, t_len, u_len), {"sweeps": "ctc_sweep", "occupancy": "ctc_occupancy"})
+    chain = int(t_np.max())
     # the library yardstick: F.ctc_loss over log_softmax output, per row (reduction none), forward and forward+backward
     lp = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1).contiguous().requires_grad_(True)
     lib = lambda: F.ctc_loss(lp, labels, t_len, u_len, blank=0, reduction="none")
@@ -2149,14 +2220,34 @@ def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
     op_fb = time_ms(lambda: torch.autograd.grad(ctk.ctc_loss_pallas(x, t_len, labels, u_len).sum(), x))
     lib_rel = ((lib_loss - loss) / loss).abs().max().item()
     print(f"kernel ctc_loss (ctc train loss): lp_ext [{TRAIN_B}, {T_ENC}, {s}] f32 from V {VOCAB} logits, T_b {t_np.min()}-{t_np.max()}, U_b "
-          f"{u_np.min()}-{u_np.max()}; occupancy max_abs_err f32 {occ_err['f32']:.3e} bf16 {occ_err['bf16']:.3e} (tol {CTC_OCC_TOL}), loss rel err "
-          f"{max(loss_err.values()):.3e} (tol {CTC_LOSS_TOL}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bd[0]:.4f} ms ({bd[1]})")
+          f"{u_np.min()}-{u_np.max()}; occupancy max_abs_err f32 {occ_err['f32']:.3e} bf16 {occ_err['bf16']:.3e} (0 required), loss rel err "
+          f"{max(loss_err.values()):.3e} (0 required); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bd[0]:.4f} ms ({bd[1]}); the first design "
+          f"(PERF.md row 11) {CTC_EARLIER_MS:.4f} ms")
+    print(f"kernel ctc_loss (ctc train loss) by pass (profiler): {_fmt_ms(passes)}; {1e3 * ms / chain:.3f} µs per dependent row update of the "
+          f"longest row ({chain}; α and β sweeps side by side, {-(-s // 32)} warps each)")
     print(f"library F.ctc_loss (ctc train loss, bf16 logits' log_softmax, reduction none): forward {lib_fwd:.4f} ms, forward+backward {lib_fb:.4f} ms "
           f"(loss rel diff to the kernel {lib_rel:.2e}); the port's whole ctc_loss_pallas on the logits (prep, kernel, softmax − occupancy): forward "
           f"{op_fwd:.4f} ms, forward+backward {op_fb:.4f} ms")
     row = _row("ctc_loss", {"f32": occ_err["f32"], "bf16": occ_err["bf16"]}, ms, plain_ms, bd)
-    row.update(dtype="float32", loss_rel_err=max(loss_err.values()), library_ms=lib_fb, library_fwd_ms=lib_fwd, op_fwd_ms=op_fwd, op_fwd_bwd_ms=op_fb)
-    new = [row]
+    row.update(dtype="float32", loss_rel_err=max(loss_err.values()), library_ms=lib_fb, library_fwd_ms=lib_fwd, op_fwd_ms=op_fwd, op_fwd_bwd_ms=op_fb,
+               passes_ms=passes, us_per_row_update=1e3 * ms / chain)
+    return row
+
+
+CTC_EARLIER_MS = 0.3248  # the one-block-per-row kernel with α then β (PERF.md row 11), for the printout
+
+
+def phase_ctc_kernels(dev, rows: list[dict]) -> list[dict]:
+    """The CTC kernel (row 11) and kernel A (row 4) at the CTC training
+    shapes, with their library yardsticks; and the four encoder kernels at
+    Conformer-CTC's widths (D 176, head 44), whose numbers go onto the
+    existing rows under ``conformer_ctc``. Returns the new rows."""
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    t_np, _ = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
+    t_len = torch.tensor(t_np, device=dev)
+    new = [ctc_kernel_row(dev, gen)]
 
     # kernel A at the Transformer-CTC training shape: B·H 64, T = S = 400, head 128, rate 0.1, the padded-row bias of a ragged batch
     bh, t, d = TRAIN_B * TCTC_HEADS, T_ENC, TCTC_HEAD
@@ -2711,22 +2802,28 @@ TURNS = ("parent", "this", "this", "parent", "parent", "this")
 
 
 def compare_steps(parent: str) -> None:
-    """The step numbers of the package in ``parent`` (a checkout of another
-    commit) and of this one, on this card in ``TURNS``, each in its own
-    process (``--steps``)."""
-    runs = []
-    for who in TURNS:
-        cmd = [sys.executable, __file__, "--steps"] + (["--package", parent] if who == "parent" else [])
+    """Row 10a's times (``--rows``) and then the step numbers (``--steps``)
+    of the package in ``parent`` (a checkout of another commit) and of this
+    one, on this card in ``TURNS``, each run in its own process."""
+    def child(mode, who):
+        cmd = [sys.executable, __file__, mode] + (["--package", parent] if who == "parent" else [])
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise AssertionError(f"{who} steps run failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        runs.append((who, json.loads(proc.stdout.strip().splitlines()[-1])["steps"]))
-        print(f"steps host_top ({who}, flagship auto step, ms of self CPU time in one step, calls): "
-              + "; ".join(f"{name} {ms:.2f} ({n})" for name, ms, n in runs[-1][1].pop("host_top")))
+            raise AssertionError(f"{who} {mode} run failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])[mode[2:]]
+
     def line(key, vals):
-        print(f"steps {key}: parent " + " / ".join(f"{x:.3f}" for x in vals["parent"]) + ", this commit " + " / ".join(f"{x:.3f}" for x in vals["this"])
+        print(f"steps {key}: parent " + " / ".join(f"{x:.4f}" for x in vals["parent"]) + ", this commit " + " / ".join(f"{x:.4f}" for x in vals["this"])
               + f" (in turns: {', '.join(TURNS)})")
 
+    rows = [(who, child("--rows", who)) for who in TURNS]
+    for key in rows[0][1]:
+        line(f"rnnt_logprobs {key}", {w: [r[key] for who, r in rows if who == w] for w in ("parent", "this")})
+    runs = []
+    for who in TURNS:
+        runs.append((who, child("--steps", who)))
+        print(f"steps host_top ({who}, flagship auto step, ms of self CPU time in one step, calls): "
+              + "; ".join(f"{name} {ms:.2f} ({n})" for name, ms, n in runs[-1][1].pop("host_top")))
     for key in runs[0][1]:
         if isinstance(runs[0][1][key], dict):  # device ms in the profiled step by port kernel; a name one commit lacks counts 0
             names = sorted({n for _, r in runs for n in r[key]})
@@ -2741,6 +2838,7 @@ def main(argv: list[str]) -> int:
     :func:`phase_steps`, of the package under DIR when given, as one JSON line.
     ``--fit-gc``: only :func:`fit_gc_child`, as one JSON line.
     ``--gc-probe``: only :func:`gc_probe_child`, as one JSON line.
+    ``--rows [--package DIR]``: only :func:`rows_child`, as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -2758,6 +2856,10 @@ def main(argv: list[str]) -> int:
     if "--steps" in argv:
         _no_tf32()
         print(json.dumps({"steps": phase_steps(torch.device("cuda", 0)), "package": str(_build.CSRC.parent)}))
+        return 0
+    if "--rows" in argv:
+        _no_tf32()
+        print(json.dumps({"rows": rows_child(torch.device("cuda", 0)), "package": str(_build.CSRC.parent)}))
         return 0
     if "--compare-parent" in argv:
         compare_steps(argv[argv.index("--compare-parent") + 1])

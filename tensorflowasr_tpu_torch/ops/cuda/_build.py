@@ -79,7 +79,7 @@ _SIGNATURES = {
     "tfasr_lstm_mma_plan": ([_I, _P], ctypes.c_int),
     "tfasr_lstm_mma_fwd": ([_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
     "tfasr_lstm_mma_bwd": ([_P] * 10 + [_I] * 3 + [_P], ctypes.c_int),
-    "tfasr_ctc": ([_P] * 6 + [_I] * 3 + [_P], ctypes.c_int),
+    "tfasr_ctc": ([_P] * 7 + [_I] * 3 + [_P], ctypes.c_int),
     "tfasr_attention": ([_P] * 6 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_attention_bwd": ([_P] * 14 + [_I] * 5 + _DROP + [_I, _P], ctypes.c_int),
     # enc_p, lens, tok0, embed; n_layers; six host arrays of per-layer pointers; wp, bp, wv, bv, st0; four outputs;

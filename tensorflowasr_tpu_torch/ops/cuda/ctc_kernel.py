@@ -11,12 +11,16 @@ the label occupancies go into their vocabulary bins by ``scatter_add``
 (a repeated label sums into one bin, as JAX's one-hot GEMM does), and the
 gradient comes out in the logits' dtype.
 
-What bounds the kernel on the card: the chain of 2·T_b dependent row
-updates (one barrier each, one block per batch row), not the 13 MB it
-reads and writes at B 16, T 400, S 257. None of the TPU kernel's lane
-packing (``_pack_grid``, G lane groups, ``_padded_lanes``, scalar
-prefetch) is carried over. :func:`ctc_occupancy_plain`
-(``ops/ctc_loss.py``) is its plain twin.
+The kernel runs the α and β sweeps side by side, a block of
+``ceil(S / 32)`` warps each per batch row (one extended state per lane, a
+named barrier a step), into α (the occupancy buffer) and β (a scratch
+[B, T, S]); a parallel pass then forms the occupancy of every cell. What
+bounds it on the card: the chain of T_b dependent row updates per row, not
+the 13 MB it reads and writes at B 16, T 400, S 257. None of the TPU
+kernel's lane packing (``_pack_grid``, G lane groups, ``_padded_lanes``,
+scalar prefetch) is carried over. :func:`ctc_occupancy_plain`
+(``ops/ctc_loss.py``) is its plain twin, operation for operation: the two
+agree bit for bit.
 """
 
 from __future__ import annotations
@@ -28,12 +32,14 @@ from tensorflowasr_tpu_torch.ops.cuda import _build
 
 launches = 0  # kernel launches since the last reset (set to 0 to reset)
 
-MAX_STATES = 1024  # one thread per extended state
+MAX_STATES = 1024  # one lane per extended state, at most 32 warps a sweep
 
 
 def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch.Tensor, label_length: torch.Tensor):
     """The kernel on CUDA tensors: (occupancy [B, T, S], loss [B]), f32; no
-    autograd. Lengths are clamped to the lattice (1 ≤ T_b ≤ T, 2U_b+1 ≤ S)."""
+    autograd. Lengths are clamped to the lattice (1 ≤ T_b ≤ T, 2U_b+1 ≤ S).
+    One call, one count in :data:`launches` (its two launches: the sweeps
+    and the occupancy pass)."""
     global launches
     if lp_ext.dim() != 3:
         raise ValueError("lp_ext must be [B, T, S]")
@@ -51,10 +57,11 @@ def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch
     loss = torch.empty(b, dtype=torch.float32, device=dev)
     if b * t * s == 0:
         return occ.zero_(), loss.zero_()
+    beta = torch.empty_like(lp_ext)  # the β rows
     lib = _build.build()
     with torch.cuda.device(dev):
-        err = lib.tfasr_ctc(lp_ext.data_ptr(), skip_add.data_ptr(), t_len.data_ptr(), u_len.data_ptr(), occ.data_ptr(), loss.data_ptr(), b, t, s,
-                            _build.stream_of(lp_ext))
+        err = lib.tfasr_ctc(lp_ext.data_ptr(), skip_add.data_ptr(), t_len.data_ptr(), u_len.data_ptr(), occ.data_ptr(), loss.data_ptr(), beta.data_ptr(),
+                            b, t, s, _build.stream_of(lp_ext))
     _build.check(err, "ctc")
     launches += 1
     return occ, loss

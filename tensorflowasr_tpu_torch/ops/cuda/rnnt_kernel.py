@@ -19,10 +19,11 @@ twin, operation for operation: the two agree bit for bit.
 
 :func:`rnnt_loss_pallas` replaces the JAX ``rnnt_loss_pallas`` and its
 ``custom_vjp``: the forward turns the logits [B, T, U+1, V] into
-lp_blank, lp_emit and lse (``_logits_to_logprobs``; one warp per lattice
-cell) and runs the DP on them directly, in natural coordinates (no skew);
-it keeps the logits in their own dtype, lse, gbl and gem for the backward,
-which assembles the dense d_logits in the logits' dtype
+lp_blank, lp_emit and lse (``_logits_to_logprobs``; one warp a tile of
+rows, their 16-byte chunks loaded straight into registers,
+:func:`logprobs_plan`) and runs the DP on them directly, in natural
+coordinates (no skew); it keeps the logits in their own dtype, lse, gbl
+and gem for the backward, which assembles the dense d_logits in the logits' dtype
 (``_dlogits_assemble``). Both row kernels are bound by bytes: 423 MB of
 bf16 logits read at the flagship (0.13 ms at 3.35 TB/s), and as much again
 written by the backward. :func:`logits_to_logprobs_plain` and
@@ -31,16 +32,21 @@ written by the backward. :func:`logits_to_logprobs_plain` and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.rnnt_loss import dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
 
 launches = 0  # DP kernel launches since the last reset (set to 0 to reset)
-logprobs_launches = 0  # log-probability row kernel launches
+logprobs_launches = 0  # log-probability row kernel launches (either form)
+logprobs_scalar_launches = 0  # ... of which took the one-element form
 dlogits_launches = 0  # d_logits row kernel launches
 
 MAX_U1 = 1024  # label positions: 32 warps of 32 lanes per sweep
+
+LP_TILE_BYTES = 4096  # a warp's tile: as many whole rows as fit, at most 32 (at least one)
 
 
 def dp_warps(u1: int) -> int:
@@ -112,6 +118,31 @@ def rnnt_loss_from_logprobs(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit
     return _RnntLossFromLogprobs.apply(lp_blank, lp_emit, logit_length, label_length)
 
 
+class LogprobsPlan(NamedTuple):
+    """How the log-probability row kernel reads logits [rows, V]: ``route``
+    "tiles" (one warp a tile of ``tile_rows`` consecutive rows, ``lanes``
+    lanes a row, 16-byte loads into registers) or "scalar" (one warp a row,
+    one element a load)."""
+    route: str
+    tile_rows: int
+    lanes: int
+
+
+def logprobs_plan(v: int, elt: int, aligned: bool = True) -> LogprobsPlan:
+    """The row kernel's form by shape. A row of 16-byte aligned bytes
+    (``v·elt`` a multiple of 16 and an ``aligned`` base) takes the tiles:
+    ``tile_rows`` = the largest power of two of rows that fits
+    :data:`LP_TILE_BYTES` (1 to 32; one row when a row is longer), and
+    ``32 / tile_rows`` lanes a row, each loading 8 chunks of 16 bytes a
+    pass, so that a row of at most 4 KB takes one pass (V 256 bf16: 8
+    rows, 4 lanes a row). Any other row takes the one-element form."""
+    row = v * elt
+    if not aligned or row % 16:
+        return LogprobsPlan("scalar", 0, 0)
+    tile_rows = 1 << (min(32, max(1, LP_TILE_BYTES // row)).bit_length() - 1)
+    return LogprobsPlan("tiles", tile_rows, 32 // tile_rows)
+
+
 def _check_logits(logits: torch.Tensor, labels: torch.Tensor):
     if logits.dim() != 4:
         raise ValueError("logits must be [B, T, U+1, V]")
@@ -126,18 +157,23 @@ def _check_logits(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def logits_to_logprobs_kernel(logits: torch.Tensor, labels: torch.Tensor):
-    """The log-probability row kernel on CUDA tensors: (lp_blank, lp_emit, lse) as :func:`logits_to_logprobs_plain`."""
-    global logprobs_launches
+    """The log-probability row kernel on CUDA tensors: (lp_blank, lp_emit, lse)
+    as :func:`logits_to_logprobs_plain`, in the form :func:`logprobs_plan`
+    picks by shape: the tiles for 16-byte aligned rows, the one-element
+    kernel for any other row."""
+    global logprobs_launches, logprobs_scalar_launches
     b, t, u1, v, code, vec, lab = _check_logits(logits, labels)
+    plan = logprobs_plan(v, logits.element_size(), bool(vec))
     lpb, lpe, lse = (torch.empty((b, t, u1), dtype=torch.float32, device=logits.device) for _ in range(3))
     if b * t * u1 == 0:
         return lpb, lpe, lse
     lib = _build.build()
     with torch.cuda.device(logits.device):
-        err = lib.tfasr_rnnt_logprobs(logits.data_ptr(), lab.data_ptr(), lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), b, t, u1, v, code, vec,
-                                      _build.stream_of(logits))
+        err = lib.tfasr_rnnt_logprobs(logits.data_ptr(), lab.data_ptr(), lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), b, t, u1, v, code,
+                                      plan.tile_rows, _build.stream_of(logits))
     _build.check(err, "rnnt_logprobs")
     logprobs_launches += 1
+    logprobs_scalar_launches += plan.route == "scalar"
     return lpb, lpe, lse
 
 

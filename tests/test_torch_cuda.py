@@ -16,8 +16,8 @@ either dtype: 1e-4. The LSTM kernels chain T steps; bf16 rounds y, the
 cell sequence and the gates at the same places on both sides, so a
 summation-order flip of one rounding carries into later steps: 2e-2
 forward, 3e-2 of each gradient's scale backward. The CTC kernel (f32
-only) chains 2·T log-sum-exps of three: its loss to 1e-5 relative, its
-occupancies (in [−1, 0]) to 1e-5 absolute. Kernel A, like kernel B: 1e-4
+only) repeats the plain version's operations in the same order: loss and
+occupancy bit for bit. Kernel A, like kernel B: 1e-4
 / 2e-2 forward, 1e-4 / 3e-2 of each gradient's scale backward.
 """
 
@@ -672,14 +672,17 @@ def test_fused_joint_loss_autograd_runs_the_three_kernels(dev):
     _grads_close([x.grad for x in leaves], jk.rnnt_loss_fused_joint_plain_bwd(*args, lse, gbl, gem), GRAD_REL[torch.float32], "fused joint autograd")
 
 
-# (B, T, U, V): V = 29 and 12 take the one-element loads in bf16 (29 also in f32), 256 the 16-byte ones; U = 0
-ROW_CASES = [(2, 5, 3, 29), (3, 7, 4, 256), (2, 4, 3, 12), (1, 3, 0, 8)]
+# (B, T, U, V): V = 29 and 12 take the one-element kernel in bf16 (29 also in f32), 256 and 1000 the tiles (tail tiles:
+# 105 and 510 rows in tiles of 8 or 4 rows at V 256, 2 or 1 rows at V 1000); U = 0
+ROW_CASES = [(2, 5, 3, 29), (3, 7, 4, 256), (2, 4, 3, 12), (1, 3, 0, 8), (3, 17, 9, 256), (2, 5, 3, 1000)]
 
 
 def _row_args(dev, dtype, b, t, u, v, seed=9):
     g = _gen(dev, seed)
     logits = _r(g, dev, (b, t, u + 1, v), 2.0, dtype)
     labels = torch.randint(0, v, (b, u), generator=torch.Generator().manual_seed(seed)).to(dev)
+    if u > 1:
+        labels[-1, 1] = v + 3  # a label outside [0, V) picks 0
     return logits, labels
 
 
@@ -687,9 +690,11 @@ def _row_args(dev, dtype, b, t, u, v, seed=9):
 @pytest.mark.parametrize("b,t,u,v", ROW_CASES)
 def test_rnnt_row_kernels(dev, dtype, b, t, u, v):
     logits, labels = _row_args(dev, dtype, b, t, u, v)
-    before = rk.logprobs_launches
+    plan = rk.logprobs_plan(v, logits.element_size())
+    before, scalar = rk.logprobs_launches, rk.logprobs_scalar_launches
     got = rk.logits_to_logprobs_kernel(logits, labels)
     assert rk.logprobs_launches == before + 1
+    assert rk.logprobs_scalar_launches == scalar + (plan.route == "scalar")  # which kernel ran
     ref = logits_to_logprobs_plain(logits, labels)
     for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, ref):
         torch.testing.assert_close(x, r, **TOL[torch.float32], msg=name)
@@ -700,6 +705,42 @@ def test_rnnt_row_kernels(dev, dtype, b, t, u, v):
     d = rk.dlogits_assemble_kernel(logits, ref[2], gbl, gem, labels, cot)
     assert rk.dlogits_launches == before + 1 and d.dtype == dtype
     torch.testing.assert_close(d, dlogits_assemble_plain(logits, ref[2], gbl, gem, labels, cot), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rnnt_logprobs_by_shape(dev, dtype):
+    """The tiles at the flagship's rows, at V 1000 (16 or 32 lanes a row)
+    and at rows over 4 KB (several passes, the last one partly past the
+    row); the one-element kernel for a misaligned base and for a row length
+    that is not a multiple of 16 bytes: each against the plain version, and
+    the count of the form that ran."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    cases = [((16, 40, 129, 256), 0, "tiles"), ((2, 9, 7, 1000), 0, "tiles"), ((1, 3, 5, 6144 // elt), 0, "tiles"),
+             ((1, 2, 3, 24576 // elt + 8), 0, "tiles"), ((2, 5, 3, 256), 1, "scalar"), ((2, 3, 4, 16 // elt * 100 + 1), 0, "scalar")]
+    for (b, t, u1, v), offset, route in cases:
+        g = _gen(dev, 21)
+        flat = _r(g, dev, (b * t * u1 * v + offset,), 2.0, dtype)
+        logits = flat[offset:].view(b, t, u1, v)
+        labels = torch.randint(0, v + 2, (b, u1 - 1), generator=torch.Generator().manual_seed(3)).to(dev)
+        assert rk.logprobs_plan(v, elt, logits.data_ptr() % 16 == 0).route == route
+        scalar = rk.logprobs_scalar_launches
+        got = rk.logits_to_logprobs_kernel(logits, labels)
+        assert rk.logprobs_scalar_launches == scalar + (route == "scalar"), (b, t, u1, v, offset)
+        for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, logits_to_logprobs_plain(logits, labels)):
+            torch.testing.assert_close(x, r, **TOL[torch.float32], msg=f"{name} {(b, t, u1, v, offset)}")
+
+
+@pytest.mark.parametrize("v,dtype", [(256, torch.bfloat16), (256, torch.float32), (1000, torch.bfloat16), (1000, torch.float32),
+                                     (3000, torch.bfloat16), (3000, torch.float32)])
+def test_rnnt_logprobs_picks_every_label_position(dev, v, dtype):
+    """Row u of one lattice column picks label u, for every u < V: x[label]
+    comes from every lane, pass and position of a row's chunks in turn."""
+    logits = _r(_gen(dev, 5), dev, (1, 1, v, v), 2.0, dtype)
+    labels = torch.arange(v - 1, device=dev)[None, :]
+    assert rk.logprobs_plan(v, logits.element_size()).route == "tiles"
+    got = rk.logits_to_logprobs_kernel(logits, labels)
+    for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, logits_to_logprobs_plain(logits, labels)):
+        torch.testing.assert_close(x, r, **TOL[torch.float32], msg=name)
 
 
 def test_rnnt_loss_pallas_autograd_runs_the_three_kernels(dev):
@@ -875,8 +916,10 @@ def test_lstm_layer_autograd_runs_the_kernels(dev):
 
 # ------------------------------------------ CTC ------------------------------------------ #
 
-# (B, T, U, V): the CTC training shape, small ragged ones, a lattice of one frame and no labels
-CTC_CASES = [(16, 400, 128, 256), (3, 13, 4, 20), (2, 37, 50, 70), (1, 1, 0, 5)]
+# (B, T, U, V): the CTC training shape, small ragged ones, a lattice of one frame and no labels; S = 2U + 1 on both
+# sides of a warp boundary (31 | 33, 63 | 65) and at 1023 (32 warps a sweep); a lattice of one frame with labels
+CTC_CASES = [(16, 400, 128, 256), (3, 13, 4, 20), (2, 37, 50, 70), (1, 1, 0, 5), (4, 40, 15, 30), (4, 40, 16, 30), (3, 70, 31, 40),
+             (3, 70, 32, 40), (2, 600, 511, 600), (3, 1, 4, 9)]
 
 
 def _ctc_args(dev, b, t, u, v, seed=12):
@@ -897,6 +940,7 @@ def _ctc_args(dev, b, t, u, v, seed=12):
 
 @pytest.mark.parametrize("b,t,u,v", CTC_CASES)
 def test_ctc_kernel(dev, b, t, u, v):
+    """Bit-equal to the plain version: the kernel repeats its operations in the same order."""
     logits, t_len, labels, u_len = _ctc_args(dev, b, t, u, v)
     lp_ext, skip, _ = ctc_prep(logits, labels)
     before = ctk.launches
@@ -904,8 +948,14 @@ def test_ctc_kernel(dev, b, t, u, v):
     assert ctk.launches == before + 1
     ref_occ, ref_loss = ctc_occupancy_plain(lp_ext, skip, t_len, u_len)
     assert torch.isfinite(loss).all() and torch.isfinite(occ).all()
-    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0)
-    torch.testing.assert_close(occ, ref_occ, rtol=0, atol=1e-5)
+    assert torch.equal(loss, ref_loss), f"loss: max abs err {(loss - ref_loss).abs().max().item()}"
+    assert torch.equal(occ, ref_occ), f"occupancy: max abs err {(occ - ref_occ).abs().max().item()}"
+
+
+def test_ctc_kernel_refuses_more_than_1024_states(dev):
+    lp_ext, skip = torch.zeros((1, 3, 1025), device=dev), torch.zeros((1, 1025), device=dev)
+    with pytest.raises(ValueError, match="1024"):
+        ctk.ctc_kernel(lp_ext, skip, torch.tensor([3]), torch.tensor([512]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
