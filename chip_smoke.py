@@ -60,7 +60,17 @@ states carried) for the flagship and for the small-streaming example with a
 64-frame KV memory, in bf16 with ms per chunk and launches per chunk (one
 fused decode each), and in f32 card against CPU chunk by chunk; and the
 Transformer-CTC referee (its f32 step at the published init, card and CPU,
-against a float64 CPU run). Kernel B (row 3) and the fused FF (row 5) run
+against a float64 CPU run). The published recipes (``phase_recipe``): the
+flagship with its learning_config (TransformerSchedule, AdamW, ga_steps 8,
+SpecAugment, TerminateOnNaN, ModelCheckpoint and TensorBoard into a
+temporary directory) through ``Trainer.fit`` for 16 micro-steps of batch 4
+and an epoch-end eval, with each update's learning rate against the closed
+form, micro-step walls, the checkpoint's bytes and save and restore times,
+SpecAugment's time and launches, and a micro-step's launches with the
+one-pass gradient norm and the per-tensor one; the callbacks' cost per
+micro-step; a resumed run against two straight ones; a NaN batch stopping
+``fit``; Conformer-CTC Small and Transformer-CTC base for one update of
+their recipes; and the whole chain in f32, card against CPU. Kernel B (row 3) and the fused FF (row 5) run
 bf16 on the tensor cores: at both widths they print their times at rate 0
 and 0.1 beside the earlier CUDA-core kernels' (PERF.md), kernel B's
 chunked KV-memory case (S = M + T, kv_bias, chunk mask) forward and
@@ -102,7 +112,8 @@ Without a card it exits non-zero.
 (:func:`rows_child`: the call alone and with the stack of its outputs) and
 the step numbers (:func:`phase_steps`) of this checkout and of the package
 under DIR (a checkout of another commit), each in its own process, in
-turns. ``--rows``, ``--steps`` and ``--fit-gc`` are child processes' modes.
+turns. ``--rows``, ``--steps`` and ``--fit-gc`` are child processes' modes;
+``--recipe`` runs the kernel build and the recipes alone.
 """
 
 from __future__ import annotations
@@ -2108,8 +2119,10 @@ TCTC_HEADS, TCTC_HEAD = 4, 128  # Transformer-CTC base
 CTC_LOSS_TOL, CTC_OCC_TOL = (0.0, 1e-5), (1e-5, 0.0)
 
 
-def ctc_model(name: str, dtype, device, num_blocks: int | None = None, dropout: float = TRAIN_RATE, conditioned: bool = False) -> torch.nn.Module:
-    """A CTC model at its published widths, random weights from SEED. With
+def ctc_model(name: str, dtype, device, num_blocks: int | None = None, dropout: float = TRAIN_RATE, conditioned: bool = False,
+              augment: bool = False) -> torch.nn.Module:
+    """A CTC model at its published widths, random weights from SEED
+    (``augment``: with the example's SpecAugment). With
     ``conditioned`` (the card/CPU parity) the Transformer's input linear is
     drawn 1/√dmodel smaller: its output is scaled by √dmodel before the PE,
     and with lecun-normal weights the attention scores are otherwise O(500),
@@ -2119,7 +2132,7 @@ def ctc_model(name: str, dtype, device, num_blocks: int | None = None, dropout: 
     from tensorflowasr_tpu_torch.models.ctc.transformer import TransformerCtc, transformer_ctc_base_config
 
     cls, make_cfg = {"conformer_ctc": (ConformerCtc, conformer_ctc_small_config), "transformer_ctc": (TransformerCtc, transformer_ctc_base_config)}[name]
-    cfg = make_cfg(dropout=dropout, **({} if num_blocks is None else {"num_blocks": num_blocks}))
+    cfg = make_cfg(dropout=dropout, augment=augment, **({} if num_blocks is None else {"num_blocks": num_blocks}))
     model = cls.from_config(cfg, dtype=dtype, device=device)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     if conditioned and name == "transformer_ctc":
@@ -2542,6 +2555,475 @@ def phase_ctc_referee(dev) -> None:
           f"{max(plain.values()):.3e}, CPU {max(cpu.values()):.3e}")
 
 
+# ----------------------------------------- recipes ----------------------------------------- #
+
+RECIPE_MICRO = 16  # the flagship's micro-steps: 2 applied updates at its ga_steps 8
+RECIPE_CALLBACK_STEPS = 8  # micro-steps timed per run with and without the callbacks
+RECIPE_RESUME = 8  # micro-steps before and after the checkpoint
+RECIPE_TIMED = 20  # SpecAugment calls timed
+
+
+def noam_closed_form(schedule: dict, count: int) -> float:
+    """A recipe's TransformerSchedule written out in float64: scale · d^-0.5 ·
+    min(s^-0.5, s · warmup^-1.5) with s = max(count, 1), at most max_lr."""
+    c = schedule["config"]
+    s = max(count, 1)
+    lr = c.get("scale", 1.0) * c["dmodel"] ** -0.5 * min(s ** -0.5, s * c["warmup_steps"] ** -1.5)
+    if "max_lr" in c:
+        lr = min(lr, float(eval(str(c["max_lr"]), {"__builtins__": {}})))  # noqa: S307 (the recipe's own numeric string)
+    return lr
+
+
+def recipe_model(device, dtype=torch.bfloat16, num_blocks: int = 16, dropout: float = TRAIN_RATE, seed: int = SEED) -> torch.nn.Module:
+    """The flagship with the SpecAugment of its published recipe, random weights from ``seed``."""
+    from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_small_config
+
+    model = Conformer.from_config(conformer_small_config(num_blocks=num_blocks, dropout=dropout, augment=True), dtype=dtype, device=device)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model
+
+
+def recipe_trainer(model, lc: dict, device, **kwargs):
+    """A ``Trainer`` with a recipe's optimizer chain: schedule, ga_steps, gradient and weight noise as the learning_config says."""
+    from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+    return Trainer(model, lc["optimizer_config"], device=device, ga_steps=lc["ga_steps"], gradn_config=lc["gradn_config"], gwn_config=lc["gwn_config"],
+                   **kwargs)
+
+
+def recipe_batches(seed: int, n: int, batch: int, vocab: int, dev) -> list:
+    rng = np.random.default_rng(seed)
+    return [train_batch(rng, batch, TRAIN_SECS, TRAIN_U, vocab).to(dev) for _ in range(n)]
+
+
+def check_learning_rates(tag: str, updates: list, schedule: dict) -> None:
+    """Each applied update's learning rate (as the chain set it) against the closed form, 1e-6 relative (f32 vs float64)."""
+    for step, count, lr in updates:
+        ref = noam_closed_form(schedule, count)
+        if not abs(lr - ref) <= 1e-6 * ref:
+            raise AssertionError(f"{tag}: update {count} (micro-step {step}) learning rate {lr!r} vs the closed form {ref!r}")
+        print(f"{tag} update {count} (after micro-step {step}): learning rate {lr:.6e}, closed form {ref:.6e} (rel {abs(lr - ref) / ref:.1e}, tol 1e-6)")
+
+
+def device_launches(fn) -> tuple[int, float]:
+    """(CUDA device operations, their device ms) of one call of ``fn`` under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
+
+
+def per_tensor_global_norm(grads) -> torch.Tensor:
+    """The earlier form of the trainer's global norm, the yardstick of the one-pass
+    ``torch._foreach_norm``: a product, a sum and an add per gradient."""
+    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+
+def recipe_flagship(dev, lc: dict, tmp: str) -> dict:
+    """The flagship with its published recipe through ``Trainer.fit``:
+    RECIPE_MICRO micro-steps at batch 4 (bench.py lengths, ≤ 16 s), the
+    recipe's callbacks (TerminateOnNaN, ModelCheckpoint, TensorBoard into
+    ``tmp``) and one epoch-end eval; launches counted over the run. Then the
+    checkpoint's bytes and save and restore times, SpecAugment's time and
+    launches, and the launches of a micro-step with the one-pass norm and
+    with the per-tensor one. Returns the run's launch counts."""
+    from tensorflowasr_tpu_torch.optimizers.optimizers import global_norm
+    from tensorflowasr_tpu_torch.training import callbacks
+
+    class UpdateLog(callbacks.Callback):
+        """(micro-step, update count, learning rate) after each applied update."""
+
+        def __init__(self):
+            self.updates = []
+
+        def on_train_batch_end(self, trainer, state, metrics):
+            if state.optimizer.mini_step == 0:
+                self.updates.append((state.step, state.optimizer.count - 1, state.optimizer.param_groups[0]["lr"]))
+
+    tag = "recipe flagship"
+    model = recipe_model(dev)
+    log = UpdateLog()
+    cbs = callbacks.deserialize(lc["callbacks"]) + [log]
+    ckpt_dir = os.path.join(tmp, "checkpoints")
+    trainer = recipe_trainer(model, lc, dev, checkpoint_dir=ckpt_dir, callbacks=cbs)
+    state = trainer.init_state(seed=SEED)
+    batches = recipe_batches(SEED + 40, RECIPE_MICRO + 1, lc["batch_size"], VOCAB, dev)
+    eval_batch = batches.pop()
+    audio = sum(b.inputs.inputs_length.sum().item() for b in batches) / 16000
+    marks = []
+
+    def data():
+        for b in batches:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    print(f"{tag}: {[type(c).__name__ for c in cbs]}; {RECIPE_MICRO} micro-steps of batch {lc['batch_size']} ({audio:.1f} s of audio, arrays of "
+          f"{TRAIN_SECS} s), ga_steps {lc['ga_steps']}, SpecAugment {model.feature_extraction.augmentation.feature_augmentations and 'on'}, "
+          f"optimizer {lc['optimizer_config']}")
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    with RequestWatch() as watch:
+        state = trainer.fit(state, data(), epochs=1, eval_data=[eval_batch], log_every=10 ** 9)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {k: RECIPE_MICRO * PER_STEP[k] + PER_EVAL[k] for k in KERNELS}
+    if counts != expected:
+        raise AssertionError(f"{tag}: launches {counts}, expected {RECIPE_MICRO} x {PER_STEP} + {PER_EVAL}")
+    if state.step != RECIPE_MICRO or state.optimizer.count != RECIPE_MICRO // lc["ga_steps"]:
+        raise AssertionError(f"{tag}: step {state.step}, updates {state.optimizer.count}")
+    check_learning_rates(tag, log.updates, lc["optimizer_config"]["config"]["learning_rate"])
+    if [u[:2] for u in log.updates] != [(lc["ga_steps"] * (k + 1), k) for k in range(RECIPE_MICRO // lc["ga_steps"])]:
+        raise AssertionError(f"{tag}: updates applied at {log.updates}")
+    lines = [json.loads(line) for line in open(os.path.join(tmp, "tensorboard", "metrics.jsonl"))]
+    epoch = lines[-1]
+    if not (np.isfinite(epoch.get("epoch_loss", np.nan)) and np.isfinite(epoch.get("epoch_val_loss", np.nan))) or trainer.checkpoint_steps() != [RECIPE_MICRO]:
+        raise AssertionError(f"{tag}: TensorBoard's last line {epoch}, checkpoints {trainer.checkpoint_steps()}")
+    walls = np.diff(marks) * 1e3
+    applied = [i for i in range(RECIPE_MICRO) if (i + 1) % lc["ga_steps"] == 0]
+    plain = [walls[i] for i in range(1, RECIPE_MICRO) if i not in applied]
+    print(f"{tag}: micro-step wall median {np.median(plain):.1f} ms (host clock, each ends in a synchronise; micro-steps 2-{RECIPE_MICRO} without an "
+          f"update; first {walls[0]:.1f} ms with fit's gc.freeze), applied micro-steps {[round(float(walls[i]), 1) for i in applied]} ms: "
+          f"the update adds {np.mean([walls[i] for i in applied]) - np.median(plain):.1f} ms; {watch}; loss {epoch['epoch_loss']:.4f}, "
+          f"val_loss {epoch['epoch_val_loss']:.4f} (epoch-end eval, 1 batch); launches {_launched(counts)}")
+
+    path = os.path.join(ckpt_dir, str(state.step), "state.pt")
+    size = os.path.getsize(path)
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save(state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = recipe_trainer(recipe_model(dev, seed=SEED + 1), lc, dev, checkpoint_dir=ckpt_dir)
+    restored = fresh.init_state(seed=SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore(restored)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    want, got = model.state_dict(), restored.model.state_dict()
+    if any(not torch.equal(want[k], got[k]) for k in want) or restored.step != state.step:
+        raise AssertionError(f"{tag}: the restored module differs from the saved one")
+    print(f"{tag} checkpoint: {size / 2**20:.1f} MiB (module with BatchNorm statistics, Adam moments, accumulation buffers, generators), "
+          f"save {save_ms:.1f} ms, restore {restore_ms:.1f} ms (torch.load weights_only, into a fresh model on the card)")
+    del fresh, restored
+
+    aug = model.feature_extraction.augmentation
+    b = batches[0]
+    with torch.no_grad():
+        feats, flens = model.feature_extraction(b.inputs.inputs, b.inputs.inputs_length)
+    feats = feats.float()
+    gen = torch.Generator().manual_seed(SEED)
+    for _ in range(WARMUP):
+        aug.feature_augment(feats, flens, gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(RECIPE_TIMED):
+        aug.feature_augment(feats, flens, gen)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / RECIPE_TIMED
+    ops, ops_ms = device_launches(lambda: aug.feature_augment(feats, flens, gen))
+    print(f"{tag} SpecAugment ({[type(m).__name__ for m in aug.feature_augmentations]}, features {tuple(feats.shape)} f32): "
+          f"{start.elapsed_time(end) / RECIPE_TIMED:.4f} ms a call (CUDA events over {RECIPE_TIMED} calls; host {host_ms:.3f} ms a call), "
+          f"{ops} device operations a micro-step ({ops_ms:.4f} ms of device time, profiler)")
+
+    # one micro-step that accumulates, with the one-pass norm (shipped) and the per-tensor yardstick on its gradients
+    step_ops, step_ms = device_launches(lambda: trainer.train_step(state, batches[1]))
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    new_ops, new_ms = device_launches(lambda: global_norm(grads))
+    old_ops, old_ms = device_launches(lambda: per_tensor_global_norm(grads))
+    new, old = global_norm(grads).item(), per_tensor_global_norm(grads).item()
+    if not abs(new - old) <= 1e-5 * old:
+        raise AssertionError(f"{tag}: one-pass norm {new} vs per-tensor {old}")
+    print(f"{tag} launches per micro-step (profiler, device operations): {step_ops} with the one-pass norm ({new_ops} for the norm, "
+          f"{new_ms:.3f} ms), {step_ops - new_ops + old_ops} with the per-tensor norm ({old_ops} for the norm over {len(grads)} gradients, "
+          f"{old_ms:.3f} ms); norms {new:.6f} vs {old:.6f}; card time in the micro-step {step_ms:.1f} ms")
+
+    # the optimizer chain's own time per micro-step over one accumulation cycle: accumulating, and the applied update
+    chain, times = state.optimizer, []
+    chain_step = chain.step
+
+    def timed_step(grad_norm=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        applied = chain_step(grad_norm=grad_norm)
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3, applied))
+        return applied
+
+    chain.step = timed_step
+    try:
+        for b in batches[:lc["ga_steps"]]:
+            trainer.train_step(state, b)
+    finally:
+        del chain.step
+    acc = [ms for ms, applied in times if not applied]
+    upd = [ms for ms, applied in times if applied]
+    print(f"{tag} optimizer chain (host clock between synchronises): accumulating {np.median(acc):.3f} ms a micro-step (median of {len(acc)}), "
+          f"the applied update {upd[0]:.3f} ms (mean gradient, AdamW over {len(chain.params)} tensors, buffers zeroed): "
+          f"{upd[0] - np.median(acc):.3f} ms more")
+    return counts
+
+
+def recipe_callback_cost(dev, lc: dict, tmp: str) -> None:
+    """Micro-steps through ``fit`` with the recipe's callbacks and without,
+    in turns (off, on, on, off): ms per micro-step over RECIPE_CALLBACK_STEPS
+    (a synchronise at both ends only, so TerminateOnNaN's loss read is the
+    one sync a step)."""
+    from tensorflowasr_tpu_torch.training import callbacks
+
+    model = recipe_model(dev)
+    batches = recipe_batches(SEED + 41, RECIPE_CALLBACK_STEPS + 1, lc["batch_size"], VOCAB, dev)
+    lc = {**lc, "callbacks": [c for c in lc["callbacks"] if not c["class_name"].endswith("ModelCheckpoint")]}
+    res = {"on": [], "off": []}
+    for mode in ("off", "on", "on", "off"):
+        cbs = callbacks.deserialize(lc["callbacks"]) if mode == "on" else []
+        trainer = recipe_trainer(model, lc, dev, callbacks=cbs)
+        window = []
+
+        def data():
+            for i, b in enumerate(batches):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    window.append(time.perf_counter())
+                yield b
+            torch.cuda.synchronize()
+            window.append(time.perf_counter())
+
+        trainer.fit(trainer.init_state(seed=SEED), data(), log_every=10 ** 9)
+        res[mode].append((window[1] - window[0]) * 1e3 / RECIPE_CALLBACK_STEPS)
+    on, off = np.mean(res["on"]), np.mean(res["off"])
+    print(f"recipe callbacks: ms per micro-step over {RECIPE_CALLBACK_STEPS} (off, on, on, off) {res['off'][0]:.1f}, {res['on'][0]:.1f}, "
+          f"{res['on'][1]:.1f}, {res['off'][1]:.1f}: with {[c['class_name'].split('>')[-1] for c in lc['callbacks']]} {on:.1f}, without {off:.1f} "
+          f"(TerminateOnNaN's loss read syncs once a step: {on - off:+.1f} ms)")
+
+
+def _stateful_tensors(state) -> dict:
+    """The module's tensors, Adam's moments and the accumulation buffers of a training state."""
+    out = {f"module {k}": v for k, v in state.model.state_dict().items()}
+    for i, s in enumerate(state.optimizer.base.state.values()):
+        out.update({f"adam {i} {k}": v for k, v in s.items() if k != "step"})
+    if state.optimizer.accumulated is not None:
+        out.update({f"accumulated {i}": a for i, a in enumerate(state.optimizer.accumulated)})
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def recipe_resume(dev, lc: dict, tmp: str) -> None:
+    """RECIPE_RESUME micro-steps, save, RECIPE_RESUME more (straight run 1);
+    a second straight run from the same start; a fresh Trainer over a model
+    from another seed restores the checkpoint and runs the same
+    RECIPE_RESUME. The resumed run is held to the difference the two
+    straight runs show (to 2× it; bit-equal where they are)."""
+    batches = recipe_batches(SEED + 42, 2 * RECIPE_RESUME, lc["batch_size"], VOCAB, dev)
+    ckpt_dir = os.path.join(tmp, "resume")
+
+    def run(trainer, state, part):
+        return [trainer.train_step(state, b)[1]["loss"].item() for b in part]
+
+    t1 = recipe_trainer(recipe_model(dev), lc, dev, checkpoint_dir=ckpt_dir)
+    s1 = t1.init_state(seed=SEED)
+    first = run(t1, s1, batches[:RECIPE_RESUME])
+    t1.save(s1)
+    second = run(t1, s1, batches[RECIPE_RESUME:])
+    ref = _stateful_tensors(s1)
+    del t1
+    t2 = recipe_trainer(recipe_model(dev), lc, dev)
+    s2 = t2.init_state(seed=SEED)
+    straight = run(t2, s2, batches)
+    straight_diff = _max_diff(ref, _stateful_tensors(s2))
+    del t2, s2
+    t3 = recipe_trainer(recipe_model(dev, seed=SEED + 7), lc, dev, checkpoint_dir=ckpt_dir)
+    s3 = t3.restore(t3.init_state(seed=SEED + 7))
+    resumed = run(t3, s3, batches[RECIPE_RESUME:])
+    resumed_diff = _max_diff(ref, _stateful_tensors(s3))
+    loss_straight = max(abs(a - b) for a, b in zip(first + second, straight))
+    loss_resumed = max(abs(a - b) for a, b in zip(second, resumed))
+    print(f"recipe resume: {RECIPE_RESUME} micro-steps, save, {RECIPE_RESUME} more (updates {s1.optimizer.count}); largest difference from run 1 "
+          f"over the module, Adam's moments and the accumulation buffers: a second straight run {straight_diff:.3e}, the resumed run "
+          f"{resumed_diff:.3e}; losses: straight {loss_straight:.3e}, resumed {loss_resumed:.3e} (run 1's last losses {[round(x, 4) for x in second]})")
+    if straight_diff == 0.0 and loss_straight == 0.0:
+        if resumed_diff != 0.0 or loss_resumed != 0.0:
+            raise AssertionError("recipe resume: two straight runs are bit-equal, the resumed run is not")
+    elif resumed_diff > 2 * straight_diff or loss_resumed > 2 * loss_straight:
+        raise AssertionError(f"recipe resume: the resumed run differs by {resumed_diff} (losses {loss_resumed}), two straight runs by "
+                             f"{straight_diff} ({loss_straight})")
+
+
+def recipe_ctc(dev) -> dict:
+    """Conformer-CTC Small and Transformer-CTC base, each with its published
+    recipe (SpecAugment, its schedule, batch and ga_steps) for one applied
+    update; launches checked per micro-step. Returns the launch counts of each."""
+    from tensorflowasr_tpu_torch.models.ctc.conformer import conformer_ctc_small_learning_config
+    from tensorflowasr_tpu_torch.models.ctc.transformer import transformer_ctc_base_learning_config
+
+    paths = {}
+    for name, learning in (("conformer_ctc", conformer_ctc_small_learning_config), ("transformer_ctc", transformer_ctc_base_learning_config)):
+        tag = f"recipe {name}"
+        lc = learning()
+        model = ctc_model(name, torch.bfloat16, dev, augment=True)
+        trainer = recipe_trainer(model, lc, dev)
+        state = trainer.init_state(seed=SEED)
+        batches = recipe_batches(SEED + 43, lc["ga_steps"], lc["batch_size"], model.vocab_size, dev)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        settle()
+        reset_launch_counts()
+        walls, losses = [], []
+        for i, b in enumerate(batches):
+            c0 = launch_counts()
+            t0 = time.perf_counter()
+            _, metrics = trainer.train_step(state, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            delta = {k: v - c0[k] for k, v in launch_counts().items()}
+            if delta != PER_STEP_CTC[name] or not np.isfinite(losses[-1]):
+                raise AssertionError(f"{tag} micro-step {i}: launches {delta} (expected {PER_STEP_CTC[name]}), loss {losses[-1]}")
+        paths[f"recipe_{name}"] = launch_counts()
+        if state.optimizer.count != 1 or not any(not torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+            raise AssertionError(f"{tag}: {state.optimizer.count} updates, or no parameter moved")
+        check_learning_rates(tag, [(state.step, 0, state.optimizer.param_groups[0]["lr"])], lc["optimizer_config"]["config"]["learning_rate"])
+        print(f"{tag}: {lc['ga_steps']} micro-steps of batch {lc['batch_size']} (one update): walls {[round(w, 1) for w in walls]} ms, "
+              f"losses {[round(x, 3) for x in losses]}")
+        del trainer, state, model
+    return paths
+
+
+def recipe_parity(dev) -> None:
+    """The whole chain in f32, card (kernels) vs CPU (plain versions): a
+    2-block flagship, batch 2 × ≤ 4 s, dropout 0, 4 micro-steps at ga_steps
+    2 of AdamW under a TransformerSchedule with a short warm-up, clipped at
+    1, SpecAugment from the CPU stream on both sides (the same masks),
+    weight noise and gradient noise drawn on the CPU and handed to both.
+    The step-parity tolerances: each micro-step's loss to 1e-4 relative
+    and each of its gradients (as the chain receives them) to
+    TRAIN_PARITY_REL of its scale plus TRAIN_PARITY_FLOOR of the largest;
+    the running statistics to TRAIN_PARITY_REL of their scale. Each
+    parameter's change is held to TRAIN_PARITY_REL of its tensor's change
+    plus TRAIN_PARITY_FLOOR of the largest, except where Adam divides
+    nearly cancelled moments and so magnifies the gradients' f32
+    differences: those elements (under 1% of all) are held to Adam's own
+    bound, 2 · updates · the largest learning rate (as
+    ``tests/test_torch_train_slice.py`` holds noise-level weights)."""
+    tag = "parity f32 recipe"
+    # max_lr 1e-4: the noise-led first update moves every weight by about the learning rate, and at the flagship recipe's
+    # 4.2e-3 cap (8% of a typical weight) the next micro-step's gradients sat 1.1x the step-parity bound from the CPU's
+    opt = {"class_name": "Adam", "config": {"learning_rate": {"class_name": "TransformerSchedule", "config": {"dmodel": 144, "warmup_steps": 2,
+                                                                                                              "max_lr": "1e-4"}},
+                                            "beta_2": 0.98, "epsilon": 1e-9, "weight_decay": 1e-6}}
+    lc = {"optimizer_config": opt, "ga_steps": 2, "gradn_config": {"eta": 1e-4}, "gwn_config": {"stddev": 0.01, "step": 1, "modules": ["encoder", "prediction"]}}
+    cpu_model = recipe_model("cpu", torch.float32, num_blocks=2, dropout=0.0)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    batch = train_batch(np.random.default_rng(SEED + 44), 2, 4.0, 32, cpu_model.vocab_size)
+    runs = []
+    for model, device in ((card_model, dev), (cpu_model, torch.device("cpu"))):
+        trainer = recipe_trainer(model, lc, device, clip_norm=1.0)
+        state = trainer.init_state(seed=SEED)
+        named = trainer.weight_noise.named
+        trainer.weight_noise.draw = lambda generator, st=state, named=named: [
+            (0.01 * torch.randn(p.shape, generator=torch.Generator().manual_seed(1000 + st.step))).to(p.device) for _, p in named]
+        chain, grads = state.optimizer, []
+        chain.gradient_noise.draw = lambda gs, noise=chain.gradient_noise: [
+            torch.randn(g.shape, generator=torch.Generator().manual_seed(2000 + noise.count)).to(g.device) for g in gs]
+
+        def recording_step(grad_norm=None, chain_step=chain.step, model=model, grads=grads):
+            grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters() if p.grad is not None})
+            return chain_step(grad_norm=grad_norm)
+
+        chain.step = recording_step
+        metrics = [trainer.train_step(state, batch.to(device))[1] for _ in range(4)]
+        lr_max = max(chain.learning_rate(c) for c in range(chain.count))
+        runs.append(([m["loss"].item() for m in metrics], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}, chain.count, lr_max))
+    (card_l, card_g, card_sd, card_n, lr_max), (cpu_l, cpu_g, cpu_sd, cpu_n, _) = runs
+    if card_n != 2 or cpu_n != 2:
+        raise AssertionError(f"{tag}: updates card {card_n}, CPU {cpu_n}")
+    worst = (0.0, "")
+    for k, (lg, lc_, gg, gc_) in enumerate(zip(card_l, cpu_l, card_g, cpu_g)):
+        if not abs(lg - lc_) <= 1e-4 * abs(lc_):
+            raise AssertionError(f"{tag} micro-step {k}: loss card {lg} vs CPU {lc_}")
+        gmax = max(g.abs().max().item() for g in gc_.values())
+        for name, ref in gc_.items():
+            err, allowed = (gg[name] - ref).abs().max().item(), TRAIN_PARITY_REL * ref.abs().max().item() + TRAIN_PARITY_FLOOR * gmax
+            if err > allowed:
+                raise AssertionError(f"{tag} micro-step {k} gradient {name}: max abs err {err} > {allowed}")
+            worst = max(worst, (err / allowed, f"{name} at micro-step {k}"))
+    params = {n for n, _ in cpu_model.named_parameters()}
+    dmax = max((cpu_sd[n] - start[n]).abs().max().item() for n in params)
+    sensitive = total = 0
+    for name, ref in cpu_sd.items():
+        err = (card_sd[name] - ref).abs()
+        if name not in params:
+            if err.max().item() > TRAIN_PARITY_REL * ref.abs().max().item():
+                raise AssertionError(f"{tag} {name}: card vs CPU max abs err {err.max().item()} > {TRAIN_PARITY_REL} x {ref.abs().max().item()}")
+            continue
+        change = ref - start[name]
+        over = err > TRAIN_PARITY_REL * change.abs().max().item() + TRAIN_PARITY_FLOOR * dmax
+        if err.max().item() > 2 * card_n * lr_max:
+            raise AssertionError(f"{tag} {name}: card vs CPU max abs err {err.max().item()} > Adam's bound 2 x {card_n} x {lr_max}")
+        sensitive += int(over.sum())
+        total += ref.numel()
+    if sensitive >= 0.01 * total:
+        raise AssertionError(f"{tag}: {sensitive} of {total} parameter elements outside {TRAIN_PARITY_REL} of their tensor's change")
+    print(f"{tag} card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s, 4 micro-steps, 2 updates (schedule, AdamW, clip 1, SpecAugment, "
+          f"weight and gradient noise); losses card {[round(x, 5) for x in card_l]} vs CPU {[round(x, 5) for x in cpu_l]} (tol 1e-4 rel); every "
+          f"micro-step's gradients within {TRAIN_PARITY_REL} of their scale + {TRAIN_PARITY_FLOOR} of the largest (largest share {worst[0]:.3f}, "
+          f"{worst[1]}); running statistics within {TRAIN_PARITY_REL}; parameter changes within {TRAIN_PARITY_REL} of their tensor's change + "
+          f"{TRAIN_PARITY_FLOOR} x {dmax:.3e} but {sensitive} of {total} elements ({100 * sensitive / total:.3f}%, held to Adam's bound "
+          f"2 x {card_n} x {lr_max:.3e}), TF32 off")
+
+
+def recipe_nan_stop(dev, lc: dict) -> None:
+    """A NaN batch stops ``fit`` through TerminateOnNaN after that batch."""
+    from tensorflowasr_tpu_torch.training import callbacks
+
+    stop = callbacks.TerminateOnNaN()
+    trainer = recipe_trainer(recipe_model(dev, num_blocks=2), lc, dev, callbacks=[stop])
+    good = train_batch(np.random.default_rng(SEED + 45), 2, 4.0, 32, VOCAB).to(dev)
+    bad = copy.deepcopy(good)
+    bad.inputs.inputs.fill_(float("nan"))
+    state = trainer.fit(trainer.init_state(seed=SEED), [good, bad, good, good], epochs=2, log_every=10 ** 9)
+    if state.step != 2 or not stop.stop_training:
+        raise AssertionError(f"recipe NaN stop: fit ran {state.step} micro-steps (stop_training {stop.stop_training}), expected to stop after 2")
+    print(f"recipe NaN stop: fit over [finite, NaN, finite, finite] x 2 epochs stopped after micro-step {state.step} (TerminateOnNaN)")
+
+
+def phase_recipe(dev) -> dict:
+    """The published recipes on the card (``recipe_*`` above), in a temporary
+    directory for the checkpoints and TensorBoard. Returns the launch
+    counts of the flagship's and the CTC models' recipe runs."""
+    import tempfile
+
+    from tensorflowasr_tpu_torch.models.transducer.conformer import conformer_small_learning_config
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tfasr-recipe-") as tmp:
+        lc = conformer_small_learning_config(modeldir=tmp)
+        paths = {"recipe": recipe_flagship(dev, lc, tmp)}
+        recipe_callback_cost(dev, lc, tmp)
+        recipe_resume(dev, lc, tmp)
+        recipe_nan_stop(dev, lc)
+    paths.update(recipe_ctc(dev))
+    recipe_parity(dev)
+    print(f"recipe phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def host_profile(trainer, state, batch, steps: int = HOST_STEPS, top: int = 12) -> tuple[dict, list]:
     """Where the host spends a training step: over ``steps`` more steps the
     median wall (host clock, ends in a synchronise), the median time until
@@ -2839,6 +3321,7 @@ def main(argv: list[str]) -> int:
     ``--fit-gc``: only :func:`fit_gc_child`, as one JSON line.
     ``--gc-probe``: only :func:`gc_probe_child`, as one JSON line.
     ``--rows [--package DIR]``: only :func:`rows_child`, as one JSON line.
+    ``--recipe``: only :func:`phase_recipe`, its launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -2864,6 +3347,11 @@ def main(argv: list[str]) -> int:
     if "--compare-parent" in argv:
         compare_steps(argv[argv.index("--compare-parent") + 1])
         return 0
+    if "--recipe" in argv:
+        _no_tf32()
+        _build.build()
+        print(json.dumps({"recipe": phase_recipe(torch.device("cuda", 0))}))
+        return 0
 
     _no_tf32()
     t_start = time.perf_counter()
@@ -2888,6 +3376,7 @@ def main(argv: list[str]) -> int:
     paths.update(phase_pallas(dev, auto))
     paths.update(phase_ctc_serve(dev))
     paths.update(phase_ctc_train(dev))
+    paths.update(phase_recipe(dev))
     phase_fit_gc()
     phase_gc_probe()
     for row in rows:

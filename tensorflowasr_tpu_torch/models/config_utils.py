@@ -37,3 +37,31 @@ def parse_joint_config(config: dict) -> dict:
 
 def filter_kwargs(config: dict, allowed) -> dict:
     return {k: v for k, v in config.items() if k in allowed}
+
+
+# The published examples' train-time augmentation (every example the port builds uses this one)
+SPEC_AUGMENT = {
+    "feature_augment": {
+        "time_masking": {"prob": 1.0, "num_masks": 10, "mask_factor": -1, "p_upperbound": 0.05, "mask_value": 0},
+        "freq_masking": {"prob": 1.0, "num_masks": 1, "mask_factor": 27, "mask_value": 0},
+    }
+}
+
+
+def with_spec_augment(config: dict) -> dict:
+    """``config`` with the examples' ``augmentation_config`` in its ``speech_config``."""
+    return {**config, "speech_config": {**config["speech_config"], "augmentation_config": SPEC_AUGMENT}}
+
+
+def learning_config(dmodel: int, scale: float, batch_size: int, ga_steps: int, max_lr: str | None = None, weight_decay: float | None = None,
+                    callbacks: list | None = None) -> dict:
+    """An example's ``learning_config`` as the JAX config loader parses it:
+    Adam (β₁ 0.9, β₂ 0.98, ε 1e-9) under a ``TransformerSchedule`` (warm-up
+    10,000; ``max_lr`` kept a string), 300 epochs, ``TerminateOnNaN`` first
+    among the callbacks, no gradient or weight noise, no pretrained weights."""
+    schedule = {"dmodel": dmodel, "warmup_steps": 10000, **({"max_lr": max_lr} if max_lr else {}), "scale": scale}
+    optimizer = {"learning_rate": {"class_name": "tensorflow_asr.optimizers.schedules>TransformerSchedule", "config": schedule},
+                 "beta_1": 0.9, "beta_2": 0.98, "epsilon": 1e-09, **({"weight_decay": weight_decay} if weight_decay else {})}
+    return {"optimizer_config": {"class_name": "Adam", "config": optimizer}, "batch_size": batch_size, "ga_steps": ga_steps, "num_epochs": 300,
+            "callbacks": [{"class_name": "tensorflow_asr.callbacks>TerminateOnNaN", "config": {}}, *(callbacks or [])],
+            "gradn_config": None, "gwn_config": None, "pretrained": None}

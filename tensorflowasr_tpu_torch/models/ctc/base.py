@@ -46,12 +46,14 @@ class CtcModel(nn.Module):
         """Random weights from ``generator`` (``general.random_init``)."""
         random_init(self, generator)
 
-    def forward(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None) -> schemas.TrainOutput:
+    def forward(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None,
+                augment_generator: torch.Generator | None = None) -> schemas.TrainOutput:
         """Training forward (JAX ``CtcModel.__call__``): raw audio → logits
         [B, T, V] and their lengths. ``train``: BatchNorm on batch
-        statistics (updating the running ones) and, with a ``generator``,
-        the encoder's dropout."""
-        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
+        statistics (updating the running ones), with a ``generator`` the
+        encoder's dropout, and the config's augmentations drawn from
+        ``augment_generator``."""
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train, augment_generator=augment_generator)
         enc, elens, _ = self.encoder(feats, flens, train=train, generator=generator)
         return schemas.TrainOutput(logits=self.vocab(enc), logits_length=elens)
 

@@ -7,22 +7,21 @@ import inspect
 
 import torch
 
-from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs, strip_prefix
+from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs, learning_config, strip_prefix, with_spec_augment
 from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
 from tensorflowasr_tpu_torch.models.encoders.conformer import _UNPORTED, ConformerEncoder
 
 _ENC_KEYS = (set(inspect.signature(ConformerEncoder.__init__).parameters) | set(_UNPORTED)) - {"self", "in_features", "dtype", "options"}
 
 
-def conformer_ctc_small_config(vocab_size: int = 256, num_blocks: int = 16, dropout: float = 0.1) -> dict:
+def conformer_ctc_small_config(vocab_size: int = 256, num_blocks: int = 16, dropout: float = 0.1, augment: bool = False) -> dict:
     """Conformer-CTC Small (``examples/models/ctc/conformer/small.yml.j2``),
     every encoder width as published: 80 mel bins, Conv2d ×4 subsampling
     176/176 with BatchNorm and swish, D 176, 16 blocks, 4 heads of 44,
     rel-MHA with per-layer attention biases, 31-tap causal conv, dropout
-    0.1, blank 0, V 256. The example's ``augmentation_config`` (SpecAugment)
-    is left out: train-time augmentation waits for ROADMAP Queue 1, "The rest
-    of training"."""
-    return {
+    0.1, blank 0, V 256. ``augment`` adds the example's ``augmentation_config``
+    (SpecAugment)."""
+    config = {
         "speech_config": {"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": 512, "num_feature_bins": 80,
                           "feature_type": "log_mel_spectrogram"},
         "encoder_subsampling": {
@@ -43,6 +42,14 @@ def conformer_ctc_small_config(vocab_size: int = 256, num_blocks: int = 16, drop
         "blank": 0,
         "vocab_size": vocab_size,
     }
+    return with_spec_augment(config) if augment else config
+
+
+def conformer_ctc_small_learning_config() -> dict:
+    """The example's ``learning_config`` as parsed: Adam under
+    TransformerSchedule(dmodel 176, warm-up 10,000, max_lr
+    ``"0.05/(176**0.5)"``, scale 2), batch 8, ``ga_steps`` 4, TerminateOnNaN."""
+    return learning_config(176, 2.0, batch_size=8, ga_steps=4, max_lr="0.05/(176**0.5)")
 
 
 class ConformerCtc(CtcModel):

@@ -7,21 +7,20 @@ import inspect
 
 import torch
 
-from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs, strip_prefix
+from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs, learning_config, strip_prefix, with_spec_augment
 from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
 from tensorflowasr_tpu_torch.models.encoders.transformer import TransformerEncoder
 
 _ENC_KEYS = set(inspect.signature(TransformerEncoder.__init__).parameters) - {"self", "in_features", "dtype"}
 
 
-def transformer_ctc_base_config(vocab_size: int = 256, num_blocks: int = 6, dropout: float = 0.1) -> dict:
+def transformer_ctc_base_config(vocab_size: int = 256, num_blocks: int = 6, dropout: float = 0.1, augment: bool = False) -> dict:
     """Transformer-CTC base (``examples/models/ctc/transformer/base.yml.j2``):
     80 mel bins, Conv2d ×4 subsampling 512/512 with BatchNorm and swish,
     D 512, dff 1024, 6 blocks, 4 heads of 128, vanilla MHA, post-norm,
     residual factor 1, ReLU FFN, absolute PE, dropout 0.1, blank 0, V 256.
-    The example's ``augmentation_config`` (SpecAugment) is left out:
-    train-time augmentation waits for ROADMAP Queue 1, "The rest of training"."""
-    return {
+    ``augment`` adds the example's ``augmentation_config`` (SpecAugment)."""
+    config = {
         "speech_config": {"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": 512, "num_feature_bins": 80,
                           "feature_type": "log_mel_spectrogram"},
         "encoder_subsampling": {
@@ -42,6 +41,14 @@ def transformer_ctc_base_config(vocab_size: int = 256, num_blocks: int = 6, drop
         "blank": 0,
         "vocab_size": vocab_size,
     }
+    return with_spec_augment(config) if augment else config
+
+
+def transformer_ctc_base_learning_config() -> dict:
+    """The example's ``learning_config`` as parsed: Adam under
+    TransformerSchedule(dmodel 512, warm-up 10,000, scale 1, no max_lr),
+    batch 4, ``ga_steps`` 8, TerminateOnNaN."""
+    return learning_config(512, 1.0, batch_size=4, ga_steps=8)
 
 
 class TransformerCtc(CtcModel):

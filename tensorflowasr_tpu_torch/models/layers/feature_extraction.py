@@ -1,14 +1,17 @@
-"""In-model feature extraction, inference path (counterpart of
-``models/layers/feature_extraction.py:FeatureExtraction``).
+"""In-model feature extraction with train-time augmentation (counterpart
+of ``models/layers/feature_extraction.py:FeatureExtraction``).
 
 Raw audio [B, N] → features [B, T, F] in ``dtype`` (the frontend itself
 runs in f32). Configurations the fused kernel takes (log-mel, pad_end
 framing, natural log, no librosa-style window) run
 ``ops/cuda/frontend_kernel.log_mel_spectrogram_pallas`` after the
 signal-stage prep; others run the plain chain of ``ops/frontend.py``.
-Train-time augmentation (SpecAugment and the signal augmentations) is not
-ported yet: ``forward(..., train=True)`` raises when the config holds one,
-rather than return features JAX would have augmented.
+In training, the config's ``augmentation_config`` (``augmentations/``)
+runs as in JAX: the signal augmentations before the frontend (their
+output feeds the kernel or the plain chain), the feature augmentations
+(SpecAugment) after ``normalize_audio_features`` and before the cast to
+``dtype``, drawing from the ``augment_generator`` the caller passes.
+Inference never augments.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from tensorflowasr_tpu_torch.augmentations import Augmentation
 from tensorflowasr_tpu_torch.ops import frontend
 from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel
 
@@ -34,8 +38,7 @@ class FeatureExtraction(nn.Module):
         if unknown:
             raise ValueError(f"unknown speech_config keys {sorted(unknown)}")
         self.config = frontend.FrontendConfig(**{k: v for k, v in speech_config.items() if k in names})
-        aug = dict(speech_config.get("augmentation_config") or {})
-        self.augmentations = sorted(k for k in ("signal_augment", "feature_augment") if aug.get(k))
+        self.augmentation = Augmentation(speech_config.get("augmentation_config"))
         self.dtype = dtype
 
     @property
@@ -45,17 +48,25 @@ class FeatureExtraction(nn.Module):
     def get_nframes(self, nsamples):
         return self.config.get_nframes(nsamples)
 
-    def forward(self, signals: torch.Tensor, signals_length: torch.Tensor, train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, signals: torch.Tensor, signals_length: torch.Tensor, train: bool = False,
+                augment_generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """[B, N] raw audio → ([B, T, F] features in ``dtype``, [B] lengths).
-        ``train`` with augmentations in the config raises (JAX augments there)."""
-        if train and self.augmentations:
-            raise NotImplementedError(f"train-time augmentation ({', '.join(self.augmentations)}) is not ported yet "
-                                      "(ROADMAP Queue 1, \"The rest of training\")")
+        ``train`` augments as the config says, drawing from
+        ``augment_generator`` (a CPU generator), which it then requires."""
+        aug = self.augmentation
+        augment = train and bool(aug.signal_augmentations or aug.feature_augmentations)
+        if augment and augment_generator is None:
+            raise ValueError("training with an augmentation_config needs an augment_generator")
         cfg = self.config
+        signals = signals.float()
+        if augment:
+            signals, signals_length = aug.signal_augment(signals, signals_length, augment_generator)
         if fused_frontend_supported(cfg):
-            sig = frontend.prepare_signal(signals.float(), cfg).contiguous()
+            sig = frontend.prepare_signal(signals, cfg).contiguous()
             features = frontend.normalize_audio_features(frontend_kernel.log_mel_spectrogram_pallas(sig, cfg), cfg)
             lengths = cfg.get_nframes(signals_length.to(torch.int64))
         else:
-            features, lengths = frontend.extract_features(signals.float(), signals_length, cfg)
+            features, lengths = frontend.extract_features(signals, signals_length, cfg)
+        if augment:
+            features, lengths = aug.feature_augment(features, lengths, augment_generator)
         return features.to(self.dtype), lengths

@@ -150,23 +150,27 @@ class Transducer(nn.Module):
 
     # ------------------------------- training ------------------------------- #
 
-    def forward(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None) -> schemas.TrainOutput:
+    def forward(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None,
+                augment_generator: torch.Generator | None = None) -> schemas.TrainOutput:
         """Training forward (JAX ``Transducer.__call__``): raw audio and
         blank-prepended labels [B, U+1] → logits [B, T, U+1, V] and their
         lengths. ``train``: BatchNorm on batch statistics (updating the
-        running ones) and, with a ``generator``, the encoder's dropout."""
-        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
+        running ones), with a ``generator`` the encoder's dropout, and the
+        config's augmentations drawn from ``augment_generator``."""
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train, augment_generator=augment_generator)
         enc, elens, _ = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return schemas.TrainOutput(logits=self.joint(enc, pred), logits_length=elens)
 
-    def forward_joint_inputs(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None):
+    def forward_joint_inputs(self, inputs: schemas.TrainInput, train: bool = False, generator: torch.Generator | None = None,
+                             augment_generator: torch.Generator | None = None):
         """Training forward that stops before the joint's merge (JAX
         ``Transducer.forward_joint_inputs``): (enc_p [B, T, J], pred_p
         [B, U+1, J], logits_length), the inputs of the fused joint+loss
         (``ops/cuda/joint_loss_kernel.py``), which never materialises the
-        [B, T, U+1, V] logits. ``train`` and ``generator`` as in :meth:`forward`."""
-        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train)
+        [B, T, U+1, V] logits. ``train``, ``generator`` and
+        ``augment_generator`` as in :meth:`forward`."""
+        feats, flens = self.feature_extraction(inputs.inputs, inputs.inputs_length, train=train, augment_generator=augment_generator)
         enc, elens, _ = self.encoder(feats, flens, train=train, generator=generator)
         pred = self.prediction(inputs.predictions, inputs.predictions_length)
         return self.joint.project_encoder(enc), self.joint.project_prediction(pred), elens

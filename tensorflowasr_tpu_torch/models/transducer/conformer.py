@@ -7,19 +7,21 @@ import inspect
 
 import torch
 
-from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs, parse_joint_config, parse_prediction_config, strip_prefix
+from tensorflowasr_tpu_torch.models.config_utils import (filter_kwargs, learning_config, parse_joint_config, parse_prediction_config, strip_prefix,
+                                                        with_spec_augment)
 from tensorflowasr_tpu_torch.models.encoders.conformer import _UNPORTED, ConformerEncoder
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 
 _ENC_KEYS = (set(inspect.signature(ConformerEncoder.__init__).parameters) | set(_UNPORTED)) - {"self", "in_features", "dtype", "options"}
 
 
-def conformer_small_config(vocab_size: int = 256, num_blocks: int = 16, dmodel: int = 144, dropout: float = 0.1) -> dict:
+def conformer_small_config(vocab_size: int = 256, num_blocks: int = 16, dmodel: int = 144, dropout: float = 0.1, augment: bool = False) -> dict:
     """The flagship Conformer-Transducer Small (``__graft_entry__._conformer_small``):
     80 mel bins, Conv2d ×4 subsampling with BatchNorm and swish, D=144,
     4 heads of 36, rel-MHA, 31-tap causal conv, embedding 320, one
-    LSTM-320 with LayerNorm, add/tanh joint of 320, blank 0."""
-    return {
+    LSTM-320 with LayerNorm, add/tanh joint of 320, blank 0. ``augment``
+    adds the SpecAugment of ``examples/models/transducer/conformer/small.yml.j2``."""
+    config = {
         "speech_config": {"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": 512, "num_feature_bins": 80},
         "encoder_subsampling": {
             "class_name": "tensorflow_asr.models.layers.subsampling>Conv2dSubsampling",
@@ -52,24 +54,42 @@ def conformer_small_config(vocab_size: int = 256, num_blocks: int = 16, dmodel: 
         "blank": 0,
         "vocab_size": vocab_size,
     }
+    return with_spec_augment(config) if augment else config
 
 
-def conformer_small_streaming_config(vocab_size: int = 1000, num_blocks: int = 16, dropout: float = 0.1, memory_length: int | None = None) -> dict:
+def conformer_small_learning_config(modeldir: str = "models") -> dict:
+    """The ``learning_config`` of ``examples/models/transducer/conformer/small.yml.j2``
+    as parsed: Adam with weight decay 1e-6 under TransformerSchedule(dmodel
+    144, warm-up 10,000, max_lr ``"0.05/(144**0.5)"``, scale 2), batch 4,
+    ``ga_steps`` 8, TerminateOnNaN, ModelCheckpoint and TensorBoard into
+    ``modeldir``/tensorboard."""
+    return learning_config(144, 2.0, batch_size=4, ga_steps=8, max_lr="0.05/(144**0.5)", weight_decay=1e-06,
+                           callbacks=[{"class_name": "tensorflow_asr.callbacks>ModelCheckpoint", "config": {}},
+                                      {"class_name": "tensorflow_asr.callbacks>TensorBoard", "config": {"log_dir": f"{modeldir}/tensorboard"}}])
+
+
+def conformer_small_streaming_config(vocab_size: int = 1000, num_blocks: int = 16, dropout: float = 0.1, memory_length: int | None = None,
+                                     augment: bool = False) -> dict:
     """The streaming Conformer-Transducer Small
     (``examples/models/transducer/conformer/small-streaming.yml.j2``), every
     width as published: the flagship's frontend, subsampling, D 144, 16
     blocks of 4×36 heads, 31-tap causal conv, LSTM-320 and joint 320, with
     causal relative MHSA (``mhsam_causal``) under the chunk mask (chunk 16,
-    history 64) and V 1000. Its SpecAugment is left out, as in the CTC
-    configs (train-time augmentation raises in the port). ``memory_length``
+    history 64) and V 1000. ``augment`` adds its SpecAugment. ``memory_length``
     (the JAX encoder's KV-memory option; the example leaves it unset) keeps
     the last M frames of every block's attention input as streaming state."""
-    config = conformer_small_config(vocab_size=vocab_size, num_blocks=num_blocks, dropout=dropout)
+    config = conformer_small_config(vocab_size=vocab_size, num_blocks=num_blocks, dropout=dropout, augment=augment)
     config["speech_config"]["feature_type"] = "log_mel_spectrogram"
     config.update(encoder_interleave_relpe=True, encoder_mhsam_causal=True, encoder_chunk_size=16, encoder_history_size=64)
     if memory_length is not None:
         config["encoder_memory_length"] = memory_length
     return config
+
+
+def conformer_small_streaming_learning_config() -> dict:
+    """The ``learning_config`` of ``examples/models/transducer/conformer/small-streaming.yml.j2``
+    as parsed: the flagship's schedule without weight decay, batch 4, ``ga_steps`` 8, TerminateOnNaN."""
+    return learning_config(144, 2.0, batch_size=4, ga_steps=8, max_lr="0.05/(144**0.5)")
 
 
 class Conformer(Transducer):

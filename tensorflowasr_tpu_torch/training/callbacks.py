@@ -1,0 +1,176 @@
+"""Training callbacks (counterpart of ``tensorflowasr_tpu/training/callbacks.py``).
+
+``TerminateOnNaN``, ``EarlyStopping``, ``ModelCheckpoint`` (through
+``Trainer.save``, which rotates), ``BackupAndRestore`` (restoring is
+``Trainer.restore`` before ``fit``), ``TensorBoard`` (scalars as JSON
+lines in ``log_dir/metrics.jsonl``: what the JAX package writes where
+TensorFlow is absent; this module never imports TensorFlow) and
+``PredictLogger`` (a TSV of predictions). ``deserialize`` builds the list
+from reference-style config entries and skips unknown kinds with a warning.
+
+``TerminateOnNaN`` reads the loss on the host after every batch, which
+waits for the card once a step.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+from typing import Optional
+
+logger = logging.getLogger("tensorflowasr_tpu_torch")
+
+
+def preprocess_paths(path, isdir: bool = False) -> Optional[str]:
+    """Expand ~ and environment variables; create the parent directories
+    (the directory itself with ``isdir``) so that writes succeed."""
+    if path is None:
+        return None
+    path = os.path.abspath(os.path.expanduser(os.path.expandvars(str(path))))
+    dirpath = path if isdir else os.path.dirname(path)
+    if dirpath and not os.path.exists(dirpath):
+        os.makedirs(dirpath, exist_ok=True)
+    return path
+
+
+class Callback:
+    stop_training = False
+
+    def on_train_begin(self, trainer):
+        pass
+
+    def on_train_batch_end(self, trainer, state, metrics):
+        pass
+
+    def on_epoch_begin(self, trainer, epoch):
+        pass
+
+    def on_epoch_end(self, trainer, state, epoch, logs):
+        pass
+
+    def on_train_end(self, trainer, state):
+        pass
+
+
+class TerminateOnNaN(Callback):
+    """Stops training after the batch whose loss is NaN or Inf."""
+
+    def on_train_batch_end(self, trainer, state, metrics):
+        loss = float(metrics["loss"])
+        if math.isnan(loss) or math.isinf(loss):
+            logger.error("NaN/Inf loss encountered — terminating training")
+            self.stop_training = True
+
+
+class EarlyStopping(Callback):
+    def __init__(self, monitor: str = "val_loss", min_delta: float = 0.0, patience: int = 0, mode: str = "min", **_):
+        self.monitor = monitor
+        self.min_delta = min_delta
+        self.patience = patience
+        self.mode = mode
+        self.best = math.inf if mode == "min" else -math.inf
+        self.wait = 0
+
+    def on_epoch_end(self, trainer, state, epoch, logs):
+        value = logs.get(self.monitor)
+        if value is None:
+            return
+        improved = (value < self.best - self.min_delta) if self.mode == "min" else (value > self.best + self.min_delta)
+        if improved:
+            self.best = value
+            self.wait = 0
+        else:
+            self.wait += 1
+            if self.wait >= self.patience:
+                logger.info("EarlyStopping: no %s improvement for %d epochs", self.monitor, self.patience)
+                self.stop_training = True
+
+
+class ModelCheckpoint(Callback):
+    """A checkpoint at each epoch's end (``Trainer.save`` keeps the newest ``keep_checkpoints``)."""
+
+    def __init__(self, filepath: Optional[str] = None, **_):
+        self.filepath = filepath
+
+    def on_epoch_end(self, trainer, state, epoch, logs):
+        trainer.save(state)
+
+
+class BackupAndRestore(Callback):
+    """Resume from the newest checkpoint: ``Trainer.restore`` runs before ``fit``."""
+
+    def __init__(self, backup_dir: Optional[str] = None, **_):
+        self.backup_dir = backup_dir
+
+
+class TensorBoard(Callback):
+    """Scalars as JSON lines (``{"step": ..., name: value}``) in ``log_dir/metrics.jsonl``."""
+
+    def __init__(self, log_dir: str = "logs", update_freq: int = 100, **_):
+        self.log_dir = preprocess_paths(log_dir, isdir=True)
+        self.update_freq = update_freq if isinstance(update_freq, int) else 100
+        self._jsonl = open(os.path.join(self.log_dir, "metrics.jsonl"), "a", encoding="utf-8")
+
+    def _log(self, step: int, metrics: dict):
+        self._jsonl.write(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}) + "\n")
+        self._jsonl.flush()
+
+    def on_train_batch_end(self, trainer, state, metrics):
+        if state.step % self.update_freq == 0:
+            self._log(state.step, metrics)
+
+    def on_epoch_end(self, trainer, state, epoch, logs):
+        self._log(state.step, {f"epoch_{k}": v for k, v in logs.items() if v is not None})
+
+    def on_train_end(self, trainer, state):
+        self.close()
+
+    def close(self):
+        self._jsonl.close()
+
+
+class PredictLogger(Callback):
+    """Collects (path, groundtruth, greedy, beam) rows and writes a TSV."""
+
+    def __init__(self, test_dataset=None, output: str = "predictions.tsv", **_):
+        self.output = preprocess_paths(output)
+        self.rows: list[tuple] = []
+
+    def add(self, path: str, groundtruth: str, greedy: str, beam: str = ""):
+        self.rows.append((path, groundtruth, greedy, beam))
+
+    def flush(self):
+        with open(self.output, "w", encoding="utf-8") as f:
+            f.write("PATH\tGROUNDTRUTH\tGREEDY\tBEAMSEARCH\n")
+            for row in self.rows:
+                f.write("\t".join(str(c) for c in row) + "\n")
+        logger.info("Wrote %d predictions to %s", len(self.rows), self.output)
+
+
+CALLBACKS = {
+    "TerminateOnNaN": TerminateOnNaN,
+    "EarlyStopping": EarlyStopping,
+    "ModelCheckpoint": ModelCheckpoint,
+    "BackupAndRestore": BackupAndRestore,
+    "TensorBoard": TensorBoard,
+    "PredictLogger": PredictLogger,
+}
+
+
+def deserialize(config_list: list) -> list[Callback]:
+    """Callbacks from reference-style config entries; unknown kinds
+    (e.g. KaggleModelBackupAndRestore) are skipped with a warning."""
+    out = []
+    for item in config_list or []:
+        name = item.get("class_name", "").split(">")[-1]
+        cfg = dict(item.get("config", {}))
+        if name not in CALLBACKS:
+            logger.warning("Skipping unsupported callback %r", name)
+            continue
+        try:
+            out.append(CALLBACKS[name](**cfg))
+        except TypeError:
+            out.append(CALLBACKS[name]())
+    return out

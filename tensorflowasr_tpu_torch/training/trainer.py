@@ -1,12 +1,13 @@
 """Training step and loop on one card (counterpart of
 ``tensorflowasr_tpu/training/trainer.py``).
 
-``make_train_step`` builds ``step_fn(state, batch) → (state, metrics)``:
-the training forward (dropout from the state's generator, BatchNorm on
-batch statistics with its running-statistics update), the RNN-T loss with
-its masked batch mean over valid rows, the backward (through the kernels'
-backward passes on the card), and one optimizer step; metrics are
-``loss`` and ``grad_norm`` (the global L2 norm of the gradients, as
+``make_train_step`` builds ``step_fn(state, batch) → (state, metrics)``,
+one micro-step: the training forward (dropout from the state's generator,
+the config's augmentations from its augment generator, BatchNorm on batch
+statistics with its running-statistics update), the RNN-T loss with its
+masked batch mean over valid rows, the backward (through the kernels'
+backward passes on the card), and one step of the optimizer chain; metrics
+are ``loss`` and ``grad_norm`` (the global L2 norm of the gradients, as
 ``optax.global_norm``).
 
 ``loss_impl`` takes the values of the JAX package's ``TFASR_LOSS_IMPL``,
@@ -32,9 +33,27 @@ A CTC model (``models/ctc``) trains and evaluates on the CTC loss over its
 kernel for ``"auto"`` and ``"pallas"``, the plain α recursion for
 ``"xla"`` and ``"fused-joint"``; the fused joint+loss is transducer-only.
 
-One device: no mesh, no data parallelism, no checkpoints, no gaussian
-weight noise, no callbacks — each raises or is absent; they are listed in
-ROADMAP.md.
+The optimizer is the chain of ``optimizers/`` (schedule, clipping,
+gradient noise, accumulation over ``ga_steps`` micro-steps); the step
+passes it the micro-step's global norm, computed once with
+``torch._foreach_norm``, which is also the ``grad_norm`` metric (before
+clipping, as JAX ``trainer.py:198``). Gaussian weight noise (``gwn_config``,
+JAX ``_apply_gwn``) takes the loss and gradients at ``params + stddev·N(0,
+1)`` on the selected top-level modules from micro-step ``gwn_config["step"]``
+on, and applies the gradients to the clean parameters.
+
+Random streams, each its own CPU generator in the ``TrainState``: dropout
+(``generator``, seeded with the seed), augmentation and weight noise
+(seeded from the seed and a stream offset); the gradient noise's lives in
+the optimizer chain (seeded 42, as JAX's). Device-sized noise is drawn on
+the device from a generator seeded from its CPU stream.
+
+``Trainer`` saves numbered step checkpoints under ``checkpoint_dir`` (the
+module's ``state_dict`` with BatchNorm statistics, the chain's state with
+its accumulation buffers and mini-step, the step, every generator's state),
+keeps the newest ``keep_checkpoints``, and restores the newest; ``fit``
+runs the callbacks (``training/callbacks.py``) as JAX's does. One device:
+no mesh, no data parallelism.
 """
 
 from __future__ import annotations
@@ -42,9 +61,12 @@ from __future__ import annotations
 import dataclasses
 import gc
 import logging
+import os
+import shutil
 import time
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 from tensorflowasr_tpu_torch import schemas
@@ -53,26 +75,64 @@ from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 from tensorflowasr_tpu_torch.ops.cuda.joint_loss_kernel import rnnt_loss_fused_joint
 from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn, get_rnnt_loss_fn
 from tensorflowasr_tpu_torch.ops.rnnt_loss import sanitize_lengths, valid_mean
-from tensorflowasr_tpu_torch.optimizers import build_optimizer
+from tensorflowasr_tpu_torch.optimizers import OptimizerChain, build_optimizer
+from tensorflowasr_tpu_torch.optimizers.optimizers import global_norm, unit_normals
 from tensorflowasr_tpu_torch.utils import device as device_util
 
 logger = logging.getLogger("tensorflowasr_tpu_torch")
 
 
+AUGMENT_STREAM, WEIGHT_NOISE_STREAM = 2**32, 2**33  # seed offsets of the augmentation and weight-noise generators
+
+
 @dataclasses.dataclass
 class TrainState:
     """The module (its parameters and BatchNorm running statistics), the
-    optimizer (its moments), the step count and the dropout generator."""
+    optimizer chain (its moments, counts and accumulation buffers), the
+    micro-step count and the CPU generators of dropout, augmentation and
+    weight noise."""
 
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: OptimizerChain
     step: int
     generator: torch.Generator
+    augment_generator: Optional[torch.Generator] = None
+    weight_noise_generator: Optional[torch.Generator] = None
+
+    def generators(self) -> dict:
+        return {"dropout": self.generator, "augment": self.augment_generator, "weight_noise": self.weight_noise_generator}
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """√(Σ g²) over every gradient, in f32."""
-    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+class WeightNoise:
+    """Gaussian weight noise (JAX ``trainer._apply_gwn``): ``stddev·N(0, 1)``
+    on every parameter of the top-level modules ``modules`` (None: all),
+    from micro-step ``step`` on. JAX names the modules by their flax names,
+    which ``bridge.py``'s rules leave unchanged at the top level
+    (``encoder``, ``prediction``, ``joint``, ``vocab``). BatchNorm statistics
+    are buffers and never noised. ``draw(generator)`` returns the noise
+    (tests replace it)."""
+
+    def __init__(self, model: torch.nn.Module, gwn_config: dict):
+        self.stddev = float(gwn_config.get("stddev", 0.075))
+        self.start = int(gwn_config.get("step", 0))
+        modules = gwn_config.get("modules")
+        self.named = [(n, p) for n, p in model.named_parameters() if modules is None or n.split(".")[0] in modules]
+
+    def draw(self, generator: torch.Generator) -> list[torch.Tensor]:
+        return torch._foreach_mul(unit_normals([p for _, p in self.named], generator), self.stddev)
+
+    @torch.no_grad()
+    def perturb(self, generator: torch.Generator) -> list[torch.Tensor]:
+        """Adds the noise in place; returns the clean values, which
+        :meth:`restore` copies back (``p + n − n`` is not ``p`` in floating point)."""
+        params = [p for _, p in self.named]
+        saved = [p.detach().clone() for p in params]
+        torch._foreach_add_(params, self.draw(generator))
+        return saved
+
+    @torch.no_grad()
+    def restore(self, saved: list[torch.Tensor]) -> None:
+        torch._foreach_copy_([p for _, p in self.named], saved)
 
 
 def fused_joint_supported(model: torch.nn.Module) -> bool:
@@ -85,12 +145,13 @@ def fused_joint_supported(model: torch.nn.Module) -> bool:
             and jc.get("prejoint_encoder_linear", True) and jc.get("prejoint_prediction_linear", True))
 
 
-def fused_joint_loss(model: Transducer, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None):
+def fused_joint_loss(model: Transducer, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None,
+                     augment_generator=None):
     """The fused path's masked-mean loss (JAX ``trainer.py:142-173``): the
     forward to the prejoint projections, the lengths sanitised as
     ``masked_mean`` does, the fused joint+loss, and the mean over valid
     rows. ``mark("forward")`` is called after the forward."""
-    enc_p, pred_p, elens = model.forward_joint_inputs(inputs, train=True, generator=generator)
+    enc_p, pred_p, elens = model.forward_joint_inputs(inputs, train=True, generator=generator, augment_generator=augment_generator)
     mark("forward")
     valid, safe_t, safe_u = sanitize_lengths(elens.to(enc_p.device), labels.labels_length, enc_p.shape[1])
     wv, bv = model.joint.vocab.weight.to(enc_p.dtype), model.joint.vocab.bias.float()
@@ -109,7 +170,7 @@ def _loss_for(model: torch.nn.Module, loss_impl: str) -> Callable:
 
 
 def make_train_loss(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
-    """``loss(model, inputs, labels, generator=None, mark=...)``: the
+    """``loss(model, inputs, labels, generator=None, mark=..., augment_generator=None)``: the
     training forward and the masked-mean loss of one batch, as the train step
     computes it (JAX ``trainer.py:119-187``): the fused joint+loss for
     ``"auto"``/``"fused-joint"`` with a joint it takes, else the loss over
@@ -119,29 +180,40 @@ def make_train_loss(model: torch.nn.Module, loss_impl: str = "auto") -> Callable
     if loss_impl in ("auto", "fused-joint") and fused_joint_supported(model):
         return fused_joint_loss
 
-    def loss(model, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None):
-        out = model(inputs, train=True, generator=generator)
+    def loss(model, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None, augment_generator=None):
+        out = model(inputs, train=True, generator=generator, augment_generator=augment_generator)
         mark("forward")
         return loss_fn(out.logits, out.logits_length, labels.labels, labels.labels_length)
 
     return loss
 
 
-def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], None]] = None, loss_impl: str = "auto") -> Callable:
-    """Returns ``step_fn(state, batch: TrainData) -> (state, metrics)``; the
-    state is updated in place and returned. ``on_phase`` (for timing) is
-    called with "forward", "loss" and "update" as each phase is enqueued.
-    ``loss_impl``: see the module docstring."""
+def _same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], None]] = None, loss_impl: str = "auto",
+                    weight_noise: Optional[WeightNoise] = None) -> Callable:
+    """Returns ``step_fn(state, batch: TrainData) -> (state, metrics)``, one
+    micro-step; the state is updated in place and returned. ``on_phase``
+    (for timing) is called with "forward", "loss" and "update" as each
+    phase is enqueued. ``loss_impl``: see the module docstring.
+    ``weight_noise``: the loss and gradients are taken at noised parameters
+    from micro-step ``weight_noise.start`` on (JAX gates on ``state.step``)."""
     train_loss = make_train_loss(model, loss_impl)
     mark = on_phase or (lambda phase: None)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = train_loss(state.model, batch.inputs, batch.labels, state.generator, mark)
+        clean = weight_noise.perturb(state.weight_noise_generator) if weight_noise and state.step >= weight_noise.start else None
+        loss = train_loss(state.model, batch.inputs, batch.labels, state.generator, mark, state.augment_generator)
         mark("loss")
         loss.backward()
-        grad_norm = global_norm(p.grad for p in state.model.parameters() if p.grad is not None)
-        state.optimizer.step()
+        if clean is not None:
+            weight_noise.restore(clean)
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        grad_norm = global_norm([p.grad for p in params])
+        state.optimizer.step(grad_norm=grad_norm if _same(params, [p for p in state.optimizer.params if p.grad is not None]) else None)
         mark("update")
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
@@ -169,19 +241,79 @@ class Trainer:
     """Step/epoch orchestrator on one device (None: the CUDA card, raising
     without one; ``"cpu"`` runs the kernels' plain versions). The model is
     moved to the device; batches are moved there at each step.
-    ``loss_impl`` as :func:`make_train_step`, for the train and the eval step."""
+    ``loss_impl`` as :func:`make_train_step`, for the train and the eval
+    step. ``ga_steps``, ``gradn_config`` and ``clip_norm`` configure the
+    optimizer chain (``optimizers.build_optimizer``), ``gwn_config`` the
+    gaussian weight noise, as JAX's ``Trainer`` and ``scripts/train.py``
+    take them; ``checkpoint_dir`` and ``keep_checkpoints`` the checkpoints;
+    ``callbacks`` the ``training/callbacks.py`` objects ``fit`` runs."""
 
     def __init__(self, model: torch.nn.Module, optimizer_config: dict, device=None, on_phase: Optional[Callable[[str], None]] = None,
-                 loss_impl: str = "auto"):
+                 loss_impl: str = "auto", ga_steps: Optional[int] = None, gradn_config: Optional[dict] = None, clip_norm: Optional[float] = None,
+                 gwn_config: Optional[dict] = None, checkpoint_dir: Optional[str] = None, keep_checkpoints: int = 5, callbacks: Optional[list] = None):
         self.device = device_util.resolve(device)
         self.model = model.to(self.device)
         self.optimizer_config = dict(optimizer_config)
-        self._train_step = make_train_step(self.model, on_phase, loss_impl)
+        self.ga_steps, self.gradn_config, self.clip_norm = ga_steps, gradn_config, clip_norm
+        self.weight_noise = WeightNoise(self.model, gwn_config) if gwn_config else None
+        self.checkpoint_dir = os.path.abspath(checkpoint_dir) if checkpoint_dir else None
+        self.keep_checkpoints = keep_checkpoints
+        self.callbacks = list(callbacks or [])
+        self._train_step = make_train_step(self.model, on_phase, loss_impl, self.weight_noise)
         self._eval_step = make_eval_step(self.model, loss_impl)
 
     def init_state(self, seed: int = 42) -> TrainState:
-        """A fresh optimizer over the model's parameters and a dropout generator seeded with ``seed``."""
-        return TrainState(self.model, build_optimizer(self.optimizer_config, self.model.parameters()), 0, torch.Generator().manual_seed(seed))
+        """A fresh optimizer chain over the model's parameters; the dropout
+        generator seeded with ``seed``, the augmentation and weight-noise
+        generators with ``seed`` plus their stream offsets."""
+        optimizer = build_optimizer(self.optimizer_config, self.model.parameters(), ga_steps=self.ga_steps, gradn_config=self.gradn_config,
+                                    clip_norm=self.clip_norm)
+        return TrainState(self.model, optimizer, 0, torch.Generator().manual_seed(seed), torch.Generator().manual_seed(AUGMENT_STREAM + seed),
+                          torch.Generator().manual_seed(WEIGHT_NOISE_STREAM + seed))
+
+    # ------------------------------ checkpoints ------------------------------ #
+
+    def checkpoint_steps(self) -> list[int]:
+        """The steps of the checkpoints under ``checkpoint_dir``, oldest first."""
+        if not self.checkpoint_dir or not os.path.isdir(self.checkpoint_dir):
+            return []
+        return sorted(int(d) for d in os.listdir(self.checkpoint_dir) if d.isdigit())
+
+    def save(self, state: TrainState) -> Optional[str]:
+        """Writes ``checkpoint_dir/<step>/state.pt`` (through a temporary
+        directory renamed into place; a step already saved is not written
+        again) and deletes all but the newest ``keep_checkpoints``; returns
+        its path (None without a ``checkpoint_dir``)."""
+        if not self.checkpoint_dir:
+            return None
+        final = os.path.join(self.checkpoint_dir, str(state.step))
+        if os.path.isdir(final):
+            return final
+        tmp = final + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(), "step": state.step,
+                    "generators": {k: g.get_state() for k, g in state.generators().items() if g is not None}}, os.path.join(tmp, "state.pt"))
+        os.replace(tmp, final)
+        for step in self.checkpoint_steps()[:-self.keep_checkpoints]:
+            shutil.rmtree(os.path.join(self.checkpoint_dir, str(step)))
+        return final
+
+    def restore(self, state: TrainState) -> TrainState:
+        """The newest checkpoint loaded into ``state`` (in place), or ``state`` as it is without one."""
+        steps = self.checkpoint_steps()
+        if not steps:
+            return state
+        ckpt = torch.load(os.path.join(self.checkpoint_dir, str(steps[-1]), "state.pt"), map_location="cpu", weights_only=True)
+        state.model.load_state_dict(ckpt["model"])
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.step = int(ckpt["step"])
+        for name, g in state.generators().items():
+            if g is not None and name in ckpt["generators"]:
+                g.set_state(ckpt["generators"][name])
+        logger.info("restored the checkpoint of step %d", state.step)
+        return state
+
+    # --------------------------------- loops --------------------------------- #
 
     def train_step(self, state: TrainState, batch: schemas.TrainData):
         return self._train_step(state, batch.to(self.device))
@@ -192,8 +324,12 @@ class Trainer:
     def fit(self, state: TrainState, train_data: Iterable, epochs: int = 1, steps_per_epoch: Optional[int] = None, eval_data: Optional[Iterable] = None,
             log_every: int = 100) -> TrainState:
         """Train ``epochs`` passes over ``train_data`` (at most
-        ``steps_per_epoch`` steps each), logging every ``log_every`` steps
-        and evaluating on ``eval_data`` after each epoch.
+        ``steps_per_epoch`` steps each), logging every ``log_every`` steps,
+        evaluating on ``eval_data`` and saving a checkpoint after each
+        epoch, with the callbacks' hooks as JAX's ``fit`` calls them: a
+        callback's ``stop_training`` ends the epoch after the batch that
+        set it (and the run after that epoch's end), or the run after the
+        epoch whose end set it.
 
         After the first step (the warm-up: the model, the optimizer's
         moments and the allocator's blocks exist by then) it runs
@@ -203,8 +339,14 @@ class Trainer:
         the objects alive at that point are never collected by the cycle
         collector again, so a cycle among them that becomes garbage later
         stays in memory (reference counting still frees the rest)."""
-        frozen = False
+        for cb in self.callbacks:
+            cb.on_train_begin(self)
+        frozen = stop = False
         for epoch in range(epochs):
+            if stop:
+                break
+            for cb in self.callbacks:
+                cb.on_epoch_begin(self, epoch)
             t0, n, metrics = time.time(), 0, None
             for batch in train_data:
                 state, metrics = self.train_step(state, batch)
@@ -215,10 +357,20 @@ class Trainer:
                     frozen = True
                 if n % log_every == 0:
                     logger.info("epoch %d step %d loss %.4f (%.2f steps/s)", epoch, n, float(metrics["loss"]), n / (time.time() - t0))
-                if steps_per_epoch and n >= steps_per_epoch:
+                for cb in self.callbacks:
+                    cb.on_train_batch_end(self, state, metrics)
+                    stop = stop or cb.stop_training
+                if stop or (steps_per_epoch and n >= steps_per_epoch):
                     break
+            logs = {"loss": float(metrics["loss"]) if metrics is not None else float("nan")}
             if eval_data is not None:
                 losses = [float(self.eval_step(state, b)["loss"]) for b in eval_data]
-                logger.info("epoch %d loss %.4f val_loss %.4f", epoch, float(metrics["loss"]) if metrics else float("nan"),
-                            sum(losses) / len(losses) if losses else float("nan"))
+                logs["val_loss"] = float(np.mean(losses)) if losses else float("nan")
+                logger.info("epoch %d loss %.4f val_loss %.4f", epoch, logs["loss"], logs["val_loss"])
+            self.save(state)
+            for cb in self.callbacks:
+                cb.on_epoch_end(self, state, epoch, logs)
+                stop = stop or cb.stop_training
+        for cb in self.callbacks:
+            cb.on_train_end(self, state)
         return state

@@ -14,9 +14,9 @@ kernels in interpret mode.
   to 1e-4 of its tensor's largest magnitude.
 - The eval step against JAX ``make_eval_step`` (default and ``xla``) to
   1e-5 relative.
-- Train-time augmentation: a config with SpecAugment raises when the port
-  trains it, and evaluates and serves as JAX does (JAX augments only when
-  training).
+- Train-time augmentation: a config with SpecAugment trains as JAX does
+  (JAX's masks replayed), and evaluates and serves without augmenting (JAX
+  augments only when training).
 """
 
 import jax
@@ -134,14 +134,40 @@ def test_eval_step_matches_jax(monkeypatch, name, loss_impl):
 
 
 def test_training_with_spec_augment_raises_and_evaluation_matches_jax(monkeypatch):
+    """A config with SpecAugment trains as JAX does: with JAX's masks
+    replayed into the port (``test_torch_train_recipe.py``), the first
+    step's loss and ``grad_norm`` agree to 1e-5 relative. Training without
+    an augment generator raises rather than skip the augmentation;
+    evaluation and serving do not augment, as in JAX."""
+    from tests.test_torch_train_recipe import replayed_masks, spy_feature_keys
+
     cfg = {**CONFORMER_CFG, "speech_config": {**CONFORMER_CFG["speech_config"], "augmentation_config": SPEC_AUGMENT}}
     got, ref, trainer = _eval_both(monkeypatch, "conformer", "auto", cfg)
     np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+    jm, v, tm, arrs = _both("conformer", cfg)
+    keys = []
+    spy_feature_keys(monkeypatch, keys)
+    state = jtrainer.TrainState.create(jax.tree_util.tree_map(jnp.asarray, v), optax.adam(1e-3), jax.random.PRNGKey(0))
+    _, ref_metrics = jax.jit(jtrainer.make_train_step(jm, optax.adam(1e-3)))(state, _jax_batch(arrs))
+    masks = replayed_masks(tm, keys[0], tm.feature_extraction.get_nframes(torch.tensor(arrs[1]).long()).numpy())
+    assert all((widths > 0).any() for _, widths in masks)
+    for method, params in zip(tm.feature_extraction.augmentation.feature_augmentations, masks):
+        monkeypatch.setattr(method, "draw", lambda x, lengths, generator, params=params: params)
+    trainer = Trainer(tm, ADAM, device="cpu")
+    _, metrics = trainer.train_step(trainer.init_state(), _torch_batch(arrs))
+    np.testing.assert_allclose(float(metrics["loss"]), float(ref_metrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(ref_metrics["grad_norm"]), rtol=1e-5)
+
     batch = _torch_batch(_batch(np.random.default_rng(12)))
-    with pytest.raises(NotImplementedError, match="Queue 1, \"The rest of training\""):
-        trainer.train_step(trainer.init_state(), batch)
     transducer = Conformer.from_config({**TINY_CFG, "speech_config": cfg["speech_config"]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="feature_augment"):
+    transducer.reset_parameters(torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="augment_generator"):
         transducer.forward_joint_inputs(batch.inputs, train=True)
+    plain = Conformer.from_config(TINY_CFG, device="cpu")
+    plain.load_state_dict(transducer.state_dict())
     with torch.no_grad():
-        transducer(batch.inputs, train=False)  # inference does not augment, as in JAX
+        # inference does not augment, as in JAX
+        torch.testing.assert_close(transducer(batch.inputs, train=False).logits, plain(batch.inputs, train=False).logits, rtol=0, atol=0)
+        augmented = transducer.feature_extraction(batch.inputs.inputs, batch.inputs.inputs_length, train=True, augment_generator=torch.Generator())[0]
+        assert not torch.equal(augmented, transducer.feature_extraction(batch.inputs.inputs, batch.inputs.inputs_length)[0])

@@ -238,14 +238,14 @@ def test_entry_points_run_on_the_card_unless_told(monkeypatch):
 
 
 def test_unported_optimizer_options_raise():
+    """What still raises is an optimizer the JAX package does not know
+    (a ``KeyError``, as JAX's ``build_base_optimizer``); accumulation,
+    gradient noise, clipping and schedules build (``test_torch_optimizers.py``)."""
     params = [torch.nn.Parameter(torch.zeros(2))]
-    for kwargs in ({"ga_steps": 2}, {"gradn_config": {"eta": 1.0}}, {"clip_norm": 1.0}):
-        with pytest.raises(NotImplementedError):
-            build_optimizer(ADAM, params, **kwargs)
-    with pytest.raises(NotImplementedError, match="schedule"):
-        build_optimizer({"class_name": "Adam", "config": {"learning_rate": {"class_name": "TransformerSchedule"}}}, params)
-    opt = build_optimizer({"class_name": "AdamW", "config": {"learning_rate": 1e-4, "weight_decay": 0.01}}, params)
-    assert isinstance(opt, torch.optim.AdamW) and opt.defaults["eps"] == 1e-7
+    with pytest.raises(KeyError, match="Unknown optimizer 'lamb'"):
+        build_optimizer({"class_name": "tensorflow_addons.optimizers>Lamb", "config": {}}, params)
+    opt = build_optimizer({"class_name": "AdamW", "config": {"learning_rate": 1e-4, "weight_decay": 0.01}}, params, ga_steps=2, clip_norm=1.0)
+    assert isinstance(opt.base, torch.optim.AdamW) and opt.base.defaults["eps"] == 1e-7 and opt.ga_steps == 2
 
 
 # ------------------------------------------- loss ------------------------------------------- #
