@@ -1,5 +1,5 @@
 """Chip smoke test of the PyTorch port on one CUDA card: serving, training and evaluation
-of the Conformer-Transducer and the CTC models.
+of the Conformer-Transducer and the CTC models, from tensors and from audio files.
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
@@ -100,7 +100,34 @@ builds the flagship, both CTC models and the memory-64 streaming model and
 serves 200 flagship requests, half after ``gc.freeze()`` and half after
 ``gc.unfreeze()``, with the gen-2 pauses of each half and its host RSS and
 card memory, which may not grow by more than 5% from the 50th request to
-the last. After each phase's set-up and warm-up the garbage
+the last. The data path (``phase_data``) writes a corpus
+of 32 training and 16 evaluation utterances of 5.1–16 s (every sixth
+FLAC, the rest WAV; each character of the transcript voiced as its own
+pair of tones) at the manifest paths of
+``examples/datasets/librispeech/characters/char.yml.j2`` in a temporary
+directory, loads that config through the port's ``Config`` with
+``datadir`` there, builds the char tokenizer (V 29) and the models through
+``build_model``, and drives: host decode ms (WAV, FLAC native and
+Python), ``create``'s ms a batch at 0 and 4 decode workers; the flagship
+(bf16, ``auto``) through ``Trainer.fit`` for 2 epochs × 2 steps of 16 fed
+by ``create`` with the training set as ``eval_data``, its first loss
+bit-equal to ``train_step`` on the same batch, and step walls fed from
+the dataset against a fixed batch; ``evaluate_dataset`` at batch 8 over
+the evaluation manifests and over a TFRecord copy (equal reports,
+utterances a second, RTF, one fused decode a batch) with WER and CER
+three ways (the accumulator, ``metrics.wer``/``cer`` over the rows,
+``wer_on_device``); Conformer-CTC Small through ``fit`` and
+``evaluate_dataset``; a 2-block Conformer-T at the flagship's widths
+trained until ``evaluate_dataset`` reads WER 0 on 4 utterances (at most
+400 steps and 60 s); and its weights in f32 evaluated on the card and on
+the CPU, hypothesis for hypothesis. The kernels this path runs at V 29 are
+held to their plain versions on its own inputs: the fused joint forward
+and backward on the first data-fed batch's prejoint outputs, the
+log-probability row kernel's one-element form (its own kernel row,
+``rnnt_logprobs_scalar``: rows of 29 values are no multiple of 16 bytes)
+on that batch's eval logits, and the bf16 fused decode on the encoding of
+the first evaluation batch and of the overfit utterances. ``--data`` runs
+the build and this phase alone. After each phase's set-up and warm-up the garbage
 collector runs once and freezes the survivors (``gc.freeze``); every
 timed step and request records its gen-2 collections, summed in a ``gc
 watch`` line. Every kernel must launch on at least one driven path; its
@@ -113,7 +140,8 @@ Without a card it exits non-zero.
 the step numbers (:func:`phase_steps`) of this checkout and of the package
 under DIR (a checkout of another commit), each in its own process, in
 turns. ``--rows``, ``--steps`` and ``--fit-gc`` are child processes' modes;
-``--recipe`` runs the kernel build and the recipes alone.
+``--recipe`` runs the kernel build and the recipes alone, ``--data`` the
+build and the data path.
 """
 
 from __future__ import annotations
@@ -313,6 +341,7 @@ SOURCES = {
     "rnnt_fused_joint": ("tensorflowasr_tpu_torch/csrc/joint_loss_mma.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:351"),
     "rnnt_fused_joint_bwd": ("tensorflowasr_tpu_torch/csrc/joint_loss_mma.cu", "tensorflowasr_tpu/ops/pallas/joint_loss_kernel.py:329"),
     "rnnt_logprobs": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:413"),
+    "rnnt_logprobs_scalar": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:413"),
     "rnnt_dlogits": ("tensorflowasr_tpu_torch/csrc/rnnt_rows.cu", "tensorflowasr_tpu/ops/pallas/rnnt_kernel.py:438"),
     "lstm": ("tensorflowasr_tpu_torch/csrc/lstm_mma.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:178"),
     "lstm_bwd": ("tensorflowasr_tpu_torch/csrc/lstm_mma.cu", "tensorflowasr_tpu/ops/pallas/lstm_kernel.py:237"),
@@ -1397,6 +1426,30 @@ def _first_difference(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor, len
     return out
 
 
+def decode_bf16_agreement(params, start, states, x, got, ref, what: str) -> str:
+    """Where the bf16 fused decode ``got`` and its plain version ``ref``
+    (decoded with ``gaps=True``) of the encoding ``x`` differ: only where the
+    plain version's top-two logit gap is within DECODE_GAP of the logit
+    scale (the largest |logit| of the first step's joint rows), else raises.
+    Returns the note for the check line."""
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    pred0, _ = dk._pred_step(params, start, states)
+    z0 = torch.tanh(dk.project_encoder(x, params).float() + pred0[:, None, :]).to(x.dtype)
+    scale = torch.nn.functional.linear(z0.float(), params.wv.float(), params.bv).abs().max().item()
+    report = []
+    for r, pos in enumerate(_first_difference(got[0], ref[0], got[1], ref[1])):
+        if pos is None:
+            continue
+        g = ref[4][r, pos].item()
+        report.append(f"row {r}: position {pos}, plain top-two gap {g:.4g}")
+        if g > DECODE_GAP * scale:
+            raise AssertionError(f"decode bf16 ({what}): row {r} differs at position {pos} where the plain version's top-two logit gap "
+                                 f"{g} exceeds {DECODE_GAP} x the logit scale {scale}")
+    n = got[0].shape[0]
+    return f"{what}: {n - len(report)} of {n} rows equal, " + ("; ".join(report) or "no difference") + f" (allowed where the gap <= 2^-6 x logit scale {scale:.3g})"
+
+
 def phase_decode_kernel(dev) -> dict:
     """Row 13, the fused greedy decode, at the flagship serve shape on the
     real encoder output of one request (8 × 6–10 s): in f32 the kernel, its
@@ -1446,23 +1499,8 @@ def phase_decode_kernel(dev) -> dict:
                 sharp = enc.float() * 3.0
                 sharp[..., 0] += 2.0
                 sharp = sharp.to(dt)
-                pred0, _ = dk._pred_step(params, start, states)
-                notes = []
-                for what, x, (g_, r_) in (("sharpened", sharp, (kernel(sharp), plain(sharp, gaps=True))), ("raw", enc, (got, ref))):
-                    z0 = torch.tanh(dk.project_encoder(x, params).float() + pred0[:, None, :]).to(dt)
-                    scale = torch.nn.functional.linear(z0.float(), params.wv.float(), params.bv).abs().max().item()
-                    report = []
-                    for r, pos in enumerate(_first_difference(g_[0], r_[0], g_[1], r_[1])):
-                        if pos is None:
-                            continue
-                        g = r_[4][r, pos].item()
-                        report.append(f"row {r}: position {pos}, plain top-two gap {g:.4g}")
-                        if g > DECODE_GAP * scale:
-                            raise AssertionError(f"decode bf16 ({what}): row {r} differs at position {pos} where the plain version's top-two logit gap "
-                                                 f"{g} exceeds {DECODE_GAP} x the logit scale {scale}")
-                    notes.append(f"{what}: {8 - len(report)} of 8 rows equal, " + ("; ".join(report) or "no difference")
-                                 + f" (allowed where the gap <= 2^-6 x logit scale {scale:.3g})")
-                note = "; ".join(notes)
+                note = "; ".join(decode_bf16_agreement(params, start, states, x, g_, r_, what)
+                                 for what, x, (g_, r_) in (("sharpened", sharp, (kernel(sharp), plain(sharp, gaps=True))), ("raw", enc, (got, ref))))
             times[tag] = (time_ms(kernel, enc), wall_ms(lambda: plain(enc)), wall_ms(lambda: eager(enc)))
             by_cluster = {}
             for c in dk.CLUSTER_SIZES:
@@ -1500,7 +1538,7 @@ ENCODER_FWD = {"log_mel_spectrogram": 1, "fused_rel_attention": 16, "fused_ff": 
 ENCODER_BWD = {"fused_rel_attention_bwd": 16, "fused_ff_bwd": 32, "conv_front_bwd": 16, "conv_back_bwd": 16}
 KERNELS = ("log_mel_spectrogram", "fused_rel_attention", "fused_rel_attention_bwd", "fused_ff", "fused_ff_bwd", "conv_front", "conv_front_bwd",
            "conv_back", "conv_back_bwd", "rnnt_dp", "rnnt_fused_joint", "rnnt_fused_joint_bwd", "rnnt_logprobs", "rnnt_dlogits", "lstm", "lstm_bwd",
-           "ctc_loss", "fused_attention", "fused_attention_bwd", "fused_decode")
+           "ctc_loss", "fused_attention", "fused_attention_bwd", "fused_decode", "rnnt_logprobs_scalar")
 
 
 def _per(**counts) -> dict:
@@ -1521,6 +1559,8 @@ PER_STEP = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_dp=1, rnnt_fused_joint=1, rnn
 PER_STEP_XLA = _per(**ENCODER_FWD, **ENCODER_BWD)
 # per eval step (default loss_impl): the encoder's forwards, the log-probability row kernel and the DP
 PER_EVAL = _per(**ENCODER_FWD, rnnt_logprobs=1, rnnt_dp=1)
+# ... at a vocabulary whose logit rows are no multiple of 16 bytes (the char vocabulary, V 29): the row kernel's one-element form
+PER_EVAL_SCALAR = {**PER_EVAL, "rnnt_logprobs": 0, "rnnt_logprobs_scalar": 1}
 # per pallas step with rnn_impl="pallas": the unfused loss (log-probabilities, DP, d_logits) and the LSTM forward and backward
 PER_STEP_PALLAS = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_logprobs=1, rnnt_dp=1, rnnt_dlogits=1, lstm=1, lstm_bwd=1)
 # per auto step with rnn_impl="pallas": the default step's kernels and the LSTM forward and backward
@@ -1534,9 +1574,9 @@ def launch_counts() -> dict:
     return {"log_mel_spectrogram": fek.launches, "fused_rel_attention": ak.launches, "fused_rel_attention_bwd": ak.bwd_launches, "fused_ff": fk.launches,
             "fused_ff_bwd": fk.bwd_launches, "conv_front": ck.front_launches, "conv_front_bwd": ck.front_bwd_launches, "conv_back": ck.back_launches,
             "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches,
-            "rnnt_logprobs": rk.logprobs_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches, "lstm_bwd": lk.bwd_launches,
-            "ctc_loss": ctk.launches, "fused_attention": ak.attention_launches, "fused_attention_bwd": ak.attention_bwd_launches,
-            "fused_decode": dk.launches}
+            "rnnt_logprobs": rk.logprobs_launches - rk.logprobs_scalar_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches,
+            "lstm_bwd": lk.bwd_launches, "ctc_loss": ctk.launches, "fused_attention": ak.attention_launches,
+            "fused_attention_bwd": ak.attention_bwd_launches, "fused_decode": dk.launches, "rnnt_logprobs_scalar": rk.logprobs_scalar_launches}
 
 
 def reset_launch_counts() -> None:
@@ -1545,7 +1585,8 @@ def reset_launch_counts() -> None:
 
     fek.launches = ak.launches = ak.bwd_launches = fk.launches = fk.bwd_launches = 0
     ck.front_launches = ck.front_bwd_launches = ck.back_launches = ck.back_bwd_launches = 0
-    rk.launches = jk.launches = jk.bwd_launches = rk.logprobs_launches = rk.dlogits_launches = lk.launches = lk.bwd_launches = 0
+    rk.launches = jk.launches = jk.bwd_launches = rk.logprobs_launches = rk.logprobs_scalar_launches = rk.dlogits_launches = 0
+    lk.launches = lk.bwd_launches = 0
     ctk.launches = ak.attention_launches = ak.attention_bwd_launches = dk.launches = 0
 
 
@@ -3024,6 +3065,603 @@ def phase_recipe(dev) -> dict:
     return paths
 
 
+# ----------------------------- the data path ------------------------------ #
+
+CHAR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "datasets", "librispeech", "characters", "char.yml.j2")
+DATA_LAYOUT = (("train-clean-100", 16), ("train-clean-360", 8), ("train-other-500", 8), ("dev-clean", 8), ("dev-other", 8))
+DATA_SECS = (5.1, 16.0)  # bench.py:149-157's lognormal around 12 s, clipped to these
+DATA_B, DATA_EVAL_B, DATA_CHARS_PER_S = 16, 8, 12.0
+DATA_FLAC_EVERY = 6  # every 6th utterance is written as FLAC, the rest as WAV
+DATA_SENTENCES = (
+    "he hoped there would be stew for dinner turnips and carrots and bruised potatoes and fat mutton pieces",
+    "stuff it into you his belly counselled him",
+    "after early nightfall the yellow lamps would light up here and there the squalid quarter of the brothels",
+    "hello bertie any good in your mind",
+    "number ten fresh nelly is waiting on you good night husband",
+    "the music came nearer and he recalled the words the words of shelley's fragment upon the moon wandering companionless",
+    "we are not saying that it's wrong only that it takes a long time to learn the way the river runs",
+    "she wore a blue dress and carried a small basket of apples down to the old mill by the water",
+    "in the morning the fog lifted and the ships came slowly into the harbour one after another",
+    "it was the best of times it was the worst of times it was the age of wisdom",
+)
+OVERFIT_TEXTS = ("the cat sat", "a dog ran home", "blue sky", "we went out to sea")
+OVERFIT_ROUND, OVERFIT_STEP_CAP, OVERFIT_TIME_CAP, OVERFIT_LR = 25, 400, 60.0, 2e-3
+
+
+def data_transcript(rng, secs: float, chars_per_s: float = DATA_CHARS_PER_S) -> str:
+    """Words from the sentence pool, about ``chars_per_s`` characters a second (read speech)."""
+    target, words = max(int(chars_per_s * secs), 3), []
+    while len(" ".join(words)) < target:
+        words += DATA_SENTENCES[rng.integers(len(DATA_SENTENCES))].split()
+    text = words[0]
+    for w in words[1:]:
+        if len(text) + 1 + len(w) > target:
+            break
+        text += " " + w
+    return text
+
+
+def data_audio(rng, n: int, text: str) -> np.ndarray:
+    """Audio that carries its transcript, as speech does: each character a
+    segment of equal length under a Hann window, voiced with two tones of its
+    own (a formant-like pair picked by the character) over a random pitch; a
+    space is a pause; noise throughout."""
+    t = np.arange(n) / 16000
+    f0, bounds = rng.uniform(90, 250), np.linspace(0, n, len(text) + 1).astype(int)
+    x = np.zeros(n)
+    for ch, a, b in zip(text, bounds[:-1], bounds[1:]):
+        if ch != " " and b > a:
+            k, seg = ord(ch) % 32, t[a:b]
+            x[a:b] = np.hanning(b - a) * (np.sin(2 * np.pi * (300 + 45 * k) * seg) + 0.6 * np.sin(2 * np.pi * (1200 + 110 * k) * seg)
+                                          + 0.3 * np.sin(2 * np.pi * f0 * seg))
+    return np.clip(0.12 * x + 0.02 * rng.standard_normal(n), -0.45, 0.45).astype(np.float32)
+
+
+def write_manifest(path: str, rows: list) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("PATH\tDURATION\tTRANSCRIPT\n" + "".join(f"{p}\t{d}\t{t}\n" for p, d, t in rows))
+
+
+def data_corpus(root: str) -> dict:
+    """The corpus under ``root`` at the manifest paths ``char.yml.j2`` names
+    with ``datadir=root``: 32 training and 16 evaluation utterances of
+    5.1–16 s, every ``DATA_FLAC_EVERY``-th as FLAC, the rest as WAV.
+    Returns the audio seconds and the paths by format."""
+    from tensorflowasr_tpu_torch.data import audio
+
+    rng = np.random.default_rng(SEED + 14)
+    out, k = {"wav": [], "flac": [], "secs": {"train": 0.0, "eval": 0.0}}, 0
+    for split, n in DATA_LAYOUT:
+        rows = []
+        for _ in range(n):
+            secs = float(np.clip(rng.lognormal(mean=np.log(12.0), sigma=0.35), *DATA_SECS))
+            fmt = "flac" if k % DATA_FLAC_EVERY == DATA_FLAC_EVERY - 1 else "wav"
+            path = os.path.join(root, split, f"utt{k:03d}.{fmt}")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            text = data_transcript(rng, secs)
+            (audio.write_flac if fmt == "flac" else audio.write_wav)(path, data_audio(rng, int(secs * 16000), text), 16000)
+            rows.append((path, audio.audio_duration(path), text))
+            out[fmt].append(path)
+            out["secs"]["train" if split.startswith("train") else "eval"] += rows[-1][1]
+            k += 1
+        write_manifest(os.path.join(root, split, "transcripts.tsv"), rows)
+    return out
+
+
+def data_config(root: str):
+    """``char.yml.j2`` loaded through the port's ``Config`` with ``datadir`` at
+    the temporary corpus (its metadata path inside the repository is only
+    read, and holds nothing: metadata is computed in memory)."""
+    from tensorflowasr_tpu_torch import pipeline
+
+    config = pipeline.load_config(CHAR_CONFIG, datadir=root)
+    if config.data_config.train_dataset_config.data_paths[0] != os.path.join(root, "train-clean-100", "transcripts.tsv"):
+        raise AssertionError(f"char.yml.j2 names {config.data_config.train_dataset_config.data_paths}, not the corpus under {root}")
+    return config
+
+
+def data_model(config, tok, dev, family: str = "transducer", dtype=torch.bfloat16, **kw) -> torch.nn.Module:
+    """A model of the char config's vocabulary built through ``build_model`` from
+    its config dict (the flagship, or Conformer-CTC Small), random weights from the seed."""
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.models.ctc.conformer import conformer_ctc_small_config
+    from tensorflowasr_tpu_torch.models.transducer.conformer import conformer_small_config
+
+    if family == "transducer":
+        config.model_config = {"class_name": "tensorflow_asr.models.transducer.conformer>Conformer", "config": conformer_small_config(vocab_size=29, **kw)}
+    else:
+        config.model_config = {"class_name": "tensorflow_asr.models.ctc.conformer>Conformer", "config": conformer_ctc_small_config(vocab_size=29, **kw)}
+    model = pipeline.build_model_from_config(config, tok, mxp="strict" if dtype == torch.bfloat16 else "none", device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model
+
+
+def loss_record(tag: str):
+    """A ``fit`` callback keeping each step's loss (read on the host) and wall since the previous batch's end."""
+    from tensorflowasr_tpu_torch.training import callbacks
+
+    class LossRecord(callbacks.Callback):
+        def __init__(self):
+            self.losses, self.walls, self._t = [], [], None
+
+        def on_train_begin(self, trainer):
+            self._t = time.perf_counter()
+
+        def on_epoch_begin(self, trainer, epoch):
+            self._t = time.perf_counter()
+
+        def on_train_batch_end(self, trainer, state, metrics):
+            self.losses.append(metrics["loss"].item())
+            now = time.perf_counter()
+            self.walls.append((now - self._t) * 1e3)
+            self._t = now
+
+        def on_epoch_end(self, trainer, state, epoch, logs):
+            print(f"{tag} epoch {epoch}: " + ", ".join(f"{k} {v:.4f}" for k, v in logs.items()))
+
+    return LossRecord()
+
+
+def host_decode_ms(corpus: dict) -> None:
+    """Host ms to decode one utterance: the longest WAV, and the longest FLAC
+    through the native decoder and the pure-Python one."""
+    from tensorflowasr_tpu_torch.data import audio
+
+    def ms(fn, path, reps):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(path)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    wav, flac = (max(corpus[f], key=audio.audio_duration) for f in ("wav", "flac"))
+    print(f"data decode (host, one utterance, median): WAV {audio.audio_duration(wav):.2f} s {ms(audio.read_wav, wav, 5):.2f} ms; FLAC "
+          f"{audio.audio_duration(flac):.2f} s native {ms(audio.read_flac, flac, 5):.2f} ms, Python {ms(audio.read_flac_python, flac, 1):.1f} ms")
+
+
+def create_ms(dataset, shapes: dict) -> None:
+    """Host ms per batch of ``create`` (16 utterances decoded, tokenized,
+    padded and pinned), after its first batch, at num_workers 0 and 4."""
+    for workers in (0, 4):
+        it = dataset.create(DATA_B, shapes["padded_input_length"], shapes["padded_label_length"], num_workers=workers, pin_memory=True)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            next(it)
+        print(f"data create: {(time.perf_counter() - t0) * 1e3 / 3:.1f} ms per batch of {DATA_B} at num_workers {workers} (host, 3 batches after the first)")
+        it.close()
+
+
+def fed_vs_fixed(trainer, state, dataset, shapes: dict, steps: int = 4) -> None:
+    """Step walls fed from the dataset (``next`` on ``create`` inside the
+    wall) against the same number of steps on one fixed batch already on
+    the card: whether the card waits on input."""
+    it = dataset.create(DATA_B, shapes["padded_input_length"], shapes["padded_label_length"], num_workers=4, pin_memory=True)
+    fixed = next(it).to(trainer.device)
+    walls = {"fed": [], "fixed": []}
+    torch.cuda.synchronize()
+    settle()
+    for kind in ("fed", "fixed"):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, _ = trainer.train_step(state, next(it) if kind == "fed" else fixed)
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    it.close()
+    print("data step wall (host clock, ends in a synchronise): fed from create " + ", ".join(f"{w:.1f}" for w in walls["fed"])
+          + f" ms (median {np.median(walls['fed']):.1f}); fixed batch on the card " + ", ".join(f"{w:.1f}" for w in walls["fixed"])
+          + f" ms (median {np.median(walls['fixed']):.1f})")
+
+
+def phase_data_train(dev, config, tok, corpus: dict, tmp: str):
+    """The flagship (V 29, bf16, ``auto``) trained by ``Trainer.fit`` for 2
+    epochs × 2 steps of batch 16 fed by ``create`` (padded to the metadata,
+    4 decode workers, pinned), the training set as ``eval_data``; the
+    first step's loss against ``train_step`` on the same batch from the same
+    start, bit for bit. Returns (counts, model, datasets, shapes, the first data-fed batch)."""
+    import random
+
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.data import datasets
+    from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+    random.seed(SEED)  # the config shuffles the training and evaluation entries
+    data = pipeline.build_datasets(config, tok)
+    train, train_eval = data["train"], pipeline.build_datasets(config, tok, stages=("train",))["train"]
+    meta = train.compute_metadata()
+    train_eval.compute_metadata()
+    train_eval.indefinite = False
+    shapes = datasets.get_global_shape(config, train, batch_size=DATA_B)
+    print(f"data corpus: {meta['num_entries']} training utterances ({corpus['secs']['train']:.1f} s), {sum(n for s, n in DATA_LAYOUT if s.startswith('dev'))} evaluation "
+          f"({corpus['secs']['eval']:.1f} s), {len(corpus['flac'])} FLAC / {len(corpus['wav'])} WAV; metadata {meta}; padded shapes {shapes}; "
+          f"tokenizer {type(tok).__name__} V {tok.num_classes}")
+    host_decode_ms(corpus)
+    create_ms(train, shapes)
+
+    adam = {"class_name": "Adam", "config": {"learning_rate": 1e-4}}
+    model = data_model(config, tok, dev, dropout=TRAIN_RATE)
+    record = loss_record("data train")
+    trainer = Trainer(model, adam, device=dev, loss_impl="auto", checkpoint_dir=os.path.join(tmp, "checkpoints"), keep_checkpoints=1,
+                      callbacks=[record])
+    state = trainer.init_state(seed=SEED)
+    eval_batches = list(train_eval.create(DATA_B, shapes["padded_input_length"], shapes["padded_label_length"], prefetch=0, pin_memory=True))
+    first = []
+
+    def feed():
+        for batch in train.create(DATA_B, shapes["padded_input_length"], shapes["padded_label_length"], num_workers=4, pin_memory=True):
+            if not first:
+                first.append(batch)
+            yield batch
+
+    batches = feed()
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, batches, epochs=2, steps_per_epoch=2, eval_data=eval_batches)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    batches.close()
+    want = {k: 4 * PER_STEP[k] + len(eval_batches) * 2 * PER_EVAL_SCALAR[k] for k in KERNELS}
+    if counts != want:
+        raise AssertionError(f"data train launches {_launched(counts)}, expected {_launched(want)}")
+    if not all(np.isfinite(record.losses)) or len(record.losses) != 4 or trainer.checkpoint_steps() != [4]:
+        raise AssertionError(f"data train: losses {record.losses}, checkpoints {trainer.checkpoint_steps()}")
+    print(f"data train (flagship, fit 2 epochs x 2 steps of {DATA_B}, {len(eval_batches)} eval batches an epoch): {fit_s:.2f} s; step walls "
+          + ", ".join(f"{w:.1f}" for w in record.walls) + " ms (host, from the previous batch's end, the first includes the epoch start); losses "
+          + ", ".join(f"{x:.4f}" for x in record.losses) + f"; launches {_launched(counts)}")
+
+    replay = Trainer(data_model(config, tok, dev, dropout=TRAIN_RATE), adam, device=dev, loss_impl="auto")
+    _, metrics = replay.train_step(replay.init_state(seed=SEED), first[0])
+    if metrics["loss"].item() != record.losses[0]:
+        raise AssertionError(f"data train: the first data-fed loss {record.losses[0]!r} differs from train_step on its batch {metrics['loss'].item()!r}")
+    print(f"data train: first data-fed step's loss {record.losses[0]!r} equals train_step on the same collated batch from the same start, bit for bit")
+    del replay
+    fed_vs_fixed(trainer, state, train, shapes)
+    return counts, model, data, shapes, first[0]
+
+
+def data_train_kernels(dev, model, batch) -> dict:
+    """Rows 8 and 10a at the shapes the data-fed training gives them (the
+    char vocabulary, V 29, and labels padded to the metadata): the fused
+    joint forward and backward on the trained flagship's prejoint outputs
+    of the first data-fed batch ([16, T, U+1] cells, J 320 → V 29), and the
+    log-probability row kernel on the eval logits [16, T, U+1, 29] of the
+    same batch, whose rows of 58 (bf16) or 116 (f32) bytes take its
+    one-element form (route "scalar", a ``__global__`` of its own). Each
+    against its plain version in f32 (the same inputs upcast) and bf16 with
+    the check phase's tolerances; times and bounds in bf16. Returns the
+    joint's two results by row name and the scalar form's kernel row."""
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+    from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import logits_to_logprobs_plain, sanitize_lengths
+
+    batch = batch.to(dev)
+    labels = batch.labels.labels
+    with torch.no_grad():
+        enc_p, pred_p, elens = model.forward_joint_inputs(batch.inputs)
+        logits = model(batch.inputs).logits
+    _, t_len, u_len = sanitize_lengths(elens, batch.labels.labels_length, enc_p.shape[1])
+    wv, bv = model.joint.vocab.weight.detach(), model.joint.vocab.bias.detach().float()
+    b, t, u1, v = enc_p.shape[0], enc_p.shape[1], pred_p.shape[1], wv.shape[0]
+    shape = f"data train, [{b}, {t}, {u1}] cells, J {enc_p.shape[2]}, V {v}"
+    active = {}
+
+    def joint_make(dt):
+        fargs = (enc_p.to(dt).contiguous(), pred_p.to(dt).contiguous(), wv.to(dt).contiguous(), bv, labels)
+        _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*fargs[:4], t_len, labels, u_len)
+        active["cells"] = int(((gbl != 0) | (gem != 0)).sum())
+        return fargs, (*fargs, lse, gbl / b, gem / b)  # the masked mean's cotangent
+
+    joint = _check_fwd_bwd("rnnt_fused_joint", _stacked(jk.joint_logprobs_kernel), _stacked(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
+                           jk.rnnt_loss_fused_joint_plain_bwd, joint_make,
+                           lambda elt, bwd: cost_joint(b, t, u1, enc_p.shape[2], v, elt, bwd, active["cells"]), what=shape)
+    out = {row["name"]: {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms", "bound_by")} | {"shape": shape}
+           for row in joint}
+
+    errs = {}
+    for tag, dt in DTYPES:
+        x = logits.to(dt).contiguous()
+        plan, before = rk.logprobs_plan(v, x.element_size(), x.data_ptr() % 16 == 0), rk.logprobs_scalar_launches
+        got = torch.stack(rk.logits_to_logprobs_kernel(x, labels))
+        if plan.route != "scalar" or rk.logprobs_scalar_launches != before + 1:
+            raise AssertionError(f"rnnt_logprobs_scalar {tag} (V {v}): route {plan.route!r}, {rk.logprobs_scalar_launches - before} scalar launches")
+        errs[tag] = _close(f"rnnt_logprobs_scalar {tag} ({shape})", got, torch.stack(logits_to_logprobs_plain(x, labels)), *ROWS_TOL[tag])
+    ms, plain_ms = time_ms(_stacked(rk.logits_to_logprobs_kernel), x, labels), time_ms(_stacked(logits_to_logprobs_plain), x, labels)
+    bd = bound(*cost_rows(b * t * u1, v, b, u1 - 1, x.element_size(), False), "f32")
+    print(f"kernel rnnt_logprobs_scalar (data train's eval step, logits [{b}, {t}, {u1}, {v}], rows of {v * 2} / {v * 4} bytes: the one-element "
+          f"form): max_abs_err f32 {errs['f32']:.3e} bf16 {errs['bf16']:.3e} (tol {ROWS_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"bound {bd[0]:.4f} ms ({bd[1]}) bf16, with the stack of its three outputs")
+    out["rnnt_logprobs_scalar"] = _row("rnnt_logprobs_scalar", errs, ms, plain_ms, bd) | {"shape": shape}
+    return out
+
+
+def data_decode_kernel(dev, model, ds, what: str) -> dict:
+    """Row 13 in bf16 at V 29 on the encoding of ``ds``'s first batch of
+    ``DATA_EVAL_B`` (as ``evaluate_dataset`` pads it) by ``model``: the
+    kernel against its plain version on the raw encoding and on the
+    sharpened one, as :func:`phase_decode_kernel` holds them
+    (:func:`decode_bf16_agreement`); times and bound. Returns the results."""
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    batches = ds.labelled_batches(DATA_EVAL_B, num_workers=0)
+    batch, _ = next(batches)
+    batches.close()
+    with torch.inference_mode():
+        enc, enc_len, _ = model.encode(batch.inputs.inputs.to(dev), batch.inputs.inputs_length.to(dev))
+        b, params = enc.shape[0], model.decode_params()
+        start, states = torch.zeros(b, dtype=torch.int64, device=dev), model.init_decoder_states(b, dev)
+        kernel = lambda x: dk.fused_greedy_decode_kernel(x, enc_len, params, start, states, window=DECODE_WINDOW)
+        plain = lambda x, **kw: dk.fused_greedy_decode_plain(x, enc_len, params, start, states, window=DECODE_WINDOW, **kw)
+        sharp = enc.float() * 3.0
+        sharp[..., 0] += 2.0
+        sharp = sharp.to(enc.dtype)
+        got = kernel(enc)
+        note = "; ".join(decode_bf16_agreement(params, start, states, x, kernel(x), plain(x, gaps=True), name)
+                         for name, x in (("sharpened", sharp), ("raw", enc)))
+        ref = plain(enc)
+        state_err = max((x - y).abs().max().item() for g, r in zip(got[3], ref[3]) for x, y in zip(g, r))
+        ms, plain_ms = time_ms(kernel, enc), wall_ms(lambda: plain(enc))
+    v = params.wv.shape[0]
+    t_np, u_np = enc_len.cpu().numpy(), got[1].cpu().numpy()
+    bd = bound(*cost_decode(t_np, u_np, enc.shape[1], 320, 320, 320, v, 2), "bf16")
+    print(f"kernel fused_decode bf16 ({what}, B {b} T {enc.shape[1]} (T_b {t_np.min()}-{t_np.max()}), V {v}): tokens per row {u_np.min()}-{u_np.max()}; "
+          f"{note}; states max_abs_err {state_err:.3e}; kernel {ms:.4f} ms plain {plain_ms:.1f} ms bound {bd[0]:.4f} ms ({bd[1]})")
+    return dict(max_abs_err_bf16=state_err, ms=ms, plain_ms=plain_ms, bound_ms=bd[0], bound_by=bd[1], tokens=[int(u_np.min()), int(u_np.max())],
+                shape=f"{what}, B {b} T {enc.shape[1]} V {v}")
+
+
+def data_error_rates(report: dict, tok, dev, tag: str = "data eval") -> None:
+    """WER and CER three ways: the accumulator's, ``metrics.wer``/``cer`` from
+    the rows, and ``wer_on_device`` over the char ids and over word ids."""
+    from tensorflowasr_tpu_torch.ops.edit_distance import wer_on_device
+    from tensorflowasr_tpu_torch.training import metrics
+
+    truths, hyps = [r[1] for r in report["rows"]], [r[2] for r in report["rows"]]
+    words = {w: i + 1 for i, w in enumerate(sorted({w for t in truths + hyps for w in t.split()}))}
+
+    def on_device(seqs_ref, seqs_hyp):
+        def pad(seqs):
+            out = np.zeros((len(seqs), max(1, max(len(s) for s in seqs))), np.int64)
+            for i, s in enumerate(seqs):
+                out[i, : len(s)] = s
+            return torch.tensor(out, device=dev), torch.tensor([len(s) for s in seqs], device=dev)
+
+        num, den = wer_on_device(*pad(seqs_ref), *pad(seqs_hyp))
+        return int(num) / int(den)
+
+    ways = {
+        "wer": (report["greedy"]["wer"], metrics.wer(truths, hyps), on_device([[words[w] for w in t.split()] for t in truths],
+                                                                             [[words[w] for w in h.split()] for h in hyps])),
+        "cer": (report["greedy"]["cer"], metrics.cer(truths, hyps), on_device([list(tok.tokenize(t)) for t in truths], [list(tok.tokenize(h)) for h in hyps])),
+    }
+    for name, (acc, rows, device) in ways.items():
+        if not acc == rows == device:
+            raise AssertionError(f"{tag} {name}: accumulator {acc!r}, from the rows {rows!r}, wer_on_device {device!r}")
+    print(f"{tag}: WER {ways['wer'][0]!r} and CER {ways['cer'][0]!r} agree three ways (accumulator, metrics.wer/cer from the rows, "
+          f"wer_on_device over word and char ids on the card; {sum(len(r[2]) for r in report['rows'])} hypothesis characters)")
+
+
+def phase_data_eval(dev, model, config, tok, data: dict, corpus: dict, tmp: str) -> dict:
+    """``evaluate_dataset`` of the trained flagship over the evaluation
+    manifests (WAV and FLAC files) and over a TFRecord copy, batch 8:
+    equal reports, WER and CER three ways, utterances per second, RTF and
+    one fused decode a batch. Returns the two paths' counts."""
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
+
+    evals, paths = {}, {}
+    tfr = pipeline.build_datasets(config, tok, dataset_type="tfrecord", stages=("eval",))["eval"]
+    t0 = time.perf_counter()
+    tfr.create_tfrecords()
+    print(f"data eval: TFRecord copy of the evaluation set in {tfr.tfrecords_shards} GZIP shards under the temporary datadir "
+          f"({time.perf_counter() - t0:.2f} s to write)")
+    for name, ds in (("data_eval", data["eval"]), ("data_eval_tfrecord", tfr)):
+        ds.compute_metadata()
+        torch.cuda.synchronize()
+        settle()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = evaluate_dataset(model, ds, tok, batch_size=DATA_EVAL_B, collect_rows=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[name] = counts = launch_counts()
+        n = len(report["rows"])
+        batches = -(-n // DATA_EVAL_B)
+        if counts["fused_decode"] != batches or counts["log_mel_spectrogram"] != batches:
+            raise AssertionError(f"{name}: launches {_launched(counts)}, expected one frontend and one fused decode a batch ({batches})")
+        print(f"{name}: {n} utterances in {batches} batches of {DATA_EVAL_B}: {wall:.2f} s, {n / wall:.1f} utterances/s, RTF {wall / corpus['secs']['eval']:.4f} "
+              f"(host clock over decode, batching and recognize); WER {report['greedy']['wer']:.4f} CER {report['greedy']['cer']:.4f}; "
+              f"launches {_launched(counts)}")
+        evals[name] = report
+    wav, rec = evals["data_eval"], evals["data_eval_tfrecord"]
+    if sorted(wav["rows"]) != sorted(rec["rows"]) or wav["greedy"] != rec["greedy"]:
+        raise AssertionError(f"data eval: the WAV and TFRecord reports differ: {wav['greedy']} vs {rec['greedy']}")
+    print(f"data eval: the audio-file and TFRecord reports are equal ({len(wav['rows'])} rows by path, WER and CER); "
+          f"first row {wav['rows'][0][1][:40]!r} -> {wav['rows'][0][2][:40]!r}")
+    data_error_rates(wav, tok, dev)
+    return paths
+
+
+def phase_data_ctc(dev, config, tok, data: dict, shapes: dict) -> dict:
+    """Conformer-CTC Small (D 176, V 29, bf16) through the same path: ``fit``
+    1 epoch × 2 steps fed by ``create``, then ``evaluate_dataset``."""
+    from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
+    from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+    model = data_model(config, tok, dev, family="ctc", dropout=TRAIN_RATE)
+    record = loss_record("data ctc")
+    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev, loss_impl="auto", callbacks=[record])
+    state = trainer.init_state(seed=SEED)
+    batches = data["train"].create(DATA_B, shapes["padded_input_length"], shapes["padded_label_length"], num_workers=4, pin_memory=True)
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(state, batches, epochs=1, steps_per_epoch=2)
+    report = evaluate_dataset(model, data["eval"], tok, batch_size=DATA_EVAL_B, collect_rows=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    batches.close()
+    if counts["ctc_loss"] != 2 or counts["fused_decode"] != 0 or not all(np.isfinite(record.losses)):
+        raise AssertionError(f"data ctc: launches {_launched(counts)}, losses {record.losses}")
+    print(f"data ctc (Conformer-CTC Small, fit 1 epoch x 2 steps of {DATA_B}, then evaluate_dataset): {time.perf_counter() - t0:.2f} s; losses "
+          + ", ".join(f"{x:.4f}" for x in record.losses) + f"; WER {report['greedy']['wer']:.4f} CER {report['greedy']['cer']:.4f}; "
+          f"launches {_launched(counts)}")
+    data_error_rates(report, tok, dev, "data ctc")
+    return counts
+
+
+def overfit_corpus(root: str, signal=data_audio):
+    """Four utterances of 1–3 s with the short ``OVERFIT_TEXTS``, WAV and FLAC,
+    their audio made by ``signal(rng, samples, text)``."""
+    from tensorflowasr_tpu_torch.data import audio
+
+    rng = np.random.default_rng(SEED + 15)
+    rows = []
+    for i, text in enumerate(OVERFIT_TEXTS):
+        secs = 1.0 + 2.0 * i / (len(OVERFIT_TEXTS) - 1)
+        path = os.path.join(root, f"overfit{i}.{'flac' if i % 2 else 'wav'}")
+        os.makedirs(root, exist_ok=True)
+        (audio.write_flac if i % 2 else audio.write_wav)(path, signal(rng, int(secs * 16000), text), 16000)
+        rows.append((path, audio.audio_duration(path), text))
+    write_manifest(os.path.join(root, "transcripts.tsv"), rows)
+    return os.path.join(root, "transcripts.tsv")
+
+
+class OverfitCapReached(AssertionError):
+    """The overfit reached its step or time cap short of WER 0; ``steps`` and ``report`` (the last evaluation's) say where it stood."""
+
+    def __init__(self, msg: str, steps: int, report: dict):
+        super().__init__(msg)
+        self.steps, self.report = steps, report
+
+
+def run_overfit(dev, tok, manifest: str, dtype=torch.bfloat16, lr: float = OVERFIT_LR, time_cap: float = OVERFIT_TIME_CAP) -> tuple:
+    """A 2-block Conformer-T at the flagship's widths (dropout 0) trained by
+    ``fit`` in rounds of ``OVERFIT_ROUND`` steps over the four utterances
+    (one batch) until ``evaluate_dataset`` reads WER 0; raises
+    :class:`OverfitCapReached` at ``OVERFIT_STEP_CAP`` steps or ``time_cap`` s.
+    Returns (steps, seconds, report, model)."""
+    import gc as gc_
+
+    from tensorflowasr_tpu_torch.data import datasets
+    from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_small_config
+    from tensorflowasr_tpu_torch.models import build_model
+    from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
+    from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+    model = build_model({"class_name": "Conformer", "config": conformer_small_config(vocab_size=29, num_blocks=2, dropout=0.0)}, vocab_size=29,
+                        dtype=dtype, device=dev)
+    if type(model) is not Conformer:
+        raise AssertionError(f"build_model gave a {type(model).__name__} for the name Conformer")
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    train, test = (datasets.ASRSliceDataset(tok, stage=stage, data_paths=[manifest]) for stage in ("train", "test"))
+    train.compute_metadata()
+    test.compute_metadata()
+    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": lr}}, device=dev)
+    state = trainer.init_state(seed=SEED)
+    batches = train.create(len(OVERFIT_TEXTS), num_workers=0, pin_memory=dev.type == "cuda")
+    t0 = time.perf_counter()
+    try:
+        while True:
+            state = trainer.fit(state, batches, epochs=1, steps_per_epoch=OVERFIT_ROUND)
+            report = evaluate_dataset(model, test, tok, batch_size=len(OVERFIT_TEXTS), collect_rows=True, num_workers=0)
+            seconds = time.perf_counter() - t0
+            if report["greedy"]["wer"] == 0.0:
+                return state.step, seconds, report, model
+            if state.step >= OVERFIT_STEP_CAP or seconds > time_cap:
+                raise OverfitCapReached(f"overfit: WER {report['greedy']['wer']} after {state.step} steps and {seconds:.1f} s: {report['rows']}",
+                                        state.step, report)
+    finally:
+        batches.close()
+        gc_.unfreeze()
+        gc_.freeze()
+
+
+def phase_data_overfit(dev, tok, tmp: str) -> tuple:
+    """The overfit on the card; returns its counts, the trained model and its manifest."""
+    manifest = overfit_corpus(os.path.join(tmp, "overfit"))
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    steps, seconds, report, model = run_overfit(dev, tok, manifest)
+    counts = launch_counts()
+    if counts["fused_decode"] == 0 or counts["rnnt_fused_joint"] != steps:
+        raise AssertionError(f"overfit: launches {_launched(counts)} over {steps} steps")
+    print(f"data overfit (2-block Conformer-T at the flagship's widths, bf16, dropout 0, Adam {OVERFIT_LR:g}, 4 utterances of 1-3 s, one batch): WER 0 after "
+          f"{steps} steps in {seconds:.1f} s (fit in rounds of {OVERFIT_ROUND}, evaluate_dataset after each; caps {OVERFIT_STEP_CAP} steps, "
+          f"{OVERFIT_TIME_CAP:.0f} s); rows {[r[2] for r in report['rows']]}; launches {_launched(counts)}")
+    return counts, model, manifest
+
+
+def phase_data_parity(dev, overfit_model, tok, data: dict, overfit) -> None:
+    """``evaluate_dataset`` of the overfit 2-block Conformer-T's weights in f32
+    (TF32 off) over its four utterances and the evaluation set, on the card
+    (kernels) and on a CPU copy (plain versions): the same hypothesis for
+    every utterance, and WER and CER three ways on both reports."""
+    from tensorflowasr_tpu_torch.models import build_model
+    from tensorflowasr_tpu_torch.models.transducer.conformer import conformer_small_config
+    from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
+
+    cpu_model = build_model({"class_name": "Conformer", "config": conformer_small_config(vocab_size=29, num_blocks=2, dropout=0.0)}, vocab_size=29,
+                            device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in overfit_model.state_dict().items()})
+    model = copy.deepcopy(cpu_model).to(dev)
+    for name, ds in (("overfit utterances", overfit), ("evaluation set", data["eval"])):
+        ds.compute_metadata()
+        reports = [evaluate_dataset(m, ds, tok, batch_size=DATA_EVAL_B, collect_rows=True) for m in (model, cpu_model)]
+        gpu, cpu = (sorted(r["rows"]) for r in reports)
+        differ = [g[0] for g, c in zip(gpu, cpu) if g != c]
+        if differ or len(gpu) != len(cpu) or len(gpu) != ds.num_entries or reports[0]["greedy"] != reports[1]["greedy"]:
+            raise AssertionError(f"parity f32 eval ({name}): hypotheses differ between card and CPU for {differ} ({len(gpu)} and {len(cpu)} rows)")
+        chars = sum(len(r[2]) for r in gpu)
+        if chars == 0:
+            raise AssertionError(f"parity f32 eval ({name}): every hypothesis is empty, nothing was compared")
+        print(f"parity f32 eval (the overfit 2-block Conformer-T's weights in f32, evaluate_dataset over {len(gpu)} utterances, the {name}): card (kernels) and "
+              f"CPU (plain) hypotheses equal for every utterance ({chars} characters); WER {reports[0]['greedy']['wer']:.4f} CER "
+              f"{reports[0]['greedy']['cer']:.4f}, TF32 off")
+        data_error_rates(reports[0], tok, dev, f"parity f32 eval ({name})")
+
+
+def phase_data(dev) -> tuple[dict, dict]:
+    """The data path on the card (``phase_data_*`` above), in a temporary
+    directory that holds the corpus, the TFRecords and the checkpoints, and
+    the kernels it runs at V 29 against their plain versions on its own
+    inputs (:func:`data_train_kernels`, :func:`data_decode_kernel`).
+    Returns the launch counts of the data-fed training, the two
+    evaluations, the CTC run and the overfit, and those checks' results by
+    kernel row (the scalar form of row 10a as a kernel row of its own)."""
+    import tempfile
+
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.data import datasets
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tfasr-data-") as tmp:
+        corpus = data_corpus(tmp)
+        config = data_config(tmp)
+        tok = pipeline.build_tokenizer(config)
+        print(f"data config: {CHAR_CONFIG} with datadir {tmp} through Config (PyYAML and Jinja2); corpus written in {time.perf_counter() - t0:.2f} s")
+        counts, model, data, shapes, first = phase_data_train(dev, config, tok, corpus, tmp)
+        paths = {"data_train": counts}
+        checks = data_train_kernels(dev, model, first)
+        paths.update(phase_data_eval(dev, model, config, tok, data, corpus, tmp))
+        checks["fused_decode"] = data_decode_kernel(dev, model, data["eval"], "data eval's first batch, the data-trained flagship")
+        del model
+        paths["data_ctc"] = phase_data_ctc(dev, config, tok, data, shapes)
+        paths["data_overfit"], overfit_model, manifest = phase_data_overfit(dev, tok, tmp)
+        overfit = datasets.ASRSliceDataset(tok, stage="test", data_paths=[manifest], indefinite=False, drop_remainder=False)
+        overfit.compute_metadata()
+        checks["fused_decode_overfit"] = data_decode_kernel(dev, overfit_model, overfit, "the overfit utterances, the overfit model")
+        phase_data_parity(dev, overfit_model, tok, data, overfit)
+    print(f"data phase: {time.perf_counter() - t0:.1f} s")
+    return paths, checks
+
+
 def host_profile(trainer, state, batch, steps: int = HOST_STEPS, top: int = 12) -> tuple[dict, list]:
     """Where the host spends a training step: over ``steps`` more steps the
     median wall (host clock, ends in a synchronise), the median time until
@@ -3322,6 +3960,7 @@ def main(argv: list[str]) -> int:
     ``--gc-probe``: only :func:`gc_probe_child`, as one JSON line.
     ``--rows [--package DIR]``: only :func:`rows_child`, as one JSON line.
     ``--recipe``: only :func:`phase_recipe`, its launch counts as one JSON line.
+    ``--data``: only :func:`phase_data`, its launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -3352,6 +3991,12 @@ def main(argv: list[str]) -> int:
         _build.build()
         print(json.dumps({"recipe": phase_recipe(torch.device("cuda", 0))}))
         return 0
+    if "--data" in argv:
+        _no_tf32()
+        _build.build()
+        paths, checks = phase_data(torch.device("cuda", 0))
+        print(json.dumps({"data": paths, "checks": checks}))
+        return 0
 
     _no_tf32()
     t_start = time.perf_counter()
@@ -3377,6 +4022,13 @@ def main(argv: list[str]) -> int:
     paths.update(phase_ctc_serve(dev))
     paths.update(phase_ctc_train(dev))
     paths.update(phase_recipe(dev))
+    data_paths, data_checks = phase_data(dev)
+    paths.update(data_paths)
+    rows.append(data_checks.pop("rnnt_logprobs_scalar"))
+    for row in rows:
+        if row["name"] in data_checks:
+            row["data_v29"] = data_checks[row["name"]]
+    next(row for row in rows if row["name"] == "fused_decode")["data_v29_overfit"] = data_checks["fused_decode_overfit"]
     phase_fit_gc()
     phase_gc_probe()
     for row in rows:

@@ -5,6 +5,8 @@
 
 from __future__ import annotations
 
+from tensorflowasr_tpu_torch.configs import LearningConfig
+
 
 def strip_prefix(config: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in config.items() if k.startswith(prefix)}
@@ -55,13 +57,14 @@ def with_spec_augment(config: dict) -> dict:
 
 def learning_config(dmodel: int, scale: float, batch_size: int, ga_steps: int, max_lr: str | None = None, weight_decay: float | None = None,
                     callbacks: list | None = None) -> dict:
-    """An example's ``learning_config`` as the JAX config loader parses it:
-    Adam (β₁ 0.9, β₂ 0.98, ε 1e-9) under a ``TransformerSchedule`` (warm-up
-    10,000; ``max_lr`` kept a string), 300 epochs, ``TerminateOnNaN`` first
-    among the callbacks, no gradient or weight noise, no pretrained weights."""
+    """An example's ``learning_config`` as ``configs.LearningConfig`` reads
+    it: Adam (β₁ 0.9, β₂ 0.98, ε 1e-9) under a ``TransformerSchedule``
+    (warm-up 10,000; ``max_lr`` kept a string), 300 epochs,
+    ``TerminateOnNaN`` first among the callbacks, and the class's defaults
+    (no gradient or weight noise, no pretrained weights)."""
     schedule = {"dmodel": dmodel, "warmup_steps": 10000, **({"max_lr": max_lr} if max_lr else {}), "scale": scale}
     optimizer = {"learning_rate": {"class_name": "tensorflow_asr.optimizers.schedules>TransformerSchedule", "config": schedule},
                  "beta_1": 0.9, "beta_2": 0.98, "epsilon": 1e-09, **({"weight_decay": weight_decay} if weight_decay else {})}
-    return {"optimizer_config": {"class_name": "Adam", "config": optimizer}, "batch_size": batch_size, "ga_steps": ga_steps, "num_epochs": 300,
-            "callbacks": [{"class_name": "tensorflow_asr.callbacks>TerminateOnNaN", "config": {}}, *(callbacks or [])],
-            "gradn_config": None, "gwn_config": None, "pretrained": None}
+    return LearningConfig({"optimizer_config": {"class_name": "Adam", "config": optimizer}, "batch_size": batch_size, "ga_steps": ga_steps,
+                           "num_epochs": 300,
+                           "callbacks": [{"class_name": "tensorflow_asr.callbacks>TerminateOnNaN", "config": {}}, *(callbacks or [])]}).to_dict()

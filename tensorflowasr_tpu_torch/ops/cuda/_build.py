@@ -6,7 +6,11 @@ in its own ``nvcc -c`` process, all started together, and one more ``nvcc``
 links the objects into one shared library with a plain C interface (no
 PyTorch headers, so the build takes seconds, not minutes). The library
 lands in ``tensorflowasr_tpu_torch/_build/`` under a name keyed on the
-sources' and flags' hash, so an edited source never loads a stale build.
+sources' and flags' hash, so an edited source never loads a stale build,
+and is written to a temporary file renamed into place, so a process that
+loads it never sees a half-written library (:func:`hashed_library` and
+:func:`write_library`, which the native FLAC decoder's ``g++`` build uses
+too).
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
 when it is not 0.
 
@@ -21,7 +25,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
+from collections.abc import Callable, Iterable
 from pathlib import Path
 
 import torch
@@ -104,11 +110,34 @@ def _nvcc() -> str:
     return str(path)
 
 
+def hashed_library(stem: str, sources: Iterable[Path], flags: Iterable[str]) -> Path:
+    """``BUILD_DIR/lib<stem>_<hash>.so``, the hash over the compiler flags and the sources' bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for source in sources:
+        h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def write_library(path: Path, command: Callable[[str], list[str]], timeout: float | None = None) -> subprocess.CompletedProcess:
+    """Runs ``command(tmp)``, which writes a shared library to the temporary
+    file ``tmp`` beside ``path``, and renames that file to ``path`` when the
+    command succeeds; the temporary file never outlives the call. Returns
+    the finished process, its output captured as text."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f"{path.stem}.", suffix=".tmp.so")
+    os.close(fd)
+    try:
+        proc = subprocess.run(command(tmp), capture_output=True, text=True, timeout=timeout, check=False)
+        if proc.returncode == 0:
+            os.replace(tmp, path)
+        return proc
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libtfasr_kernels_{h.hexdigest()[:16]}.so"
+    return hashed_library("tfasr_kernels", (CSRC / name for name in SOURCES + HEADERS), NVCC_FLAGS)
 
 
 def build() -> ctypes.CDLL:
@@ -129,12 +158,10 @@ def build() -> ctypes.CDLL:
         failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
-        tmp = path.with_name(f"{tag}.tmp.so")
-        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True, check=False)
+        proc = write_library(path, lambda tmp: [nvcc, "-shared", "-o", tmp, *map(str, objs)])
         build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed with exit code {proc.returncode}:\n{build_log}")
-        os.replace(tmp, path)
         for o in objs:
             o.unlink()
     lib = ctypes.CDLL(str(path))

@@ -1,0 +1,61 @@
+"""Config-driven class registry (counterpart of ``tensorflowasr_tpu/registry.py``).
+
+Configs name a model as ``class_name: module>Class``. A name under
+``tensorflow_asr.``, ``tensorflowasr_tpu.`` or ``tensorflowasr_tpu_torch.``
+resolves to the port's class of that module, imported when first asked
+for, so the reference's and the JAX package's configs load unmodified.
+Bare names resolve as in JAX (``Conformer`` is the transducer). The
+families the port has not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item. The JAX package's ``register`` decorator and
+``from_config`` have no caller in the port and are not copied.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
+_PREFIXES = ("tensorflow_asr.", "tensorflowasr_tpu.", "tensorflowasr_tpu_torch.")
+_PORT = "tensorflowasr_tpu_torch."
+
+# module>Class (under the port's module paths) and bare names → (module, class)
+_MODELS = {
+    "models.transducer.conformer>Conformer": ("models.transducer.conformer", "Conformer"),
+    "models.ctc.conformer>Conformer": ("models.ctc.conformer", "ConformerCtc"),
+    "models.ctc.conformer>ConformerCtc": ("models.ctc.conformer", "ConformerCtc"),
+    "models.ctc.transformer>Transformer": ("models.ctc.transformer", "TransformerCtc"),
+    "models.ctc.transformer>TransformerCtc": ("models.ctc.transformer", "TransformerCtc"),
+}
+_BARE = {"Conformer": "models.transducer.conformer>Conformer", "ConformerCtc": "models.ctc.conformer>ConformerCtc",
+         "TransformerCtc": "models.ctc.transformer>TransformerCtc"}
+
+_CTC_REST, _OTHER_TRANSDUCERS = "The rest of the CTC family", "The other transducers, encoders and layers"
+_UNPORTED = {
+    "models.ctc.deepspeech2>DeepSpeech2": _CTC_REST,
+    "models.ctc.jasper>Jasper": _CTC_REST,
+    "models.transducer.contextnet>ContextNet": _OTHER_TRANSDUCERS,
+    "models.transducer.rnnt>RnnTransducer": _OTHER_TRANSDUCERS,
+    "models.transducer.transformer>TransformerTransducer": _OTHER_TRANSDUCERS,
+}
+_UNPORTED_BARE = {key.split(">")[1]: key for key in _UNPORTED}
+
+
+def _port_key(class_name: str) -> str:
+    """``class_name`` with its package prefix removed (JAX ``_qualified``, for the three package names)."""
+    for prefix in _PREFIXES:
+        if class_name.startswith(prefix):
+            return class_name[len(prefix):]
+    return class_name
+
+
+def get(class_name: str) -> Any:
+    """The port's model class that ``class_name`` names, by ``module>Class`` or bare name."""
+    key = _port_key(class_name)
+    key = _BARE.get(key, key) if ">" not in key else key
+    if key in _MODELS:
+        module, cls = _MODELS[key]
+        return getattr(importlib.import_module(_PORT + module), cls)
+    unported = key if key in _UNPORTED else _UNPORTED_BARE.get(key)
+    if unported:
+        raise NotImplementedError(f"{class_name!r} is not ported yet (ROADMAP Queue 1, \"{_UNPORTED[unported]}\")")
+    raise KeyError(f"Unknown class_name {class_name!r}. Known: {sorted(_MODELS) + sorted(_BARE)}")

@@ -29,8 +29,11 @@ class TrainData(typing.NamedTuple):
     labels: TrainLabel
 
     def to(self, device) -> "TrainData":
-        """Every tensor of the batch on ``device``."""
-        return TrainData(TrainInput(*(t.to(device) for t in self.inputs)), TrainLabel(*(t.to(device) for t in self.labels)))
+        """Every tensor of the batch on ``device``; copies to the card from
+        pinned host memory do not block the host (a copy to the host does)."""
+        to_card = torch.device(device).type == "cuda"
+        move = lambda t: t.to(device, non_blocking=to_card)
+        return TrainData(TrainInput(*map(move, self.inputs)), TrainLabel(*map(move, self.labels)))
 
 
 class PredictInput(typing.NamedTuple):

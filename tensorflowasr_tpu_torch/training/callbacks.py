@@ -20,19 +20,9 @@ import math
 import os
 from typing import Optional
 
+from tensorflowasr_tpu_torch.utils.file_util import preprocess_paths
+
 logger = logging.getLogger("tensorflowasr_tpu_torch")
-
-
-def preprocess_paths(path, isdir: bool = False) -> Optional[str]:
-    """Expand ~ and environment variables; create the parent directories
-    (the directory itself with ``isdir``) so that writes succeed."""
-    if path is None:
-        return None
-    path = os.path.abspath(os.path.expanduser(os.path.expandvars(str(path))))
-    dirpath = path if isdir else os.path.dirname(path)
-    if dirpath and not os.path.exists(dirpath):
-        os.makedirs(dirpath, exist_ok=True)
-    return path
 
 
 class Callback:

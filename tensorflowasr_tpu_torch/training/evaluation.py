@@ -1,0 +1,70 @@
+"""Recognition over a dataset with WER and CER (counterpart of
+``tensorflowasr_tpu/training/evaluation.py``).
+
+Greedy ``recognize`` over every batch of a dataset under
+``torch.inference_mode()`` on the model's device (one fused decode launch
+a batch for a transducer the kernel takes), the tokens detokenized on the
+host (blank padding through ``normalize_indices``) and held against the
+normalized transcripts: WER over words and CER over characters
+accumulated as text (``training/metrics.py``), and optionally the rows
+(path, truth, greedy, beam) for a ``PredictLogger``. Beam search is not
+ported yet and raises, as ``recognize`` does.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import torch
+
+from tensorflowasr_tpu_torch import schemas
+from tensorflowasr_tpu_torch.models.ctc import base as ctc_base
+from tensorflowasr_tpu_torch.models.transducer import base as transducer_base
+from tensorflowasr_tpu_torch.training.callbacks import PredictLogger
+from tensorflowasr_tpu_torch.training.metrics import ErrorRateAccumulator
+
+logger = logging.getLogger("tensorflowasr_tpu_torch")
+
+
+def evaluate_dataset(model: torch.nn.Module, dataset, tokenizer, batch_size: int = 1, beam_width: int = 0, collect_rows: bool = False,
+                     num_workers: int = 4, predict_logger: Optional[PredictLogger] = None) -> dict:
+    """``{"greedy": {"wer", "cer"}, ["rows": [(path, truth, greedy, beam), ...]]}``
+    over one pass of ``dataset`` (an ``ASRDataset``; its ``indefinite`` and
+    ``drop_remainder`` are turned off), ``batch_size`` utterances a
+    ``recognize`` call, padded to the dataset's metadata lengths. Rows are
+    also added to ``predict_logger``, which is then flushed."""
+    if beam_width and beam_width > 0:
+        raise NotImplementedError("beam search is not ported yet (ROADMAP Queue 1, \"Beam search and the LM\")")
+    recognize = transducer_base.recognize if isinstance(model, transducer_base.Transducer) else ctc_base.recognize
+    device = next(model.parameters()).device
+    dataset.indefinite = False
+    dataset.drop_remainder = False
+    was_training = model.training
+    model.eval()
+    wacc, cacc = ErrorRateAccumulator(), ErrorRateAccumulator()
+    rows, i = [], 0
+    try:
+        for batch, entries in dataset.labelled_batches(batch_size, num_workers=num_workers, pin_memory=device.type == "cuda"):
+            inputs = schemas.PredictInput(batch.inputs.inputs.to(device, non_blocking=True), batch.inputs.inputs_length.to(device, non_blocking=True))
+            with torch.inference_mode():
+                tokens = recognize(model, inputs).tokens.cpu().numpy()
+            for b, (path, transcript) in enumerate(entries):
+                truth = tokenizer.normalize_text(transcript, tokenizer.decoder_config)
+                greedy = tokenizer.detokenize(tokenizer.normalize_indices(tokens[b]))
+                wacc.update(truth.split(), greedy.split())
+                cacc.update(list(truth), list(greedy))
+                if collect_rows or predict_logger is not None:
+                    rows.append((path, truth, greedy, ""))
+                i += 1
+    finally:
+        model.train(was_training)
+    report = {"greedy": {"wer": wacc.error_rate, "cer": cacc.error_rate}}
+    if predict_logger is not None:
+        for row in rows:
+            predict_logger.add(*row)
+        predict_logger.flush()
+    if collect_rows:
+        report["rows"] = rows
+    logger.info("evaluated %d utterances: %s", i, report["greedy"])
+    return report

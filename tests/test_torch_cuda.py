@@ -1304,3 +1304,73 @@ def test_decode_plan_matches_the_kernel_layout(dev, cluster, layers, proj, elt):
     got = _build.build().tfasr_decode_smem_bytes(320, 320, proj, 320, layers, cluster, ctypes.addressof(res), 1 if elt == 2 else 0)
     assert got == plan.smem_bytes
     assert dk.cluster_occupancy(dev, 1 if elt == 2 else 0, plan) >= 1
+
+
+# --------------------------------- the data path --------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_char_vocabulary(dev, dtype):
+    """The decode kernel at the char tokenizer's V 29, the data path's eval batch (B 8, T 400)."""
+    test_decode_kernel(dev, 8, 400, 1, True, 0, 29, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,u,j,v", [(16, 400, 200, 320, 29), (3, 41, 17, 320, 29)])
+def test_joint_loss_kernels_char_vocabulary(dev, dtype, b, t, u, j, v):
+    """The fused joint forward and backward at the char tokenizer's V 29 (the
+    data path's flagship), against their plain versions."""
+    args = _joint_args(dev, dtype, b, t, u, j, v, seed=31)
+    for name, x, r in zip(("lp_blank", "lp_emit", "lse"), jk.joint_logprobs_kernel(*args), jk.joint_logprobs_plain(*args)):
+        torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
+    t_len, u_len = _lengths(dev, b, t, u, 5)
+    _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
+    bargs = (*args, lse, gbl, gem)
+    _grads_close(jk.rnnt_loss_fused_joint_bwd_kernel(*bargs), jk.rnnt_loss_fused_joint_plain_bwd(*bargs), GRAD_REL[dtype], f"joint V {v}")
+
+
+def test_native_flac_decoder_builds_and_decodes(dev, tmp_path):
+    """The native FLAC decoder builds with the machine's g++ into the package's
+    build directory and decodes what the pure-Python reader does, bit for bit."""
+    from tensorflowasr_tpu_torch import native
+    from tensorflowasr_tpu_torch.data import audio
+
+    x = (np.random.default_rng(6).standard_normal((20000, 2)) * 0.2).astype(np.float32)
+    audio.write_flac(str(tmp_path / "a.flac"), x, 16000, block_size=1024)
+    native.lib()
+    assert native.library_path().exists()
+    (got, rate), (ref, ref_rate) = audio.read_flac(str(tmp_path / "a.flac")), audio.read_flac_python(str(tmp_path / "a.flac"))
+    assert rate == ref_rate == 16000 and np.array_equal(got, ref)
+
+
+def test_evaluate_dataset_on_the_card_equals_the_cpu_rows(dev, tmp_path):
+    """``evaluate_dataset`` of a 2-block flagship-width Conformer-T (f32, V 29)
+    over four WAV and FLAC utterances: the card (kernels) and a CPU copy
+    (plain versions) give the same rows and error rates; one fused decode a batch."""
+    from tensorflowasr_tpu_torch.configs import DecoderConfig
+    from tensorflowasr_tpu_torch.data import audio, datasets
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+    from tensorflowasr_tpu_torch.tokenizers import CharTokenizer
+    from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
+
+    rng = np.random.default_rng(7)
+    rows = []
+    for i, text in enumerate(["the cat sat", "a dog ran home", "blue sky", "we went out"]):
+        n = int(rng.integers(16000, 48000))
+        path = str(tmp_path / f"u{i}.{'flac' if i % 2 else 'wav'}")
+        (audio.write_flac if i % 2 else audio.write_wav)(path, (rng.standard_normal(n) * 0.1).astype(np.float32), 16000)
+        rows.append(f"{path}\t{n / 16000}\t{text}")
+    (tmp_path / "m.tsv").write_text("PATH\tDURATION\tTRANSCRIPT\n" + "\n".join(rows) + "\n")
+    tok = CharTokenizer(DecoderConfig({"type": "characters"}))
+    tok.make()
+    cpu_model = _decode_model("cpu", torch.float32, vocab=29)
+    model = copy.deepcopy(cpu_model).to(dev)
+    reports = []
+    for m in (model, cpu_model):
+        ds = datasets.ASRSliceDataset(tok, stage="test", data_paths=[str(tmp_path / "m.tsv")])
+        ds.compute_metadata()
+        before = dk.launches
+        reports.append(evaluate_dataset(m, ds, tok, batch_size=3, collect_rows=True, num_workers=2))
+        reports[-1]["decode_launches"] = dk.launches - before
+    assert reports[0]["rows"] == reports[1]["rows"] and reports[0]["greedy"] == reports[1]["greedy"]
+    assert (reports[0]["decode_launches"], reports[1]["decode_launches"]) == (2, 0)
