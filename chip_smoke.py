@@ -127,7 +127,25 @@ log-probability row kernel's one-element form (its own kernel row,
 ``rnnt_logprobs_scalar``: rows of 29 values are no multiple of 16 bytes)
 on that batch's eval logits, and the bf16 fused decode on the encoding of
 the first evaluation batch and of the overfit utterances. ``--data`` runs
-the build and this phase alone. After each phase's set-up and warm-up the garbage
+the build and this phase alone. The rest of the CTC family
+(``phase_ctc_family``), each model built from its example config through
+the port's ``Config`` and ``build_model`` at its published widths (bf16,
+random weights from the seed): DeepSpeech2 base (5 bidirectional LSTM
+layers at H 512 through the LSTM kernels) and Jasper base serving 3 requests
+of 8 × 6–10 s and training 3 steps of 8 × ≤ 16 s with char labels at ~12 a
+second (V 29); DeepSpeech2 uni streaming 16 chunks of 160 ms with its
+carried LSTM states; the streaming Transformer-CTC (relative PE, chunk 16,
+history 64: kernel B at head 128) serving and training at 16 × ≤ 16 s; the
+streaming Conformer-CTC Small serving; relative MHA with an explicit
+``attention_mask`` (kernel A with the bias gradient) against kernel B's
+route on the same visibility; a 2-layer DeepSpeech2 overfit to WER 0 on
+the data phase's four utterances; and before them the kernels at these
+shapes against their plain versions (kernel B at head 128 with its
+accuracy, occupancy, registers and spills; the LSTM at B 8, T 801, H 512
+beside cuDNN's bidirectional layer; kernel A with the bias gradient; the
+CTC kernel at T 801), as sub-entries of their rows; and the f32 card/CPU
+step parity of a 2-layer DeepSpeech2, a 2-block Jasper and a 2-block
+streaming Transformer-CTC. After each phase's set-up and warm-up the garbage
 collector runs once and freezes the survivors (``gc.freeze``); every
 timed step and request records its gen-2 collections, summed in a ``gc
 watch`` line. Every kernel must launch on at least one driven path; its
@@ -141,7 +159,8 @@ the step numbers (:func:`phase_steps`) of this checkout and of the package
 under DIR (a checkout of another commit), each in its own process, in
 turns. ``--rows``, ``--steps`` and ``--fit-gc`` are child processes' modes;
 ``--recipe`` runs the kernel build and the recipes alone, ``--data`` the
-build and the data path.
+build and the data path, ``--ctc-family`` the build and the rest of the CTC
+family (:func:`phase_ctc_family`, its kernels and its parity).
 """
 
 from __future__ import annotations
@@ -210,10 +229,12 @@ def cost_frontend(b: int, n: int, frames: int, nfft: int, mels: int, mel_nnz: in
     return 4 * (b * n + b * frames * mels), b * frames * (2.5 * nfft * np.log2(nfft) + 3 * (nfft // 2 + 1) + 2 * mel_nnz)
 
 
-def cost_attention(bh: int, t: int, s: int, r: int, d: int, elt: int, bwd: bool):
-    """fwd: qc, qp, k, v, pos → out; QKᵀ, the rel term and PV. bwd: + out, dout → five grads; 16 products of that size."""
+def cost_attention(bh: int, t: int, s: int, r: int, d: int, elt: int, bwd: bool, keys: float | None = None):
+    """fwd: qc, qp, k, v, pos → out; QKᵀ, the rel term and PV. bwd: + out, dout → five grads; 16 products of that size.
+    ``keys``: the mean number of keys a query row sees under the masks (the products' work there; default every key)."""
     io = (2 * t + 2 * s + r) * bh * d * elt
-    return (2 * io + 2 * bh * t * d * elt, 16 * bh * t * s * d) if bwd else (io + bh * t * d * elt, 6 * bh * t * s * d)
+    k = s if keys is None else keys
+    return (2 * io + 2 * bh * t * d * elt, 16 * bh * t * k * d) if bwd else (io + bh * t * d * elt, 6 * bh * t * k * d)
 
 
 def cost_ff(n: int, d: int, f: int, elt: int, bwd: bool):
@@ -993,6 +1014,25 @@ def phase_train_kernels(dev) -> list[dict]:
     return rows + encoder_kernel_rows(dev, gen, D_MODEL, HEAD, FF_DIM) + phase_loss_kernels(dev)
 
 
+def rel_att_bwd(qc, qp, k, v, pos, kvb, ql, out, stats, dout, *cfg):
+    """Kernel B's backward on the backward arguments the checks build (the forward's output and statistics among them)."""
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+
+    return ak.fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kvb, ql, out, dout, *cfg, stats=stats)
+
+
+def rel_att_bwd_plain(qc, qp, k, v, pos, kvb, ql, out, stats, dout, *cfg):
+    """The plain twin of :func:`rel_att_bwd` (it recomputes the forward)."""
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+
+    return ak.fused_rel_attention_plain_bwd(qc, qp, k, v, pos, kvb, ql, dout, *cfg)
+
+
+def flat_outputs(fn):
+    """``fn`` with its tuple of outputs concatenated into one flat f32 tensor (for the forward checks of multi-output kernels)."""
+    return lambda *a: torch.cat([x.float().flatten() for x in fn(*a)])
+
+
 def encoder_kernel_rows(dev, gen, d_model: int, head: int, ff_dim: int, what: str = f"train, rate {TRAIN_RATE}") -> list[dict]:
     """The four encoder kernels forward (rate 0.1) and backward at the training
     batch (16 × 400 frames) and the given widths, f32 and bf16."""
@@ -1015,12 +1055,7 @@ def encoder_kernel_rows(dev, gen, d_model: int, head: int, ff_dim: int, what: st
         dout = _randn(gen, (bh, t, head), 1.0, dt)
         return (qc, qp, k, v, pos, kvb, q_len, *cfg_), (qc, qp, k, v, pos, kvb, q_len, out, stats, dout, *cfg_)
 
-    def att_bwd(qc, qp, k, v, pos, kvb, ql, out, stats, dout, *cfg_):
-        return ak.fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kvb, ql, out, dout, *cfg_, stats=stats)
-
-    def att_bwd_plain(qc, qp, k, v, pos, kvb, ql, out, stats, dout, *cfg_):
-        return ak.fused_rel_attention_plain_bwd(qc, qp, k, v, pos, kvb, ql, dout, *cfg_)
-
+    att_bwd, att_bwd_plain = rel_att_bwd, rel_att_bwd_plain
     rows += _check_fwd_bwd("fused_rel_attention", ak.fused_rel_attention_kernel, ak.fused_rel_attention_plain, att_bwd, att_bwd_plain, att_make,
                            lambda elt, bwd: cost_attention(bh, t, t, r, head, elt, bwd), what)
     # the streaming case of the training batch: a KV memory of 64 frames (S = M + T), its kv_bias row and the chunk mask, forward and backward
@@ -1285,10 +1320,7 @@ def phase_lstm_kernels(dev) -> list[dict]:
         dy, dc = _randn(gen, (b, t, h), 1.0 / b, dt), _randn(gen, (b, t, h), 0.1 / b, dt)
         return (xg, wh, h0, c0), (gates, cseq, c0, wh, dy, dc)
 
-    def flat(fn):
-        return lambda *a: torch.cat([x.float().flatten() for x in fn(*a)])
-
-    rows = _check_fwd_bwd("lstm", flat(lk.lstm_fwd_kernel), flat(lk.lstm_fwd_plain), lk.lstm_bwd_kernel, lk.lstm_bwd_plain, make,
+    rows = _check_fwd_bwd("lstm", flat_outputs(lk.lstm_fwd_kernel), flat_outputs(lk.lstm_fwd_plain), lk.lstm_bwd_kernel, lk.lstm_bwd_plain, make,
                           lambda elt, bwd: cost_lstm(b, t, h, elt, bwd), what=f"pallas rnn, B {b} T {t} H {h}")
     plan = lk.lstm_mma_plan(h)
     print(f"kernel lstm (pallas rnn) cluster plan, bf16: {lstm_plan_text(plan, h)}; the chain bounds it: 2 x {t} dependent steps, one cluster "
@@ -1358,14 +1390,16 @@ def lstm_plan_text(plan, h: int) -> str:
 LSTM_EARLIER_MS = (1.6334, 1.8755)  # the cooperative-grid bf16 kernels at B 16 (PERF.md row 12), for the printout
 
 
-def lstm_library(gen, b: int, t: int, h: int, dt) -> tuple[float, float]:
-    """cuDNN's ``torch.nn.LSTM`` over x [b, t, h] (its time includes the x·Wx
-    product, which the kernel row's input xg already holds), weights packed:
-    (forward, backward) ms. Fails if cuDNN warns that it re-packs the weights."""
-    tag = "bf16" if dt == torch.bfloat16 else "f32"
-    lstm = torch.nn.LSTM(h, h, batch_first=True).to(gen.device, dt)
+def lstm_library(gen, b: int, t: int, h: int, dt, width: int | None = None, bidirectional: bool = False) -> tuple[float, float]:
+    """cuDNN's ``torch.nn.LSTM`` over x [b, t, width] (default h; its time
+    includes the x·Wx product, which the kernel row's input xg already
+    holds; ``bidirectional``: both directions), weights packed: (forward,
+    backward) ms. Fails if cuDNN warns that it re-packs the weights."""
+    tag = ("bf16" if dt == torch.bfloat16 else "f32") + (" bidirectional" if bidirectional else "")
+    width = width or h
+    lstm = torch.nn.LSTM(width, h, batch_first=True, bidirectional=bidirectional).to(gen.device, dt)
     packing = _pack_cudnn_weights(lstm)
-    x = _randn(gen, (b, t, h), 1.0, dt).requires_grad_(True)
+    x = _randn(gen, (b, t, width), 1.0, dt).requires_grad_(True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         out, _ = lstm(x)
@@ -1375,7 +1409,7 @@ def lstm_library(gen, b: int, t: int, h: int, dt) -> tuple[float, float]:
     dout = torch.randn_like(out)
     inputs = [x, *lstm.parameters()]
     res = (time_ms(lambda: lstm(x)), time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)))
-    print(f"library torch.nn.LSTM (cuDNN) {tag}: x [{b}, {t}, {h}] forward {res[0]:.4f} ms, backward {res[1]:.4f} ms (weights {packing}; no re-packing "
+    print(f"library torch.nn.LSTM (cuDNN) {tag}: x [{b}, {t}, {width}] H {h} forward {res[0]:.4f} ms, backward {res[1]:.4f} ms (weights {packing}; no re-packing "
           f"warning)")
     return res
 
@@ -1756,14 +1790,14 @@ def phase_serve(dev) -> dict:
     return counts
 
 
-def train_batch(rng, batch: int, max_secs: float, max_u: int, vocab: int):
+def train_batch(rng, batch: int, max_secs: float, max_u: int, vocab: int, tokens_per_s: float = 8.0):
     """Ragged lengths as the JAX package's benchmark draws them (bench.py:149-157):
-    lognormal around 12 s clipped to [1.5 s, max], 8 tokens per second."""
+    lognormal around 12 s clipped to [1.5 s, max], 8 tokens per second (or ``tokens_per_s``)."""
     from tensorflowasr_tpu_torch import schemas
 
     secs = np.clip(rng.lognormal(mean=np.log(12.0), sigma=0.35, size=batch), 1.5, max_secs)
     lens = (secs * 16000).astype(np.int64)
-    u = np.clip((secs * 8.0).astype(np.int64), 1, max_u)
+    u = np.clip((secs * tokens_per_s).astype(np.int64), 1, max_u)
     audio = (rng.standard_normal((batch, int(max_secs * 16000))) * 0.1).astype(np.float32)
     audio[np.arange(audio.shape[1])[None, :] >= lens[:, None]] = 0.0
     labels = rng.integers(1, vocab, (batch, max_u))
@@ -1776,9 +1810,10 @@ def train_batch(rng, batch: int, max_secs: float, max_u: int, vocab: int):
 TRAIN_STEPS, XLA_STEPS, HOST_STEPS = 6, 2, 8
 
 
-def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_impl: str = "auto", model=None, lr: float = 1e-4):
+def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_impl: str = "auto", model=None, lr: float = 1e-4, batch=None):
     """``steps`` training steps of ``model`` (default: the flagship) through
-    ``Trainer.train_step`` (bf16, dropout 0.1, Adam at ``lr``, one fixed batch)
+    ``Trainer.train_step`` (bf16, dropout 0.1, Adam at ``lr``, one fixed batch:
+    ``batch``, default the training batch of 16 × ≤ 16 s)
     with launch counts set to 0 just before and read just after; each step's
     launches must equal ``per_step``. Returns (counts, losses, walls,
     trainer, state, batch, splits), ``splits`` the (forward, loss,
@@ -1794,11 +1829,12 @@ def run_train(dev, loss_impl: str, steps: int, per_step: dict, tag: str, rnn_imp
     model = model or flagship(torch.bfloat16, dev, dropout=TRAIN_RATE, rnn_impl=rnn_impl)
     trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": lr}}, device=dev, on_phase=mark, loss_impl=loss_impl)
     state = trainer.init_state(seed=SEED)
-    batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
-    print(f"{tag} batch: {TRAIN_B} utterances, audio {batch.inputs.inputs_length.sum().item() / 16000:.2f} s "
-          f"(lengths {batch.inputs.inputs_length.min().item() / 16000:.2f}-{batch.inputs.inputs_length.max().item() / 16000:.2f} s, array {TRAIN_SECS} s), "
-          f"labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} (array {TRAIN_U}); loss_impl {loss_impl!r}, "
-          f"rnn_impl {rnn_impl!r}, Adam lr {lr:g}")
+    batch = (batch or train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size)).to(dev)
+    print(f"{tag} batch: {batch.inputs.inputs.shape[0]} utterances, audio {batch.inputs.inputs_length.sum().item() / 16000:.2f} s "
+          f"(lengths {batch.inputs.inputs_length.min().item() / 16000:.2f}-{batch.inputs.inputs_length.max().item() / 16000:.2f} s, array "
+          f"{batch.inputs.inputs.shape[1] / 16000:g} s), labels {batch.labels.labels_length.min().item()}-{batch.labels.labels_length.max().item()} "
+          f"(array {batch.labels.labels.shape[1]}); loss_impl {loss_impl!r}, "
+          f"rnn_impl {getattr(model, 'rnn_impl', rnn_impl)!r}, Adam lr {lr:g}")
     torch.cuda.synchronize()
     settle()
 
@@ -1992,25 +2028,32 @@ def _step_parity(dev, loss_impl: str, rnn_impl: str, cpu_model=None, what: str =
         loss = train_loss(m, b.inputs, b.labels)
         loss.backward()
         results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
-    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
     what = what or f"{loss_impl}, rnn_impl {rnn_impl}"
-    if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
-        raise AssertionError(f"{what}: loss card {loss_gpu} vs CPU {loss_cpu}")
-    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    print(f"parity f32 train step ({what}) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; {hold_step(what, *results)}, TF32 off")
+    return model, batch.to(dev)
+
+
+def hold_step(what: str, run: tuple, ref: tuple, rel: float = TRAIN_PARITY_REL) -> str:
+    """Holds one step's (loss, gradients by name) ``run`` to ``ref``: the loss
+    within 1e-4 of it, each gradient within ``rel`` of its largest magnitude
+    plus TRAIN_PARITY_FLOOR of the model's largest gradient. Returns the
+    summary the parity lines print."""
+    (loss, grads), (ref_loss, ref_grads) = run, ref
+    if not abs(loss - ref_loss) <= 1e-4 * abs(ref_loss):
+        raise AssertionError(f"{what}: loss {loss} vs {ref_loss}")
+    gmax = max(g.abs().max().item() for g in ref_grads.values())
     worst = worst_rel = (0.0, "")
-    for name, ref in g_cpu.items():
-        err, scale = (g_gpu[name] - ref).abs().max().item(), ref.abs().max().item()
-        allowed = TRAIN_PARITY_REL * scale + TRAIN_PARITY_FLOOR * gmax
+    for name, g in ref_grads.items():
+        err, scale = (grads[name] - g).abs().max().item(), g.abs().max().item()
+        allowed = rel * scale + TRAIN_PARITY_FLOOR * gmax
         if err > allowed:
-            raise AssertionError(f"f32 train parity ({what}) {name}: max abs err {err} > {TRAIN_PARITY_REL} x {scale} + {TRAIN_PARITY_FLOOR} x {gmax}")
+            raise AssertionError(f"f32 train parity ({what}) {name}: max abs err {err} > {rel} x {scale} + {TRAIN_PARITY_FLOOR} x {gmax}")
         worst = max(worst, (err / allowed, name))
         if scale > TRAIN_PARITY_FLOOR * gmax:
             worst_rel = max(worst_rel, (err / scale, name))
-    print(f"parity f32 train step ({what}) card (kernels) vs CPU (plain): 2 blocks, batch 2 x <= 4 s; loss {loss_gpu:.6f} vs "
-          f"{loss_cpu:.6f}; {len(g_cpu)} gradients within {TRAIN_PARITY_REL} of their scale + {TRAIN_PARITY_FLOOR} x {gmax:.3e} (largest share of that "
-          f"allowance {worst[0]:.3f} at {worst[1]}; largest error relative to scale among gradients above the floor {worst_rel[0]:.3e} at {worst_rel[1]}), "
-          f"TF32 off")
-    return model, batch.to(dev)
+    return (f"loss {loss:.6f} vs {ref_loss:.6f}; {len(ref_grads)} gradients within {rel} of their scale + {TRAIN_PARITY_FLOOR} x {gmax:.3e} "
+            f"(largest share of that allowance {worst[0]:.3f} at {worst[1]}; largest error relative to scale among gradients above the floor "
+            f"{worst_rel[0]:.3e} at {worst_rel[1]})")
 
 
 def phase_train_parity(dev) -> None:
@@ -2072,12 +2115,15 @@ def stream_chunks(model, seed: int, device):
     return [torch.tensor(audio[:, i * step: i * step + size], device=device) for i in range(STREAM_CHUNKS)], size, step
 
 
-def run_stream(model, chunks, size: int, device, per_chunk: dict | None = None) -> list:
-    """One pass over the chunks through ``recognize``, carrying the next
-    tokens, decoder states and encoder states from chunk to chunk; with
-    ``per_chunk``, each chunk's kernel launches must equal it."""
+def run_stream(model, chunks, size: int, device, per_chunk: dict | None = None, recognize=None) -> list:
+    """One pass over the chunks through ``recognize`` (default the
+    transducer's), carrying the next tokens, decoder states and encoder
+    states from chunk to chunk; with ``per_chunk``, each chunk's kernel
+    launches must equal it."""
     from tensorflowasr_tpu_torch import schemas
-    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+    from tensorflowasr_tpu_torch.models.transducer import base
+
+    recognize = recognize or base.recognize
 
     enc_states, tokens, dec_states = model.init_encoder_states(1, device), None, None
     n = torch.tensor([size], device=device)
@@ -2192,12 +2238,13 @@ def cost_ctc(t_len: np.ndarray, u_len: np.ndarray, t: int, s: int):
     return 4 * cells + 4 * b * s + 4 * b * t * s + 4 * b, 28 * cells
 
 
-def cost_vanilla_attention(bh: int, t: int, s: int, d: int, elt: int, bias_bytes: int, bwd: bool):
+def cost_vanilla_attention(bh: int, t: int, s: int, d: int, elt: int, bias_bytes: int, bwd: bool, dbias: bool = False):
     """fwd: q, k, v, bias → out; QKᵀ and PV (4·BH·T·S·D). bwd: q, k, v, bias,
-    out, dout → dq, dk, dv (no dbias: the path's bias is a constant mask);
-    QKᵀ recomputed, do·vᵀ, dv, dq, dk (10·BH·T·S·D)."""
+    out, dout → dq, dk, dv (and, with ``dbias``, the bias's gradient, f32
+    [BH, T, S]; the Transformer's bias is a constant mask); QKᵀ recomputed,
+    do·vᵀ, dv, dq, dk (10·BH·T·S·D)."""
     if bwd:
-        return (4 * t + 4 * s) * bh * d * elt + bias_bytes, 10 * bh * t * s * d
+        return (4 * t + 4 * s) * bh * d * elt + bias_bytes + (4 * bh * t * s if dbias else 0), 10 * bh * t * s * d
     return (2 * t + 2 * s) * bh * d * elt + bias_bytes, 4 * bh * t * s * d
 
 
@@ -2229,9 +2276,11 @@ def attention_accuracy(fargs: tuple, bargs: tuple, bwd_kernel, bwd_plain) -> Non
           + accuracy_parts(names, kern, plain, refs) + "; " + hold_rms("fused_attention_bwd", names, kern, plain, refs, RMS_LIMITS))
 
 
-def ctc_kernel_row(dev, gen) -> dict:
+def ctc_kernel_row(dev, gen, b: int = TRAIN_B, t: int = T_ENC, max_u: int = TRAIN_U, vocab: int = VOCAB, lengths=None,
+                   what: str = "ctc train loss") -> dict:
     """Row 11 at the CTC training shape (B 16, T 400, S 257, ragged T_b and
-    U_b): occupancy and loss against the plain version (max abs error 0
+    U_b; or ``b``, ``t``, ``max_u``, ``vocab`` and the (T_b, U_b) arrays
+    ``lengths``): occupancy and loss against the plain version (max abs error 0
     required: the kernel repeats its operations), the kernel's time (the
     whole ``ctc_kernel`` call), its two passes (profiler), µs per dependent
     row update of the longest row, ``F.ctc_loss`` forward and
@@ -2241,14 +2290,14 @@ def ctc_kernel_row(dev, gen) -> dict:
     from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
     from tensorflowasr_tpu_torch.ops.cuda import ctc_kernel as ctk
 
-    t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
+    t_np, u_np = lengths if lengths is not None else loss_lengths(np.random.default_rng(SEED + 2), b)
     t_len, u_len = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev)
-    labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
-    labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
-    s = 2 * TRAIN_U + 1
+    labels = torch.randint(1, vocab, (b, max_u), generator=gen, device=dev)
+    labels[torch.arange(max_u, device=dev)[None, :] >= u_len[:, None]] = 0
+    s = 2 * max_u + 1
     occ_err, loss_err = {}, {}
     for tag, dt in DTYPES:
-        logits = _randn(gen, (TRAIN_B, T_ENC, VOCAB), 2.0, dt)
+        logits = _randn(gen, (b, t, vocab), 2.0, dt)
         lp_ext, skip, _ = ctc_prep(logits, labels)
         occ, loss = ctk.ctc_kernel(lp_ext, skip, t_len, u_len)
         ref_occ, ref_loss = ctc_occupancy_plain(lp_ext, skip, t_len, u_len)
@@ -2259,7 +2308,7 @@ def ctc_kernel_row(dev, gen) -> dict:
             raise AssertionError(f"ctc_loss {tag}: occupancy max abs err {occ_err[tag]}, loss rel err {loss_err[tag]} against the plain version, "
                                  "which it repeats operation for operation (0 expected)")
     ms, plain_ms = time_ms(ctk.ctc_kernel, lp_ext, skip, t_len, u_len), time_ms(ctc_occupancy_plain, lp_ext, skip, t_len, u_len)
-    bd = bound(*cost_ctc(t_np, u_np, T_ENC, s), "f32")
+    bd = bound(*cost_ctc(t_np, u_np, t, s), "f32")
     passes = device_ms_by_kernel(ctk.ctc_kernel, (lp_ext, skip, t_len, u_len), {"sweeps": "ctc_sweep", "occupancy": "ctc_occupancy"})
     chain = int(t_np.max())
     # the library yardstick: F.ctc_loss over log_softmax output, per row (reduction none), forward and forward+backward
@@ -2273,13 +2322,13 @@ def ctc_kernel_row(dev, gen) -> dict:
     op_fwd = time_ms(lambda: ctk.ctc_loss_pallas(x, t_len, labels, u_len).detach())
     op_fb = time_ms(lambda: torch.autograd.grad(ctk.ctc_loss_pallas(x, t_len, labels, u_len).sum(), x))
     lib_rel = ((lib_loss - loss) / loss).abs().max().item()
-    print(f"kernel ctc_loss (ctc train loss): lp_ext [{TRAIN_B}, {T_ENC}, {s}] f32 from V {VOCAB} logits, T_b {t_np.min()}-{t_np.max()}, U_b "
+    print(f"kernel ctc_loss ({what}): lp_ext [{b}, {t}, {s}] f32 from V {vocab} logits, T_b {t_np.min()}-{t_np.max()}, U_b "
           f"{u_np.min()}-{u_np.max()}; occupancy max_abs_err f32 {occ_err['f32']:.3e} bf16 {occ_err['bf16']:.3e} (0 required), loss rel err "
           f"{max(loss_err.values()):.3e} (0 required); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bd[0]:.4f} ms ({bd[1]}); the first design "
           f"(PERF.md row 11) {CTC_EARLIER_MS:.4f} ms")
-    print(f"kernel ctc_loss (ctc train loss) by pass (profiler): {_fmt_ms(passes)}; {1e3 * ms / chain:.3f} µs per dependent row update of the "
+    print(f"kernel ctc_loss ({what}) by pass (profiler): {_fmt_ms(passes)}; {1e3 * ms / chain:.3f} µs per dependent row update of the "
           f"longest row ({chain}; α and β sweeps side by side, {-(-s // 32)} warps each)")
-    print(f"library F.ctc_loss (ctc train loss, bf16 logits' log_softmax, reduction none): forward {lib_fwd:.4f} ms, forward+backward {lib_fb:.4f} ms "
+    print(f"library F.ctc_loss ({what}, bf16 logits' log_softmax, reduction none): forward {lib_fwd:.4f} ms, forward+backward {lib_fb:.4f} ms "
           f"(loss rel diff to the kernel {lib_rel:.2e}); the port's whole ctc_loss_pallas on the logits (prep, kernel, softmax − occupancy): forward "
           f"{op_fwd:.4f} ms, forward+backward {op_fb:.4f} ms")
     row = _row("ctc_loss", {"f32": occ_err["f32"], "bf16": occ_err["bf16"]}, ms, plain_ms, bd)
@@ -2373,58 +2422,66 @@ def phase_ctc_serve(dev) -> dict:
     """Each CTC model at full width (bf16): 3 requests of 8 × 6–10 s through
     greedy ``recognize``, launches checked per request; wall, encode and
     decode ms."""
+    paths = {}
+    for name in CTC_MODELS:
+        paths[f"ctc_serve_{name}"] = serve_ctc(dev, name, ctc_model(name, torch.bfloat16, dev).eval(), PER_REQUEST_CTC[name])
+    return paths
+
+
+def serve_ctc(dev, name: str, model, per_request: dict, hunt: bool = True) -> dict:
+    """3 requests of 8 × 6–10 s through a CTC model's greedy ``recognize``
+    (after one warm-up request), each request's launches equal to
+    ``per_request``; wall, encode, decode ms and RTF; with ``hunt`` the
+    outlier hunt. Returns the launch counts of the 3 requests."""
     from tensorflowasr_tpu_torch import schemas
     from tensorflowasr_tpu_torch.models.ctc.base import recognize
     from tensorflowasr_tpu_torch.ops.ctc_decode import ctc_greedy_decode
 
-    paths = {}
-    for name in CTC_MODELS:
-        model = ctc_model(name, torch.bfloat16, dev).eval()
-        rng = np.random.default_rng(SEED)
-        requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
-        recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
-        torch.cuda.synchronize()
-        settle()
-        reset_launch_counts()
-        walls, outs, watches = [], [], []
-        for r, (audio, lens) in enumerate(requests):
-            before = launch_counts()
-            with RequestWatch() as watch:
-                t0 = time.perf_counter()
-                outs.append(recognize(model, schemas.PredictInput(audio, lens)))
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            watches.append(watch)
-            delta = {k: v - before[k] for k, v in launch_counts().items()}
-            if delta != PER_REQUEST_CTC[name]:
-                raise AssertionError(f"ctc serve {name} request {r}: kernel launches {delta}, expected {PER_REQUEST_CTC[name]}")
-        counts = launch_counts()
-        flag_outliers(f"ctc serve {name}", walls, watches)
-        # encode and decode timed apart, on the same requests (after the counted run)
-        for r, ((audio, lens), out) in enumerate(zip(requests, outs)):
-            with torch.inference_mode():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, logits_len, _ = model.encode(audio, lens)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                tokens, ntok = ctc_greedy_decode(logits, logits_len)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-            if not torch.isfinite(logits.float()).all():
-                raise AssertionError(f"ctc serve {name} request {r}: non-finite logits")
-            if tuple(out.tokens.shape) != tuple(logits.shape[:2]) or not torch.equal(out.tokens, tokens):
-                raise AssertionError(f"ctc serve {name} request {r}: tokens {tuple(out.tokens.shape)} differ from the greedy decode of the logits")
-            if not ((out.tokens >= 0) & (out.tokens < model.vocab_size)).all() or (ntok > logits_len).any():
-                raise AssertionError(f"ctc serve {name} request {r}: token ids outside the vocabulary or more tokens than frames")
-            audio_s = lens.sum().item() / 16000.0
-            print(f"ctc serve {name} request {r}: batch {audio.shape[0]}, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames "
-                  f"{logits.shape[1]}, recognize {walls[r] * 1e3:.3f} ms ({watches[r]}), encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms, "
-                  f"RTF {walls[r] / audio_s:.6f}, tokens mean {ntok.float().mean().item():.1f}")
-        paths[f"ctc_serve_{name}"] = counts
-        print(f"ctc serve {name} launches over 3 requests: {counts} (per request {PER_REQUEST_CTC[name]})")
+    rng = np.random.default_rng(SEED)
+    requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
+    recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    walls, outs, watches = [], [], []
+    for r, (audio, lens) in enumerate(requests):
+        before = launch_counts()
+        with RequestWatch() as watch:
+            t0 = time.perf_counter()
+            outs.append(recognize(model, schemas.PredictInput(audio, lens)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        watches.append(watch)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_request:
+            raise AssertionError(f"ctc serve {name} request {r}: kernel launches {delta}, expected {per_request}")
+    counts = launch_counts()
+    flag_outliers(f"ctc serve {name}", walls, watches)
+    # encode and decode timed apart, on the same requests (after the counted run)
+    for r, ((audio, lens), out) in enumerate(zip(requests, outs)):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, logits_len, _ = model.encode(audio, lens)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tokens, ntok = ctc_greedy_decode(logits, logits_len)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"ctc serve {name} request {r}: non-finite logits")
+        if tuple(out.tokens.shape) != tuple(logits.shape[:2]) or not torch.equal(out.tokens, tokens):
+            raise AssertionError(f"ctc serve {name} request {r}: tokens {tuple(out.tokens.shape)} differ from the greedy decode of the logits")
+        if not ((out.tokens >= 0) & (out.tokens < model.vocab_size)).all() or (ntok > logits_len).any():
+            raise AssertionError(f"ctc serve {name} request {r}: token ids outside the vocabulary or more tokens than frames")
+        audio_s = lens.sum().item() / 16000.0
+        print(f"ctc serve {name} request {r}: batch {audio.shape[0]}, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames "
+              f"{logits.shape[1]}, recognize {walls[r] * 1e3:.3f} ms ({watches[r]}), encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms, "
+              f"RTF {walls[r] / audio_s:.6f}, tokens mean {ntok.float().mean().item():.1f}")
+    print(f"ctc serve {name} launches over 3 requests: {_launched(counts)} (per request {_launched(per_request)})")
+    if hunt:
         outlier_hunt(f"ctc serve {name}", model, recognize, np.random.default_rng(SEED + 9), dev)
-    return paths
+    return counts
 
 
 def phase_ctc_train(dev) -> dict:
@@ -2538,29 +2595,30 @@ def float64_plain_path():
         torch.set_default_dtype(default)
 
 
-def ctc_referee_grads(devices) -> dict:
-    """The Transformer-CTC step of ``phase_ctc_parity`` at the published
-    lecun init (the input linear not shrunk): 2 blocks, batch 2 × ≤ 4 s,
-    dropout 0, from the same log-mel features (the CPU frontend's, f32) on
-    every run, so that only the encoder, the vocabulary projection and the
-    loss differ. Returns {name: (loss, gradients by parameter)} for each
-    (name, device, dtype, loss_impl, plain) in ``devices`` (``plain``: the
-    attention through kernel A's plain version); the float64 run goes
-    through the plain path under ``float64_plain_path``."""
+def referee_grads(build, runs) -> dict:
+    """One CTC training step of the model ``build(dtype)`` (built on the CPU,
+    dropout 0) for each run (name, device, dtype, loss_impl, context): batch
+    2 × ≤ 4 s, from the same features (the CPU frontend's, f32) on every
+    run, so that only the encoder, the vocabulary projection and the loss
+    differ; encoder → vocabulary → CTC loss → backward within
+    ``context(model)``, and a float64 run also within
+    ``float64_plain_path`` from the f32 model's weights. Returns {name:
+    (loss, gradients by parameter)}."""
     from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn
 
-    base = ctc_model("transformer_ctc", torch.float32, "cpu", num_blocks=2, dropout=0.0)
+    base = build(torch.float32)
     batch = train_batch(np.random.default_rng(SEED + 3), 2, 4.0, 32, base.vocab_size)
     with torch.no_grad():
         feats, flens = base.feature_extraction(batch.inputs.inputs, batch.inputs.inputs_length)
     out = {}
-    for name, device, dtype, loss_impl, plain in devices:
+    for name, device, dtype, loss_impl, context in runs:
         if dtype == torch.float64:
-            model = ctc_model("transformer_ctc", torch.float64, "cpu", num_blocks=2, dropout=0.0).double()
+            model = build(torch.float64).double()
             model.load_state_dict(base.state_dict())
         else:
-            model = copy.deepcopy(base).to(device)
-        with float64_plain_path() if dtype == torch.float64 else plain_attention() if plain else contextlib.nullcontext():
+            model = copy.deepcopy(base)
+        model.to(device)
+        with float64_plain_path() if dtype == torch.float64 else contextlib.nullcontext(), context(model):
             enc, elens, _ = model.encoder(feats.to(device, dtype), flens.to(device), train=True)
             loss = get_ctc_loss_fn(loss_impl)(model.vocab(enc), elens, batch.labels.labels.to(device), batch.labels.labels_length.to(device))
             loss.backward()
@@ -2574,8 +2632,10 @@ def phase_ctc_referee(dev) -> None:
     features, each held to the CPU plain path in float64. Conditioning
     moves both f32 runs about equally far from float64; a kernel A fault
     moves the card's alone."""
-    runs = ctc_referee_grads([("card f32", dev, torch.float32, "auto", False), ("card f32 plain attention", dev, torch.float32, "auto", True),
-                              ("cpu f32", "cpu", torch.float32, "auto", False), ("cpu f64", "cpu", torch.float64, "xla", True)])
+    build = lambda dtype: ctc_model("transformer_ctc", dtype, "cpu", num_blocks=2, dropout=0.0)
+    kernels, plain = (lambda model: contextlib.nullcontext()), (lambda model: plain_attention())
+    runs = referee_grads(build, [("card f32", dev, torch.float32, "auto", kernels), ("card f32 plain attention", dev, torch.float32, "auto", plain),
+                                 ("cpu f32", "cpu", torch.float32, "auto", kernels), ("cpu f64", "cpu", torch.float64, "xla", kernels)])
     ref_loss, ref = runs["cpu f64"]
     floor = TRAIN_PARITY_FLOOR * max(g.abs().max().item() for g in ref.values())  # gradients that are zero in exact arithmetic (the key biases)
     dist = {}
@@ -2594,6 +2654,424 @@ def phase_ctc_referee(dev) -> None:
     print(f"ctc referee verdict: {verdict}: kernel A / plain attention distance ratio on the card median {np.median(list(ratio.values())):.3g}, "
           f"largest {ratio[worst]:.3g} at {worst}; largest distances: card with kernel A {max(card.values()):.3e}, card with plain attention "
           f"{max(plain.values()):.3e}, CPU {max(cpu.values()):.3e}")
+
+
+# ------------------------------------ the rest of the CTC family ------------------------------------ #
+
+FAMILY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "models", "ctc")
+FAMILY_CONFIGS = {"deepspeech2": "deepspeech2/base.yml.j2", "deepspeech2_uni": "deepspeech2/uni.yml.j2", "jasper": "jasper/base.yml.j2",
+                  "transformer_ctc_streaming": "transformer/base-streaming.yml.j2", "conformer_ctc_streaming": "conformer/small-streaming.yml.j2"}
+CHAR_V = 29  # the char vocabulary (examples/datasets/librispeech/characters/english.vocab and the blank)
+FAMILY_B, FAMILY_CHARS_PER_S, FAMILY_STEPS = 8, 12.0, 3  # the DeepSpeech2 and Jasper recipes' batch; ~12 characters a second of speech
+FAMILY_U = int(TRAIN_SECS * FAMILY_CHARS_PER_S)  # 192 labels at 16 s: S = 2U + 1 = 385 CTC states
+# Adam without warm-up, as the CTC phase: the published recipes' rates (DeepSpeech2 3e-4, Jasper 1e-3) or warm-up schedules are for trained starts
+FAMILY_LR = {"deepspeech2": 1e-4, "jasper": 1e-4, "transformer_ctc_streaming": 1e-5}
+DS2_LSTMS, DS2_UNI_LSTMS = 10, 5  # deepspeech2/base.yml.j2: 5 bidirectional layers; uni.yml.j2: 5 unidirectional ones
+DS2_T, DS2_H, DS2_WIDTH = 801, 512, 1280  # the LSTM at 16 s (1600 frames at stride 2, and one more), H 512, 32 filters × 40 bins into the first layer
+PER_REQUEST_FAMILY = {"deepspeech2": _per(lstm=DS2_LSTMS), "jasper": _per(), "conformer_ctc_streaming": _per(**ENCODER_FWD),
+                      "transformer_ctc_streaming": _per(log_mel_spectrogram=1, fused_rel_attention=6)}
+PER_STEP_FAMILY = {"deepspeech2": _per(lstm=DS2_LSTMS, lstm_bwd=DS2_LSTMS, ctc_loss=1), "jasper": _per(ctc_loss=1),
+                   "transformer_ctc_streaming": _per(log_mel_spectrogram=1, fused_rel_attention=6, fused_rel_attention_bwd=6, ctc_loss=1)}
+PER_CHUNK_DS2_UNI = _per(lstm=DS2_UNI_LSTMS)
+# the 2-layer DeepSpeech2 overfit: JAX's DeepSpeech2 overfit test's rate (tests/test_overfit.py:56); CTC takes more steps than the
+# transducer's 100 to settle its spaces (an f32 CPU run of this model stood at WER 0.14 at 400 steps and 2e-3)
+DS2_OVERFIT_LR, DS2_OVERFIT_STEPS, DS2_OVERFIT_SECONDS = 3e-3, 800, 120.0
+PER_CALL_EXPLICIT_MASK = _per(fused_attention=1, fused_attention_bwd=1)
+EXPLICIT_MASK_CALLS = 2
+
+
+def family_model(name: str, dtype, device, tmp: str, depth: int | None = None, dropout: float | None = None, **kwargs) -> torch.nn.Module:
+    """The example's model through the port's ``Config`` and ``build_model``
+    at its published widths (DeepSpeech2's LSTMs on the route its default
+    takes for ``device``, unless ``kwargs`` name ``rnn_impl``), random
+    weights from SEED; cut to ``depth`` LSTM layers, Jasper blocks or
+    Transformer blocks, and with every dropout at ``dropout`` and no
+    SpecAugment, when given."""
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.models import build_model
+
+    config = pipeline.load_config(os.path.join(FAMILY_DIR, FAMILY_CONFIGS[name]), modeldir=tmp)
+    mc = copy.deepcopy(config.model_config)
+    c = mc["config"]
+    if depth is not None:
+        if name.startswith("deepspeech2"):
+            c["rnn_nlayers"] = depth
+        elif name == "jasper":
+            for key in ("block_channels", "block_kernels", "block_dropout"):
+                c[key] = c[key][:depth]
+        else:
+            c["encoder_num_blocks"] = depth
+    if dropout is not None:
+        for key in [k for k in c if k.endswith("dropout")]:
+            c[key] = [dropout] * len(c[key]) if isinstance(c[key], list) else dropout
+        c["speech_config"].pop("augmentation_config", None)
+    vocab = CHAR_V if config.decoder_config.type == "characters" else config.decoder_config.vocab_size
+    model = build_model(mc, vocab_size=vocab, dtype=dtype, device=device, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model
+
+
+def family_kernels(dev, rows: list[dict]) -> None:
+    """The kernels of the rest of the CTC family at the shapes its models
+    give them, each against its plain version (f32 and bf16) with times and
+    bounds in bf16, as sub-entries of their rows: kernel B at head 128 (the
+    streaming Transformer-CTC's training shape: B·H 64, T = S = R 400 under
+    the causal relative PE, chunk 16 history 64; rate 0.1) with its
+    accuracy against float64, blocks per SM, registers and spills; the LSTM
+    at DeepSpeech2's (B 8, T 801, H 512, one direction) beside cuDNN's
+    unidirectional ``torch.nn.LSTM`` (``library_ms``), and both directions
+    beside cuDNN's bidirectional layer over the first layer's input [8,
+    801, 1280]; kernel A with the bias gradient (relative MHA's explicit-mask
+    route at head 128: the positional scores plus the mask as its bias);
+    and the CTC kernel at T 801 with char labels (B 8, S 385)."""
+    from tensorflowasr_tpu_torch.models.layers.attention import compute_streaming_mask
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+    from tensorflowasr_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    by_name = {r["name"]: r for r in rows}
+    keys = ("max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    sub = lambda r, **extra: {k: r[k] for k in keys} | extra
+
+    # kernel B at head 128
+    bh, t, d, chunk, hist = TRAIN_B * TCTC_HEADS, T_ENC, TCTC_HEAD, 16, 64
+    q_len = torch.tensor([max(40, t - 23 * i) for i in range(TRAIN_B)], dtype=torch.int32, device=dev)
+    seen = float(compute_streaming_mask(chunk, hist, t, t, dev).sum(dim=1).float().mean())
+    what = f"transformer-ctc streaming train, BH {bh} T = S = R {t} head {d}, causal PE, chunk {chunk} history {hist}, rate {TRAIN_RATE}"
+
+    def att_make(dt, rate=TRAIN_RATE):
+        qc, qp = _randn(gen, (bh, t, d), 0.3, dt), _randn(gen, (bh, t, d), 0.3, dt)
+        k, v, pos = (_randn(gen, (bh, t, d), 1.0, dt) for _ in range(3))
+        cfg_ = (11, rate, False, chunk, hist, True)
+        res = ak.fused_rel_attention_kernel(qc, qp, k, v, pos, None, q_len, *cfg_, with_stats=dt == torch.bfloat16)
+        out, stats = res if dt == torch.bfloat16 else (res, None)
+        return (qc, qp, k, v, pos, None, q_len, *cfg_), (qc, qp, k, v, pos, None, q_len, out, stats, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
+
+    head = _check_fwd_bwd("fused_rel_attention", ak.fused_rel_attention_kernel, ak.fused_rel_attention_plain, rel_att_bwd, rel_att_bwd_plain, att_make,
+                          lambda elt, bwd: cost_attention(bh, t, t, t, d, elt, bwd, keys=seen), what)
+    full = [bound(*cost_attention(bh, t, t, t, d, 2, bwd), "bf16")[0] for bwd in (False, True)]
+    print(f"kernel fused_rel_attention[_bwd] head {d}: the bound counts the {seen:.1f} keys a row sees under the causal chunk mask (of {t}; over "
+          f"every key {full[0]:.4f} / {full[1]:.4f} ms); the kernel computes every key tile and skips none")
+    rel_attention_accuracy(*att_make(torch.bfloat16), what)
+    lib, plan = _build.build(), ak.rel_mma_plan(d)
+    kernels = {f"rel_mma_{n} (head {d})": (min(w, 1), f"rel_mma_{n}ILi{d}", lib.tfasr_rel_mma_smem(d, w), plan[n]["smem_bytes"], plan[n]["blocks_per_sm"],
+                                           lib.tfasr_rel_mma_occupancy(d, w)) for w, n in enumerate(("fwd", "dq", "dkv", "dpos"))}
+    occupancy_report(head, kernels, f"kernel B, head {d}: DMAX {d}, the dq pass in 2 column blocks of 64")
+    for r in head:
+        by_name[r["name"]]["head128"] = sub(r, shape=what, visible_keys=seen, bound_every_key_ms=full[r["name"].endswith("_bwd")], mma=r.get("mma"))
+
+    # the LSTM at DeepSpeech2's shape
+    b, tl, h = FAMILY_B, DS2_T, DS2_H
+
+    def lstm_make(dt):
+        xg, wh = _randn(gen, (b, tl, 4 * h), 1.0, dt), _randn(gen, (h, 4 * h), h ** -0.5, dt)
+        h0, c0 = _randn(gen, (b, h), 0.3, dt), _randn(gen, (b, h), 0.3, dt)
+        _, cseq, gates = lk.lstm_fwd_plain(xg, wh, h0, c0)
+        return (xg, wh, h0, c0), (gates, cseq, c0, wh, _randn(gen, (b, tl, h), 1.0 / b, dt), _randn(gen, (b, tl, h), 0.1 / b, dt))
+
+    what = f"deepspeech2 train, B {b} T {tl} H {h}, one direction"
+    ls = _check_fwd_bwd("lstm", flat_outputs(lk.lstm_fwd_kernel), flat_outputs(lk.lstm_fwd_plain), lk.lstm_bwd_kernel, lk.lstm_bwd_plain, lstm_make,
+                        lambda elt, bwd: cost_lstm(b, tl, h, elt, bwd), what)
+    # library_ms: cuDNN's one direction, as the flagship's row; beside it both directions of the layer, the kernel's and cuDNN's bidirectional layer's
+    ls[0]["library_ms"], ls[1]["library_ms"] = lstm_library(gen, b, tl, h, torch.bfloat16)
+    bi = lstm_library(gen, b, tl, h, torch.bfloat16, width=DS2_WIDTH, bidirectional=True)
+    fwd_k, (fa, ba), (fa2, ba2) = flat_outputs(lk.lstm_fwd_kernel), lstm_make(torch.bfloat16), lstm_make(torch.bfloat16)
+    both = (time_ms(lambda: (fwd_k(*fa), fwd_k(*fa2))), time_ms(lambda: (lk.lstm_bwd_kernel(*ba), lk.lstm_bwd_kernel(*ba2))))
+    print(f"kernel lstm[_bwd] bf16 ({what}; {lstm_plan_text(lk.lstm_mma_plan(h), h)}): {1e3 * ls[0]['ms'] / tl:.3f} / {1e3 * ls[1]['ms'] / tl:.3f} µs "
+          f"per step; one direction {ls[0]['ms']:.4f} / {ls[1]['ms']:.4f} ms against cuDNN's unidirectional layer {ls[0]['library_ms']:.4f} / "
+          f"{ls[1]['library_ms']:.4f} ms; both directions {both[0]:.4f} / {both[1]:.4f} ms against cuDNN's bidirectional layer over the first "
+          f"layer's input [{b}, {tl}, {DS2_WIDTH}] {bi[0]:.4f} / {bi[1]:.4f} ms (cuDNN's times include x·Wx)")
+    for r, m2, lib2 in zip(ls, both, bi):
+        by_name[r["name"]]["deepspeech2"] = sub(r, shape=what, us_per_step=1e3 * r["ms"] / tl, library=f"cuDNN torch.nn.LSTM, one direction, x [{b}, {tl}, {h}]",
+                                                ms_both_directions=m2, library_bidirectional_ms=lib2,
+                                                library_bidirectional=f"cuDNN torch.nn.LSTM, bidirectional, x [{b}, {tl}, {DS2_WIDTH}]")
+
+    # kernel A with the bias gradient: the positional scores plus the chunk mask's −1e9 as a [B·H, T, S] bias
+    mask_bias = torch.where(compute_streaming_mask(chunk, hist, t, t, dev), 0.0, -1e9)
+
+    def a_make(dt, rate=TRAIN_RATE):
+        q, k, v = _randn(gen, (bh, t, d), 0.3, dt), _randn(gen, (bh, t, d), 1.0, dt), _randn(gen, (bh, t, d), 1.0, dt)
+        bias = (_randn(gen, (bh, t, t), 1.0) + mask_bias).to(dt)
+        cfg_ = (23, rate)
+        out, stats = ak.fused_attention_kernel(q, k, v, bias, *cfg_, with_stats=True)
+        return (q, k, v, bias, *cfg_), (q, k, v, bias, out, stats, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
+
+    def a_bwd(q, k, v, bias, out, stats, dout, seed, rate):
+        return ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed, rate, bias_grad=True, stats=stats)
+
+    def a_bwd_plain(q, k, v, bias, out, stats, dout, seed, rate):
+        return ak.fused_attention_plain_bwd(q, k, v, bias, dout, seed, rate, bias_grad=True)
+
+    what = f"relative MHA with an explicit mask, BH {bh} T = S {t} head {d}, bias [BH, T, S] with its gradient, rate {TRAIN_RATE}"
+    att = _check_fwd_bwd("fused_attention", ak.fused_attention_kernel, ak.fused_attention_plain, a_bwd, a_bwd_plain, a_make,
+                         lambda elt, bwd: cost_vanilla_attention(bh, t, t, d, elt, bh * t * t * elt, bwd, dbias=True), what)
+    for r in att:
+        by_name[r["name"]]["bias_grad"] = sub(r, shape=what)
+
+    # the CTC kernel at DeepSpeech2's encoder length with char labels
+    secs = np.clip(np.random.default_rng(SEED + 33).lognormal(mean=np.log(12.0), sigma=0.35, size=FAMILY_B), 1.5, TRAIN_SECS)
+    secs[0] = TRAIN_SECS
+    t_np = np.minimum(np.ceil(secs * 50.0).astype(np.int64) + 1, DS2_T)
+    u_np = np.clip((secs * FAMILY_CHARS_PER_S).astype(np.int64), 1, FAMILY_U)
+    row = ctc_kernel_row(dev, gen, FAMILY_B, DS2_T, FAMILY_U, CHAR_V, (t_np, u_np), f"deepspeech2 train loss, T {DS2_T}, char labels")
+    by_name["ctc_loss"]["t801"] = sub(row, shape=f"B {FAMILY_B} T {DS2_T} S {2 * FAMILY_U + 1} V {CHAR_V}", library_fwd_ms=row["library_fwd_ms"],
+                                      us_per_row_update=row["us_per_row_update"])
+
+
+def family_train(dev, name: str, model, batch) -> tuple[dict, float]:
+    """FAMILY_STEPS default (auto) training steps of ``model`` on ``batch``
+    (its config's dropout and SpecAugment, Adam at FAMILY_LR), each step's
+    launches checked, the loss falling; one profiled step for the busy
+    share. Returns the launch counts and the busy share."""
+    tag = f"ctc train {name}"
+    counts, losses, walls, trainer, state, batch, _ = run_train(dev, "auto", FAMILY_STEPS, PER_STEP_FAMILY[name], tag, model=model,
+                                                                lr=FAMILY_LR[name], batch=batch)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall over {FAMILY_STEPS} steps: {losses}")
+    _, busy = profile_step(trainer, state, batch, walls, tag, top=8)
+    print(f"{tag}: loss {losses[0]:.4f} → {losses[-1]:.4f} over {FAMILY_STEPS} steps; median step {float(np.median(walls[1:])):.1f} ms, busy "
+          f"{busy:.1f}%")
+    return counts, busy
+
+
+def family_stream(dev, tmp: str) -> dict:
+    """DeepSpeech2 uni (bf16, the LSTM kernels): batch 1, STREAM_CHUNKS chunks
+    of STREAM_FRAMES feature frames (160 ms) through ``recognize``, each
+    layer's (c, h) carried; a warm-up pass, a counted pass (each chunk's
+    launches checked) and STREAM_PASSES timed passes."""
+    from tensorflowasr_tpu_torch.models.ctc.base import recognize
+
+    model = family_model("deepspeech2_uni", torch.bfloat16, dev, tmp).eval()
+    chunks, size, step = stream_chunks(model, SEED + 21, dev)
+    run = lambda per_chunk=None: run_stream(model, chunks, size, dev, per_chunk, recognize)
+    run()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = run(PER_CHUNK_DS2_UNI)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    carried = [tuple(h.shape) for _, h in outs[-1].next_encoder_states]
+    if carried != [(1, DS2_H)] * DS2_UNI_LSTMS:
+        raise AssertionError(f"stream deepspeech2_uni: carried states {carried}")
+    per_pass = []
+    for _ in range(STREAM_PASSES):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        per_pass.append((time.perf_counter() - t0) / STREAM_CHUNKS * 1e3)
+    ms, chunk_ms = float(np.median(per_pass)), step / 16.0
+    print(f"stream deepspeech2_uni: batch 1, {STREAM_CHUNKS} chunks of {STREAM_FRAMES} feature frames ({size} samples, step {step}: {chunk_ms:.0f} ms of "
+          f"audio), encoder frames per chunk {outs[0].tokens.shape[1]}, {DS2_UNI_LSTMS} LSTM layers' (c, h) carried; {ms:.3f} ms per chunk (median "
+          f"of {STREAM_PASSES} passes: " + ", ".join(f"{p:.3f}" for p in per_pass) + f"), RTF per chunk {ms / chunk_ms:.4f}; launches per chunk "
+          f"{_launched(PER_CHUNK_DS2_UNI)}")
+    return counts
+
+
+def explicit_mask_path(dev) -> dict:
+    """Relative MHA with an explicit ``attention_mask`` (kernel A with the
+    positional scores as its bias and the bias gradient) at the streaming
+    Transformer-CTC's widths (D 512, 4 × 128), B 16 × T 400 ragged, f32:
+    EXPLICIT_MASK_CALLS forward and backward calls, each launching kernel
+    A's forward and backward once; the output and the input's gradient equal
+    kernel B's route on the same visibility (the chunk mask as parameters,
+    1e-4 of scale, on the valid query rows). The relative PE is the
+    non-causal one: under the causal PE (R = T) the Transformer-XL shift of
+    the explicit route reads a wrapped position for a key past the query,
+    which the chunk mask leaves visible, where kernel B reads 0 (JAX's two
+    routes differ there alike). Returns the launch counts."""
+    from tensorflowasr_tpu_torch.models.layers.attention import MultiHeadRelativeAttention, compute_streaming_mask
+    from tensorflowasr_tpu_torch.models.layers.general import random_init
+    from tensorflowasr_tpu_torch.models.layers.positional import RelativeSinusoidalPositionalEncoding
+    from tensorflowasr_tpu_torch.utils import math_util
+
+    dm, t, chunk, hist = 512, T_ENC, 16, 64
+    layer = MultiHeadRelativeAttention(dm, TCTC_HEADS, TCTC_HEAD, dm, use_attention_bias=True).to(dev)
+    random_init(layer, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    x = _randn(gen, (TRAIN_B, t, dm), 1.0, dev=dev).requires_grad_(True)
+    lengths = torch.tensor([max(40, t - 23 * i) for i in range(TRAIN_B)], device=dev)
+    _, relpe = RelativeSinusoidalPositionalEncoding()(x, lengths)
+    qmask = math_util.sequence_mask(lengths, t)
+    attn = compute_streaming_mask(chunk, hist, t, t, dev)[None].expand(TRAIN_B, t, t)
+    dout = _randn(gen, (TRAIN_B, t, dm), 1.0, dev=dev) * qmask[..., None]  # padded query rows take no gradient: their near-uniform rows differ in rounding
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in range(EXPLICIT_MASK_CALLS):
+        before = launch_counts()
+        out, _ = layer(x, x, relpe=relpe, query_mask=qmask, attention_mask=attn)
+        (dx,) = torch.autograd.grad(out, x, dout)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != PER_CALL_EXPLICIT_MASK:
+            raise AssertionError(f"relmha explicit mask call {i}: kernel launches {delta}, expected {PER_CALL_EXPLICIT_MASK}")
+    counts = launch_counts()
+    layer.chunk_size, layer.history_size = chunk, hist  # the same visibility through kernel B's parameters
+    ref, _ = layer(x, x, relpe=relpe, query_mask=qmask)
+    (ref_dx,) = torch.autograd.grad(ref, x, dout)
+    valid = qmask[..., None]
+    err = _close("relmha explicit mask vs kernel B, output", out * valid, ref * valid, 1e-4 * ref.abs().max().item(), 0.0)
+    err_dx = _grads_close("relmha explicit mask vs kernel B, d query", [dx], [ref_dx], 1e-4)
+    print(f"relmha explicit mask (D {dm}, {TCTC_HEADS} x {TCTC_HEAD}, non-causal PE, B {TRAIN_B} T {t}, the chunk-{chunk} history-{hist} mask given as "
+          f"attention_mask, f32): {EXPLICIT_MASK_CALLS} forward + backward calls, launches per call {_launched(PER_CALL_EXPLICIT_MASK)}; against kernel "
+          f"B's route on the same visibility: output max abs err {err:.3e} on valid rows, d query {err_dx:.3e} (1e-4 of scale)")
+    return counts
+
+
+def family_overfit(dev, tmp: str) -> dict:
+    """A 2-layer bidirectional DeepSpeech2 (the base layout at its widths,
+    the LSTM kernels, bf16, dropout 0, no SpecAugment) fitted to the data
+    phase's four overfit utterances until ``evaluate_dataset`` reads WER 0
+    (:func:`run_overfit`'s caps). Returns its launch counts."""
+    from tensorflowasr_tpu_torch import pipeline
+
+    tok = pipeline.build_tokenizer(pipeline.load_config(CHAR_CONFIG, datadir=tmp))
+    if tok.num_classes != CHAR_V:
+        raise AssertionError(f"the char tokenizer has {tok.num_classes} classes, not {CHAR_V}")
+    manifest = overfit_corpus(os.path.join(tmp, "overfit"))
+    model = family_model("deepspeech2", torch.bfloat16, dev, tmp, depth=2, dropout=0.0)
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    steps, seconds, report, _ = run_overfit(dev, tok, manifest, lr=DS2_OVERFIT_LR, time_cap=DS2_OVERFIT_SECONDS, model=model,
+                                            step_cap=DS2_OVERFIT_STEPS)
+    counts = launch_counts()
+    if counts["lstm_bwd"] != 4 * steps or counts["ctc_loss"] != steps:
+        raise AssertionError(f"deepspeech2 overfit: launches {_launched(counts)} over {steps} steps (4 LSTM backward and 1 CTC a step expected)")
+    print(f"ctc overfit deepspeech2 (2 bidirectional LSTM layers at H {DS2_H}, the LSTM kernels, bf16, dropout 0, Adam {DS2_OVERFIT_LR:g}, the 4 "
+          f"overfit utterances of 1-3 s as one batch): WER 0 after {steps} steps in {seconds:.1f} s (caps {DS2_OVERFIT_STEPS} steps, "
+          f"{DS2_OVERFIT_SECONDS:.0f} s); "
+          f"rows {[r[2] for r in report['rows']]}; launches {_launched(counts)}")
+    return counts
+
+
+def phase_ctc_family(dev) -> dict:
+    """The rest of the CTC family at its published widths in bf16 with random
+    weights from the seed, each built from its example config: DeepSpeech2
+    base (bidirectional, the LSTM kernels) serving 3 requests of 8 × 6–10 s
+    and training FAMILY_STEPS steps of 8 × ≤ 16 s with char labels at ~12 a
+    second (V 29); DeepSpeech2 uni streaming 16 chunks of 160 ms with its
+    carried LSTM states; Jasper base serving and training at the same
+    shapes; the streaming Transformer-CTC (relative PE, kernel B at head
+    128) serving and training at 16 × ≤ 16 s; the streaming Conformer-CTC
+    Small serving; relative MHA with an explicit mask (kernel A with the bias
+    gradient); and a 2-layer DeepSpeech2 overfit to WER 0. Returns the
+    launch counts by path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="tfasr-family-") as tmp:
+        char_batch = train_batch(np.random.default_rng(SEED + 2), FAMILY_B, TRAIN_SECS, FAMILY_U, CHAR_V, FAMILY_CHARS_PER_S)
+        for name in ("deepspeech2", "jasper", "transformer_ctc_streaming"):
+            model = family_model(name, torch.bfloat16, dev, tmp)
+            if name == "transformer_ctc_streaming":
+                heads = {m.mhsa.key_dim for m in model.modules() if type(m).__name__ == "MHSAModule"}
+                if heads != {TCTC_HEAD} or not model.encoder.pe.causal:
+                    raise AssertionError(f"{name}: head sizes {heads}, causal relative PE {model.encoder.pe.causal}")
+                batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size)
+            else:
+                batch = char_batch
+            if name == "deepspeech2" and model.rnn_impl != "pallas":
+                raise AssertionError(f"{name} built from its config on the card takes rnn_impl {model.rnn_impl!r}, not the LSTM kernels")
+            paths[f"ctc_serve_{name}"] = serve_ctc(dev, name, model.eval(), PER_REQUEST_FAMILY[name], hunt=False)
+            paths[f"ctc_train_{name}"], _ = family_train(dev, name, model.train(), batch)
+            del model
+        paths["stream_deepspeech2_uni"] = family_stream(dev, tmp)
+        paths["ctc_serve_conformer_ctc_streaming"] = serve_ctc(dev, "conformer_ctc_streaming", family_model("conformer_ctc_streaming", torch.bfloat16, dev,
+                                                                                                             tmp).eval(),
+                                                               PER_REQUEST_FAMILY["conformer_ctc_streaming"], hunt=False)
+        paths["relmha_explicit_mask"] = explicit_mask_path(dev)
+        paths["ctc_overfit_deepspeech2"] = family_overfit(dev, tmp)
+    print(f"ctc_family phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def phase_ctc_family_parity(dev) -> None:
+    """One f32 default (auto) training step, card (kernels) vs CPU (plain
+    versions), of a 2-layer DeepSpeech2 (bidirectional, the LSTM kernels)
+    and a 2-block streaming Transformer-CTC (kernel B at head 128), each at
+    its published widths, dropout 0: the loss and every gradient; and a
+    2-block Jasper's (:func:`jasper_parity`)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tfasr-family-") as tmp:
+        for name, kwargs in (("deepspeech2", {"rnn_impl": "pallas"}), ("transformer_ctc_streaming", {})):
+            _step_parity(dev, "auto", "pallas", cpu_model=family_model(name, torch.float32, "cpu", tmp, depth=2, dropout=0.0, **kwargs),
+                         what=f"{name}, 2 deep, auto")
+        jasper_parity(dev, tmp)
+
+
+@contextlib.contextmanager
+def jasper_relu_masks(model, masks: dict, replay: bool):
+    """Within the block, each Jasper sub-block of ``model`` records the sign
+    pattern of its ReLU's input (x > 0) into ``masks`` by module name or,
+    with ``replay``, takes the pattern recorded there as its ReLU's (x ·
+    mask): every run that replays one pattern computes one piecewise-linear
+    function."""
+    from tensorflowasr_tpu_torch.models.encoders import jasper
+    from tensorflowasr_tpu_torch.ops import dropout as dr
+
+    names = {m: n for n, m in model.named_modules()}
+    forward = jasper.JasperSubBlock.forward
+
+    def masked(self, x, residuals=(), train=False, generator=None):
+        x = self.bn(self.conv1d(x), train)
+        for r in residuals:
+            x = x + r
+        if replay:
+            x = x * masks[names[self]].to(x.device, x.dtype)
+        else:
+            masks[names[self]] = (x > 0).detach().cpu()
+            x = torch.relu(x)
+        return dr.dropout(x, dr.active_rate(self.dropout, train, generator), generator)
+
+    jasper.JasperSubBlock.forward = masked
+    try:
+        yield
+    finally:
+        jasper.JasperSubBlock.forward = forward
+
+
+JASPER_F64_REL = 1e-9  # card float64 vs CPU float64, the same ReLU pattern: the same code gives float64 rounding only
+
+
+def jasper_parity(dev, tmp: str) -> None:
+    """A 2-block Jasper's training step at its published widths (dropout 0,
+    BatchNorm on batch statistics), :func:`referee_grads`' runs. A ReLU
+    whose input lies within rounding of 0 takes another side on another
+    device, and changes its element's gradient by the whole of it; BatchNorm
+    on batch statistics spreads that over the channel, so that a handful of
+    such elements sets a run's distance to float64
+    (``scripts_torch/jasper_step_numerics.py`` measures it layer by layer).
+    So the runs share ReLU patterns: held to :func:`hold_step`, the card
+    (the CTC kernel, cuDNN's convolutions) with the CPU's pattern against
+    the CPU's f32 step, and the card with its own pattern against the CPU
+    with the card's; the card's float64 step against the CPU's, both with
+    the CPU's f32 pattern, within JASPER_F64_REL. Printed: the elements
+    whose side differs, and each f32 run's distance to float64."""
+    cpu_masks, card_masks = {}, {}
+    build = lambda dtype: family_model("jasper", dtype, "cpu", tmp, depth=2, dropout=0.0)
+    record, replay = (lambda masks: lambda model: jasper_relu_masks(model, masks, False)), (lambda masks: lambda model: jasper_relu_masks(model, masks, True))
+    runs = referee_grads(build, [("cpu f32", "cpu", torch.float32, "auto", record(cpu_masks)),
+                                 ("card f32", dev, torch.float32, "auto", replay(cpu_masks)),
+                                 ("card f32 own pattern", dev, torch.float32, "auto", record(card_masks)),
+                                 ("cpu f32 card pattern", "cpu", torch.float32, "auto", replay(card_masks)),
+                                 ("cpu f64", "cpu", torch.float64, "xla", replay(cpu_masks)),
+                                 ("card f64", dev, torch.float64, "xla", replay(cpu_masks))])
+    held = hold_step("jasper, 2 deep, the CPU's ReLU pattern", runs["card f32"], runs["cpu f32"])
+    held_own = hold_step("jasper, 2 deep, the card's ReLU pattern", runs["card f32 own pattern"], runs["cpu f32 card pattern"])
+    ref_loss, ref = runs["cpu f64"]
+    gmax = max(g.abs().max().item() for g in ref.values())
+    dist = {run: max((runs[run][1][n] - r).abs().max().item() / r.abs().max().item() for n, r in ref.items() if r.abs().max().item() > TRAIN_PARITY_FLOOR * gmax)
+            for run in ("card f64", "card f32", "cpu f32", "card f32 own pattern")}
+    if not dist["card f64"] <= JASPER_F64_REL:
+        raise AssertionError(f"jasper parity: the card's float64 step lies {dist['card f64']:.3e} from the CPU's (> {JASPER_F64_REL})")
+    flips = {n: int((card_masks[n] != m).sum()) for n, m in cpu_masks.items()}
+    print(f"parity f32 train step (jasper, 2 deep, BatchNorm on batch statistics, auto) card (kernels) vs CPU (plain), the same features, the CPU's ReLU "
+          f"pattern on both: {held}; the card's own pattern on both: {held_own}; TF32 off. ReLU inputs on another side on the card: "
+          f"{sum(flips.values())} of {sum(m.numel() for m in cpu_masks.values())} ({ {n.removeprefix('encoder.'): f for n, f in flips.items() if f} }); "
+          f"the largest gradient distance to float64 relative to scale: card f64 {dist['card f64']:.3e} (tol {JASPER_F64_REL}), card f32 "
+          f"{dist['card f32']:.3e}, CPU f32 {dist['cpu f32']:.3e} (the CPU's pattern), card f32 with its own pattern {dist['card f32 own pattern']:.3e}")
 
 
 # ----------------------------------------- recipes ----------------------------------------- #
@@ -3371,11 +3849,13 @@ def data_train_kernels(dev, model, batch) -> dict:
             raise AssertionError(f"rnnt_logprobs_scalar {tag} (V {v}): route {plan.route!r}, {rk.logprobs_scalar_launches - before} scalar launches")
         errs[tag] = _close(f"rnnt_logprobs_scalar {tag} ({shape})", got, torch.stack(logits_to_logprobs_plain(x, labels)), *ROWS_TOL[tag])
     ms, plain_ms = time_ms(_stacked(rk.logits_to_logprobs_kernel), x, labels), time_ms(_stacked(logits_to_logprobs_plain), x, labels)
+    lse_ms = time_ms(torch.logsumexp, x, -1)  # the library yardstick, as row 10a's tiled form has it: one output of three, same logits
     bd = bound(*cost_rows(b * t * u1, v, b, u1 - 1, x.element_size(), False), "f32")
     print(f"kernel rnnt_logprobs_scalar (data train's eval step, logits [{b}, {t}, {u1}, {v}], rows of {v * 2} / {v * 4} bytes: the one-element "
           f"form): max_abs_err f32 {errs['f32']:.3e} bf16 {errs['bf16']:.3e} (tol {ROWS_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"bound {bd[0]:.4f} ms ({bd[1]}) bf16, with the stack of its three outputs")
-    out["rnnt_logprobs_scalar"] = _row("rnnt_logprobs_scalar", errs, ms, plain_ms, bd) | {"shape": shape}
+          f"bound {bd[0]:.4f} ms ({bd[1]}) bf16, with the stack of its three outputs; library torch.logsumexp (one output of three, same "
+          f"logits) {lse_ms:.4f} ms")
+    out["rnnt_logprobs_scalar"] = _row("rnnt_logprobs_scalar", errs, ms, plain_ms, bd) | {"shape": shape, "library_ms": lse_ms}
     return out
 
 
@@ -3540,12 +4020,13 @@ class OverfitCapReached(AssertionError):
         self.steps, self.report = steps, report
 
 
-def run_overfit(dev, tok, manifest: str, dtype=torch.bfloat16, lr: float = OVERFIT_LR, time_cap: float = OVERFIT_TIME_CAP) -> tuple:
-    """A 2-block Conformer-T at the flagship's widths (dropout 0) trained by
-    ``fit`` in rounds of ``OVERFIT_ROUND`` steps over the four utterances
-    (one batch) until ``evaluate_dataset`` reads WER 0; raises
-    :class:`OverfitCapReached` at ``OVERFIT_STEP_CAP`` steps or ``time_cap`` s.
-    Returns (steps, seconds, report, model)."""
+def run_overfit(dev, tok, manifest: str, dtype=torch.bfloat16, lr: float = OVERFIT_LR, time_cap: float = OVERFIT_TIME_CAP, model=None,
+                step_cap: int = OVERFIT_STEP_CAP) -> tuple:
+    """``model`` (default a 2-block Conformer-T at the flagship's widths,
+    dropout 0) trained by ``fit`` in rounds of ``OVERFIT_ROUND`` steps over
+    the four utterances (one batch) until ``evaluate_dataset`` reads WER 0;
+    raises :class:`OverfitCapReached` at ``step_cap`` steps or ``time_cap``
+    s. Returns (steps, seconds, report, model)."""
     import gc as gc_
 
     from tensorflowasr_tpu_torch.data import datasets
@@ -3554,11 +4035,12 @@ def run_overfit(dev, tok, manifest: str, dtype=torch.bfloat16, lr: float = OVERF
     from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
     from tensorflowasr_tpu_torch.training.trainer import Trainer
 
-    model = build_model({"class_name": "Conformer", "config": conformer_small_config(vocab_size=29, num_blocks=2, dropout=0.0)}, vocab_size=29,
-                        dtype=dtype, device=dev)
-    if type(model) is not Conformer:
-        raise AssertionError(f"build_model gave a {type(model).__name__} for the name Conformer")
-    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    if model is None:
+        model = build_model({"class_name": "Conformer", "config": conformer_small_config(vocab_size=29, num_blocks=2, dropout=0.0)}, vocab_size=29,
+                            dtype=dtype, device=dev)
+        if type(model) is not Conformer:
+            raise AssertionError(f"build_model gave a {type(model).__name__} for the name Conformer")
+        model.reset_parameters(torch.Generator().manual_seed(SEED))
     train, test = (datasets.ASRSliceDataset(tok, stage=stage, data_paths=[manifest]) for stage in ("train", "test"))
     train.compute_metadata()
     test.compute_metadata()
@@ -3573,7 +4055,7 @@ def run_overfit(dev, tok, manifest: str, dtype=torch.bfloat16, lr: float = OVERF
             seconds = time.perf_counter() - t0
             if report["greedy"]["wer"] == 0.0:
                 return state.step, seconds, report, model
-            if state.step >= OVERFIT_STEP_CAP or seconds > time_cap:
+            if state.step >= step_cap or seconds > time_cap:
                 raise OverfitCapReached(f"overfit: WER {report['greedy']['wer']} after {state.step} steps and {seconds:.1f} s: {report['rows']}",
                                         state.step, report)
     finally:
@@ -3961,6 +4443,8 @@ def main(argv: list[str]) -> int:
     ``--rows [--package DIR]``: only :func:`rows_child`, as one JSON line.
     ``--recipe``: only :func:`phase_recipe`, its launch counts as one JSON line.
     ``--data``: only :func:`phase_data`, its launch counts as one JSON line.
+    ``--ctc-family``: only :func:`family_kernels`, :func:`phase_ctc_family`
+    and :func:`phase_ctc_family_parity`, the sub-entries and launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -3997,6 +4481,16 @@ def main(argv: list[str]) -> int:
         paths, checks = phase_data(torch.device("cuda", 0))
         print(json.dumps({"data": paths, "checks": checks}))
         return 0
+    if "--ctc-family" in argv:
+        _no_tf32()
+        _build.build()
+        dev = torch.device("cuda", 0)
+        rows = [{"name": name} for name in KERNELS]
+        family_kernels(dev, rows)
+        paths = phase_ctc_family(dev)
+        phase_ctc_family_parity(dev)
+        print(json.dumps({"ctc_family": paths, "rows": [r for r in rows if len(r) > 1]}))
+        return 0
 
     _no_tf32()
     t_start = time.perf_counter()
@@ -4013,6 +4507,7 @@ def main(argv: list[str]) -> int:
     rows = phase_train_kernels(dev) + phase_lstm_kernels(dev)
     rows += phase_ctc_kernels(dev, rows)
     rows.append(phase_decode_kernel(dev))
+    family_kernels(dev, rows)
     paths = {"serve": phase_serve(dev)}
     paths.update(phase_streaming(dev))
     train_paths, auto = phase_train(dev)
@@ -4021,6 +4516,7 @@ def main(argv: list[str]) -> int:
     paths.update(phase_pallas(dev, auto))
     paths.update(phase_ctc_serve(dev))
     paths.update(phase_ctc_train(dev))
+    paths.update(phase_ctc_family(dev))
     paths.update(phase_recipe(dev))
     data_paths, data_checks = phase_data(dev)
     paths.update(data_paths)
@@ -4044,6 +4540,7 @@ def main(argv: list[str]) -> int:
     phase_parity(dev)
     phase_train_parity(dev)
     phase_ctc_parity(dev)
+    phase_ctc_family_parity(dev)
     phase_stream_parity(dev)
     phase_ctc_referee(dev)
     print(f"gc watch: {GC_WATCH['watched']} timed steps and requests watched (gc.collect() and gc.freeze() after each phase's set-up and "

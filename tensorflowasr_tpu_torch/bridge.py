@@ -23,7 +23,8 @@ running statistics (which training updates) back into a flax
 - ``nn.Embed`` ``embedding`` → ``weight``;
 - ``nn.OptimizedLSTMCell`` ``{ii,if,ig,io}`` (no bias) and
   ``{hi,hf,hg,ho}`` (with bias) → ``weight_ih [4U, E]``,
-  ``weight_hh [4U, U]``, ``bias [4U]``, gate order i, f, g, o.
+  ``weight_hh [4U, U]``, ``bias [4U]``, gate order i, f, g, o; the cells
+  are the scopes named ``cell`` and, in a bidirectional layer, ``cell_bwd``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ _DROP = {"Conv_0", "BatchNorm_0", "LayerNorm_0"}
 _HEAD_IN = {"query", "key", "value", "encoding"}
 _GATES = ("i", "f", "g", "o")
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_CELLS = ("cell", "cell_bwd")
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -86,7 +88,8 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
         key = ".".join(p for p in path if p not in _DROP)
         out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
 
-    cells = {p[: p.index("cell") + 1] for p in _flatten(params) if "cell" in p}
+    in_cell = lambda path: any(c in path for c in _CELLS)
+    cells = {p[: next(i for i, k in enumerate(p) if k in _CELLS) + 1] for p in _flatten(params) if in_cell(p)}
     for cell_path in cells:
         node = params
         for k in cell_path:
@@ -94,7 +97,7 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
         for name, value in _lstm_cell(node).items():
             emit(cell_path + (name,), value)
     for path, value in _flatten(params).items():
-        if "cell" in path:
+        if in_cell(path):
             continue
         emit(*_convert_param(path, value))
     for path, value in _flatten(variables.get("batch_stats", {})).items():

@@ -43,8 +43,9 @@ namespace tfasr {
 
 constexpr int AT_TQ = 16;       // query rows per block
 constexpr int AT_KT = 64;       // key columns (or positions) per tile
-constexpr int AT_OUT_PT = 4;    // output accumulators per thread: AT_TQ * D <= blockDim * AT_OUT_PT
-constexpr int AT_KV_PT = 16;    // dk/dv/dpos accumulators per thread: AT_KT * D <= blockDim * AT_KV_PT
+// Accumulators per thread, a template argument: OPT outputs (AT_TQ * D <= blockDim * OPT) in the forward and pass 1,
+// KVPT in passes 2 and 3 (AT_KT * D <= blockDim * KVPT): 4 and 16 up to head 64, 8 and 32 up to head 128.
+constexpr int AT_D_SMALL = 64;
 constexpr int AT_RC = 32;       // query rows per staged chunk in passes 2 and 3
 constexpr float NEG_PAD = -1e30f;
 constexpr unsigned int AT_SALT_BH = 40499u;  // per-(b.h) seed salt of the JAX kernel
@@ -159,7 +160,7 @@ __device__ void rel_probs_rows(const T* qc, const T* qp, const T* k, const T* po
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, int OPT>
 __global__ void rel_attention_fwd_kernel(const T* __restrict__ qc, const T* __restrict__ qp, const T* __restrict__ k,
                                          const T* __restrict__ v, const T* __restrict__ pos,
                                          const float* __restrict__ kv_bias, const int* __restrict__ q_len,
@@ -189,9 +190,9 @@ __global__ void rel_attention_fwd_kernel(const T* __restrict__ qc, const T* __re
   }
 
   const size_t qoff = (size_t)bh * a.Tq * D, koff = (size_t)bh * S * D;
-  float acc[AT_OUT_PT];
+  float acc[OPT];
 #pragma unroll
-  for (int j = 0; j < AT_OUT_PT; ++j) acc[j] = 0.f;
+  for (int j = 0; j < OPT; ++j) acc[j] = 0.f;
   for (int s0 = 0; s0 < S; s0 += AT_KT) {
     const int ns = min(AT_KT, S - s0);
     __syncthreads();
@@ -201,7 +202,7 @@ __global__ void rel_attention_fwd_kernel(const T* __restrict__ qc, const T* __re
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < AT_OUT_PT; ++j) {
+    for (int j = 0; j < OPT; ++j) {
       const int o = tid + j * blockDim.x;
       if (o < AT_TQ * D) {
         const int i = o / D, d = o % D;
@@ -213,7 +214,7 @@ __global__ void rel_attention_fwd_kernel(const T* __restrict__ qc, const T* __re
     }
   }
 #pragma unroll
-  for (int j = 0; j < AT_OUT_PT; ++j) {
+  for (int j = 0; j < OPT; ++j) {
     const int o = tid + j * blockDim.x;
     if (o < AT_TQ * D) {
       const int i = o / D, d = o % D;
@@ -223,7 +224,7 @@ __global__ void rel_attention_fwd_kernel(const T* __restrict__ qc, const T* __re
 }
 
 // Pass 1: ds, pd to device memory; dqc, dqp written.
-template <typename T>
+template <typename T, int OPT>
 __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T* __restrict__ qp,
                                               const T* __restrict__ k, const T* __restrict__ v,
                                               const T* __restrict__ pos, const float* __restrict__ kv_bias,
@@ -301,9 +302,9 @@ __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T*
   }
 
   // dqc = ds . k
-  float acc[AT_OUT_PT];
+  float acc[OPT];
 #pragma unroll
-  for (int j = 0; j < AT_OUT_PT; ++j) acc[j] = 0.f;
+  for (int j = 0; j < OPT; ++j) acc[j] = 0.f;
   for (int s0 = 0; s0 < S; s0 += AT_KT) {
     const int ns = min(AT_KT, S - s0);
     __syncthreads();
@@ -313,7 +314,7 @@ __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T*
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < AT_OUT_PT; ++j) {
+    for (int j = 0; j < OPT; ++j) {
       const int o = tid + j * blockDim.x;
       if (o < AT_TQ * D) {
         const int i = o / D, d = o % D;
@@ -325,7 +326,7 @@ __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T*
     }
   }
 #pragma unroll
-  for (int j = 0; j < AT_OUT_PT; ++j) {
+  for (int j = 0; j < OPT; ++j) {
     const int o = tid + j * blockDim.x;
     if (o < AT_TQ * D) {
       const int i = o / D, d = o % D;
@@ -347,7 +348,7 @@ __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T*
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < AT_OUT_PT; ++j) {
+    for (int j = 0; j < OPT; ++j) {
       const int o = tid + j * blockDim.x;
       if (o < AT_TQ * D) {
         const int i = o / D, d = o % D;
@@ -363,7 +364,7 @@ __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T*
     }
   }
 #pragma unroll
-  for (int j = 0; j < AT_OUT_PT; ++j) {
+  for (int j = 0; j < OPT; ++j) {
     const int o = tid + j * blockDim.x;
     if (o < AT_TQ * D) {
       const int i = o / D, d = o % D;
@@ -373,7 +374,7 @@ __global__ void rel_attention_bwd_rows_kernel(const T* __restrict__ qc, const T*
 }
 
 // Pass 2: dk = ds^T . qc and dv = pd^T . do for AT_KT keys of one (b.h).
-template <typename T>
+template <typename T, int KVPT>
 __global__ void rel_attention_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ dout,
                                             const T* __restrict__ ds, const float* __restrict__ pd,
                                             T* __restrict__ dk, T* __restrict__ dv, int Tq, int S, int D) {
@@ -385,9 +386,9 @@ __global__ void rel_attention_bwd_kv_kernel(const T* __restrict__ qc, const T* _
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, s0 = blockIdx.x * AT_KT;
   const size_t qoff = (size_t)bh * Tq * D, soff = (size_t)bh * Tq * S;
-  float ak[AT_KV_PT], av[AT_KV_PT];
+  float ak[KVPT], av[KVPT];
 #pragma unroll
-  for (int j = 0; j < AT_KV_PT; ++j) ak[j] = av[j] = 0.f;
+  for (int j = 0; j < KVPT; ++j) ak[j] = av[j] = 0.f;
   for (int r0 = 0; r0 < Tq; r0 += AT_RC) {
     __syncthreads();
     for (int idx = tid; idx < AT_RC * AT_KT; idx += blockDim.x) {
@@ -405,7 +406,7 @@ __global__ void rel_attention_bwd_kv_kernel(const T* __restrict__ qc, const T* _
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < AT_KV_PT; ++j) {
+    for (int j = 0; j < KVPT; ++j) {
       const int o = tid + j * blockDim.x;
       if (o < AT_KT * D) {
         const int sl = o / D, d = o % D;
@@ -420,7 +421,7 @@ __global__ void rel_attention_bwd_kv_kernel(const T* __restrict__ qc, const T* _
     }
   }
 #pragma unroll
-  for (int j = 0; j < AT_KV_PT; ++j) {
+  for (int j = 0; j < KVPT; ++j) {
     const int o = tid + j * blockDim.x;
     if (o < AT_KT * D) {
       const int sl = o / D, d = o % D;
@@ -434,7 +435,7 @@ __global__ void rel_attention_bwd_kv_kernel(const T* __restrict__ qc, const T* _
 }
 
 // Pass 3: dpos[p] = sum_i ds[i, p - (T-1-i) - extra] qp[i] for AT_KT positions.
-template <typename T>
+template <typename T, int KVPT>
 __global__ void rel_attention_bwd_pos_kernel(const T* __restrict__ qp, const T* __restrict__ ds,
                                              T* __restrict__ dpos, int Tq, int S, int R, int D, int extra) {
   __shared__ float g_s[AT_RC][AT_KT + 1];
@@ -443,9 +444,9 @@ __global__ void rel_attention_bwd_pos_kernel(const T* __restrict__ qp, const T* 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, p0 = blockIdx.x * AT_KT;
   const size_t qoff = (size_t)bh * Tq * D, soff = (size_t)bh * Tq * S;
-  float acc[AT_KV_PT];
+  float acc[KVPT];
 #pragma unroll
-  for (int j = 0; j < AT_KV_PT; ++j) acc[j] = 0.f;
+  for (int j = 0; j < KVPT; ++j) acc[j] = 0.f;
   for (int r0 = 0; r0 < Tq; r0 += AT_RC) {
     __syncthreads();
     for (int idx = tid; idx < AT_RC * AT_KT; idx += blockDim.x) {
@@ -461,7 +462,7 @@ __global__ void rel_attention_bwd_pos_kernel(const T* __restrict__ qp, const T* 
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < AT_KV_PT; ++j) {
+    for (int j = 0; j < KVPT; ++j) {
       const int o = tid + j * blockDim.x;
       if (o < AT_KT * D) {
         const int pl = o / D, d = o % D;
@@ -472,7 +473,7 @@ __global__ void rel_attention_bwd_pos_kernel(const T* __restrict__ qp, const T* 
     }
   }
 #pragma unroll
-  for (int j = 0; j < AT_KV_PT; ++j) {
+  for (int j = 0; j < KVPT; ++j) {
     const int o = tid + j * blockDim.x;
     if (o < AT_KT * D) {
       const int pl = o / D, d = o % D;
@@ -495,39 +496,43 @@ inline size_t fwd_smem(int S, int D) {
   return (size_t)(2 * AT_TQ * D + AT_KT * (D + 1) + (AT_KT + AT_TQ - 1) * (D + 1) + AT_TQ * Sp) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int OPT>
 int launch_rel_attention(const void* qc, const void* qp, const void* k, const void* v, const void* pos,
                          const void* kv_bias, const void* q_len, void* out, int BH, const RelArgs& a, Dropout dp,
                          cudaStream_t stream) {
   const size_t smem = fwd_smem(a.S, a.D);
-  cudaError_t err = allow_smem(rel_attention_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(rel_attention_fwd_kernel<T, OPT>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Tq + AT_TQ - 1) / AT_TQ, BH);
-  rel_attention_fwd_kernel<T><<<grid, 256, smem, stream>>>((const T*)qc, (const T*)qp, (const T*)k, (const T*)v,
-                                                          (const T*)pos, (const float*)kv_bias, (const int*)q_len,
-                                                          (T*)out, a, dp);
+  rel_attention_fwd_kernel<T, OPT><<<grid, 256, smem, stream>>>((const T*)qc, (const T*)qp, (const T*)k, (const T*)v,
+                                                               (const T*)pos, (const float*)kv_bias, (const int*)q_len,
+                                                               (T*)out, a, dp);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int OPT, int KVPT>
 int launch_rel_attention_bwd(const void* qc, const void* qp, const void* k, const void* v, const void* pos,
                              const void* kv_bias, const void* q_len, const void* out, const void* dout, void* ds,
                              void* pd, void* dqc, void* dqp, void* dk, void* dv, void* dpos, int BH, const RelArgs& a,
                              Dropout dp, cudaStream_t stream) {
   const size_t smem = fwd_smem(a.S, a.D) + (size_t)(AT_TQ * a.D + AT_TQ) * sizeof(float);
-  cudaError_t err = allow_smem(rel_attention_bwd_rows_kernel<T>, smem);
+  cudaError_t err = allow_smem(rel_attention_bwd_rows_kernel<T, OPT>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Tq + AT_TQ - 1) / AT_TQ, BH);
-  rel_attention_bwd_rows_kernel<T><<<grid, 256, smem, stream>>>(
+  rel_attention_bwd_rows_kernel<T, OPT><<<grid, 256, smem, stream>>>(
       (const T*)qc, (const T*)qp, (const T*)k, (const T*)v, (const T*)pos, (const float*)kv_bias, (const int*)q_len,
       (const T*)out, (const T*)dout, (T*)ds, (float*)pd, (T*)dqc, (T*)dqp, a, dp);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // passes 2 and 3 also hold static tiles, so their dynamic size is always declared (above 48 KB in all at head 128)
+  const size_t smem_kv = 2 * AT_RC * a.D * sizeof(float), smem_pos = AT_RC * a.D * sizeof(float);
+  if ((err = cudaFuncSetAttribute(rel_attention_bwd_kv_kernel<T, KVPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv)) != cudaSuccess)
+    return (int)err;
   dim3 grid_kv((a.S + AT_KT - 1) / AT_KT, BH);
-  rel_attention_bwd_kv_kernel<T><<<grid_kv, 256, 2 * AT_RC * a.D * sizeof(float), stream>>>(
+  rel_attention_bwd_kv_kernel<T, KVPT><<<grid_kv, 256, smem_kv, stream>>>(
       (const T*)qc, (const T*)dout, (const T*)ds, (const float*)pd, (T*)dk, (T*)dv, a.Tq, a.S, a.D);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   dim3 grid_pos((a.R + AT_KT - 1) / AT_KT, BH);
-  rel_attention_bwd_pos_kernel<T><<<grid_pos, 256, AT_RC * a.D * sizeof(float), stream>>>(
+  rel_attention_bwd_pos_kernel<T, KVPT><<<grid_pos, 256, smem_pos, stream>>>(
       (const T*)qp, (const T*)ds, (T*)dpos, a.Tq, a.S, a.R, a.D, a.extra);
   return (int)cudaGetLastError();
 }
@@ -551,7 +556,9 @@ extern "C" int tfasr_rel_attention(const void* qc, const void* qp, const void* k
   if (dtype == kBF16)
     return launch_rel_attention_mma(qc, qp, k, v, pos, kv_bias, q_len, out, stats, BH, H, Tq, S, R, D, extra, causal, has_chunk, chunk, history,
                                     dp, (cudaStream_t)stream);
-  return launch_rel_attention<float>(qc, qp, k, v, pos, kv_bias, q_len, out, BH, a, dp, (cudaStream_t)stream);
+  if (D > 2 * AT_D_SMALL) return (int)cudaErrorInvalidValue;
+  if (D > AT_D_SMALL) return launch_rel_attention<float, 8>(qc, qp, k, v, pos, kv_bias, q_len, out, BH, a, dp, (cudaStream_t)stream);
+  return launch_rel_attention<float, 4>(qc, qp, k, v, pos, kv_bias, q_len, out, BH, a, dp, (cudaStream_t)stream);
 }
 
 // Gradients of tfasr_rel_attention: out is its output, dout [BH, T, D];
@@ -571,6 +578,10 @@ extern "C" int tfasr_rel_attention_bwd(const void* qc, const void* qp, const voi
   if (dtype == kBF16)
     return launch_rel_attention_mma_bwd(qc, qp, k, v, pos, kv_bias, q_len, out, dout, stats, ds, pd, dqc, dqp, dk, dv, dpos, BH, H, Tq, S, R, D,
                                         extra, causal, has_chunk, chunk, history, dp, (cudaStream_t)stream);
-  return launch_rel_attention_bwd<float>(qc, qp, k, v, pos, kv_bias, q_len, out, dout, ds, pd, dqc, dqp, dk, dv, dpos,
-                                         BH, a, dp, (cudaStream_t)stream);
+  if (D > 2 * AT_D_SMALL) return (int)cudaErrorInvalidValue;
+  if (D > AT_D_SMALL)
+    return launch_rel_attention_bwd<float, 8, 32>(qc, qp, k, v, pos, kv_bias, q_len, out, dout, ds, pd, dqc, dqp, dk, dv, dpos, BH, a, dp,
+                                                  (cudaStream_t)stream);
+  return launch_rel_attention_bwd<float, 4, 16>(qc, qp, k, v, pos, kv_bias, q_len, out, dout, ds, pd, dqc, dqp, dk, dv, dpos, BH, a, dp,
+                                                (cudaStream_t)stream);
 }

@@ -53,6 +53,12 @@
 //  - dpos: one block per (b.h, 64 positions) gathers ds along the diagonals
 //    into a band tile, dw[i, p] = ds[i, p - (T-1-i) - extra], over the query
 //    rows that reach those positions, and forms dpos += dw^T . qp.
+// Heads above 64 (up to 128: the relative-PE Transformer's) run the same tiles
+// with a 128-column head: the forward and dq take one block per SM (195,584 and
+// 213,248 B of shared memory), and the dq pass runs each (b.h, 64 rows) as two
+// blocks of 64 output columns (grid z), each recomputing the scores, so that
+// its two accumulators stay at head 64's registers. Every tile is computed:
+// none is skipped where the chunk mask hides it.
 // What bounds it: at b.h 64, T = S = 400, head 36 (Dp 48) the forward is
 // ~5.5 and the backward ~10 b.h.T.S.Dp tensor-core operations (~5 and ~10
 // GFLOP: ~5 and ~10 us at 989 TFLOP/s) beside ~40 MB of bf16 ds and pd
@@ -317,7 +323,7 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_fwd(const bf16* __restrict
   am_store<DMAX>(out + (size_t)bh * T * a.D, o, row_lo, T, a.D, tig * 2);
 }
 
-template <int DMAX>
+template <int DMAX, int DO>
 __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict__ qc, const bf16* __restrict__ qp, const bf16* __restrict__ k,
                                                          const bf16* __restrict__ v, const bf16* __restrict__ pos, const bf16* __restrict__ out,
                                                          const bf16* __restrict__ dout, const float* __restrict__ stats, bf16* __restrict__ ds_o,
@@ -330,6 +336,9 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict_
   float* delta_s = sm.band + 4 * 16 * RB_BLD;  // [64]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
   const int bh = blockIdx.y, i0 = blockIdx.x * RB_BLOCK;
+  // the block's output columns [c0, c0 + DO) of dqc and dqp; only the first column block writes ds and pd
+  const int c0 = DO < DMAX ? (int)blockIdx.z * DO : 0, nko = min(DO, a.Dp - c0) / 16;
+  const bool writes_ds = DO == DMAX || blockIdx.z == 0;
   const bf16* kb = k + (size_t)bh * S * D;
   const bf16* vb = v + (size_t)bh * S * D;
   const bf16* pb = pos + (size_t)bh * a.R * D;
@@ -372,9 +381,9 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict_
   }
   const unsigned int seed = dp.seed + (unsigned int)bh * RB_SALT_BH;
   const size_t soff = (size_t)bh * T * a.Sp;
-  float aq[DMAX / 8][4], ap[DMAX / 8][4];
+  float aq[DO / 8][4], ap[DO / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < DMAX / 8; ++dt) {
+  for (int dt = 0; dt < DO / 8; ++dt) {
     aq[dt][0] = aq[dt][1] = aq[dt][2] = aq[dt][3] = 0.f;
     ap[dt][0] = ap[dt][1] = ap[dt][2] = ap[dt][3] = 0.f;
   }
@@ -417,7 +426,7 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict_
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row_lo + h * 8, col = j * RB_KT + tig * 2 + nt * 8;
-        if (row < T && col < S) {
+        if (writes_ds && row < T && col < S) {
           const size_t o = soff + (size_t)row * a.Sp + col;
           const __nv_bfloat162 hi = __floats2bfloat162_rn(pd[2 * h], pd[2 * h + 1]);
           *reinterpret_cast<__nv_bfloat162*>(ds_o + o) = __floats2bfloat162_rn(s[nt][2 * h], s[nt][2 * h + 1]);
@@ -429,7 +438,7 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict_
     }
     uint32_t pa[RB_KT / 16][4];
     frag_to_a<RB_KT / 16>(pa, s);
-    am_pv<DMAX, RB_KT / 16>(aq, pa, kt, LD, nk, lane);
+    am_pv<DO, RB_KT / 16>(aq, pa, kt + c0, LD, nko, lane);
     // dqp: ds scattered into the skewed band, times the pos window
     __syncwarp();  // the band's f32 reads are done
     for (int i = lane; i < 16 * RB_HLD / 2; i += 32) reinterpret_cast<uint32_t*>(bandh)[i] = 0u;
@@ -446,11 +455,11 @@ __global__ void __launch_bounds__(RB_THREADS) rel_mma_dq(const bf16* __restrict_
     uint32_t pb_[RB_BAND / 16][4];
 #pragma unroll
     for (int ks = 0; ks < RB_BAND / 16; ++ks) load_a(pb_[ks], bandh + ks * 16, RB_HLD, lane);
-    am_pv<DMAX, RB_BAND / 16>(ap, pb_, posw, LD, nk, lane);
+    am_pv<DO, RB_BAND / 16>(ap, pb_, posw + c0, LD, nko, lane);
     __syncthreads();
   }
-  am_store<DMAX>(dqc + qoff, aq, row_lo, T, D, tig * 2);
-  am_store<DMAX>(dqp + qoff, ap, row_lo, T, D, tig * 2);
+  am_store<DO>(dqc + qoff, aq, row_lo, T, D, c0 + tig * 2);
+  am_store<DO>(dqp + qoff, ap, row_lo, T, D, c0 + tig * 2);
 }
 
 // Stage a [32 query rows][64 columns] bf16 tile of x ([T, Sp] rows of one b.h)
@@ -559,7 +568,12 @@ size_t rb_dq_smem(int Dp) { return rb_fwd_smem(Dp) + (size_t)RB_BLOCK * (Dp + AM
 size_t rb_dkv_smem(int Dp) { return (size_t)(6 * RB_QT * RB_TLD + 4 * RB_QT * (Dp + AM_PAD)) * sizeof(bf16); }
 size_t rb_dpos_smem(int Dp) { return (size_t)(RB_QT * RB_TLD + RB_QT * (Dp + AM_PAD)) * sizeof(bf16); }
 
-constexpr int RB_DMAX = 64;  // head sizes up to 64
+// Head sizes up to 64 run the DMAX 64 instantiation (the code and times of the heads 36, 44 and 64); up to 128 the
+// DMAX 128 one. At 128 the forward keeps its 16 x 128 f32 output accumulator (64 registers a lane) and the dq pass
+// splits the head into two column blocks of 64 (grid z): each recomputes the scores, so that a block's two
+// accumulators (dqc and dqp) stay at 2 x 16 x 64 f32 as at head 64. Shared memory at 128: forward 195,584 B and
+// dq 213,248 B (one block per SM), dk/dv 62,464 B, dpos 13,312 B.
+constexpr int RB_DMAX = 64, RB_DMAX_WIDE = 128, RB_DQ_COLS = 64;
 
 RelMma rb_args(const void* const* ptrs, int n, int BH, int H, int T, int S, int R, int D, int extra, int causal, int has_chunk, int chunk,
                int history, const void* kv_bias, const void* q_len) {
@@ -570,28 +584,75 @@ RelMma rb_args(const void* const* ptrs, int n, int BH, int H, int T, int S, int 
                 (const float*)kv_bias, (const int*)q_len};
 }
 
+template <int DMAX>
 int rb_fwd_launch(const void* qc, const void* qp, const void* k, const void* v, const void* pos, void* out, float* stats, const RelMma& a, Dropout dp,
                   cudaStream_t stream) {
   const size_t smem = rb_fwd_smem(a.Dp);
-  cudaError_t err = allow_smem(rel_mma_fwd<RB_DMAX>, smem);
+  cudaError_t err = allow_smem(rel_mma_fwd<DMAX>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.T + RB_BLOCK - 1) / RB_BLOCK, a.BH);
-  rel_mma_fwd<RB_DMAX><<<grid, RB_THREADS, smem, stream>>>((const bf16*)qc, (const bf16*)qp, (const bf16*)k, (const bf16*)v, (const bf16*)pos,
-                                                           (bf16*)out, stats, a, dp);
+  rel_mma_fwd<DMAX><<<grid, RB_THREADS, smem, stream>>>((const bf16*)qc, (const bf16*)qp, (const bf16*)k, (const bf16*)v, (const bf16*)pos,
+                                                        (bf16*)out, stats, a, dp);
   return (int)cudaGetLastError();
+}
+
+template <int DMAX, int DO>
+int rb_bwd_launch(const void* qc, const void* qp, const void* k, const void* v, const void* pos, const void* out, const void* dout, const float* stats,
+                  void* ds, void* pd, void* dqc, void* dqp, void* dk, void* dv, void* dpos, const RelMma& a, Dropout dp, cudaStream_t stream) {
+  const int T = a.T, S = a.S, R = a.R, BH = a.BH;
+  size_t smem = rb_dq_smem(a.Dp);
+  cudaError_t err = allow_smem(rel_mma_dq<DMAX, DO>, smem);
+  if (err != cudaSuccess) return (int)err;
+  rel_mma_dq<DMAX, DO><<<dim3((T + RB_BLOCK - 1) / RB_BLOCK, BH, DMAX / DO), RB_THREADS, smem, stream>>>(
+      (const bf16*)qc, (const bf16*)qp, (const bf16*)k, (const bf16*)v, (const bf16*)pos, (const bf16*)out, (const bf16*)dout, stats, (bf16*)ds,
+      (bf16*)pd, (bf16*)dqc, (bf16*)dqp, a, dp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  smem = rb_dkv_smem(a.Dp);
+  if ((err = allow_smem(rel_mma_dkv<DMAX>, smem)) != cudaSuccess) return (int)err;
+  rel_mma_dkv<DMAX><<<dim3((S + RB_BLOCK - 1) / RB_BLOCK, BH), RB_THREADS, smem, stream>>>(
+      (const bf16*)qc, (const bf16*)dout, (const bf16*)ds, (const bf16*)pd, (bf16*)dk, (bf16*)dv, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  smem = rb_dpos_smem(a.Dp);
+  if ((err = allow_smem(rel_mma_dpos<DMAX>, smem)) != cudaSuccess) return (int)err;
+  rel_mma_dpos<DMAX><<<dim3((R + RB_BLOCK - 1) / RB_BLOCK, BH), RB_THREADS, smem, stream>>>((const bf16*)qp, (const bf16*)ds, (bf16*)dpos, a);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX, int DO>
+int rb_occupancy(int which, size_t smem, int& blocks) {
+  cudaError_t err;
+  switch (which) {
+    case 0:
+      if ((err = allow_smem(rel_mma_fwd<DMAX>, smem)) == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_fwd<DMAX>, RB_THREADS, smem);
+      break;
+    case 1:
+      if ((err = allow_smem(rel_mma_dq<DMAX, DO>, smem)) == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_dq<DMAX, DO>, RB_THREADS, smem);
+      break;
+    case 2:
+      if ((err = allow_smem(rel_mma_dkv<DMAX>, smem)) == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_dkv<DMAX>, RB_THREADS, smem);
+      break;
+    default:
+      if ((err = allow_smem(rel_mma_dpos<DMAX>, smem)) == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_dpos<DMAX>, RB_THREADS, smem);
+  }
+  return (int)err;
 }
 
 }  // namespace
 
 // bf16 qc/qp [BH, T, D], k/v [BH, S, D], pos [BH, R, D]; out [BH, T, D];
-// stats [2, BH, T] f32 (m, then l) or NULL. D <= 64.
+// stats [2, BH, T] f32 (m, then l) or NULL. D <= 128.
 int launch_rel_attention_mma(const void* qc, const void* qp, const void* k, const void* v, const void* pos, const void* kv_bias, const void* q_len,
                              void* out, float* stats, int BH, int H, int T, int S, int R, int D, int extra, int causal, int has_chunk, int chunk,
                              int history, Dropout dp, cudaStream_t stream) {
-  if (D > RB_DMAX || out == nullptr) return (int)cudaErrorInvalidValue;
+  if (D > RB_DMAX_WIDE || out == nullptr) return (int)cudaErrorInvalidValue;
   const void* ptrs[5] = {qc, qp, k, v, pos};  // the staged inputs
   const RelMma a = rb_args(ptrs, 5, BH, H, T, S, R, D, extra, causal, has_chunk, chunk, history, kv_bias, q_len);
-  return rb_fwd_launch(qc, qp, k, v, pos, out, stats, a, dp, stream);
+  return D > RB_DMAX ? rb_fwd_launch<RB_DMAX_WIDE>(qc, qp, k, v, pos, out, stats, a, dp, stream)
+                     : rb_fwd_launch<RB_DMAX>(qc, qp, k, v, pos, out, stats, a, dp, stream);
 }
 
 // Gradients: out, dout [BH, T, D]; stats from the forward; ds [BH, T, Sp] and
@@ -601,25 +662,12 @@ int launch_rel_attention_mma_bwd(const void* qc, const void* qp, const void* k, 
                                  const void* q_len, const void* out, const void* dout, const float* stats, void* ds, void* pd, void* dqc, void* dqp,
                                  void* dk, void* dv, void* dpos, int BH, int H, int T, int S, int R, int D, int extra, int causal, int has_chunk,
                                  int chunk, int history, Dropout dp, cudaStream_t stream) {
-  if (D > RB_DMAX || stats == nullptr) return (int)cudaErrorInvalidValue;
+  if (D > RB_DMAX_WIDE || stats == nullptr) return (int)cudaErrorInvalidValue;
   const void* ptrs[6] = {qc, qp, k, v, pos, dout};  // the staged inputs
   const RelMma a = rb_args(ptrs, 6, BH, H, T, S, R, D, extra, causal, has_chunk, chunk, history, kv_bias, q_len);
-  size_t smem = rb_dq_smem(a.Dp);
-  cudaError_t err = allow_smem(rel_mma_dq<RB_DMAX>, smem);
-  if (err != cudaSuccess) return (int)err;
-  rel_mma_dq<RB_DMAX><<<dim3((T + RB_BLOCK - 1) / RB_BLOCK, BH), RB_THREADS, smem, stream>>>(
-      (const bf16*)qc, (const bf16*)qp, (const bf16*)k, (const bf16*)v, (const bf16*)pos, (const bf16*)out, (const bf16*)dout, stats, (bf16*)ds,
-      (bf16*)pd, (bf16*)dqc, (bf16*)dqp, a, dp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  smem = rb_dkv_smem(a.Dp);
-  if ((err = allow_smem(rel_mma_dkv<RB_DMAX>, smem)) != cudaSuccess) return (int)err;
-  rel_mma_dkv<RB_DMAX><<<dim3((S + RB_BLOCK - 1) / RB_BLOCK, BH), RB_THREADS, smem, stream>>>(
-      (const bf16*)qc, (const bf16*)dout, (const bf16*)ds, (const bf16*)pd, (bf16*)dk, (bf16*)dv, a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  smem = rb_dpos_smem(a.Dp);
-  if ((err = allow_smem(rel_mma_dpos<RB_DMAX>, smem)) != cudaSuccess) return (int)err;
-  rel_mma_dpos<RB_DMAX><<<dim3((R + RB_BLOCK - 1) / RB_BLOCK, BH), RB_THREADS, smem, stream>>>((const bf16*)qp, (const bf16*)ds, (bf16*)dpos, a);
-  return (int)cudaGetLastError();
+  if (D > RB_DMAX)
+    return rb_bwd_launch<RB_DMAX_WIDE, RB_DQ_COLS>(qc, qp, k, v, pos, out, dout, stats, ds, pd, dqc, dqp, dk, dv, dpos, a, dp, stream);
+  return rb_bwd_launch<RB_DMAX, RB_DMAX>(qc, qp, k, v, pos, out, dout, stats, ds, pd, dqc, dqp, dk, dv, dpos, a, dp, stream);
 }
 
 }  // namespace tfasr
@@ -638,30 +686,14 @@ extern "C" long long tfasr_rel_mma_smem(int D, int which) {
   }
 }
 
-// Blocks per SM of that kernel on the current card; a negative value is the CUDA error.
+// Blocks per SM of that kernel on the current card (the instantiation that head size D runs); a negative value is
+// the CUDA error.
 extern "C" int tfasr_rel_mma_occupancy(int D, int which) {
   using namespace tfasr;
   const size_t smem = (size_t)tfasr_rel_mma_smem(D, which);
   int blocks = -1;
-  cudaError_t err;
-  switch (which) {
-    case 0:
-      if ((err = allow_smem(rel_mma_fwd<RB_DMAX>, smem)) == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_fwd<RB_DMAX>, RB_THREADS, smem);
-      break;
-    case 1:
-      if ((err = allow_smem(rel_mma_dq<RB_DMAX>, smem)) == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_dq<RB_DMAX>, RB_THREADS, smem);
-      break;
-    case 2:
-      if ((err = allow_smem(rel_mma_dkv<RB_DMAX>, smem)) == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_dkv<RB_DMAX>, RB_THREADS, smem);
-      break;
-    default:
-      if ((err = allow_smem(rel_mma_dpos<RB_DMAX>, smem)) == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rel_mma_dpos<RB_DMAX>, RB_THREADS, smem);
-  }
-  return err == cudaSuccess ? blocks : -(int)err;
+  const int err = D > RB_DMAX ? rb_occupancy<RB_DMAX_WIDE, RB_DQ_COLS>(which, smem, blocks) : rb_occupancy<RB_DMAX, RB_DMAX>(which, smem, blocks);
+  return err == 0 ? blocks : -err;
 }
 
 // The kernels' index maps (rb_window_base, rb_band_col, rb_dpos_rows), for the card's check.

@@ -1,15 +1,21 @@
 """Transformer encoder (counterpart of ``tensorflowasr_tpu/models/encoders/transformer.py``).
 
-subsampling → linear → dropout → the activations scaled by √dmodel plus
-the absolute sinusoidal PE → N × TransformerBlock, each block the MHSA
-module (vanilla MHA through kernel A, ``ops/cuda/attention_kernel.fused_attention``)
-and a pointwise FFN (plain Dense layers: JAX has no kernel there), with
-LayerNorm before (``norm_position="pre"``) or after (``"post"``) each, and
-the query mask from the lengths. With ``memory_length`` each block's
-attention keeps a KV memory (``init_state``, ``forward(initial_state=...)``;
-kernel A then runs with S = M + T keys). Parameter names mirror the JAX
-tree, so ``bridge.py`` maps one onto the other. The relative-PE variant
-(``mha_type="relmha"``) is not ported yet and raises.
+subsampling → linear → dropout → the positional encoding → N ×
+TransformerBlock, each block the MHSA module and a pointwise FFN (plain
+Dense layers: JAX has no kernel there), with LayerNorm before
+(``norm_position="pre"``) or after (``"post"``) each, and the query mask
+from the lengths. ``mha_type="mha"``: the activations scaled by √dmodel plus
+the absolute sinusoidal PE, vanilla MHA through kernel A
+(``ops/cuda/attention_kernel.fused_attention``). ``"relmha"``: the unscaled
+relative sinusoidal PE (``relmha_causal`` its causal length convention,
+R = T + M), Transformer-XL attention through kernel B
+(``fused_rel_attention``) with ``relmha_causal`` and, under
+``use_attention_bias``, each block's own content and positional biases
+(zero biases otherwise: the Transformer has no encoder-global ones). With
+``memory_length`` each block's attention keeps a KV memory (``init_state``,
+``forward(initial_state=...)``; the kernels then run with S = M + T keys).
+Parameter names mirror the JAX tree, so ``bridge.py`` maps one onto the
+other.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch.nn as nn
 from tensorflowasr_tpu_torch.models.encoders.conformer import MHSAModule, build_subsampling
 from tensorflowasr_tpu_torch.models.layers.attention import MemoryState
 from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation
-from tensorflowasr_tpu_torch.models.layers.positional import SinusoidalPositionalEncoding
+from tensorflowasr_tpu_torch.models.layers.positional import RelativeSinusoidalPositionalEncoding, SinusoidalPositionalEncoding
 from tensorflowasr_tpu_torch.models.layers.residual import residual
 from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.utils import math_util
@@ -53,15 +59,17 @@ class PointwiseFFN(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, dmodel: int, dff: int, num_heads: int, head_size: int, norm_position: str = "post", residual_factor: float = 1.0,
                  pwffn_activation: str = "relu", dropout: float = 0.1, chunk_size: Optional[int] = None, history_size: Optional[int] = None,
-                 dtype=torch.float32, memory_length: Optional[int] = None):
+                 dtype=torch.float32, memory_length: Optional[int] = None, mha_type: str = "mha", relmha_causal: bool = False,
+                 use_attention_bias: bool = False):
         super().__init__()
-        self.mhsa_module = MHSAModule(dmodel, head_size, num_heads, residual_factor, chunk_size=chunk_size, history_size=history_size, dropout=dropout,
-                                      dtype=dtype, mha_type="mha", norm_position=norm_position, memory_length=memory_length)
+        self.mhsa_module = MHSAModule(dmodel, head_size, num_heads, residual_factor, relmha_causal, chunk_size, history_size, dropout, dtype,
+                                      mha_type, norm_position, use_attention_bias, memory_length)
         self.pwffn = PointwiseFFN(dmodel, dff, pwffn_activation, dropout, norm_position, residual_factor, dtype)
 
-    def forward(self, x, mask=None, memory_state=None, use_causal_mask: bool = False, train: bool = False, generator: Optional[torch.Generator] = None):
-        """Returns ``(out, new_memory)``."""
-        x, new_memory = self.mhsa_module(x, None, mask=mask, memory_state=memory_state, use_causal_mask=use_causal_mask, train=train,
+    def forward(self, x, relpe=None, mask=None, memory_state=None, use_causal_mask: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Returns ``(out, new_memory)``; ``relpe`` [B, R, D] under ``relmha``."""
+        x, new_memory = self.mhsa_module(x, relpe, mask=mask, memory_state=memory_state, use_causal_mask=use_causal_mask, train=train,
                                          generator=generator)
         return self.pwffn(x, train, generator), new_memory
 
@@ -76,16 +84,20 @@ class TransformerEncoder(nn.Module):
                  use_attention_auto_mask: bool = True, use_attention_bias: bool = False, pwffn_activation: str = "relu",
                  memory_length: Optional[int] = None, history_size: Optional[int] = None, chunk_size: Optional[int] = None, dtype=torch.float32):
         super().__init__()
-        if mha_type != "mha" or relmha_causal or use_attention_bias:
-            raise NotImplementedError("the relative-PE Transformer encoder (mha_type='relmha') is not ported yet")
+        if mha_type not in ("mha", "relmha"):
+            raise ValueError(f"mha_type {mha_type!r} must be mha or relmha")
         self.num_blocks, self.dropout, self.dmodel, self.memory_length = num_blocks, float(dropout), dmodel, memory_length
         self.use_attention_causal_mask, self.use_attention_auto_mask = use_attention_causal_mask, use_attention_auto_mask
         self.subsampling = build_subsampling(subsampling, in_features, dtype)
         self.linear = Dense(self.subsampling.output_dim, dmodel, dtype)
-        self.pe = SinusoidalPositionalEncoding(scale=float(dmodel) ** 0.5, interleave=interleave_relpe)
+        if mha_type == "relmha":
+            self.pe = RelativeSinusoidalPositionalEncoding(interleave=interleave_relpe, memory_length=memory_length, causal=relmha_causal, dtype=dtype)
+        else:
+            self.pe = SinusoidalPositionalEncoding(scale=float(dmodel) ** 0.5, interleave=interleave_relpe)
         for i in range(num_blocks):
             self.add_module(f"block_{i}", TransformerBlock(dmodel, dff, num_heads, head_size, norm_position, residual_factor, pwffn_activation,
-                                                           dropout, chunk_size, history_size, dtype, memory_length))
+                                                           dropout, chunk_size, history_size, dtype, memory_length, mha_type, relmha_causal,
+                                                           use_attention_bias))
 
     def init_state(self, batch: int, device=None) -> Optional[list]:
         """One zero KV memory per block (JAX ``init_state``); None without ``memory_length``."""
@@ -101,12 +113,12 @@ class TransformerEncoder(nn.Module):
         x, lengths = self.subsampling(features, features_length, train=train)
         x = self.linear(x)
         x = dr.dropout(x, dr.active_rate(self.dropout, train, generator), generator)
-        x, _ = self.pe(x, lengths)
+        x, relpe = self.pe(x, lengths)
         mask = math_util.sequence_mask(lengths, x.shape[1]) if self.use_attention_auto_mask else None
         new_states = []
         for i in range(self.num_blocks):
             mem = None if initial_state is None else initial_state[i]
-            x, new_mem = getattr(self, f"block_{i}")(x, mask, mem, self.use_attention_causal_mask, train, generator)
+            x, new_mem = getattr(self, f"block_{i}")(x, relpe, mask, mem, self.use_attention_causal_mask, train, generator)
             if new_mem is not None:
                 new_states.append(new_mem)
         return x, lengths, (new_states or None)

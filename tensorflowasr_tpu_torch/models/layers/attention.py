@@ -11,8 +11,12 @@ runs the score, softmax and P·V chain in kernel A
 its score, shift, mask and softmax chain in kernel B
 (``fused_rel_attention``). Each kernel's plain version runs on the CPU.
 The XLA-semantics helpers ``rel_left_shift``, the mask builders and
-``_merge_masks`` are plain torch; kernel B does not take an explicit
-``attention_mask``.
+``_merge_masks`` are plain torch. Kernel B rebuilds visibility from its
+parameters, so relative attention with an explicit ``attention_mask``
+takes JAX's fallback: the positional scores ``qp·posᵀ`` in plain torch,
+``rel_left_shift`` and the last S columns, then kernel A with the bias
+``positional + (1 − mask)·(−1e9)`` (its gradient flows back to ``qp`` and
+``pos`` through kernel A's bias gradient).
 
 Streaming: with ``memory_length`` M and a ``memory_state`` (``MemoryState``:
 the last M raw key/value inputs and their mask), both modules prepend the
@@ -106,6 +110,23 @@ def _merge_masks(t: int, s: int, query_mask, kv_mask, attention_mask, use_causal
     return mask
 
 
+def _fused_attend(q, k, v, bias, rate: float, generator: Optional[torch.Generator]):
+    """[B, T, N, H] q (scaled), [B, S, N, H] k/v and an additive bias [B|1, N|1, T, S]
+    → [B, T, N, H] through kernel A (JAX ``_fused_attend``): the bias folded
+    to [B·N, T, S] (or [1, T, S] when it broadcasts), one dropout seed drawn
+    from ``generator`` when ``rate`` > 0."""
+    b, t, n, h = q.shape
+    s = k.shape[1]
+    if bias.shape[0] == 1 and bias.shape[1] == 1:
+        bias = bias.reshape(1, t, s)
+    else:
+        bias = bias.expand(b, n, t, s).reshape(b * n, t, s)
+    fold = lambda x: x.transpose(1, 2).reshape(b * n, x.shape[1], h).contiguous()
+    seed = dr.draw_seed(generator) if rate > 0.0 else 0
+    out = fused_attention(fold(q), fold(k), fold(v), bias.contiguous(), seed, rate)
+    return out.reshape(b, n, t, h).transpose(1, 2)
+
+
 class MultiHeadAttention(nn.Module):
     """Vanilla MHA (JAX ``MultiHeadAttention``): ``forward(query, value,
     key=None, ...) → ([B, T, output_dim], new_memory)``. ``train`` with a
@@ -126,22 +147,13 @@ class MultiHeadAttention(nn.Module):
     def _attend(self, q, k, v, mask, train: bool, generator: Optional[torch.Generator]):
         """[B, T, N, H] q, [B, S, N, H] k/v and the merged mask → [B, T, N, H]
         through kernel A, with the Keras-parity bias (JAX ``_attend`` and ``_fused_attend``)."""
-        b, t, n, h = q.shape
-        s = k.shape[1]
+        t, s = q.shape[1], k.shape[1]
         scale = torch.tensor(1.0 / math.sqrt(self.key_dim), dtype=q.dtype)
         if mask is None:
             bias = torch.zeros((1, 1, t, s), dtype=q.dtype, device=q.device)
         else:
             bias = ((1.0 - mask.float()) * -1e9).expand(*mask.shape[:2], t, s).to(q.dtype)
-        if bias.shape[0] == 1 and bias.shape[1] == 1:
-            bias = bias.reshape(1, t, s)
-        else:
-            bias = bias.expand(b, n, t, s).reshape(b * n, t, s)
-        fold = lambda x: x.transpose(1, 2).reshape(b * n, x.shape[1], h).contiguous()
-        rate = dr.active_rate(self.dropout, train, generator)
-        seed = dr.draw_seed(generator) if rate > 0.0 else 0
-        out = fused_attention(fold(q * scale), fold(k), fold(v), bias.contiguous(), seed, rate)
-        return out.reshape(b, n, t, h).transpose(1, 2)
+        return _fused_attend(q * scale, k, v, bias, dr.active_rate(self.dropout, train, generator), generator)
 
     def forward(self, query: torch.Tensor, value: torch.Tensor, key: Optional[torch.Tensor] = None, *, query_mask: Optional[torch.Tensor] = None,
                 kv_mask: Optional[torch.Tensor] = None, attention_mask: Optional[torch.Tensor] = None, use_causal_mask: bool = False,
@@ -189,9 +201,8 @@ class MultiHeadRelativeAttention(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """Returns ``(out, new_memory)``. ``train`` with a ``generator``:
         probability dropout at the layer's rate, in-kernel, under one seed
-        drawn from the generator."""
-        if attention_mask is not None:
-            raise NotImplementedError("an explicit attention_mask is not ported (the fused kernel rebuilds visibility from its parameters)")
+        drawn from the generator. An ``attention_mask`` ([B, T, S] or [B, 1,
+        T, S] bool) takes kernel A (see the module docstring)."""
         key, value, kv_mask, new_memory = _apply_memory(self.memory_length, value, value, kv_mask, memory_state, train)
         b, t = query.shape[:2]
         n, hd = self.num_heads, self.key_dim
@@ -210,12 +221,20 @@ class MultiHeadRelativeAttention(nn.Module):
         content_q = (q + cbias.to(q.dtype)) * scale
         positional_q = (q + pbias.to(q.dtype)) * scale
 
+        rate = dr.active_rate(self.dropout, train, generator)
+        if attention_mask is not None:
+            s = k.shape[1]
+            positional = rel_left_shift(torch.einsum("btnh,brnh->bntr", positional_q, pos), causal=self.causal)
+            positional = positional[..., positional.shape[-1] - s:]
+            mask = _merge_masks(t, s, query_mask, kv_mask, attention_mask, use_causal_mask, self.chunk_size, self.history_size, query.device)
+            bias = positional if mask is None else positional + ((1.0 - mask.float()) * -1e9).to(positional.dtype)
+            out = _fused_attend(content_q, k, v, bias, rate, generator).reshape(b, t, n * hd)
+            return self.output(out), new_memory
         fold = lambda x: x.transpose(1, 2).reshape(b * n, x.shape[1], hd).contiguous()
         kv_bias = None
         if kv_mask is not None:
             kv_bias = ((~kv_mask).float() * -1e9)[:, None, :].contiguous()
         q_len = query_mask.sum(dim=1, dtype=torch.int32) if query_mask is not None else None
-        rate = dr.active_rate(self.dropout, train, generator)
         seed = dr.draw_seed(generator) if rate > 0.0 else 0
         out = fused_rel_attention(fold(content_q), fold(positional_q), fold(k), fold(v), fold(pos), kv_bias, q_len, seed, rate,
                                   bool(use_causal_mask), self.chunk_size, self.history_size, bool(self.causal))

@@ -58,24 +58,28 @@ class Conv2D(nn.Module):
 
 
 class Conv1D(nn.Module):
-    """[B, T, Cin] → [B, T', Cout]; ``groups`` for grouped/depthwise convs."""
+    """[B, T, Cin] → [B, T', Cout]; ``groups`` for grouped/depthwise convs;
+    ``use_bias=False`` holds no bias (DeepSpeech2's RowConv)."""
 
-    def __init__(self, in_channels: int, filters: int, kernel_size: int, strides: int = 1, padding: str = "same", dilation: int = 1, groups: int = 1, dtype=torch.float32):
+    def __init__(self, in_channels: int, filters: int, kernel_size: int, strides: int = 1, padding: str = "same", dilation: int = 1, groups: int = 1,
+                 dtype=torch.float32, use_bias: bool = True):
         super().__init__()
         self.kernel_size, self.strides, self.padding, self.dilation, self.groups, self.dtype = kernel_size, strides, padding, dilation, groups, dtype
         self.weight = nn.Parameter(torch.empty(filters, in_channels // groups, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(filters))
+        self.bias = nn.Parameter(torch.zeros(filters)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt).transpose(1, 2)
         x = F.pad(x, _flat(_pads(self.padding, x.shape[2:], (self.kernel_size,), (self.strides,), (self.dilation,))))
-        y = F.conv1d(x, self.weight.to(dt), self.bias.to(dt), stride=self.strides, dilation=self.dilation, groups=self.groups)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv1d(x, self.weight.to(dt), bias, stride=self.strides, dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
 
 class DepthwiseConv1D(Conv1D):
     """Depthwise [B, T, C] conv (depth multiplier 1): weight [C, 1, K]."""
 
-    def __init__(self, channels: int, kernel_size: int, strides: int = 1, padding: str = "same", dilation: int = 1, dtype=torch.float32):
-        super().__init__(channels, channels, kernel_size, strides, padding, dilation, groups=channels, dtype=dtype)
+    def __init__(self, channels: int, kernel_size: int, strides: int = 1, padding: str = "same", dilation: int = 1, dtype=torch.float32,
+                 use_bias: bool = True):
+        super().__init__(channels, channels, kernel_size, strides, padding, dilation, groups=channels, dtype=dtype, use_bias=use_bias)

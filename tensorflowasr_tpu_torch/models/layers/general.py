@@ -104,6 +104,12 @@ class BatchNorm(nn.Module):
         return ((x.float() - mean) * mul + self.bias).to(self.dtype)
 
 
+def mask_sequence(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Zero the features at padded time positions of [B, T, ...] (JAX ``mask_sequence``)."""
+    m = torch.arange(x.shape[1], device=x.device)[None, :] < lengths.to(x.device, torch.int64)[:, None]
+    return x * m.reshape(m.shape + (1,) * (x.dim() - 2)).to(x.dtype)
+
+
 def make_norm(kind: Optional[str], features: int, dtype=torch.float32) -> nn.Module:
     """Config-selected normalization: "batch" | "layer" | "none" (the
     module itself, so parameter names match the JAX tree once ``bridge``

@@ -1,5 +1,6 @@
-"""LSTM for the transducer prediction network (counterpart of
-``models/layers/rnn.py``, LSTM only).
+"""LSTM layers: the transducer prediction network's and DeepSpeech2's
+unidirectional and bidirectional stacks (counterpart of
+``models/layers/rnn.py``, LSTM only; GRU and the simple RNN raise).
 
 Flax ``OptimizedLSTMCell`` semantics: gates i, f, g, o from
 ``x·W_ih`` (input projections carry NO bias) plus ``h·W_hh + b`` (hidden
@@ -17,6 +18,17 @@ scan); ``"pallas"`` runs the whole-sequence LSTM kernels
 length semantics. JAX also falls back to the scan where its kernel's VMEM
 budget does not fit; the port has no such gate: the kernel's wrapper
 raises for a width it cannot take.
+
+``bidirectional=True`` adds a second cell, ``cell_bwd`` (JAX's parameter
+names), that reads each row's valid frames in reverse, as flax's
+``nn.RNN(reverse=True, keep_order=True)`` does with ``flip_sequences``:
+index j reads frame (T − 1 − j + L) mod T, so the valid frames are
+reversed and the padding, reversed too, follows them; the same map puts
+the outputs back in order. The layer returns ``concat([y_fwd, y_bwd])`` and
+the carries ``(carry_fwd, carry_bwd)``. Under ``"pallas"`` each direction
+runs the LSTM kernels (the flip a gather around the call): JAX keeps its
+scan for a bidirectional layer, so the outputs agree with it on every
+valid frame and are 0 past each row's length, as on JAX's fused path.
 """
 
 from __future__ import annotations
@@ -49,24 +61,39 @@ class LSTMCell(nn.Module):
         return (new_c, new_h), new_h
 
 
-class RNN(nn.Module):
-    """Unidirectional LSTM layer: ``forward(x [B,T,D], lengths) → (y, state)``,
-    ``step(x_t [B,D], state) → (y [B,U], state)``."""
+def flip_sequences(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """flax ``flip_sequences`` on [B, T, ...]: position j of row b takes frame
+    (T − 1 − j + L_b) mod T (a plain reversal without ``lengths``). The map
+    is its own inverse."""
+    t = x.shape[1]
+    if lengths is None:
+        return x.flip(1)
+    idx = (torch.arange(t - 1, -1, -1, device=x.device)[None, :] + lengths.to(x.device, torch.int64)[:, None]) % max(t, 1)
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand_as(x))
 
-    def __init__(self, input_size: int, units: int, rnn_type: str = "lstm", dtype=torch.float32, rnn_impl: str = "auto"):
+
+class RNN(nn.Module):
+    """LSTM layer: ``forward(x [B,T,D], lengths) → (y [B,T,U(·2)], state)``,
+    ``step(x_t [B,D], state) → (y [B,U], state)`` (unidirectional only)."""
+
+    def __init__(self, input_size: int, units: int, rnn_type: str = "lstm", dtype=torch.float32, rnn_impl: str = "auto", bidirectional: bool = False):
         super().__init__()
         if rnn_type != "lstm":
-            raise NotImplementedError(f"rnn_type {rnn_type!r} is not ported yet (lstm only)")
+            raise NotImplementedError(f"rnn_type {rnn_type!r} is not ported yet (lstm only; ROADMAP Queue 1, \"The other transducers, encoders and layers\")")
         if rnn_impl not in RNN_IMPLS:
             raise ValueError(f"rnn_impl {rnn_impl!r} is not one of {RNN_IMPLS}")
-        self.units, self.rnn_impl = units, rnn_impl
+        self.units, self.rnn_impl, self.bidirectional = units, rnn_impl, bidirectional
         self.cell = LSTMCell(input_size, units, dtype)
+        if bidirectional:
+            self.cell_bwd = LSTMCell(input_size, units, dtype)
 
     def init_state(self, batch: int, device=None):
         zero = torch.zeros((batch, self.units), device=device)
-        return (zero, zero)
+        return ((zero, zero), (zero, zero)) if self.bidirectional else (zero, zero)
 
     def step(self, x_t: torch.Tensor, state):
+        if self.bidirectional:
+            raise ValueError("the single-step path is unidirectional only")
         new_state, y = self.cell(state, x_t)
         return y, new_state
 
@@ -74,15 +101,27 @@ class RNN(nn.Module):
         """``"auto"``/``"xla"``: flax ``nn.RNN`` semantics: the scan runs over
         every step (so outputs past a row's length are those of the continued
         scan), and with ``lengths`` the returned state is the one after step
-        ``length − 1`` of each row. ``"pallas"``: :func:`lstm_layer_fused`'s."""
+        ``length − 1`` of each row. ``"pallas"``: :func:`lstm_layer_fused`'s.
+        Bidirectional: ``initial_state`` and the returned state are pairs
+        ``(carry_fwd, carry_bwd)``."""
+        if not self.bidirectional:
+            return self._direction(self.cell, x, lengths, initial_state)
+        init_f, init_b = initial_state if initial_state is not None else (None, None)
+        y_f, carry_f = self._direction(self.cell, x, lengths, init_f)
+        y_b, carry_b = self._direction(self.cell_bwd, flip_sequences(x, lengths), lengths, init_b)
+        return torch.cat([y_f, flip_sequences(y_b, lengths)], dim=-1), (carry_f, carry_b)
+
+    def _direction(self, cell: LSTMCell, x: torch.Tensor, lengths: Optional[torch.Tensor], state):
         b, t = x.shape[:2]
-        state = initial_state if initial_state is not None else self.init_state(b, x.device)
+        if state is None:
+            zero = torch.zeros((b, self.units), device=x.device)
+            state = (zero, zero)
         if self.rnn_impl == "pallas":
             c0, h0 = state
-            return lstm_layer_fused(x, self.cell.weight_ih, self.cell.weight_hh, self.cell.bias, h0, c0, lengths, dtype=self.cell.dtype)
+            return lstm_layer_fused(x, cell.weight_ih, cell.weight_hh, cell.bias, h0, c0, lengths, dtype=cell.dtype)
         ys, states = [], []
         for i in range(t):
-            state, y = self.cell(state, x[:, i])
+            state, y = cell(state, x[:, i])
             ys.append(y)
             states.append(state)
         if lengths is not None and t > 0:

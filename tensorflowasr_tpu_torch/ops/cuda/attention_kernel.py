@@ -20,9 +20,11 @@ the reference. bf16 runs on the tensor cores (``csrc/rel_attention_mma.cu``:
 mma.sync, 64 query rows per block, the relative term as one [16 × 80] band
 product per warp and key tile read back at its skewed column, two forward
 sweeps that keep the rows' softmax statistics for the backward;
-:func:`rel_mma_plan` gives its shared memory); f32 keeps the CUDA-core
-kernels of ``csrc/rel_attention.cu`` (16 rows per block, whole score rows
-resident). Dropout uses the counter hash of ``ops/dropout.py`` indexed by
+:func:`rel_mma_plan` gives its shared memory; heads up to 64 run one
+instantiation, heads up to 128 another, whose dq pass splits the head into
+two column blocks); f32 keeps the CUDA-core kernels of
+``csrc/rel_attention.cu`` (16 rows per block, whole score rows resident,
+4 or 8 outputs a thread by head size). Heads above 128 raise. Dropout uses the counter hash of ``ops/dropout.py`` indexed by
 (b·h, row, column) under the seed ``seed + b·h·40499``, so its masks equal
 JAX's bit for bit.
 
@@ -46,7 +48,8 @@ bwd_launches = 0  # kernel B backward launches since the last reset
 attention_launches = 0  # kernel A forward launches since the last reset
 attention_bwd_launches = 0  # kernel A backward launches since the last reset
 
-_TQ, _KT, _OUT_PER_THREAD, _KV_PER_THREAD, _THREADS = 16, 64, 4, 16, 256  # csrc/rel_attention.cu (the f32 kernels)
+_TQ, _KT, _THREADS = 16, 64, 256  # csrc/rel_attention.cu (the f32 kernels)
+_REL_MAX_D = 128  # both routes: the f32 kernels' accumulators and the bf16 kernels' DMAX 128 instantiation
 _MAX_SMEM = 227 * 1024
 # csrc/rel_attention_mma.cu (the bf16 kernels): rows (or keys, positions) per block, key tile, query tile of
 # the dk/dv and dpos passes, pos window rows, f32 band row stride, bf16 row padding, threads
@@ -199,8 +202,8 @@ def _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causa
         _build.require(kv_bias, "kv_bias", device=dev, dtype=torch.float32, shape=(b, 1, s))
     if q_len is not None:
         _build.require(q_len, "q_len", device=dev, dtype=torch.int32, shape=(b,))
-    if _TQ * d > _THREADS * _OUT_PER_THREAD or _KT * d > _THREADS * _KV_PER_THREAD:  # both routes: 64
-        raise ValueError(f"head size {d} > {_THREADS * _OUT_PER_THREAD // _TQ} is not supported by the kernel")
+    if d > _REL_MAX_D:
+        raise ValueError(f"head size {d} > {_REL_MAX_D} is not supported by the kernel")
     sp = -(-s // _KT) * _KT
     smem = 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp) + 4 * (_TQ * d + _TQ)  # the f32 backward's (bf16 holds no score row)
     if dt == torch.float32 and smem > _MAX_SMEM:

@@ -1,10 +1,14 @@
 """Audio frontend: framing, Hann window, |STFT|², HTK mel filterbank, log
-(counterpart of ``tensorflowasr_tpu/ops/frontend.py``, log-mel chain).
+(counterpart of ``tensorflowasr_tpu/ops/frontend.py``: the log-mel and
+spectrogram chains).
 
-This is the plain PyTorch chain (``torch.fft.rfft``). The serving path on a
-card runs the fused kernel in ``ops/cuda/frontend_kernel.py`` instead; this
-module is that kernel's reference and the CPU path. Only the
-``log_mel_spectrogram`` feature type is ported so far.
+This is the plain PyTorch chain (``torch.fft.rfft``). A natural-log log-mel
+configuration runs the fused kernel in ``ops/cuda/frontend_kernel.py`` on a
+card instead; this module is that kernel's reference and the CPU path, and
+every other configuration's path on the card too (as in JAX). The
+``spectrogram`` feature type is the log of |STFT|² cut to its first
+``num_feature_bins`` bins (DeepSpeech2's). ``mfcc`` and
+``log_gammatone_spectrogram`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.utils import math_util
 
-FEATURE_TYPES = ("log_mel_spectrogram",)
+FEATURE_TYPES = ("log_mel_spectrogram", "spectrogram")
 
 
 def hann_window(length: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -168,6 +172,11 @@ def log_mel_spectrogram(signal: torch.Tensor, config: FrontendConfig) -> torch.T
     return _logarithm(torch.matmul(s, torch.tensor(mel, device=s.device)), config)
 
 
+def spectrogram(signal: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
+    """log(|STFT|² + ε) of the first ``num_feature_bins`` bins, [B, T, F]."""
+    return _logarithm(stft_magnitude_squared(signal, config), config)[:, :, : config.num_feature_bins]
+
+
 def prepare_signal(signal: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     """Signal-stage prep shared by both paths: end padding, peak
     normalisation, preemphasis."""
@@ -178,5 +187,6 @@ def prepare_signal(signal: torch.Tensor, config: FrontendConfig) -> torch.Tensor
 
 def extract_features(signal: torch.Tensor, signal_length: torch.Tensor, config: FrontendConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, N] raw audio → ([B, T, F] features, [B] frame lengths)."""
-    features = normalize_audio_features(log_mel_spectrogram(prepare_signal(signal, config), config), config)
+    extract = spectrogram if config.feature_type == "spectrogram" else log_mel_spectrogram
+    features = normalize_audio_features(extract(prepare_signal(signal, config), config), config)
     return features, config.get_nframes(signal_length.to(torch.int64))

@@ -25,14 +25,15 @@ _MODELS = {
     "models.ctc.conformer>ConformerCtc": ("models.ctc.conformer", "ConformerCtc"),
     "models.ctc.transformer>Transformer": ("models.ctc.transformer", "TransformerCtc"),
     "models.ctc.transformer>TransformerCtc": ("models.ctc.transformer", "TransformerCtc"),
+    "models.ctc.deepspeech2>DeepSpeech2": ("models.ctc.deepspeech2", "DeepSpeech2"),
+    "models.ctc.jasper>Jasper": ("models.ctc.jasper", "Jasper"),
 }
 _BARE = {"Conformer": "models.transducer.conformer>Conformer", "ConformerCtc": "models.ctc.conformer>ConformerCtc",
-         "TransformerCtc": "models.ctc.transformer>TransformerCtc"}
+         "TransformerCtc": "models.ctc.transformer>TransformerCtc", "DeepSpeech2": "models.ctc.deepspeech2>DeepSpeech2",
+         "Jasper": "models.ctc.jasper>Jasper"}
 
-_CTC_REST, _OTHER_TRANSDUCERS = "The rest of the CTC family", "The other transducers, encoders and layers"
+_OTHER_TRANSDUCERS = "The other transducers, encoders and layers"
 _UNPORTED = {
-    "models.ctc.deepspeech2>DeepSpeech2": _CTC_REST,
-    "models.ctc.jasper>Jasper": _CTC_REST,
     "models.transducer.contextnet>ContextNet": _OTHER_TRANSDUCERS,
     "models.transducer.rnnt>RnnTransducer": _OTHER_TRANSDUCERS,
     "models.transducer.transformer>TransformerTransducer": _OTHER_TRANSDUCERS,

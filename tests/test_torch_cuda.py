@@ -89,6 +89,9 @@ ATT_CASES = {
     "extra_shift": (2, 2, 33, 33, 80, 8, False, True, False, None, None, False),
     "causal_pe": (2, 2, 33, 33, 33, 16, False, False, True, None, None, True),
     "no_masks": (1, 4, 17, 17, 33, 64, False, False, False, None, None, False),
+    # heads above 64: the streaming Transformer-CTC's (128, causal PE R = T, chunk mask) and one between the instantiations
+    "head_128_causal_pe_chunk": (2, 4, 70, 70, 70, 128, False, True, False, 16, 64, True),
+    "head_96_kv_bias": (2, 2, 37, 37, 73, 96, True, True, False, None, None, False),
 }
 
 
@@ -200,6 +203,8 @@ ATT_BWD_CASES = {
     "chunked_memory": ATT_CASES["chunked_memory"],
     "extra_shift": ATT_CASES["extra_shift"],
     "causal_pe": ATT_CASES["causal_pe"],
+    "relmha_head_128_train": (4, 4, 200, 200, 200, 128, False, True, False, 16, 64, True),
+    "head_96_kv_bias": ATT_CASES["head_96_kv_bias"],
 }
 
 
@@ -335,7 +340,7 @@ def test_mma_index_maps_match_the_plain_index(dev):
         assert splits >= 1 and per.value % 32 == 0 and (splits - 1) * per.value < n <= splits * per.value, (n, m, k)
 
 
-@pytest.mark.parametrize("d", [36, 44, 64, 8])
+@pytest.mark.parametrize("d", [36, 44, 64, 8, 96, 128])
 def test_rel_mma_plan_matches_the_kernels(dev, d):
     lib = _build.build()
     plan = ak.rel_mma_plan(d)
@@ -549,9 +554,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fk.fused_ff(x.half(), v, v, w.half(), torch.randn(16, device=dev).half(), w.t().contiguous().half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
         fk.fused_ff(x, v, v, torch.randn(16, 8, device=dev).t(), torch.randn(16, device=dev), w.t().contiguous(), v)
-    q = torch.randn(2, 4, 72, device=dev)
+    q = torch.randn(2, 4, 136, device=dev)
     with pytest.raises(ValueError, match="head size"):
-        ak.fused_rel_attention(q, q, q, q, torch.randn(2, 7, 72, device=dev), None, None)
+        ak.fused_rel_attention(q, q, q, q, torch.randn(2, 7, 136, device=dev), None, None)
     q = torch.randn(2, 4, 8, device=dev)
     with pytest.raises(ValueError, match="kv_bias"):
         ak.fused_rel_attention(q, q, q, q, torch.randn(2, 7, 8, device=dev), torch.zeros(2, 1, 5, device=dev), None)
@@ -1374,3 +1379,37 @@ def test_evaluate_dataset_on_the_card_equals_the_cpu_rows(dev, tmp_path):
         reports[-1]["decode_launches"] = dk.launches - before
     assert reports[0]["rows"] == reports[1]["rows"] and reports[0]["greedy"] == reports[1]["greedy"]
     assert (reports[0]["decode_launches"], reports[1]["decode_launches"]) == (2, 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bidirectional_rnn_pallas_route_matches_its_plain_route(dev, dtype):
+    """A bidirectional LSTM layer at DeepSpeech2's width (H 512, input 1280),
+    ragged lengths: the pallas route on the card (the LSTM kernels for each
+    direction, two launches forward and two backward) against the same
+    module on the CPU (the kernels' plain versions): outputs, both carries
+    and every gradient."""
+    from tensorflowasr_tpu_torch.models.layers.rnn import RNN
+
+    b, t, e, h = 3, 41, 1280, 512
+    g = _gen(dev, 41)
+    cpu = RNN(e, h, dtype=dtype, rnn_impl="pallas", bidirectional=True)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())) * (e ** -0.5))
+    card = copy.deepcopy(cpu).to(dev)
+    x = _r(g, dev, (b, t, e), 1.0)
+    lengths = torch.tensor([t, 30, 7], device=dev)
+    dy = _r(g, dev, (b, t, 2 * h), 1.0)
+    results = []
+    for m, xx, ll, dd in ((card, x, lengths, dy), (cpu, x.cpu(), lengths.cpu(), dy.cpu())):
+        xx = xx.clone().requires_grad_(True)
+        before = (lk.launches, lk.bwd_launches)
+        y, ((cf, hf), (cb, hb)) = m(xx, ll)
+        (y.float() * dd).sum().backward()
+        if m is card:
+            assert (lk.launches, lk.bwd_launches) == (before[0] + 2, before[1] + 2)
+        results.append(([y, cf, hf, cb, hb], [xx.grad] + [p.grad for p in m.parameters()]))
+    (outs, grads), (ref_outs, ref_grads) = results
+    for got, ref in zip(outs, ref_outs):
+        torch.testing.assert_close(got.detach().cpu().float(), ref.detach().float(), **TOL[dtype])
+    _grads_close([g_.cpu() for g_ in grads], ref_grads, GRAD_REL[dtype], "bidirectional pallas rnn")

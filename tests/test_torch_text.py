@@ -33,6 +33,8 @@ from tensorflowasr_tpu_torch import registry, tokenizers
 from tensorflowasr_tpu_torch.configs import Config, DecoderConfig
 from tensorflowasr_tpu_torch.models import build_model
 from tensorflowasr_tpu_torch.models.ctc.conformer import ConformerCtc, conformer_ctc_small_learning_config
+from tensorflowasr_tpu_torch.models.ctc.deepspeech2 import DeepSpeech2
+from tensorflowasr_tpu_torch.models.ctc.jasper import Jasper
 from tensorflowasr_tpu_torch.models.ctc.transformer import TransformerCtc, transformer_ctc_base_learning_config
 from tensorflowasr_tpu_torch.models.transducer.conformer import (Conformer, conformer_small_learning_config,
                                                                  conformer_small_streaming_learning_config)
@@ -128,6 +130,10 @@ PORTED = {
     "examples/models/ctc/conformer/small.yml.j2": ConformerCtc,
     "examples/models/ctc/conformer/small-streaming.yml.j2": ConformerCtc,
     "examples/models/ctc/transformer/base.yml.j2": TransformerCtc,
+    "examples/models/ctc/transformer/base-streaming.yml.j2": TransformerCtc,
+    "examples/models/ctc/deepspeech2/base.yml.j2": DeepSpeech2,
+    "examples/models/ctc/deepspeech2/uni.yml.j2": DeepSpeech2,
+    "examples/models/ctc/jasper/base.yml.j2": Jasper,
 }
 
 
@@ -156,14 +162,23 @@ def test_registry_prefixes_and_bare_names(prefix):
     assert registry.get(prefix + "models.ctc.conformer>Conformer") is ConformerCtc
     assert registry.get(prefix + "models.ctc.transformer>Transformer") is TransformerCtc
     assert registry.get("Conformer") is Conformer and registry.get("ConformerCtc") is ConformerCtc and registry.get("TransformerCtc") is TransformerCtc
+    assert registry.get(prefix + "models.ctc.deepspeech2>DeepSpeech2") is DeepSpeech2 and registry.get(prefix + "models.ctc.jasper>Jasper") is Jasper
     with pytest.raises(KeyError):
         registry.get(prefix + "models.ctc.nothing>Nothing")
 
 
+@pytest.mark.parametrize("class_name, cls", [
+    ("tensorflow_asr.models.ctc.deepspeech2>DeepSpeech2", DeepSpeech2),
+    ("tensorflowasr_tpu.models.ctc.jasper>Jasper", Jasper),
+    ("Jasper", Jasper),
+])
+def test_ctc_family_names_resolve_to_the_port_classes(class_name, cls):
+    """The names that raised until the rest of the CTC family was ported (JAX's registry names and aliases)."""
+    assert registry.get(class_name) is cls
+    assert registry.get("DeepSpeech2") is DeepSpeech2
+
+
 @pytest.mark.parametrize("class_name, item", [
-    ("tensorflow_asr.models.ctc.deepspeech2>DeepSpeech2", "The rest of the CTC family"),
-    ("tensorflowasr_tpu.models.ctc.jasper>Jasper", "The rest of the CTC family"),
-    ("Jasper", "The rest of the CTC family"),
     ("tensorflow_asr.models.transducer.contextnet>ContextNet", "The other transducers, encoders and layers"),
     ("tensorflow_asr.models.transducer.rnnt>RnnTransducer", "The other transducers, encoders and layers"),
     ("tensorflowasr_tpu_torch.models.transducer.transformer>TransformerTransducer", "The other transducers, encoders and layers"),

@@ -26,6 +26,8 @@ loss within 1e-7 and ``grad_norm`` within 1.3e-6 relative; every other
 gradient within 2e-7 of the largest gradient.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +42,6 @@ from tensorflowasr_tpu.ops import rnnt_loss as jrnnt
 from tensorflowasr_tpu.optimizers import build_optimizer as jbuild_optimizer
 from tensorflowasr_tpu.training import trainer as jtrainer
 from tensorflowasr_tpu_torch import bridge, schemas
-from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer
 from tensorflowasr_tpu_torch.ops.losses import masked_mean
 from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss
@@ -49,8 +50,9 @@ from tensorflowasr_tpu_torch.training.trainer import Trainer
 from tests.test_torch_slice import TINY_CFG
 
 REL = 1e-4
-# parameters whose gradient is zero in exact arithmetic (see the module docstring)
-FROZEN = ("key.bias", "encoding.bias", "subsampling.conv_0.bias", "subsampling.conv_1.bias", "dw_conv.bias")
+# parameters whose gradient is zero in exact arithmetic (see the module docstring); the last two, DeepSpeech2's and
+# Jasper's conv biases, each ahead of a BatchNorm
+FROZEN = ("key.bias", "encoding.bias", "subsampling.conv_0.bias", "subsampling.conv_1.bias", "dw_conv.bias", "conv2d.bias", "conv1d.bias")
 ADAM = {"class_name": "Adam", "config": {"learning_rate": 1e-3}}
 K_STEPS = 3
 
@@ -120,7 +122,8 @@ def run_both(loss_impl: str, rnn_impl: str = "auto", cfg: dict = TINY_CFG, jax_c
             jax_steps.append((float(metrics["loss"]), float(metrics["grad_norm"]), jax.tree_util.tree_map(np.asarray, state.opt_state[0])))
         jax_final = jax.tree_util.tree_map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats})
 
-    tm = port_cls.from_config(cfg, device="cpu", **({"rnn_impl": rnn_impl} if issubclass(port_cls, Transducer) else {}))
+    takes_rnn_impl = "rnn_impl" in inspect.signature(port_cls.from_config).parameters  # a transducer's, DeepSpeech2's
+    tm = port_cls.from_config(cfg, device="cpu", **({"rnn_impl": rnn_impl} if takes_rnn_impl else {}))
     tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
     trainer = Trainer(tm, ADAM, device="cpu", loss_impl=loss_impl)
     tstate = trainer.init_state(seed=0)
