@@ -1728,64 +1728,11 @@ def outlier_hunt(tag: str, model, recognize_fn, rng, dev, n: int = 6) -> None:
 
 
 def phase_serve(dev) -> dict:
-    from tensorflowasr_tpu_torch import schemas
+    """The flagship (bf16): :func:`serve_transducer`'s 3 requests, then the outlier hunt."""
     from tensorflowasr_tpu_torch.models.transducer.base import recognize
-    from tensorflowasr_tpu_torch.ops import transducer_decode
-    from tensorflowasr_tpu_torch.ops.cuda.decode_kernel import fused_greedy_decode
 
     model = flagship(torch.bfloat16, dev).eval()
-    rng = np.random.default_rng(SEED)
-    requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
-    recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)))  # warm-up request, not counted
-    torch.cuda.synchronize()
-    settle()
-
-    reset_launch_counts()
-    walls, watches = [], []
-    for r, (audio, lens) in enumerate(requests):
-        before = launch_counts()
-        with RequestWatch() as watch:
-            t0 = time.perf_counter()
-            out = recognize(model, schemas.PredictInput(audio, lens))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        watches.append(watch)
-        after = launch_counts()
-        delta = {k: after[k] - before[k] for k in after}
-        if delta != PER_REQUEST:
-            raise AssertionError(f"request {r}: kernel launches {delta}, expected {PER_REQUEST}")
-        t_enc = int(model.encoder.output_length(-(-audio.shape[1] // 160)))
-        if tuple(out.tokens.shape) != (8, 2 * t_enc + 1):
-            raise AssertionError(f"request {r}: tokens {tuple(out.tokens.shape)}, expected (8, {2 * t_enc + 1})")
-        if not ((out.tokens >= 0) & (out.tokens < model.vocab_size)).all():
-            raise AssertionError(f"request {r}: token ids outside the vocabulary")
-    counts = launch_counts()
-    flag_outliers("serve", walls, watches)
-
-    # encode and decode timed apart, on the same requests (after the counted run): the decode kernel, then the eager loop on the same encoding
-    for r, (audio, lens) in enumerate(requests):
-        with torch.inference_mode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            enc, enc_len, _ = model.encode(audio, lens)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            states = model.init_decoder_states(8, dev)
-            start = torch.zeros(8, dtype=torch.int64, device=dev)
-            tokens, ntok, _, _ = fused_greedy_decode(enc, enc_len, model.decode_params(), start, states)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window, start, states)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-        if not torch.isfinite(enc.float()).all():
-            raise AssertionError(f"request {r}: non-finite encoder output")
-        audio_s = lens.sum().item() / 16000.0
-        print(f"serve request {r}: batch 8, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames {enc.shape[1]}, "
-              f"recognize {walls[r] * 1e3:.3f} ms ({watches[r]}), encode {(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms (the fused decode "
-              f"kernel; the eager WIND loop on the same encoding {(t3 - t2) * 1e3:.3f} ms), RTF {walls[r] / audio_s:.6f} (wall / audio seconds), "
-              f"tokens emitted mean {ntok.float().mean().item():.1f}")
-    print(f"serve launches over 3 requests: {counts} (per request {PER_REQUEST}); bf16 compute, f32 params, TF32 off")
+    counts, _ = serve_transducer(dev, "flagship", model, PER_REQUEST, tag="serve")
     outlier_hunt("serve", model, recognize, np.random.default_rng(SEED + 9), dev)
     return counts
 
@@ -1928,44 +1875,10 @@ EVAL_STEPS, PALLAS_STEPS = 3, 2
 
 
 def phase_eval(dev) -> dict:
-    """Three flagship eval steps through ``Trainer.eval_step`` with the
-    default ``loss_impl`` (bf16, the training batch): the inference forward to
-    logits, the log-probability row kernel and the DP; wall, peak memory and
-    launches per step; the loss against the plain-DP (xla) eval of the same batch."""
-    from tensorflowasr_tpu_torch.training.trainer import Trainer, make_eval_step
-
+    """Three flagship eval steps of the training batch (:func:`transducer_eval`)."""
     model = flagship(torch.bfloat16, dev, dropout=TRAIN_RATE)
-    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev)
-    state = trainer.init_state(seed=SEED)
-    batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size).to(dev)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    losses = []
-    for step in range(EVAL_STEPS):
-        before = launch_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        loss = trainer.eval_step(state, batch)["loss"].item()
-        wall = (time.perf_counter() - t0) * 1e3
-        after = launch_counts()
-        delta = {k: after[k] - before[k] for k in after}
-        if delta != PER_EVAL:
-            raise AssertionError(f"eval step {step}: kernel launches {delta}, expected {PER_EVAL}")
-        if not np.isfinite(loss):
-            raise AssertionError(f"eval step {step}: non-finite loss {loss}")
-        print(f"eval step {step}: {wall:.1f} ms (host clock, ends in the loss's .item()); loss {loss:.6f}; "
-              f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-        losses.append(loss)
-    counts = launch_counts()
-    print(f"eval launches over {EVAL_STEPS} steps: {counts} (per step {PER_EVAL})")
-    t0 = time.perf_counter()
-    xla = make_eval_step(model, "xla")(state, batch)["loss"].item()
-    xla_wall = (time.perf_counter() - t0) * 1e3
-    if not abs(losses[0] - xla) <= 1e-5 * abs(xla):
-        raise AssertionError(f"eval loss: default (kernels) {losses[0]} vs xla (plain DP) {xla}")
-    print(f"eval loss default (row kernel + DP kernel) {losses[0]:.6f} vs xla (plain DP) {xla:.6f} (rel {abs(losses[0] - xla) / abs(xla):.2e}, "
-          f"tol 1e-5); the xla eval step took {xla_wall:.1f} ms")
-    return counts
+    batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size)
+    return transducer_eval(dev, "eval", model, batch, PER_EVAL)
 
 
 def phase_pallas(dev, auto: tuple) -> dict:
@@ -2108,9 +2021,7 @@ def streaming_model(name: str, dtype, device) -> torch.nn.Module:
 
 def stream_chunks(model, seed: int, device):
     """(chunks [1, 2800] each, samples per chunk, step) of one random stream cut by the frontend's chunk math."""
-    from tensorflowasr_tpu_torch.ops import frontend
-
-    size, step = frontend.FrontendConfig(**model.speech_config).get_signal_chunk_size_and_step(STREAM_FRAMES)
+    size, step = model.feature_extraction.config.get_signal_chunk_size_and_step(STREAM_FRAMES)
     audio = (np.random.default_rng(seed).standard_normal((1, (STREAM_CHUNKS - 1) * step + size)) * 0.1).astype(np.float32)
     return [torch.tensor(audio[:, i * step: i * step + size], device=device) for i in range(STREAM_CHUNKS)], size, step
 
@@ -2140,34 +2051,44 @@ def run_stream(model, chunks, size: int, device, per_chunk: dict | None = None, 
     return outs
 
 
+def stream_path(dev, name: str, model, per_chunk: dict, recognize=None, note: str = "") -> tuple[dict, list]:
+    """``model`` (bf16) streaming batch 1 through ``recognize`` (default the
+    transducer's): a warm-up pass, one counted pass (each chunk's launches
+    equal to ``per_chunk``), then STREAM_PASSES timed passes; ms per chunk
+    (median pass / chunks) and RTF. Returns the launch counts and the
+    counted pass's outputs."""
+    chunks, size, step = stream_chunks(model, SEED + 21, dev)
+    run_stream(model, chunks, size, dev, recognize=recognize)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = run_stream(model, chunks, size, dev, per_chunk, recognize)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_pass = []
+    for _ in range(STREAM_PASSES):
+        t0 = time.perf_counter()
+        run_stream(model, chunks, size, dev, recognize=recognize)
+        torch.cuda.synchronize()
+        per_pass.append((time.perf_counter() - t0) / STREAM_CHUNKS * 1e3)
+    ms, chunk_ms = float(np.median(per_pass)), step / 16.0
+    frames = outs[0].tokens.shape[1] // 2 if recognize is None else outs[0].tokens.shape[1]  # a transducer's budget is 2T + 1 tokens
+    emitted = sum(int((o.tokens != model.blank).sum()) for o in outs)
+    print(f"stream {name}: batch 1, {STREAM_CHUNKS} chunks of {STREAM_FRAMES} feature frames ({size} samples, step {step}: {chunk_ms:.0f} ms of audio), "
+          f"encoder frames per chunk {frames}, {note}; {ms:.3f} ms per chunk (median of {STREAM_PASSES} passes: " + ", ".join(f"{p:.3f}" for p in per_pass)
+          + f"), RTF per chunk {ms / chunk_ms:.4f} (wall / audio), {chunk_ms / ms:.2f}x real time; launches per chunk {_launched(per_chunk)}; tokens "
+          f"emitted over the stream {emitted}")
+    print(f"stream {name} launches over {STREAM_CHUNKS} chunks: {_launched(counts)}")
+    return counts, outs
+
+
 def phase_streaming(dev) -> dict:
-    """Both streaming models in bf16: a warm-up pass, one counted pass (each
-    chunk's launches checked: the encoder's and one fused decode), then
-    STREAM_PASSES timed passes; ms per chunk (median pass / chunks) and RTF."""
+    """Both streaming models (:func:`stream_path`), each chunk's launches
+    the encoder's and one fused decode."""
     paths = {}
     for name in STREAM_MODELS:
         model = streaming_model(name, torch.bfloat16, dev)
-        chunks, size, step = stream_chunks(model, SEED + 21, dev)
-        run_stream(model, chunks, size, dev)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        outs = run_stream(model, chunks, size, dev, PER_CHUNK)
-        torch.cuda.synchronize()
-        paths[f"stream_{name}"] = counts = launch_counts()
-        per_pass = []
-        for _ in range(STREAM_PASSES):
-            t0 = time.perf_counter()
-            run_stream(model, chunks, size, dev)
-            torch.cuda.synchronize()
-            per_pass.append((time.perf_counter() - t0) / STREAM_CHUNKS * 1e3)
-        ms, chunk_ms = float(np.median(per_pass)), step / 16.0
-        emitted = sum(int((o.tokens != model.blank).sum()) for o in outs)
-        mem = getattr(model.encoder, "memory_length", None)
-        print(f"stream {name}: batch 1, {STREAM_CHUNKS} chunks of {STREAM_FRAMES} feature frames ({size} samples, step {step}: {chunk_ms:.0f} ms of audio), "
-              f"encoder frames per chunk {outs[0].tokens.shape[1] // 2}, memory {mem}, vocabulary {model.vocab_size}; {ms:.3f} ms per chunk (median of "
-              f"{STREAM_PASSES} passes: " + ", ".join(f"{p:.3f}" for p in per_pass) + f"), RTF per chunk {ms / chunk_ms:.4f} (wall / audio), "
-              f"{chunk_ms / ms:.2f}x real time; launches per chunk {_launched(PER_CHUNK)}; tokens emitted over the stream {emitted}")
-        print(f"stream {name} launches over {STREAM_CHUNKS} chunks: {_launched(counts)}")
+        note = f"memory {getattr(model.encoder, 'memory_length', None)}, vocabulary {model.vocab_size}"
+        paths[f"stream_{name}"], _ = stream_path(dev, name, model, PER_CHUNK, note=note)
     return paths
 
 
@@ -2209,12 +2130,14 @@ CTC_LOSS_TOL, CTC_OCC_TOL = (0.0, 1e-5), (1e-5, 0.0)
 def ctc_model(name: str, dtype, device, num_blocks: int | None = None, dropout: float = TRAIN_RATE, conditioned: bool = False,
               augment: bool = False) -> torch.nn.Module:
     """A CTC model at its published widths, random weights from SEED
-    (``augment``: with the example's SpecAugment). With
-    ``conditioned`` (the card/CPU parity) the Transformer's input linear is
+    (``augment``: with the example's SpecAugment). With ``conditioned``
+    (the card/CPU parity from raw audio) the Transformer's input linear is
     drawn 1/√dmodel smaller: its output is scaled by √dmodel before the PE,
-    and with lecun-normal weights the attention scores are otherwise O(500),
-    the softmax near one-hot and the gradients ill-conditioned (a 1e-6
-    input change moves them by 5e-3 on the CPU alone)."""
+    and with lecun-normal weights the attention scores are otherwise O(500)
+    and the softmax near one-hot, so that the two frontends' ~1e-5
+    differences move the query weights' gradient by 2.2e-3 of its scale
+    (PERF.md §6, PR 16). From the same features and with one FFN ReLU
+    pattern, the published init holds (:func:`phase_ctc_referee`)."""
     from tensorflowasr_tpu_torch.models.ctc.conformer import ConformerCtc, conformer_ctc_small_config
     from tensorflowasr_tpu_torch.models.ctc.transformer import TransformerCtc, transformer_ctc_base_config
 
@@ -2626,34 +2549,85 @@ def referee_grads(build, runs) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def ffn_relu_masks(model, masks: dict, replay: bool):
+    """Within the block, each pointwise FFN of ``model`` (the Transformer's
+    ``ffn_1`` → ReLU) records the sign pattern of its ReLU's input into
+    ``masks`` by module name or, with ``replay``, takes the pattern recorded
+    there as its ReLU's (x · mask), as :func:`jasper_relu_masks` does for Jasper."""
+    from tensorflowasr_tpu_torch.models.encoders import transformer
+    from tensorflowasr_tpu_torch.models.layers.residual import residual
+    from tensorflowasr_tpu_torch.ops import dropout as dr
+
+    names = {m: n for n, m in model.named_modules()}
+    forward = transformer.PointwiseFFN.forward
+
+    def masked(self, x, train=False, generator=None):
+        out = self.ln(x) if self.norm_position == "pre" else x
+        hidden = self.ffn_1(out)
+        if replay:
+            hidden = hidden * masks[names[self]].to(hidden.device, hidden.dtype)
+        else:
+            masks[names[self]] = (hidden > 0).detach().cpu()
+            hidden = torch.relu(hidden)
+        out = dr.dropout(self.ffn_2(hidden), dr.active_rate(self.dropout, train, generator), generator)
+        if self.norm_position == "post":
+            out = self.ln(out)
+        return residual(x, out, self.residual_factor)
+
+    transformer.PointwiseFFN.forward = masked
+    try:
+        yield
+    finally:
+        transformer.PointwiseFFN.forward = forward
+
+
 def phase_ctc_referee(dev) -> None:
     """Queue 3 item 1: the Transformer-CTC f32 step at the published init on
     the card (kernels) and on the CPU (plain versions), from the same
     features, each held to the CPU plain path in float64. Conditioning
     moves both f32 runs about equally far from float64; a kernel A fault
-    moves the card's alone."""
+    moves the card's alone. Then the same runs with float64's ReLU sign
+    pattern replayed in every FFN (:func:`ffn_relu_masks`): what distance is
+    left is not a ReLU input on its kink; and the card's f32 step held to
+    the CPU's with the CPU's own pattern on both (:func:`hold_step`)."""
     build = lambda dtype: ctc_model("transformer_ctc", dtype, "cpu", num_blocks=2, dropout=0.0)
     kernels, plain = (lambda model: contextlib.nullcontext()), (lambda model: plain_attention())
+    f64_masks, cpu_masks = {}, {}
+    record, replay = (lambda masks: lambda model: ffn_relu_masks(model, masks, False)), (lambda masks: lambda model: ffn_relu_masks(model, masks, True))
     runs = referee_grads(build, [("card f32", dev, torch.float32, "auto", kernels), ("card f32 plain attention", dev, torch.float32, "auto", plain),
-                                 ("cpu f32", "cpu", torch.float32, "auto", kernels), ("cpu f64", "cpu", torch.float64, "xla", kernels)])
+                                 ("cpu f32", "cpu", torch.float32, "auto", kernels), ("cpu f64", "cpu", torch.float64, "xla", record(f64_masks)),
+                                 ("card f32, f64 pattern", dev, torch.float32, "auto", replay(f64_masks)),
+                                 ("cpu f32, f64 pattern", "cpu", torch.float32, "auto", replay(f64_masks)),
+                                 ("cpu f32 own pattern", "cpu", torch.float32, "auto", record(cpu_masks)),
+                                 ("card f32, cpu pattern", dev, torch.float32, "auto", replay(cpu_masks))])
     ref_loss, ref = runs["cpu f64"]
     floor = TRAIN_PARITY_FLOOR * max(g.abs().max().item() for g in ref.values())  # gradients that are zero in exact arithmetic (the key biases)
     dist = {}
-    for name in ("card f32", "card f32 plain attention", "cpu f32"):
+    for name in ("card f32", "card f32 plain attention", "cpu f32", "card f32, f64 pattern", "cpu f32, f64 pattern"):
         loss, grads = runs[name]
         rel = {n: ((grads[n] - g).abs().max() / (g.abs().max() + floor)).item() for n, g in ref.items()}
         worst = max(rel, key=rel.get)
         dist[name] = (rel, worst)
+        ffn = max((n for n in rel if n.endswith("pwffn.ffn_1.weight")), key=rel.get)
         print(f"ctc referee (transformer-ctc, 2 blocks, lecun init, batch 2 x <= 4 s): {name} loss {loss:.10g} vs f64 {ref_loss:.10g} "
               f"(rel {abs(loss - ref_loss) / abs(ref_loss):.2e}); gradients vs f64, max abs error over (scale + {TRAIN_PARITY_FLOOR} x the largest "
-              f"gradient): median {np.median(list(rel.values())):.3e}, largest {rel[worst]:.3e} at {worst}")
-    card, plain, cpu = (dist[n][0] for n in ("card f32", "card f32 plain attention", "cpu f32"))
-    ratio = {n: card[n] / max(plain[n], 1e-30) for n in card}
+              f"gradient): median {np.median(list(rel.values())):.3e}, largest {rel[worst]:.3e} at {worst}, at {ffn} {rel[ffn]:.3e}")
+    card, plain_, cpu = (dist[n][0] for n in ("card f32", "card f32 plain attention", "cpu f32"))
+    ratio = {n: card[n] / max(plain_[n], 1e-30) for n in card}
     worst = max(ratio, key=ratio.get)
-    verdict = "conditioning" if max(card.values()) <= 4.0 * max(plain.values()) else f"kernel A fault (the card's {worst} gradient)"
+    verdict = "conditioning" if max(card.values()) <= 4.0 * max(plain_.values()) else f"kernel A fault (the card's {worst} gradient)"
     print(f"ctc referee verdict: {verdict}: kernel A / plain attention distance ratio on the card median {np.median(list(ratio.values())):.3g}, "
           f"largest {ratio[worst]:.3g} at {worst}; largest distances: card with kernel A {max(card.values()):.3e}, card with plain attention "
-          f"{max(plain.values()):.3e}, CPU {max(cpu.values()):.3e}")
+          f"{max(plain_.values()):.3e}, CPU {max(cpu.values()):.3e}")
+    flips = {n: int((cpu_masks[n] != m).sum()) for n, m in f64_masks.items()}
+    ffn = {n: max(v for k, v in dist[n][0].items() if "pwffn" in k) for n in dist}  # the FFN weights', which a ReLU input on the kink moves
+    held = hold_step("transformer-ctc, 2 deep, lecun init, the CPU's ReLU pattern", runs["card f32, cpu pattern"], runs["cpu f32 own pattern"])
+    print(f"ctc referee ReLU kink: FFN ReLU inputs on another side of 0 in the CPU's f32 run than in float64: {sum(flips.values())} of "
+          f"{sum(m.numel() for m in f64_masks.values())} ({ {n.removeprefix('encoder.'): f for n, f in flips.items() if f} }); with float64's pattern "
+          f"replayed the FFN gradients' largest distance to float64 falls from {ffn['cpu f32']:.3e} to {ffn['cpu f32, f64 pattern']:.3e} on the CPU and "
+          f"from {ffn['card f32']:.3e} to {ffn['card f32, f64 pattern']:.3e} on the card (the largest left: {dist['card f32, f64 pattern'][1]}, a "
+          f"gradient that is zero in exact arithmetic where it is one); card vs CPU f32 with the CPU's pattern on both: {held}")
 
 
 # ------------------------------------ the rest of the CTC family ------------------------------------ #
@@ -2836,35 +2810,15 @@ def family_train(dev, name: str, model, batch) -> tuple[dict, float]:
 
 
 def family_stream(dev, tmp: str) -> dict:
-    """DeepSpeech2 uni (bf16, the LSTM kernels): batch 1, STREAM_CHUNKS chunks
-    of STREAM_FRAMES feature frames (160 ms) through ``recognize``, each
-    layer's (c, h) carried; a warm-up pass, a counted pass (each chunk's
-    launches checked) and STREAM_PASSES timed passes."""
+    """DeepSpeech2 uni (bf16, the LSTM kernels) through :func:`stream_path`,
+    each layer's (c, h) carried. Returns the launch counts."""
     from tensorflowasr_tpu_torch.models.ctc.base import recognize
 
     model = family_model("deepspeech2_uni", torch.bfloat16, dev, tmp).eval()
-    chunks, size, step = stream_chunks(model, SEED + 21, dev)
-    run = lambda per_chunk=None: run_stream(model, chunks, size, dev, per_chunk, recognize)
-    run()
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    outs = run(PER_CHUNK_DS2_UNI)
-    torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, outs = stream_path(dev, "deepspeech2_uni", model, PER_CHUNK_DS2_UNI, recognize, note=f"{DS2_UNI_LSTMS} LSTM layers' (c, h) carried")
     carried = [tuple(h.shape) for _, h in outs[-1].next_encoder_states]
     if carried != [(1, DS2_H)] * DS2_UNI_LSTMS:
         raise AssertionError(f"stream deepspeech2_uni: carried states {carried}")
-    per_pass = []
-    for _ in range(STREAM_PASSES):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        per_pass.append((time.perf_counter() - t0) / STREAM_CHUNKS * 1e3)
-    ms, chunk_ms = float(np.median(per_pass)), step / 16.0
-    print(f"stream deepspeech2_uni: batch 1, {STREAM_CHUNKS} chunks of {STREAM_FRAMES} feature frames ({size} samples, step {step}: {chunk_ms:.0f} ms of "
-          f"audio), encoder frames per chunk {outs[0].tokens.shape[1]}, {DS2_UNI_LSTMS} LSTM layers' (c, h) carried; {ms:.3f} ms per chunk (median "
-          f"of {STREAM_PASSES} passes: " + ", ".join(f"{p:.3f}" for p in per_pass) + f"), RTF per chunk {ms / chunk_ms:.4f}; launches per chunk "
-          f"{_launched(PER_CHUNK_DS2_UNI)}")
     return counts
 
 
@@ -2917,12 +2871,16 @@ def explicit_mask_path(dev) -> dict:
     return counts
 
 
-def family_overfit(dev, tmp: str) -> dict:
+def family_overfit(dev, tmp: str) -> tuple[dict, dict]:
     """A 2-layer bidirectional DeepSpeech2 (the base layout at its widths,
     the LSTM kernels, bf16, dropout 0, no SpecAugment) fitted to the data
     phase's four overfit utterances until ``evaluate_dataset`` reads WER 0
-    (:func:`run_overfit`'s caps). Returns its launch counts."""
+    (:func:`run_overfit`'s caps), then evaluated with beam search, without
+    and with a bigram LM of the four transcripts (:func:`beam_overfit`).
+    Returns the launch counts of the overfit and of the beam evaluations."""
     from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.data import datasets
+    from tensorflowasr_tpu_torch.lm import NGramLM
 
     tok = pipeline.build_tokenizer(pipeline.load_config(CHAR_CONFIG, datadir=tmp))
     if tok.num_classes != CHAR_V:
@@ -2941,7 +2899,10 @@ def family_overfit(dev, tmp: str) -> dict:
           f"overfit utterances of 1-3 s as one batch): WER 0 after {steps} steps in {seconds:.1f} s (caps {DS2_OVERFIT_STEPS} steps, "
           f"{DS2_OVERFIT_SECONDS:.0f} s); "
           f"rows {[r[2] for r in report['rows']]}; launches {_launched(counts)}")
-    return counts
+    test = datasets.ASRSliceDataset(tok, stage="test", data_paths=[manifest], indefinite=False, drop_remainder=False)
+    test.compute_metadata()
+    beam = beam_overfit(dev, model.eval(), tok, test, "deepspeech2 (2 layers)", lm=NGramLM.from_text_corpus(OVERFIT_TEXTS, tok, order=2))
+    return counts, beam
 
 
 def phase_ctc_family(dev) -> dict:
@@ -2981,7 +2942,7 @@ def phase_ctc_family(dev) -> dict:
                                                                                                              tmp).eval(),
                                                                PER_REQUEST_FAMILY["conformer_ctc_streaming"], hunt=False)
         paths["relmha_explicit_mask"] = explicit_mask_path(dev)
-        paths["ctc_overfit_deepspeech2"] = family_overfit(dev, tmp)
+        paths["ctc_overfit_deepspeech2"], paths["beam_overfit_deepspeech2"] = family_overfit(dev, tmp)
     print(f"ctc_family phase: {time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -3074,6 +3035,502 @@ def jasper_parity(dev, tmp: str) -> None:
           f"{dist['card f32']:.3e}, CPU f32 {dist['cpu f32']:.3e} (the CPU's pattern), card f32 with its own pattern {dist['card f32 own pattern']:.3e}")
 
 
+# --------------------------------- the other transducers, beam search --------------------------------- #
+
+TRANSDUCER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "models", "transducer")
+TRANSDUCER_CONFIGS = {"transformer_t": "transformer/base.yml.j2", "rnnt": "rnnt/small.yml.j2", "contextnet": "contextnet/small.yml.j2"}
+TRANSDUCERS = tuple(TRANSDUCER_CONFIGS)
+# transformer/base.yml.j2: 8 relmha blocks of 4 × 64 (kernel B each); rnnt/small.yml.j2: 4 LSTM-1024 layers and an LSTM-1024 prediction net, all on the
+# LSTM kernels (the default on the card); contextnet/small.yml.j2: cuDNN's convolutions only. Each: the frontend and one fused decode a request.
+RNNT_LAYERS, RNNT_H = 4, 1024
+PER_REQUEST_T = {"transformer_t": _per(log_mel_spectrogram=1, fused_rel_attention=8, fused_decode=1),
+                 "rnnt": _per(log_mel_spectrogram=1, lstm=RNNT_LAYERS, fused_decode=1), "contextnet": _per(log_mel_spectrogram=1, fused_decode=1)}
+_LOSS = dict(rnnt_dp=1, rnnt_fused_joint=1, rnnt_fused_joint_bwd=1)
+PER_STEP_T = {"transformer_t": _per(log_mel_spectrogram=1, fused_rel_attention=8, fused_rel_attention_bwd=8, **_LOSS),
+              "rnnt": _per(log_mel_spectrogram=1, lstm=RNNT_LAYERS + 1, lstm_bwd=RNNT_LAYERS + 1, **_LOSS), "contextnet": _per(log_mel_spectrogram=1, **_LOSS)}
+PER_EVAL_T = {"transformer_t": _per(log_mel_spectrogram=1, fused_rel_attention=8, rnnt_logprobs=1, rnnt_dp=1),
+              "rnnt": _per(log_mel_spectrogram=1, lstm=RNNT_LAYERS + 1, rnnt_logprobs=1, rnnt_dp=1),
+              "contextnet": _per(log_mel_spectrogram=1, rnnt_logprobs=1, rnnt_dp=1)}
+PER_CHUNK_RNNT = PER_REQUEST_T["rnnt"]
+T_STEPS = 3
+# Adam without warm-up, as the CTC phases: the post-norm Transformer at 1e-5 (the Transformer-CTC diverges at 1e-4), the others at 1e-4
+T_LR = {"transformer_t": 1e-5, "rnnt": 1e-4, "contextnet": 1e-4}
+BEAM = 4
+T_PARITY_ATOL = 2e-3  # f32 encoder outputs card vs CPU, relative to max(1, their scale)
+
+
+def transducer_model(name: str, dtype, device, tmp: str, depth: int | None = None, dropout: float | None = None, **kwargs) -> torch.nn.Module:
+    """The example's transducer through the port's ``Config`` and
+    ``build_model`` at its published widths (the RNN-T's LSTMs on the route
+    its default takes for ``device``), random weights from SEED; cut to
+    ``depth`` Transformer blocks, RNN-T layers or ContextNet blocks (the
+    first ones), and with dropout at ``dropout`` and no SpecAugment, when given."""
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.models import build_model
+
+    config = pipeline.load_config(os.path.join(TRANSDUCER_DIR, TRANSDUCER_CONFIGS[name]), modeldir=tmp)
+    mc = copy.deepcopy(config.model_config)
+    c = mc["config"]
+    if depth is not None:
+        if name == "transformer_t":
+            c["encoder_num_blocks"] = depth
+        elif name == "rnnt":
+            c.update(encoder_nlayers=depth, encoder_reduction_positions=c["encoder_reduction_positions"][:depth],
+                     encoder_reduction_factors=c["encoder_reduction_factors"][:depth])
+        else:
+            c["encoder_blocks"] = c["encoder_blocks"][:depth]
+    if dropout is not None:
+        for key in [k for k in c if k.endswith("dropout")]:
+            c[key] = dropout
+        c["speech_config"].pop("augmentation_config", None)
+    model = build_model(mc, vocab_size=config.decoder_config.vocab_size, dtype=dtype, device=device, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model
+
+
+def rnnt_lstm_lengths() -> list[int]:
+    """The RNN-T encoder's LSTM lengths at 16 s: layer 0 on the frames, layers 1–2 after the ×3 reduction, layer 3 after the ×2."""
+    t0 = 1 + (int(TRAIN_SECS * 16000) - 400) // 160
+    return [t0, -(-t0 // 3), -(-t0 // 6)]
+
+
+def transducer_kernels(dev, rows: list[dict]) -> None:
+    """The kernels the three transducers run at shapes the port had not run,
+    each against its plain version (f32 and bf16), times and bounds in bf16,
+    as sub-entries of their rows: kernel B at head 64 (the Transformer-T's
+    training shape: B·H 64, T = S 400, R 799, rate 0.1); the LSTM at H 1024,
+    B 16 over the RNN-T's 16 s layers (T 1598, 533, 267) beside cuDNN's
+    ``torch.nn.LSTM`` over each layer's input width; the fused joint and loss
+    at V 1000, B 16, T 400; and the fused greedy decode at the RNN-T's
+    prediction net (embedding 512, LSTM-1024, J 320, V 256) and at the V 1000
+    nets (the Transformer-T's), on a request's real encoding, beside the
+    plain version and the eager WIND loop."""
+    import tempfile
+
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+    from tensorflowasr_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    by_name = {r["name"]: r for r in rows}
+    keys = ("max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    sub = lambda r, **extra: {k: r[k] for k in keys} | extra
+
+    # kernel B at head 64
+    bh, t, d = TRAIN_B * 4, T_ENC, 64
+    r_len = 2 * t - 1
+    q_len = torch.tensor([max(40, t - 23 * i) for i in range(TRAIN_B)], dtype=torch.int32, device=dev)
+    what = f"transformer-t train, BH {bh} T = S {t} R {r_len} head {d}, rate {TRAIN_RATE}"
+
+    def att_make(dt, rate=TRAIN_RATE):
+        qc, qp = _randn(gen, (bh, t, d), 0.3, dt), _randn(gen, (bh, t, d), 0.3, dt)
+        k, v, pos = _randn(gen, (bh, t, d), 1.0, dt), _randn(gen, (bh, t, d), 1.0, dt), _randn(gen, (bh, r_len, d), 1.0, dt)
+        cfg_ = (11, rate, False, None, None, False)
+        res = ak.fused_rel_attention_kernel(qc, qp, k, v, pos, None, q_len, *cfg_, with_stats=dt == torch.bfloat16)
+        out, stats = res if dt == torch.bfloat16 else (res, None)
+        return (qc, qp, k, v, pos, None, q_len, *cfg_), (qc, qp, k, v, pos, None, q_len, out, stats, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
+
+    head = _check_fwd_bwd("fused_rel_attention", ak.fused_rel_attention_kernel, ak.fused_rel_attention_plain, rel_att_bwd, rel_att_bwd_plain, att_make,
+                          lambda elt, bwd: cost_attention(bh, t, t, r_len, d, elt, bwd), what)
+    for r in head:
+        by_name[r["name"]]["head64"] = sub(r, shape=what)
+
+    # the LSTM at H 1024 over the RNN-T encoder's layers (16 s)
+    b, h = TRAIN_B, RNNT_H
+    widths = {0: 80, 1: 960, 3: 640}  # each timed layer's input width (cuDNN's x): 80 mel bins, 3 × 320 stacked, 2 × 320 stacked
+    entries = {}
+    for layer, tl in zip((0, 1, 3), rnnt_lstm_lengths()):
+        errs = {}
+        for tag, dt in DTYPES:
+            xg, wh = _randn(gen, (b, tl, 4 * h), 1.0, dt), _randn(gen, (h, 4 * h), h ** -0.5, dt)
+            h0, c0 = _randn(gen, (b, h), 0.3, dt), _randn(gen, (b, h), 0.3, dt)
+            ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
+            err_f = max(_close(f"lstm fwd {tag} H {h} T {tl} {n}", x, y, *TOL[tag]) for n, x, y in zip(("y", "cseq", "gates"), lk.lstm_fwd_kernel(xg, wh, h0, c0), ref))
+            bargs = (ref[2], ref[1], c0, wh, _randn(gen, (b, tl, h), 1.0 / b, dt), _randn(gen, (b, tl, h), 0.1 / b, dt))
+            errs[tag] = (err_f, _grads_close(f"lstm bwd {tag} H {h} T {tl}", lk.lstm_bwd_kernel(*bargs), lk.lstm_bwd_plain(*bargs), GRAD_REL[tag]))
+        fargs = (xg, wh, h0, c0)
+        ms_f, ms_b = time_ms(lk.lstm_fwd_kernel, *fargs), time_ms(lk.lstm_bwd_kernel, *bargs)
+        plain = (wall_ms(lambda: lk.lstm_fwd_plain(*fargs), reps=1), wall_ms(lambda: lk.lstm_bwd_plain(*bargs), reps=1)) if layer == 0 else (None, None)
+        lib = lstm_library(gen, b, tl, h, torch.bfloat16, width=widths[layer])
+        bd = [bound(*cost_lstm(b, tl, h, 2, bwd), "bf16") for bwd in (False, True)]
+        entries[tl] = [dict(max_abs_err=errs["f32"][i], max_abs_err_bf16=errs["bf16"][i], ms=m, plain_ms=p, bound_ms=q[0], bound_by=q[1], library_ms=lb,
+                            us_per_step=1e3 * m / tl, layer=layer, library=f"cuDNN torch.nn.LSTM, x [{b}, {tl}, {widths[layer]}]")
+                       for i, (m, p, q, lb) in enumerate(zip((ms_f, ms_b), plain, bd, lib))]
+        print(f"kernel lstm[_bwd] bf16 (rnnt encoder layer {layer}, B {b} T {tl} H {h}; {lstm_plan_text(lk.lstm_mma_plan(h), h)}): max_abs_err fwd f32 "
+              f"{errs['f32'][0]:.3e} bf16 {errs['bf16'][0]:.3e}, bwd f32 {errs['f32'][1]:.3e} bf16 {errs['bf16'][1]:.3e}; forward {ms_f:.4f} ms "
+              f"({1e3 * ms_f / tl:.3f} µs per step), backward {ms_b:.4f} ms ({1e3 * ms_b / tl:.3f} µs per step); cuDNN torch.nn.LSTM bf16 over x "
+              f"[{b}, {tl}, {widths[layer]}] {lib[0]:.4f} / {lib[1]:.4f} ms; bound {bd[0][0]:.4f} / {bd[1][0]:.4f} ms"
+              + (f"; plain (host loop) {plain[0]:.1f} / {plain[1]:.1f} ms" if plain[0] else ""))
+    for i, name in enumerate(("lstm", "lstm_bwd")):
+        by_name[name]["rnnt_h1024"] = {str(tl): e[i] for tl, e in entries.items()}
+
+    # the fused joint and loss at V 1000, B 16, T 400
+    v, u1 = 1000, TRAIN_U + 1
+    t_np, u_np = loss_lengths(np.random.default_rng(SEED + 43), TRAIN_B)
+    t_len, u_len = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev)
+    labels = torch.randint(1, v, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
+    labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
+    active = {}
+
+    def joint_make(dt):
+        enc_p, pred_p = _randn(gen, (TRAIN_B, T_ENC, JOINT), 1.0, dt), _randn(gen, (TRAIN_B, u1, JOINT), 1.0, dt)
+        wv, bv = _randn(gen, (v, JOINT), JOINT ** -0.5, dt), _randn(gen, (v,), 0.1)
+        fargs = (enc_p, pred_p, wv, bv, labels)
+        _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*fargs[:4], t_len, labels, u_len)
+        active["cells"] = int(((gbl != 0) | (gem != 0)).sum())
+        return fargs, (*fargs, lse, gbl / TRAIN_B, gem / TRAIN_B)
+
+    what = f"transformer-t / contextnet train loss, [{TRAIN_B}, {T_ENC}, {u1}] cells, J {JOINT}, V {v}"
+    joint = _check_fwd_bwd("rnnt_fused_joint", _stacked(jk.joint_logprobs_kernel), _stacked(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
+                           jk.rnnt_loss_fused_joint_plain_bwd, joint_make,
+                           lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, JOINT, v, elt, bwd, active["cells"]), what)
+    for r in joint:
+        by_name[r["name"]]["v1000_b16"] = sub(r, shape=what, active_cells=active["cells"])
+
+    # the fused decode at the RNN-T's prediction net and at V 1000
+    with tempfile.TemporaryDirectory(prefix="tfasr-transducers-") as tmp:
+        for name in ("rnnt", "transformer_t"):
+            by_name["fused_decode"][f"{name}_net"] = transducer_decode_check(dev, name, tmp)
+
+
+def transducer_decode_check(dev, name: str, tmp: str) -> dict:
+    """Row 13 at ``name``'s prediction net and joint, on the real encoding of
+    one request (8 × 6–10 s) of the full model: in f32 the kernel's tokens,
+    lengths and next tokens equal the plain version's and the eager WIND
+    loop's, its states the plain version's within 1e-5; in bf16 a token
+    differs from the plain version's only within DECODE_GAP of the logit
+    scale. Times (kernel by CUDA events, the host loops by wall), the
+    cluster, resident bytes, and the bound. Returns the sub-entry."""
+    from tensorflowasr_tpu_torch.ops import transducer_decode
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    audio, lens = make_request(np.random.default_rng(SEED + 5), 8, 6.0, 10.0, dev)
+    out = {}
+    for tag, dt in DTYPES:
+        model = transducer_model(name, dt, dev, tmp).eval()
+        params = model.decode_params()
+        if params is None:
+            raise AssertionError(f"decode {name}: extract_decode_params does not take the config")
+        pc, jc = model.prediction_config, model.joint_config
+        e, h, j, v = pc["embed_dim"], pc["rnn_units"], jc["joint_dim"], model.vocab_size
+        with torch.inference_mode():
+            enc, enc_len, _ = model.encode(audio, lens)
+            b = enc.shape[0]
+            start, states = torch.zeros(b, dtype=torch.int64, device=dev), model.init_decoder_states(b, dev)
+            kernel = lambda x: dk.fused_greedy_decode_kernel(x, enc_len, params, start, states, window=DECODE_WINDOW)
+            plain = lambda x, **kw: dk.fused_greedy_decode_plain(x, enc_len, params, start, states, window=DECODE_WINDOW, **kw)
+            eager = lambda x: transducer_decode.transducer_greedy_decode_wind(x, enc_len, model.pred_step, model.joint_window, start, states,
+                                                                                window=DECODE_WINDOW)
+            got, ref = kernel(enc), plain(enc, gaps=True)
+            torch.cuda.synchronize()
+            launch = dict(dk.last_launch)
+            state_err = max((x - y).abs().max().item() for g, r in zip(got[3], ref[3]) for x, y in zip(g, r))
+            # the cell state c is unbounded: over up to 2T dependent steps it grows past 1, and f32 summation order scales with it
+            state_tol = 1e-5 * max(1.0, max(y.abs().max().item() for r in ref[3] for y in r))
+            if tag == "f32":
+                eag = eager(enc)
+                for other_name, other in (("plain version", ref), ("eager WIND loop", eag)):
+                    if not all(torch.equal(x, y) for x, y in zip(got[:3], other[:3])):
+                        raise AssertionError(f"decode f32 ({name} net): kernel tokens/lengths/next tokens differ from the {other_name}: rows "
+                                             f"{_first_difference(got[0], other[0], got[1], other[1])}")
+                if state_err > state_tol:
+                    raise AssertionError(f"decode f32 ({name} net): states differ from the plain version by {state_err} (tol {state_tol})")
+                note = (f"tokens, lengths, next tokens equal to the plain version's and the eager loop's; states max_abs_err {state_err:.3e} (tol 1e-5 "
+                        f"of max(1, the states' largest magnitude): {state_tol:.3e})")
+            else:
+                note = decode_bf16_agreement(params, start, states, enc, got, ref, "raw encoding")
+            ms, plain_ms, eager_ms = time_ms(kernel, enc), wall_ms(lambda: plain(enc), reps=1), wall_ms(lambda: eager(enc), reps=1)
+        t_np, u_np = enc_len.cpu().numpy(), got[1].cpu().numpy()
+        bd = bound(*cost_decode(t_np, u_np, enc.shape[1], e, h, j, v, 4 if tag == "f32" else 2), tag)
+        out[tag] = dict(err=state_err, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms, bound=bd, tokens=[int(u_np.min()), int(u_np.max())])
+        print(f"kernel fused_decode {tag} ({name} net: B {b} T {enc.shape[1]} (T_b {t_np.min()}-{t_np.max()}), E {model.encoder_output_dim} embedding "
+              f"{e} H {h} J {j} V {v}, window {DECODE_WINDOW}): tokens per row {u_np.min()}-{u_np.max()}; {note}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, eager WIND loop {eager_ms:.1f} ms; bound {bd[0]:.4f} ms ({bd[1]}); cluster C {launch['cluster']} (co-resident "
+              f"clusters by size {launch['occupancy']}), {launch['resident_bytes']} of {launch['slice_bytes']} weight bytes resident per block, "
+              f"{launch['smem_bytes']} bytes of shared memory")
+        if tag == "bf16":
+            out["cluster"] = {k: launch[k] for k in ("cluster", "occupancy", "resident_bytes", "slice_bytes", "smem_bytes")}
+        del model
+    bf = out["bf16"]
+    return dict(max_abs_err=out["f32"]["err"], max_abs_err_bf16=bf["err"], ms=bf["ms"], plain_ms=bf["plain_ms"], bound_ms=bf["bound"][0],
+                bound_by=bf["bound"][1], library_ms=None, eager_loop_ms=bf["eager_ms"], ms_f32=out["f32"]["ms"], tokens_per_row=bf["tokens"],
+                cluster=out["cluster"])
+
+
+def serve_transducer(dev, name: str, model, per_request: dict, recognize_kwargs: dict | None = None, tag: str | None = None) -> tuple[dict, list]:
+    """3 requests of 8 × 6–10 s through the transducer ``recognize`` (greedy
+    WIND: the fused decode; or as ``recognize_kwargs`` say) after one
+    warm-up request, each request's launches equal to ``per_request``; then,
+    for greedy, encode and decode timed apart on the same requests (the
+    eager WIND loop beside the fused decode on request 0). Returns the launch
+    counts and the walls (s)."""
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+    from tensorflowasr_tpu_torch.ops import transducer_decode
+    from tensorflowasr_tpu_torch.ops.cuda.decode_kernel import fused_greedy_decode
+
+    kw = recognize_kwargs or {}
+    tag = tag or f"transducer serve {name}" + (f" beam {kw['beam_width']}" if kw.get("beam_width") else "")
+    rng = np.random.default_rng(SEED)
+    requests = [make_request(rng, 8, 6.0, 10.0, dev) for _ in range(3)]
+    recognize(model, schemas.PredictInput(*make_request(rng, 8, 6.0, 10.0, dev)), **kw)  # warm-up request, not counted
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    walls, watches, outs = [], [], []
+    for r, (audio, lens) in enumerate(requests):
+        before = launch_counts()
+        with RequestWatch() as watch:
+            t0 = time.perf_counter()
+            outs.append(recognize(model, schemas.PredictInput(audio, lens), **kw))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        watches.append(watch)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_request:
+            raise AssertionError(f"{tag} request {r}: kernel launches {delta}, expected {per_request}")
+        if not ((outs[-1].tokens >= 0) & (outs[-1].tokens < model.vocab_size)).all():
+            raise AssertionError(f"{tag} request {r}: token ids outside the vocabulary")
+    counts = launch_counts()
+    flag_outliers(tag, walls, watches)
+    for r, ((audio, lens), out) in enumerate(zip(requests, outs)):
+        audio_s = lens.sum().item() / 16000.0
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc, enc_len, _ = model.encode(audio, lens)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dec = ""
+            if not kw:
+                start, states = torch.zeros(enc.shape[0], dtype=torch.int64, device=dev), model.init_decoder_states(enc.shape[0], dev)
+                tokens, ntok, _, _ = fused_greedy_decode(enc, enc_len, model.decode_params(), start, states)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if not torch.equal(tokens, out.tokens):
+                    raise AssertionError(f"{tag} request {r}: recognize's tokens differ from the fused decode of its encoding")
+                dec = f", decode {(t2 - t1) * 1e3:.3f} ms (the fused decode kernel"
+                if r == 0:
+                    transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window, start, states)
+                    torch.cuda.synchronize()
+                    dec += f"; the eager WIND loop on the same encoding {(time.perf_counter() - t2) * 1e3:.3f} ms"
+                dec += f"), tokens emitted mean {ntok.float().mean().item():.1f}"
+        if not torch.isfinite(enc.float()).all():
+            raise AssertionError(f"{tag} request {r}: non-finite encoder output")
+        if tuple(out.tokens.shape) != (audio.shape[0], 2 * enc.shape[1] + 1):
+            raise AssertionError(f"{tag} request {r}: tokens {tuple(out.tokens.shape)}, expected ({audio.shape[0]}, {2 * enc.shape[1] + 1})")
+        print(f"{tag} request {r}: batch {audio.shape[0]}, audio {audio_s:.2f} s (max {audio.shape[1] / 16000:.2f} s), encoder frames {enc.shape[1]}, recognize "
+              f"{walls[r] * 1e3:.3f} ms ({watches[r]}), encode {(t1 - t0) * 1e3:.3f} ms{dec}, RTF {walls[r] / audio_s:.6f} (wall / audio seconds)")
+    print(f"{tag} launches over 3 requests: {_launched(counts)} (per request {_launched(per_request)}); bf16 compute, f32 params, TF32 off")
+    return counts, walls
+
+
+def transducer_eval(dev, tag: str, model, batch, per_eval: dict) -> dict:
+    """EVAL_STEPS eval steps of ``model`` on ``batch`` with the default
+    ``loss_impl`` (the log-probability row kernel and the DP), each step's
+    launches equal to ``per_eval``, wall and peak memory; the loss against
+    the plain-DP (xla) eval's to 1e-5. Returns the launch counts."""
+    from tensorflowasr_tpu_torch.training.trainer import Trainer, make_eval_step
+
+    trainer = Trainer(model, {"class_name": "Adam", "config": {"learning_rate": 1e-4}}, device=dev)
+    state = trainer.init_state(seed=SEED)
+    batch = batch.to(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for step in range(EVAL_STEPS):
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = trainer.eval_step(state, batch)["loss"].item()
+        wall = (time.perf_counter() - t0) * 1e3
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_eval:
+            raise AssertionError(f"{tag} step {step}: kernel launches {delta}, expected {per_eval}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{tag} step {step}: non-finite loss {loss}")
+        print(f"{tag} step {step}: {wall:.1f} ms (host clock, ends in the loss's .item()); loss {loss:.6f}; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+        losses.append(loss)
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    xla = make_eval_step(model, "xla")(state, batch)["loss"].item()
+    xla_wall = (time.perf_counter() - t0) * 1e3
+    if not abs(losses[0] - xla) <= 1e-5 * abs(xla):
+        raise AssertionError(f"{tag}: default (kernels) loss {losses[0]} vs xla (plain DP) {xla}")
+    print(f"{tag} launches per step {_launched(per_eval)}; loss default (row kernel + DP kernel) {losses[0]:.6f} vs xla (plain DP) {xla:.6f} (rel "
+          f"{abs(losses[0] - xla) / abs(xla):.2e}, tol 1e-5); the xla eval step took {xla_wall:.1f} ms")
+    return counts
+
+
+def rnnt_stream(dev, tmp: str) -> dict:
+    """The RNN-T (bf16, the LSTM kernels) through :func:`stream_path`, each
+    block's (c, h), the prediction net's state and the token carried (each
+    chunk pads under the ×3 and ×2 reductions as a whole utterance does).
+    Returns the launch counts."""
+    model = transducer_model("rnnt", torch.bfloat16, dev, tmp).eval()
+    counts, outs = stream_path(dev, "rnnt", model, PER_CHUNK_RNNT, note=f"{RNNT_LAYERS} LSTM-{RNNT_H} layers' (c, h) carried")
+    carried = [tuple(h.shape) for _, h in outs[-1].next_encoder_states]
+    if carried != [(1, RNNT_H)] * RNNT_LAYERS:
+        raise AssertionError(f"stream rnnt: carried encoder states {carried}")
+    return counts
+
+
+def phase_transducers(dev) -> dict:
+    """The three transducers at their published widths in bf16, each built
+    from its example config through ``Config`` and ``build_model`` with
+    random weights from the seed and the example's dropout and SpecAugment:
+    serving 3 requests of 8 × 6–10 s (greedy WIND through the fused
+    decode), T_STEPS default (auto) training steps of 16 × ≤ 16 s with Adam
+    (the loss falling, one profiled step for the busy share) and EVAL_STEPS
+    eval steps of the same batch; the RNN-T also streaming 16 chunks of
+    160 ms. Returns the launch counts by path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="tfasr-transducers-") as tmp:
+        for name in TRANSDUCERS:
+            model = transducer_model(name, torch.bfloat16, dev, tmp)
+            if name == "rnnt" and model.rnn_impl != "pallas":
+                raise AssertionError(f"rnnt built from its config on the card takes rnn_impl {model.rnn_impl!r}, not the LSTM kernels")
+            if model.decode_params() is None:
+                raise AssertionError(f"{name}: the fused decode does not take the config")
+            n_params = sum(p.numel() for p in model.parameters())
+            print(f"transducer {name}: {TRANSDUCER_CONFIGS[name]} through Config and build_model, {type(model).__name__}, {n_params} parameters, "
+                  f"V {model.vocab_size}, encoder reduction x{model.time_reduction_factor}")
+            paths[f"t_serve_{name}"], _ = serve_transducer(dev, name, model.eval(), PER_REQUEST_T[name])
+            batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size)
+            tag = f"transducer train {name}"
+            counts, losses, walls, trainer, state, batch, _ = run_train(dev, "auto", T_STEPS, PER_STEP_T[name], tag, model=model.train(),
+                                                                        lr=T_LR[name], batch=batch)
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"{tag}: loss did not fall over {T_STEPS} steps: {losses}")
+            _, busy = profile_step(trainer, state, batch, walls, tag, top=8)
+            print(f"{tag}: loss {losses[0]:.4f} → {losses[-1]:.4f} over {T_STEPS} steps; median step {float(np.median(walls[1:])):.1f} ms, busy {busy:.1f}%")
+            paths[f"t_train_{name}"] = counts
+            del trainer, state
+            paths[f"t_eval_{name}"] = transducer_eval(dev, f"transducer eval {name}", model.eval(), batch, PER_EVAL_T[name])
+            del model
+            torch.cuda.empty_cache()
+        paths["t_stream_rnnt"] = rnnt_stream(dev, tmp)
+    print(f"transducers phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def parity_request(cpu_model, dev, what: str, beam: bool = True, **beam_kwargs) -> str:
+    """One request of 2 × ≤ 4 s through an f32 model on the card (kernels)
+    and a CPU copy (plain versions): the encoder output within
+    T_PARITY_ATOL of max(1, its scale), the lengths, greedy tokens and (with
+    ``beam``) beam tokens at width BEAM equal. Returns the note."""
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.models.ctc import base as ctc_base
+    from tensorflowasr_tpu_torch.models.transducer import base as transducer_base
+
+    recognize = transducer_base.recognize if isinstance(cpu_model, transducer_base.Transducer) else ctc_base.recognize
+    cpu_model = cpu_model.eval()
+    model = copy.deepcopy(cpu_model).to(dev)
+    audio, lens = make_request(np.random.default_rng(SEED + 1), 2, 4.0, 4.0, "cpu")
+    lens[1] = 3 * 16000
+    with torch.inference_mode():
+        enc, enc_len, _ = model.encode(audio.to(dev), lens.to(dev))
+        ref, ref_len, _ = cpu_model.encode(audio, lens)
+    scale = max(1.0, ref.abs().max().item())
+    err = _close(f"parity f32 {what} encoder", enc.cpu(), ref, T_PARITY_ATOL * scale, 0.0)
+    if not torch.equal(enc_len.cpu(), ref_len):
+        raise AssertionError(f"parity f32 {what}: encoder lengths differ")
+    notes = [f"encoder output max_abs_err {err:.3e} (tol {T_PARITY_ATOL} x {scale:.3g})"]
+    for kind, kw in (("greedy", {}), *((("beam", {"beam_width": BEAM, **beam_kwargs}),) if beam else ())):
+        got = recognize(model, schemas.PredictInput(audio.to(dev), lens.to(dev)), **kw)
+        want = recognize(cpu_model, schemas.PredictInput(audio, lens), **kw)
+        if not torch.equal(got.tokens.cpu(), want.tokens):
+            raise AssertionError(f"parity f32 {what}: {kind} tokens card {got.tokens.tolist()} vs CPU {want.tokens.tolist()}")
+        notes.append(f"{kind} tokens equal ({int((want.tokens != 0).sum())} tokens)")
+    return "; ".join(notes)
+
+
+def phase_transducer_parity(dev) -> None:
+    """Each transducer 2 deep (2 Transformer blocks, 2 RNN-T layers on the
+    LSTM kernels, ContextNet's C0 and C1) at its published widths in f32,
+    dropout 0: one request card vs CPU (:func:`parity_request`: encoder
+    output, greedy and beam tokens) and one default (auto) training step's
+    loss and every gradient (:func:`_step_parity`)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tfasr-transducers-") as tmp:
+        for name in TRANSDUCERS:
+            kwargs = {"rnn_impl": "pallas"} if name == "rnnt" else {}
+            build = lambda: transducer_model(name, torch.float32, "cpu", tmp, depth=2, dropout=0.0, **kwargs)
+            print(f"parity f32 request ({name}, 2 deep) card (kernels) vs CPU (plain), 2 x <= 4 s: {parity_request(build(), dev, name)}, TF32 off")
+            _step_parity(dev, "auto", kwargs.get("rnn_impl", "auto"), cpu_model=build(), what=f"{name}, 2 deep, auto")
+
+
+def beam_overfit(dev, model, tok, dataset, tag: str, lm=None) -> dict:
+    """``evaluate_dataset`` of an overfit model over its utterances greedy and
+    with beam search at width BEAM (and, with ``lm``, a CTC model's beam
+    with the bigram LM fused at the default weight): WER 0 required greedy
+    and under beam. Returns the launch counts of the beam evaluations."""
+    from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    report = evaluate_dataset(model, dataset, tok, batch_size=len(OVERFIT_TEXTS), beam_width=BEAM, collect_rows=True, num_workers=0)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    line = (f"beam overfit {tag} (evaluate_dataset over the {len(report['rows'])} overfit utterances, one batch, greedy then beam {BEAM} "
+            f"in {seconds * 1e3:.1f} ms): greedy WER {report['greedy']['wer']:.4f} CER {report['greedy']['cer']:.4f}; beam WER {report['beam']['wer']:.4f} "
+            f"CER {report['beam']['cer']:.4f}; beam rows {[r[3] for r in report['rows']]}")
+    if report["greedy"]["wer"] != 0.0 or report["beam"]["wer"] != 0.0:
+        raise AssertionError(f"{line}: WER 0 required greedy and under beam")
+    if lm is not None:
+        with_lm = evaluate_dataset(model, dataset, tok, batch_size=len(OVERFIT_TEXTS), beam_width=BEAM, lm=lm, collect_rows=True, num_workers=0)
+        line += (f"; beam {BEAM} + bigram LM (NGramLM.from_text_corpus of the 4 transcripts, weight 0.5) WER {with_lm['beam']['wer']:.4f} CER "
+                 f"{with_lm['beam']['cer']:.4f}, rows {[r[3] for r in with_lm['rows']]}")
+    print(line + f"; launches {_launched(counts)}")
+    return counts
+
+
+def phase_beam(dev) -> dict:
+    """Beam search at width BEAM beside greedy on the serving requests (3 of
+    8 × 6–10 s, bf16) for the flagship and the RNN-T: walls, RTF, the port's
+    kernel launches and the device operations of a request; and the f32 card
+    vs CPU beam tokens of a 2-block flagship and a 2-block Conformer-CTC
+    with a bigram LM (the transducers' 2-deep ones are in
+    :func:`phase_transducer_parity`). Returns the beam requests' launch counts."""
+    import tempfile
+
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.lm import NGramLM
+    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="tfasr-beam-") as tmp:
+        for name in ("flagship", "rnnt"):
+            model = (flagship(torch.bfloat16, dev) if name == "flagship" else transducer_model(name, torch.bfloat16, dev, tmp)).eval()
+            greedy_counts = PER_REQUEST if name == "flagship" else PER_REQUEST_T[name]
+            beam_counts = {**greedy_counts, "fused_decode": 0}
+            _, greedy = serve_transducer(dev, name, model, greedy_counts)
+            paths[f"beam_serve_{name}"], beam = serve_transducer(dev, name, model, beam_counts, {"beam_width": BEAM})
+            audio, lens = make_request(np.random.default_rng(SEED), 8, 6.0, 10.0, dev)
+            ops = {kind: device_launches(lambda: recognize(model, schemas.PredictInput(audio, lens), **kw))
+                   for kind, kw in (("greedy", {}), ("beam", {"beam_width": BEAM}))}
+            audio_s = lens.sum().item() / 16000.0
+            g, b = float(np.median(greedy)), float(np.median(beam))
+            print(f"beam vs greedy ({name}, bf16, 8 x 6-10 s requests): median wall greedy {g * 1e3:.1f} ms, beam {BEAM} {b * 1e3:.1f} ms ({b / g:.1f}x); "
+                  f"RTF of request 0 greedy {greedy[0] / audio_s:.6f}, beam {beam[0] / audio_s:.6f}; device operations per request greedy "
+                  f"{ops['greedy'][0]} ({ops['greedy'][1]:.1f} ms of device time), beam {ops['beam'][0]} ({ops['beam'][1]:.1f} ms)")
+            del model
+        text = ["the cat sat", "a dog ran home", "blue sky", "we went out to sea"]
+        cpu_model = flagship(torch.float32, "cpu", num_blocks=2, dropout=0.0)
+        print(f"parity f32 request (flagship, 2 blocks) card (kernels) vs CPU (plain), 2 x <= 4 s: {parity_request(cpu_model, dev, 'flagship')}, TF32 off")
+        ctc = ctc_model("conformer_ctc", torch.float32, "cpu", num_blocks=2, dropout=0.0)
+        lm = NGramLM.from_token_corpus([[1 + (ord(c) % (ctc.vocab_size - 1)) for c in t] for t in text], ctc.vocab_size, order=2)
+        print(f"parity f32 request (conformer_ctc, 2 blocks, beam {BEAM} with a bigram LM over V {ctc.vocab_size}) card vs CPU: "
+              f"{parity_request(ctc, dev, 'conformer_ctc', lm=lm)}, TF32 off")
+    return paths
+
+
 # ----------------------------------------- recipes ----------------------------------------- #
 
 RECIPE_MICRO = 16  # the flagship's micro-steps: 2 applied updates at its ga_steps 8
@@ -3125,11 +3582,13 @@ def check_learning_rates(tag: str, updates: list, schedule: dict) -> None:
 
 
 def device_launches(fn) -> tuple[int, float]:
-    """(CUDA device operations, their device ms) of one call of ``fn`` under the profiler."""
+    """(CUDA device operations, their device ms) of one call of ``fn`` under
+    the profiler, tracing the device only: a beam request's hundreds of
+    thousands of host events would take the profiler longer than the request."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
@@ -4082,9 +4541,10 @@ def phase_data_overfit(dev, tok, tmp: str) -> tuple:
 
 def phase_data_parity(dev, overfit_model, tok, data: dict, overfit) -> None:
     """``evaluate_dataset`` of the overfit 2-block Conformer-T's weights in f32
-    (TF32 off) over its four utterances and the evaluation set, on the card
-    (kernels) and on a CPU copy (plain versions): the same hypothesis for
-    every utterance, and WER and CER three ways on both reports."""
+    (TF32 off) over its four utterances and the evaluation set, greedy and
+    with beam search at width BEAM, on the card (kernels) and on a CPU copy
+    (plain versions): the same hypotheses for every utterance, and WER and
+    CER three ways on both reports."""
     from tensorflowasr_tpu_torch.models import build_model
     from tensorflowasr_tpu_torch.models.transducer.conformer import conformer_small_config
     from tensorflowasr_tpu_torch.training.evaluation import evaluate_dataset
@@ -4095,17 +4555,18 @@ def phase_data_parity(dev, overfit_model, tok, data: dict, overfit) -> None:
     model = copy.deepcopy(cpu_model).to(dev)
     for name, ds in (("overfit utterances", overfit), ("evaluation set", data["eval"])):
         ds.compute_metadata()
-        reports = [evaluate_dataset(m, ds, tok, batch_size=DATA_EVAL_B, collect_rows=True) for m in (model, cpu_model)]
+        reports = [evaluate_dataset(m, ds, tok, batch_size=DATA_EVAL_B, beam_width=BEAM, collect_rows=True) for m in (model, cpu_model)]
         gpu, cpu = (sorted(r["rows"]) for r in reports)
         differ = [g[0] for g, c in zip(gpu, cpu) if g != c]
-        if differ or len(gpu) != len(cpu) or len(gpu) != ds.num_entries or reports[0]["greedy"] != reports[1]["greedy"]:
+        if differ or len(gpu) != len(cpu) or len(gpu) != ds.num_entries or any(reports[0][k] != reports[1][k] for k in ("greedy", "beam")):
             raise AssertionError(f"parity f32 eval ({name}): hypotheses differ between card and CPU for {differ} ({len(gpu)} and {len(cpu)} rows)")
         chars = sum(len(r[2]) for r in gpu)
         if chars == 0:
             raise AssertionError(f"parity f32 eval ({name}): every hypothesis is empty, nothing was compared")
         print(f"parity f32 eval (the overfit 2-block Conformer-T's weights in f32, evaluate_dataset over {len(gpu)} utterances, the {name}): card (kernels) and "
-              f"CPU (plain) hypotheses equal for every utterance ({chars} characters); WER {reports[0]['greedy']['wer']:.4f} CER "
-              f"{reports[0]['greedy']['cer']:.4f}, TF32 off")
+              f"CPU (plain) hypotheses, greedy and beam {BEAM}, equal for every utterance ({chars} characters greedy, {sum(len(r[3]) for r in gpu)} beam); "
+              f"WER {reports[0]['greedy']['wer']:.4f} CER {reports[0]['greedy']['cer']:.4f}, beam WER {reports[0]['beam']['wer']:.4f} CER "
+              f"{reports[0]['beam']['cer']:.4f}, TF32 off")
         data_error_rates(reports[0], tok, dev, f"parity f32 eval ({name})")
 
 
@@ -4140,6 +4601,7 @@ def phase_data(dev) -> tuple[dict, dict]:
         overfit.compute_metadata()
         checks["fused_decode_overfit"] = data_decode_kernel(dev, overfit_model, overfit, "the overfit utterances, the overfit model")
         phase_data_parity(dev, overfit_model, tok, data, overfit)
+        paths["beam_overfit_conformer_t"] = beam_overfit(dev, overfit_model.eval(), tok, overfit, "conformer_t (2 blocks)")
     print(f"data phase: {time.perf_counter() - t0:.1f} s")
     return paths, checks
 
@@ -4445,6 +4907,9 @@ def main(argv: list[str]) -> int:
     ``--data``: only :func:`phase_data`, its launch counts as one JSON line.
     ``--ctc-family``: only :func:`family_kernels`, :func:`phase_ctc_family`
     and :func:`phase_ctc_family_parity`, the sub-entries and launch counts as one JSON line.
+    ``--transducers``: only :func:`transducer_kernels`, :func:`phase_transducers`,
+    :func:`phase_beam`, :func:`phase_transducer_parity` and :func:`phase_ctc_referee`,
+    the sub-entries and launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -4491,6 +4956,18 @@ def main(argv: list[str]) -> int:
         phase_ctc_family_parity(dev)
         print(json.dumps({"ctc_family": paths, "rows": [r for r in rows if len(r) > 1]}))
         return 0
+    if "--transducers" in argv:
+        _no_tf32()
+        _build.build()
+        dev = torch.device("cuda", 0)
+        rows = [{"name": name} for name in KERNELS]
+        transducer_kernels(dev, rows)
+        paths = phase_transducers(dev)
+        paths.update(phase_beam(dev))
+        phase_transducer_parity(dev)
+        phase_ctc_referee(dev)
+        print(json.dumps({"transducers": paths, "rows": [r for r in rows if len(r) > 1]}))
+        return 0
 
     _no_tf32()
     t_start = time.perf_counter()
@@ -4503,21 +4980,38 @@ def main(argv: list[str]) -> int:
     _build.build()
     print(f"build: {_build.build_seconds:.2f} s (nvcc, {len(_build.SOURCES)} sources compiled in parallel, one link)")
 
+    marks = [("build", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     serve_kernels = phase_kernels(dev)
     rows = phase_train_kernels(dev) + phase_lstm_kernels(dev)
     rows += phase_ctc_kernels(dev, rows)
     rows.append(phase_decode_kernel(dev))
+    mark("kernels")
     family_kernels(dev, rows)
+    mark("family kernels")
+    transducer_kernels(dev, rows)
+    mark("transducer kernels")
     paths = {"serve": phase_serve(dev)}
     paths.update(phase_streaming(dev))
     train_paths, auto = phase_train(dev)
     paths.update(train_paths)
     paths["eval"] = phase_eval(dev)
     paths.update(phase_pallas(dev, auto))
+    mark("flagship paths")
     paths.update(phase_ctc_serve(dev))
     paths.update(phase_ctc_train(dev))
+    mark("ctc paths")
     paths.update(phase_ctc_family(dev))
+    mark("ctc family")
+    paths.update(phase_transducers(dev))
+    mark("transducers")
+    paths.update(phase_beam(dev))
+    mark("beam")
     paths.update(phase_recipe(dev))
+    mark("recipe")
     data_paths, data_checks = phase_data(dev)
     paths.update(data_paths)
     rows.append(data_checks.pop("rnnt_logprobs_scalar"))
@@ -4525,8 +5019,10 @@ def main(argv: list[str]) -> int:
         if row["name"] in data_checks:
             row["data_v29"] = data_checks[row["name"]]
     next(row for row in rows if row["name"] == "fused_decode")["data_v29_overfit"] = data_checks["fused_decode_overfit"]
+    mark("data")
     phase_fit_gc()
     phase_gc_probe()
+    mark("gc")
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -4541,8 +5037,12 @@ def main(argv: list[str]) -> int:
     phase_train_parity(dev)
     phase_ctc_parity(dev)
     phase_ctc_family_parity(dev)
+    phase_transducer_parity(dev)
     phase_stream_parity(dev)
+    mark("parity")
     phase_ctc_referee(dev)
+    mark("referee")
+    print("phase walls: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s" for i, (name, t) in enumerate(marks[1:])))
     print(f"gc watch: {GC_WATCH['watched']} timed steps and requests watched (gc.collect() and gc.freeze() after each phase's set-up and "
           f"warm-up); gen-2 collections inside them: {GC_WATCH['gen2']} ({GC_WATCH['gen2_ms']:.1f} ms)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

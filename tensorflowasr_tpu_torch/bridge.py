@@ -25,6 +25,12 @@ running statistics (which training updates) back into a flax
   ``{hi,hf,hg,ho}`` (with bias) → ``weight_ih [4U, E]``,
   ``weight_hh [4U, U]``, ``bias [4U]``, gate order i, f, g, o; the cells
   are the scopes named ``cell`` and, in a bidirectional layer, ``cell_bwd``.
+
+These rules cover every model family with no per-model code: the RNN-T
+blocks (``block_i.rnn.cell``, ``.ln``, ``.projection``), ContextNet (each
+``SeparableConv1D``'s ``depthwise`` [K, 1, C] and ``pointwise`` [1, Cin,
+Cout] kernels, every BatchNorm's params and ``batch_stats``, the SE's
+``fc1``/``fc2``) and the Transformer-T (the Transformer's mapping).
 """
 
 from __future__ import annotations

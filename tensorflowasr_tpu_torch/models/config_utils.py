@@ -41,6 +41,23 @@ def filter_kwargs(config: dict, allowed) -> dict:
     return {k: v for k, v in config.items() if k in allowed}
 
 
+def transducer_kwargs(config: dict, encoder_keys, vocab_size: int | None, dtype, device, rnn_impl) -> dict:
+    """A reference-style transducer config as the ``Transducer`` constructor's
+    arguments: the ``encoder_*`` keys the encoder takes, the prediction and
+    joint sections, blank and the vocabulary (1000 when neither names one)."""
+    return dict(
+        speech_config=dict(config.get("speech_config", {})),
+        encoder_config=filter_kwargs(strip_prefix(config, "encoder_"), encoder_keys),
+        prediction_config=parse_prediction_config(config),
+        joint_config=parse_joint_config(config),
+        blank=config.get("blank", 0),
+        vocab_size=vocab_size or config.get("vocab_size", 1000),
+        dtype=dtype,
+        device=device,
+        rnn_impl=rnn_impl,
+    )
+
+
 # The published examples' train-time augmentation (every example the port builds uses this one)
 SPEC_AUGMENT = {
     "feature_augment": {

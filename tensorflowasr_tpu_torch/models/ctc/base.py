@@ -2,10 +2,10 @@
 
 ``CtcModel``: feature extraction → encoder → ``vocab`` Dense, with the
 training forward (``forward`` → [B, T, V] logits), ``encode`` and the
-``recognize`` entry point (greedy: ``ops/ctc_decode.py``; a streaming
-encoder's KV memories carried through ``previous_encoder_states``). The model is
-built on the card unless ``device="cpu"`` is given. Beam search and LM
-fusion are not ported yet (ROADMAP Queue 1, "Beam search and the LM").
+``recognize`` entry point (greedy, or prefix beam search with an optional
+n-gram LM: ``ops/ctc_decode.py``, ``lm.py``; a streaming encoder's KV
+memories carried through ``previous_encoder_states``). The model is built
+on the card unless ``device="cpu"`` is given.
 """
 
 from __future__ import annotations
@@ -71,13 +71,18 @@ class CtcModel(nn.Module):
 
 
 @torch.inference_mode()
-def recognize(model: CtcModel, inputs: schemas.PredictInput, beam_width: int = 0) -> schemas.PredictOutput:
-    """Greedy CTC decode of raw audio (JAX ``recognize`` minus ``variables``:
-    the module holds its weights): tokens [B, T] left-packed and padded
-    with blank; ``next_tokens`` all blank."""
-    if beam_width and beam_width > 0:
-        raise NotImplementedError("CTC beam search and LM fusion are not ported yet (ROADMAP Queue 1, \"Beam search and the LM\")")
+def recognize(model: CtcModel, inputs: schemas.PredictInput, beam_width: int = 0, lm=None, lm_weight: float = 0.5) -> schemas.PredictOutput:
+    """Greedy (or, with ``beam_width`` > 0, prefix beam) CTC decode of raw
+    audio (JAX ``recognize`` minus ``variables``: the module holds its
+    weights): tokens [B, T] left-packed and padded with blank;
+    ``next_tokens`` all blank. ``lm``, an ``NGramLM``, adds ``lm_weight``
+    times its score to the beam's extensions (shallow fusion)."""
     logits, logits_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
-    tokens, _ = ctc_decode.ctc_greedy_decode(logits, logits_length, blank=model.blank)
+    if beam_width and beam_width > 0:
+        tokens, _ = ctc_decode.ctc_beam_search_decode(logits, logits_length, beam_width=beam_width, blank=model.blank,
+                                                      lm_score_fn=lm.beam_score_fn() if lm is not None else None,
+                                                      lm_weight=lm_weight if lm is not None else 0.0)
+    else:
+        tokens, _ = ctc_decode.ctc_greedy_decode(logits, logits_length, blank=model.blank)
     next_tokens = torch.full((tokens.shape[0],), model.blank, dtype=torch.int64, device=tokens.device)
     return schemas.PredictOutput(tokens=tokens, next_tokens=next_tokens, next_encoder_states=next_encoder_states, next_decoder_states=None)

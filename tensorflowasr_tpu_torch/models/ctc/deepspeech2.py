@@ -9,6 +9,7 @@ import torch
 from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs
 from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
 from tensorflowasr_tpu_torch.models.encoders.deepspeech2 import DeepSpeech2Encoder
+from tensorflowasr_tpu_torch.models.layers.rnn import default_rnn_impl
 
 _ENC_KEYS = set(inspect.signature(DeepSpeech2Encoder.__init__).parameters) - {"self", "in_features", "dtype", "rnn_impl"}
 
@@ -16,15 +17,6 @@ _ENC_KEYS = set(inspect.signature(DeepSpeech2Encoder.__init__).parameters) - {"s
 def _tuples(value):
     """Config lists (YAML) as tuples: ``[[11, 41], [11, 21]]`` → ``((11, 41), (11, 21))``."""
     return tuple(tuple(v) if isinstance(v, (list, tuple)) else v for v in value)
-
-
-def default_rnn_impl(device) -> str:
-    """``"pallas"`` (the LSTM kernels) for a model built on a CUDA device
-    (``None``: the card), ``"auto"`` (JAX's default scan) elsewhere. The
-    LSTM stack is DeepSpeech2's compute (5 layers × 2 directions × ~800
-    steps at 16 s); JAX's scan is one compiled loop, the port's a Python
-    loop of cell calls."""
-    return "pallas" if device is None or torch.device(device).type == "cuda" else "auto"
 
 
 class DeepSpeech2(CtcModel):

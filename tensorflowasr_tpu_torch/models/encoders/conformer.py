@@ -50,7 +50,8 @@ def build_subsampling(config: dict, in_features: int, dtype=torch.float32) -> Co
     """Subsampling module from a reference-style config dict (Conv2dSubsampling only)."""
     cls_name = config["class_name"].split(">")[-1]
     if cls_name != "Conv2dSubsampling":
-        raise NotImplementedError(f"subsampling {cls_name!r} is not ported yet")
+        raise NotImplementedError(f"subsampling {cls_name!r} is not ported yet (Conv2dSubsampling only; ROADMAP Queue 1, "
+                                  "\"The other transducers, encoders and layers\")")
     cfg = dict(config.get("config", {}))
     n = len(cfg["filters"])
     return Conv2dSubsampling(

@@ -99,6 +99,10 @@ class TransformerEncoder(nn.Module):
                                                            dropout, chunk_size, history_size, dtype, memory_length, mha_type, relmha_causal,
                                                            use_attention_bias))
 
+    @property
+    def time_reduction_factor(self) -> int:
+        return self.subsampling.time_reduction_factor
+
     def init_state(self, batch: int, device=None) -> Optional[list]:
         """One zero KV memory per block (JAX ``init_state``); None without ``memory_length``."""
         if self.memory_length is None:

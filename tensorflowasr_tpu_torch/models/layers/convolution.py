@@ -7,7 +7,9 @@ Layouts stay the JAX package's at the module boundary — [B, T, C] for 1-D,
 follows XLA's SAME (total pad ``max((ceil(n/s)−1)·s + k_eff − n, 0)``,
 the smaller half on the left). Weights are f32 (OIHW / OIW), compute in
 ``dtype``. The strided-GEMM lowerings of the JAX module (TPU experiments)
-are not ported.
+are not ported. ``SeparableConv1D`` is a depthwise conv without bias then a
+pointwise (k = 1) conv, under the JAX child names ``depthwise`` and
+``pointwise``.
 """
 
 from __future__ import annotations
@@ -83,3 +85,17 @@ class DepthwiseConv1D(Conv1D):
     def __init__(self, channels: int, kernel_size: int, strides: int = 1, padding: str = "same", dilation: int = 1, dtype=torch.float32,
                  use_bias: bool = True):
         super().__init__(channels, channels, kernel_size, strides, padding, dilation, groups=channels, dtype=dtype, use_bias=use_bias)
+
+
+class SeparableConv1D(nn.Module):
+    """[B, T, Cin] → [B, T', filters]: ``depthwise`` (no bias, the stride and
+    padding) then ``pointwise`` (1 × 1, with bias when ``use_bias``)."""
+
+    def __init__(self, in_channels: int, filters: int, kernel_size: int, strides: int = 1, padding: str = "same", dilation: int = 1,
+                 use_bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.depthwise = DepthwiseConv1D(in_channels, kernel_size, strides, padding, dilation, dtype=dtype, use_bias=False)
+        self.pointwise = Conv1D(in_channels, filters, 1, dtype=dtype, use_bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))

@@ -43,6 +43,17 @@ from tensorflowasr_tpu_torch.ops.cuda.lstm_kernel import lstm_layer_fused
 
 RNN_IMPLS = ("auto", "xla", "pallas")
 
+
+def default_rnn_impl(device) -> str:
+    """``"pallas"`` (the LSTM kernels) for a model built on a CUDA device
+    (``None``: the card), ``"auto"`` (JAX's default scan) elsewhere. An
+    LSTM stack is the compute of DeepSpeech2 and the RNN-T encoder (5
+    layers × 2 directions × ~800 steps, or 4 layers of 1024 units from 1600
+    steps, at 16 s); JAX's scan is one compiled loop, the port's a Python
+    loop of cell calls."""
+    return "pallas" if device is None or torch.device(device).type == "cuda" else "auto"
+
+
 class LSTMCell(nn.Module):
     def __init__(self, input_size: int, units: int, dtype=torch.float32):
         super().__init__()

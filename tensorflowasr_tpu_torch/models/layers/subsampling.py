@@ -1,7 +1,12 @@
-"""Conv2D time subsampling (counterpart of ``models/layers/subsampling.py:Conv2dSubsampling``).
+"""Time subsampling (counterpart of ``models/layers/subsampling.py``:
+``TimeReduction`` and ``Conv2dSubsampling``).
 
-Each layer: Conv2D → Norm → activation; lengths follow
-``conv_output_length`` on the time axis; the output merges
+``TimeReduction``: time padded with zeros to a multiple of the factor, then
+each ``factor`` adjacent frames stacked into the feature axis (frame-major:
+[B, T/f, f·D]); lengths → ceil(length / f).
+
+``Conv2dSubsampling``: each layer Conv2D → Norm → activation; lengths
+follow ``conv_output_length`` on the time axis; the output merges
 [B, T', F', C'] → [B, T', F'·C'] with C fastest.
 """
 
@@ -11,6 +16,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.models.layers.convolution import Conv2D
 from tensorflowasr_tpu_torch.models.layers.general import BatchNorm, get_activation, make_norm
@@ -19,6 +25,25 @@ from tensorflowasr_tpu_torch.utils import math_util
 
 def _pair(v):
     return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+class TimeReduction(nn.Module):
+    """[B, T, D] → ([B, ceil(T/f), f·D], ceil(lengths/f)); no parameters."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        self.factor = factor
+
+    @property
+    def time_reduction_factor(self) -> int:
+        return self.factor
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        b, t, d = x.shape
+        pad = (-t) % self.factor
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        return x.reshape(b, (t + pad) // self.factor, d * self.factor), math_util.get_reduced_length(lengths, self.factor)
 
 
 class Conv2dSubsampling(nn.Module):

@@ -7,12 +7,12 @@ activation, vocab projection), ``Transducer`` with the training forward
 (``forward`` → [B, T, U+1, V] logits), ``encode``, ``pred_step``,
 ``joint_window``, ``decode_step`` and ``init_decoder_states``, the fused
 loss's ``forward_joint_inputs`` (→ the prejoint projections), and the
-``recognize`` entry point (greedy WIND or frame-synchronous, with the
-streaming carry of tokens, decoder and encoder states). WIND decoding runs
-the fused decode kernel (``ops/cuda/decode_kernel.py``) for every
-configuration it takes (:func:`extract_decode_params`), else the eager
-loop. The model is built on the card unless ``device="cpu"`` is given.
-Beam search is not ported yet.
+``recognize`` entry point (greedy WIND or frame-synchronous, or beam
+search, with the streaming carry of tokens, decoder and encoder states).
+WIND decoding runs the fused decode kernel (``ops/cuda/decode_kernel.py``)
+for every configuration it takes (:func:`extract_decode_params`), else the
+eager loop; beam search runs ``decode_step`` on B·W rows a round. The model
+is built on the card unless ``device="cpu"`` is given.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ class TransducerPrediction(nn.Module):
                  rnn_impl: str = "auto"):
         super().__init__()
         if label_encoder_mode != "embedding":
-            raise NotImplementedError(f"label_encoder_mode {label_encoder_mode!r} is not ported yet")
+            raise NotImplementedError(f"label_encoder_mode {label_encoder_mode!r} is not ported yet (embedding only; ROADMAP Queue 1, "
+                                      "\"The other transducers, encoders and layers\")")
         del rnn_unroll  # a compile-time knob of the JAX scan
         self.num_rnns, self.layer_norm, self.projection_units = num_rnns, layer_norm, projection_units
         self.embedding = Embedding(vocab_size, embed_dim, dtype)
@@ -254,16 +255,16 @@ def extract_decode_params(model: Transducer, compute_dtype=torch.float32) -> Fus
 @torch.inference_mode()
 def recognize(model: Transducer, inputs: schemas.PredictInput, beam_width: int = 0, max_token_factor: int = 2, max_symbols_per_frame=None,
               decode_mode: str = "wind", window: int = 16) -> schemas.PredictOutput:
-    """Greedy decode of raw audio (JAX ``recognize`` minus ``variables``:
-    the module holds its weights), carrying ``previous_tokens``,
-    ``previous_decoder_states`` and ``previous_encoder_states`` into the
-    output's ``next_*`` for streaming. ``decode_mode`` "wind" (default) or
-    "sync"; WIND falls back to sync when ``max_symbols_per_frame`` is set.
-    WIND runs the fused decode (one kernel launch on the card, its plain
-    version on the CPU) for every configuration :func:`extract_decode_params`
-    takes, else the eager loop."""
-    if beam_width and beam_width > 0:
-        raise NotImplementedError("beam search is not ported yet")
+    """Greedy (or, with ``beam_width`` > 0, beam) decode of raw audio (JAX
+    ``recognize`` minus ``variables``: the module holds its weights),
+    carrying ``previous_tokens``, ``previous_decoder_states`` and
+    ``previous_encoder_states`` into the output's ``next_*`` for streaming.
+    Greedy: ``decode_mode`` "wind" (default) or "sync"; WIND falls back to
+    sync when ``max_symbols_per_frame`` is set. WIND runs the fused decode
+    (one kernel launch on the card, its plain version on the CPU) for every
+    configuration :func:`extract_decode_params` takes, else the eager loop.
+    Beam: ``transducer_beam_search_decode`` over ``decode_step`` (3 rounds a
+    frame, as in JAX; the other options do not apply)."""
     encoded, encoded_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
     batch, dev = encoded.shape[0], encoded.device
     prev_tokens = inputs.previous_tokens
@@ -271,6 +272,10 @@ def recognize(model: Transducer, inputs: schemas.PredictInput, beam_width: int =
     states = inputs.previous_decoder_states
     if states is None:
         states = model.init_decoder_states(batch, dev)
+    if beam_width and beam_width > 0:
+        tokens, _, next_tokens, next_states = transducer_decode.transducer_beam_search_decode(
+            encoded, encoded_length, model.decode_step, prev_tokens, states, beam_width=beam_width, blank=model.blank)
+        return schemas.PredictOutput(tokens=tokens, next_tokens=next_tokens, next_encoder_states=next_encoder_states, next_decoder_states=next_states)
     params = model.decode_params() if decode_mode == "wind" and max_symbols_per_frame is None else None
     if params is not None:
         tokens, _, next_tokens, next_states = fused_greedy_decode(encoded, encoded_length, params, prev_tokens, states, blank=model.blank, window=window,

@@ -7,8 +7,7 @@ import inspect
 
 import torch
 
-from tensorflowasr_tpu_torch.models.config_utils import (filter_kwargs, learning_config, parse_joint_config, parse_prediction_config, strip_prefix,
-                                                        with_spec_augment)
+from tensorflowasr_tpu_torch.models.config_utils import learning_config, transducer_kwargs, with_spec_augment
 from tensorflowasr_tpu_torch.models.encoders.conformer import _UNPORTED, ConformerEncoder
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 
@@ -104,15 +103,4 @@ class Conformer(Transducer):
     def from_config(cls, config: dict, vocab_size: int | None = None, dtype=torch.float32, device=None, rnn_impl: str = "auto") -> "Conformer":
         """Build from a reference-style config dict on ``device`` (None: the
         CUDA card), with the prediction net's LSTM as ``rnn_impl`` selects."""
-        enc = filter_kwargs(strip_prefix(config, "encoder_"), _ENC_KEYS)
-        return cls(
-            speech_config=dict(config.get("speech_config", {})),
-            encoder_config=enc,
-            prediction_config=parse_prediction_config(config),
-            joint_config=parse_joint_config(config),
-            blank=config.get("blank", 0),
-            vocab_size=vocab_size or config.get("vocab_size", 1000),
-            dtype=dtype,
-            device=device,
-            rnn_impl=rnn_impl,
-        )
+        return cls(**transducer_kwargs(config, _ENC_KEYS, vocab_size, dtype, device, rnn_impl))

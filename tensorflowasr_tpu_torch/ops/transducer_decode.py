@@ -1,10 +1,13 @@
-"""Transducer greedy decoding (counterpart of ``tensorflowasr_tpu/ops/transducer_decode.py``).
+"""Transducer greedy and beam decoding (counterpart of ``tensorflowasr_tpu/ops/transducer_decode.py``).
 
-Both decoders are Python loops over batched tensor ops, with the JAX
+The decoders are Python loops over batched tensor ops, with the JAX
 loops' exact semantics: the static token budget ``factor·T + 1``, the
 iteration cap ``(factor+1)·T + 1``, and the carry-out convention
-("last token not yet consumed"). Each iteration reads one flag back to the
-host for the loop condition. Beam search is not ported yet.
+("last token not yet consumed"). Each greedy iteration reads one flag back
+to the host for the loop condition; the beam runs a fixed number of rounds
+(``max_symbols_per_frame`` a frame) and reads nothing back. The beam's
+top-k is the stable sort of ``ops/ctc_decode.top_k`` (the lower index first
+among equal scores, as ``jax.lax.top_k``).
 
 Decoder states are tuples of tensors with a leading batch dimension
 (one ``(c, h)`` pair per LSTM for the prediction network).
@@ -16,12 +19,19 @@ from typing import Callable, Optional
 
 import torch
 
+from tensorflowasr_tpu_torch.ops.ctc_decode import top_k
+
+
+def _map(fn, *trees):
+    """``fn`` over the tensors of (nested) tuples of equal structure."""
+    if isinstance(trees[0], (tuple, list)):
+        return type(trees[0])(_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
 
 def _select(mask: torch.Tensor, new, old):
     """Per-row select over a (nested) tuple of [B, ...] tensors."""
-    if isinstance(new, (tuple, list)):
-        return type(new)(_select(mask, n, o) for n, o in zip(new, old))
-    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+    return _map(lambda n, o: torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)), n, o), new, old)
 
 
 def transducer_greedy_decode(
@@ -68,6 +78,84 @@ def transducer_greedy_decode(
         states = _select(~is_blank, new_states, states)
         step += 1
     return tokens[:, :max_tokens], token_idx, prev_tokens, states
+
+
+def transducer_beam_search_decode(
+    encoded: torch.Tensor,
+    encoded_length: torch.Tensor,
+    step_fn: Callable,
+    initial_tokens: torch.Tensor,
+    initial_states,
+    beam_width: int = 4,
+    blank: int = 0,
+    max_symbols_per_frame: int = 3,
+):
+    """Time-synchronous beam search with fixed expansions (JAX
+    ``transducer_beam_search_decode``).
+
+    Per frame, ``max_symbols_per_frame`` rounds: each round runs
+    ``step_fn`` on the B·W hypotheses flattened into rows; each still open
+    hypothesis offers two candidates, closing the frame (score + log
+    p(blank)) or emitting its best non-blank token (score + log p(token)),
+    and the best W of the 2W candidates survive; a hypothesis that closed
+    stops expanding this frame. Frames past ``encoded_length`` change
+    nothing. Returns (best tokens [B, 2T+1], lengths [B], next_tokens [B],
+    next_states): the winner's last token and prediction-net states, so
+    that chunked streaming continues from it."""
+    batch, max_frames, enc_dim = encoded.shape
+    dev = encoded.device
+    w = beam_width
+    max_tokens = 2 * max_frames + 1
+    nframes = encoded_length.to(dev, torch.int64)
+    rows, cols = torch.arange(batch, device=dev)[:, None], torch.arange(w, device=dev)[None, :]
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+
+    tokens = torch.full((batch, w, max_tokens), blank, dtype=torch.int64, device=dev)
+    lengths = torch.zeros((batch, w), dtype=torch.int64, device=dev)
+    scores = torch.cat([torch.zeros((batch, 1), device=dev), neg.expand(batch, w - 1)], dim=1)
+    prev_tokens = initial_tokens.to(dev, torch.int64).reshape(batch, 1).expand(batch, w)
+    states = _map(lambda x: x[:, None].expand((batch, w) + x.shape[1:]), initial_states)
+
+    def by_parent(x: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
+        return torch.gather(x, 1, parent.reshape((batch, w) + (1,) * (x.dim() - 2)).expand_as(x))
+
+    def keep(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - mask.dim())), new, old)
+
+    for t in range(max_frames):
+        active = (t < nframes)[:, None]  # [B, 1]
+        enc_frame = encoded[:, min(t, max_frames - 1)][:, None].expand(batch, w, enc_dim).reshape(batch * w, enc_dim)
+        open_mask = active.expand(batch, w)
+        for _ in range(max_symbols_per_frame):
+            logits, new_states = step_fn(enc_frame, prev_tokens.reshape(batch * w), _map(lambda x: x.reshape((batch * w,) + x.shape[2:]), states))
+            lp = torch.log_softmax(logits.float(), dim=-1).reshape(batch, w, -1)
+            new_states = _map(lambda x: x.reshape((batch, w) + x.shape[1:]), new_states)
+            lp_blank = lp[..., blank]
+            lp_tok = lp.index_fill(2, torch.tensor([blank], device=dev), -1e30)
+            best_tok = lp_tok.argmax(dim=-1)  # the lower index among equal values
+            best_lp = torch.gather(lp_tok, 2, best_tok[..., None])[..., 0]
+            cand = torch.stack([scores + torch.where(open_mask, lp_blank, 0.0),
+                                torch.where(open_mask & (lengths < max_tokens), scores + best_lp, neg)], dim=2).reshape(batch, 2 * w)
+            top_scores, top_idx = top_k(cand, w)
+            parent, emitted = top_idx // 2, (top_idx % 2) == 1
+
+            par_tokens = by_parent(tokens, parent)
+            par_len = by_parent(lengths, parent)
+            tok = by_parent(best_tok, parent)
+            pos = par_len.clamp(max=max_tokens - 1)
+            new_tokens = par_tokens.clone()
+            new_tokens[rows, cols, pos] = torch.where(emitted, tok, par_tokens[rows, cols, pos])
+            sel_states = _map(lambda ns, os: keep(emitted, by_parent(ns, parent), by_parent(os, parent)), new_states, states)
+            tokens = keep(active, new_tokens, tokens)
+            lengths = keep(active, torch.where(emitted, (par_len + 1).clamp(max=max_tokens), par_len), lengths)
+            scores = keep(active, top_scores, scores)
+            prev_tokens = keep(active, torch.where(emitted, tok, by_parent(prev_tokens, parent)), prev_tokens)
+            states = _map(lambda n, o: keep(active, n, o), sel_states, states)
+            open_mask = by_parent(open_mask, parent) & emitted & active
+
+    best = scores.argmax(dim=1)
+    b = torch.arange(batch, device=dev)
+    return tokens[b, best], lengths[b, best], prev_tokens[b, best], _map(lambda x: x[b, best], states)
 
 
 def transducer_greedy_decode_wind(

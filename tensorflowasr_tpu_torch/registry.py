@@ -4,9 +4,9 @@ Configs name a model as ``class_name: module>Class``. A name under
 ``tensorflow_asr.``, ``tensorflowasr_tpu.`` or ``tensorflowasr_tpu_torch.``
 resolves to the port's class of that module, imported when first asked
 for, so the reference's and the JAX package's configs load unmodified.
-Bare names resolve as in JAX (``Conformer`` is the transducer). The
-families the port has not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item. The JAX package's ``register`` decorator and
+Bare names resolve as in JAX (``Conformer`` is the transducer). Every
+model family of the JAX package is ported: the five transducers and the
+four CTC models. The JAX package's ``register`` decorator and
 ``from_config`` have no caller in the port and are not copied.
 """
 
@@ -27,18 +27,14 @@ _MODELS = {
     "models.ctc.transformer>TransformerCtc": ("models.ctc.transformer", "TransformerCtc"),
     "models.ctc.deepspeech2>DeepSpeech2": ("models.ctc.deepspeech2", "DeepSpeech2"),
     "models.ctc.jasper>Jasper": ("models.ctc.jasper", "Jasper"),
+    "models.transducer.contextnet>ContextNet": ("models.transducer.contextnet", "ContextNet"),
+    "models.transducer.rnnt>RnnTransducer": ("models.transducer.rnnt", "RnnTransducer"),
+    "models.transducer.transformer>TransformerTransducer": ("models.transducer.transformer", "TransformerTransducer"),
 }
 _BARE = {"Conformer": "models.transducer.conformer>Conformer", "ConformerCtc": "models.ctc.conformer>ConformerCtc",
          "TransformerCtc": "models.ctc.transformer>TransformerCtc", "DeepSpeech2": "models.ctc.deepspeech2>DeepSpeech2",
-         "Jasper": "models.ctc.jasper>Jasper"}
-
-_OTHER_TRANSDUCERS = "The other transducers, encoders and layers"
-_UNPORTED = {
-    "models.transducer.contextnet>ContextNet": _OTHER_TRANSDUCERS,
-    "models.transducer.rnnt>RnnTransducer": _OTHER_TRANSDUCERS,
-    "models.transducer.transformer>TransformerTransducer": _OTHER_TRANSDUCERS,
-}
-_UNPORTED_BARE = {key.split(">")[1]: key for key in _UNPORTED}
+         "Jasper": "models.ctc.jasper>Jasper", "ContextNet": "models.transducer.contextnet>ContextNet",
+         "RnnTransducer": "models.transducer.rnnt>RnnTransducer", "TransformerTransducer": "models.transducer.transformer>TransformerTransducer"}
 
 
 def _port_key(class_name: str) -> str:
@@ -56,7 +52,4 @@ def get(class_name: str) -> Any:
     if key in _MODELS:
         module, cls = _MODELS[key]
         return getattr(importlib.import_module(_PORT + module), cls)
-    unported = key if key in _UNPORTED else _UNPORTED_BARE.get(key)
-    if unported:
-        raise NotImplementedError(f"{class_name!r} is not ported yet (ROADMAP Queue 1, \"{_UNPORTED[unported]}\")")
     raise KeyError(f"Unknown class_name {class_name!r}. Known: {sorted(_MODELS) + sorted(_BARE)}")

@@ -5,7 +5,7 @@ kernel's and kernel A's plain versions on the port's side and JAX's Pallas
 kernels in interpret mode.
 
 - Forward logits to 1e-4 of their largest magnitude (f32 summation order
-  through the blocks), greedy tokens equal.
+  through the blocks), greedy and beam (W 4) tokens equal.
 - The ``auto`` (CTC kernel) and ``xla`` (plain α recursion) training steps
   against JAX ``make_train_step`` under the matching ``TFASR_LOSS_IMPL``,
   with the checks and tolerances of ``test_torch_train_slice.py`` (its
@@ -88,8 +88,10 @@ def test_forward_and_greedy_tokens_match_jax(name):
     out = recognize(tm, schemas.PredictInput(torch.tensor(sig), torch.tensor(lens)))
     np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref_out.tokens))
     np.testing.assert_array_equal(out.next_tokens.numpy(), np.asarray(ref_out.next_tokens))
-    with pytest.raises(NotImplementedError, match="Queue 1, \"Beam search and the LM\""):
-        recognize(tm, schemas.PredictInput(torch.tensor(sig), torch.tensor(lens)), beam_width=4)
+    # beam search through the same entry point (no LM here; tests/test_torch_beam_lm.py fuses one)
+    ref_beam = jax.jit(lambda v_, p_: jbase.recognize(jm, v_, p_, beam_width=4))(v, pin)
+    beam = recognize(tm, schemas.PredictInput(torch.tensor(sig), torch.tensor(lens)), beam_width=4)
+    np.testing.assert_array_equal(beam.tokens.numpy(), np.asarray(ref_beam.tokens))
 
 
 CASES = [(name, impl) for name in sorted(MODELS) for impl in ("auto", "xla")]

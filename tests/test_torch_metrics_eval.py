@@ -8,8 +8,9 @@ package's, and the data-fed training step, on the CPU.
 - The slice as a whole, on a four-utterance manifest of WAV and FLAC files
   with the char tokenizer, tiny 1-block Conformer-T and Conformer-CTC
   (f32, dropout 0) with JAX's weights carried by ``bridge.py``:
-  ``evaluate_dataset`` gives JAX's rows (path, truth, greedy) and WER and
-  CER exactly; two steps of ``Trainer.fit`` fed by the port's dataset
+  ``evaluate_dataset`` gives JAX's rows (path, truth, greedy, beam) and WER
+  and CER exactly, greedy and with beam search at W 4; two steps of
+  ``Trainer.fit`` fed by the port's dataset
   match two JAX ``train_step``s fed by JAX's dataset within the step-parity
   tolerance of ``test_torch_train_slice.py`` (loss to 1e-5 relative, each
   gradient to 1e-4 of its tensor's scale plus 1e-6 of the largest), both
@@ -175,8 +176,10 @@ def test_evaluate_dataset_rows_and_error_rates_equal_jax(manifest, tmp_path, nam
     assert got["rows"] == ref["rows"] and len(got["rows"]) == len(TEXTS)
     assert got["greedy"] == ref["greedy"]
     assert (tmp_path / "predictions.tsv").read_text().splitlines()[1:] == ["\t".join(row) for row in ref["rows"]]
-    with pytest.raises(NotImplementedError, match="beam"):
-        evaluate_dataset(tm, ours, manifest[1], beam_width=4)
+    # the beam column (beam search over the same batches; no LM) and the 4-tuple rows
+    ref = jevaluation.evaluate_dataset(jm, v, theirs, manifest[2], batch_size=batch_size, beam_width=4, collect_rows=True)
+    got = evaluate_dataset(tm, ours, manifest[1], batch_size=batch_size, beam_width=4, collect_rows=True, num_workers=2)
+    assert got["rows"] == ref["rows"] and got["greedy"] == ref["greedy"] and got["beam"] == ref["beam"]
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))

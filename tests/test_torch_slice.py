@@ -132,9 +132,8 @@ def test_flagship_config_matches_graft_entry(monkeypatch):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="mha_type"):
         Conformer.from_config({**TINY_CFG, "encoder_mha_type": "mha"}, device="cpu")
-    model = Conformer.from_config(TINY_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        recognize(model, schemas.PredictInput(torch.zeros(1, 1600), torch.tensor([1600])), beam_width=2)
+    with pytest.raises(NotImplementedError, match="label_encoder_mode"):
+        Conformer.from_config({**TINY_CFG, "prediction_label_encode_mode": "one_hot"}, device="cpu")
 
 
 def test_port_imports_no_jax_flax_yaml_tokenizers():

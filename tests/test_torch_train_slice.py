@@ -50,9 +50,10 @@ from tensorflowasr_tpu_torch.training.trainer import Trainer
 from tests.test_torch_slice import TINY_CFG
 
 REL = 1e-4
-# parameters whose gradient is zero in exact arithmetic (see the module docstring); the last two, DeepSpeech2's and
-# Jasper's conv biases, each ahead of a BatchNorm
-FROZEN = ("key.bias", "encoding.bias", "subsampling.conv_0.bias", "subsampling.conv_1.bias", "dw_conv.bias", "conv2d.bias", "conv1d.bias")
+# parameters whose gradient is zero in exact arithmetic (see the module docstring); the last three, DeepSpeech2's,
+# Jasper's and ContextNet's conv biases, each ahead of a BatchNorm
+FROZEN = ("key.bias", "encoding.bias", "subsampling.conv_0.bias", "subsampling.conv_1.bias", "dw_conv.bias", "conv2d.bias", "conv1d.bias",
+          "pointwise.bias")
 ADAM = {"class_name": "Adam", "config": {"learning_rate": 1e-3}}
 K_STEPS = 3
 
@@ -110,17 +111,25 @@ def run_both(loss_impl: str, rnn_impl: str = "auto", cfg: dict = TINY_CFG, jax_c
         jm = jax_cls.from_config(cfg)
         jb = _jax_batch(arrs)
         v = jax.tree_util.tree_map(np.asarray, jax.jit(lambda k, x: jm.init({"params": k}, x, train=False))(jax.random.PRNGKey(1), jb.inputs))
-        v["batch_stats"] = jax.tree_util.tree_map(lambda a: (a + 0.2 * rng.random(a.shape)).astype(np.float32), v["batch_stats"])
+        if "batch_stats" in v:  # a model without BatchNorm (the RNN-T) has none
+            v["batch_stats"] = jax.tree_util.tree_map(lambda a: (a + 0.2 * rng.random(a.shape)).astype(np.float32), v["batch_stats"])
         port_name = lambda path: ".".join(str(k.key) for k in path if str(k.key) not in bridge._DROP)
         labels = jax.tree_util.tree_map_with_path(lambda path, _: "frozen" if port_name(path).endswith(FROZEN) else "adam", v["params"])
         tx = optax.chain(_record_grads(), optax.multi_transform({"adam": jbuild_optimizer(ADAM), "frozen": optax.set_to_zero()}, labels))
-        state = jtrainer.TrainState.create(jax.tree_util.tree_map(jnp.asarray, v), tx, jax.random.PRNGKey(0))
+        jvars = dict(v)
+        if "batch_stats" not in jvars:
+            # JAX's make_train_step applies with mutable=[] when a model has no statistics, and flax then returns a
+            # tuple where the step reads the output; an entry that no module reads makes the step run as written
+            jvars["batch_stats"] = {"no_batch_norm": {"mean": np.zeros(1, np.float32)}}
+        state = jtrainer.TrainState.create(jax.tree_util.tree_map(jnp.asarray, jvars), tx, jax.random.PRNGKey(0))
         step = jax.jit(jtrainer.make_train_step(jm, tx))
         jax_steps = []
         for _ in range(K_STEPS):
             state, metrics = step(state, jb)
             jax_steps.append((float(metrics["loss"]), float(metrics["grad_norm"]), jax.tree_util.tree_map(np.asarray, state.opt_state[0])))
         jax_final = jax.tree_util.tree_map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats})
+        if "batch_stats" not in v:
+            del jax_final["batch_stats"]
 
     takes_rnn_impl = "rnn_impl" in inspect.signature(port_cls.from_config).parameters  # a transducer's, DeepSpeech2's
     tm = port_cls.from_config(cfg, device="cpu", **({"rnn_impl": rnn_impl} if takes_rnn_impl else {}))
