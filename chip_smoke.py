@@ -153,6 +153,20 @@ launches are recorded per path. Any failure raises. The last two lines
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero.
 
+The command line (``phase_cli``): on the data phase's corpus with a config
+of the flagship at its published widths (4 blocks) and the char tokenizer, each
+subcommand of ``python -m tensorflowasr_tpu_torch`` as its own process:
+``utils create_datasets_metadata`` and ``create_tfrecords``, ``train`` (3
+steps, bf16), ``test`` (greedy and beam 4), ``save`` and ``export`` (f32,
+bs 1), each with its wall; then ``export.py`` for the flagship at bf16
+and the small-streaming transducer with its carried states (4 blocks
+each), Transformer-CTC base and RNN-T small; each ``.pt2`` loaded in a fresh process
+(``--cli-child``) and held against eager ``recognize`` on the same
+weights: tokens, the kernel launches of a call (equal, and no plain
+version run), device operations a call, walls per request and the
+program's bytes. ``--cli`` runs
+the build and this phase alone.
+
 ``python3 chip_smoke.py --compare-parent DIR`` runs only row 10a's times
 (:func:`rows_child`: the call alone and with the stack of its outputs) and
 the step numbers (:func:`phase_steps`) of this checkout and of the package
@@ -4606,6 +4620,261 @@ def phase_data(dev) -> tuple[dict, dict]:
     return paths, checks
 
 
+# ------------------------------ the command line ------------------------------ #
+
+CLI_TRAIN_SPLITS, CLI_EVAL_SPLITS, CLI_TEST_SPLITS = ("train-clean-100",), ("dev-clean",), ("dev-other",)  # 16, 8 and 8 of the corpus's utterances
+CLI_BS, CLI_STEPS, CLI_TEST_BS, CLI_BEAM, CLI_SHARDS = 4, 3, 8, 4, 4
+CLI_BLOCKS = 4  # the Conformers' depth here (published widths): the CLI's flagship, the bf16 flagship and the streaming transducer
+CLI_NSAMPLES, CLI_REQUESTS = 16000, 5  # the export's 1 s signature (scripts/export.py); requests timed per program
+# the programs held against eager recognize in a fresh process: name -> (compute dtype, streaming signature)
+CLI_PROGRAMS = {"cli_flagship_f32": (torch.float32, False), "flagship_bf16": (torch.bfloat16, False), "streaming_f32": (torch.float32, True),
+                "transformer_ctc_f32": (torch.float32, False), "rnnt_bf16": (torch.bfloat16, False)}
+CLI_STREAM_CHUNKS = 4
+# the plain versions the serving operators fall back to on the CPU (ops/cuda/library.py): none may run on the card
+CLI_PLAIN = (("frontend_kernel", "log_mel_spectrogram_plain"), ("attention_kernel", "fused_rel_attention_plain"), ("attention_kernel", "fused_attention_plain"),
+             ("ff_kernel", "fused_ff_plain"), ("conv_kernel", "conv_front_plain"), ("conv_kernel", "conv_back_plain"), ("lstm_kernel", "lstm_fwd_plain"),
+             ("decode_kernel", "fused_greedy_decode_plain"))
+
+
+def cli_config(root: str) -> str:
+    """``root/cli.yml.j2``: the flagship at its published widths, cut to
+    CLI_BLOCKS blocks, with the example's SpecAugment, the char tokenizer
+    (V 29) and the data phase's corpus under ``{{datadir}}`` (train
+    train-clean-100's 16, eval dev-clean's 8, test dev-other's 8
+    utterances; metadata under ``{{modeldir}}``; TFRecords in CLI_SHARDS
+    shards), and the example's learning_config at batch CLI_BS with
+    ``ga_steps`` 1 (each of the CLI_STEPS steps applies an update)."""
+    from tensorflowasr_tpu_torch.models.transducer.conformer import conformer_small_config, conformer_small_learning_config
+
+    def dataset(stage: str, splits: tuple, **kw) -> dict:
+        return {"enabled": True, "stage": stage, "data_paths": [f"{{{{datadir}}}}/{s}/transcripts.tsv" for s in splits], "metadata": "{{modeldir}}/metadata.json",
+                "tfrecords_dir": "{{datadir}}/tfrecords", "tfrecords_shards": CLI_SHARDS, **kw}
+
+    lc = {**conformer_small_learning_config("{{modeldir}}"), "batch_size": CLI_BS, "ga_steps": 1}
+    cfg = {"decoder_config": {"type": "characters", "blank_index": 0, "beam_width": 0},
+           "model_config": {"class_name": "tensorflow_asr.models.transducer.conformer>Conformer", "config": conformer_small_config(vocab_size=29, num_blocks=CLI_BLOCKS, augment=True)},
+           "data_config": {"train_dataset_config": dataset("train", CLI_TRAIN_SPLITS, shuffle=True), "eval_dataset_config": dataset("eval", CLI_EVAL_SPLITS),
+                           "test_dataset_configs": [dataset("test", CLI_TEST_SPLITS, name="dev-other", drop_remainder=False, indefinite=False)]},
+           "learning_config": lc}
+    path = os.path.join(root, "cli.yml.j2")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f, indent=1)  # JSON is YAML; Jinja fills {{datadir}} and {{modeldir}}
+    return path
+
+
+def cli_program_model(name: str, dev, root: str):
+    """(model, tokenizer or None, example inputs) of program ``name``, random
+    weights from SEED but for the CLI's flagship, whose weights are those
+    ``save`` wrote after ``train``; the Conformers CLI_BLOCKS deep."""
+    from tensorflowasr_tpu_torch import pipeline
+    from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_small_config, conformer_small_streaming_config
+
+    dtype, streaming = CLI_PROGRAMS[name]
+    tok = None
+    if name == "cli_flagship_f32":
+        config = pipeline.load_config(os.path.join(root, "cli.yml.j2"), training=False, datadir=root, modeldir=os.path.join(root, "model"))
+        tok = pipeline.build_tokenizer(config)
+        model = pipeline.build_model_from_config(config, tok, mxp="none", device=dev)
+        model.load_state_dict(torch.load(os.path.join(root, "model", "final.pt"), map_location=dev, weights_only=True))
+    elif name == "flagship_bf16":
+        config = pipeline.load_config(os.path.join(root, "cli.yml.j2"), training=False, datadir=root, modeldir=os.path.join(root, "model"))
+        tok = pipeline.build_tokenizer(config)
+        model = Conformer.from_config(conformer_small_config(vocab_size=tok.num_classes, num_blocks=CLI_BLOCKS), dtype=dtype, device=dev)
+        model.reset_parameters(torch.Generator().manual_seed(SEED))
+    elif name == "streaming_f32":
+        model = Conformer.from_config(conformer_small_streaming_config(num_blocks=CLI_BLOCKS, memory_length=STREAM_MEMORY), dtype=dtype, device=dev)
+        model.reset_parameters(torch.Generator().manual_seed(SEED))
+    elif name == "transformer_ctc_f32":
+        model = ctc_model("transformer_ctc", dtype, dev)
+    else:
+        model = transducer_model("rnnt", dtype, dev, os.path.join(root, "model"))
+    model.eval()
+    if streaming:
+        size, _ = model.feature_extraction.config.get_signal_chunk_size_and_step(STREAM_FRAMES)
+        example = (torch.zeros((1, size), device=dev), torch.full((1,), size, dtype=torch.int32, device=dev), torch.zeros((1,), dtype=torch.int64, device=dev),
+                   model.init_encoder_states(1, dev), model.init_decoder_states(1, dev))
+    else:
+        example = (torch.zeros((1, CLI_NSAMPLES), device=dev), torch.full((1,), CLI_NSAMPLES, dtype=torch.int32, device=dev))
+    return model, tok, example
+
+
+def cli_run(tag: str, argv: list, walls: dict) -> str:
+    """``python -m tensorflowasr_tpu_torch argv`` from the checkout's root, its wall in ``walls[tag]``; raises unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tensorflowasr_tpu_torch", *argv], cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    walls[tag] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {tag}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stderr
+
+
+def phase_cli(dev) -> dict:
+    """The command line and the inference programs: on the data phase's
+    corpus with ``cli.yml.j2`` (:func:`cli_config`), each subcommand as its
+    own process (``python -m tensorflowasr_tpu_torch``): ``utils
+    create_datasets_metadata`` and ``create_tfrecords``, ``train`` for
+    CLI_STEPS steps (bf16), ``test`` (greedy and beam CLI_BEAM, the TSV and
+    its WER/CER), ``save``, ``export`` (f32, bs 1); then ``export.py``
+    directly for the flagship at bf16 and the small-streaming transducer
+    with its carried states (CLI_BLOCKS deep), Transformer-CTC base and
+    RNN-T small; then every
+    ``.pt2`` loaded in a fresh process (:func:`cli_child`) and held against
+    eager ``recognize`` on the same weights. Returns the programs' launch
+    counts (the counted call of each)."""
+    import tempfile
+
+    from tensorflowasr_tpu_torch import export
+
+    t0 = time.perf_counter()
+    walls, sizes = {}, {}
+    with tempfile.TemporaryDirectory(prefix="tfasr-cli-") as root:
+        data_corpus(root)
+        config, mdir, programs = cli_config(root), os.path.join(root, "model"), os.path.join(root, "programs")
+        os.makedirs(programs)
+        common = ["--config-path", config, "--datadir", root, "--modeldir", mdir]
+        cli_run("utils create_datasets_metadata", ["utils", "create_datasets_metadata", *common], walls)
+        cli_run("utils create_tfrecords", ["utils", "create_tfrecords", *common, "--dataset-type", "tfrecord"], walls)
+        shards = sorted(os.listdir(os.path.join(root, "tfrecords")))
+        if len(shards) != 3 * CLI_SHARDS:
+            raise AssertionError(f"cli create_tfrecords: shards {shards}, expected {CLI_SHARDS} for each of train, eval and test")
+        cli_run("train", ["train", *common, "--bs", str(CLI_BS), "--epochs", "1", "--steps-per-epoch", str(CLI_STEPS), "--mxp", "strict"], walls)
+        if os.listdir(os.path.join(mdir, "checkpoints")) != [str(CLI_STEPS)]:
+            raise AssertionError(f"cli train: checkpoints {os.listdir(os.path.join(mdir, 'checkpoints'))}, expected step {CLI_STEPS}")
+        tsv = os.path.join(mdir, "test.tsv")
+        log = cli_run("test", ["test", *common, "--bs", str(CLI_TEST_BS), "--beam-width", str(CLI_BEAM), "--output", tsv], walls)
+        rows = [line.split("\t") for line in open(tsv, encoding="utf-8").read().splitlines()]
+        if rows[0] != ["PATH", "GROUNDTRUTH", "GREEDY", "BEAMSEARCH"] or len(rows) != 1 + 8 or any(len(r) != 4 for r in rows):
+            raise AssertionError(f"cli test: the TSV has {len(rows)} lines, expected a header and 8 rows of 4 columns")
+        report = [line.split("tensorflowasr_tpu_torch: ")[-1] for line in log.splitlines() if ": {'wer'" in line]
+        cli_run("save", ["save", *common, "--output", os.path.join(mdir, "final.pt")], walls)
+        cli_run("export", ["export", *common, "--output", os.path.join(programs, "cli_flagship_f32.pt2")], walls)
+        for name in list(CLI_PROGRAMS)[1:]:
+            model, tok, example = cli_program_model(name, dev, root)
+            t1 = time.perf_counter()
+            export.export_program(export.make_inference_fn(model, tok), example, os.path.join(programs, f"{name}.pt2"))
+            walls[f"export.py {name}"] = time.perf_counter() - t1
+            del model
+        torch.cuda.empty_cache()
+        for name in CLI_PROGRAMS:
+            sizes[name] = os.path.getsize(os.path.join(programs, f"{name}.pt2"))
+        print("cli walls (s, each subcommand its own process): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+        print(f"cli test (dev-other, 8 utterances, bs {CLI_TEST_BS}, beam {CLI_BEAM}; weights after {CLI_STEPS} steps): " + " | ".join(report))
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-child", root], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli child: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])["cli_child"]
+        print(f"cli child (a fresh process: build the models, load the programs, eager against loaded): {time.perf_counter() - t1:.1f} s")
+    for name, r in child["programs"].items():
+        (eager_ops, eager_dev), (program_ops, program_dev) = r["device"]["eager"], r["device"]["program"]
+        print(f"cli program {name}: {sizes[name]} bytes; wall per request eager {r['eager_ms']:.2f} ms, loaded program {r['program_ms']:.2f} ms; "
+              f"device operations a call (profiler) eager {eager_ops} in {eager_dev:.2f} ms, program {program_ops} in {program_dev:.2f} ms; "
+              f"tokens {r['tokens']}; launches per call eager {_launched(r['eager_launches'])}, program {_launched(r['program_launches'])} (equal); "
+              f"plain versions run: 0")
+    print(f"cli phase: {time.perf_counter() - t0:.1f} s")
+    return {"cli": child["launches"]}
+
+
+def _count_plain_calls(calls: dict) -> None:
+    """Wraps each plain version of CLI_PLAIN so that a call adds one to ``calls``."""
+    import importlib
+
+    for mod_name, fn_name in CLI_PLAIN:
+        mod = importlib.import_module(f"tensorflowasr_tpu_torch.ops.cuda.{mod_name}")
+        fn = getattr(mod, fn_name)
+
+        def counted(*args, _fn=fn, _name=fn_name, **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        setattr(mod, fn_name, counted)
+
+
+def _requests(name: str, model, example, dev) -> list:
+    """The inputs of CLI_REQUESTS requests (1 s of random audio each), or of CLI_STREAM_CHUNKS chunks of one stream."""
+    rng = np.random.default_rng(SEED + 31)
+    if not CLI_PROGRAMS[name][1]:
+        return [(torch.tensor((rng.standard_normal(tuple(example[0].shape)) * 0.1).astype(np.float32), device=dev), example[1]) for _ in range(CLI_REQUESTS)]
+    chunks, _, _ = stream_chunks(model, SEED + 31, dev)
+    return [(c, example[1]) for c in chunks[:CLI_STREAM_CHUNKS]]
+
+
+def cli_child(dev, root: str) -> dict:
+    """In a fresh process: each program of :func:`phase_cli` loaded with
+    ``export.load_program`` and its model rebuilt (:func:`cli_program_model`);
+    per request (a stream's chunks in order, each carrying the previous
+    outputs' tokens and states) the program's tokens against eager
+    ``recognize``'s: equal at f32, and at bf16 equal or differing only where
+    the plain decode's top-two logit gap is within DECODE_GAP of the logit
+    scale; the kernel launches of one call equal, no plain version run;
+    walls per request (after a warm-up pass, each request synchronised)."""
+    from tensorflowasr_tpu_torch import export, schemas
+    from tensorflowasr_tpu_torch.models.ctc import base as ctc_base
+    from tensorflowasr_tpu_torch.models.transducer import base as transducer_base
+    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+
+    plain_calls: dict = {}
+    _count_plain_calls(plain_calls)
+    out, total = {}, _per()
+    for name, (dtype, streaming) in CLI_PROGRAMS.items():
+        model, _, example = cli_program_model(name, dev, root)
+        program = export.load_program(os.path.join(root, "programs", f"{name}.pt2"))
+        is_transducer = isinstance(model, transducer_base.Transducer)
+        recognize = transducer_base.recognize if is_transducer else ctc_base.recognize
+        requests = _requests(name, model, example, dev)
+
+        def run_all(call):
+            carry, outs = tuple(example[2:]), []
+            for sig, n in requests:
+                res = call(sig, n, *carry)
+                outs.append(res)
+                if streaming:
+                    carry = (res.next_tokens, res.next_encoder_states, res.next_decoder_states)
+            torch.cuda.synchronize()
+            return outs
+
+        eager = lambda sig, n, *carry: recognize(model, schemas.PredictInput(sig, n, *carry))
+        reset_launch_counts()
+        eager(*requests[0], *example[2:])
+        eager_counts = launch_counts()
+        reset_launch_counts()
+        program(*requests[0], *example[2:])
+        program_counts = launch_counts()
+        if program_counts != eager_counts or not any(program_counts.values()):
+            raise AssertionError(f"cli program {name}: launches per call {_launched(program_counts)}, eager recognize {_launched(eager_counts)}")
+        total = {k: total[k] + program_counts[k] for k in KERNELS}
+        device = {tag: device_launches(lambda: call(*requests[0], *example[2:])) for tag, call in (("eager", eager), ("program", program))}
+        walls = {}
+        for tag, call in (("eager", eager), ("program", program)):
+            outs = run_all(call)
+            t0 = time.perf_counter()
+            run_all(call)
+            walls[tag] = (time.perf_counter() - t0) / len(requests) * 1e3
+            walls[f"{tag}_outs"] = outs
+        notes = []
+        for i, (e, p) in enumerate(zip(walls["eager_outs"], walls["program_outs"])):
+            if torch.equal(e.tokens, p.tokens):
+                continue
+            if dtype != torch.bfloat16 or not is_transducer:
+                raise AssertionError(f"cli program {name}: request {i} tokens differ from eager recognize's")
+            sig, n = requests[i]
+            enc, enc_len, _ = model.encode(sig, n)
+            params = model.decode_params()
+            start, states = torch.zeros((1,), dtype=torch.int64, device=dev), model.init_decoder_states(1, dev)
+            ref = dk.fused_greedy_decode_plain(enc, enc_len, params, start, states, gaps=True)
+            got = (p.tokens, (p.tokens != model.blank).sum(dim=1))
+            notes.append(decode_bf16_agreement(params, start, states, enc, got, ref, f"{name} request {i}"))
+        out[name] = {"eager_ms": walls["eager"], "program_ms": walls["program"], "eager_launches": eager_counts, "program_launches": program_counts,
+                     "device": device,
+                     "tokens": "; ".join(notes) if notes else f"equal on all {len(requests)} {'chunks' if streaming else 'requests'}"}
+        del model, program
+        torch.cuda.empty_cache()
+    if plain_calls:
+        raise AssertionError(f"cli: plain versions ran on the card: {plain_calls}")
+    return {"programs": out, "launches": total}
+
+
 def host_profile(trainer, state, batch, steps: int = HOST_STEPS, top: int = 12) -> tuple[dict, list]:
     """Where the host spends a training step: over ``steps`` more steps the
     median wall (host clock, ends in a synchronise), the median time until
@@ -4905,6 +5174,8 @@ def main(argv: list[str]) -> int:
     ``--rows [--package DIR]``: only :func:`rows_child`, as one JSON line.
     ``--recipe``: only :func:`phase_recipe`, its launch counts as one JSON line.
     ``--data``: only :func:`phase_data`, its launch counts as one JSON line.
+    ``--cli``: only :func:`phase_cli`, its launch counts as one JSON line.
+    ``--cli-child ROOT``: only :func:`cli_child` on the programs under ROOT, as one JSON line.
     ``--ctc-family``: only :func:`family_kernels`, :func:`phase_ctc_family`
     and :func:`phase_ctc_family_parity`, the sub-entries and launch counts as one JSON line.
     ``--transducers``: only :func:`transducer_kernels`, :func:`phase_transducers`,
@@ -4939,6 +5210,15 @@ def main(argv: list[str]) -> int:
         _no_tf32()
         _build.build()
         print(json.dumps({"recipe": phase_recipe(torch.device("cuda", 0))}))
+        return 0
+    if "--cli-child" in argv:
+        _no_tf32()
+        print(json.dumps({"cli_child": cli_child(torch.device("cuda", 0), argv[argv.index("--cli-child") + 1])}))
+        return 0
+    if "--cli" in argv:
+        _no_tf32()
+        _build.build()
+        print(json.dumps({"cli": phase_cli(torch.device("cuda", 0))}))
         return 0
     if "--data" in argv:
         _no_tf32()
@@ -5020,6 +5300,8 @@ def main(argv: list[str]) -> int:
             row["data_v29"] = data_checks[row["name"]]
     next(row for row in rows if row["name"] == "fused_decode")["data_v29_overfit"] = data_checks["fused_decode_overfit"]
     mark("data")
+    paths.update(phase_cli(dev))
+    mark("cli")
     phase_fit_gc()
     phase_gc_probe()
     mark("gc")

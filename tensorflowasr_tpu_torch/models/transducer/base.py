@@ -208,7 +208,10 @@ class Transducer(nn.Module):
     def decode_params(self) -> FusedDecodeParams | None:
         """:func:`extract_decode_params` in the model's dtype, cached until a
         prediction or joint parameter changes (``load_state_dict``,
-        ``reset_parameters``, an in-place update or a move to another device)."""
+        ``reset_parameters``, an in-place update or a move to another device).
+        Under ``torch.export`` the parameters are traced, so nothing is cached."""
+        if torch.compiler.is_exporting():
+            return extract_decode_params(self, self.dtype)
         key = tuple((p.device, p.data_ptr(), p._version) for p in (*self.prediction.parameters(), *self.joint.parameters()))
         cached = getattr(self, "_decode_params_cache", None)
         if cached is None or cached[0] != key:

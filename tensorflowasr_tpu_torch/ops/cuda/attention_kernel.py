@@ -318,8 +318,14 @@ def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float =
     rebuilt in-kernel. Returns [BH, T, D] in qc.dtype. A CUDA tensor
     launches the kernels (forward, and backward under autograd); a CPU
     tensor takes :func:`fused_rel_attention_plain` and
-    :func:`fused_rel_attention_plain_bwd`.
+    :func:`fused_rel_attention_plain_bwd`. Under ``torch.export`` the call
+    is the custom operator ``tfasr::fused_rel_attention``
+    (``ops/cuda/library.py``), the forward only.
     """
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, int(seed), float(rate), bool(causal), chunk_size, history_size, bool(pe_causal))
     if qc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {qc.device}")
     dr.keep_params(rate)
@@ -520,7 +526,13 @@ def fused_attention(q, k, v, bias, seed=0, rate: float = 0.0):
     launches the kernels (forward, and backward under autograd) or raises
     on a shape they do not take; a CPU tensor takes
     :func:`fused_attention_plain` and :func:`fused_attention_plain_bwd`.
+    Under ``torch.export`` the call is the custom operator
+    ``tfasr::fused_attention`` (``ops/cuda/library.py``), the forward only.
     """
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.fused_attention(q, k, v, bias, int(seed), float(rate))
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")
     dr.keep_params(rate)

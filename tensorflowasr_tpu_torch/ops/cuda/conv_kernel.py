@@ -187,7 +187,13 @@ def conv_front(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
     depthwise conv; differentiable. x: [B, T, D]; gamma/beta [D] f32;
     wa/wb: [D, D] ([in, out]) and ba/bb [D] in x's dtype. Returns
     [B, T, D] in x.dtype. A CUDA tensor launches the kernels; a CPU tensor
-    takes :func:`conv_front_plain` and :func:`conv_front_plain_bwd`."""
+    takes :func:`conv_front_plain` and :func:`conv_front_plain_bwd`. Under
+    ``torch.export`` the call is the custom operator ``tfasr::conv_front``
+    (``ops/cuda/library.py``), the forward only."""
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.conv_front(x, gamma, beta, wa, ba, wb, bb, float(eps))
     _cuda(x)
     return _ConvFront.apply(x, gamma, beta, wa, ba, wb, bb, float(eps))
 
@@ -345,7 +351,13 @@ def conv_back(x, y1, mean, var, scale, bias, w2, b2, seed=0, rate: float = 0.0, 
     ``mean`` and ``var``. x/y1: [B, T, D]; mean/var/scale/bias [D] f32; w2
     [D, D] ([in, out]) and b2 [D] in x's dtype. A CUDA tensor launches the
     kernels; a CPU tensor takes :func:`conv_back_plain` and
-    :func:`conv_back_plain_bwd`."""
+    :func:`conv_back_plain_bwd`. Under ``torch.export`` the call is the
+    custom operator ``tfasr::conv_back`` (``ops/cuda/library.py``), the
+    forward only."""
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.conv_back(x, y1, mean, var, scale, bias, w2, b2, int(seed), float(rate), float(factor), float(eps))
     _cuda(x)
     dr.keep_params(rate)
     return _ConvBack.apply(x, y1, mean, var, scale, bias, w2, b2, int(seed), float(rate), float(factor), float(eps))

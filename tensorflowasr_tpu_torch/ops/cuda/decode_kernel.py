@@ -126,6 +126,16 @@ def _select(mask: torch.Tensor, new, old):
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
+def stack_states(states) -> torch.Tensor:
+    """One (c [B, H], h [B, H]) pair per layer → [L, 2, B, H] f32, contiguous."""
+    return torch.stack([torch.stack([c.float(), h.float()]) for c, h in states]).contiguous()
+
+
+def unstack_states(stacked: torch.Tensor):
+    """[L, 2, B, H] → one (c, h) pair per layer (views)."""
+    return tuple((stacked[i, 0], stacked[i, 1]) for i in range(stacked.shape[0]))
+
+
 def fused_greedy_decode_plain(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, initial_states, blank: int = 0, window: int = 16,
                               max_token_factor: int = 2, gaps: bool = False):
     """Plain PyTorch version of :func:`fused_greedy_decode` (same arguments
@@ -353,6 +363,15 @@ def fused_greedy_decode_kernel(encoded, encoded_length, params: FusedDecodeParam
     the outputs are the same). ``cluster`` fixes the blocks per utterance
     (default: :func:`choose_cluster` from the card's occupancy); a size the
     card cannot launch raises."""
+    tokens, lengths, next_tokens, states = fused_greedy_decode_kernel_stacked(encoded, encoded_length, params, initial_tokens, initial_states, blank,
+                                                                             window, max_token_factor, cluster)
+    return tokens, lengths, next_tokens, unstack_states(states)
+
+
+def fused_greedy_decode_kernel_stacked(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, initial_states, blank: int = 0,
+                                       window: int = 16, max_token_factor: int = 2, cluster: Optional[int] = None):
+    """:func:`fused_greedy_decode_kernel` with the states carried out as one
+    [L, 2, B, H] f32 tensor (c then h per layer)."""
     global launches, last_launch
     code, (e, hidden, p, j, vocab) = _check(encoded, encoded_length, params, initial_tokens, initial_states)
     dev = encoded.device
@@ -361,7 +380,7 @@ def fused_greedy_decode_kernel(encoded, encoded_length, params: FusedDecodeParam
     k, max_tokens, step_max = _budget(t_max, window, max_token_factor)
     lens = encoded_length.to(torch.int32).reshape(batch).contiguous()
     tok0 = initial_tokens.to(torch.int32).reshape(batch).contiguous()
-    st0 = torch.stack([torch.stack([c.float(), h.float()]) for c, h in initial_states]).contiguous()  # [L, 2, B, H]
+    st0 = stack_states(initial_states)
     tokens = torch.full((batch, max_tokens), blank, dtype=torch.int32, device=dev)
     out_len, next_tok = torch.zeros(batch, dtype=torch.int32, device=dev), tok0.clone()
     st_out = st0.clone()
@@ -399,8 +418,7 @@ def fused_greedy_decode_kernel(encoded, encoded_length, params: FusedDecodeParam
         launches += 1
         last_launch = dict(cluster=plan.cluster, occupancy=occ, smem_bytes=plan.smem_bytes, resident_bytes=plan.resident_bytes,
                            slice_bytes=plan.slice_bytes, whole=plan.whole, batch=batch)
-    states = tuple((st_out[i, 0], st_out[i, 1]) for i in range(st_out.shape[0]))
-    return tokens.long(), out_len.long(), next_tok.long(), states
+    return tokens.long(), out_len.long(), next_tok.long(), st_out
 
 
 def fused_greedy_decode(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, initial_states, blank: int = 0, window: int = 16,
@@ -415,8 +433,14 @@ def fused_greedy_decode(encoded, encoded_length, params: FusedDecodeParams, init
     lengths [B], next_tokens [B], next_states) with the WIND carry-out
     (the states from before the last emitted token's step, f32). A CUDA
     tensor launches the kernel or raises; a CPU tensor takes
-    :func:`fused_greedy_decode_plain`.
+    :func:`fused_greedy_decode_plain`. Under ``torch.export`` the call is the
+    custom operator ``tfasr::fused_greedy_decode`` (``ops/cuda/library.py``),
+    which does the same at run time.
     """
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.fused_greedy_decode_op(encoded, encoded_length, params, initial_tokens, initial_states, blank, window, max_token_factor)
     if encoded.device.type == "cpu":
         return fused_greedy_decode_plain(encoded, encoded_length, params, initial_tokens, initial_states, blank, window, max_token_factor)
     if encoded.device.type != "cuda":

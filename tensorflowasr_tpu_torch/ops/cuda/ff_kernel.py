@@ -285,8 +285,14 @@ def fused_ff(x, gamma, beta, w1, b1, w2, b2, seed=0, rate: float = 0.0, factor: 
     w2: [F, D], b2: [D] in x's dtype; seed: int for both dropout sites,
     rate in [0, 1). Returns [N, D] in x.dtype. A CUDA tensor launches the
     kernels (forward, and backward under autograd); a CPU tensor takes
-    :func:`fused_ff_plain` and :func:`fused_ff_plain_bwd`.
+    :func:`fused_ff_plain` and :func:`fused_ff_plain_bwd`. Under
+    ``torch.export`` the call is the custom operator ``tfasr::fused_ff``
+    (``ops/cuda/library.py``), the forward only.
     """
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.fused_ff(x, gamma, beta, w1, b1, w2, b2, int(seed), float(rate), float(factor), float(eps))
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no feed-forward kernel for device {x.device}")
     dr.keep_params(rate)

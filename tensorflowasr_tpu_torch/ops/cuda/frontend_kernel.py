@@ -114,13 +114,25 @@ def log_mel_spectrogram_pallas(signal: torch.Tensor, config: frontend.FrontendCo
     """[B, N] f32 (preemphasised) → [B, T, num_feature_bins] f32 log-mel,
     T = ceil(N / frame_step). A CUDA tensor launches the FFT kernel (nfft in
     :data:`FFT_SIZES`) or the direct-DFT kernel (any other nfft); a CPU
-    tensor takes :func:`log_mel_spectrogram_plain`."""
-    global launches, dft_launches
+    tensor takes :func:`log_mel_spectrogram_plain`. Under ``torch.export``
+    the call is the custom operator ``tfasr::log_mel_spectrogram``
+    (``ops/cuda/library.py``), which does the same at run time."""
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        return library.log_mel_spectrogram_op(signal, config)
     _check_config(config)
     if signal.device.type == "cpu":
         return log_mel_spectrogram_plain(signal, config)
     if signal.device.type != "cuda":
         raise ValueError(f"no frontend kernel for device {signal.device}")
+    return log_mel_spectrogram_kernel(signal, config)
+
+
+def log_mel_spectrogram_kernel(signal: torch.Tensor, config: frontend.FrontendConfig) -> torch.Tensor:
+    """The FFT or direct-DFT kernel on a CUDA tensor (see :func:`log_mel_spectrogram_pallas`)."""
+    global launches, dft_launches
+    _check_config(config)
     if signal.dim() != 2:
         raise ValueError("signal must be [B, N]")
     b, n = signal.shape

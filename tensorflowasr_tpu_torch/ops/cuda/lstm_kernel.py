@@ -252,7 +252,14 @@ def lstm_core(xg: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, c0: torch.Te
     ``interpret``): xg [B, T, 4H] = x·Wx + b (gate order i, f, g, o), wh
     [H, 4H], h0, c0 [B, H]. Returns (y, cseq) [B, T, H] in xg's dtype: the
     hidden and cell sequences. Differentiable in all four inputs. A CUDA
-    tensor launches the kernels; a CPU tensor takes the plain versions."""
+    tensor launches the kernels; a CPU tensor takes the plain versions.
+    Under ``torch.export`` the call is the custom operator ``tfasr::lstm``
+    (``ops/cuda/library.py``), the forward only."""
+    if torch.compiler.is_exporting():
+        from tensorflowasr_tpu_torch.ops.cuda import library
+
+        dt = xg.dtype
+        return library.lstm(xg.contiguous(), wh.to(dt).contiguous(), h0.to(dt).contiguous(), c0.to(dt).contiguous())
     if xg.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LSTM kernel for device {xg.device}")
     return _LSTMCore.apply(xg, wh, h0, c0)

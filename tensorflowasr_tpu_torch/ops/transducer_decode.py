@@ -4,7 +4,9 @@ The decoders are Python loops over batched tensor ops, with the JAX
 loops' exact semantics: the static token budget ``factor·T + 1``, the
 iteration cap ``(factor+1)·T + 1``, and the carry-out convention
 ("last token not yet consumed"). Each greedy iteration reads one flag back
-to the host for the loop condition; the beam runs a fixed number of rounds
+to the host for the loop condition, except under ``torch.export``, which
+cannot trace that read: there the loop runs to the iteration cap (an
+iteration after every row finished changes nothing); the beam runs a fixed number of rounds
 (``max_symbols_per_frame`` a frame) and reads nothing back. The beam's
 top-k is the stable sort of ``ops/ctc_decode.top_k`` (the lower index first
 among equal scores, as ``jax.lax.top_k``).
@@ -61,8 +63,8 @@ def transducer_greedy_decode(
     tokens = torch.full((batch, max_tokens + 1), blank, dtype=torch.int64, device=dev)  # last column: write sink
     token_idx = torch.zeros(batch, dtype=torch.int64, device=dev)
     frame_symbols = torch.zeros(batch, dtype=torch.int64, device=dev)
-    step = 0
-    while step < (max_token_factor + 1) * max_frames + 1 and bool(((frame_idx < nframes).any() & (token_idx < max_tokens).any()).item()):
+    step, exporting = 0, torch.compiler.is_exporting()
+    while step < (max_token_factor + 1) * max_frames + 1 and (exporting or bool(((frame_idx < nframes).any() & (token_idx < max_tokens).any()).item())):
         enc_frame = encoded[rows, frame_idx.clamp(max=max_frames - 1)]
         logits, new_states = step_fn(enc_frame, prev_tokens, states)
         current = logits.argmax(dim=-1)
@@ -192,8 +194,8 @@ def transducer_greedy_decode_wind(
     frame_idx = torch.zeros(batch, dtype=torch.int64, device=dev)
     tokens = torch.full((batch, max_tokens + 1), blank, dtype=torch.int64, device=dev)  # last column: write sink
     token_idx = torch.zeros(batch, dtype=torch.int64, device=dev)
-    step = 0
-    while step < (max_token_factor + 1) * max_frames + 1 and bool(((frame_idx < nframes).any() & (token_idx < max_tokens).any()).item()):
+    step, exporting = 0, torch.compiler.is_exporting()
+    while step < (max_token_factor + 1) * max_frames + 1 and (exporting or bool(((frame_idx < nframes).any() & (token_idx < max_tokens).any()).item())):
         start = frame_idx.clamp(max=max(max_frames - k, 0))
         offs = start[:, None] + ar[None, :]  # [B, K]
         enc_win = torch.gather(encoded, 1, offs.clamp(max=max_frames - 1)[:, :, None].expand(batch, k, enc_dim))

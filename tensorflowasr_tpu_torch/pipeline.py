@@ -1,7 +1,7 @@
 """Config → tokenizer → model → datasets (counterpart of
 ``tensorflowasr_tpu/scripts/common.py``), as plain functions: what a
 training or test script assembles before ``Trainer.fit`` and
-``evaluate_dataset``. The command-line interface is not ported yet.
+``evaluate_dataset``. The command line (``scripts/``) is built on them.
 """
 
 from __future__ import annotations
@@ -12,9 +12,6 @@ from typing import Optional
 import torch
 
 from tensorflowasr_tpu_torch.configs import Config
-
-MXP_DTYPES = {"none": torch.float32, "strict": torch.bfloat16, "mxp": torch.bfloat16, "mixed_bfloat16": torch.bfloat16}
-
 
 def load_config(config_path: str, training: bool = True, datadir: Optional[str] = None, modeldir: Optional[str] = None) -> Config:
     """The ``.yml.j2`` config with ``datadir`` and ``modeldir`` (absolute) as template variables when given."""
@@ -33,11 +30,14 @@ def build_tokenizer(config: Config):
 
 def build_model_from_config(config: Config, tokenizer, mxp: str = "none", device=None, **kwargs) -> torch.nn.Module:
     """The config's model at the tokenizer's vocabulary size on ``device``,
-    computing in bf16 for ``mxp`` "strict" (f32 parameters, as JAX's
-    ``mixed_bfloat16``) and in f32 for "none"."""
+    computing in the dtype of ``utils.env_util.setup_mxp(mxp)``: bf16 for
+    "strict" (f32 parameters, as JAX's ``mixed_bfloat16``), f32 for "none",
+    and for "auto" bf16 on the card and f32 on the CPU."""
     from tensorflowasr_tpu_torch.models import build_model
+    from tensorflowasr_tpu_torch.utils import env_util
 
-    return build_model(config.model_config, vocab_size=tokenizer.num_classes, dtype=MXP_DTYPES[mxp.lower()], device=device, **kwargs)
+    dtype = env_util.setup_mxp(mxp, device)
+    return build_model(config.model_config, vocab_size=tokenizer.num_classes, dtype=dtype, device=device, **kwargs)
 
 
 def build_datasets(config: Config, tokenizer, dataset_type: str = "slice", stages=("train", "eval"), rank: int = 0, world: int = 1) -> dict:

@@ -49,3 +49,11 @@ class PredictOutput(typing.NamedTuple):
     next_tokens: torch.Tensor
     next_encoder_states: typing.Optional[typing.Any] = None
     next_decoder_states: typing.Optional[typing.Any] = None
+
+
+class PredictOutputWithTranscript(typing.NamedTuple):
+    transcript: torch.Tensor  # [B, max_tokens, max_chars] unicode codepoints (0-padded), or the tokens without a tokenizer
+    tokens: torch.Tensor
+    next_tokens: torch.Tensor
+    next_encoder_states: typing.Optional[typing.Any] = None
+    next_decoder_states: typing.Optional[typing.Any] = None

@@ -7,6 +7,8 @@ lines in ``log_dir/metrics.jsonl``: what the JAX package writes where
 TensorFlow is absent; this module never imports TensorFlow) and
 ``PredictLogger`` (a TSV of predictions). ``deserialize`` builds the list
 from reference-style config entries and skips unknown kinds with a warning.
+``CheckNumerics`` is the command line's ``TFASR_CHECK_NUMERICS`` check
+(``utils/env_util.setup_check_numerics``), not a config entry.
 
 ``TerminateOnNaN`` reads the loss on the host after every batch, which
 waits for the card once a step.
@@ -52,6 +54,15 @@ class TerminateOnNaN(Callback):
         if math.isnan(loss) or math.isinf(loss):
             logger.error("NaN/Inf loss encountered — terminating training")
             self.stop_training = True
+
+
+class CheckNumerics(Callback):
+    """Raises ``FloatingPointError`` after a batch with a NaN or Inf metric."""
+
+    def on_train_batch_end(self, trainer, state, metrics):
+        bad = {k: float(v) for k, v in metrics.items() if not math.isfinite(float(v))}
+        if bad:
+            raise FloatingPointError(f"non-finite metrics at step {state.step}: {bad}")
 
 
 class EarlyStopping(Callback):

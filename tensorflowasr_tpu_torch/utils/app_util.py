@@ -1,6 +1,6 @@
 """Offline WER evaluation of a prediction TSV (counterpart of
-``tensorflowasr_tpu/utils/app_util.py:evaluate_hypotheses``; its export
-conversion belongs to ``export.py``, which the port does not have yet)."""
+``tensorflowasr_tpu/utils/app_util.py:evaluate_hypotheses``; its TFLite
+conversion is ``export.convert_tflite``)."""
 
 from __future__ import annotations
 
