@@ -167,6 +167,19 @@ version run), device operations a call, walls per request and the
 program's bytes. ``--cli`` runs
 the build and this phase alone.
 
+Data and tensor parallelism (``phase_parallel``, also alone with
+``--parallel``): the flagship at full width and depth, 16 × 5.1–16 s, SGD
+1e-2, f32 with TF32 off and dropout 0: the data-parallel ``Trainer`` step
+over an NCCL group of world 1 against the plain step; two gloo ranks
+spawned on the one card (8 rows each) against the plain step on the 16
+rows, the ranks' parameters bit-equal, after a check that gloo takes the
+collectives the slice runs on CUDA tensors; the vocab-sharded loss (data 1
+× model 2) at the loss shapes against the unsharded loss, and the TP step
+against the plain step (the RNN-T DP once a rank a step, the fused joint
+never); bf16 steps of both at dropout 0.1; and ``train`` under
+``torchrun --nproc_per_node 1``. Walls there are gloo on one card, not a
+scaling figure; NCCL across cards is not exercised.
+
 ``python3 chip_smoke.py --compare-parent DIR`` runs only row 10a's times
 (:func:`rows_child`: the call alone and with the stack of its outputs) and
 the step numbers (:func:`phase_steps`) of this checkout and of the package
@@ -5134,6 +5147,321 @@ def phase_gc_probe() -> dict:
 TURNS = ("parent", "this", "this", "parent", "parent", "this")
 
 
+# ------------------------------------ parallel ------------------------------------ #
+
+PAR_SGD = {"class_name": "SGD", "config": {"learning_rate": 1e-2}}
+PAR_ADAM = {"class_name": "Adam", "config": {"learning_rate": 1e-4}}  # the bf16 steps at dropout 0.1, as the train phase's
+# f32, against the single-process step: the loss and grad_norm within PAR_REL of theirs; each parameter's and running
+# statistic's update (its value after the step less its value before: at SGD 1e-2 and a grad_norm of thousands the
+# update outweighs the weight) within the f32 train-step parity bounds (TRAIN_PARITY_REL of its tensor's largest update,
+# plus TRAIN_PARITY_FLOOR of the largest update of all for the updates that are f32 noise: the conv biases ahead of a
+# BatchNorm). Measured in PR 18 (PERF.md): the ranks' weight gradients, summed in other orders (8 rows a rank, the
+# E[x²] − E[x]² of the BatchNorm statistics from two ranks' sums), part by up to 5.4e-4 of a tensor's update.
+PAR_REL = 1e-5
+# d loss / d logits of the vocab-sharded loss against the unsharded one, of scale: each cell's occupancy exp(α + β − ll) carries
+# the f32 rounding of α and β, sums along paths of up to T + U dependent diagonals, which a sum of exponentials in two halves moves
+PAR_DLOGITS_REL = 1e-3
+PAR_WORLD = 2  # gloo ranks on the one card
+PAR_CLI_STEPS = 2
+# per TP step: the encoder's kernels and the DP once (tp_rnnt_loss); the fused joint cannot run on a vocab shard
+PER_STEP_TP = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_dp=1)
+PAR_NOTE = "gloo on one card, not a scaling figure"
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def parallel_batch(dev=None):
+    """The flagship training batch (16 × 5.1–16 s, bench.py:149-157's lengths), on ``dev`` when given."""
+    batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, VOCAB)
+    return batch.to(dev) if dev is not None else batch
+
+
+def parallel_rows(batch, rank: int, world: int):
+    """Rows ``rank``·B/world … of ``batch`` (this rank's share of the global batch)."""
+    from tensorflowasr_tpu_torch import schemas
+
+    n = batch.inputs.inputs.shape[0] // world
+    take = lambda t: t[rank * n:(rank + 1) * n]
+    return schemas.TrainData(schemas.TrainInput(*map(take, batch.inputs)), schemas.TrainLabel(*map(take, batch.labels)))
+
+
+def _cpu_state(module: torch.nn.Module) -> dict:
+    return {k: v.detach().float().cpu() for k, v in module.state_dict().items()}
+
+
+def timed_step(step_fn, state, batch) -> tuple:
+    """(state, loss, grad_norm, host ms, launches): one step, its launches counted from 0."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return state, metrics["loss"].item(), metrics["grad_norm"].item(), wall, launch_counts()
+
+
+def trainer_step(dev, batch, dtype=torch.float32, dropout: float = 0.0, mesh=None, steps: int = 1, optimizer: dict = PAR_SGD) -> list:
+    """``steps`` steps of a fresh flagship ``Trainer`` (f32 parity runs: SGD, dropout 0, no SpecAugment): [(state, loss, grad_norm, ms, launches)]."""
+    from tensorflowasr_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(flagship(dtype, dev, dropout=dropout), optimizer, device=dev, mesh=mesh)
+    state, out = trainer.init_state(seed=SEED), []
+    for _ in range(steps):
+        state, *rest = timed_step(trainer.train_step, state, batch)
+        out.append((state, *rest))
+    return out
+
+
+def tp_step(dev, mesh, batch, dtype=torch.float32, dropout: float = 0.0, steps: int = 1, optimizer: dict = PAR_SGD) -> list:
+    """``steps`` steps of the vocab-sharded flagship over ``mesh``: [(state, loss, grad_norm, ms, launches)]."""
+    from tensorflowasr_tpu_torch.parallel import tp
+
+    state = tp.init_tp_state(flagship(dtype, dev, dropout=dropout), optimizer, mesh, seed=SEED)
+    step, out = tp.make_tp_train_step(state.model, mesh), []
+    for _ in range(steps):
+        state, *rest = timed_step(step, state, batch)
+        out.append((state, *rest))
+    return out
+
+
+def gloo_cuda_check(dev) -> list:
+    """The collectives this slice runs, on CUDA tensors of a gloo group: all-reduce SUM and MAX, broadcast, barrier. Raises on a refusal or a wrong value."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    checks = []
+    for name, run, want in (("all_reduce SUM", lambda x: dist.all_reduce(x, op=dist.ReduceOp.SUM), sum(range(1, world + 1))),
+                            ("all_reduce MAX", lambda x: dist.all_reduce(x, op=dist.ReduceOp.MAX), world),
+                            ("broadcast", lambda x: dist.broadcast(x, src=0), 1)):
+        x = torch.full((1 << 20,), float(rank + 1), device=dev)
+        try:
+            run(x)
+        except RuntimeError as e:
+            raise RuntimeError(f"gloo refuses {name} on CUDA tensors: {e}") from e
+        if not bool((x == want).all()):
+            raise AssertionError(f"gloo {name} on CUDA tensors gave {x[0].item()}, expected {want}")
+        checks.append(name)
+    dist.barrier()
+    return checks + ["barrier"]
+
+
+def parallel_child(device_type: str) -> dict:
+    """One gloo rank on the card (``parallel.spawn``; ``device_type`` "cpu"
+    rehearses it on the CPU at a small size): the collective check,
+    the data-parallel f32 step on its 8 rows, ``tp_rnnt_loss`` (data 1 ×
+    model 2) at the loss shapes against the unsharded ``rnnt_loss_pallas``,
+    the TP f32 step on all 16 rows, and two bf16 steps of each at the
+    example's dropout 0.1."""
+    from tensorflowasr_tpu_torch import parallel
+    from tensorflowasr_tpu_torch.ops.cuda.rnnt_kernel import rnnt_loss_pallas
+    from tensorflowasr_tpu_torch.parallel import tp
+
+    _no_tf32()
+    dev = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    rank, world = parallel.process_index(), parallel.process_count()
+    out = {"collectives": gloo_cuda_check(dev)}
+    batch = parallel_batch(dev)
+    mine = parallel_rows(batch, rank, world)
+    state, loss, gnorm, wall, counts = trainer_step(dev, mine)[0]
+    out["dp"] = {"loss": loss, "grad_norm": gnorm, "ms": wall, "launches": counts, "state": _cpu_state(state.model)}
+    del state
+    mesh = tp.make_dp_tp_mesh(world, dev)
+
+    t_len, u_len = loss_lengths(np.random.default_rng(SEED + 5), TRAIN_B)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    logits = torch.randn((TRAIN_B, T_ENC, TRAIN_U + 1, VOCAB), generator=gen, device=dev)
+    labels = torch.randint(1, VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
+    t_len, u_len = torch.tensor(t_len, device=dev), torch.tensor(u_len, device=dev)
+    full = logits.clone().requires_grad_(True)
+    ref = rnnt_loss_pallas(full, t_len, labels, u_len)
+    ref.sum().backward()
+    n, index = tp.model_coords(mesh)
+    local = logits.chunk(n, -1)[index].clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    per = tp.tp_rnnt_loss(local, t_len, labels, u_len, VOCAB, mesh.get_group("model"))
+    per.sum().backward()
+    torch.cuda.synchronize()
+    out["tp_loss"] = {"loss_err": (per - ref).abs().max().item(), "loss_scale": ref.abs().max().item(), "launches": launch_counts(),
+                      "dlogits_err": (local.grad - full.grad.chunk(n, -1)[index]).abs().max().item(), "dlogits_scale": full.grad.abs().max().item()}
+    del logits, full, local, ref, per
+    torch.cuda.empty_cache()
+
+    state, loss, gnorm, wall, counts = tp_step(dev, mesh, batch)[0]
+    gathered = tp.gather_tp_state(state.model.state_dict(), mesh)  # a collective: every rank takes part
+    out["tp"] = {"loss": loss, "grad_norm": gnorm, "ms": wall, "launches": counts, "vocab_rows": state.model.joint.vocab.weight.shape[0],
+                 "state": {k: v.float().cpu() for k, v in gathered.items()} if rank == 0 else None}
+    del state
+    torch.cuda.empty_cache()
+    out["bf16_dp"] = [(loss, wall, counts) for _, loss, _, wall, counts in trainer_step(dev, mine, torch.bfloat16, TRAIN_RATE, steps=2, optimizer=PAR_ADAM)]
+    out["bf16_tp"] = [(loss, wall, counts) for _, loss, _, wall, counts in tp_step(dev, mesh, batch, torch.bfloat16, TRAIN_RATE, steps=2, optimizer=PAR_ADAM)]
+    return out
+
+
+def hold_state(what: str, got: dict, ref: dict, init: dict, failures: list) -> str:
+    """Holds the updates of state ``got`` against those of ``ref`` (both from
+    ``init``) within TRAIN_PARITY_REL of each tensor's largest update plus
+    TRAIN_PARITY_FLOOR of the largest update of all; a tensor beyond its bound
+    goes into ``failures``. Returns the summary the parallel lines print, with
+    the largest distance relative to its tensor's update."""
+    top = max((ref[k] - init[k]).abs().max().item() for k in ref)
+    worst = worst_rel = (0.0, "")
+    equal = True
+    for k, r in ref.items():
+        g = got[k].float()
+        err, scale = (g - r).abs().max().item(), (r - init[k]).abs().max().item()
+        if err > TRAIN_PARITY_REL * scale + TRAIN_PARITY_FLOOR * top:
+            failures.append(f"{what}: {k} distance {err:.3e} > {TRAIN_PARITY_REL} x {scale:.3e} + {TRAIN_PARITY_FLOOR} x {top:.3e}")
+        worst, equal = max(worst, (err, k)), equal and torch.equal(g, r)
+        if scale > TRAIN_PARITY_FLOOR * top:
+            worst_rel = max(worst_rel, (err / scale, k))
+    return (f"parameters and running statistics: largest distance {worst[0]:.3e} ({worst[1]}), largest relative to its tensor's update "
+            f"{worst_rel[0]:.3e} ({worst_rel[1]}; bound {TRAIN_PARITY_REL} of it + {TRAIN_PARITY_FLOOR} x {top:.3e}); bit-equal {equal}")
+
+
+def hold_scalar(what: str, got: float, ref: float, failures: list) -> float:
+    if not abs(got - ref) <= PAR_REL * abs(ref):
+        failures.append(f"{what}: {got} vs {ref}, beyond {PAR_REL} of it")
+    return abs(got - ref)
+
+
+def parallel_cli(dev, smi: str) -> dict:
+    """``train`` under ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world 1)
+    for PAR_CLI_STEPS steps on the data phase's corpus (``cli.yml.j2``, CLI_BLOCKS blocks):
+    rank 0 writes the one checkpoint. Returns its wall."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tfasr-par-") as root:
+        data_corpus(root)
+        config, mdir = cli_config(root), os.path.join(root, "model")
+        common = ["--config-path", config, "--datadir", root, "--modeldir", mdir]  # no metadata file: train computes the lengths itself
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m", "tensorflowasr_tpu_torch",
+                               "train", *common, "--device", dev.type, "--bs", str(CLI_BS), "--epochs", "1", "--steps-per-epoch", str(PAR_CLI_STEPS), "--mxp", "strict"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"parallel cli: torchrun train exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        steps = os.listdir(os.path.join(mdir, "checkpoints"))
+        if steps != [str(PAR_CLI_STEPS)]:
+            raise AssertionError(f"parallel cli: checkpoints {steps}, expected step {PAR_CLI_STEPS} written once")
+    print(f"parallel cli: torchrun --nproc_per_node 1 train ({CLI_BLOCKS} blocks, bf16, bs {CLI_BS}, {PAR_CLI_STEPS} steps, NCCL world 1): exit 0 in "
+          f"{wall:.1f} s (one process to reach the card), checkpoints {steps} written by rank 0 [{smi}]")
+    return {"wall_s": wall}
+
+
+def phase_parallel(dev) -> dict:
+    """Data and tensor parallelism (``parallel/``) on the one card, the
+    flagship at full width and depth (16 blocks, D 144, V 256), 16 × 5.1–16 s,
+    SGD 1e-2, f32 with TF32 off, dropout 0, no SpecAugment:
+
+    1. the data-parallel ``Trainer`` step over an NCCL group of world 1 (in
+       this process) against the plain ``Trainer`` step on the same batch;
+    2. two gloo ranks on the card (:func:`parallel_child`, spawned; the
+       kernels are built here first), 8 rows each, against the plain step on
+       the 16 rows, the ranks' parameters held equal;
+    3. the TP loss (data 1 × model 2) against the unsharded loss and the TP
+       step against the plain step, row 9 once a rank a step, row 8 never;
+    4. bf16 steps of 2 and 3 at dropout 0.1;
+    5. ``train`` under ``torchrun --nproc_per_node 1`` (:func:`parallel_cli`).
+
+    NCCL across cards is not exercised (one card; NCCL puts no two ranks on
+    one device). Returns the launch counts by path."""
+    import torch.distributed as dist
+
+    from tensorflowasr_tpu_torch import parallel
+    from tensorflowasr_tpu_torch.parallel.sharding import _free_port
+
+    t0 = time.perf_counter()
+    smi, failures = _smi(), []
+    batch = parallel_batch(dev)
+    init = _cpu_state(flagship(torch.float32, dev, dropout=0.0))
+    ref_state, ref_loss, ref_gnorm, ref_ms, ref_counts = trainer_step(dev, batch)[0]
+    if ref_counts != PER_STEP:
+        raise AssertionError(f"parallel plain step: launches {ref_counts}, expected {PER_STEP}")
+    ref = _cpu_state(ref_state.model)
+    del ref_state
+    print(f"parallel plain step (f32, 16 rows, one process): loss {ref_loss:.6f} grad_norm {ref_gnorm:.6f}, {ref_ms:.1f} ms [{smi}]")
+    again, loss, gnorm, wall, _ = trainer_step(dev, batch)[0]
+    print(f"parallel plain step again (the run-to-run floor: cuDNN's convolution backward may sum in any order): loss and grad_norm bit-equal "
+          f"{loss == ref_loss and gnorm == ref_gnorm}; {hold_state('parallel plain step again', _cpu_state(again.model), ref, init, failures)}; "
+          f"{wall:.1f} ms [{smi}]")
+    del again
+
+    parallel.init_process_group(dev, None, 0, 1, f"tcp://localhost:{_free_port()}")  # NCCL on the card
+    try:
+        state, loss, gnorm, wall, nccl_counts = trainer_step(dev, batch, mesh=parallel.make_data_parallel_mesh(dev))[0]
+        nccl = _cpu_state(state.model)
+        del state
+    finally:
+        dist.destroy_process_group()
+    if nccl_counts != PER_STEP:
+        raise AssertionError(f"parallel NCCL world-1 step: launches {nccl_counts}, expected {PER_STEP}")
+    print(f"parallel dp NCCL world 1 vs plain step: loss {loss:.6f} (distance {hold_scalar('NCCL loss', loss, ref_loss, failures):.3e}), grad_norm "
+          f"{gnorm:.6f} (distance {hold_scalar('NCCL grad_norm', gnorm, ref_gnorm, failures):.3e}); "
+          f"{hold_state('parallel NCCL world-1 step', nccl, ref, init, failures)}; loss and grad_norm bit-equal "
+          f"{loss == ref_loss and gnorm == ref_gnorm}; {wall:.1f} ms [{smi}]")
+
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = parallel.spawn(parallel_child, PAR_WORLD, dev.type, device=dev.type, backend="gloo", timeout=900)
+    spawn_s = time.perf_counter() - t1
+    print(f"parallel gloo check: {ranks[0]['collectives']} take CUDA tensors on every rank [{smi}]")
+    for r, res in enumerate(ranks):
+        dp = res["dp"]
+        if dp["launches"] != PER_STEP:
+            failures.append(f"parallel gloo rank {r}: launches {dp['launches']}, expected {PER_STEP}")
+        print(f"parallel dp gloo rank {r} of {PAR_WORLD} (8 rows) vs plain step (16 rows): loss {dp['loss']:.6f} (distance "
+              f"{hold_scalar('gloo loss', dp['loss'], ref_loss, failures):.3e}), grad_norm {dp['grad_norm']:.6f} (distance "
+              f"{hold_scalar('gloo grad_norm', dp['grad_norm'], ref_gnorm, failures):.3e}); {hold_state(f'parallel gloo rank {r}', dp['state'], ref, init, failures)}; "
+              f"step {dp['ms']:.1f} ms ({PAR_NOTE}); launches {_launched(dp['launches'])} [{smi}]")
+    between = max((ranks[0]["dp"]["state"][k] - ranks[1]["dp"]["state"][k]).abs().max().item() for k in ref)
+    if between != 0.0:
+        failures.append(f"parallel gloo: the ranks' parameters differ by {between}")
+    print(f"parallel dp gloo: the two ranks' parameters and statistics differ by {between}")
+
+    for r, res in enumerate(ranks):
+        tl = res["tp_loss"]
+        if tl["loss_err"] > PAR_REL * tl["loss_scale"] or tl["dlogits_err"] > PAR_DLOGITS_REL * tl["dlogits_scale"]:
+            failures.append(f"parallel tp_rnnt_loss rank {r}: {tl}")
+        if tl["launches"] != _per(rnnt_dp=1):
+            failures.append(f"parallel tp_rnnt_loss rank {r}: launches {tl['launches']}, expected rnnt_dp 1")
+        print(f"parallel tp_rnnt_loss rank {r} (model {r} of 2; B {TRAIN_B} T {T_ENC} U+1 {TRAIN_U + 1} V {VOCAB}, f32) vs unsharded rnnt_loss_pallas: "
+              f"loss max distance {tl['loss_err']:.3e} (scale {tl['loss_scale']:.3e}; bound {PAR_REL} of it), dlogits {tl['dlogits_err']:.3e} (scale "
+              f"{tl['dlogits_scale']:.3e}; bound {PAR_DLOGITS_REL} of it); launches {_launched(tl['launches'])} [{smi}]")
+    for r, res in enumerate(ranks):
+        t = res["tp"]
+        if t["launches"] != PER_STEP_TP:
+            failures.append(f"parallel tp rank {r}: launches {t['launches']}, expected {PER_STEP_TP}")
+        print(f"parallel tp step rank {r} (data 1 x model 2, {t['vocab_rows']} vocab rows a rank, 16 rows) vs plain step: loss {t['loss']:.6f} "
+              f"(distance {hold_scalar(f'tp rank {r} loss', t['loss'], ref_loss, failures):.3e}), grad_norm {t['grad_norm']:.6f} (distance "
+              f"{hold_scalar(f'tp rank {r} grad_norm', t['grad_norm'], ref_gnorm, failures):.3e}); step {t['ms']:.1f} ms ({PAR_NOTE}); launches "
+              f"{_launched(t['launches'])} (rnnt_dp 1, rnnt_fused_joint 0) [{smi}]")
+    print(f"parallel tp step, the vocab slices gathered back vs plain step: {hold_state('parallel tp step', ranks[0]['tp']['state'], ref, init, failures)}")
+    for kind in ("bf16_dp", "bf16_tp"):
+        for r, res in enumerate(ranks):
+            losses = [loss for loss, _, _ in res[kind]]
+            if not all(np.isfinite(losses)):
+                failures.append(f"parallel {kind} rank {r}: losses {losses}")
+            want = PER_STEP if kind == "bf16_dp" else PER_STEP_TP
+            if any(c != want for _, _, c in res[kind]):
+                failures.append(f"parallel {kind} rank {r}: launches {[c for _, _, c in res[kind]]}, expected {want}")
+            print(f"parallel {kind} rank {r} (dropout {TRAIN_RATE}, Adam 1e-4, 2 steps): losses {', '.join(f'{x:.4f}' for x in losses)}; walls "
+                  f"{', '.join(f'{w:.1f}' for _, w, _ in res[kind])} ms ({PAR_NOTE}) [{smi}]")
+    if failures:
+        raise AssertionError("parallel phase:\n" + "\n".join(failures))
+    cli = parallel_cli(dev, smi)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s (the two gloo ranks {spawn_s:.1f} s, the torchrun train {cli['wall_s']:.1f} s) [{smi}]")
+    paths = {"parallel_dp_nccl": nccl_counts}
+    for r, res in enumerate(ranks):
+        paths[f"parallel_dp_gloo_{r}"] = res["dp"]["launches"]
+        paths[f"parallel_tp_{r}"] = res["tp"]["launches"]
+    return paths
+
+
 def compare_steps(parent: str) -> None:
     """Row 10a's times (``--rows``) and then the step numbers (``--steps``)
     of the package in ``parent`` (a checkout of another commit) and of this
@@ -5181,6 +5509,7 @@ def main(argv: list[str]) -> int:
     ``--transducers``: only :func:`transducer_kernels`, :func:`phase_transducers`,
     :func:`phase_beam`, :func:`phase_transducer_parity` and :func:`phase_ctc_referee`,
     the sub-entries and launch counts as one JSON line.
+    ``--parallel``: only :func:`phase_parallel`, its launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -5219,6 +5548,11 @@ def main(argv: list[str]) -> int:
         _no_tf32()
         _build.build()
         print(json.dumps({"cli": phase_cli(torch.device("cuda", 0))}))
+        return 0
+    if "--parallel" in argv:
+        _no_tf32()
+        _build.build()  # here, before any rank is spawned: two ranks building into _build/ at once would race
+        print(json.dumps({"parallel": phase_parallel(torch.device("cuda", 0))}))
         return 0
     if "--data" in argv:
         _no_tf32()
@@ -5302,6 +5636,8 @@ def main(argv: list[str]) -> int:
     mark("data")
     paths.update(phase_cli(dev))
     mark("cli")
+    paths.update(phase_parallel(dev))
+    mark("parallel")
     phase_fit_gc()
     phase_gc_probe()
     mark("gc")

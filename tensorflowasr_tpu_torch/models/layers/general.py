@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tensorflowasr_tpu_torch.parallel.collectives import psum
+
 ACTIVATIONS: dict[str, Callable] = {
     "linear": lambda x: x,
     "none": lambda x: x,
@@ -71,22 +73,34 @@ class BatchNorm(nn.Module):
     the fast variance E[x²] − E[x]², clipped at 0 — and updates the running
     statistics in place as flax does, with the biased variance:
     ``running = m·running + (1 − m)·batch``. (``torch.nn.BatchNorm`` keeps
-    the unbiased variance, so it is not used.)"""
+    the unbiased variance, so it is not used.)
+
+    ``group`` (set by ``parallel.sharding.sync_batch_norm``; None: this
+    process's rows) is the data-parallel process group whose ranks' rows the
+    batch statistics cover, as GSPMD's are over the global batch."""
 
     def __init__(self, features: int, eps: float = 1e-3, momentum: float = 0.99, dtype=torch.float32):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def batch_stats(self, x: torch.Tensor, clip: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-        """(mean, var) over all axes but the last, in f32; updates the running statistics."""
+        """(mean, var) over all axes but the last, in f32, from the sums [Σx,
+        Σx², count]; updates the running statistics. Under a ``group`` the sums
+        are all-reduced first (``parallel.psum``: each rank's rows are
+        normalised by them, so the backward sums the cotangents too); one
+        rank's group gives what no group gives, bit for bit."""
         x32 = x.float()
-        axes = tuple(range(x.dim() - 1))
-        mean = x32.mean(dim=axes)
-        var = (x32 * x32).mean(dim=axes) - mean * mean
+        axes, c = tuple(range(x.dim() - 1)), x.shape[-1]
+        sums = torch.cat([x32.sum(dim=axes), (x32 * x32).sum(dim=axes), torch.full((1,), float(x32.numel() // c), device=x.device)])
+        if self.group is not None:
+            sums = psum(sums, self.group)
+        mean = sums[:c] / sums[-1]
+        var = sums[c:2 * c] / sums[-1] - mean * mean
         if clip:
             var = torch.clamp(var, min=0.0)
         self.update_running(mean, var)

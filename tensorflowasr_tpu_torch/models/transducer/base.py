@@ -131,7 +131,10 @@ class Transducer(nn.Module):
         self.prediction = TransducerPrediction(blank=blank, vocab_size=vocab_size, dtype=dtype, rnn_impl=rnn_impl, **self.prediction_config)
         pc = self.prediction_config
         pred_dim = pc.get("projection_units", 0) or pc.get("rnn_units", 512)
-        self.joint = TransducerJoint(vocab_size, self.encoder_output_dim, pred_dim, dtype=dtype, **self.joint_config)
+        jc = dict(self.joint_config)
+        # the joint may own a local vocab shard (parallel/tp.py) while the embedding keeps the global vocab (labels are global ids)
+        joint_vocab = jc.pop("vocab_size", vocab_size)
+        self.joint = TransducerJoint(joint_vocab, self.encoder_output_dim, pred_dim, dtype=dtype, **jc)
         self.to(dev)
 
     def make_encoder(self) -> nn.Module:

@@ -29,14 +29,15 @@ from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss, sanitize_lengths, v
 LOSS_IMPLS = ("auto", "fused-joint", "xla", "pallas")
 
 
-def masked_mean(loss_fn):
+def masked_mean(loss_fn, group=None):
     """Batch mean over valid rows only: rows with ``logit_length <= 0`` are
     left out, and the lengths are sanitised first (:func:`sanitize_lengths`)
-    so the per-row DP stays finite."""
+    so the per-row DP stays finite. Under a data-parallel ``group``, this
+    rank's share of the mean over every rank's valid rows (:func:`valid_mean`)."""
 
     def fn(logits, logit_length, labels, label_length, blank: int = 0):
         valid, safe_t, safe_u = sanitize_lengths(logit_length.to(logits.device), label_length, logits.shape[1])
-        return valid_mean(loss_fn(logits, safe_t, labels, safe_u, blank), valid)
+        return valid_mean(loss_fn(logits, safe_t, labels, safe_u, blank), valid, group)
 
     fn.__name__ = f"{getattr(loss_fn, '__name__', 'loss')}_masked_mean"
     return fn
@@ -47,13 +48,13 @@ def _check(loss_impl: str) -> None:
         raise ValueError(f"loss_impl {loss_impl!r} is not one of {LOSS_IMPLS}")
 
 
-def get_rnnt_loss_fn(loss_impl: str = "auto"):
-    """The masked-mean RNN-T loss over logits for ``loss_impl``."""
+def get_rnnt_loss_fn(loss_impl: str = "auto", group=None):
+    """The masked-mean RNN-T loss over logits for ``loss_impl`` (``group``: :func:`masked_mean`)."""
     _check(loss_impl)
-    return masked_mean(rnnt_loss if loss_impl == "xla" else rnnt_loss_pallas)
+    return masked_mean(rnnt_loss if loss_impl == "xla" else rnnt_loss_pallas, group)
 
 
-def get_ctc_loss_fn(loss_impl: str = "auto"):
-    """The masked-mean CTC loss over logits [B, T, V] for ``loss_impl``."""
+def get_ctc_loss_fn(loss_impl: str = "auto", group=None):
+    """The masked-mean CTC loss over logits [B, T, V] for ``loss_impl`` (``group``: :func:`masked_mean`)."""
     _check(loss_impl)
-    return masked_mean(ctc_loss_pallas if loss_impl in ("auto", "pallas") else ctc_loss)
+    return masked_mean(ctc_loss_pallas if loss_impl in ("auto", "pallas") else ctc_loss, group)

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from tensorflowasr_tpu_torch.parallel.collectives import sum_no_grad
+
 LOG_0 = -1e30  # practical -inf that survives bf16->f32 casts without NaN
 
 
@@ -179,9 +181,15 @@ def sanitize_lengths(logit_length: torch.Tensor, label_length: torch.Tensor, max
     return valid, safe_t, safe_u
 
 
-def valid_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean of ``per`` over the valid rows (0 with none)."""
-    return torch.where(valid, per, torch.zeros((), device=per.device)).sum() / valid.float().sum().clamp(min=1.0)
+def valid_mean(per: torch.Tensor, valid: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean of ``per`` over the valid rows (0 with none). Under a data-parallel
+    ``group``: this rank's share of the mean over every rank's valid rows,
+    Σ(its valid rows) / (the group's valid count), so that the ranks' shares
+    add up to the global masked mean (JAX ``ops/losses.py:33-51`` under GSPMD)."""
+    count = valid.float().sum()
+    if group is not None:
+        count = sum_no_grad(count, group)
+    return torch.where(valid, per, torch.zeros((), device=per.device)).sum() / count.clamp(min=1.0)
 
 
 def labels_per_cell(labels: torch.Tensor, u1: int) -> torch.Tensor:

@@ -12,7 +12,10 @@ cpu`` is given. ``--jit`` is accepted and does nothing (the port runs
 eagerly). ``export --format`` takes ``pt2`` (the default, a
 ``torch.export`` program, where JAX has ``stablehlo``) or ``tflite``.
 ``convert_checkpoint`` writes a ``torch.save`` file where JAX writes an
-orbax directory.
+orbax directory. ``train`` runs data-parallel over N cards (or N gloo
+ranks with ``--device cpu``) under ``python -m torch.distributed.run
+--nproc_per_node N -m tensorflowasr_tpu_torch train ...``
+(``scripts/train.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def _add_common(p: argparse.ArgumentParser):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="tensorflowasr_tpu_torch", description="ASR on one CUDA card (PyTorch port of tensorflowasr_tpu)")
+    parser = argparse.ArgumentParser(prog="tensorflowasr_tpu_torch", description="ASR on CUDA cards (PyTorch port of tensorflowasr_tpu)")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_train = sub.add_parser("train", help="train a model from config")

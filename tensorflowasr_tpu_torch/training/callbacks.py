@@ -12,6 +12,12 @@ from reference-style config entries and skips unknown kinds with a warning.
 
 ``TerminateOnNaN`` reads the loss on the host after every batch, which
 waits for the card once a step.
+
+Data-parallel (``parallel/sharding.py``): ``TensorBoard`` and
+``PredictLogger`` write on rank 0 only (the rank at their construction),
+and ``ModelCheckpoint`` saves through ``Trainer.save``, which does too.
+``TerminateOnNaN`` and ``EarlyStopping`` decide alike on every rank: the
+loss and the eval loss they read are the global ones.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import math
 import os
 from typing import Optional
 
+from tensorflowasr_tpu_torch.parallel.sharding import process_index
 from tensorflowasr_tpu_torch.utils.file_util import preprocess_paths
 
 logger = logging.getLogger("tensorflowasr_tpu_torch")
@@ -107,14 +114,17 @@ class BackupAndRestore(Callback):
 
 
 class TensorBoard(Callback):
-    """Scalars as JSON lines (``{"step": ..., name: value}``) in ``log_dir/metrics.jsonl``."""
+    """Scalars as JSON lines (``{"step": ..., name: value}``) in ``log_dir/metrics.jsonl`` (rank 0 only)."""
 
     def __init__(self, log_dir: str = "logs", update_freq: int = 100, **_):
-        self.log_dir = preprocess_paths(log_dir, isdir=True)
+        chief = process_index() == 0
+        self.log_dir = preprocess_paths(log_dir, isdir=True) if chief else os.path.abspath(os.path.expanduser(os.path.expandvars(log_dir)))
         self.update_freq = update_freq if isinstance(update_freq, int) else 100
-        self._jsonl = open(os.path.join(self.log_dir, "metrics.jsonl"), "a", encoding="utf-8")
+        self._jsonl = open(os.path.join(self.log_dir, "metrics.jsonl"), "a", encoding="utf-8") if chief else None
 
     def _log(self, step: int, metrics: dict):
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}) + "\n")
         self._jsonl.flush()
 
@@ -129,20 +139,23 @@ class TensorBoard(Callback):
         self.close()
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 class PredictLogger(Callback):
-    """Collects (path, groundtruth, greedy, beam) rows and writes a TSV."""
+    """Collects (path, groundtruth, greedy, beam) rows and writes a TSV (rank 0 only)."""
 
     def __init__(self, test_dataset=None, output: str = "predictions.tsv", **_):
-        self.output = preprocess_paths(output)
+        self.output = preprocess_paths(output) if process_index() == 0 else output
         self.rows: list[tuple] = []
 
     def add(self, path: str, groundtruth: str, greedy: str, beam: str = ""):
         self.rows.append((path, groundtruth, greedy, beam))
 
     def flush(self):
+        if process_index() != 0:
+            return
         with open(self.output, "w", encoding="utf-8") as f:
             f.write("PATH\tGROUNDTRUTH\tGREEDY\tBEAMSEARCH\n")
             for row in self.rows:

@@ -1,4 +1,4 @@
-"""Training step and loop on one card (counterpart of
+"""Training step and loop, on one card a process (counterpart of
 ``tensorflowasr_tpu/training/trainer.py``).
 
 ``make_train_step`` builds ``step_fn(state, batch) → (state, metrics)``,
@@ -52,13 +52,28 @@ the device from a generator seeded from its CPU stream.
 module's ``state_dict`` with BatchNorm statistics, the chain's state with
 its accumulation buffers and mini-step, the step, every generator's state),
 keeps the newest ``keep_checkpoints``, and restores the newest; ``fit``
-runs the callbacks (``training/callbacks.py``) as JAX's does. One device:
-no mesh, no data parallelism.
+runs the callbacks (``training/callbacks.py``) as JAX's does.
+
+Data parallelism (JAX: a ``data`` mesh over every device, the batch
+sharded along it, GSPMD's all-reduces): one process a card in one
+``torch.distributed`` group (``parallel/sharding.py``). ``Trainer`` is
+data-parallel under a 1-D ``mesh`` (default: one over the group when it
+has more than one rank), and each rank's step then equals the one-device
+step on the global batch: the BatchNorm statistics are taken over every
+rank's rows (``parallel.sharding.sync_batch_norm``), each rank's loss is
+Σ(its valid rows' losses) / (the global valid count), the gradients are
+summed over the ranks in one flat bucket before the chain's norm,
+clipping and noise, and the reported loss is the ranks' sum. Every rank
+starts from rank 0's weights and ends each step with the same parameters,
+statistics and optimizer state. The dropout and augmentation generators
+fold in the rank (each rank's rows draw their own masks); the weight-noise
+and gradient-noise streams do not (the parameters must stay equal).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import logging
 import os
@@ -68,6 +83,7 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tensorflowasr_tpu_torch import schemas
 from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
@@ -77,12 +93,15 @@ from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn, get_rnnt_loss_fn
 from tensorflowasr_tpu_torch.ops.rnnt_loss import sanitize_lengths, valid_mean
 from tensorflowasr_tpu_torch.optimizers import OptimizerChain, build_optimizer
 from tensorflowasr_tpu_torch.optimizers.optimizers import global_norm, unit_normals
+from tensorflowasr_tpu_torch.parallel import sharding
+from tensorflowasr_tpu_torch.parallel.collectives import all_reduce_, pmax, sum_no_grad
 from tensorflowasr_tpu_torch.utils import device as device_util
 
 logger = logging.getLogger("tensorflowasr_tpu_torch")
 
 
 AUGMENT_STREAM, WEIGHT_NOISE_STREAM = 2**32, 2**33  # seed offsets of the augmentation and weight-noise generators
+RANK_STREAM = 2**40  # × the data-parallel rank: the dropout and augmentation seeds' offset
 
 
 @dataclasses.dataclass
@@ -101,6 +120,15 @@ class TrainState:
 
     def generators(self) -> dict:
         return {"dropout": self.generator, "augment": self.augment_generator, "weight_noise": self.weight_noise_generator}
+
+
+def make_state(model: torch.nn.Module, optimizer: OptimizerChain, seed: int, rank: int = 0) -> TrainState:
+    """A state at step 0: the dropout generator seeded with ``seed``, the
+    augmentation and weight-noise generators with ``seed`` plus their stream
+    offsets, the first two also with ``rank``'s (:data:`RANK_STREAM`)."""
+    fold = rank * RANK_STREAM
+    return TrainState(model, optimizer, 0, torch.Generator().manual_seed(seed + fold), torch.Generator().manual_seed(AUGMENT_STREAM + seed + fold),
+                      torch.Generator().manual_seed(WEIGHT_NOISE_STREAM + seed))
 
 
 class WeightNoise:
@@ -146,39 +174,41 @@ def fused_joint_supported(model: torch.nn.Module) -> bool:
 
 
 def fused_joint_loss(model: Transducer, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None,
-                     augment_generator=None):
+                     augment_generator=None, group=None):
     """The fused path's masked-mean loss (JAX ``trainer.py:142-173``): the
     forward to the prejoint projections, the lengths sanitised as
-    ``masked_mean`` does, the fused joint+loss, and the mean over valid
-    rows. ``mark("forward")`` is called after the forward."""
+    ``masked_mean`` does, the fused joint+loss on this rank's rows, and the
+    mean over valid rows (under a data-parallel ``group``, this rank's share
+    of the global one: ``valid_mean``). ``mark("forward")`` is called after the forward."""
     enc_p, pred_p, elens = model.forward_joint_inputs(inputs, train=True, generator=generator, augment_generator=augment_generator)
     mark("forward")
     valid, safe_t, safe_u = sanitize_lengths(elens.to(enc_p.device), labels.labels_length, enc_p.shape[1])
     wv, bv = model.joint.vocab.weight.to(enc_p.dtype), model.joint.vocab.bias.float()
-    return valid_mean(rnnt_loss_fused_joint(enc_p, pred_p, wv, bv, safe_t, labels.labels, safe_u), valid)
+    return valid_mean(rnnt_loss_fused_joint(enc_p, pred_p, wv, bv, safe_t, labels.labels, safe_u), valid, group)
 
 
-def _loss_for(model: torch.nn.Module, loss_impl: str) -> Callable:
+def _loss_for(model: torch.nn.Module, loss_impl: str, group=None) -> Callable:
     """The masked-mean loss over logits (JAX ``trainer._loss_for``) that
     ``loss_impl`` selects for the model's family: RNN-T for a
-    ``Transducer``, CTC for a ``CtcModel``."""
+    ``Transducer``, CTC for a ``CtcModel`` (``group``: ``ops.losses.masked_mean``)."""
     if isinstance(model, Transducer):
-        return get_rnnt_loss_fn(loss_impl)
+        return get_rnnt_loss_fn(loss_impl, group)
     if isinstance(model, CtcModel):
-        return get_ctc_loss_fn(loss_impl)
+        return get_ctc_loss_fn(loss_impl, group)
     raise TypeError(f"no loss for a {type(model).__name__}: a Transducer or a CtcModel trains")
 
 
-def make_train_loss(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
+def make_train_loss(model: torch.nn.Module, loss_impl: str = "auto", group=None) -> Callable:
     """``loss(model, inputs, labels, generator=None, mark=..., augment_generator=None)``: the
     training forward and the masked-mean loss of one batch, as the train step
     computes it (JAX ``trainer.py:119-187``): the fused joint+loss for
     ``"auto"``/``"fused-joint"`` with a joint it takes, else the loss over
     the logits that :func:`_loss_for` selects. ``mark("forward")`` is called
-    after the forward."""
-    loss_fn = _loss_for(model, loss_impl)
+    after the forward. Under a data-parallel ``group``: this rank's share of
+    the global masked mean."""
+    loss_fn = _loss_for(model, loss_impl, group)
     if loss_impl in ("auto", "fused-joint") and fused_joint_supported(model):
-        return fused_joint_loss
+        return functools.partial(fused_joint_loss, group=group)
 
     def loss(model, inputs: schemas.TrainInput, labels: schemas.TrainLabel, generator=None, mark=lambda phase: None, augment_generator=None):
         out = model(inputs, train=True, generator=generator, augment_generator=augment_generator)
@@ -193,14 +223,16 @@ def _same(a: list, b: list) -> bool:
 
 
 def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], None]] = None, loss_impl: str = "auto",
-                    weight_noise: Optional[WeightNoise] = None) -> Callable:
+                    weight_noise: Optional[WeightNoise] = None, group=None) -> Callable:
     """Returns ``step_fn(state, batch: TrainData) -> (state, metrics)``, one
     micro-step; the state is updated in place and returned. ``on_phase``
     (for timing) is called with "forward", "loss" and "update" as each
     phase is enqueued. ``loss_impl``: see the module docstring.
     ``weight_noise``: the loss and gradients are taken at noised parameters
-    from micro-step ``weight_noise.start`` on (JAX gates on ``state.step``)."""
-    train_loss = make_train_loss(model, loss_impl)
+    from micro-step ``weight_noise.start`` on (JAX gates on ``state.step``).
+    ``group``: data-parallel over its ranks (the module docstring); the
+    model's BatchNorms must take their statistics over it too."""
+    train_loss = make_train_loss(model, loss_impl, group)
     mark = on_phase or (lambda phase: None)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):
@@ -212,6 +244,9 @@ def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], N
         if clean is not None:
             weight_noise.restore(clean)
         params = [p for p in state.model.parameters() if p.grad is not None]
+        if group is not None:
+            all_reduce_([p.grad for p in params], group)
+            loss = sum_no_grad(loss, group)
         grad_norm = global_norm([p.grad for p in params])
         state.optimizer.step(grad_norm=grad_norm if _same(params, [p for p in state.optimizer.params if p.grad is not None]) else None)
         mark("update")
@@ -221,26 +256,32 @@ def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], N
     return step_fn
 
 
-def make_eval_step(model: torch.nn.Module, loss_impl: str = "auto") -> Callable:
+def make_eval_step(model: torch.nn.Module, loss_impl: str = "auto", group=None) -> Callable:
     """The loss without gradients (JAX ``make_eval_step``): the inference
     forward to logits and the masked-mean loss that :func:`_loss_for`
     selects — by default, for a transducer, the unfused Pallas loss (TPU
     kernel row 10 and the DP kernel on the card), and for a CTC model the
-    CTC kernel (row 11)."""
-    loss_fn = _loss_for(model, loss_impl)
+    CTC kernel (row 11). Under a data-parallel ``group``: the global masked mean."""
+    loss_fn = _loss_for(model, loss_impl, group)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):
         with torch.no_grad():
             out = state.model(batch.inputs, train=False)
-            return {"loss": loss_fn(out.logits, out.logits_length, batch.labels.labels, batch.labels.labels_length)}
+            loss = loss_fn(out.logits, out.logits_length, batch.labels.labels, batch.labels.labels_length)
+            return {"loss": loss if group is None else sum_no_grad(loss, group)}
 
     return step_fn
 
 
 class Trainer:
-    """Step/epoch orchestrator on one device (None: the CUDA card, raising
-    without one; ``"cpu"`` runs the kernels' plain versions). The model is
-    moved to the device; batches are moved there at each step.
+    """Step/epoch orchestrator on one device a process (None: the CUDA card,
+    raising without one; ``"cpu"`` runs the kernels' plain versions). The
+    model is moved to the device; batches are moved there at each step.
+    ``mesh``: a 1-D ``DeviceMesh`` over the ranks to train data-parallel
+    across (the module docstring; None: one over the process group when it
+    has more than one rank, else one device). The model then takes rank 0's
+    weights, checkpoints are written by rank 0, and ``fit`` needs
+    ``steps_per_epoch`` (every rank must take the same number of steps).
     ``loss_impl`` as :func:`make_train_step`, for the train and the eval
     step. ``ga_steps``, ``gradn_config`` and ``clip_norm`` configure the
     optimizer chain (``optimizers.build_optimizer``), ``gwn_config`` the
@@ -250,26 +291,38 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, optimizer_config: dict, device=None, on_phase: Optional[Callable[[str], None]] = None,
                  loss_impl: str = "auto", ga_steps: Optional[int] = None, gradn_config: Optional[dict] = None, clip_norm: Optional[float] = None,
-                 gwn_config: Optional[dict] = None, checkpoint_dir: Optional[str] = None, keep_checkpoints: int = 5, callbacks: Optional[list] = None):
+                 gwn_config: Optional[dict] = None, checkpoint_dir: Optional[str] = None, keep_checkpoints: int = 5, callbacks: Optional[list] = None,
+                 mesh=None):
         self.device = device_util.resolve(device)
         self.model = model.to(self.device)
+        if mesh is None and sharding.process_count() > 1:
+            mesh = sharding.make_data_parallel_mesh(self.device)
+        if mesh is not None and mesh.ndim != 1:
+            raise ValueError(f"Trainer takes a 1-D data mesh, not {mesh.ndim}-D (the vocab-sharded step is parallel/tp.py's)")
+        self.mesh = mesh
+        self.group = mesh.get_group() if mesh is not None else None
+        self.rank = mesh.get_local_rank() if mesh is not None else 0
+        if self.group is not None:
+            if dist.get_backend(self.group) == "nccl" and self.device.type != "cuda":
+                raise ValueError(f"an NCCL group trains on CUDA devices, not {self.device}")
+            sharding.replicate(sharding.sync_batch_norm(self.model, self.group), self.group)
         self.optimizer_config = dict(optimizer_config)
         self.ga_steps, self.gradn_config, self.clip_norm = ga_steps, gradn_config, clip_norm
         self.weight_noise = WeightNoise(self.model, gwn_config) if gwn_config else None
         self.checkpoint_dir = os.path.abspath(checkpoint_dir) if checkpoint_dir else None
         self.keep_checkpoints = keep_checkpoints
         self.callbacks = list(callbacks or [])
-        self._train_step = make_train_step(self.model, on_phase, loss_impl, self.weight_noise)
-        self._eval_step = make_eval_step(self.model, loss_impl)
+        self._train_step = make_train_step(self.model, on_phase, loss_impl, self.weight_noise, self.group)
+        self._eval_step = make_eval_step(self.model, loss_impl, self.group)
 
     def init_state(self, seed: int = 42) -> TrainState:
         """A fresh optimizer chain over the model's parameters; the dropout
         generator seeded with ``seed``, the augmentation and weight-noise
-        generators with ``seed`` plus their stream offsets."""
+        generators with ``seed`` plus their stream offsets; the first two
+        also with the data-parallel rank's (:data:`RANK_STREAM`)."""
         optimizer = build_optimizer(self.optimizer_config, self.model.parameters(), ga_steps=self.ga_steps, gradn_config=self.gradn_config,
                                     clip_norm=self.clip_norm)
-        return TrainState(self.model, optimizer, 0, torch.Generator().manual_seed(seed), torch.Generator().manual_seed(AUGMENT_STREAM + seed),
-                          torch.Generator().manual_seed(WEIGHT_NOISE_STREAM + seed))
+        return make_state(self.model, optimizer, seed, self.rank)
 
     # ------------------------------ checkpoints ------------------------------ #
 
@@ -283,12 +336,20 @@ class Trainer:
         """Writes ``checkpoint_dir/<step>/state.pt`` (through a temporary
         directory renamed into place; a step already saved is not written
         again) and deletes all but the newest ``keep_checkpoints``; returns
-        its path (None without a ``checkpoint_dir``)."""
+        its path (None without a ``checkpoint_dir``). Data-parallel: rank 0
+        writes, and every rank returns after it has."""
         if not self.checkpoint_dir:
             return None
         final = os.path.join(self.checkpoint_dir, str(state.step))
+        if self.rank == 0:
+            self._write(state, final)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+        return final
+
+    def _write(self, state: TrainState, final: str) -> None:
         if os.path.isdir(final):
-            return final
+            return
         tmp = final + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(), "step": state.step,
@@ -296,7 +357,6 @@ class Trainer:
         os.replace(tmp, final)
         for step in self.checkpoint_steps()[:-self.keep_checkpoints]:
             shutil.rmtree(os.path.join(self.checkpoint_dir, str(step)))
-        return final
 
     def restore(self, state: TrainState) -> TrainState:
         """The newest checkpoint loaded into ``state`` (in place), or ``state`` as it is without one."""
@@ -316,10 +376,11 @@ class Trainer:
     # --------------------------------- loops --------------------------------- #
 
     def train_step(self, state: TrainState, batch: schemas.TrainData):
-        return self._train_step(state, batch.to(self.device))
+        """One micro-step on this process's rows of the global batch."""
+        return self._train_step(state, sharding.shard_batch(batch, self.device))
 
     def eval_step(self, state: TrainState, batch: schemas.TrainData):
-        return self._eval_step(state, batch.to(self.device))
+        return self._eval_step(state, sharding.shard_batch(batch, self.device))
 
     def fit(self, state: TrainState, train_data: Iterable, epochs: int = 1, steps_per_epoch: Optional[int] = None, eval_data: Optional[Iterable] = None,
             log_every: int = 100) -> TrainState:
@@ -338,10 +399,21 @@ class Trainer:
         process those collections took 0.5–0.9 s inside a step). The price:
         the objects alive at that point are never collected by the cycle
         collector again, so a cycle among them that becomes garbage later
-        stays in memory (reference counting still frees the rest)."""
+        stays in memory (reference counting still frees the rest).
+
+        Data-parallel: every rank takes ``steps_per_epoch`` steps (required)
+        and the first batches of ``eval_data`` that every rank has; at the end
+        the ranks' parameters and buffers are held equal bit for bit
+        (``parallel.sharding.check_replicated``, which raises otherwise)."""
+        if self.group is not None and not steps_per_epoch:
+            raise ValueError("a data-parallel fit needs steps_per_epoch: a rank with a batch more than another would wait at its first collective")
+        if self.group is not None and eval_data is not None:
+            eval_data = list(eval_data)
+            eval_data = eval_data[:int(-pmax(torch.tensor(-len(eval_data), device=self.device), self.group).item())]
         for cb in self.callbacks:
             cb.on_train_begin(self)
         frozen = stop = False
+        metrics = None
         for epoch in range(epochs):
             if stop:
                 break
@@ -373,4 +445,8 @@ class Trainer:
                 stop = stop or cb.stop_training
         for cb in self.callbacks:
             cb.on_train_end(self, state)
+        if self.group is not None:
+            fp = sharding.check_replicated(self.model, self.group)
+            logger.info("data-parallel over %d ranks: step %d, loss %.6f, parameters and buffers equal on every rank (fingerprint %d)",
+                        self.group.size(), state.step, float(metrics["loss"]) if metrics is not None else float("nan"), fp)
         return state

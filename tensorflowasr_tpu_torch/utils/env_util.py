@@ -1,14 +1,19 @@
 """Runtime set-up for the command line (counterpart of
 ``tensorflowasr_tpu/utils/env_util.py``): logging, seeds, the numerics
-check, device discovery and the compute dtype. One card: no mesh (the
-JAX package's ``setup_mesh`` and ``cpu_offline_backend`` wait for the port
-of ``parallel/``)."""
+check, device discovery, the device mesh and the compute dtype.
+
+One card a process: a mesh is a ``DeviceMesh`` over the ranks of the
+``torch.distributed`` group (``parallel/sharding.py``), which ``torchrun``
+or ``parallel.init_process_group`` forms. JAX's ``cpu_offline_backend(n)``
+(n virtual CPU devices in one process) has as its counterpart
+``parallel.spawn(fn, n, device="cpu")``: n gloo ranks, one process each."""
 
 from __future__ import annotations
 
 import logging
 import os
 import random
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +63,21 @@ def has_devices(kind: str = "gpu") -> bool:
 def num_devices() -> int:
     """CUDA cards visible to this process."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def setup_mesh(axis_names: Sequence[str] = ("data",), shape: Optional[Sequence[int]] = None, device=None):
+    """A ``DeviceMesh`` of ``device``'s type (None: CUDA) over every rank of
+    the process group (JAX ``setup_mesh``): by default 1-D over all ranks,
+    extra axes of size 1; ``shape`` lays the ranks out row-major (the last
+    axis innermost, e.g. ("data", "model") for ``parallel/tp.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.init_process_group (or run under torchrun) first")
+    world = dist.get_world_size()
+    shape = tuple(shape) if shape is not None else (world,) + (1,) * (len(axis_names) - 1)
+    return DeviceMesh(torch.device(device or "cuda").type, torch.arange(world).reshape(shape), mesh_dim_names=tuple(axis_names))
 
 
 def setup_mxp(policy: str = "strict", device=None) -> torch.dtype:
