@@ -180,6 +180,25 @@ never); bf16 steps of both at dropout 0.1; and ``train`` under
 ``torchrun --nproc_per_node 1``. Walls there are gloo on one card, not a
 scaling figure; NCCL across cards is not exercised.
 
+The layers the port took last (``phase_layers``, also alone with
+``--layers``): kernel A at head 36 (l1's B·H 64, T = S 400, the auto
+mask, forward and backward, f32 and bf16, beside SDPA and against
+float64) and both frontend kernels below the frame length (nfft 256 and
+300 at 25 ms frames, directly and through ``FeatureExtraction``) against
+their plain versions; then three paths in bf16 with random weights: l1,
+the flagship at full width and depth with 80 MFCCs, VGG subsampling,
+vanilla MHA (kernel A in every block), a one-hot label encoder and a
+GRU-320 prediction net, serving 3 requests of 8 × 10 s (the eager WIND
+loop), training 3 steps of 16 × ≤ 16 s and 2 eval steps; l2, 4 blocks
+with log-gammatone features, Conv1d subsampling, post-norm modules under
+a pre-norm block, a grouped depthwise conv with LayerNorm, trainable
+residual factors, no auto mask (kernel B; the FF and conv modules on
+their plain route, as in JAX) and a simple-RNN net, serving and training
+3 steps; l3, DeepSpeech2 base with 2 bidirectional GRU-512 layers,
+serving 8 × 16 s and training 3 steps on the CTC kernel, and its uni
+layout streaming 4 chunks with the GRU carries; and each path 2 deep in
+f32, card against CPU (encoder output, greedy tokens).
+
 ``python3 chip_smoke.py --compare-parent DIR`` runs only row 10a's times
 (:func:`rows_child`: the call alone and with the stack of its outputs) and
 the step numbers (:func:`phase_steps`) of this checkout and of the package
@@ -2681,19 +2700,22 @@ PER_CALL_EXPLICIT_MASK = _per(fused_attention=1, fused_attention_bwd=1)
 EXPLICIT_MASK_CALLS = 2
 
 
-def family_model(name: str, dtype, device, tmp: str, depth: int | None = None, dropout: float | None = None, **kwargs) -> torch.nn.Module:
+def family_model(name: str, dtype, device, tmp: str, depth: int | None = None, dropout: float | None = None, overrides: dict | None = None,
+                 **kwargs) -> torch.nn.Module:
     """The example's model through the port's ``Config`` and ``build_model``
     at its published widths (DeepSpeech2's LSTMs on the route its default
     takes for ``device``, unless ``kwargs`` name ``rnn_impl``), random
     weights from SEED; cut to ``depth`` LSTM layers, Jasper blocks or
     Transformer blocks, and with every dropout at ``dropout`` and no
-    SpecAugment, when given."""
+    SpecAugment, when given; ``overrides`` replace keys of the model
+    config (``rnn_type``)."""
     from tensorflowasr_tpu_torch import pipeline
     from tensorflowasr_tpu_torch.models import build_model
 
     config = pipeline.load_config(os.path.join(FAMILY_DIR, FAMILY_CONFIGS[name]), modeldir=tmp)
     mc = copy.deepcopy(config.model_config)
     c = mc["config"]
+    c.update(overrides or {})
     if depth is not None:
         if name.startswith("deepspeech2"):
             c["rnn_nlayers"] = depth
@@ -5462,6 +5484,325 @@ def phase_parallel(dev) -> dict:
     return paths
 
 
+# ------------------------------------ the layers the port took last ------------------------------------ #
+
+LAYERS_VGG = {"class_name": "tensorflow_asr.models.layers.subsampling>VggSubsampling",
+              "config": {"filters": [32, 64], "kernel_size": 3, "pool_size": 2, "strides": 2}}
+LAYERS_CONV1D = {"class_name": "tensorflow_asr.models.layers.subsampling>Conv1dSubsampling",
+                 "config": {"filters": [D_MODEL, D_MODEL], "strides": [2, 2], "kernels": [3, 3], "paddings": ["causal", "causal"], "norms": ["batch", "batch"],
+                            "activations": ["swish", "swish"]}}
+L2_BLOCKS, L3_LAYERS, L3_STREAM_CHUNKS = 4, 2, 4
+LAYERS_STEPS = {"l1": 3, "l2": 3, "l3": 3}  # the first step of a model is cold (allocations, cuDNN's choices)
+LAYERS_EVALS = 2
+_ENC_L1 = dict(fused_attention=16, fused_ff=32, conv_front=16, conv_back=16)
+PER_REQUEST_LAYERS = {"l1": _per(**_ENC_L1), "l2": _per(fused_rel_attention=L2_BLOCKS), "l3": _per()}
+PER_STEP_LAYERS = {"l1": _per(**_ENC_L1, fused_attention_bwd=16, fused_ff_bwd=32, conv_front_bwd=16, conv_back_bwd=16, **_LOSS),
+                   "l2": _per(fused_rel_attention=L2_BLOCKS, fused_rel_attention_bwd=L2_BLOCKS, **_LOSS), "l3": _per(ctc_loss=1)}
+PER_EVAL_LAYERS = {"l1": _per(**_ENC_L1, rnnt_logprobs=1, rnnt_dp=1)}
+# a request of 8 utterances: the flagship's serving shape (bench.py's decode cell) for the transducers, 16 s for DeepSpeech2
+LAYERS_REQUEST_S = {"l1": (10.0, 10.0), "l2": (10.0, 10.0), "l3": (16.0, 16.0)}
+
+
+def layers_config(name: str, num_blocks: int | None = None, dropout: float = TRAIN_RATE) -> dict:
+    """The flagship Conformer-Transducer Small (its published widths) with the
+    layers the port took last. ``l1``: 80 MFCCs, VGG subsampling (32, 64),
+    vanilla MHA (kernel A at head 36), a one-hot label encoder and a GRU-320
+    prediction net with LayerNorm. ``l2`` (4 blocks): 80 log-gammatone bins,
+    Conv1d subsampling [144, 144] (strides 2, 2, kernels 3, causal, batch
+    norm, swish), post-norm modules under a pre-norm block, a grouped
+    depthwise conv with LayerNorm, trainable residual factors, no attention
+    auto mask, relative MHA (kernel B) and a simple-RNN-320 prediction net."""
+    from tensorflowasr_tpu_torch.models.transducer.conformer import conformer_small_config
+
+    cfg = conformer_small_config(num_blocks=num_blocks or (16 if name == "l1" else L2_BLOCKS), dropout=dropout)
+    if name == "l1":
+        cfg["speech_config"]["feature_type"] = "mfcc"
+        cfg.update(encoder_subsampling=LAYERS_VGG, encoder_mha_type="mha", prediction_label_encode_mode="one_hot", prediction_rnn_type="gru")
+    else:
+        cfg["speech_config"]["feature_type"] = "log_gammatone_spectrogram"
+        cfg.update(encoder_subsampling=LAYERS_CONV1D, encoder_module_norm_position="post", encoder_block_norm_position="pre",
+                   encoder_convm_use_group_conv=True, encoder_convm_dw_norm_type="layer", encoder_ffm_residual_factor="trainable",
+                   encoder_mhsam_residual_factor="trainable", encoder_convm_residual_factor="trainable", encoder_use_attention_auto_mask=False,
+                   prediction_rnn_type="rnn")
+    return cfg
+
+
+def layers_model(name: str, dtype, device, tmp: str, depth: int | None = None, dropout: float | None = None, uni: bool = False) -> torch.nn.Module:
+    """``l1``/``l2`` (:func:`layers_config`; dropout TRAIN_RATE unless
+    given) or ``l3``: DeepSpeech2 base (or uni) from its example with GRU
+    layers, cut to ``depth`` (default L3_LAYERS) of its 5, the example's
+    dropout and SpecAugment unless ``dropout`` is given; random weights
+    from SEED."""
+    from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer
+
+    if name == "l3":
+        ds2 = "deepspeech2_uni" if uni else "deepspeech2"
+        return family_model(ds2, dtype, device, tmp, depth=depth or L3_LAYERS, dropout=dropout, overrides={"rnn_type": "gru"})
+    model = Conformer.from_config(layers_config(name, depth, TRAIN_RATE if dropout is None else dropout), dtype=dtype, device=device)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model
+
+
+def layers_kernels(dev, rows: list[dict]) -> None:
+    """Kernel A (row 4) at head 36, l1's attention shape: B·H 64, T = S 400,
+    the auto mask of a ragged batch as the padded-row bias, rate 0.1, forward
+    and backward against its plain version (f32 and bf16, the kernel-A
+    tolerances), times and bound, its bf16 accuracy against float64, and
+    SDPA on the same inputs at rate 0 and 0.1; and both frontend kernels
+    (rows 1-2) below the frame length: the FFT at nfft 256 and the direct
+    DFT at nfft 300, 25 ms frames of 400 samples, against the plain rfft
+    chain (which crops each frame to nfft), also through
+    ``FeatureExtraction``. Sub-entries ``head36`` and
+    ``nfft256_frame400`` / ``nfft300_frame400`` of their rows."""
+    from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtraction
+    from tensorflowasr_tpu_torch.ops import frontend
+    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
+    from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    t_np, _ = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
+    bh, t, d = TRAIN_B * HEADS, T_ENC, HEAD
+    valid = torch.arange(t, device=dev)[None, :] < torch.tensor(t_np, device=dev).repeat_interleave(HEADS)[:, None]
+    what = f"layers l1 train, BH {bh} T = S {t} head {d}, auto mask, rate {TRAIN_RATE}"
+
+    def att_make(dt, rate=TRAIN_RATE):
+        q, k, v = _randn(gen, (bh, t, d), 1.0 / d ** 0.5, dt), _randn(gen, (bh, t, d), 1.0, dt), _randn(gen, (bh, t, d), 1.0, dt)
+        bias = torch.where(valid, 0.0, -1e9)[:, :, None].expand(bh, t, t).to(dt).contiguous()
+        cfg_ = (23, rate)
+        out, stats = ak.fused_attention_kernel(q, k, v, bias, *cfg_, with_stats=True)
+        return (q, k, v, bias, *cfg_), (q, k, v, bias, out, stats, _randn(gen, (bh, t, d), 1.0, dt), *cfg_)
+
+    def bwd_kernel(q, k, v, bias, out, stats, dout, seed, rate):
+        return ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed, rate, bias_grad=False, stats=stats)[:3]
+
+    def bwd_plain(q, k, v, bias, out, stats, dout, seed, rate):
+        return ak.fused_attention_plain_bwd(q, k, v, bias, dout, seed, rate, bias_grad=False)[:3]
+
+    att = _check_fwd_bwd("fused_attention", ak.fused_attention_kernel, ak.fused_attention_plain, bwd_kernel, bwd_plain, att_make,
+                         lambda elt, bwd: cost_vanilla_attention(bh, t, t, d, elt, bh * t * t * elt, bwd), what=what)
+    times = {}
+    for rate in (0.0, TRAIN_RATE):
+        fargs, bargs = att_make(torch.bfloat16, rate)
+        q, k, v, bias = fargs[:4]
+        qs, ks, vs = (a.detach().clone().requires_grad_(True) for a in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias, dropout_p=rate, scale=1.0)
+        out = sdpa()
+        times[rate] = dict(fwd=time_ms(ak.fused_attention_kernel, *fargs), bwd=time_ms(bwd_kernel, *bargs),
+                           sdpa_fwd=time_ms(lambda: sdpa().detach()), sdpa_bwd=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), bargs[6], retain_graph=True)))
+        r = times[rate]
+        print(f"kernel fused_attention bf16 at rate {rate} (layers l1, BH {bh} T = S {t} head {d}): forward {r['fwd']:.4f} ms, backward "
+              f"{r['bwd']:.4f} ms; library F.scaled_dot_product_attention (attn_mask = the bias, dropout_p {rate}, scale 1): forward "
+              f"{r['sdpa_fwd']:.4f} ms, backward {r['sdpa_bwd']:.4f} ms")
+    attention_accuracy(*att_make(torch.bfloat16), bwd_kernel, bwd_plain)
+    by_name = {r["name"]: r for r in rows}
+    for part, row in zip(("fwd", "bwd"), att):
+        sub = {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms", "bound_by")}
+        sub.update(library_ms=times[TRAIN_RATE][f"sdpa_{part}"], ms_rate0=times[0.0][part], library_ms_rate0=times[0.0][f"sdpa_{part}"])
+        by_name[row["name"]]["head36"] = sub
+
+    # the frontend kernels below the frame length (25 ms: 400 samples)
+    fe = by_name["log_mel_spectrogram"]
+    for nfft, shape, tag in ((256, (TRAIN_B, int(TRAIN_SECS * 16000)), "nfft256_frame400"), (300, (8, 160000), "nfft300_frame400")):
+        cfg = frontend.FrontendConfig(nfft=nfft)
+        sig = frontend.preemphasis_signal(_randn(gen, shape, 0.1), cfg).contiguous()
+        err, ms, plain_ms, b = frontend_line(sig, cfg, f"{'train' if shape[0] == TRAIN_B else 'serve'}, frame 400 cropped to nfft {nfft}")
+        fe[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], kernel="fft" if fek.uses_fft(nfft) else "dft")
+        module = FeatureExtraction(**{"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": nfft, "num_feature_bins": 80}).to(dev)
+        lens = torch.full((shape[0],), shape[1], device=dev)
+        before = (fek.launches, fek.dft_launches)
+        feats, _ = module(sig, lens)
+        launched = (fek.launches - before[0], fek.dft_launches - before[1])
+        plain, _ = frontend.extract_features(sig, lens, cfg)
+        ferr = _close(f"FeatureExtraction nfft {nfft}", feats, plain, 1e-3, 0.0)
+        if launched != ((1, 0) if fek.uses_fft(nfft) else (0, 1)):
+            raise AssertionError(f"FeatureExtraction nfft {nfft}: launched FFT {launched[0]}, DFT {launched[1]} times")
+        print(f"layers FeatureExtraction (log-mel, nfft {nfft}, 25 ms frames of 400 samples): {'FFT' if launched[0] else 'DFT'} kernel launched once, "
+              f"max_abs_err vs the plain chain {ferr:.3e} (tol 1e-3)")
+
+
+def layers_profiled(fn) -> tuple[float, float]:
+    """``fn()`` once under the profiler, device activity only: (card kernel
+    ms, wall ms). The host's operator events of an eager GRU or decode loop
+    (10^4–10^5 a call) would take the profiler far longer to sort than the
+    call itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    return sum(e.self_device_time_total for e in kernels) / 1e3, wall
+
+
+def layers_serve(dev, name: str, model, recognize_fn) -> dict:
+    """3 requests of 8 utterances (LAYERS_REQUEST_S) through ``recognize``
+    after a warm-up request, each request's launches equal to its
+    PER_REQUEST_LAYERS entry (set to 0 just before, read just after); walls,
+    RTF and, on one more profiled request, the card's busy share. Returns
+    the launch counts."""
+    from tensorflowasr_tpu_torch import schemas
+
+    tag = f"layers serve {name}"
+    lo, hi = LAYERS_REQUEST_S[name]
+    rng = np.random.default_rng(SEED + 5)
+    requests = [make_request(rng, 8, lo, hi, dev) for _ in range(3)]
+    recognize_fn(model, schemas.PredictInput(*make_request(rng, 8, lo, hi, dev)))
+    torch.cuda.synchronize()
+    settle()
+    reset_launch_counts()
+    walls = []
+    for r, (audio, lens) in enumerate(requests):
+        before = launch_counts()
+        with RequestWatch() as watch:
+            t0 = time.perf_counter()
+            out = recognize_fn(model, schemas.PredictInput(audio, lens))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != PER_REQUEST_LAYERS[name]:
+            raise AssertionError(f"{tag} request {r}: kernel launches {delta}, expected {PER_REQUEST_LAYERS[name]}")
+        if not ((out.tokens >= 0) & (out.tokens < model.vocab_size)).all():
+            raise AssertionError(f"{tag} request {r}: token ids outside the vocabulary")
+        audio_s = lens.sum().item() / 16000.0
+        print(f"{tag} request {r}: batch 8, audio {audio_s:.2f} s, recognize {walls[-1] * 1e3:.3f} ms ({watch}), RTF {walls[-1] / audio_s:.6f}, "
+              f"tokens {tuple(out.tokens.shape)}, nonblank {int((out.tokens != 0).sum())}")
+    counts = launch_counts()
+    busy_ms, wall = layers_profiled(lambda: recognize_fn(model, schemas.PredictInput(*requests[0])))
+    print(f"{tag}: launches per request {_launched(PER_REQUEST_LAYERS[name])}; median wall {float(np.median(walls)) * 1e3:.3f} ms; profiled request: "
+          f"card kernel time {busy_ms:.1f} ms of {wall:.1f} ms (busy {100 * busy_ms / wall:.1f}% under the profiler)")
+    return counts
+
+
+def layers_train(dev, name: str, model, batch, lr: float = 1e-4) -> tuple[dict, tuple]:
+    """LAYERS_STEPS default (auto) bf16 training steps (each step's launches
+    checked by :func:`run_train`), the loss falling, one profiled step
+    (:func:`layers_profiled`) for the busy share. Returns the launch counts
+    and (trainer, state, batch)."""
+    tag, steps = f"layers train {name}", LAYERS_STEPS[name]
+    counts, losses, walls, trainer, state, batch, _ = run_train(dev, "auto", steps, PER_STEP_LAYERS[name], tag, model=model, lr=lr, batch=batch)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall over {steps} steps: {losses}")
+    busy_ms, wall = layers_profiled(lambda: trainer.train_step(state, batch))
+    steady = float(np.median(walls[1:]))
+    print(f"{tag}: losses {', '.join(f'{x:.4f}' for x in losses)}; median step after the first {steady:.1f} ms; profiled step: card kernel time "
+          f"{busy_ms:.1f} ms ({wall:.1f} ms under the profiler) → busy {100 * busy_ms / steady:.1f}% of the median step")
+    return counts, (trainer, state, batch)
+
+
+def layers_eval(dev, model, trainer, state, batch) -> dict:
+    """l1's eval step (default loss_impl: the log-probability rows and the
+    DP), LAYERS_EVALS steps, launches checked; the loss against the plain-DP
+    eval's to 1e-5. Returns the launch counts."""
+    from tensorflowasr_tpu_torch.training.trainer import make_eval_step
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for step in range(LAYERS_EVALS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        loss = trainer.eval_step(state, batch)["loss"].item()
+        wall = (time.perf_counter() - t0) * 1e3
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != PER_EVAL_LAYERS["l1"]:
+            raise AssertionError(f"layers eval l1 step {step}: kernel launches {delta}, expected {PER_EVAL_LAYERS['l1']}")
+        print(f"layers eval l1 step {step}: {wall:.1f} ms; loss {loss:.6f}")
+    counts = launch_counts()
+    xla = make_eval_step(model, "xla")(state, batch)["loss"].item()
+    if not abs(loss - xla) <= 1e-5 * abs(xla):
+        raise AssertionError(f"layers eval l1: default loss {loss} vs xla {xla}")
+    print(f"layers eval l1: default (row kernel + DP kernel) {loss:.6f} vs xla (plain DP) {xla:.6f}")
+    return counts
+
+
+def layers_stream(dev, tmp: str) -> dict:
+    """DeepSpeech2 uni with GRU layers (bf16, L3_LAYERS deep) streaming
+    L3_STREAM_CHUNKS chunks of 160 ms through the CTC ``recognize``, each
+    layer's bare ``h`` carried: no kernel on this path (the GRU is a loop of
+    PyTorch ops, the frontend the plain spectrogram chain); the carried
+    states' shapes checked. Returns the launch counts."""
+    from tensorflowasr_tpu_torch.models.ctc.base import recognize
+
+    model = layers_model("l3", torch.bfloat16, dev, tmp, uni=True).eval()
+    chunks, size, step = stream_chunks(model, SEED + 23, dev)
+    chunks = chunks[:L3_STREAM_CHUNKS]
+    run_stream(model, chunks, size, dev, recognize=recognize)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = run_stream(model, chunks, size, dev, _per(), recognize)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(chunks) * 1e3
+    carried = [tuple(h.shape) for h in outs[-1].next_encoder_states]
+    if carried != [(1, DS2_H)] * L3_LAYERS:
+        raise AssertionError(f"layers stream l3: carried GRU states {carried}")
+    print(f"layers stream l3 (deepspeech2 uni, {L3_LAYERS} GRU-{DS2_H} layers, bare h carried {carried}): {len(chunks)} chunks of {step / 16:.0f} ms, "
+          f"{ms:.3f} ms per chunk, RTF {ms / (step / 16.0):.4f}; no kernel launched (as counted)")
+    return launch_counts()
+
+
+def phase_layers(dev, rows: list[dict]) -> dict:
+    """The layers the port took last on three paths, bf16 with random
+    weights from the seed: l1 (:func:`layers_config`, 16 blocks) serving 3
+    requests of 8 × 10 s through ``recognize`` (eager WIND: the fused decode
+    declines a GRU and a one-hot net), 3 training steps of 16 × ≤ 16 s,
+    U 128 (Adam, dropout 0.1, the fused joint and the DP) and an eval step;
+    l2 (4 blocks) serving and 3 training steps; l3 (DeepSpeech2 base with 2
+    bidirectional GRU-512 layers, the example's dropout and SpecAugment)
+    serving 8 × 16 s and 3 steps through the CTC kernel (8 × ≤ 16 s, char
+    labels), and its uni layout streaming. Then each path's
+    f32 request (2 deep, TF32 off, dropout 0) card vs CPU (plain versions):
+    encoder output and greedy tokens. The kernels first
+    (:func:`layers_kernels`). Returns the launch counts by path."""
+    import tempfile
+
+    from tensorflowasr_tpu_torch.models.ctc.base import recognize as ctc_recognize
+    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+
+    t0 = time.perf_counter()
+    parts = []
+
+    def part(name: str) -> None:
+        parts.append((name, time.perf_counter()))
+
+    layers_kernels(dev, rows)
+    part("kernels")
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="tfasr-layers-") as tmp:
+        for name in ("l1", "l2", "l3"):
+            model = layers_model(name, torch.bfloat16, dev, tmp)
+            n_params = sum(p.numel() for p in model.parameters())
+            frames = model.encoder.output_length(model.feature_extraction.get_nframes(int(TRAIN_SECS * 16000)))
+            print(f"layers {name}: {type(model).__name__}, {n_params} parameters, V {model.vocab_size}, features "
+                  f"{model.feature_extraction.config.feature_type} ({model.feature_extraction.config.num_feature_bins}), encoder frames at "
+                  f"{TRAIN_SECS:g} s {frames}")
+            if name != "l3" and model.decode_params() is not None:
+                raise AssertionError(f"layers {name}: the fused decode took a prediction net it does not take in JAX")
+            paths[f"layers_serve_{name}"] = layers_serve(dev, name, model.eval(), ctc_recognize if name == "l3" else recognize)
+            if name == "l3":
+                batch = train_batch(np.random.default_rng(SEED + 2), FAMILY_B, TRAIN_SECS, FAMILY_U, model.vocab_size, FAMILY_CHARS_PER_S)
+            else:
+                batch = train_batch(np.random.default_rng(SEED + 2), TRAIN_B, TRAIN_SECS, TRAIN_U, model.vocab_size)
+            paths[f"layers_train_{name}"], (trainer, state, batch) = layers_train(dev, name, model.train(), batch)
+            if name == "l1":
+                paths["layers_eval_l1"] = layers_eval(dev, model.eval(), trainer, state, batch)
+            del model, trainer, state
+            torch.cuda.empty_cache()
+            part(name)
+        paths["layers_stream_l3"] = layers_stream(dev, tmp)
+        part("stream")
+        for name in ("l1", "l2", "l3"):
+            cpu_model = layers_model(name, torch.float32, "cpu", tmp, depth=2, dropout=0.0)
+            print(f"parity f32 request (layers {name}, 2 deep) card (kernels) vs CPU (plain), 2 x <= 4 s: {parity_request(cpu_model, dev, name, beam=False)}, "
+                  f"TF32 off")
+        part("parity")
+    split = ", ".join(f"{name} {t - (parts[i - 1][1] if i else t0):.1f} s" for i, (name, t) in enumerate(parts))
+    print(f"layers phase: {time.perf_counter() - t0:.1f} s ({split})")
+    return paths
+
+
 def compare_steps(parent: str) -> None:
     """Row 10a's times (``--rows``) and then the step numbers (``--steps``)
     of the package in ``parent`` (a checkout of another commit) and of this
@@ -5510,6 +5851,7 @@ def main(argv: list[str]) -> int:
     :func:`phase_beam`, :func:`phase_transducer_parity` and :func:`phase_ctc_referee`,
     the sub-entries and launch counts as one JSON line.
     ``--parallel``: only :func:`phase_parallel`, its launch counts as one JSON line.
+    ``--layers``: only :func:`phase_layers` (with :func:`layers_kernels`), the sub-entries and launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -5553,6 +5895,13 @@ def main(argv: list[str]) -> int:
         _no_tf32()
         _build.build()  # here, before any rank is spawned: two ranks building into _build/ at once would race
         print(json.dumps({"parallel": phase_parallel(torch.device("cuda", 0))}))
+        return 0
+    if "--layers" in argv:
+        _no_tf32()
+        _build.build()
+        rows = [{"name": name} for name in KERNELS]
+        paths = phase_layers(torch.device("cuda", 0), rows)
+        print(json.dumps({"layers": paths, "rows": [r for r in rows if len(r) > 1]}))
         return 0
     if "--data" in argv:
         _no_tf32()
@@ -5638,6 +5987,8 @@ def main(argv: list[str]) -> int:
     mark("cli")
     paths.update(phase_parallel(dev))
     mark("parallel")
+    paths.update(phase_layers(dev, rows))
+    mark("layers")
     phase_fit_gc()
     phase_gc_probe()
     mark("gc")

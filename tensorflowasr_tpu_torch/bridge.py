@@ -24,9 +24,20 @@ running statistics (which training updates) back into a flax
 - ``nn.OptimizedLSTMCell`` ``{ii,if,ig,io}`` (no bias) and
   ``{hi,hf,hg,ho}`` (with bias) → ``weight_ih [4U, E]``,
   ``weight_hh [4U, U]``, ``bias [4U]``, gate order i, f, g, o; the cells
-  are the scopes named ``cell`` and, in a bidirectional layer, ``cell_bwd``.
+  are the scopes named ``cell`` and, in a bidirectional layer, ``cell_bwd``;
+- ``nn.GRUCell`` ``{ir,iz,in}`` (with bias) and ``{hr,hz}`` (no bias),
+  ``hn`` (with bias) → ``weight_ih [3U, E]``, ``bias_ih [3U]``,
+  ``weight_hh [3U, U]``, ``bias_hn [U]``, gate order r, z, n;
+- the simple RNN cell's Dense ``i`` and ``h`` → ``weight_ih``, ``bias_ih``,
+  ``weight_hh``, ``bias_hh``;
+- every other leaf keeps its name: a trainable residual's ``factor`` (a
+  scalar), ``SequenceBatchNorm``'s ``gamma`` and ``beta``.
 
-These rules cover every model family with no per-model code: the RNN-T
+These rules cover every model family and every Conformer option with no
+per-model code (``ln_pre``, a LayerNorm ``dw_norm``, the grouped
+``dw_conv`` kernel [K, Cin/D, D] → [D, Cin/D, K], the Conv1d and VGG
+subsamplings' ``conv_i`` / ``conv_b_c``, ``DepthwiseConv2D``'s [kt, kf,
+1, C·m] → [C·m, 1, kt, kf]): the RNN-T
 blocks (``block_i.rnn.cell``, ``.ln``, ``.projection``), ContextNet (each
 ``SeparableConv1D``'s ``depthwise`` [K, 1, C] and ``pointwise`` [1, Cin,
 Cout] kernels, every BatchNorm's params and ``batch_stats``, the SE's
@@ -57,11 +68,28 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
+def _kernels(cell: Mapping, names) -> np.ndarray:
+    return np.concatenate([np.asarray(cell[n]["kernel"]).T for n in names], axis=0)
+
+
+def _biases(cell: Mapping, names) -> np.ndarray:
+    return np.concatenate([np.asarray(cell[n]["bias"]) for n in names], axis=0)
+
+
 def _lstm_cell(cell: Mapping) -> dict[str, np.ndarray]:
-    w_ih = np.concatenate([np.asarray(cell["i" + g]["kernel"]).T for g in _GATES], axis=0)
-    w_hh = np.concatenate([np.asarray(cell["h" + g]["kernel"]).T for g in _GATES], axis=0)
-    bias = np.concatenate([np.asarray(cell["h" + g]["bias"]) for g in _GATES], axis=0)
-    return {"weight_ih": w_ih, "weight_hh": w_hh, "bias": bias}
+    gates = lambda side: [side + g for g in _GATES]
+    return {"weight_ih": _kernels(cell, gates("i")), "weight_hh": _kernels(cell, gates("h")), "bias": _biases(cell, gates("h"))}
+
+
+def _cell(cell: Mapping) -> dict[str, np.ndarray]:
+    """An LSTM, GRU or simple-RNN cell's parameters, told apart by their names."""
+    if "ir" in cell:
+        gru = ("ir", "iz", "in")
+        return {"weight_ih": _kernels(cell, gru), "bias_ih": _biases(cell, gru), "weight_hh": _kernels(cell, ("hr", "hz", "hn")),
+                "bias_hn": _biases(cell, ("hn",))}
+    if "i" in cell:
+        return {"weight_ih": _kernels(cell, ("i",)), "bias_ih": _biases(cell, ("i",)), "weight_hh": _kernels(cell, ("h",)), "bias_hh": _biases(cell, ("h",))}
+    return _lstm_cell(cell)
 
 
 def _convert_param(path: tuple, value: np.ndarray) -> tuple[tuple, np.ndarray]:
@@ -100,7 +128,7 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
         node = params
         for k in cell_path:
             node = node[k]
-        for name, value in _lstm_cell(node).items():
+        for name, value in _cell(node).items():
             emit(cell_path + (name,), value)
     for path, value in _flatten(params).items():
         if in_cell(path):

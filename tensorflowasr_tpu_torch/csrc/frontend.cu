@@ -25,11 +25,16 @@
 // exp(-2 pi i k / nfft) come from a table built in float64 on the host and
 // cast to f32 (no fast-math sine), copied into shared memory per block.
 //
-// log_mel_dft_kernel, for any other nfft >= frame_length (nfft = None is
-// the 400-point case): the direct DFT against the host's Hann-windowed
-// [frame_length, nfft/2+1] cos/sin bases, FE_FT frames a block, each thread
-// one bin with FE_FT (re, im) accumulators in registers while the bases
-// stream from L2; the same sparse mel stage.
+// log_mel_dft_kernel, for any other nfft (nfft = None is the 400-point
+// case): the direct DFT against the host's Hann-windowed [FL, nfft/2+1]
+// cos/sin bases, FE_FT frames a block, each thread one bin with FE_FT
+// (re, im) accumulators in registers while the bases stream from L2; the
+// same sparse mel stage.
+//
+// FL is the samples a frame the kernels read: the frame length, or nfft
+// where nfft is below it (the wrapper passes min(frame_length, nfft)), so a
+// frame longer than nfft is cropped to its first nfft windowed samples, as
+// rfft(frames, n=nfft) does.
 //
 // What bounds them on an H100: the FFT does ~2.5 nfft log2 nfft operations
 // a frame (~12 kFLOP at 512, against ~0.4 MFLOP for the direct DFT of 400
@@ -221,7 +226,8 @@ size_t fe_fft_smem(int nfft, int FL, int FS, int nmel, int nnz) {
 // signal [B, N] f32; twiddle [nfft] complex f32 (W_n^k); window [FL] f32;
 // mel_w the mel filters' nnz nonzero weights, filter m's at mel_off[m] ..
 // mel_off[m + 1] for bins mel_lo[m] ..; out [B, T, nmel] f32 with T =
-// ceil(N / FS). nfft a power of two from 256 to 2048, at least FL.
+// ceil(N / FS). nfft a power of two from 256 to 2048, at least FL (the
+// frame length cropped to nfft).
 extern "C" int tfasr_log_mel_fft(const void* signal, const void* twiddle, const void* window, const void* mel_w, const void* mel_lo, const void* mel_off,
                                  void* out, int B, int N, int T, int FL, int FS, int nfft, int nmel, int nnz, float eps, void* stream) {
   using namespace tfasr;

@@ -9,9 +9,9 @@ import torch
 
 from tensorflowasr_tpu_torch.models.config_utils import filter_kwargs, learning_config, strip_prefix, with_spec_augment
 from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
-from tensorflowasr_tpu_torch.models.encoders.conformer import _UNPORTED, ConformerEncoder
+from tensorflowasr_tpu_torch.models.encoders.conformer import ConformerEncoder
 
-_ENC_KEYS = (set(inspect.signature(ConformerEncoder.__init__).parameters) | set(_UNPORTED)) - {"self", "in_features", "dtype", "options"}
+_ENC_KEYS = set(inspect.signature(ConformerEncoder.__init__).parameters) - {"self", "in_features", "dtype"}
 
 
 def conformer_ctc_small_config(vocab_size: int = 256, num_blocks: int = 16, dropout: float = 0.1, augment: bool = False) -> dict:

@@ -1,19 +1,20 @@
 """DeepSpeech2 encoder (counterpart of ``tensorflowasr_tpu/models/encoders/deepspeech2.py``):
-conv blocks → LSTM stack (bidirectional, or unidirectional with RowConv)
-→ FC stack.
+conv blocks → RNN stack (LSTM, GRU or simple RNN by ``rnn_type``;
+bidirectional, or unidirectional with RowConv) → FC stack.
 
 ``ConvBlock`` is a Conv2D (on [B, T, F, C]) or Conv1D with the reference's
 padding (``causal`` pads time and frequency both), BatchNorm at ε 1e-3 and
 momentum 0.99, and the activation; its lengths follow
-``conv_output_length``. Each LSTM layer is ``models/layers/rnn.RNN``
+``conv_output_length``. Each RNN layer is ``models/layers/rnn.RNN``
 (``rnn_impl`` as the transducer's: ``"pallas"`` runs the LSTM kernels for
-each direction), followed on a unidirectional layer by ``RowConv1D`` when
+each direction of an LSTM; a GRU or simple RNN runs its cell loop),
+followed on a unidirectional layer by ``RowConv1D`` when
 ``rnn_rowconv`` > 0 (a causal depthwise conv of width 2·fw + 1 without
 bias, BatchNorm and the activation) and then dropout. The FC layers are
 Dense, activation and dropout; the output is zero past each length.
 Streaming (unidirectional only, as in JAX): ``init_state`` holds one
-``(c, h)`` carry per layer, and ``forward(initial_state=...)`` returns the
-new carries. Parameter names follow the JAX tree (``conv_block_i``,
+carry per layer (``(c, h)``, a GRU's ``h`` or a simple RNN's ``(h,)``),
+and ``forward(initial_state=...)`` returns the new carries. Parameter names follow the JAX tree (``conv_block_i``,
 ``rnn_i.cell`` / ``cell_bwd``, ``rowconv_i``, ``fc_i``), so ``bridge.py``
 maps one onto the other.
 """
@@ -119,7 +120,7 @@ class DeepSpeech2Encoder(nn.Module):
         return length
 
     def init_state(self, batch: int, device=None) -> Optional[list]:
-        """One zero ``(c, h)`` carry per layer (JAX ``init_state``); None when bidirectional."""
+        """One zero carry per layer in the cell's structure (JAX ``init_state``); None when bidirectional."""
         if self.rnn_bidirectional:
             return None
         return [getattr(self, f"rnn_{i}").init_state(batch, device) for i in range(self.rnn_nlayers)]

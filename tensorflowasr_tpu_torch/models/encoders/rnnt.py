@@ -1,17 +1,20 @@
 """RNN-Transducer encoder (counterpart of ``tensorflowasr_tpu/models/encoders/rnnt.py``):
-stacked blocks of LSTM → LayerNorm → projection, each with an optional
+stacked blocks of RNN (LSTM by default; GRU or simple RNN by
+``rnn_type``) → LayerNorm → projection, each with an optional
 ``TimeReduction`` before (``pre``) or after (``post``) it.
 
-Each LSTM is ``models/layers/rnn.RNN`` (``rnn_impl`` as DeepSpeech2's:
+Each RNN is ``models/layers/rnn.RNN`` (``rnn_impl`` as DeepSpeech2's:
 ``"pallas"`` runs the LSTM kernels, the default of a model built on the
-card), its input the previous block's output stacked by that block's
-reduction: 80 → 960 → 320 → 640 in the published small config (post
-reductions [3, 0, 2, 0], dmodel 320). The output is zero past each length
-(``mask_sequence``). Streaming: ``init_state`` holds one ``(c, h)`` carry
-per block, and ``forward(initial_state=...)`` returns the new carries; each
-chunk pads under its reductions as a whole utterance does. Parameter names
-follow the JAX tree (``block_i.rnn.cell``, ``block_i.ln``,
-``block_i.projection``), so ``bridge.py`` maps one onto the other.
+card; a GRU or simple RNN runs its cell loop), its input the previous
+block's output stacked by that block's reduction: 80 → 960 → 320 → 640 in
+the published small config (post reductions [3, 0, 2, 0], dmodel 320). The
+output is zero past each length (``mask_sequence``). Streaming:
+``init_state`` holds one carry per block in the cell's structure
+(``(c, h)``, ``h`` or ``(h,)``), and ``forward(initial_state=...)``
+returns the new carries; each chunk pads under its reductions as a whole
+utterance does. Parameter names follow the JAX tree (``block_i.rnn.cell``,
+``block_i.ln``, ``block_i.projection``), so ``bridge.py`` maps one onto the
+other.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ class RnnTransducerEncoder(nn.Module):
         return math_util.get_reduced_length(length, self.time_reduction_factor)
 
     def init_state(self, batch: int, device=None) -> list:
-        """One zero ``(c, h)`` carry per block (JAX ``init_state``)."""
+        """One zero carry per block in the cell's structure (JAX ``init_state``)."""
         return [getattr(self, f"block_{i}").rnn.init_state(batch, device) for i in range(self.nlayers)]
 
     def forward(self, features: torch.Tensor, features_length: torch.Tensor, initial_state: Optional[list] = None, train: bool = False,

@@ -9,7 +9,8 @@ the smaller half on the left). Weights are f32 (OIHW / OIW), compute in
 ``dtype``. The strided-GEMM lowerings of the JAX module (TPU experiments)
 are not ported. ``SeparableConv1D`` is a depthwise conv without bias then a
 pointwise (k = 1) conv, under the JAX child names ``depthwise`` and
-``pointwise``.
+``pointwise``. ``DepthwiseConv2D`` convolves each channel of [B, T, F, C]
+with its own ``depth_multiplier`` filters (weight [C·m, 1, kt, kf]).
 """
 
 from __future__ import annotations
@@ -99,3 +100,25 @@ class SeparableConv1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
+
+
+class DepthwiseConv2D(nn.Module):
+    """[B, T, F, C] → [B, T', F', C·depth_multiplier] (JAX ``DepthwiseConv2D``:
+    ``nn.Conv`` with ``feature_group_count=C``; output channel c·m + j is
+    input channel c's j-th filter)."""
+
+    def __init__(self, channels: int, kernel_size=(3, 3), strides=(1, 1), padding: str = "same", dilation=(1, 1), depth_multiplier: int = 1,
+                 use_bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.kernel_size, self.strides, self.padding, self.dilation, self.dtype = tuple(kernel_size), tuple(strides), padding, tuple(dilation), dtype
+        self.groups = channels
+        self.weight = nn.Parameter(torch.empty(channels * depth_multiplier, 1, *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(channels * depth_multiplier)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        x = F.pad(x, _flat(_pads(self.padding, x.shape[2:], self.kernel_size, self.strides, self.dilation)))
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x, self.weight.to(dt), bias, stride=self.strides, dilation=self.dilation, groups=self.groups)
+        return y.permute(0, 2, 3, 1)

@@ -5,7 +5,10 @@ Raw audio [B, N] → features [B, T, F] in ``dtype`` (the frontend itself
 runs in f32). Configurations the fused kernel takes (log-mel, pad_end
 framing, natural log, no librosa-style window) run
 ``ops/cuda/frontend_kernel.log_mel_spectrogram_pallas`` after the
-signal-stage prep; others run the plain chain of ``ops/frontend.py``.
+signal-stage prep (any nfft: below the frame length the kernels crop
+each frame to nfft, as the plain chain does); others (the spectrogram,
+MFCC, log-gammatone, base-10 log-mel) run the plain chain of
+``ops/frontend.py``, as in JAX.
 In training, the config's ``augmentation_config`` (``augmentations/``)
 runs as in JAX: the signal augmentations before the frontend (their
 output feeds the kernel or the plain chain), the feature augmentations

@@ -141,7 +141,8 @@ def make_norm(kind: Optional[str], features: int, dtype=torch.float32) -> nn.Mod
 def random_init(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``: lecun-normal matrices and conv
     kernels (std 1/√fan_in), standard-normal embeddings, unit norm scales,
-    zero biases and attention biases; BatchNorm running stats mean 0, var 1."""
+    zero biases and attention biases, trainable residual factors 1 (JAX's
+    ``ones``); BatchNorm running stats mean 0, var 1."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.dim() >= 2 and name.endswith("embeddings.weight"):
@@ -149,7 +150,7 @@ def random_init(module: nn.Module, generator: torch.Generator) -> None:
         elif p.dim() >= 2 and not name.endswith("attention_bias"):
             fan_in = math.prod(p.shape[1:])
             p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
-        elif leaf == "weight" and p.dim() == 1:
+        elif (leaf == "weight" and p.dim() == 1) or leaf == "factor":
             p.fill_(1.0)
         else:
             p.zero_()

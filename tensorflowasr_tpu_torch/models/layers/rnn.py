@@ -1,6 +1,9 @@
-"""LSTM layers: the transducer prediction network's and DeepSpeech2's
-unidirectional and bidirectional stacks (counterpart of
-``models/layers/rnn.py``, LSTM only; GRU and the simple RNN raise).
+"""Recurrent layers: the transducer prediction network's, DeepSpeech2's and
+the RNN-T encoder's unidirectional and bidirectional stacks of LSTM, GRU
+or simple-RNN cells (counterpart of ``models/layers/rnn.py``).
+
+The cells and their carries are JAX's: an LSTM carries ``(c, h)``, a GRU a
+bare ``h``, a simple RNN the 1-tuple ``(h,)``.
 
 Flax ``OptimizedLSTMCell`` semantics: gates i, f, g, o from
 ``x·W_ih`` (input projections carry NO bias) plus ``h·W_hh + b`` (hidden
@@ -10,7 +13,18 @@ JAX, a bf16 gate times an f32 carry promotes to f32, so the carry stays
 f32. ``step`` is the single-step path the decode loop uses; ``forward``
 runs a whole sequence (the prediction net's training forward).
 
-``rnn_impl`` mirrors the JAX package's ``TFASR_RNN_IMPL`` as an argument:
+Flax ``GRUCell`` semantics (:class:`GRUCell`): r = σ(x·W_ir + b_ir +
+h·W_hr), z = σ(x·W_iz + b_iz + h·W_hz) (no hidden bias on r and z), n =
+tanh(x·W_in + b_in + r ⊙ (h·W_hn + b_hn)), h' = (1 − z)·n + z·h; as with
+the LSTM, z times an f32 carry keeps the carry f32. The simple RNN
+(:class:`SimpleRNNCell`, JAX ``SimpleRNNCell``): h' = tanh(x·W_i + b_i +
+h·W_h + b_h), in ``dtype``. JAX runs both through ``lax.scan`` and has no
+kernel for either, so the port runs them, on the card too, as a loop of
+the cell over PyTorch ops: the input products for the whole sequence in
+one GEMM, then one hidden-side GEMM a step.
+
+``rnn_impl`` mirrors the JAX package's ``TFASR_RNN_IMPL`` as an argument
+and applies to the LSTM only (JAX ``_use_fused_lstm``):
 ``"auto"`` (the default) and ``"xla"`` scan the sequence as a Python loop
 over the cell, as JAX's ``nn.RNN`` scan does (JAX's ``auto`` keeps the
 scan); ``"pallas"`` runs the whole-sequence LSTM kernels
@@ -42,6 +56,7 @@ import torch.nn.functional as F
 from tensorflowasr_tpu_torch.ops.cuda.lstm_kernel import lstm_layer_fused
 
 RNN_IMPLS = ("auto", "xla", "pallas")
+RNN_TYPES = ("lstm", "gru", "rnn")
 
 
 def default_rnn_impl(device) -> str:
@@ -71,6 +86,78 @@ class LSTMCell(nn.Module):
         new_h = torch.sigmoid(o) * torch.tanh(new_c)
         return (new_c, new_h), new_h
 
+    def init_carry(self, batch: int, device=None):
+        zeros = lambda: torch.zeros((batch, self.units), device=device)
+        return (zeros(), zeros())  # two tensors: a carry whose c and h alias misleads torch.export
+
+
+class GRUCell(nn.Module):
+    """flax ``nn.GRUCell``: ``weight_ih [3U, E]`` and ``bias_ih [3U]`` (the
+    input sides ``ir``, ``iz``, ``in``), ``weight_hh [3U, U]`` (``hr``,
+    ``hz``, ``hn``) and ``bias_hn [U]``; the carry is ``h``."""
+
+    def __init__(self, input_size: int, units: int, dtype=torch.float32):
+        super().__init__()
+        self.units, self.dtype = units, dtype
+        self.weight_ih = nn.Parameter(torch.empty(3 * units, input_size))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * units))
+        self.weight_hh = nn.Parameter(torch.empty(3 * units, units))
+        self.bias_hn = nn.Parameter(torch.zeros(units))
+
+    def input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight_ih.to(dt), self.bias_ih.to(dt))
+
+    def recur(self, h: torch.Tensor, gi: torch.Tensor):
+        """One step from the input side's products ``gi`` [B, 3U]."""
+        dt = self.dtype
+        gh = F.linear(h.to(dt), self.weight_hh.to(dt))
+        ir, iz, in_ = gi.chunk(3, dim=-1)
+        hr, hz, hn = gh.chunk(3, dim=-1)
+        r, z = torch.sigmoid(ir + hr), torch.sigmoid(iz + hz)
+        n = torch.tanh(in_ + r * (hn + self.bias_hn.to(dt)))
+        new_h = (1.0 - z) * n + z * h
+        return new_h, new_h
+
+    def forward(self, h, x: torch.Tensor):
+        return self.recur(h, self.input_gates(x))
+
+    def init_carry(self, batch: int, device=None):
+        return torch.zeros((batch, self.units), device=device)
+
+
+class SimpleRNNCell(nn.Module):
+    """JAX ``SimpleRNNCell``: ``weight_ih``/``bias_ih`` (Dense ``i``) and
+    ``weight_hh``/``bias_hh`` (Dense ``h``), h' = tanh(i(x) + h(h)) in
+    ``dtype``; the carry is ``(h,)``."""
+
+    def __init__(self, input_size: int, units: int, dtype=torch.float32):
+        super().__init__()
+        self.units, self.dtype = units, dtype
+        self.weight_ih = nn.Parameter(torch.empty(units, input_size))
+        self.bias_ih = nn.Parameter(torch.zeros(units))
+        self.weight_hh = nn.Parameter(torch.empty(units, units))
+        self.bias_hh = nn.Parameter(torch.zeros(units))
+
+    def input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight_ih.to(dt), self.bias_ih.to(dt))
+
+    def recur(self, carry, gi: torch.Tensor):
+        (h,) = carry
+        dt = self.dtype
+        new_h = torch.tanh(gi + F.linear(h.to(dt), self.weight_hh.to(dt), self.bias_hh.to(dt)))
+        return (new_h,), new_h
+
+    def forward(self, carry, x: torch.Tensor):
+        return self.recur(carry, self.input_gates(x))
+
+    def init_carry(self, batch: int, device=None):
+        return (torch.zeros((batch, self.units), device=device),)
+
+
+_CELLS = {"lstm": LSTMCell, "gru": GRUCell, "rnn": SimpleRNNCell}
+
 
 def flip_sequences(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
     """flax ``flip_sequences`` on [B, T, ...]: position j of row b takes frame
@@ -84,23 +171,24 @@ def flip_sequences(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Te
 
 
 class RNN(nn.Module):
-    """LSTM layer: ``forward(x [B,T,D], lengths) → (y [B,T,U(·2)], state)``,
+    """Recurrent layer: ``forward(x [B,T,D], lengths) → (y [B,T,U(·2)], state)``,
     ``step(x_t [B,D], state) → (y [B,U], state)`` (unidirectional only)."""
 
     def __init__(self, input_size: int, units: int, rnn_type: str = "lstm", dtype=torch.float32, rnn_impl: str = "auto", bidirectional: bool = False):
         super().__init__()
-        if rnn_type != "lstm":
-            raise NotImplementedError(f"rnn_type {rnn_type!r} is not ported yet (lstm only; ROADMAP Queue 1, \"The other transducers, encoders and layers\")")
+        if rnn_type not in RNN_TYPES:
+            raise ValueError(f"rnn_type must be in {RNN_TYPES}")
         if rnn_impl not in RNN_IMPLS:
             raise ValueError(f"rnn_impl {rnn_impl!r} is not one of {RNN_IMPLS}")
-        self.units, self.rnn_impl, self.bidirectional = units, rnn_impl, bidirectional
-        self.cell = LSTMCell(input_size, units, dtype)
+        self.units, self.rnn_type, self.rnn_impl, self.bidirectional = units, rnn_type, rnn_impl, bidirectional
+        self.cell = _CELLS[rnn_type](input_size, units, dtype)
         if bidirectional:
-            self.cell_bwd = LSTMCell(input_size, units, dtype)
+            self.cell_bwd = _CELLS[rnn_type](input_size, units, dtype)
 
     def init_state(self, batch: int, device=None):
-        zero = torch.zeros((batch, self.units), device=device)
-        return ((zero, zero), (zero, zero)) if self.bidirectional else (zero, zero)
+        """Zero carries: the cell's, or ``(carry_fwd, carry_bwd)`` when bidirectional."""
+        carry = self.cell.init_carry(batch, device)
+        return (carry, self.cell_bwd.init_carry(batch, device)) if self.bidirectional else carry
 
     def step(self, x_t: torch.Tensor, state):
         if self.bidirectional:
@@ -122,21 +210,26 @@ class RNN(nn.Module):
         y_b, carry_b = self._direction(self.cell_bwd, flip_sequences(x, lengths), lengths, init_b)
         return torch.cat([y_f, flip_sequences(y_b, lengths)], dim=-1), (carry_f, carry_b)
 
-    def _direction(self, cell: LSTMCell, x: torch.Tensor, lengths: Optional[torch.Tensor], state):
+    def _direction(self, cell: nn.Module, x: torch.Tensor, lengths: Optional[torch.Tensor], state):
         b, t = x.shape[:2]
         if state is None:
-            zero = torch.zeros((b, self.units), device=x.device)
-            state = (zero, zero)
-        if self.rnn_impl == "pallas":
+            state = cell.init_carry(b, x.device)
+        if self.rnn_type == "lstm" and self.rnn_impl == "pallas":
             c0, h0 = state
             return lstm_layer_fused(x, cell.weight_ih, cell.weight_hh, cell.bias, h0, c0, lengths, dtype=cell.dtype)
+        if self.rnn_type == "lstm":
+            step = lambda carry, i: cell(carry, x[:, i])
+        else:
+            gi = cell.input_gates(x)  # every step's input products in one GEMM
+            step = lambda carry, i: cell.recur(carry, gi[:, i])
         ys, states = [], []
         for i in range(t):
-            state, y = cell(state, x[:, i])
+            state, y = step(state, i)
             ys.append(y)
             states.append(state)
         if lengths is not None and t > 0:
             last = (lengths.to(x.device).long() - 1) % t  # a zero length takes the last step, as flax's index −1 does
             rows = torch.arange(b, device=x.device)
-            state = tuple(torch.stack(parts)[last, rows] for parts in zip(*states))
+            pick = lambda parts: torch.stack(parts)[last, rows]
+            state = pick(states) if self.rnn_type == "gru" else tuple(pick(parts) for parts in zip(*states))
         return torch.stack(ys, dim=1), state

@@ -1,8 +1,8 @@
 """Transducer (RNN-T) model (counterpart of
 ``tensorflowasr_tpu/models/transducer/base.py``).
 
-``TransducerPrediction`` (embedding → LSTM → LayerNorm, over whole label
-sequences or one ``step``), ``TransducerJoint`` (add/mul merge,
+``TransducerPrediction`` (embedding or one-hot label encoder → LSTM, GRU
+or simple RNN → LayerNorm, over whole label sequences or one ``step``), ``TransducerJoint`` (add/mul merge,
 activation, vocab projection), ``Transducer`` with the training forward
 (``forward`` → [B, T, U+1, V] logits), ``encode``, ``pred_step``,
 ``joint_window``, ``decode_step`` and ``init_decoder_states``, the fused
@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from tensorflowasr_tpu_torch import schemas
-from tensorflowasr_tpu_torch.models.layers.embedding import Embedding
+from tensorflowasr_tpu_torch.models.layers.embedding import Embedding, OneHotBlank
 from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtraction
 from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation, random_init
 from tensorflowasr_tpu_torch.models.layers.rnn import RNN
@@ -37,13 +37,16 @@ class TransducerPrediction(nn.Module):
                  rnn_type: str = "lstm", rnn_unroll: bool = False, layer_norm: bool = True, projection_units: int = 0, dtype=torch.float32,
                  rnn_impl: str = "auto"):
         super().__init__()
-        if label_encoder_mode != "embedding":
-            raise NotImplementedError(f"label_encoder_mode {label_encoder_mode!r} is not ported yet (embedding only; ROADMAP Queue 1, "
-                                      "\"The other transducers, encoders and layers\")")
+        if label_encoder_mode not in ("embedding", "one_hot"):
+            raise ValueError(f"label_encoder_mode {label_encoder_mode!r} must be embedding or one_hot")
         del rnn_unroll  # a compile-time knob of the JAX scan
-        self.num_rnns, self.layer_norm, self.projection_units = num_rnns, layer_norm, projection_units
-        self.embedding = Embedding(vocab_size, embed_dim, dtype)
-        dim = embed_dim
+        self.num_rnns, self.layer_norm, self.projection_units, self.label_encoder_mode = num_rnns, layer_norm, projection_units, label_encoder_mode
+        if label_encoder_mode == "embedding":
+            self.embedding = Embedding(vocab_size, embed_dim, dtype)
+            dim = embed_dim
+        else:  # no parameters; the RNN's input width becomes V
+            self.one_hot = OneHotBlank(vocab_size, blank, dtype)
+            dim = vocab_size
         for i in range(num_rnns):
             self.add_module(f"rnn_{i}", RNN(dim, rnn_units, rnn_type, dtype, rnn_impl))
             dim = rnn_units
@@ -53,6 +56,10 @@ class TransducerPrediction(nn.Module):
                 self.add_module(f"projection_{i}", Dense(rnn_units, projection_units, dtype))
                 dim = projection_units
 
+    @property
+    def label_encoder(self) -> nn.Module:
+        return self.embedding if self.label_encoder_mode == "embedding" else self.one_hot
+
     def _post(self, i: int, x: torch.Tensor) -> torch.Tensor:
         if self.layer_norm:
             x = getattr(self, f"ln_{i}")(x)
@@ -61,8 +68,8 @@ class TransducerPrediction(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
-        """[B, U] tokens → [B, U, P]; positions at or past ``lengths`` embed to 0."""
-        x = self.embedding(tokens, lengths)
+        """[B, U] tokens → [B, U, P]; positions at or past ``lengths`` encode to 0."""
+        x = self.label_encoder(tokens, lengths)
         for i in range(self.num_rnns):
             x, _ = getattr(self, f"rnn_{i}")(x, lengths)
             x = self._post(i, x)
@@ -70,13 +77,17 @@ class TransducerPrediction(nn.Module):
 
     def step(self, token: torch.Tensor, states):
         """[B] token + states → ([B, P], new states)."""
-        x = self.embedding(token[:, None])[:, 0]
+        x = self.label_encoder(token[:, None])[:, 0]
         new_states = []
         for i in range(self.num_rnns):
             x, st = getattr(self, f"rnn_{i}").step(x, states[i])
             new_states.append(st)
             x = self._post(i, x)
         return x, tuple(new_states)
+
+    def init_state(self, batch: int, device=None) -> tuple:
+        """One zero carry per RNN, in the cell's structure (JAX ``init_state``)."""
+        return tuple(getattr(self, f"rnn_{i}").init_state(batch, device) for i in range(self.num_rnns))
 
 
 class TransducerJoint(nn.Module):
@@ -200,9 +211,8 @@ class Transducer(nn.Module):
         return self.joint.merge(self.joint.project_encoder(enc_window), self.joint.project_prediction(pred_out)[:, None, :])
 
     def init_decoder_states(self, batch: int, device=None):
-        units = self.prediction_config.get("rnn_units", 512)
-        zeros = lambda: torch.zeros((batch, units), device=device)
-        return tuple((zeros(), zeros()) for _ in range(self.prediction_config.get("num_rnns", 1)))
+        """The prediction net's zero carries: per RNN ``(c, h)`` (LSTM), ``h`` (GRU) or ``(h,)`` (simple RNN)."""
+        return self.prediction.init_state(batch, device)
 
     def init_encoder_states(self, batch: int, device=None):
         """The encoder's initial streaming states (one KV memory per block), or None without a memory."""

@@ -8,10 +8,10 @@ import inspect
 import torch
 
 from tensorflowasr_tpu_torch.models.config_utils import learning_config, transducer_kwargs, with_spec_augment
-from tensorflowasr_tpu_torch.models.encoders.conformer import _UNPORTED, ConformerEncoder
+from tensorflowasr_tpu_torch.models.encoders.conformer import ConformerEncoder
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
 
-_ENC_KEYS = (set(inspect.signature(ConformerEncoder.__init__).parameters) | set(_UNPORTED)) - {"self", "in_features", "dtype", "options"}
+_ENC_KEYS = set(inspect.signature(ConformerEncoder.__init__).parameters) - {"self", "in_features", "dtype"}
 
 
 def conformer_small_config(vocab_size: int = 256, num_blocks: int = 16, dmodel: int = 144, dropout: float = 0.1, augment: bool = False) -> dict:

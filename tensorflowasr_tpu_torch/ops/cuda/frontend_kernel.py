@@ -15,9 +15,17 @@ Which kernel runs is decided by the shape, here, never by a failure:
   memory with twiddles from a table built here in float64
   (:func:`twiddles`), splits it into the nfft/2+1 real bins, and sums each
   mel filter over its nonzero bins only (:func:`mel_ranges`);
-- any other ``nfft`` (at least frame_length; ``nfft=None`` is the
-  frame_length-point case) takes the direct-DFT kernel against the
-  Hann-windowed bases of :func:`_dft_bases`, with the same sparse mel stage.
+- any other ``nfft`` (``nfft=None`` is the frame_length-point case) takes
+  the direct-DFT kernel against the Hann-windowed bases of
+  :func:`_dft_bases`, with the same sparse mel stage.
+
+An ``nfft`` below the frame length (nfft 256 at 25 ms frames of 400
+samples) crops each Hann-windowed frame to its first nfft samples, as
+``torch.fft.rfft(frames, n=nfft)`` and JAX's XLA chain do: both kernels
+read :func:`kernel_frame_length` samples a frame (the DFT bases have that
+many rows). JAX's Pallas bases take all frame_length rows at angle
+2πnk/nfft instead (the DFT of the wrapped frame), so JAX's kernel and its
+XLA chain disagree there; the port follows the XLA chain.
 
 What bounds them on the card: the FFT kernel does ~12 kFLOP a frame at
 nfft 512, so its bound is the signal read once and the features written
@@ -71,13 +79,20 @@ def mel_ranges(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return np.concatenate(weights).astype(np.float32), np.asarray(lo, np.int32), np.asarray(off, np.int32)
 
 
+def kernel_frame_length(config: frontend.FrontendConfig) -> int:
+    """The samples of each frame the kernels read: the frame, cropped to nfft."""
+    return min(config.frame_length, config.fft_length)
+
+
 def _dft_bases(frame_length: int, nfft: int) -> tuple[np.ndarray, np.ndarray]:
-    """Hann-windowed DFT bases [frame_length, nfft//2+1]: cos and -sin."""
+    """Hann-windowed DFT bases [min(frame_length, nfft), nfft//2+1]: cos and
+    -sin (the window is frame_length's; a longer frame is cropped to nfft)."""
     nbins = nfft // 2 + 1
-    n = np.arange(frame_length)[:, None]
+    n = np.arange(min(frame_length, nfft))[:, None]
     ang = 2.0 * np.pi * n * np.arange(nbins)[None, :] / nfft
     window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(frame_length) / frame_length)
-    return (np.cos(ang) * window[:, None]).astype(np.float32), (-np.sin(ang) * window[:, None]).astype(np.float32)
+    window = window[: n.shape[0], None]
+    return (np.cos(ang) * window).astype(np.float32), (-np.sin(ang) * window).astype(np.float32)
 
 
 def _device_constants(config: frontend.FrontendConfig, device: torch.device) -> tuple:
@@ -100,8 +115,6 @@ def _device_constants(config: frontend.FrontendConfig, device: torch.device) -> 
 def _check_config(config: frontend.FrontendConfig) -> None:
     if config.use_librosa_like_stft or not config.pad_end or config.log_base != "e" or config.feature_type != "log_mel_spectrogram":
         raise ValueError("the fused frontend takes pad_end framing, natural log, log-mel features only")
-    if config.fft_length < config.frame_length:
-        raise ValueError("nfft must be at least frame_length")
 
 
 def log_mel_spectrogram_plain(signal: torch.Tensor, config: frontend.FrontendConfig) -> torch.Tensor:
@@ -148,7 +161,7 @@ def log_mel_spectrogram_kernel(signal: torch.Tensor, config: frontend.FrontendCo
     sizes = (nfft, nmel, consts[2].numel()) if fft else (nfft // 2 + 1, nmel)
     with torch.cuda.device(signal.device):
         launch = lib.tfasr_log_mel_fft if fft else lib.tfasr_log_mel_dft
-        err = launch(signal.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(), b, n, t, config.frame_length, config.frame_step, *sizes,
+        err = launch(signal.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(), b, n, t, kernel_frame_length(config), config.frame_step, *sizes,
                      float(config.epsilon), _build.stream_of(signal))
     _build.check(err, "log_mel_spectrogram_pallas")
     if fft:

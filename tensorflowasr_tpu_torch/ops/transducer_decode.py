@@ -11,8 +11,9 @@ iteration after every row finished changes nothing); the beam runs a fixed numbe
 top-k is the stable sort of ``ops/ctc_decode.top_k`` (the lower index first
 among equal scores, as ``jax.lax.top_k``).
 
-Decoder states are tuples of tensors with a leading batch dimension
-(one ``(c, h)`` pair per LSTM for the prediction network).
+Decoder states are (nested) tuples of tensors with a leading batch
+dimension: one carry per RNN of the prediction network, ``(c, h)`` for an
+LSTM, a bare ``h`` for a GRU and ``(h,)`` for a simple RNN.
 """
 
 from __future__ import annotations

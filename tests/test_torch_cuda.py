@@ -442,9 +442,12 @@ def test_conv_back_refuses_what_the_kernels_do_not_take(dev):
         ck.conv_back_bwd_kernel(y1, *stats, w2, dout)
 
 
-@pytest.mark.parametrize("kw", [dict(nfft=256, frame_ms=15), dict(nfft=1024), dict(nfft=2048)], ids=["nfft256", "nfft1024", "nfft2048"])
+@pytest.mark.parametrize("kw", [dict(nfft=256, frame_ms=15), dict(nfft=1024), dict(nfft=2048), dict(nfft=256)],
+                         ids=["nfft256", "nfft1024", "nfft2048", "nfft256_frame400"])
 def test_frontend_fft_kernel_sizes(dev, kw):
-    """The FFT kernel at the other power-of-two sizes (a radix-2 stage first at 256 and 1024)."""
+    """The FFT kernel at the other power-of-two sizes (a radix-2 stage first
+    at 256 and 1024), and at nfft 256 below the 400-sample frame of 25 ms
+    (each windowed frame cropped to its first 256 samples)."""
     cfg = frontend.FrontendConfig(**kw)
     sig = frontend.preemphasis_signal(_r(_gen(dev, 4), dev, (2, 16123), 0.1), cfg).contiguous()
     before = (fek.launches, fek.dft_launches)
@@ -453,9 +456,10 @@ def test_frontend_fft_kernel_sizes(dev, kw):
     torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("nfft,shape", [(None, (8, 160000)), (None, (2, 300)), (600, (2, 16123))])
+@pytest.mark.parametrize("nfft,shape", [(None, (8, 160000)), (None, (2, 300)), (600, (2, 16123)), (300, (2, 16123))])
 def test_frontend_dft_kernel(dev, nfft, shape):
-    """Any other nfft (None: 400 points; 600) takes the direct-DFT kernel, held against the plain chain."""
+    """Any other nfft (None: 400 points; 600; 300, below the 400-sample
+    frame, which crops it) takes the direct-DFT kernel, held against the plain chain."""
     cfg = frontend.FrontendConfig(nfft=nfft)
     sig = frontend.preemphasis_signal(_r(_gen(dev, 5), dev, shape, 0.1), cfg).contiguous()
     before = (fek.launches, fek.dft_launches)

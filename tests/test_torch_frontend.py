@@ -110,5 +110,7 @@ def test_wrapper_cpu_dispatch_and_unsupported_config():
     assert fk.launches == before
     with pytest.raises(ValueError, match="pad_end"):
         fk.log_mel_spectrogram_pallas(sig, frontend.FrontendConfig(log_base="10"))
-    with pytest.raises(ValueError, match="not ported"):
-        frontend.FrontendConfig(feature_type="mfcc")
+    # mfcc, which raised until the port took it, builds and matches JAX's chain
+    cfg = frontend.FrontendConfig(feature_type="mfcc")
+    ref = jfrontend.extract_features(jnp.asarray(sig.numpy()), jnp.asarray([3200]), jfrontend.FrontendConfig(feature_type="mfcc"))[0]
+    np.testing.assert_allclose(frontend.extract_features(sig, torch.tensor([3200]), cfg)[0].numpy(), np.asarray(ref), **LOG_TOL)

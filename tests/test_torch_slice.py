@@ -129,11 +129,33 @@ def test_flagship_config_matches_graft_entry(monkeypatch):
     assert sum(p.numel() for p in model.parameters()) > 0
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="mha_type"):
-        Conformer.from_config({**TINY_CFG, "encoder_mha_type": "mha"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="label_encoder_mode"):
-        Conformer.from_config({**TINY_CFG, "prediction_label_encode_mode": "one_hot"}, device="cpu")
+def test_unported_options_raise(monkeypatch):
+    """The two options that raised until the port took them build and
+    match JAX: vanilla MHA's encoder output (absolute PE, kernel A's plain
+    version) and a one-hot label encoder's greedy tokens and next decoder
+    states. JAX takes its XLA routes for the FF, conv and attention modules
+    (the same functions as its Pallas kernels, which the tests above hold)."""
+    for name in ("TFASR_FF_IMPL", "TFASR_CONV_IMPL", "TFASR_ATTN_IMPL"):
+        monkeypatch.setenv(name, "xla")
+    rng = np.random.default_rng(5)
+    sig, lens = (rng.standard_normal((2, 6000)) * 0.5).astype(np.float32), np.array([6000, 4100], np.int32)
+    for option in ({"encoder_mha_type": "mha"}, {"prediction_label_encode_mode": "one_hot"}):
+        cfg = {**TINY_CFG, **option}
+        jm = JConformer.from_config(cfg)
+        ti = jschemas.TrainInput(jnp.asarray(sig), jnp.asarray(lens), jnp.zeros((2, 3), jnp.int32), jnp.full((2,), 3, jnp.int32))
+        v = jax.tree_util.tree_map(np.asarray, jm.init({"params": jax.random.PRNGKey(2)}, ti, train=False))
+        tm = Conformer.from_config(cfg, device="cpu")
+        tm.load_state_dict(bridge.state_dict_from_flax(v), strict=True)
+        tm.eval()
+        ref, _, _ = jm.apply(v, jnp.asarray(sig), jnp.asarray(lens), method=jm.encode)
+        with torch.inference_mode():
+            got, _, _ = tm.encode(torch.tensor(sig), torch.tensor(lens))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-5)
+        ref_out = jbase.recognize(jm, v, jschemas.PredictInput(jnp.asarray(sig), jnp.asarray(lens)))
+        out = recognize(tm, schemas.PredictInput(torch.tensor(sig), torch.tensor(lens)))
+        np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref_out.tokens))
+        for g, r in zip(jax.tree_util.tree_leaves(out.next_decoder_states), jax.tree_util.tree_leaves(ref_out.next_decoder_states)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=2e-5)
 
 
 def test_port_imports_no_jax_flax_yaml_tokenizers():

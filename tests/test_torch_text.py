@@ -7,8 +7,8 @@
 - ``build_model`` of each model example gives the port's class with JAX's
   parameter count (``jax.eval_shape`` of ``init``, nothing compiled); every
   registry name resolves, and the three transducers built with a layer the
-  port has not ported yet (GRU, VGG subsampling) raise
-  ``NotImplementedError`` naming its ROADMAP item.
+  port took last (a GRU, VGG subsampling) have JAX's parameter names and
+  shapes.
 - Tokenizers (char with the bundled vocabulary, SentencePiece unigram and
   BPE ``.model`` files, WordPiece with and without ``keep_whitespace``)
   give equal ids, texts, blank handling and codepoint tables, exactly, on
@@ -30,7 +30,7 @@ from tensorflowasr_tpu.configs import Config as JConfig
 from tensorflowasr_tpu.configs import DecoderConfig as JDecoderConfig
 from tensorflowasr_tpu.models import build_model as jbuild_model
 from tensorflowasr_tpu.tokenizers import spm as jspm
-from tensorflowasr_tpu_torch import registry, tokenizers
+from tensorflowasr_tpu_torch import bridge, registry, tokenizers
 from tensorflowasr_tpu_torch.configs import Config, DecoderConfig
 from tensorflowasr_tpu_torch.models import build_model
 from tensorflowasr_tpu_torch.models.ctc.conformer import ConformerCtc, conformer_ctc_small_learning_config
@@ -185,9 +185,22 @@ def test_ctc_family_names_resolve_to_the_port_classes(class_name, cls):
     assert registry.get("DeepSpeech2") is DeepSpeech2
 
 
-# each transducer with a layer of the ROADMAP item that is still open: a GRU (the prediction net's or the encoder's), VGG subsampling
-UNPORTED_LAYERS = {"ContextNet": {"prediction_rnn_type": "gru"}, "RnnTransducer": {"encoder_rnn_type": "gru"},
-                   "TransformerTransducer": {"encoder_subsampling": {"class_name": "tensorflow_asr.models.layers.subsampling>VggSubsampling"}}}
+# each transducer's example with a layer the port took last: a GRU (the prediction net's or the encoder's), VGG subsampling
+UNPORTED_LAYERS = {"ContextNet": ("examples/models/transducer/contextnet/small.yml.j2", {"prediction_rnn_type": "gru"}),
+                   "RnnTransducer": ("examples/models/transducer/rnnt/small.yml.j2", {"encoder_rnn_type": "gru"}),
+                   "TransformerTransducer": ("examples/models/transducer/transformer/base.yml.j2",
+                                             {"encoder_subsampling": {"class_name": "tensorflow_asr.models.layers.subsampling>VggSubsampling",
+                                                                      "config": {"filters": [32, 64]}}})}
+
+
+def _jax_param_shapes(model_config: dict, vocab_size: int) -> dict:
+    """JAX's parameter tree (``jax.eval_shape`` of ``init``, nothing compiled) through ``bridge``: port name → shape."""
+    jm = jbuild_model(model_config, vocab_size=vocab_size)
+    ti = jschemas.TrainInput(jax.ShapeDtypeStruct((1, 1600), jnp.float32), jax.ShapeDtypeStruct((1,), jnp.int32),
+                             jax.ShapeDtypeStruct((1, 3), jnp.int32), jax.ShapeDtypeStruct((1,), jnp.int32))
+    shapes = jax.eval_shape(lambda x: jm.init({"params": jax.random.PRNGKey(0)}, x, train=False), ti)
+    zeros = jax.tree_util.tree_map(lambda leaf: np.zeros(leaf.shape, np.float32), shapes)
+    return {k: tuple(v.shape) for k, v in bridge.state_dict_from_flax(zeros).items()}
 
 
 @pytest.mark.parametrize("class_name, item", [
@@ -195,13 +208,20 @@ UNPORTED_LAYERS = {"ContextNet": {"prediction_rnn_type": "gru"}, "RnnTransducer"
     ("tensorflow_asr.models.transducer.rnnt>RnnTransducer", "The other transducers, encoders and layers"),
     ("tensorflowasr_tpu_torch.models.transducer.transformer>TransformerTransducer", "The other transducers, encoders and layers"),
 ])
-def test_unported_families_raise_with_their_roadmap_item(class_name, item):
-    """The three transducer names resolve to the port's classes; what still
-    raises in them is a layer the port has not ported, naming its item."""
+def test_unported_families_raise_with_their_roadmap_item(tmp_path, class_name, item):
+    """The three transducer names resolve to the port's classes, and each
+    builds with the layer that raised until the port took it (the ROADMAP
+    item ``item``), every parameter and statistic named and shaped as JAX's
+    tree through ``bridge``."""
     cls = registry.get(class_name)
     assert cls is registry.get(cls.__name__) and cls.__module__ == "tensorflowasr_tpu_torch." + class_name.split(".", 1)[1].split(">")[0]
-    with pytest.raises(NotImplementedError, match=item):
-        build_model({"class_name": class_name, "config": UNPORTED_LAYERS[cls.__name__]}, vocab_size=29, device="cpu")
+    example, layer = UNPORTED_LAYERS[cls.__name__]
+    cfg = Config(os.path.join(REPO, example), modeldir=str(tmp_path))
+    config = {"class_name": class_name, "config": {**cfg.model_config["config"], **layer}}
+    vocab = cfg.decoder_config.vocab_size
+    model = build_model(config, vocab_size=vocab, device="cpu")
+    assert type(model) is cls, item
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == _jax_param_shapes(config, vocab)
 
 
 # ------------------------------ tokenizers -------------------------------- #
