@@ -199,6 +199,16 @@ serving 8 × 16 s and training 3 steps on the CTC kernel, and its uni
 layout streaming 4 chunks with the GRU carries; and each path 2 deep in
 f32, card against CPU (encoder output, greedy tokens).
 
+A model that the JAX package wrote (``phase_jax_checkpoint``, also alone
+with ``--jax-checkpoint``): the orbax checkpoint under
+``tests/data/jax_orbax_conformer_t`` (a one-block Conformer-T that JAX's
+``save`` wrote, OCDBT and zstd) read by the port's native zstd decoder and
+OCDBT/zarr reader (build, read ms and MB/s on the host), loaded through
+``common.load_weights`` and served in f32 through ``recognize`` on the card
+(the frontend, the block's encoder kernels and the fused decode), its
+greedy tokens equal to the ones JAX recorded and its encoder output within
+2e-3 of max(1, scale) of JAX's.
+
 ``python3 chip_smoke.py --compare-parent DIR`` runs only row 10a's times
 (:func:`rows_child`: the call alone and with the stack of its outputs) and
 the step numbers (:func:`phase_steps`) of this checkout and of the package
@@ -5835,6 +5845,99 @@ def compare_steps(parent: str) -> None:
         line(key, {w: [r[key] for who, r in runs if who == w] for w in ("parent", "this")})
 
 
+JAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jax_orbax_conformer_t")
+PER_REQUEST_JAX_FIXTURE = _per(log_mel_spectrogram=1, fused_rel_attention=1, fused_ff=2, conv_front=1, conv_back=1, fused_decode=1)  # its one block
+JAX_FIXTURE_ATOL = 2e-3  # of max(1, the recorded encoder output's largest magnitude)
+JAX_READS = 5
+
+
+def phase_jax_checkpoint(dev) -> dict:
+    """A model that the JAX package wrote (``tests/data/jax_orbax_conformer_t``:
+    its ``save`` command's orbax OCDBT directory, zstd-coded, and the encoder
+    output and greedy tokens that JAX computed on the CPU for a seeded 2 × 1 s
+    batch) read by the port and served in f32 on the card through the entry
+    points a user calls: the native zstd decoder's build, the read (array
+    bytes over the read's wall, JAX_READS reads, and the decoder's own bytes
+    out over its time), ``common.build_model`` and ``common.load_weights``
+    with ``--checkpoint`` the JAX directory, then ``recognize`` (one frontend,
+    the block's encoder kernels, one ``fused_decode``). The tokens must equal
+    JAX's and the encoder output lie within JAX_FIXTURE_ATOL of max(1, scale)
+    of JAX's. Returns the request's launch counts."""
+    import types
+
+    from tensorflowasr_tpu_torch import pipeline, schemas
+    from tensorflowasr_tpu_torch.convert import orbax
+    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+    from tensorflowasr_tpu_torch.native import zstd
+    from tensorflowasr_tpu_torch.scripts import common
+
+    t0 = time.perf_counter()
+    zstd.lib()
+    built = time.perf_counter() - t0
+    decoded = {"bytes": 0, "s": 0.0}
+
+    def counted(data: bytes) -> bytes:
+        t = time.perf_counter()
+        out = zstd.zstd_decode(data)
+        decoded["s"] += time.perf_counter() - t
+        decoded["bytes"] += len(out)
+        return out
+
+    orbax.zstd_decode = counted
+    try:
+        walls = []
+        for _ in range(JAX_READS):
+            t = time.perf_counter()
+            tree = orbax.read_checkpoint(JAX_FIXTURE)
+            walls.append(time.perf_counter() - t)
+    finally:
+        orbax.zstd_decode = zstd.zstd_decode
+
+    def leaves(node):
+        for v in node.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+
+    arrays = list(leaves(tree))
+    nbytes = sum(a.nbytes for a in arrays)
+    read_s = float(np.median(walls))
+    print(f"jax checkpoint read ({os.path.relpath(JAX_FIXTURE)}): {len(arrays)} arrays, {nbytes} bytes, native zstd decoder built or loaded in {built:.2f} s; "
+          f"read median {read_s * 1e3:.2f} ms of {JAX_READS} ({nbytes / read_s / 1e6:.1f} MB/s of arrays); zstd {decoded['bytes'] // JAX_READS} bytes out a read "
+          f"at {decoded['bytes'] / decoded['s'] / 1e6:.1f} MB/s (host CPU)")
+
+    config = pipeline.load_config(os.path.join(JAX_FIXTURE, "config.yml.j2"), training=False)
+    tokenizer = pipeline.build_tokenizer(config)
+    args = types.SimpleNamespace(device=str(dev), checkpoint=JAX_FIXTURE)
+    model = common.load_weights(common.build_model(config, tokenizer, args), args)
+    expected = np.load(os.path.join(JAX_FIXTURE, "expected.npz"))
+    sig = torch.tensor(expected["pcm"].astype(np.float32) / 32768.0, device=dev)
+    lens = torch.tensor(expected["lengths"], dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        recognize(model, schemas.PredictInput(inputs=sig, inputs_length=lens))  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        out = recognize(model, schemas.PredictInput(inputs=sig, inputs_length=lens))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        enc, enc_len, _ = model.encode(sig, lens)
+    if counts != PER_REQUEST_JAX_FIXTURE:
+        raise AssertionError(f"jax checkpoint request launched {_launched(counts)}, expected {_launched(PER_REQUEST_JAX_FIXTURE)}")
+    tokens = out.tokens.cpu().numpy()
+    if tokens.shape != expected["tokens"].shape or not np.array_equal(tokens, expected["tokens"]):
+        raise AssertionError(f"jax checkpoint: tokens differ from JAX's recorded ones\n{tokens}\n{expected['tokens']}")
+    if not np.array_equal(enc_len.cpu().numpy(), expected["encoded_length"]):
+        raise AssertionError("jax checkpoint: encoder lengths differ from JAX's")
+    ref = torch.tensor(expected["encoded"])
+    err = float((enc.cpu() - ref).abs().max())
+    tol = JAX_FIXTURE_ATOL * max(1.0, float(ref.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"jax checkpoint: encoder output {err:.3e} from JAX's (tol {tol:.3e})")
+    print(f"jax checkpoint serve (f32, batch 2 × 1 s, the card's kernels): tokens equal to JAX's {tokens.shape}, encoder max_abs_err {err:.3e} "
+          f"(tol {tol:.3e}), request {wall * 1e3:.2f} ms, launches {_launched(counts)}")
+    return {"jax_checkpoint": counts}
+
+
 def main(argv: list[str]) -> int:
     """No arguments: every phase (the check). ``--steps [--package DIR]``: only
     :func:`phase_steps`, of the package under DIR when given, as one JSON line.
@@ -5852,6 +5955,7 @@ def main(argv: list[str]) -> int:
     the sub-entries and launch counts as one JSON line.
     ``--parallel``: only :func:`phase_parallel`, its launch counts as one JSON line.
     ``--layers``: only :func:`phase_layers` (with :func:`layers_kernels`), the sub-entries and launch counts as one JSON line.
+    ``--jax-checkpoint``: only :func:`phase_jax_checkpoint`, its launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -5902,6 +6006,12 @@ def main(argv: list[str]) -> int:
         rows = [{"name": name} for name in KERNELS]
         paths = phase_layers(torch.device("cuda", 0), rows)
         print(json.dumps({"layers": paths, "rows": [r for r in rows if len(r) > 1]}))
+        return 0
+    if "--jax-checkpoint" in argv:
+        _no_tf32()
+        _build.build()
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip())
+        print(json.dumps({"jax_checkpoint": phase_jax_checkpoint(torch.device("cuda", 0))}))
         return 0
     if "--data" in argv:
         _no_tf32()
@@ -5989,6 +6099,8 @@ def main(argv: list[str]) -> int:
     mark("parallel")
     paths.update(phase_layers(dev, rows))
     mark("layers")
+    paths.update(phase_jax_checkpoint(dev))
+    mark("jax checkpoint")
     phase_fit_gc()
     phase_gc_probe()
     mark("gc")

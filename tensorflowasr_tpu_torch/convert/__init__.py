@@ -1,4 +1,6 @@
-"""Checkpoint conversion: reference Keras ``.weights.h5`` → the port's ``state_dict``
-(counterpart of ``tensorflowasr_tpu/convert/``)."""
+"""Checkpoint conversion (counterpart of ``tensorflowasr_tpu/convert/``): the
+reference Keras ``.weights.h5`` → the port's ``state_dict``
+(``keras_h5.py``), and the JAX package's orbax checkpoints read without
+orbax or tensorstore (``orbax.py``)."""
 
 from tensorflowasr_tpu_torch.convert.keras_h5 import load_transducer_h5, read_h5_arrays  # noqa: F401

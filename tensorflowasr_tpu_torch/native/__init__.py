@@ -33,17 +33,22 @@ def library_path() -> Path:
     return _build.hashed_library("tfasr_flac", (SOURCE,), CXX_FLAGS)
 
 
+def load(path: Path, source: Path, what: str) -> ctypes.CDLL:
+    """The library at ``path``, built first from ``source`` with ``g++`` if
+    it is absent; a failed build raises (also for ``native/zstd.py``)."""
+    if not path.exists():
+        proc = _build.write_library(path, lambda tmp: ["g++", *CXX_FLAGS, "-o", tmp, str(source)], timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building the native {what} decoder failed ({proc.returncode}):\n{proc.stderr}")
+    return ctypes.CDLL(str(path))
+
+
 def lib() -> ctypes.CDLL:
     """The loaded library, built first if there is none for this source."""
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                proc = _build.write_library(path, lambda tmp: ["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE)], timeout=300)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"building the native FLAC decoder failed ({proc.returncode}):\n{proc.stderr}")
-            lib_ = ctypes.CDLL(str(path))
+            lib_ = load(library_path(), SOURCE, "FLAC")
             lib_.tfasr_flac_info.restype = ctypes.c_int
             lib_.tfasr_flac_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t] + [ctypes.POINTER(ctypes.c_int32)] * 3 + [ctypes.POINTER(ctypes.c_int64)]
             lib_.tfasr_flac_decode.restype = ctypes.c_int64

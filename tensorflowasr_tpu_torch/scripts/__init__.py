@@ -12,7 +12,10 @@ cpu`` is given. ``--jit`` is accepted and does nothing (the port runs
 eagerly). ``export --format`` takes ``pt2`` (the default, a
 ``torch.export`` program, where JAX has ``stablehlo``) or ``tflite``.
 ``convert_checkpoint`` writes a ``torch.save`` file where JAX writes an
-orbax directory. ``train`` runs data-parallel over N cards (or N gloo
+orbax directory. ``--checkpoint`` (``test``, ``save``, ``export``) and
+``{{modeldir}}/checkpoints`` take the port's checkpoints and the JAX
+package's orbax directories alike (``convert/orbax.py``), as does
+``learning_config.pretrained``. ``train`` runs data-parallel over N cards (or N gloo
 ranks with ``--device cpu``) under ``python -m torch.distributed.run
 --nproc_per_node N -m tensorflowasr_tpu_torch train ...``
 (``scripts/train.py``).

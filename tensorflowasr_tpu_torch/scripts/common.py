@@ -42,10 +42,13 @@ def build_model(config: Config, tokenizer, args, mxp: str = "none", seed: int = 
 
 
 def load_weights(model: torch.nn.Module, args) -> torch.nn.Module:
-    """Weights from ``--checkpoint`` (a ``Trainer`` checkpoint directory or
-    step, its ``state.pt``, or a ``state_dict`` file), else from the newest
-    checkpoint under :func:`checkpoint_dir`, else as initialised; every
-    entry is required (strict)."""
+    """Weights from ``--checkpoint``, else from the newest checkpoint under
+    :func:`checkpoint_dir`, else as initialised; every entry is required
+    (strict). A checkpoint is the port's (a ``Trainer`` checkpoint
+    directory or step, its ``state.pt``, or a ``state_dict`` file) or the
+    JAX package's orbax directory (a ``save.py`` or ``convert_checkpoint``
+    artifact, a ``Trainer`` directory or step), whose ``params`` and
+    ``batch_stats`` map onto the model (``training/pretrained.py``)."""
     path = getattr(args, "checkpoint", None)
     if not path and os.path.isdir(checkpoint_dir()) and any(d.isdigit() for d in os.listdir(checkpoint_dir())):
         path = checkpoint_dir()

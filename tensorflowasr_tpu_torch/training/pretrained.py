@@ -7,13 +7,19 @@ is loaded; everything else keeps its initialisation, with a warning for a
 shape mismatch, so a smaller or older checkpoint can seed a bigger model.
 Nothing loaded raises.
 
-Accepted ``path`` layouts (read with ``torch.load(weights_only=True)``):
-  - a ``Trainer`` checkpoint directory (numbered step directories; the
-    newest is read), or one step directory of it;
-  - a file saved by ``Trainer.save`` (``state.pt``) or a bare
-    ``state_dict`` saved with ``torch.save``.
-
-A JAX/orbax artifact is not read here (the port does not import orbax).
+Accepted ``path`` layouts:
+  - the port's: a ``Trainer`` checkpoint directory (numbered step
+    directories; the newest is read), or one step directory of it; a file
+    saved by ``Trainer.save`` (``state.pt``) or a bare ``state_dict`` saved
+    with ``torch.save`` (read with ``torch.load(weights_only=True)``);
+  - the JAX package's orbax checkpoints (``convert/orbax.py``, which needs
+    neither orbax nor tensorstore): a ``scripts/save.py`` or ``utils
+    convert_checkpoint`` artifact, a JAX ``Trainer`` checkpoint directory
+    (its newest step) or one step of it. Their ``params`` and
+    ``batch_stats`` (the whole tree when it has no ``params`` scope, as
+    ``tensorflowasr_tpu/training/pretrained.py`` takes it) go through
+    ``bridge.state_dict_from_flax``; ``opt_state`` and ``step`` are read
+    and not mapped.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import logging
 import os
 
 import torch
+
+from tensorflowasr_tpu_torch.convert import orbax
 
 logger = logging.getLogger("tensorflowasr_tpu_torch")
 
@@ -38,6 +46,8 @@ def _source_file(path: str) -> str:
 
 def load_state_dict(path: str) -> dict:
     """The module ``state_dict`` stored at ``path`` (see the module docstring)."""
+    if os.path.isdir(path) and orbax.is_checkpoint(path):
+        return orbax.load_state_dict(path)
     obj = torch.load(_source_file(path), map_location="cpu", weights_only=True)
     return obj["model"] if isinstance(obj, dict) and isinstance(obj.get("model"), dict) else obj
 

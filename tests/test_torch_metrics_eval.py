@@ -272,5 +272,5 @@ def test_no_port_module_imports_jax_tensorflow_orbax_or_the_jax_package():
     files += [os.path.join(REPO, "scripts_torch", f) for f in os.listdir(os.path.join(REPO, "scripts_torch")) if f.endswith(".py")]
     assert len(files) > 60
     for path in files:
-        bad = _import_roots(path) & {"jax", "jaxlib", "flax", "optax", "tensorflow", "orbax", "tensorflowasr_tpu"}
+        bad = _import_roots(path) & {"jax", "jaxlib", "flax", "optax", "tensorflow", "orbax", "tensorstore", "zstandard", "tensorflowasr_tpu"}
         assert not bad, (path, bad)
