@@ -209,6 +209,19 @@ OCDBT/zarr reader (build, read ms and MB/s on the host), loaded through
 greedy tokens equal to the ones JAX recorded and its encoder output within
 2e-3 of max(1, scale) of JAX's.
 
+Conformer-L (``phase_conformer_l``, also alone with ``--conformer-l``;
+Gulati et al. 2020, Table 1: 17 blocks, D 512, 8 heads of 64, conv kernel
+32, FF 2048, LSTM-640, joint 640, V 1024, through ``Config`` and
+``build_model``): rows 5-8 at its training shapes (the FF's and
+``conv_front``'s wide kernels, ``conv_back`` at D 512, the fused joint at J
+640) against their plain versions with the bound, beside the flagship's
+times in the same call; bf16 serving of 3 requests of 8 × 6-10 s, 4
+default steps of 16 × ≤ 16 s and eval steps, each path's launches checked
+(every Pallas counterpart a kernel, no plain route) with walls, busy share
+and peak memory; the f32 card/CPU parity of a 2-block step; and each shape a
+kernel refuses (kernel B at head 256, U+1 and S 1025, a bf16 LSTM of 1280,
+a 5-layer prediction net) run once through its layer's plain route.
+
 ``python3 chip_smoke.py --compare-parent DIR`` runs only row 10a's times
 (:func:`rows_child`: the call alone and with the stack of its outputs) and
 the step numbers (:func:`phase_steps`) of this checkout and of the package
@@ -834,7 +847,7 @@ def conv_front_extras(make, rows: list[dict], d_model: int, n: int, what: str) -
     lib = _build.build()
     dmax = next(m for m in (64, 128, 160, 192, 256) if -(-d_model // 16) * 16 <= m)
     kernels = {}
-    for which, name, frag in ((0, "cm_fwd (32 rows)", "cm_fwdE"), (1, "cm_bwd_rows", f"cm_bwd_rowsILi{dmax}E")):
+    for which, name, frag in ((0, "cm_fwd (32 rows)", "cm_fwdILi2ELi4ELi64E"), (1, "cm_bwd_rows", f"cm_bwd_rowsILi{dmax}E")):
         smem = lib.tfasr_conv_mma_smem(d_model, which)
         kernels[name] = (which, frag, smem, smem, smem_blocks_per_sm(smem), lib.tfasr_conv_mma_occupancy(d_model, which))
     occupancy_report(rows, kernels, f"conv_front D {d_model}, N {n}")
@@ -887,7 +900,7 @@ def conv_back_extras(make, rows: list[dict], d_model: int, n: int, what: str) ->
     conv_back_accuracy(fargs, bargs, what)
     lib = _build.build()
     kernels = {}
-    for which, name, frag in ((2, "cb_fwd (32 rows)", "cb_fwdE"), (3, "cb_bwd_rows (32 rows)", "cb_bwd_rowsE")):
+    for which, name, frag in ((2, "cb_fwd (32 rows)", "cb_fwdE"), (3, "cb_bwd_rows (32 rows)", "cb_bwd_rowsILi256E")):
         smem = lib.tfasr_conv_mma_smem(d_model, which)
         kernels[name] = (which - 2, frag, smem, smem, smem_blocks_per_sm(smem), lib.tfasr_conv_mma_occupancy(d_model, which))
     occupancy_report(rows, kernels, f"conv_back D {d_model}, N {n}")
@@ -1041,7 +1054,7 @@ def joint_extras(make, rows: list[dict], active: int, cells: int, dev) -> None:
     lib = _build.build()
     nh = {128: 8, 256: 16, 320: 20, 384: 24}[next(m for m in (128, 256, 320, 384) if -(-JOINT // 16) * 16 <= m)]
     kernels = {}  # which: (name, row, mangled-name fragment, threads, the plan's blocks per SM where not set by shared memory)
-    for which, (name, i, frag, threads, plan_blocks) in {0: ("jm_fwd (Wv streamed, V 1000)", 0, "jm_fwdE", 256, None),
+    for which, (name, i, frag, threads, plan_blocks) in {0: ("jm_fwd (Wv streamed, V 1000)", 0, "jm_fwdILi384E", 256, None),
                                                          3: ("jm_fwd_res (Wv resident)", 0, "jm_fwd_resILi16E", 512, 1),  # a persistent grid
                                                          1: ("jm_bwd_rows", 1, f"jm_bwd_rowsILi{nh // 4}E", 512, None),
                                                          2: ("jm_bwd_weight", 1, f"jm_bwd_weightILi{nh}E", 256, None)}.items():
@@ -5938,6 +5951,245 @@ def phase_jax_checkpoint(dev) -> dict:
     return {"jax_checkpoint": counts}
 
 
+# ----------------------------------------- Conformer-L ----------------------------------------- #
+
+# Conformer-L (Gulati et al. 2020, Table 1): 17 blocks, D 512, 8 heads of 64, conv kernel 32, FF 2048, LSTM-640, joint 640, V 1024
+L_BLOCKS, L_D, L_HEADS, L_HEAD, L_FF, L_JOINT, L_VOCAB = 17, 512, 8, 64, 2048, 640, 1024
+L_ENCODER_FWD = {"log_mel_spectrogram": 1, "fused_rel_attention": L_BLOCKS, "fused_ff": 2 * L_BLOCKS, "conv_front": L_BLOCKS, "conv_back": L_BLOCKS}
+L_ENCODER_BWD = {"fused_rel_attention_bwd": L_BLOCKS, "fused_ff_bwd": 2 * L_BLOCKS, "conv_front_bwd": L_BLOCKS, "conv_back_bwd": L_BLOCKS}
+PER_REQUEST_L = _per(**L_ENCODER_FWD, fused_decode=1)
+# the auto step with the prediction net's LSTM on its kernels (rnn_impl "pallas", the port's default on the card)
+PER_STEP_L = _per(**L_ENCODER_FWD, **L_ENCODER_BWD, rnnt_dp=1, rnnt_fused_joint=1, rnnt_fused_joint_bwd=1, lstm=1, lstm_bwd=1)
+PER_EVAL_L = _per(**L_ENCODER_FWD, rnnt_logprobs=1, rnnt_dp=1, lstm=1)
+L_STEPS = 4
+L_ROW_KEYS = ("max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms", "bound_by", "ms_rate0")
+
+
+def conformer_l_model(dtype, device, num_blocks: int = L_BLOCKS, dropout: float = TRAIN_RATE, rnn_impl: str = "pallas") -> torch.nn.Module:
+    """Conformer-L through the port's ``Config`` and ``build_model`` from the
+    dict ``conformer_large_config`` gives, its source named in the config;
+    random weights from SEED. ``num_blocks`` cuts depth only."""
+    from tensorflowasr_tpu_torch.configs import Config
+    from tensorflowasr_tpu_torch.models import build_model
+    from tensorflowasr_tpu_torch.models.transducer.conformer import CONFORMER_L_SOURCE, conformer_large_config
+
+    config = Config({"model_config": {"class_name": "Conformer", "config": conformer_large_config(num_blocks=num_blocks, dropout=dropout)},
+                     "source": CONFORMER_L_SOURCE})
+    model = build_model(config.model_config, vocab_size=L_VOCAB, dtype=dtype, device=device, rnn_impl=rnn_impl)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model.source = config.source
+    return model
+
+
+def conformer_l_kernels(dev, rows: list[dict]) -> None:
+    """Rows 5-8 at Conformer-L's training shapes (16 × 400 frames: N 6400,
+    D 512, F 2048; the loss's [16, 400, 129] cells at J 640, V 1024), each
+    against its plain version (f32 and bf16, forward and backward, rate 0.1,
+    the bf16 times at rate 0 too) with the bound, as ``conformer_l``
+    sub-entries of their rows; beside them the flagship's bf16 times (D
+    144, J 320) measured again in this call."""
+    from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
+    from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
+    from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    n, shape, what = TRAIN_B * T_ENC, (TRAIN_B, T_ENC, L_D), f"conformer-l train, D {L_D}, rate {TRAIN_RATE}"
+
+    def ff_make(dt, rate=TRAIN_RATE, d=L_D, f=L_FF):
+        x = _randn(gen, (n, d), 1.0, dt)
+        p = (1.0 + _randn(gen, (d,), 0.1), _randn(gen, (d,), 0.1), _randn(gen, (d, f), d ** -0.5, dt), _randn(gen, (f,), 0.1, dt),
+             _randn(gen, (f, d), f ** -0.5, dt))
+        return (x, *p, _randn(gen, (d,), 0.1, dt), 13, rate, 0.5, 1e-3), (x, *p, _randn(gen, (n, d), 1.0, dt), 13, rate, 0.5, 1e-3)
+
+    def front_make(dt, d=L_D):
+        x = _randn(gen, (TRAIN_B, T_ENC, d), 1.0, dt)
+        p = (1.0 + _randn(gen, (d,), 0.1), _randn(gen, (d,), 0.1), _randn(gen, (d, d), d ** -0.5, dt), _randn(gen, (d,), 0.1, dt),
+             _randn(gen, (d, d), d ** -0.5, dt), _randn(gen, (d,), 0.1, dt))
+        return (x, *p, 1e-3), (x, *p, _randn(gen, (TRAIN_B, T_ENC, d), 1.0, dt), 1e-3)
+
+    def back_make(dt, rate=TRAIN_RATE, d=L_D):
+        sh = (TRAIN_B, T_ENC, d)
+        x, y1 = _randn(gen, sh, 1.0, dt), _randn(gen, sh, 1.0, dt)
+        stats = (_randn(gen, (d,), 0.1), 1.0 + torch.rand((d,), generator=gen, device=dev), 1.0 + _randn(gen, (d,), 0.1), _randn(gen, (d,), 0.1))
+        w2, b2 = _randn(gen, (d, d), d ** -0.5, dt), _randn(gen, (d,), 0.1, dt)
+        return (x, y1, *stats, w2, b2, 17, rate, 1.0, 1e-3), (y1, *stats, w2, _randn(gen, sh, 1.0, dt), 17, rate, 1.0, 1e-3)
+
+    t_np, u_np = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
+    t_len, u_len, u1 = torch.tensor(t_np, device=dev), torch.tensor(u_np, device=dev), TRAIN_U + 1
+    labels = torch.randint(1, L_VOCAB, (TRAIN_B, TRAIN_U), generator=gen, device=dev)
+    labels[torch.arange(TRAIN_U, device=dev)[None, :] >= u_len[:, None]] = 0
+    active = {}
+
+    def joint_make(dt, j=L_JOINT, v=L_VOCAB, lab=labels):
+        enc_p, pred_p = _randn(gen, (TRAIN_B, T_ENC, j), 1.0, dt), _randn(gen, (TRAIN_B, u1, j), 1.0, dt)
+        fargs = (enc_p, pred_p, _randn(gen, (v, j), j ** -0.5, dt), _randn(gen, (v,), 0.1), lab)
+        _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*fargs[:4], t_len, lab, u_len)
+        active["cells"] = int(((gbl != 0) | (gem != 0)).sum())
+        return fargs, (*fargs, lse, gbl / TRAIN_B, gem / TRAIN_B)
+
+    sub = _check_fwd_bwd("fused_ff", fk.fused_ff_kernel, fk.fused_ff_plain, fk.fused_ff_bwd_kernel, fk.fused_ff_plain_bwd, ff_make,
+                         lambda elt, bwd: cost_ff(n, L_D, L_FF, elt, bwd), f"{what}, F {L_FF}")
+    rate0_times(sub, lambda: ff_make(torch.bfloat16, rate=0.0), fk.fused_ff_kernel, fk.fused_ff_bwd_kernel, what, L_D)
+    front = _check_fwd_bwd("conv_front", ck.conv_front_kernel, ck.conv_front_plain, ck.conv_front_bwd_kernel, ck.conv_front_plain_bwd, front_make,
+                           lambda elt, bwd: cost_conv_front(n, L_D, elt, bwd), what)
+    back = _check_fwd_bwd("conv_back", ck.conv_back_kernel, ck.conv_back_plain, ck.conv_back_bwd_kernel, ck.conv_back_plain_bwd, back_make,
+                          lambda elt, bwd: cost_conv_back(n, L_D, elt, bwd), what)
+    rate0_times(back, lambda: back_make(torch.bfloat16, rate=0.0), ck.conv_back_kernel, ck.conv_back_bwd_kernel, what, L_D)
+    joint = _check_fwd_bwd("rnnt_fused_joint", _stacked(jk.joint_logprobs_kernel), _stacked(jk.joint_logprobs_plain), jk.rnnt_loss_fused_joint_bwd_kernel,
+                           jk.rnnt_loss_fused_joint_plain_bwd, joint_make,
+                           lambda elt, bwd: cost_joint(TRAIN_B, T_ENC, u1, L_JOINT, L_VOCAB, elt, bwd, active["cells"]),
+                           what=f"conformer-l train loss, [{TRAIN_B}, {T_ENC}, {u1}] cells, J {L_JOINT}, V {L_VOCAB}")
+    joint[1]["active_cells"] = active["cells"]
+    # the flagship's widths in this call, bf16, rate 0.1 (its rows above hold the full checks)
+    lab_f = labels.clamp(max=VOCAB - 1)
+    flag = {"fused_ff": ff_make(torch.bfloat16, d=D_MODEL, f=FF_DIM), "conv_front": front_make(torch.bfloat16, d=D_MODEL),
+            "conv_back": back_make(torch.bfloat16, d=D_MODEL), "rnnt_fused_joint": joint_make(torch.bfloat16, j=JOINT, v=VOCAB, lab=lab_f)}
+    kern = {"fused_ff": (fk.fused_ff_kernel, fk.fused_ff_bwd_kernel), "conv_front": (ck.conv_front_kernel, ck.conv_front_bwd_kernel),
+            "conv_back": (ck.conv_back_kernel, ck.conv_back_bwd_kernel), "rnnt_fused_joint": (_stacked(jk.joint_logprobs_kernel), jk.rnnt_loss_fused_joint_bwd_kernel)}
+    for pair in (sub, front, back, joint):
+        fargs, bargs = flag[pair[0]["name"]]
+        fwd, bwd = kern[pair[0]["name"]]
+        flagship_ms = (time_ms(fwd, *fargs), time_ms(bwd, *bargs))
+        for r, fms in zip(pair, flagship_ms):
+            entry = {k: r.get(k) for k in L_ROW_KEYS}
+            entry["flagship_ms_same_call"] = fms
+            next(row for row in rows if row["name"] == r["name"])["conformer_l"] = entry
+        print(f"kernel {pair[0]['name']}[_bwd] bf16 (conformer-l vs the flagship, one call): D {L_D} / J {L_JOINT} forward {pair[0]['ms']:.4f} ms "
+              f"backward {pair[1]['ms']:.4f} ms; flagship (D {D_MODEL} / J {JOINT}) forward {flagship_ms[0]:.4f} ms backward {flagship_ms[1]:.4f} ms")
+
+
+def phase_conformer_l(dev, rows: list[dict]) -> dict:
+    """Conformer-L at full width and depth in bf16 (random weights, dropout
+    0.1): its kernels (:func:`conformer_l_kernels`); serving 3 requests of 8 ×
+    6-10 s (greedy WIND on the fused decode, after a warm-up); L_STEPS
+    default (auto) steps of 16 × ≤ 16 s (U ≤ 128, Adam 1e-4), the loss finite
+    and falling or flat; eval steps of that batch; each path's launches
+    checked and its routes recorded (no plain route taken), walls, the
+    card's busy share and peak memory. Returns the paths' launch counts."""
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.models.transducer.base import recognize
+    from tensorflowasr_tpu_torch.ops import routes
+
+    conformer_l_kernels(dev, rows)
+    model = conformer_l_model(torch.bfloat16, dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"conformer_l: {model.source}; through Config and build_model: {type(model).__name__}, {n_params} parameters, bf16 compute, f32 params, "
+          f"rnn_impl {model.prediction.rnn_0.rnn_impl!r}")
+    paths = {}
+    routes.counts.clear()
+    paths["conformer_l_serve"], _ = serve_transducer(dev, "conformer_l", model, PER_REQUEST_L, tag="conformer_l serve")
+    rng = np.random.default_rng(SEED + 43)
+    request = make_request(rng, 8, 6.0, 10.0, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    busy_ms, wall = layers_profiled(lambda: recognize(model, schemas.PredictInput(*request)))
+    print(f"conformer_l serve: profiled request: card kernel time {busy_ms:.1f} ms of {wall:.1f} ms (busy {100 * busy_ms / wall:.1f}% under the "
+          f"profiler); peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB; routes {dict(routes.counts)}")
+    serve_routes = dict(routes.counts)
+    routes.counts.clear()
+    model.train()
+    counts, losses, walls, trainer, state, batch, _ = run_train(dev, "auto", L_STEPS, PER_STEP_L, "conformer_l train", rnn_impl="pallas", model=model)
+    if not losses[-1] <= losses[0] * (1.0 + 1e-3):
+        raise AssertionError(f"conformer_l train: the loss rose over {L_STEPS} steps: {losses}")
+    paths["conformer_l_train"] = counts
+    busy_ms, step_ms = profile_step(trainer, state, batch, walls, "conformer_l train", top=10)
+    train_routes = dict(routes.counts)
+    routes.counts.clear()
+    paths["conformer_l_eval"] = transducer_eval(dev, "conformer_l eval", model, batch, PER_EVAL_L)
+    eval_routes = dict(routes.counts)
+    for tag, taken in (("serve", serve_routes), ("train", train_routes), ("eval", eval_routes)):
+        plain = {k: v for k, v in taken.items() if k[1] == "plain"}
+        if plain:
+            raise AssertionError(f"conformer_l {tag}: plain routes taken {plain}")
+        print(f"conformer_l {tag} routes: " + ", ".join(f"{k[0]} {k[1]} {v}" for k, v in sorted(taken.items())))
+    print(f"conformer_l train: losses {', '.join(f'{x:.4f}' for x in losses)}; median step after the first {float(np.median(walls[1:])):.1f} ms")
+    del trainer, state
+    return paths
+
+
+def phase_conformer_l_checks(dev) -> None:
+    """f32 card/CPU parity of a 2-block Conformer-L step (the auto loss, the
+    LSTM kernels); then each shape a kernel refuses, run once on the card
+    through its layer's plain route (recorded, the kernel not launched) and
+    held to the plain version: kernel B at head 256, the RNN-T loss at U+1
+    1025, the CTC loss at S 1025, a bf16 LSTM of 1280 units, and a 5-layer
+    prediction net's greedy decode (the eager WIND loop) against the sync loop."""
+    from tensorflowasr_tpu_torch import schemas
+    from tensorflowasr_tpu_torch.models.layers import attention as tattn
+    from tensorflowasr_tpu_torch.models.layers import rnn as trnn
+    from tensorflowasr_tpu_torch.models.transducer.base import extract_decode_params, recognize
+    from tensorflowasr_tpu_torch.models.transducer.conformer import Conformer, conformer_large_config
+    from tensorflowasr_tpu_torch.ops import losses, routes
+    from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_loss
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss
+
+    _step_parity(dev, "auto", "pallas", cpu_model=conformer_l_model(torch.float32, "cpu", num_blocks=2, dropout=0.0), what="conformer_l auto, 2 blocks")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    routes.counts.clear()
+    lines = []
+
+    def none_launched(kernels: tuple, what: str, before: dict) -> None:
+        after = launch_counts()
+        for k in kernels:
+            if after[k] != before[k]:
+                raise AssertionError(f"routed {what}: {k} launched {after[k] - before[k]} times")
+
+    init = lambda module: [torch.nn.init.normal_(p, std=0.05, generator=torch.Generator().manual_seed(SEED + i)) for i, p in enumerate(module.parameters())]
+    rel = tattn.MultiHeadRelativeAttention(512, 2, 256)
+    init(rel)
+    x, relpe = torch.randn(2, 50, 512, generator=torch.Generator().manual_seed(1)), torch.randn(2, 99, 512, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref, _ = rel(x, x, relpe=relpe)  # the CPU: the plain version
+        before = launch_counts()
+        got, _ = rel.to(dev)(x.to(dev), x.to(dev), relpe=relpe.to(dev))
+        none_launched(("fused_rel_attention",), "kernel B head 256", before)
+    lines.append(f"kernel B head 256 (f32, card vs CPU): {_close('routed kernel B head 256', got.cpu(), ref, 1e-4, 1e-4):.2e}")
+    layer = trnn.RNN(64, 1280, dtype=torch.bfloat16, rnn_impl="pallas")
+    init(layer)
+    layer = layer.to(dev)
+    xs = _randn(gen, (2, 9, 64), 1.0, torch.bfloat16)
+    with torch.no_grad():
+        before = launch_counts()
+        y, _ = layer(xs)
+        none_launched(("lstm",), "LSTM 1280", before)
+        layer.rnn_impl = "auto"  # the cell loop, the plain version
+        y_ref, _ = layer(xs)
+    lines.append(f"bf16 LSTM 1280 (the cell loop): {_close('routed LSTM 1280', y.float(), y_ref.float(), 0.0, 0.0):.2e}")
+    logits = _randn(gen, (1, 3, 1025, 5))
+    labels = torch.randint(1, 5, (1, 1024), generator=torch.Generator().manual_seed(1)).to(dev)
+    t_len, u_len = torch.tensor([3], device=dev), torch.tensor([2], device=dev)
+    before = launch_counts()
+    err = _close("routed RNN-T U+1 1025", losses.get_rnnt_loss_fn("auto")(logits, t_len, labels, u_len), rnnt_loss(logits, t_len, labels, u_len).mean(),
+                 1e-6, 1e-6)
+    none_launched(("rnnt_dp", "rnnt_logprobs"), "RNN-T U+1 1025", before)
+    lines.append(f"RNN-T loss U+1 1025 (the plain DP): {err:.2e}")
+    clog, clab = _randn(gen, (1, 520, 5)), torch.randint(1, 5, (1, 512), generator=torch.Generator().manual_seed(2)).to(dev)
+    ct, cu = torch.tensor([520], device=dev), torch.tensor([3], device=dev)
+    before = launch_counts()
+    err = _close("routed CTC S 1025", losses.get_ctc_loss_fn("auto")(clog, ct, clab, cu), ctc_loss(clog, ct, clab, cu).mean(), 1e-6, 1e-6)
+    none_launched(("ctc_loss",), "CTC S 1025", before)
+    lines.append(f"CTC loss S 1025 (the plain α recursion): {err:.2e}")
+    cfg = conformer_large_config(vocab_size=L_VOCAB, num_blocks=1, dropout=0.0)
+    cfg.update(prediction_num_rnns=5)
+    net5 = Conformer.from_config(cfg, dtype=torch.float32, device=dev, rnn_impl="pallas")
+    net5.reset_parameters(torch.Generator().manual_seed(SEED))
+    net5.eval()
+    if extract_decode_params(net5, torch.float32) is not None:
+        raise AssertionError("a 5-layer prediction net got fused-decode parameters")
+    inputs = schemas.PredictInput(*make_request(np.random.default_rng(SEED + 48), 2, 2.0, 3.0, dev))
+    before = launch_counts()
+    wind, sync = recognize(net5, inputs), recognize(net5, inputs, decode_mode="sync")
+    none_launched(("fused_decode",), "5-layer net", before)
+    if not torch.equal(wind.tokens, sync.tokens):
+        raise AssertionError("5-layer net: the eager WIND loop's tokens differ from the sync loop's")
+    lines.append(f"5-layer net greedy decode (f32, the eager WIND loop): tokens {tuple(wind.tokens.shape)}, {int((wind.tokens != 0).sum())} "
+                 f"nonblank, equal to the sync loop's")
+    want = {"fused_rel_attention", "lstm", "rnnt_dp", "ctc_loss", "fused_decode"}
+    plain = routes.plain_routes()
+    if not want <= set(plain):
+        raise AssertionError(f"routed shapes: plain routes {plain}, expected {sorted(want)}")
+    print(f"routed shapes on the card (the plain route each, its kernel launched 0 times; routes {plain}): " + "; ".join(lines))
+
+
 def main(argv: list[str]) -> int:
     """No arguments: every phase (the check). ``--steps [--package DIR]``: only
     :func:`phase_steps`, of the package under DIR when given, as one JSON line.
@@ -5956,6 +6208,7 @@ def main(argv: list[str]) -> int:
     ``--parallel``: only :func:`phase_parallel`, its launch counts as one JSON line.
     ``--layers``: only :func:`phase_layers` (with :func:`layers_kernels`), the sub-entries and launch counts as one JSON line.
     ``--jax-checkpoint``: only :func:`phase_jax_checkpoint`, its launch counts as one JSON line.
+    ``--conformer-l``: only :func:`phase_conformer_l` and :func:`phase_conformer_l_checks`, the sub-entries and launch counts as one JSON line.
     ``--compare-parent DIR``: :func:`compare_steps` against the package under DIR."""
     _need_card()
     if "--package" in argv:
@@ -6012,6 +6265,18 @@ def main(argv: list[str]) -> int:
         _build.build()
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip())
         print(json.dumps({"jax_checkpoint": phase_jax_checkpoint(torch.device("cuda", 0))}))
+        return 0
+    if "--conformer-l" in argv:
+        _no_tf32()
+        _build.build()
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip())
+        dev = torch.device("cuda", 0)
+        rows = [{"name": name} for name in KERNELS]
+        t0 = time.perf_counter()
+        paths = phase_conformer_l(dev, rows)
+        phase_conformer_l_checks(dev)
+        print(f"conformer_l phase: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"conformer_l": paths, "rows": [r for r in rows if len(r) > 1]}))
         return 0
     if "--data" in argv:
         _no_tf32()
@@ -6101,6 +6366,8 @@ def main(argv: list[str]) -> int:
     mark("layers")
     paths.update(phase_jax_checkpoint(dev))
     mark("jax checkpoint")
+    paths.update(phase_conformer_l(dev, rows))
+    mark("conformer_l")
     phase_fit_gc()
     phase_gc_probe()
     mark("gc")
@@ -6120,6 +6387,7 @@ def main(argv: list[str]) -> int:
     phase_ctc_family_parity(dev)
     phase_transducer_parity(dev)
     phase_stream_parity(dev)
+    phase_conformer_l_checks(dev)
     mark("parity")
     phase_ctc_referee(dev)
     mark("referee")

@@ -92,32 +92,35 @@ CMArgs cm_args(int N, int D, float eps, const void* wa, const void* wb) {
   return CMArgs{N, D, (D + 15) / 16 * 16, (D + CM_CC - 1) / CM_CC, D % 8 == 0 && aligned, eps};
 }
 
-// Stage output-column chunk c of one [D][D] ([in][out]) weight into dst
-// [Dp][CM_LDC] (W[:, chunk]); rows and columns past D zero.
+// Stage output-column chunk c (CC columns) of one [D][D] ([in][out]) weight
+// into dst [Dp][CC + AM_PAD] (W[:, chunk]); rows and columns past D zero.
+template <int CC = CM_CC>
 __device__ __forceinline__ void cm_stage_cols(bf16* dst, const bf16* w, int c, int D, int Dp, int vec) {
-  const int c0 = c * CM_CC;
+  constexpr int LDC = CC + AM_PAD;
+  const int c0 = c * CC;
   if (vec) {
-    for (int i = threadIdx.x; i < Dp * (CM_CC / 8); i += blockDim.x) {
-      const int d = i / (CM_CC / 8), f = (i % (CM_CC / 8)) * 8;
+    for (int i = threadIdx.x; i < Dp * (CC / 8); i += blockDim.x) {
+      const int d = i / (CC / 8), f = (i % (CC / 8)) * 8;
       const bool ok = d < D && c0 + f < D;
-      cp_async16(smem_u32(dst + d * CM_LDC + f), ok ? w + (size_t)d * D + c0 + f : w, ok ? 16 : 0);
+      cp_async16(smem_u32(dst + d * LDC + f), ok ? w + (size_t)d * D + c0 + f : w, ok ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < Dp * CM_CC; i += blockDim.x) {
-      const int d = i / CM_CC, f = i % CM_CC;
-      dst[d * CM_LDC + f] = (d < D && c0 + f < D) ? w[(size_t)d * D + c0 + f] : __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < Dp * CC; i += blockDim.x) {
+      const int d = i / CC, f = i % CC;
+      dst[d * LDC + f] = (d < D && c0 + f < D) ? w[(size_t)d * D + c0 + f] : __float2bfloat16(0.f);
     }
   }
 }
 
 // Stage chunk c of Wa and Wb into wa_s, wb_s.
+template <int CC = CM_CC>
 __device__ __forceinline__ void cm_stage_w(bf16* wa_s, bf16* wb_s, const bf16* wa, const bf16* wb, int c, const CMArgs& a) {
-  cm_stage_cols(wa_s, wa, c, a.D, a.Dp, a.vec);
-  cm_stage_cols(wb_s, wb, c, a.D, a.Dp, a.vec);
+  cm_stage_cols<CC>(wa_s, wa, c, a.D, a.Dp, a.vec);
+  cm_stage_cols<CC>(wb_s, wb, c, a.D, a.Dp, a.vec);
 }
 
-// ha, hb [16 rows][8 NT columns] = y (16 rows at y_w, [16][ld]) . Wa_c, Wb_c at column col0 ([Dp][CM_LDC]).
-template <int NT>
+// ha, hb [16 rows][8 NT columns] = y (16 rows at y_w, [16][ld]) . Wa_c, Wb_c at column col0 ([Dp][LDC]).
+template <int NT, int LDC = CM_LDC>
 __device__ __forceinline__ void cm_times_w(float (&ha)[NT][4], float (&hb)[NT][4], const bf16* y_w, int ld, const bf16* wa_c, const bf16* wb_c, int col0,
                                            int nk, int lane) {
 #pragma unroll
@@ -131,10 +134,10 @@ __device__ __forceinline__ void cm_times_w(float (&ha)[NT][4], float (&hb)[NT][4
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t b[4];
-      load_b_kn(b, wa_c + kk * 16 * CM_LDC + col0 + np * 16, CM_LDC, lane);
+      load_b_kn(b, wa_c + kk * 16 * LDC + col0 + np * 16, LDC, lane);
       mma16816(ha[2 * np], af, b[0], b[1]);
       mma16816(ha[2 * np + 1], af, b[2], b[3]);
-      load_b_kn(b, wb_c + kk * 16 * CM_LDC + col0 + np * 16, CM_LDC, lane);
+      load_b_kn(b, wb_c + kk * 16 * LDC + col0 + np * 16, LDC, lane);
       mma16816(hb[2 * np], af, b[0], b[1]);
       mma16816(hb[2 * np + 1], af, b[2], b[3]);
     }
@@ -146,20 +149,25 @@ __device__ __forceinline__ void cm_zero_pad(bf16* s, int rows, int ld, int D, in
   for (int i = threadIdx.x; i < rows * (Dp - D); i += blockDim.x) s[(i / (Dp - D)) * ld + D + i % (Dp - D)] = __float2bfloat16(0.f);
 }
 
+// RG row groups x FQ column parts of each CC-column chunk: 2 x 4 of 64
+// columns up to D 256; 4 x 2 of 32 above (the wide tile: 64 rows, and the
+// two double-buffered chunks of Wa and Wb at [Dp][40] fit beside them in
+// 230,400 bytes at Dp 512, where 64-column chunks would take 328 KB).
+template <int RG, int FQ, int CC>
 __global__ void __launch_bounds__(CM_THREADS) cm_fwd(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
                                                       const bf16* __restrict__ wa, const bf16* __restrict__ ba, const bf16* __restrict__ wb,
                                                       const bf16* __restrict__ bb, bf16* __restrict__ out, CMArgs a) {
-  constexpr int RG = CM_FWD_RG, ROWS = CM_FWD_ROWS, WARPS = RG * CM_FWD_FQ, FW = CM_CC / CM_FWD_FQ, NT = FW / 8;
+  constexpr int ROWS = 16 * RG, WARPS = RG * FQ, FW = CC / FQ, NT = FW / 8, LDC = CC + AM_PAD;
   extern __shared__ __align__(16) unsigned char cm_smem[];
   const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, N = a.N;
   bf16* y_s = reinterpret_cast<bf16*>(cm_smem);  // [ROWS][LDD] LN output
-  bf16* wa_s = y_s + ROWS * LDD;                 // [2][Dp][CM_LDC]
-  bf16* wb_s = wa_s + 2 * Dp * CM_LDC;           // [2][Dp][CM_LDC]
+  bf16* wa_s = y_s + ROWS * LDD;                 // [2][Dp][LDC]
+  bf16* wb_s = wa_s + 2 * Dp * LDC;              // [2][Dp][LDC]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
   const int rg = warp % RG, fq = warp / RG;
   const int row0 = blockIdx.x * ROWS, row_lo = row0 + rg * 16 + g;
 
-  cm_stage_w(wa_s, wb_s, wa, wb, 0, a);
+  cm_stage_w<CC>(wa_s, wb_s, wa, wb, 0, a);
   cp_async_commit();
   for (int r = warp; r < ROWS; r += WARPS) {
     bf16* dst = y_s + r * LDD;
@@ -172,17 +180,17 @@ __global__ void __launch_bounds__(CM_THREADS) cm_fwd(const bf16* __restrict__ x,
   const bool pairs = (D & 1) == 0;
   for (int c = 0; c < a.nch; ++c) {
     if (c + 1 < a.nch) {
-      cm_stage_w(wa_s + ((c + 1) & 1) * Dp * CM_LDC, wb_s + ((c + 1) & 1) * Dp * CM_LDC, wa, wb, c + 1, a);
+      cm_stage_w<CC>(wa_s + ((c + 1) & 1) * Dp * LDC, wb_s + ((c + 1) & 1) * Dp * LDC, wa, wb, c + 1, a);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int col0 = c * CM_CC + fq * FW;
+    const int col0 = c * CC + fq * FW;
     if (col0 < D) {
       float ha[NT][4], hb[NT][4];
-      cm_times_w<NT>(ha, hb, y_s + rg * 16 * LDD, LDD, wa_s + (c & 1) * Dp * CM_LDC, wb_s + (c & 1) * Dp * CM_LDC, fq * FW, nk, lane);
+      cm_times_w<NT, LDC>(ha, hb, y_s + rg * 16 * LDD, LDD, wa_s + (c & 1) * Dp * LDC, wb_s + (c & 1) * Dp * LDC, fq * FW, nk, lane);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int col = col0 + nt * 8 + 2 * tig;
@@ -391,8 +399,155 @@ __global__ void __launch_bounds__(CM_THREADS, 1) cm_bwd_rows(const bf16* __restr
   }
 }
 
+// The wide backward rows pass (256 < Dp <= 512, Conformer-L): a [16, D]
+// dy accumulator a warp and two 64-column chunks of Wa and Wb do not fit
+// (256 f32 a thread; 295 KB), so, as the wide FF backward (ff_mma.cu), 32
+// rows a block and 32-column chunks, double-buffered: (1) warp (rg, q)
+// forms ha, hb of its 16 rows and the chunk's 8 columns 8q over the whole
+// of D, then dha, dhb (to shared memory as bf16, to scratch as hi + lo, the
+// column sums per 16 rows); (2) dy of the rows rg and the columns q * 128
+// .. += dha . Wa_c^T + dhb . Wb_c^T; then wide_ln_bwd. part [2 * blocks][4D].
+constexpr int CW_CC = 32, CW_LDC = CW_CC + AM_PAD;
+
+__global__ void __launch_bounds__(CM_THREADS, 1) cmw_bwd_rows(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                                                             const bf16* __restrict__ wa, const bf16* __restrict__ ba, const bf16* __restrict__ wb,
+                                                             const bf16* __restrict__ bb, const bf16* __restrict__ dout, bf16* __restrict__ dx, Split y_o,
+                                                             Split dha_o, Split dhb_o, float* __restrict__ part, CMArgs a) {
+  extern __shared__ __align__(16) unsigned char cm_smem[];
+  const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, N = a.N;
+  bf16* y_s = reinterpret_cast<bf16*>(cm_smem);                      // [32][LDD] LN output
+  bf16* wa_s = y_s + WD_ROWS * LDD;                                  // [2][Dp][CW_LDC]
+  bf16* wb_s = wa_s + 2 * Dp * CW_LDC;                               // [2][Dp][CW_LDC]
+  bf16* dha_s = wb_s + 2 * Dp * CW_LDC;                              // [32][CW_LDC]
+  bf16* dhb_s = dha_s + WD_ROWS * CW_LDC;                            // [32][CW_LDC]
+  float* mu_s = reinterpret_cast<float*>(dhb_s + WD_ROWS * CW_LDC);  // [32]
+  float* rstd_s = mu_s + WD_ROWS;                                    // [32]
+  float* red_s = rstd_s + WD_ROWS;                                   // [2][4][32]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+  const int rg = warp & 1, q = warp >> 1, d0 = q * WD_DQ;
+  const int row0 = blockIdx.x * WD_ROWS, row_lo = row0 + rg * 16 + g;
+  float* prow = part + (size_t)(blockIdx.x * 2 + rg) * 4 * D;  // this row group's column sums
+
+  cm_stage_w<CW_CC>(wa_s, wb_s, wa, wb, 0, a);
+  cp_async_commit();
+  for (int r = warp; r < WD_ROWS; r += CM_THREADS / 32) {
+    const int row = row0 + r;
+    bf16* ys = y_s + r * LDD;
+    if (row >= N) {
+      for (int c = lane; c < D; c += 32) ys[c] = __float2bfloat16(0.f);
+      if (lane == 0) mu_s[r] = 0.f, rstd_s[r] = 0.f;
+      continue;
+    }
+    const bf16* xr = x + (size_t)row * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += to_f32(xr[c]);
+    const float mu = warp_sum(s) / (float)D;
+    float qv = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float cx = to_f32(xr[c]) - mu;
+      qv = fmaf(cx, cx, qv);
+    }
+    const float rstd = rsqrtf(warp_sum(qv) / (float)D + a.eps);
+    if (lane == 0) mu_s[r] = mu, rstd_s[r] = rstd;
+    for (int c = lane; c < D; c += 32) {
+      const float y = (to_f32(xr[c]) - mu) * rstd * gamma[c] + beta[c];
+      ys[c] = __float2bfloat16(y);
+      put_split(y_o, row, c, y);
+    }
+  }
+  cm_zero_pad(y_s, WD_ROWS, LDD, D, Dp);
+
+  float dy[WD_DQ / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < WD_DQ / 8; ++dt) dy[dt][0] = dy[dt][1] = dy[dt][2] = dy[dt][3] = 0.f;
+  const bf16* yw = y_s + rg * 16 * LDD;
+  for (int c = 0; c < a.nch; ++c) {
+    if (c + 1 < a.nch) {
+      cm_stage_w<CW_CC>(wa_s + ((c + 1) & 1) * Dp * CW_LDC, wb_s + ((c + 1) & 1) * Dp * CW_LDC, wa, wb, c + 1, a);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* wa_c = wa_s + (c & 1) * Dp * CW_LDC;
+    const bf16* wb_c = wb_s + (c & 1) * Dp * CW_LDC;
+    float ha[4] = {0.f, 0.f, 0.f, 0.f}, hb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = 0; kk < nk; ++kk) {
+      uint32_t af[4], b[2];
+      load_a(af, yw + kk * 16, LDD, lane);
+      load_b_kn_x2(b, wa_c + kk * 16 * CW_LDC + q * 8, CW_LDC, lane);
+      mma16816(ha, af, b[0], b[1]);
+      load_b_kn_x2(b, wb_c + kk * 16 * CW_LDC + q * 8, CW_LDC, lane);
+      mma16816(hb, af, b[0], b[1]);
+    }
+    const int fc = c * CW_CC + q * 8 + 2 * tig;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = fc + (e & 1), row = row_lo + (e >> 1) * 8;
+      float dha = 0.f, dhb = 0.f;
+      if (f < D && row < N) {
+        const float ga = ha[e] + to_f32(ba[f]), sg = sigmoid_f32(hb[e] + to_f32(bb[f]));
+        const float dg = to_f32(dout[(size_t)row * D + f]);
+        dha = dg * sg;
+        dhb = dg * ga * sg * (1.f - sg);
+      }
+      ha[e] = dha;
+      hb[e] = dhb;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {  // columns fc, fc + 1 of rows row_lo, row_lo + 8 (fc + 1 < Dq: both even)
+      const int row = row_lo + 8 * hf, r = rg * 16 + g + 8 * hf;
+      if (fc < D && row < N) {
+        put_split2(dha_o, row, fc, ha[2 * hf], ha[2 * hf + 1]);
+        put_split2(dhb_o, row, fc, hb[2 * hf], hb[2 * hf + 1]);
+      }
+      *reinterpret_cast<uint32_t*>(dha_s + r * CW_LDC + q * 8 + 2 * tig) = pack_bf16(ha[2 * hf], ha[2 * hf + 1]);
+      *reinterpret_cast<uint32_t*>(dhb_s + r * CW_LDC + q * 8 + 2 * tig) = pack_bf16(hb[2 * hf], hb[2 * hf + 1]);
+    }
+    const float sa0 = col_sum8(ha[0] + ha[2]), sa1 = col_sum8(ha[1] + ha[3]);
+    const float sb0 = col_sum8(hb[0] + hb[2]), sb1 = col_sum8(hb[1] + hb[3]);
+    if (g == 0) {
+      if (fc < D) prow[fc] = sa0, prow[D + fc] = sb0;
+      if (fc + 1 < D) prow[fc + 1] = sa1, prow[D + fc + 1] = sb1;
+    }
+    __syncthreads();
+    // dy += dha_bf16 . Wa_c^T + dhb_bf16 . Wb_c^T: the chunk's rows (d) are the output columns, its columns the summed index
+#pragma unroll
+    for (int ks = 0; ks < CW_CC / 16; ++ks) {
+      uint32_t pa[4], pb[4];
+      load_a(pa, dha_s + rg * 16 * CW_LDC + ks * 16, CW_LDC, lane);
+      load_a(pb, dhb_s + rg * 16 * CW_LDC + ks * 16, CW_LDC, lane);
+#pragma unroll
+      for (int np = 0; np < WD_DQ / 16; ++np) {
+        if (d0 + np * 16 < Dp) {
+          uint32_t b[4];
+          load_b_nk(b, wa_c + (d0 + np * 16) * CW_LDC + ks * 16, CW_LDC, lane);
+          mma16816(dy[2 * np], pa, b[0], b[1]);
+          mma16816(dy[2 * np + 1], pa, b[2], b[3]);
+          load_b_nk(b, wb_c + (d0 + np * 16) * CW_LDC + ks * 16, CW_LDC, lane);
+          mma16816(dy[2 * np], pb, b[0], b[1]);
+          mma16816(dy[2 * np + 1], pb, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // before the next chunk's copy refills this buffer and dha_s, dhb_s are rewritten
+  }
+  const Dropout off{0u, 0u, 1.f, 0};
+  wide_ln_bwd(dy, red_s, mu_s, rstd_s, x, gamma, nullptr, dx, prow, 2 * D, 3 * D, 0, 0.f, off, 0u, row0, N, D, Dp, lane, warp);
+}
+
 size_t cm_fwd_smem(int Dp, int rows) { return (size_t)(rows * (Dp + AM_PAD) + 4 * Dp * CM_LDC) * sizeof(bf16); }
 size_t cm_bwd_smem(int Dp) { return cm_fwd_smem(Dp, CM_BWD_ROWS) + 2 * CM_BWD_ROWS * sizeof(float); }
+// The wide kernels (Dp > 256): the forward's 64 rows beside two 32-column chunks of Wa and Wb; the backward's 32 rows.
+constexpr int CM_WIDE_RG = 4, CM_WIDE_FQ = 2;
+size_t cmw_fwd_smem(int Dp) { return (size_t)(16 * CM_WIDE_RG * (Dp + AM_PAD) + 4 * Dp * CW_LDC) * sizeof(bf16); }
+size_t cmw_bwd_smem(int Dp) {
+  return (size_t)(WD_ROWS * (Dp + AM_PAD) + 4 * Dp * CW_LDC + 2 * WD_ROWS * CW_LDC) * sizeof(bf16) + (2 * WD_ROWS + 8 * 32) * sizeof(float);
+}
+// Column-sum partial rows of the conv_front backward: one per 16 rows of its blocks.
+int cm_part_rows(int N, int Dp) { return Dp > 256 ? 2 * ((N + WD_ROWS - 1) / WD_ROWS) : 4 * ((N + CM_BWD_ROWS - 1) / CM_BWD_ROWS); }
 
 // Scratch of the backward, in floats: y, dha, dhb [N, Dq] as bf16 hi and lo
 // (Dq: D rounded up to 8, so that every row is 16-byte aligned), the
@@ -407,7 +562,7 @@ struct CMScratch {
     dha = y + nd;
     dhb = dha + nd;
     part = dhb + nd;
-    partial = part + (size_t)16 * ((N + CM_BWD_ROWS - 1) / CM_BWD_ROWS) * D;
+    partial = part + (size_t)4 * cm_part_rows(N, (D + 15) / 16 * 16) * D;
     total = partial + (size_t)split_atb_partial_floats(N, D, D);
   }
   static Split split(float* scratch, size_t off, int N, int ld) {
@@ -594,7 +749,10 @@ __global__ void __launch_bounds__(CM_THREADS) cb_fwd(const bf16* __restrict__ x,
 }
 
 // Backward rows pass; see the header. part [CB_RG * blocks][3D]: per 16 rows
-// the column sums of dz (db2), dbn (dbias) and dbn * xhat (dscale).
+// the column sums of dz (db2), dbn (dbias) and dbn * xhat (dscale). DMAX:
+// the bound of da's k-steps, 256, or 512 for the wide widths (the tile is
+// the same; at Dp 512 it takes 207,872 bytes of shared memory).
+template <int DMAX>
 __global__ void __launch_bounds__(CM_THREADS) cb_bwd_rows(const bf16* __restrict__ y1, const float* __restrict__ mean, const float* __restrict__ var,
                                                            const float* __restrict__ scale, const float* __restrict__ bias, const bf16* __restrict__ w2,
                                                            const bf16* __restrict__ dout, bf16* __restrict__ dy1, Split a_o, Split dz_o,
@@ -655,7 +813,7 @@ __global__ void __launch_bounds__(CM_THREADS) cb_bwd_rows(const bf16* __restrict
     const int col0 = c * CM_CC + fq * FW;
     if (col0 < D) {
       float da[NT][4];  // da = dz_bf16 . W2^T: W2's chunk rows are da's columns
-      am_abT<256, NT>(da, dzw, w_s + (c & 1) * CM_CC * LDD + fq * FW * LDD, LDD, nk, lane);
+      am_abT<DMAX, NT>(da, dzw, w_s + (c & 1) * CM_CC * LDD + fq * FW * LDD, LDD, nk, lane);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int fc = col0 + nt * 8 + 2 * tig;
@@ -724,12 +882,24 @@ struct CBScratch {
 
 int launch_conv_front_mma(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb, void* out,
                           int N, int D, float eps, cudaStream_t stream) {
-  const CMArgs a = cm_args(N, D, eps, wa, wb);
-  if (a.Dp > 256) return (int)cudaErrorInvalidValue;
+  CMArgs a = cm_args(N, D, eps, wa, wb);
+  if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
+  if (a.Dp > 256) {
+    constexpr int ROWS = 16 * CM_WIDE_RG;
+    a.nch = (D + CW_CC - 1) / CW_CC;
+    const size_t smem = cmw_fwd_smem(a.Dp);
+    auto kernel = cm_fwd<CM_WIDE_RG, CM_WIDE_FQ, CW_CC>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(N + ROWS - 1) / ROWS, CM_THREADS, smem, stream>>>((const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)wa, (const bf16*)ba,
+                                                                 (const bf16*)wb, (const bf16*)bb, (bf16*)out, a);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = cm_fwd_smem(a.Dp, CM_FWD_ROWS);
-  cudaError_t err = allow_smem(cm_fwd, smem);
+  auto kernel = cm_fwd<CM_FWD_RG, CM_FWD_FQ, CM_CC>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cm_fwd<<<(N + CM_FWD_ROWS - 1) / CM_FWD_ROWS, CM_THREADS, smem, stream>>>((const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)wa,
+  kernel<<<(N + CM_FWD_ROWS - 1) / CM_FWD_ROWS, CM_THREADS, smem, stream>>>((const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)wa,
                                                                            (const bf16*)ba, (const bf16*)wb, (const bf16*)bb, (bf16*)out, a);
   return (int)cudaGetLastError();
 }
@@ -740,11 +910,25 @@ long long conv_front_mma_bwd_scratch(int N, int D) { return (long long)CMScratch
 int launch_conv_front_mma_bwd(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb, const void* bb,
                               const void* dout, void* dx, float* cols, float* dwa, float* dwb, float* scratch, int N, int D, float eps,
                               cudaStream_t stream) {
-  const CMArgs a = cm_args(N, D, eps, wa, wb);
+  CMArgs a = cm_args(N, D, eps, wa, wb);
+  if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
   const CMScratch L(N, D);
-  int e = cm_dispatch<BwdRun>(a.Dp, x, gamma, beta, wa, ba, wb, bb, dout, dx, scratch, a, stream);
+  int e;
+  if (a.Dp > 256) {
+    a.nch = (D + CW_CC - 1) / CW_CC;
+    const size_t smem = cmw_bwd_smem(a.Dp);
+    cudaError_t err = allow_smem(cmw_bwd_rows, smem);
+    if (err != cudaSuccess) return (int)err;
+    cmw_bwd_rows<<<(N + WD_ROWS - 1) / WD_ROWS, CM_THREADS, smem, stream>>>(
+        (const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)wa, (const bf16*)ba, (const bf16*)wb, (const bf16*)bb, (const bf16*)dout,
+        (bf16*)dx, CMScratch::split(scratch, L.y, N, L.Dq), CMScratch::split(scratch, L.dha, N, L.Dq), CMScratch::split(scratch, L.dhb, N, L.Dq),
+        scratch + L.part, a);
+    e = (int)cudaGetLastError();
+  } else {
+    e = cm_dispatch<BwdRun>(a.Dp, x, gamma, beta, wa, ba, wb, bb, dout, dx, scratch, a, stream);
+  }
   if (e) return e;
-  if ((e = launch_sum_partials(scratch + L.part, cols, 4 * ((N + CM_BWD_ROWS - 1) / CM_BWD_ROWS), (size_t)4 * D, stream))) return e;
+  if ((e = launch_sum_partials(scratch + L.part, cols, cm_part_rows(N, a.Dp), (size_t)4 * D, stream))) return e;
   const Split y = CMScratch::split(scratch, L.y, N, L.Dq);
   if ((e = launch_split_atb(y, CMScratch::split(scratch, L.dha, N, L.Dq), dwa, scratch + L.partial, N, D, D, stream))) return e;
   return launch_split_atb(y, CMScratch::split(scratch, L.dhb, N, L.Dq), dwb, scratch + L.partial, N, D, D, stream);
@@ -753,7 +937,7 @@ int launch_conv_front_mma_bwd(const void* x, const void* gamma, const void* beta
 int launch_conv_back_mma(const void* x, const void* y1, const void* mean, const void* var, const void* scale, const void* bias, const void* w2,
                          const void* b2, void* out, int N, int D, float eps, float factor, Dropout dp, cudaStream_t stream) {
   const CBArgs a = cb_args(N, D, eps, factor, w2, y1);
-  if (a.Dp > 256) return (int)cudaErrorInvalidValue;
+  if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
   const size_t smem = cb_fwd_smem(a.Dp);
   cudaError_t err = allow_smem(cb_fwd, smem);
   if (err != cudaSuccess) return (int)err;
@@ -769,13 +953,15 @@ int launch_conv_back_mma_bwd(const void* y1, const void* mean, const void* var, 
                              void* dy1, float* cols, float* dw2, float* scratch, int N, int D, float eps, float factor, Dropout dp,
                              cudaStream_t stream) {
   const CBArgs a = cb_args(N, D, eps, factor, w2, y1);
-  if (a.Dp > 256) return (int)cudaErrorInvalidValue;
+  if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
   const CBScratch L(N, D);
   const size_t smem = cb_bwd_smem(a.Dp);
-  cudaError_t err = allow_smem(cb_bwd_rows, smem);
+  auto kernel = &cb_bwd_rows<256>;
+  if (a.Dp > 256) kernel = &cb_bwd_rows<WD_DMAX>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const Split as = CMScratch::split(scratch, L.a, N, L.Dq), dzs = CMScratch::split(scratch, L.dz, N, L.Dq);
-  cb_bwd_rows<<<cb_blocks(N), CM_THREADS, smem, stream>>>((const bf16*)y1, (const float*)mean, (const float*)var, (const float*)scale,
+  kernel<<<cb_blocks(N), CM_THREADS, smem, stream>>>((const bf16*)y1, (const float*)mean, (const float*)var, (const float*)scale,
                                                           (const float*)bias, (const bf16*)w2, (const bf16*)dout, (bf16*)dy1, as, dzs, scratch + L.part,
                                                           a, dp);
   int e = (int)cudaGetLastError();
@@ -789,13 +975,14 @@ int launch_conv_back_mma_bwd(const void* y1, const void* mean, const void* var, 
 // Dynamic shared memory (bytes) at width D of the bf16 kernels: conv_front's
 // forward (which 0) and backward rows pass (1), conv_back's forward (2) and
 // backward rows pass (3); tests/test_torch_joint_conv_mma.py and
-// tests/test_torch_conv_back_fft.py plan the same.
+// tests/test_torch_conv_back_fft.py plan the same (conv_front's wide
+// kernels above Dp 256: ops/cuda/conv_kernel.py:conv_front_wide_smem).
 extern "C" long long tfasr_conv_mma_smem(int D, int which) {
   using namespace tfasr;
   const int Dp = (D + 15) / 16 * 16;
   switch (which) {
-    case 0: return (long long)cm_fwd_smem(Dp, CM_FWD_ROWS);
-    case 1: return (long long)cm_bwd_smem(Dp);
+    case 0: return (long long)(Dp > 256 ? cmw_fwd_smem(Dp) : cm_fwd_smem(Dp, CM_FWD_ROWS));
+    case 1: return (long long)(Dp > 256 ? cmw_bwd_smem(Dp) : cm_bwd_smem(Dp));
     case 2: return (long long)cb_fwd_smem(Dp);
     case 3: return (long long)cb_bwd_smem(Dp);
     default: return -1;
@@ -806,11 +993,13 @@ extern "C" long long tfasr_conv_mma_smem(int D, int which) {
 extern "C" int tfasr_conv_mma_occupancy(int D, int which) {
   using namespace tfasr;
   const int Dp = (D + 15) / 16 * 16;
+  if (Dp > WD_DMAX) return -(int)cudaErrorInvalidValue;
   switch (which) {
-    case 0: return cm_occupancy(cm_fwd, cm_fwd_smem(Dp, CM_FWD_ROWS));
-    case 1: return cm_dispatch<BwdOccupancy>(Dp, Dp);
+    case 0:
+      return Dp > 256 ? cm_occupancy(cm_fwd<CM_WIDE_RG, CM_WIDE_FQ, CW_CC>, cmw_fwd_smem(Dp)) : cm_occupancy(cm_fwd<CM_FWD_RG, CM_FWD_FQ, CM_CC>, cm_fwd_smem(Dp, CM_FWD_ROWS));
+    case 1: return Dp > 256 ? cm_occupancy(cmw_bwd_rows, cmw_bwd_smem(Dp)) : cm_dispatch<BwdOccupancy>(Dp, Dp);
     case 2: return cm_occupancy(cb_fwd, cb_fwd_smem(Dp));
-    case 3: return cm_occupancy(cb_bwd_rows, cb_bwd_smem(Dp));
+    case 3: return Dp > 256 ? cm_occupancy(cb_bwd_rows<WD_DMAX>, cb_bwd_smem(Dp)) : cm_occupancy(cb_bwd_rows<256>, cb_bwd_smem(Dp));
     default: return -(int)cudaErrorInvalidValue;
   }
 }

@@ -33,8 +33,12 @@ namespace tfasr {
 constexpr int CV_RT = 16;  // rows per block
 constexpr int CV_CC = 64;  // output columns per staged weight chunk
 constexpr int CV_PT = 16;  // row-gradient accumulators per thread: CV_RT * D <= 256 * CV_PT
+// conv_front above D 256 (to 512, Conformer-L): 32-column chunks, whose
+// [D][32] weight stages fit beside the rows in shared memory, and 32
+// accumulators a thread.
+constexpr int CV_WIDE_CC = 32, CV_WIDE_PT = 32;
 
-template <typename T>
+template <typename T, int CV_CC>
 __global__ void conv_front_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                                   const float* __restrict__ beta, const T* __restrict__ wa, const T* __restrict__ ba,
                                   const T* __restrict__ wb, const T* __restrict__ bb, T* __restrict__ out, int N,
@@ -157,7 +161,7 @@ __device__ void ln_bwd_rows(const float* dy_s, const float* xhat_s, const float*
 
 // conv_front backward rows. Scratch (f32): y [N, D] (LN output), dha, dhb
 // [N, D] (gradients of the two GLU halves), dyx, dy [N, D].
-template <typename T>
+template <typename T, int CV_CC, int CV_PT>
 __global__ void conv_front_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                                            const float* __restrict__ beta, const T* __restrict__ wa,
                                            const T* __restrict__ ba, const T* __restrict__ wb,
@@ -355,13 +359,13 @@ inline int launch_bn_stat_grads(const void* dbias, const void* dscale, const voi
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int CV_CC>
 int launch_front(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba, const void* wb,
                  const void* bb, void* out, int N, int D, float eps, cudaStream_t stream) {
   const size_t smem = (size_t)(CV_RT * D + 2 * D * CV_CC) * sizeof(float);
-  cudaError_t err = allow_smem(conv_front_kernel<T>, smem);
+  cudaError_t err = allow_smem(conv_front_kernel<T, CV_CC>, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_front_kernel<T><<<(N + CV_RT - 1) / CV_RT, 256, smem, stream>>>(
+  conv_front_kernel<T, CV_CC><<<(N + CV_RT - 1) / CV_RT, 256, smem, stream>>>(
       (const T*)x, (const float*)gamma, (const float*)beta, (const T*)wa, (const T*)ba, (const T*)wb, (const T*)bb,
       (T*)out, N, D, eps);
   return (int)cudaGetLastError();
@@ -387,16 +391,17 @@ inline size_t conv_bwd_partial(int N, int D) {
   return a > b ? a : b;
 }
 
-template <typename T>
+template <typename T, int CV_CC, int CV_PT>
 int launch_front_bwd(const void* x, const void* gamma, const void* beta, const void* wa, const void* ba,
                      const void* wb, const void* bb, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwa,
                      void* dba, void* dwb, void* dbb, float* scratch, int N, int D, float eps, cudaStream_t stream) {
   const size_t nd = (size_t)N * D;
   float *y = scratch, *dha = y + nd, *dhb = dha + nd, *dyx = dhb + nd, *dy = dyx + nd, *partial = dy + nd;
+  if (CV_RT * D > 256 * CV_PT) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(2 * CV_RT * D + 2 * D * (CV_CC + 1) + 2 * CV_RT * CV_CC + CV_RT) * sizeof(float);
-  cudaError_t err = allow_smem(conv_front_bwd_rows_kernel<T>, smem);
+  cudaError_t err = allow_smem(conv_front_bwd_rows_kernel<T, CV_CC, CV_PT>, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_front_bwd_rows_kernel<T><<<(N + CV_RT - 1) / CV_RT, 256, smem, stream>>>(
+  conv_front_bwd_rows_kernel<T, CV_CC, CV_PT><<<(N + CV_RT - 1) / CV_RT, 256, smem, stream>>>(
       (const T*)x, (const float*)gamma, (const float*)beta, (const T*)wa, (const T*)ba, (const T*)wb, (const T*)bb,
       (const T*)dout, (T*)dx, y, dha, dhb, dyx, dy, N, D, eps);
   err = cudaGetLastError();
@@ -454,7 +459,9 @@ extern "C" int tfasr_conv_front(const void* x, const void* gamma, const void* be
                                 void* stream) {
   using namespace tfasr;
   if (dtype == kBF16) return launch_conv_front_mma(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
-  return launch_front<float>(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
+  if (D > 512) return (int)cudaErrorInvalidValue;
+  if (D > 256) return launch_front<float, CV_WIDE_CC>(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
+  return launch_front<float, CV_CC>(x, gamma, beta, wa, ba, wb, bb, out, N, D, eps, (cudaStream_t)stream);
 }
 
 // x/y1 [N, D]; mean/var/scale/bias [D] f32; w2 [D, D] ([in, out]) and
@@ -489,8 +496,11 @@ extern "C" int tfasr_conv_front_bwd(const void* x, const void* gamma, const void
     return launch_conv_front_mma_bwd(x, gamma, beta, wa, ba, wb, bb, dout, dx, cols, (float*)dwa, (float*)dwb, (float*)scratch, N, D, eps,
                                      (cudaStream_t)stream);
   }
-  return launch_front_bwd<float>(x, gamma, beta, wa, ba, wb, bb, dout, dx, dgamma, dbeta, dwa, dba, dwb, dbb,
-                                 (float*)scratch, N, D, eps, (cudaStream_t)stream);
+  if (D > 256)
+    return launch_front_bwd<float, CV_WIDE_CC, CV_WIDE_PT>(x, gamma, beta, wa, ba, wb, bb, dout, dx, dgamma, dbeta, dwa, dba, dwb, dbb,
+                                                           (float*)scratch, N, D, eps, (cudaStream_t)stream);
+  return launch_front_bwd<float, CV_CC, CV_PT>(x, gamma, beta, wa, ba, wb, bb, dout, dx, dgamma, dbeta, dwa, dba, dwb, dbb,
+                                               (float*)scratch, N, D, eps, (cudaStream_t)stream);
 }
 
 // Gradients of tfasr_conv_back except the skip path (the identity): dout

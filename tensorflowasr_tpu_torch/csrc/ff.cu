@@ -34,12 +34,13 @@
 
 namespace tfasr {
 
-constexpr int FF_RT = 16;   // rows per block
-constexpr int FF_FC = 64;   // F columns per chunk
-constexpr int FF_ZPT = 16;  // z accumulators per thread: FF_RT * D <= blockDim * FF_ZPT
+constexpr int FF_RT = 16;  // rows per block
+// F columns per chunk and z accumulators per thread (FF_RT * D <= blockDim *
+// ZPT): 64 and 16 up to D 256; 16 and 32 above, to D 512 (Conformer-L),
+// where 64-column chunks of W1 and W2 would not fit in shared memory.
 constexpr unsigned int FF_SALT_SITE2 = 7919u;  // ff_kernel._SALT_SITE2
 
-template <typename T>
+template <typename T, int FF_FC, int FF_ZPT>
 __global__ void ff_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
                               const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ w2,
                               const T* __restrict__ b2, T* __restrict__ out, int N, int D, int F, float eps,
@@ -123,7 +124,7 @@ __global__ void ff_fwd_kernel(const T* __restrict__ x, const float* __restrict__
 
 // Backward over FF_RT rows; see the header. Scratch rows (f32): y [N, D],
 // dh [N, F], ad [N, F] (dropped activation), dz [N, D], dyx [N, D], dy [N, D].
-template <typename T>
+template <typename T, int FF_FC, int FF_ZPT>
 __global__ void ff_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                                    const float* __restrict__ beta, const T* __restrict__ w1, const T* __restrict__ b1,
                                    const T* __restrict__ w2, const T* __restrict__ dout, T* __restrict__ dx,
@@ -268,14 +269,15 @@ __global__ void ff_bwd_rows_kernel(const T* __restrict__ x, const float* __restr
   }
 }
 
-template <typename T>
+template <typename T, int FF_FC, int FF_ZPT>
 int launch_ff(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2,
               const void* b2, void* out, int N, int D, int F, float eps, float factor, Dropout dp, cudaStream_t stream) {
+  if (FF_RT * D > 256 * FF_ZPT) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(FF_RT * D + D * FF_FC + FF_RT * FF_FC + FF_FC * D) * sizeof(float);
-  cudaError_t err = allow_smem(ff_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(ff_fwd_kernel<T, FF_FC, FF_ZPT>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + FF_RT - 1) / FF_RT;
-  ff_fwd_kernel<T><<<blocks, 256, smem, stream>>>((const T*)x, (const float*)gamma, (const float*)beta, (const T*)w1,
+  ff_fwd_kernel<T, FF_FC, FF_ZPT><<<blocks, 256, smem, stream>>>((const T*)x, (const float*)gamma, (const float*)beta, (const T*)w1,
                                                   (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, N, D, F, eps,
                                                   factor, dp);
   return (int)cudaGetLastError();
@@ -310,17 +312,18 @@ struct FFBwdScratch {
   }
 };
 
-template <typename T>
+template <typename T, int FF_FC, int FF_ZPT>
 int launch_ff_bwd(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2,
                   const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2, void* db2,
                   float* scratch, int N, int D, int F, float eps, float factor, Dropout dp, cudaStream_t stream) {
   const FFBwdScratch L(N, D, F);
   float *y = scratch + L.y, *dh = scratch + L.dh, *ad = scratch + L.ad, *dz = scratch + L.dz;
   float *dyx = scratch + L.dyx, *dy = scratch + L.dy, *partial = scratch + L.partial;
+  if (FF_RT * D > 256 * FF_ZPT) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(3 * FF_RT * D + D * (FF_FC + 1) + FF_FC * (D + 1) + FF_RT * FF_FC + FF_RT) * sizeof(float);
-  cudaError_t err = allow_smem(ff_bwd_rows_kernel<T>, smem);
+  cudaError_t err = allow_smem(ff_bwd_rows_kernel<T, FF_FC, FF_ZPT>, smem);
   if (err != cudaSuccess) return (int)err;
-  ff_bwd_rows_kernel<T><<<(N + FF_RT - 1) / FF_RT, 256, smem, stream>>>(
+  ff_bwd_rows_kernel<T, FF_FC, FF_ZPT><<<(N + FF_RT - 1) / FF_RT, 256, smem, stream>>>(
       (const T*)x, (const float*)gamma, (const float*)beta, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)dout,
       (T*)dx, y, dh, ad, dz, dyx, dy, N, D, F, eps, factor, dp);
   err = cudaGetLastError();
@@ -337,8 +340,8 @@ int launch_ff_bwd(const void* x, const void* gamma, const void* beta, const void
 }  // namespace tfasr
 
 // x [N, D]; gamma/beta [D] f32; w1 [D, F], b1 [F], w2 [F, D], b2 [D] in
-// x's dtype; out [N, D]. Requires D <= 256. rows: the bf16 forward's row
-// tile, 64, 32 or 16 (f32 ignores it). Dropout (drop_on) with seed, uint32
+// x's dtype; out [N, D]. Requires D <= 512. rows: the bf16 forward's row
+// tile, 64 or 32 (32 above D 256; f32 ignores it). Dropout (drop_on) with seed, uint32
 // threshold and keep scale.
 extern "C" int tfasr_fused_ff(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* out, int N, int D, int F, int rows, float eps, float factor,
@@ -347,7 +350,8 @@ extern "C" int tfasr_fused_ff(const void* x, const void* gamma, const void* beta
   using namespace tfasr;
   const Dropout dp{seed, thresh, keep_scale, drop_on};
   if (dtype == kBF16) return launch_ff_mma(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, rows, eps, factor, dp, (cudaStream_t)stream);
-  return launch_ff<float>(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, eps, factor, dp, (cudaStream_t)stream);
+  if (D <= 256) return launch_ff<float, 64, 16>(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, eps, factor, dp, (cudaStream_t)stream);
+  return launch_ff<float, 16, 32>(x, gamma, beta, w1, b1, w2, b2, out, N, D, F, eps, factor, dp, (cudaStream_t)stream);
 }
 
 // Floats of scratch tfasr_fused_ff_bwd needs.
@@ -372,6 +376,9 @@ extern "C" int tfasr_fused_ff_bwd(const void* x, const void* gamma, const void* 
     return launch_ff_mma_bwd(x, gamma, beta, w1, b1, w2, dout, dx, cols, (float*)dw1, (float*)dw2, (float*)scratch, N, D, F, eps, factor, dp,
                              (cudaStream_t)stream);
   }
-  return launch_ff_bwd<float>(x, gamma, beta, w1, b1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2, (float*)scratch,
-                              N, D, F, eps, factor, dp, (cudaStream_t)stream);
+  if (D <= 256)
+    return launch_ff_bwd<float, 64, 16>(x, gamma, beta, w1, b1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2, (float*)scratch, N, D, F, eps,
+                                        factor, dp, (cudaStream_t)stream);
+  return launch_ff_bwd<float, 16, 32>(x, gamma, beta, w1, b1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2, (float*)scratch, N, D, F, eps,
+                                      factor, dp, (cudaStream_t)stream);
 }

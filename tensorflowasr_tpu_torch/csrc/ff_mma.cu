@@ -80,23 +80,26 @@ struct FFArgs {
   float eps, factor;
 };
 
-// Stage the weight chunk c into w1 [Dp][FM_LDF] (W1[:, chunk]) and w2
-// [FM_FC][Dp + AM_PAD] (W2[chunk, :]); rows and columns past D or F zero.
+// Stage the weight chunk c (FC columns of F) into w1 [Dp][FC + AM_PAD]
+// (W1[:, chunk]) and w2 [FC][Dp + AM_PAD] (W2[chunk, :]); rows and columns
+// past D or F zero.
+template <int FC = FM_FC>
 __device__ __forceinline__ void fm_stage_w(bf16* w1s, bf16* w2s, const bf16* w1, const bf16* w2, int c, const FFArgs& a) {
-  const int f0 = c * FM_FC, D = a.D, F = a.F, LDD = a.Dp + AM_PAD;
+  constexpr int LDF = FC + AM_PAD;
+  const int f0 = c * FC, D = a.D, F = a.F, LDD = a.Dp + AM_PAD;
   if (a.vec) {
-    for (int i = threadIdx.x; i < a.Dp * (FM_FC / 8); i += blockDim.x) {
-      const int d = i / (FM_FC / 8), f = (i % (FM_FC / 8)) * 8;
+    for (int i = threadIdx.x; i < a.Dp * (FC / 8); i += blockDim.x) {
+      const int d = i / (FC / 8), f = (i % (FC / 8)) * 8;
       const bool ok = d < D && f0 + f < F;
-      cp_async16(smem_u32(w1s + d * FM_LDF + f), ok ? w1 + (size_t)d * F + f0 + f : w1, ok ? 16 : 0);
+      cp_async16(smem_u32(w1s + d * LDF + f), ok ? w1 + (size_t)d * F + f0 + f : w1, ok ? 16 : 0);
     }
-    am_stage(w2s, w2, f0, F, FM_FC, D, a.Dp, 1);
+    am_stage(w2s, w2, f0, F, FC, D, a.Dp, 1);
   } else {
-    for (int i = threadIdx.x; i < a.Dp * FM_FC; i += blockDim.x) {
-      const int d = i / FM_FC, f = i % FM_FC;
-      w1s[d * FM_LDF + f] = (d < D && f0 + f < F) ? w1[(size_t)d * F + f0 + f] : __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < a.Dp * FC; i += blockDim.x) {
+      const int d = i / FC, f = i % FC;
+      w1s[d * LDF + f] = (d < D && f0 + f < F) ? w1[(size_t)d * F + f0 + f] : __float2bfloat16(0.f);
     }
-    for (int i = threadIdx.x; i < FM_FC * a.Dp; i += blockDim.x) {
+    for (int i = threadIdx.x; i < FC * a.Dp; i += blockDim.x) {
       const int f = i / a.Dp, d = i % a.Dp;
       w2s[f * LDD + d] = (d < D && f0 + f < F) ? w2[(size_t)(f0 + f) * D + d] : __float2bfloat16(0.f);
     }
@@ -425,6 +428,272 @@ __global__ void __launch_bounds__(FM_THREADS, 1) ff_mma_bwd_rows(const bf16* __r
   }
 }
 
+// ---------------------- the wide kernels (256 < Dp <= 512) ---------------------- //
+//
+// At Conformer-L's D 512, F 2048 the narrow tile does not fit: a warp's
+// [16, D] accumulator would take 256 f32 a thread, and two 64-column chunks
+// of W1 and W2 beside 64 rows take 347 KB of shared memory. The wide kernels
+// take 32 rows a block (WD_ROWS, 8 warps; the forward 64 rows, 16 warps,
+// where the 32-row grid would take more than one wave) and 32-column F chunks, still
+// double-buffered (W1c [Dp][40], W2c [32][Dp + 8]), and each chunk runs as
+// two products with a barrier between: (1) h [32, 32] = y . W1c, warp (rg,
+// q) the 16 rows rg and the 8 columns 8q over the whole of D (one n-tile);
+// the activation goes to shared memory as bf16; (2) z [32, D] += a . W2c,
+// warp (rg, q) the rows rg and the output columns q * 128 .. (16 n-tiles,
+// 64 f32 a thread). The backward does the same with h and da = dz . W2c^T in
+// (1) and dy += dh . W1c^T in (2), and the LayerNorm backward's row sums meet
+// across the four column quarters (wide_ln_bwd). Shared memory at Dp 512:
+// 184,320 bytes forward (220,160 at 64 rows), 218,880 backward: one block
+// per SM. The forward's first product alternates its k-steps between two
+// accumulators (two independent mma chains a warp; with the 64-row tile it
+// took the forward from 0.539 to 0.361 ms at N 6400, PERF.md §6, row 5).
+constexpr int FW_FC = 32;  // F columns per chunk of the wide kernels: 8 a warp quarter
+constexpr int FW_LDF = FW_FC + AM_PAD;
+
+// RG row groups of 16 (2: 32 rows, 8 warps; 4: 64 rows, 16 warps), warp w the row group w % RG and the column quarter w / RG.
+template <int RG>
+__global__ void __launch_bounds__(128 * RG, 1) ffw_fwd(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                                                      const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                                                      const bf16* __restrict__ b2, bf16* __restrict__ out, FFArgs a, Dropout dp) {
+  constexpr int ROWS = 16 * RG, WARPS = 4 * RG;
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, F = a.F, N = a.N;
+  bf16* y_s = reinterpret_cast<bf16*>(fm_smem);  // [ROWS][LDD] LN output
+  bf16* w1_s = y_s + ROWS * LDD;                 // [2][Dp][FW_LDF]
+  bf16* w2_s = w1_s + 2 * Dp * FW_LDF;           // [2][FW_FC][LDD]
+  bf16* a_s = w2_s + 2 * FW_FC * LDD;            // [ROWS][FW_LDF] the chunk's activation
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+  const int rg = warp % RG, q = warp / RG, d0 = q * WD_DQ;
+  const int row0 = blockIdx.x * ROWS, row_lo = row0 + rg * 16 + g;
+
+  fm_stage_w<FW_FC>(w1_s, w2_s, w1, w2, 0, a);
+  cp_async_commit();
+  for (int r = warp; r < ROWS; r += WARPS) {
+    bf16* dst = y_s + r * LDD;
+    if (row0 + r < N)
+      ln_row_warp<bf16>(x + (size_t)(row0 + r) * D, gamma, beta, D, a.eps, dst, lane);
+    else
+      for (int c = lane; c < D; c += 32) dst[c] = __float2bfloat16(0.f);
+  }
+  fm_zero_pad(y_s, ROWS, LDD, D, Dp);
+
+  float z[WD_DQ / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < WD_DQ / 8; ++dt) z[dt][0] = z[dt][1] = z[dt][2] = z[dt][3] = 0.f;
+  const bf16* yw = y_s + rg * 16 * LDD;
+  for (int c = 0; c < a.nch; ++c) {
+    if (c + 1 < a.nch) {
+      fm_stage_w<FW_FC>(w1_s + ((c + 1) & 1) * Dp * FW_LDF, w2_s + ((c + 1) & 1) * FW_FC * LDD, w1, w2, c + 1, a);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* w1c = w1_s + (c & 1) * Dp * FW_LDF;
+    const bf16* w2c = w2_s + (c & 1) * FW_FC * LDD;
+    float h[4] = {0.f, 0.f, 0.f, 0.f}, h2[4] = {0.f, 0.f, 0.f, 0.f};  // the even and the odd k-steps
+#pragma unroll 2
+    for (int kk = 0; kk < nk; kk += 2) {
+      uint32_t af[4], b[2];
+      load_a(af, yw + kk * 16, LDD, lane);
+      load_b_kn_x2(b, w1c + kk * 16 * FW_LDF + q * 8, FW_LDF, lane);
+      mma16816(h, af, b[0], b[1]);
+      if (kk + 1 < nk) {
+        load_a(af, yw + (kk + 1) * 16, LDD, lane);
+        load_b_kn_x2(b, w1c + (kk + 1) * 16 * FW_LDF + q * 8, FW_LDF, lane);
+        mma16816(h2, af, b[0], b[1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] += h2[e];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float act[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int f = c * FW_FC + q * 8 + 2 * tig + j;
+        act[j] = 0.f;
+        if (f < F) {
+          const float hh = h[2 * hf + j] + to_f32(b1[f]);
+          act[j] = hh * sigmoid_f32(hh);
+          if (dp.on) act[j] *= dropout_keep(dp, dp.seed, row_lo + 8 * hf, f);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(a_s + (rg * 16 + g + 8 * hf) * FW_LDF + q * 8 + 2 * tig) = pack_bf16(act[0], act[1]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < FW_FC / 16; ++ks) {
+      uint32_t af[4];
+      load_a(af, a_s + rg * 16 * FW_LDF + ks * 16, FW_LDF, lane);
+#pragma unroll
+      for (int np = 0; np < WD_DQ / 16; ++np) {
+        if (d0 + np * 16 < Dp) {
+          uint32_t b[4];
+          load_b_kn(b, w2c + ks * 16 * LDD + d0 + np * 16, LDD, lane);
+          mma16816(z[2 * np], af, b[0], b[1]);
+          mma16816(z[2 * np + 1], af, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // before the next chunk's copy refills this buffer and a_s is rewritten
+  }
+#pragma unroll
+  for (int dt = 0; dt < WD_DQ / 8; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_lo + (e >> 1) * 8, col = d0 + dt * 8 + 2 * tig + (e & 1);
+      if (row < N && col < D) {
+        const size_t off = (size_t)row * D + col;
+        float zz = z[dt][e] + to_f32(b2[col]);
+        if (dp.on) zz *= dropout_keep(dp, dp.seed + FM_SALT_SITE2, row, col);
+        out[off] = __float2bfloat16(to_f32(x[off]) + a.factor * zz);
+      }
+    }
+  }
+}
+
+// The wide backward rows pass; as ff_mma_bwd_rows, with part [2 * blocks][F + 3D].
+__global__ void __launch_bounds__(FM_THREADS, 1) ffw_bwd_rows(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                                                             const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                                                             const bf16* __restrict__ dout, bf16* __restrict__ dx, Split y_o, Split dz_o, Split ad_o,
+                                                             Split dh_o, float* __restrict__ part, FFArgs a, Dropout dp) {
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, F = a.F, N = a.N;
+  bf16* y_s = reinterpret_cast<bf16*>(fm_smem);                     // [32][LDD] LN output
+  bf16* dz_s = y_s + WD_ROWS * LDD;                                 // [32][LDD] dz
+  bf16* w1_s = dz_s + WD_ROWS * LDD;                                // [2][Dp][FW_LDF]
+  bf16* w2_s = w1_s + 2 * Dp * FW_LDF;                              // [2][FW_FC][LDD]
+  bf16* dh_s = w2_s + 2 * FW_FC * LDD;                              // [32][FW_LDF] the chunk's dh
+  float* mu_s = reinterpret_cast<float*>(dh_s + WD_ROWS * FW_LDF);  // [32]
+  float* rstd_s = mu_s + WD_ROWS;                                   // [32]
+  float* red_s = rstd_s + WD_ROWS;                                  // [2][4][32] the LayerNorm backward's row sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+  const int rg = warp & 1, q = warp >> 1, d0 = q * WD_DQ;
+  const int row0 = blockIdx.x * WD_ROWS, row_lo = row0 + rg * 16 + g;
+  const int C = F + 3 * D;
+  float* prow = part + (size_t)(blockIdx.x * 2 + rg) * C;  // this row group's column sums
+
+  fm_stage_w<FW_FC>(w1_s, w2_s, w1, w2, 0, a);
+  cp_async_commit();
+  for (int r = warp; r < WD_ROWS; r += FM_THREADS / 32) {
+    const int row = row0 + r;
+    bf16* ys = y_s + r * LDD;
+    bf16* dzs = dz_s + r * LDD;
+    if (row >= N) {
+      for (int c = lane; c < D; c += 32) ys[c] = dzs[c] = __float2bfloat16(0.f);
+      if (lane == 0) mu_s[r] = 0.f, rstd_s[r] = 0.f;
+      continue;
+    }
+    const bf16* xr = x + (size_t)row * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += to_f32(xr[c]);
+    const float mu = warp_sum(s) / (float)D;
+    float qv = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float cx = to_f32(xr[c]) - mu;
+      qv = fmaf(cx, cx, qv);
+    }
+    const float rstd = rsqrtf(warp_sum(qv) / (float)D + a.eps);
+    if (lane == 0) mu_s[r] = mu, rstd_s[r] = rstd;
+    for (int c = lane; c < D; c += 32) {
+      const size_t off = (size_t)row * D + c;
+      const float y = (to_f32(xr[c]) - mu) * rstd * gamma[c] + beta[c];
+      ys[c] = __float2bfloat16(y);
+      put_split(y_o, row, c, y);
+      float dz = a.factor * to_f32(dout[off]);
+      if (dp.on) dz *= dropout_keep(dp, dp.seed + FM_SALT_SITE2, row, c);
+      dzs[c] = __float2bfloat16(dz);
+      put_split(dz_o, row, c, dz);
+    }
+  }
+  fm_zero_pad(y_s, WD_ROWS, LDD, D, Dp);
+  fm_zero_pad(dz_s, WD_ROWS, LDD, D, Dp);
+
+  float dy[WD_DQ / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < WD_DQ / 8; ++dt) dy[dt][0] = dy[dt][1] = dy[dt][2] = dy[dt][3] = 0.f;
+  const bf16* yw = y_s + rg * 16 * LDD;
+  const bf16* dzw = dz_s + rg * 16 * LDD;
+  for (int c = 0; c < a.nch; ++c) {
+    if (c + 1 < a.nch) {
+      fm_stage_w<FW_FC>(w1_s + ((c + 1) & 1) * Dp * FW_LDF, w2_s + ((c + 1) & 1) * FW_FC * LDD, w1, w2, c + 1, a);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* w1c = w1_s + (c & 1) * Dp * FW_LDF;
+    const bf16* w2c = w2_s + (c & 1) * FW_FC * LDD;
+    float h[4] = {0.f, 0.f, 0.f, 0.f}, da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = 0; kk < nk; ++kk) {
+      uint32_t af[4], b[2];
+      load_a(af, yw + kk * 16, LDD, lane);
+      load_b_kn_x2(b, w1c + kk * 16 * FW_LDF + q * 8, FW_LDF, lane);
+      mma16816(h, af, b[0], b[1]);
+      load_a(af, dzw + kk * 16, LDD, lane);
+      load_b_nk_x2(b, w2c + q * 8 * LDD + kk * 16, LDD, lane);  // dz . W2c^T: W2c's rows are da's columns
+      mma16816(da, af, b[0], b[1]);
+    }
+    const int fc = c * FW_FC + q * 8 + 2 * tig;
+    float ad[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = fc + (e & 1), row = row_lo + (e >> 1) * 8;
+      float dh = 0.f;
+      ad[e] = 0.f;
+      if (f < F && row < N) {
+        const float hh = h[e] + to_f32(b1[f]);
+        const float sig = sigmoid_f32(hh);
+        float dav = da[e];
+        ad[e] = hh * sig;
+        if (dp.on) {
+          const float keep = dropout_keep(dp, dp.seed, row, f);
+          ad[e] *= keep;
+          dav *= keep;
+        }
+        dh = dav * (sig + hh * sig * (1.f - sig));
+      }
+      h[e] = dh;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {  // F columns fc, fc + 1 of rows row_lo, row_lo + 8 (fc + 1 < Fq: both even)
+      const int row = row_lo + 8 * hf;
+      if (fc < F && row < N) {
+        put_split2(ad_o, row, fc, ad[2 * hf], ad[2 * hf + 1]);
+        put_split2(dh_o, row, fc, h[2 * hf], h[2 * hf + 1]);
+      }
+      *reinterpret_cast<uint32_t*>(dh_s + (rg * 16 + g + 8 * hf) * FW_LDF + q * 8 + 2 * tig) = pack_bf16(h[2 * hf], h[2 * hf + 1]);
+    }
+    const float s0 = col_sum8(h[0] + h[2]), s1 = col_sum8(h[1] + h[3]);
+    if (g == 0) {
+      if (fc < F) prow[fc] = s0;
+      if (fc + 1 < F) prow[fc + 1] = s1;
+    }
+    __syncthreads();
+    // dy += dh_bf16 . W1c^T: W1c's rows (d) are the output columns, its columns the summed index
+#pragma unroll
+    for (int ks = 0; ks < FW_FC / 16; ++ks) {
+      uint32_t af[4];
+      load_a(af, dh_s + rg * 16 * FW_LDF + ks * 16, FW_LDF, lane);
+#pragma unroll
+      for (int np = 0; np < WD_DQ / 16; ++np) {
+        if (d0 + np * 16 < Dp) {
+          uint32_t b[4];
+          load_b_nk(b, w1c + (d0 + np * 16) * FW_LDF + ks * 16, FW_LDF, lane);
+          mma16816(dy[2 * np], af, b[0], b[1]);
+          mma16816(dy[2 * np + 1], af, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // before the next chunk's copy refills this buffer and dh_s is rewritten
+  }
+  wide_ln_bwd(dy, red_s, mu_s, rstd_s, x, gamma, dout, dx, prow, F + D, F + 2 * D, F, a.factor, dp, dp.seed + FM_SALT_SITE2, row0, N, D, Dp, lane, warp);
+}
+
 // partial[split][M][K] = sum over the split's rows n of A[n, m] B[n, k], A and
 // B given as bf16 hi + lo: hi.hi + hi.lo + lo.hi, f32 accumulation. 4 warps,
 // a 64 x 64 tile (warp w owns m rows 16w.., all 64 k columns); 32-row stages
@@ -511,7 +780,8 @@ int fm_rows_per_split(int N, int splits) { return ((N + splits - 1) / splits + F
 struct FMScratch {
   int Dq, Fq;
   size_t y, dz, ad, dh, part, partial, total;
-  FMScratch(int N, int D, int F) {
+  // rows: the rows pass's block rows (FM_ROWS, or WD_ROWS for the wide kernels); one column-sum row per 16
+  FMScratch(int N, int D, int F, int rows = FM_ROWS) {
     Dq = (D + 7) / 8 * 8;
     Fq = (F + 7) / 8 * 8;
     const size_t nd = (size_t)N * Dq, nf = (size_t)N * Fq;  // floats per hi + lo pair
@@ -520,7 +790,7 @@ struct FMScratch {
     ad = dz + nd;
     dh = ad + nf;
     part = dh + nf;
-    partial = part + (size_t)4 * ((N + FM_ROWS - 1) / FM_ROWS) * (F + 3 * D);
+    partial = part + (size_t)(rows / 16) * ((N + rows - 1) / rows) * (F + 3 * D);
     const size_t p1 = (size_t)fm_splits(N, D, F) * D * F, p2 = (size_t)fm_splits(N, F, D) * F * D;
     total = partial + (p1 > p2 ? p1 : p2);
   }
@@ -545,6 +815,44 @@ int fm_dispatch(int Dp, Args... args) {
   if (Dp <= 192) return K<192>::run(args...);
   if (Dp <= 256) return K<256>::run(args...);
   return (int)cudaErrorInvalidValue;
+}
+
+size_t fw_fwd_smem(int Dp, int rows) {
+  return (size_t)(rows * (Dp + AM_PAD) + 2 * Dp * FW_LDF + 2 * FW_FC * (Dp + AM_PAD) + rows * FW_LDF) * sizeof(bf16);
+}
+size_t fw_bwd_smem(int Dp) {
+  return fw_fwd_smem(Dp, WD_ROWS) + (size_t)WD_ROWS * (Dp + AM_PAD) * sizeof(bf16) + (2 * WD_ROWS + 8 * 32) * sizeof(float);
+}
+int fw_part_rows(int N) { return 2 * ((N + WD_ROWS - 1) / WD_ROWS); }
+
+// The wide kernels' arguments: F walked in FW_FC-column chunks.
+FFArgs fw_args(FFArgs a) {
+  a.nch = (a.F + FW_FC - 1) / FW_FC;
+  return a;
+}
+
+template <int RG>
+int fw_fwd_launch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* b2, void* out, FFArgs a,
+                  Dropout dp, cudaStream_t stream) {
+  const size_t smem = fw_fwd_smem(a.Dp, 16 * RG);
+  cudaError_t err = allow_smem(ffw_fwd<RG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ffw_fwd<RG><<<(a.N + 16 * RG - 1) / (16 * RG), 128 * RG, smem, stream>>>((const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)w1,
+                                                                      (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (bf16*)out, fw_args(a), dp);
+  return (int)cudaGetLastError();
+}
+
+int fw_bwd_launch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* dout, void* dx,
+                  float* scratch, FFArgs a, Dropout dp, cudaStream_t stream) {
+  const FMScratch L(a.N, a.D, a.F, WD_ROWS);
+  const size_t smem = fw_bwd_smem(a.Dp);
+  cudaError_t err = allow_smem(ffw_bwd_rows, smem);
+  if (err != cudaSuccess) return (int)err;
+  ffw_bwd_rows<<<(a.N + WD_ROWS - 1) / WD_ROWS, FM_THREADS, smem, stream>>>(
+      (const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)dout, (bf16*)dx,
+      FMScratch::split(scratch, L.y, a.N, L.Dq), FMScratch::split(scratch, L.dz, a.N, L.Dq), FMScratch::split(scratch, L.ad, a.N, L.Fq),
+      FMScratch::split(scratch, L.dh, a.N, L.Fq), scratch + L.part, fw_args(a), dp);
+  return (int)cudaGetLastError();
 }
 
 size_t fm_fwd_smem(int Dp, int rows) { return (size_t)(rows * (Dp + AM_PAD) + 2 * Dp * FM_LDF + 2 * FM_FC * (Dp + AM_PAD)) * sizeof(bf16); }
@@ -629,10 +937,18 @@ long long split_atb_partial_floats(int N, int M, int K) { return (long long)fm_s
 int launch_ff_mma(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* b2, void* out,
                   int N, int D, int F, int rows, float eps, float factor, Dropout dp, cudaStream_t stream) {
   const FFArgs a = fm_args(N, D, F, eps, factor, w1, w2);
+  if (a.Dp > 256) {
+    if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
+    switch (rows) {
+      case 32: return fw_fwd_launch<2>(x, gamma, beta, w1, b1, w2, b2, out, a, dp, stream);
+      case 64: return fw_fwd_launch<4>(x, gamma, beta, w1, b1, w2, b2, out, a, dp, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   return fm_dispatch<FwdRun>(a.Dp, rows, x, gamma, beta, w1, b1, w2, b2, out, a, dp, stream);
 }
 
-long long ff_mma_bwd_scratch(int N, int D, int F) { return (long long)FMScratch(N, D, F).total; }
+long long ff_mma_bwd_scratch(int N, int D, int F) { return (long long)FMScratch(N, D, F, (D + 15) / 16 * 16 > 256 ? WD_ROWS : FM_ROWS).total; }
 
 // dgamma, dbeta [D], db1 [F], db2 [D] f32 are views of one column-sum output
 // cols [F + 3D] (db1, db2, dgamma, dbeta); dw1 [D, F], dw2 [F, D] f32.
@@ -640,10 +956,14 @@ int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const 
                       void* dx, float* cols, float* dw1, float* dw2, float* scratch, int N, int D, int F, float eps, float factor, Dropout dp,
                       cudaStream_t stream) {
   const FFArgs a = fm_args(N, D, F, eps, factor, w1, w2);
-  const FMScratch L(N, D, F);
-  int e = fm_dispatch<BwdRun>(a.Dp, x, gamma, beta, w1, b1, w2, dout, dx, scratch, a, dp, stream);
+  const bool wide = a.Dp > 256;
+  if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
+  const FMScratch L(N, D, F, wide ? WD_ROWS : FM_ROWS);
+  int e = wide ? fw_bwd_launch(x, gamma, beta, w1, b1, w2, dout, dx, scratch, a, dp, stream)
+               : fm_dispatch<BwdRun>(a.Dp, x, gamma, beta, w1, b1, w2, dout, dx, scratch, a, dp, stream);
   if (e) return e;
-  if ((e = launch_sum_partials(scratch + L.part, cols, 4 * ((N + FM_ROWS - 1) / FM_ROWS), (size_t)F + 3 * D, stream))) return e;
+  const int part_rows = wide ? fw_part_rows(N) : 4 * ((N + FM_ROWS - 1) / FM_ROWS);
+  if ((e = launch_sum_partials(scratch + L.part, cols, part_rows, (size_t)F + 3 * D, stream))) return e;
   const Split y = FMScratch::split(scratch, L.y, N, L.Dq), dz = FMScratch::split(scratch, L.dz, N, L.Dq);
   const Split ad = FMScratch::split(scratch, L.ad, N, L.Fq), dh = FMScratch::split(scratch, L.dh, N, L.Fq);
   if ((e = launch_split_atb(y, dh, dw1, scratch + L.partial, N, D, F, stream))) return e;
@@ -653,10 +973,12 @@ int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const 
 }  // namespace tfasr
 
 // Dynamic shared memory (bytes) of the bf16 backward rows kernel (rows 0) or
-// of the forward at 64 or 32 rows, at width D; ops/cuda/ff_kernel.py:
-// ff_mma_plan computes the same.
+// of the forward at 64 or 32 rows, at width D (above 256 the wide kernels,
+// whose forward takes 32 rows); ops/cuda/ff_kernel.py: ff_mma_plan computes
+// the same.
 extern "C" long long tfasr_ff_mma_smem(int D, int rows) {
   const int Dp = (D + 15) / 16 * 16;
+  if (Dp > 256) return rows == 0 ? (long long)tfasr::fw_bwd_smem(Dp) : rows == 32 || rows == 64 ? (long long)tfasr::fw_fwd_smem(Dp, rows) : -1;
   return (long long)(rows == 0 ? tfasr::fm_bwd_smem(Dp) : tfasr::fm_fwd_smem(Dp, rows));
 }
 
@@ -665,6 +987,12 @@ extern "C" long long tfasr_ff_mma_smem(int D, int rows) {
 extern "C" int tfasr_ff_mma_occupancy(int D, int rows) {
   using namespace tfasr;
   const int Dp = (D + 15) / 16 * 16;
+  if (Dp > WD_DMAX) return -(int)cudaErrorInvalidValue;
+  if (Dp > 256) {
+    if (rows == 0) return fm_occupancy(ffw_bwd_rows, FM_THREADS, fw_bwd_smem(Dp));
+    if (rows == 32) return fm_occupancy(ffw_fwd<2>, 256, fw_fwd_smem(Dp, 32));
+    return rows == 64 ? fm_occupancy(ffw_fwd<4>, 512, fw_fwd_smem(Dp, 64)) : -(int)cudaErrorInvalidValue;
+  }
   return fm_dispatch<Occupancy>(Dp, rows, Dp);
 }
 

@@ -47,7 +47,7 @@
 //    shared memory and dbv[chunk] in registers.
 //  - the fixed-order sums of the partials.
 // What bounds it: the f32 products on the CUDA cores (forward 2·B·T·(U+1)·J·V
-// operations, backward three times that and the logits once more); J <= 384
+// operations, backward three times that and the logits once more); J <= 640
 // and a multiple of 8.
 #include "common.cuh"
 
@@ -497,7 +497,7 @@ int launch_joint_mma_bwd(const void* enc, const void* pred, const void* wv, cons
 }  // namespace tfasr
 
 // enc_p [B, T, J], pred_p [B, U1, J], wv [V, J] in one dtype (f32 or bf16);
-// bv [V] f32; labels [B, U1 - 1] int32 → lpb, lpe, lse [B, T, U1] f32. J <= 384,
+// bv [V] f32; labels [B, U1 - 1] int32 → lpb, lpe, lse [B, T, U1] f32. J <= 640,
 // 8 | J, enc, pred and wv 16-byte aligned.
 extern "C" int tfasr_joint_fwd(const void* enc, const void* pred, const void* wv, const void* bv, const void* labels,
                                void* lpb, void* lpe, void* lse, int B, int T, int U1, int J, int V, int dtype,

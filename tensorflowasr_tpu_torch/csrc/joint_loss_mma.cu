@@ -76,7 +76,7 @@
 // more: the tiles cover 8 x 136 of the 129 label positions (5% more
 // cells), the rows pass recomputes the logits and runs da as two products
 // (hi, lo), and the weight pass recomputes the logits again: 10 x B T (U+1)
-// J V operations in the backward on the cells it does not skip. J <= 384,
+// J V operations in the backward on the cells it does not skip. J <= 640,
 // 8 | J; any V (the Wv chunks stream).
 #include "mma.cuh"
 
@@ -89,6 +89,14 @@ constexpr int JM_THREADS = 256;                                 // 8 warps
 constexpr int JM_FV = 32;                                       // forward: vocabulary rows per Wv chunk
 constexpr int JM_BV = 64;                                       // backward: vocabulary rows per Wv chunk
 constexpr int JM_JMAX = 384;
+// Joint widths above 384 (to 640, Conformer-L's) take their own
+// instantiations, with the k-step loops bounded at 640: the rows pass holds
+// one Wv chunk, not two (its double buffer beside a 64-cell tile would take
+// 306 KB of shared memory at J 640; one takes 223,488 bytes), and the
+// forward with Wv resident is not used. The instantiations up to 384 keep
+// their code.
+constexpr int JM_JMAX_WIDE = 640;
+__host__ __device__ constexpr int jm_jmax(int nh) { return nh <= JM_JMAX / 16 ? JM_JMAX : JM_JMAX_WIDE; }
 constexpr int JM_SPLITS = 2;             // bf16 terms of dlog in the rows pass's f32 da product (hi + lo)
 constexpr int JM_LDL = JM_BV + AM_PAD;  // the weight pass's dlog tile [64 cells][72]
 constexpr int JM_SMS = 132;             // the H100's SMs: the weight pass runs about one block per SM
@@ -196,7 +204,7 @@ __device__ __forceinline__ float jm_dlog(float logit, const JMRow& row, int v, i
 // acc[NT] = A (16 rows at a_w) . B^T (8 NT rows at b_w), both [rows][lda]
 // bf16, over nk k-steps: the even and the odd k-steps in two accumulators
 // (two mma chains per n-tile), summed at the end.
-template <int NT>
+template <int NT, int JMAX = JM_JMAX>
 __device__ __forceinline__ void jm_abT2(float (&acc)[NT][4], const bf16* a_w, const bf16* b_w, int lda, int nk, int lane) {
   float odd[NT][4];
 #pragma unroll
@@ -204,7 +212,7 @@ __device__ __forceinline__ void jm_abT2(float (&acc)[NT][4], const bf16* a_w, co
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = odd[nt][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < JM_JMAX / 16; kk += 2) {
+  for (int kk = 0; kk < JMAX / 16; kk += 2) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (kk + h < nk) {
@@ -226,6 +234,7 @@ __device__ __forceinline__ void jm_abT2(float (&acc)[NT][4], const bf16* a_w, co
     for (int e = 0; e < 4; ++e) acc[nt][e] += odd[nt][e];
 }
 
+template <int JMAX>
 __global__ void __launch_bounds__(JM_THREADS, 2) jm_fwd(const bf16* __restrict__ enc, const bf16* __restrict__ pred, const bf16* __restrict__ wv,
                                                        const float* __restrict__ bv, const int* __restrict__ labels, float* __restrict__ lpb,
                                                        float* __restrict__ lpe, float* __restrict__ lse, JMArgs a) {
@@ -263,7 +272,7 @@ __global__ void __launch_bounds__(JM_THREADS, 2) jm_fwd(const bf16* __restrict__
     }
     __syncthreads();
     float acc[2][4];
-    jm_abT2<2>(acc, a_s + rg * 16 * lda, w_s + (c & 1) * JM_FV * lda + vh * 16 * lda, lda, nk, lane);
+    jm_abT2<2, JMAX>(acc, a_s + rg * 16 * lda, w_s + (c & 1) * JM_FV * lda + vh * 16 * lda, lda, nk, lane);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float x[4], cmax = JM_NINF;
@@ -495,6 +504,9 @@ __device__ __forceinline__ void group_barrier(int id) { asm volatile("bar.sync %
 // vocabulary rows 16 q.. of each 64-row chunk for the logits, and the q-th
 // quarter of J's 16-column pairs for da (NP pairs at most).
 template <int NP>
+__host__ __device__ constexpr int jm_rows_buffers() { return 4 * NP <= JM_JMAX / 16 ? 2 : 1; }  // Wv chunk buffers of the rows pass
+
+template <int NP>
 __global__ void __launch_bounds__(JM_ROWS_THREADS, 1) jm_bwd_rows(const bf16* __restrict__ enc, const bf16* __restrict__ pred, const bf16* __restrict__ wv,
                                                                  const float* __restrict__ bv, const int* __restrict__ labels, const float* __restrict__ lse,
                                                                  const float* __restrict__ gbl, const float* __restrict__ gem, float* __restrict__ denc,
@@ -502,8 +514,9 @@ __global__ void __launch_bounds__(JM_ROWS_THREADS, 1) jm_bwd_rows(const bf16* __
   extern __shared__ __align__(16) unsigned char jm_smem[];
   const int lda = a.lda, Jp = a.Jp, J = a.J, V = a.V, nk = Jp / 16;
   bf16* a_s = reinterpret_cast<bf16*>(jm_smem);                           // [64][lda]; in each tile's epilogue dp_s [4][8][Jp] f32
-  bf16* w_s = a_s + JM_ROWS * lda;                                        // [2][JM_BV][lda]
-  bf16* rows_s = w_s + 2 * JM_BV * lda;                                   // [16][lda] the tile's enc_p and pred_p rows
+  constexpr int NB = jm_rows_buffers<NP>(), JMAX = jm_jmax(4 * NP);
+  bf16* w_s = a_s + JM_ROWS * lda;                                        // [NB][JM_BV][lda]
+  bf16* rows_s = w_s + NB * JM_BV * lda;                                  // [16][lda] the tile's enc_p and pred_p rows
   uint32_t* ex_s = reinterpret_cast<uint32_t*>(rows_s + 2 * JM_TF * lda);  // [16 warps][JM_SPLITS * 4][32] dlog fragments
   float* denc_s = reinterpret_cast<float*>(ex_s + 16 * JM_SPLITS * 4 * 32);  // [8 frames][Jp]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tig = lane & 3;
@@ -535,7 +548,13 @@ __global__ void __launch_bounds__(JM_ROWS_THREADS, 1) jm_bwd_rows(const bf16* __
 #pragma unroll
     for (int nt = 0; nt < 2 * NP; ++nt) da[nt][0] = da[nt][1] = da[nt][2] = da[nt][3] = 0.f;
     for (int c = 0; c < nch; ++c) {
-      if (c + 1 < nch) {
+      if (NB == 1) {
+        if (c > 0) {  // the single buffer: chunk c after every warp has finished chunk c - 1
+          am_stage(w_s, wv, c * JM_BV, V, JM_BV, J, Jp, 1);
+          cp_async_commit();
+        }
+        cp_async_wait<0>();
+      } else if (c + 1 < nch) {
         am_stage(w_s + ((c + 1) & 1) * JM_BV * lda, wv, (c + 1) * JM_BV, V, JM_BV, J, Jp, 1);
         cp_async_commit();
         cp_async_wait<1>();
@@ -543,9 +562,9 @@ __global__ void __launch_bounds__(JM_ROWS_THREADS, 1) jm_bwd_rows(const bf16* __
         cp_async_wait<0>();
       }
       __syncthreads();
-      const bf16* wc = w_s + (c & 1) * JM_BV * lda;
+      const bf16* wc = w_s + (NB == 1 ? 0 : (c & 1)) * JM_BV * lda;
       float lg[2][4];
-      jm_abT2<2>(lg, a_s + rg * 16 * lda, wc + q * 16 * lda, lda, nk, lane);
+      jm_abT2<2, JMAX>(lg, a_s + rg * 16 * lda, wc + q * 16 * lda, lda, nk, lane);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -666,7 +685,7 @@ __global__ void __launch_bounds__(JM_THREADS, jm_weight_blocks(NH)) jm_bwd_weigh
     jm_build_a(a_s, rows_s, t0, u0, a);
     __syncthreads();
     float lg[4][4];
-    am_abT<JM_JMAX, 4>(lg, a_s + rg * 16 * lda, w_s + vh * 32 * lda, lda, nk, lane);
+    am_abT<jm_jmax(NH), 4>(lg, a_s + rg * 16 * lda, w_s + vh * 32 * lda, lda, nk, lane);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int vl = vh * 32 + nt * 8 + 2 * tig;
@@ -731,6 +750,7 @@ constexpr size_t JM_MAX_SMEM = 227 * 1024;
 // NVT of the resident forward for this J and V (Wv rows 16 NVT >= V, NVT in 4, 8, 16), or 0 where Wv does not fit:
 // the streaming forward then runs.
 int jm_fwd_resident(int lda, int V) {
+  if (lda - AM_PAD > JM_JMAX) return 0;
   const int nvt = V <= 64 ? 4 : V <= 128 ? 8 : V <= 256 ? 16 : 0;
   return nvt && jm_fwd_res_smem(lda, nvt) <= JM_MAX_SMEM ? nvt : 0;
 }
@@ -752,7 +772,8 @@ int jm_fwd_res_launch(const void* enc, const void* pred, const void* wv, const v
   return (int)cudaGetLastError();
 }
 size_t jm_rows_smem(int lda, int Jp) {
-  return (size_t)(JM_ROWS + 2 * JM_BV + 2 * JM_TF) * lda * sizeof(bf16) + (size_t)16 * JM_SPLITS * 4 * 32 * sizeof(uint32_t) +
+  const int buffers = Jp <= JM_JMAX ? 2 : 1;
+  return (size_t)(JM_ROWS + buffers * JM_BV + 2 * JM_TF) * lda * sizeof(bf16) + (size_t)16 * JM_SPLITS * 4 * 32 * sizeof(uint32_t) +
          (size_t)JM_TF * Jp * sizeof(float);
 }
 size_t jm_weight_smem(int lda) {
@@ -783,13 +804,14 @@ struct JMScratch {
   }
 };
 
-// NH, the n-tiles of 8 columns in half of J, for the register arrays: Jp / 16 rounded up among 8, 16, 20, 24.
+// NH, the n-tiles of 8 columns in half of J, for the register arrays: Jp / 16 rounded up among 8, 16, 20, 24, 40.
 template <template <int> class K, typename... Args>
 int jm_dispatch(int Jp, Args... args) {
   if (Jp <= 128) return K<8>::run(args...);
   if (Jp <= 256) return K<16>::run(args...);
   if (Jp <= 320) return K<20>::run(args...);
   if (Jp <= JM_JMAX) return K<24>::run(args...);
+  if (Jp <= JM_JMAX_WIDE) return K<40>::run(args...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -834,7 +856,7 @@ template <int NH>
 struct Occupancy {
   static int run(int which, const JMArgs& a) {
     switch (which) {
-      case 0: return jm_occupancy(jm_fwd, jm_fwd_smem(a.lda));
+      case 0: return jm_occupancy(jm_fwd<jm_jmax(NH)>, jm_fwd_smem(a.lda));
       case 3: return jm_occupancy(jm_fwd_res<16>, jm_fwd_res_smem(a.lda, 16), JM_FWD_RES_THREADS);
       case 1: return jm_occupancy(jm_bwd_rows<NH / 4>, jm_rows_smem(a.lda, a.Jp), JM_ROWS_THREADS);
       case 2: return jm_occupancy(jm_bwd_weight<NH>, jm_weight_smem(a.lda));
@@ -848,7 +870,7 @@ struct Occupancy {
 int launch_joint_mma_fwd(const void* enc, const void* pred, const void* wv, const void* bv, const void* labels, void* lpb, void* lpe, void* lse, int B,
                          int T, int U1, int J, int V, cudaStream_t stream) {
   const JMArgs a = jm_args(B, T, U1, J, V);
-  if (a.Jp > JM_JMAX) return (int)cudaErrorInvalidValue;
+  if (a.Jp > JM_JMAX_WIDE) return (int)cudaErrorInvalidValue;
   switch (jm_fwd_resident(a.lda, V)) {
     case 4: return jm_fwd_res_launch<4>(enc, pred, wv, bv, labels, lpb, lpe, lse, a, stream);
     case 8: return jm_fwd_res_launch<8>(enc, pred, wv, bv, labels, lpb, lpe, lse, a, stream);
@@ -856,9 +878,11 @@ int launch_joint_mma_fwd(const void* enc, const void* pred, const void* wv, cons
     default: break;
   }
   const size_t smem = jm_fwd_smem(a.lda);
-  cudaError_t err = allow_smem(jm_fwd, smem);
+  auto kernel = &jm_fwd<JM_JMAX>;
+  if (a.Jp > JM_JMAX) kernel = &jm_fwd<JM_JMAX_WIDE>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  jm_fwd<<<dim3(a.n_tt * a.n_ut, B), JM_THREADS, smem, stream>>>((const bf16*)enc, (const bf16*)pred, (const bf16*)wv, (const float*)bv,
+  kernel<<<dim3(a.n_tt * a.n_ut, B), JM_THREADS, smem, stream>>>((const bf16*)enc, (const bf16*)pred, (const bf16*)wv, (const float*)bv,
                                                                   (const int*)labels, (float*)lpb, (float*)lpe, (float*)lse, a);
   return (int)cudaGetLastError();
 }

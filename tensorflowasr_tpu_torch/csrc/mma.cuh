@@ -120,6 +120,26 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s, int l
   ldsm_x4_t(b, smem_u32(s + (lane & 15) * ld + (lane >> 4) * 8));
 }
 
+// The B fragment of one n-tile (8 n x 16 k): lanes 0..15 give the row
+// addresses of its two 8 x 8 matrices (k 0..7, k 8..15); the other lanes'
+// addresses are not read.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// ... from a tile stored [k][n] (ld), as load_b_kn's b[0], b[1].
+__device__ __forceinline__ void load_b_kn_x2(uint32_t (&b)[2], const bf16* s, int ld, int lane) {
+  ldsm_x2_t(b, smem_u32(s + (lane & 15) * ld));
+}
+
+// ... from a tile stored [n][k] (ld), as load_b_nk's b[0], b[1].
+__device__ __forceinline__ void load_b_nk_x2(uint32_t (&b)[2], const bf16* s, int ld, int lane) {
+  ldsm_x2(b, smem_u32(s + (lane & 7) * ld + ((lane >> 3) & 1) * 8));
+}
+
 constexpr int AM_PAD = 8;  // bf16 of row padding in shared memory: 8 ldmatrix rows hit distinct banks
 
 // Stage rows [r0, r0 + rows) of x ([n, D] bf16; rows past n and columns D..Dp
@@ -205,6 +225,96 @@ __device__ __forceinline__ void am_store(bf16* dst, const float (&acc)[DMAX / 8]
     for (int e = 0; e < 4; ++e) {
       const int row = row_lo + (e >> 1) * 8, col = col0 + dt * 8 + (e & 1);
       if (row < n && col < D) dst[(size_t)row * D + col] = __float2bfloat16(acc[dt][e]);
+    }
+  }
+}
+
+// The wide row kernels (ff_mma.cu, conv_mma.cu) take model widths D up to
+// 512 (Conformer-L): a block of 8 warps owns 32 rows; warp w's row group is
+// w & 1 and its quarter w >> 1 owns WD_DQ = 128 of the output columns, so a
+// [16, D] accumulator is split over four warps (64 f32 a thread) where the
+// narrow kernels give each warp all D columns.
+constexpr int WD_ROWS = 32, WD_DMAX = 512, WD_DQ = WD_DMAX / 4;
+
+// LayerNorm backward (y = xhat * gamma + beta) of a wide block's rows: the
+// warp holds dy of its 16 rows (row group rg) and columns d0 .. d0 + WD_DQ
+// in C fragments; the row sums of dxn = dy * gamma and dxn * xhat meet
+// across the four column quarters in red_s [2][4][32], added in quarter
+// order. dx = res + rstd (dxn - m1 - xhat m2), res = dout (FF) or 0 (dout
+// null). The column sums over the 16 rows of dy * xhat and dy (and, for
+// the FF, of dz = factor dout keep2) go to prow[cg], prow[cb] (prow[cz]).
+__device__ __forceinline__ void wide_ln_bwd(float (&dy)[WD_DQ / 8][4], float* red_s, const float* mu_s, const float* rstd_s, const bf16* __restrict__ x,
+                                            const float* __restrict__ gamma, const bf16* __restrict__ dout, bf16* __restrict__ dx, float* prow, int cg,
+                                            int cb, int cz, float factor, const Dropout& dp, unsigned int seed_z, int row0, int N, int D, int Dp, int lane,
+                                            int warp) {
+  const int g = lane >> 2, tig = lane & 3, rg = warp & 1, q = warp >> 1, d0 = q * WD_DQ;
+  float mu[2], rstd[2], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) mu[hf] = mu_s[rg * 16 + g + 8 * hf], rstd[hf] = rstd_s[rg * 16 + g + 8 * hf];
+#pragma unroll
+  for (int dt = 0; dt < WD_DQ / 8; ++dt) {
+    if (d0 + dt * 8 < Dp) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, row = row0 + rg * 16 + g + 8 * hf, col = d0 + dt * 8 + 2 * tig + (e & 1);
+        if (row < N && col < D) {
+          const float xhat = (to_f32(x[(size_t)row * D + col]) - mu[hf]) * rstd[hf];
+          const float dxn = dy[dt][e] * gamma[col];
+          s1[hf] += dxn;
+          s2[hf] = fmaf(dxn, xhat, s2[hf]);
+        } else {
+          dy[dt][e] = 0.f;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    s1[hf] = quad_sum(s1[hf]);
+    s2[hf] = quad_sum(s2[hf]);
+    if (tig == 0) red_s[q * 32 + rg * 16 + g + 8 * hf] = s1[hf], red_s[(4 + q) * 32 + rg * 16 + g + 8 * hf] = s2[hf];
+  }
+  __syncthreads();
+  float m1[2], m2[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = rg * 16 + g + 8 * hf;
+    m1[hf] = (((red_s[r] + red_s[32 + r]) + red_s[64 + r]) + red_s[96 + r]) / (float)D;
+    m2[hf] = (((red_s[128 + r] + red_s[160 + r]) + red_s[192 + r]) + red_s[224 + r]) / (float)D;
+  }
+#pragma unroll
+  for (int dt = 0; dt < WD_DQ / 8; ++dt) {
+    if (d0 + dt * 8 < Dp) {
+      float sg[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f}, sz[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, row = row0 + rg * 16 + g + 8 * hf, col = d0 + dt * 8 + 2 * tig + (e & 1);
+        if (row < N && col < D) {
+          const size_t off = (size_t)row * D + col;
+          const float xhat = (to_f32(x[off]) - mu[hf]) * rstd[hf];
+          const float v = dy[dt][e];
+          float res = 0.f;
+          if (dout != nullptr) {
+            res = to_f32(dout[off]);
+            float dz = factor * res;
+            if (dp.on) dz *= dropout_keep(dp, seed_z, row, col);
+            sz[e & 1] += dz;
+          }
+          dx[off] = __float2bfloat16(res + rstd[hf] * (v * gamma[col] - m1[hf] - xhat * m2[hf]));
+          sg[e & 1] += v * xhat;
+          sb[e & 1] += v;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float tg = col_sum8(sg[j]), tb = col_sum8(sb[j]), tz = col_sum8(sz[j]);
+        const int col = d0 + dt * 8 + 2 * tig + j;
+        if (g == 0 && col < D) {
+          prow[cg + col] = tg;
+          prow[cb + col] = tb;
+          if (dout != nullptr) prow[cz + col] = tz;
+        }
+      }
     }
   }
 }

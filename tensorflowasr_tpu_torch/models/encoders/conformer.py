@@ -42,6 +42,8 @@ from tensorflowasr_tpu_torch.models.layers.positional import RelativeSinusoidalP
 from tensorflowasr_tpu_torch.models.layers.residual import Residual, is_trainable
 from tensorflowasr_tpu_torch.models.layers.subsampling import Conv1dSubsampling, Conv2dSubsampling, VggSubsampling
 from tensorflowasr_tpu_torch.ops import dropout as dr
+from tensorflowasr_tpu_torch.ops import routes
+from tensorflowasr_tpu_torch.ops.cuda import conv_kernel, ff_kernel
 from tensorflowasr_tpu_torch.ops.cuda.conv_kernel import conv_back, conv_front, depthwise_conv1d
 from tensorflowasr_tpu_torch.ops.cuda.ff_kernel import fused_ff
 from tensorflowasr_tpu_torch.utils import math_util
@@ -90,7 +92,10 @@ class FFModule(nn.Module):
     """Half-step feed-forward module (JAX ``FFModule``): LN (``norm_position``
     pre) → dense 4D → swish → dropout → dense → dropout → LN (post) → residual.
     Pre-norm with a numeric residual factor runs the fused ``fused_ff``
-    kernel (JAX :203); any other configuration the plain modules."""
+    kernel (JAX :203) at the widths it takes (``ff_kernel.supported``); any
+    other configuration or width the plain modules. ``route`` says which the
+    last call took: "kernel", "plain" (a width the kernel refuses) or
+    "config" (a configuration JAX runs without its kernel)."""
 
     def __init__(self, input_dim: int, scale_factor: int = 4, residual_factor: float | str = 0.5, dropout: float = 0.0, dtype=torch.float32,
                  norm_position: str = "pre"):
@@ -105,7 +110,9 @@ class FFModule(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         rate = dr.active_rate(self.dropout, train, generator)
-        if not self.fused:
+        self.route = "config" if not self.fused else "kernel" if routes.take(
+            "fused_ff", ff_kernel.supported(x.shape[-1], self.dense_1.weight.shape[0], x.dtype)) else "plain"
+        if self.route != "kernel":
             out = self.ln(x) if self.norm_position == "pre" else x
             out = dr.dropout(F.silu(self.dense_1(out)), rate, generator)
             out = dr.dropout(self.dense_2(out), rate, generator)
@@ -169,7 +176,9 @@ class ConvModule(nn.Module):
     (post) → residual. Under JAX's condition (pre-norm, batch norm, scale 2,
     no group conv, a numeric residual factor; :337-346) it runs the fused
     route: ``conv_front`` → library depthwise conv → ``conv_back`` with the
-    running statistics; otherwise the plain modules."""
+    running statistics, at the widths the kernels take
+    (``conv_kernel.supported``); otherwise the plain modules. ``route`` as
+    :class:`FFModule`'s."""
 
     def __init__(self, input_dim: int, kernel_size: int = 32, padding: str = "causal", residual_factor: float | str = 1.0, dropout: float = 0.0,
                  dtype=torch.float32, scale_factor: int = 2, norm_position: str = "pre", dw_norm_type: str = "batch", use_group_conv: bool = False):
@@ -195,7 +204,8 @@ class ConvModule(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt, d = self.dtype, x.shape[-1]
         rate = dr.active_rate(self.dropout, train, generator)
-        if not self.fused:
+        self.route = "config" if not self.fused else "kernel" if routes.take("conv_module", conv_kernel.supported(d, x.dtype)) else "plain"
+        if self.route != "kernel":
             return self._plain(x, rate, train, generator)
         w1 = self.pw_conv_1.weight[:, :, 0].t()  # [D, 2D], the JAX kernel layout
         b1 = self.pw_conv_1.bias

@@ -38,7 +38,9 @@ import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.models.layers.general import Dense
 from tensorflowasr_tpu_torch.ops import dropout as dr
-from tensorflowasr_tpu_torch.ops.cuda.attention_kernel import fused_attention, fused_rel_attention
+from tensorflowasr_tpu_torch.ops import routes
+from tensorflowasr_tpu_torch.ops.cuda import attention_kernel
+from tensorflowasr_tpu_torch.ops.cuda.attention_kernel import fused_attention, fused_attention_plain, fused_rel_attention, fused_rel_attention_plain
 
 
 def rel_left_shift(x: torch.Tensor, causal: bool = False) -> torch.Tensor:
@@ -114,16 +116,19 @@ def _fused_attend(q, k, v, bias, rate: float, generator: Optional[torch.Generato
     """[B, T, N, H] q (scaled), [B, S, N, H] k/v and an additive bias [B|1, N|1, T, S]
     → [B, T, N, H] through kernel A (JAX ``_fused_attend``): the bias folded
     to [B·N, T, S] (or [1, T, S] when it broadcasts), one dropout seed drawn
-    from ``generator`` when ``rate`` > 0."""
+    from ``generator`` when ``rate`` > 0. Where kernel A refuses the head
+    size or key length (``attention_kernel.supported``), its plain version
+    with autograd, the same arithmetic."""
     b, t, n, h = q.shape
     s = k.shape[1]
+    attend = fused_attention if routes.take("fused_attention", attention_kernel.supported(h, s, q.dtype)) else fused_attention_plain
     if bias.shape[0] == 1 and bias.shape[1] == 1:
         bias = bias.reshape(1, t, s)
     else:
         bias = bias.expand(b, n, t, s).reshape(b * n, t, s)
     fold = lambda x: x.transpose(1, 2).reshape(b * n, x.shape[1], h).contiguous()
     seed = dr.draw_seed(generator) if rate > 0.0 else 0
-    out = fused_attention(fold(q), fold(k), fold(v), bias.contiguous(), seed, rate)
+    out = attend(fold(q), fold(k), fold(v), bias.contiguous(), seed, rate)
     return out.reshape(b, n, t, h).transpose(1, 2)
 
 
@@ -236,7 +241,9 @@ class MultiHeadRelativeAttention(nn.Module):
             kv_bias = ((~kv_mask).float() * -1e9)[:, None, :].contiguous()
         q_len = query_mask.sum(dim=1, dtype=torch.int32) if query_mask is not None else None
         seed = dr.draw_seed(generator) if rate > 0.0 else 0
-        out = fused_rel_attention(fold(content_q), fold(positional_q), fold(k), fold(v), fold(pos), kv_bias, q_len, seed, rate,
-                                  bool(use_causal_mask), self.chunk_size, self.history_size, bool(self.causal))
+        # kernel B where it takes the head size and key length, else its plain version with autograd
+        attend = fused_rel_attention if routes.take("fused_rel_attention", attention_kernel.rel_supported(hd, k.shape[1], q.dtype)) else fused_rel_attention_plain
+        out = attend(fold(content_q), fold(positional_q), fold(k), fold(v), fold(pos), kv_bias, q_len, seed, rate, bool(use_causal_mask), self.chunk_size,
+                     self.history_size, bool(self.causal))
         out = out.reshape(b, n, t, hd).transpose(1, 2).reshape(b, t, n * hd)
         return self.output(out), new_memory

@@ -53,6 +53,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tensorflowasr_tpu_torch.ops import routes
+from tensorflowasr_tpu_torch.ops.cuda import lstm_kernel
 from tensorflowasr_tpu_torch.ops.cuda.lstm_kernel import lstm_layer_fused
 
 RNN_IMPLS = ("auto", "xla", "pallas")
@@ -200,7 +202,9 @@ class RNN(nn.Module):
         """``"auto"``/``"xla"``: flax ``nn.RNN`` semantics: the scan runs over
         every step (so outputs past a row's length are those of the continued
         scan), and with ``lengths`` the returned state is the one after step
-        ``length − 1`` of each row. ``"pallas"``: :func:`lstm_layer_fused`'s.
+        ``length − 1`` of each row. ``"pallas"``: :func:`lstm_layer_fused`'s
+        where the LSTM kernels take the width (``lstm_kernel.supported``),
+        else the cell loop, as JAX's scan where its kernel declines.
         Bidirectional: ``initial_state`` and the returned state are pairs
         ``(carry_fwd, carry_bwd)``."""
         if not self.bidirectional:
@@ -214,7 +218,7 @@ class RNN(nn.Module):
         b, t = x.shape[:2]
         if state is None:
             state = cell.init_carry(b, x.device)
-        if self.rnn_type == "lstm" and self.rnn_impl == "pallas":
+        if self.rnn_type == "lstm" and self.rnn_impl == "pallas" and routes.take("lstm", lstm_kernel.supported(cell.units, cell.dtype)):
             c0, h0 = state
             return lstm_layer_fused(x, cell.weight_ih, cell.weight_hh, cell.bias, h0, c0, lengths, dtype=cell.dtype)
         if self.rnn_type == "lstm":

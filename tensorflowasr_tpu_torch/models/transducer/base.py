@@ -25,7 +25,8 @@ from tensorflowasr_tpu_torch.models.layers.embedding import Embedding, OneHotBla
 from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtraction
 from tensorflowasr_tpu_torch.models.layers.general import Dense, LayerNorm, get_activation, random_init
 from tensorflowasr_tpu_torch.models.layers.rnn import RNN
-from tensorflowasr_tpu_torch.ops import transducer_decode
+from tensorflowasr_tpu_torch.ops import routes, transducer_decode
+from tensorflowasr_tpu_torch.ops.cuda import decode_kernel
 from tensorflowasr_tpu_torch.ops.cuda.decode_kernel import FusedDecodeParams, FusedLayer, fused_greedy_decode
 from tensorflowasr_tpu_torch.utils import device as device_util
 
@@ -234,22 +235,36 @@ class Transducer(nn.Module):
         return cached[1]
 
 
+def decode_config_taken(model) -> bool:
+    """The configurations the fused decode takes, as JAX's: an embedding label
+    encoder, an LSTM net, an add/tanh joint with both prejoint linears and
+    no post-joint linear."""
+    pc, jc = model.prediction_config, model.joint_config
+    if pc.get("label_encoder_mode", "embedding") != "embedding" or pc.get("rnn_type", "lstm") != "lstm":
+        return False
+    if jc.get("joint_mode", "add") != "add" or jc.get("activation", "tanh") != "tanh" or jc.get("postjoint_linear", False):
+        return False
+    return bool(jc.get("prejoint_encoder_linear", True) and jc.get("prejoint_prediction_linear", True))
+
+
 def extract_decode_params(model: Transducer, compute_dtype=torch.float32) -> FusedDecodeParams | None:
     """The prediction net's and joint's weights in the fused decode kernel's
     layout and ``compute_dtype`` (JAX ``scripts_dev/decode_kernel.py:93``).
     None for the configurations the kernel does not take, as JAX's: a label
     encoder other than the embedding, an RNN other than the LSTM, a joint
-    other than add/tanh, a post-joint linear, a prejoint linear off."""
-    pc, jc = model.prediction_config, model.joint_config
-    if pc.get("label_encoder_mode", "embedding") != "embedding" or pc.get("rnn_type", "lstm") != "lstm":
+    other than add/tanh, a post-joint linear, a prejoint linear off; and
+    for the nets whose shapes it refuses (``decode_kernel.supported``: more
+    than 4 LSTM layers, or vectors beyond a block's shared memory), where
+    JAX's ``recognize``, plain XLA for any net, has no such limit."""
+    if not decode_config_taken(model):
         return None
-    if jc.get("joint_mode", "add") != "add" or jc.get("activation", "tanh") != "tanh" or jc.get("postjoint_linear", False):
-        return None
-    if not jc.get("prejoint_encoder_linear", True) or not jc.get("prejoint_prediction_linear", True):
+    pred, joint = model.prediction, model.joint
+    cell0 = getattr(pred, "rnn_0").cell
+    e, hidden, p = pred.embedding.embeddings.weight.shape[1], cell0.units, pred.projection_units
+    if not decode_kernel.supported(e, hidden, p, joint.vocab.weight.shape[1], joint.vocab.weight.shape[0], pred.num_rnns):
         return None
     dt, f32 = compute_dtype, torch.float32
     cast = lambda w: w.detach().to(dt).contiguous()
-    pred, joint = model.prediction, model.joint
     layers = []
     for i in range(pred.num_rnns):
         cell = getattr(pred, f"rnn_{i}").cell
@@ -293,6 +308,8 @@ def recognize(model: Transducer, inputs: schemas.PredictInput, beam_width: int =
             encoded, encoded_length, model.decode_step, prev_tokens, states, beam_width=beam_width, blank=model.blank)
         return schemas.PredictOutput(tokens=tokens, next_tokens=next_tokens, next_encoder_states=next_encoder_states, next_decoder_states=next_states)
     params = model.decode_params() if decode_mode == "wind" and max_symbols_per_frame is None else None
+    if decode_mode == "wind" and max_symbols_per_frame is None and decode_config_taken(model):
+        routes.take("fused_decode", params is not None)
     if params is not None:
         tokens, _, next_tokens, next_states = fused_greedy_decode(encoded, encoded_length, params, prev_tokens, states, blank=model.blank, window=window,
                                                                   max_token_factor=max_token_factor)

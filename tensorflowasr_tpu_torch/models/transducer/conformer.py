@@ -91,6 +91,24 @@ def conformer_small_streaming_learning_config() -> dict:
     return learning_config(144, 2.0, batch_size=4, ga_steps=8, max_lr="0.05/(144**0.5)")
 
 
+CONFORMER_L_SOURCE = ("Gulati et al., Conformer: Convolution-augmented Transformer for Speech Recognition, Interspeech 2020, "
+                      "Table 1, Conformer (L): 17 blocks, D 512, 8 heads, conv kernel 32, 1-layer LSTM-640 decoder")
+
+
+def conformer_large_config(vocab_size: int = 1024, num_blocks: int = 17, dropout: float = 0.1) -> dict:
+    """Conformer-Transducer L (:data:`CONFORMER_L_SOURCE`): the flagship's
+    80 log-mel bins at nfft 512, Conv2d ×4 subsampling with filters [512,
+    512], BatchNorm and swish, D 512, 17 blocks of 8 relative-MHA heads of
+    64, a 32-tap causal conv, FF factor 4 (2048) with residual 0.5, dropout
+    0.1; embedding 640, one LSTM-640 with LayerNorm; an add/tanh joint of
+    640 over V 1024 (the paper's 1k word pieces), blank 0. ``num_blocks``
+    cuts depth only."""
+    config = conformer_small_config(vocab_size=vocab_size, num_blocks=num_blocks, dmodel=512, dropout=dropout)
+    config.update(encoder_head_size=64, encoder_num_heads=8, encoder_kernel_size=32, encoder_ffm_scale_factor=4, encoder_ffm_residual_factor=0.5,
+                  prediction_embed_dim=640, prediction_rnn_units=640, joint_dim=640)
+    return config
+
+
 class Conformer(Transducer):
     def make_encoder(self) -> ConformerEncoder:
         return ConformerEncoder(in_features=self.feature_extraction.config.num_feature_bins, dtype=self.dtype, **self.encoder_config)

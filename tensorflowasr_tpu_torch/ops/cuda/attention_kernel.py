@@ -57,6 +57,37 @@ _RB_BLOCK, _RB_KT, _RB_QT, _RB_WIN, _RB_BLD, _RB_PAD, _RB_THREADS = 64, 64, 32, 
 _SM_SHARED, _BLOCK_RESERVED = 228 * 1024, 1024  # H100 SXM
 
 
+def _rel_f32_smem(d: int, s: int) -> int:
+    """Shared memory of kernel B's f32 backward at head size d and s keys (bf16 holds no score row)."""
+    sp = -(-s // _KT) * _KT
+    return 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp) + 4 * (_TQ * d + _TQ)
+
+
+def rel_supported(d: int, s: int, dtype: torch.dtype) -> bool:
+    """Whether kernel B (forward and backward) takes head size ``d`` over
+    ``s`` keys in ``dtype``: heads up to 128; in f32 also a key row whose
+    scores fit the backward's shared memory (227 KB: s up to ~2,600 at head
+    128). A pure function of the shapes; the relative attention layers run
+    the plain attention at any other."""
+    if dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= _REL_MAX_D:
+        return False
+    return dtype == torch.bfloat16 or _rel_f32_smem(d, s) <= _MAX_SMEM
+
+
+def _attention_f32_smem(d: int, s: int) -> int:
+    """Shared memory of kernel A's f32 backward at head size d and s keys (bf16 needs no S-sized buffer)."""
+    sp = -(-s // _FA_KT) * _FA_KT
+    return 4 * (_FA_TQ * d + _FA_KT * (d + 1) + _FA_TQ * sp + _FA_TQ * d + _FA_TQ)
+
+
+def supported(d: int, s: int, dtype: torch.dtype) -> bool:
+    """Whether kernel A (forward and backward) takes head size ``d`` over
+    ``s`` keys in ``dtype``, as :func:`rel_supported` says for kernel B."""
+    if dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= _FA_MAX_D:
+        return False
+    return dtype == torch.bfloat16 or _attention_f32_smem(d, s) <= _MAX_SMEM
+
+
 def rel_mma_plan(d: int) -> dict:
     """Dynamic shared memory (bytes) and blocks per SM, as shared memory
     allows, of the bf16 kernels at head size D (``csrc/rel_attention_mma.cu``;
@@ -204,10 +235,8 @@ def _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causa
         _build.require(q_len, "q_len", device=dev, dtype=torch.int32, shape=(b,))
     if d > _REL_MAX_D:
         raise ValueError(f"head size {d} > {_REL_MAX_D} is not supported by the kernel")
-    sp = -(-s // _KT) * _KT
-    smem = 4 * (2 * _TQ * d + _KT * (d + 1) + (_KT + _TQ - 1) * (d + 1) + _TQ * sp) + 4 * (_TQ * d + _TQ)  # the f32 backward's (bf16 holds no score row)
-    if dt == torch.float32 and smem > _MAX_SMEM:
-        raise ValueError(f"key length {s} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
+    if not rel_supported(d, s, dt):
+        raise ValueError(f"key length {s} needs {_rel_f32_smem(d, s)} bytes of shared memory (> {_MAX_SMEM})")
     has_chunk = chunk_size is not None and history_size is not None
     if has_chunk and chunk_size <= 0:
         raise ValueError("chunk_size must be positive")
@@ -325,6 +354,8 @@ def fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: float =
     if torch.compiler.is_exporting():
         from tensorflowasr_tpu_torch.ops.cuda import library
 
+        if not rel_supported(qc.shape[-1], k.shape[1], qc.dtype):
+            raise ValueError(f"head size {qc.shape[-1]} over {k.shape[1]} keys in {qc.dtype} is not supported by the kernel")
         return library.fused_rel_attention(qc, qp, k, v, pos, kv_bias, q_len, int(seed), float(rate), bool(causal), chunk_size, history_size, bool(pe_causal))
     if qc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {qc.device}")
@@ -428,10 +459,8 @@ def _attention_check(q, k, v, bias):
     _build.require(bias, "bias", device=dev, dtype=bias.dtype, shape=(bias.shape[0], t, s))
     if d > _FA_MAX_D:
         raise ValueError(f"head size {d} > {_FA_MAX_D} is not supported by the kernel")
-    sp = -(-s // _FA_KT) * _FA_KT
-    smem = 4 * (_FA_TQ * d + _FA_KT * (d + 1) + _FA_TQ * sp + _FA_TQ * d + _FA_TQ)  # the f32 backward's (bf16 needs no S-sized buffer)
-    if q.dtype == torch.float32 and smem > _MAX_SMEM:
-        raise ValueError(f"key length {s} needs {smem} bytes of shared memory (> {_MAX_SMEM})")
+    if not supported(d, s, q.dtype):
+        raise ValueError(f"key length {s} needs {_attention_f32_smem(d, s)} bytes of shared memory (> {_MAX_SMEM})")
     if s == 0 and bh * t > 0:
         raise ValueError("attention over zero keys")
     return bh, t, s, d, code
@@ -532,6 +561,8 @@ def fused_attention(q, k, v, bias, seed=0, rate: float = 0.0):
     if torch.compiler.is_exporting():
         from tensorflowasr_tpu_torch.ops.cuda import library
 
+        if not supported(q.shape[-1], k.shape[1], q.dtype):
+            raise ValueError(f"head size {q.shape[-1]} over {k.shape[1]} keys in {q.dtype} is not supported by the kernel")
         return library.fused_attention(q, k, v, bias, int(seed), float(rate))
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")

@@ -18,7 +18,13 @@ time. In bf16 both halves run on the tensor cores (``mma.sync``, the weight
 chunks double-buffered with cp.async; ``conv_front`` 32 rows a block
 forward, 64 backward); their f32 parity path keeps the CUDA-core kernels
 (16 rows a block). Elementwise math and accumulation are f32; product
-operands are rounded to the weights' type as in the reference.
+operands are rounded to the weights' type as in the reference. Above D
+256, to Conformer-L's 512, ``conv_front`` takes its wide bf16 kernels
+(forward 64 rows with 32-column weight chunks; backward 32 rows, the dy
+accumulator split over four warps: :func:`front_wide_smem`) and its f32
+kernels 32-column chunks; ``conv_back``'s tiles hold at 512 as they are.
+:func:`supported` says which widths the kernels take; the Conformer's
+``ConvModule`` runs its plain modules at any other.
 ``conv_back``'s dropout runs in-kernel from the counter hash of
 ``ops/dropout.py`` indexed by (global row b·T + t, column).
 
@@ -43,13 +49,37 @@ from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda.ff_kernel import _ln_parts, dot_as, layer_norm_f32, ln_backward
 
-_RT, _THREADS, _PER_THREAD = 16, 256, 16  # csrc/conv_module.cu: rows per block, threads, row-gradient accumulators per thread
-MAX_D = 256  # both routes
+MAX_D = 512  # both halves, both dtypes
+_PAD, _WIDE_CC = 8, 32  # csrc/conv_mma.cu: bf16 row padding; the wide kernels' weight-chunk columns
 
 front_launches = 0  # conv_front forward kernel launches since the last reset
 back_launches = 0  # conv_back forward kernel launches since the last reset
 front_bwd_launches = 0  # conv_front backward kernel launches since the last reset
 back_bwd_launches = 0  # conv_back backward kernel launches since the last reset
+
+
+def supported(d: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels of both halves (forward and backward) take model
+    width ``d`` in ``dtype``: f32 or bf16, 1 ≤ D ≤ 512 (bf16: D padded to 16
+    within the wide kernels' 512; f32: conv_front's backward keeps 16 rows ×
+    D within 256 threads × 32 accumulators). A pure function of the shapes."""
+    return dtype in (torch.float32, torch.bfloat16) and 1 <= d <= MAX_D
+
+
+def front_wide_smem(d: int) -> tuple[int, int]:
+    """Dynamic shared memory (bytes) of conv_front's wide bf16 kernels
+    (``csrc/conv_mma.cu``, padded width above 256): the forward's 64 rows of
+    the LN output beside two 32-column chunks of Wa and Wb ([Dp][40] each),
+    and the backward's 32 rows, those chunks, dha and dhb [32][40], the row
+    mean, rstd and the LayerNorm row sums [2][4][32] in f32."""
+    dp = -(-d // 16) * 16
+    ldd, ldc = dp + _PAD, _WIDE_CC + _PAD
+    return 2 * (64 * ldd + 4 * dp * ldc), 2 * (32 * ldd + 4 * dp * ldc + 2 * 32 * ldc) + 4 * (2 * 32 + 8 * 32)
+
+
+def _width(d: int, dtype: torch.dtype) -> None:
+    if not supported(d, dtype):
+        raise ValueError(f"model width {d} > {MAX_D} is not supported by the kernels")
 
 
 def _rows(x: torch.Tensor, name: str) -> tuple[int, int]:
@@ -110,6 +140,7 @@ def _check_front(x, gamma, beta, wa, ba, wb, bb):
         _build.require(p, name, device=dev, dtype=torch.float32, shape=(d,))
     for name, p, shape in (("wa", wa, (d, d)), ("ba", ba, (d,)), ("wb", wb, (d, d)), ("bb", bb, (d,))):
         _build.require(p, name, device=dev, dtype=dt, shape=shape)
+    _width(d, dt)
     return n, d, code
 
 
@@ -120,8 +151,6 @@ def conv_front_kernel(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
     out = torch.empty_like(x)
     if n == 0:
         return out
-    if x.dtype == torch.bfloat16 and d > MAX_D:
-        raise ValueError(f"model width {d} > {MAX_D} is not supported by the bf16 kernel")
     lib = _build.build()
     with torch.cuda.device(x.device):
         err = lib.tfasr_conv_front(
@@ -142,8 +171,6 @@ def conv_front_bwd_kernel_f32(x, gamma, beta, wa, ba, wb, bb, dout, eps: float =
     """:func:`conv_front_bwd_kernel` before the final casts: dx in x's dtype, the parameter gradients in f32."""
     global front_bwd_launches
     n, d, code = _check_front(x, gamma, beta, wa, ba, wb, bb)
-    if _RT * d > _THREADS * _PER_THREAD:
-        raise ValueError(f"model width {d} > {_THREADS * _PER_THREAD // _RT} is not supported by the backward kernel")
     _build.require(dout, "dout", device=x.device, dtype=x.dtype, shape=tuple(x.shape))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -189,10 +216,12 @@ def conv_front(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
     [B, T, D] in x.dtype. A CUDA tensor launches the kernels; a CPU tensor
     takes :func:`conv_front_plain` and :func:`conv_front_plain_bwd`. Under
     ``torch.export`` the call is the custom operator ``tfasr::conv_front``
-    (``ops/cuda/library.py``), the forward only."""
+    (``ops/cuda/library.py``), the forward only, at the widths
+    :func:`supported` takes."""
     if torch.compiler.is_exporting():
         from tensorflowasr_tpu_torch.ops.cuda import library
 
+        _width(x.shape[-1], x.dtype)
         return library.conv_front(x, gamma, beta, wa, ba, wb, bb, float(eps))
     _cuda(x)
     return _ConvFront.apply(x, gamma, beta, wa, ba, wb, bb, float(eps))
@@ -272,6 +301,7 @@ def _check_back(x, y1, mean, var, scale, bias, w2, b2):
         _build.require(p, name, device=dev, dtype=torch.float32, shape=(d,))
     _build.require(w2, "w2", device=dev, dtype=dt, shape=(d, d))
     _build.require(b2, "b2", device=dev, dtype=dt, shape=(d,))
+    _width(d, dt)
     return n, d, code
 
 
@@ -282,8 +312,6 @@ def conv_back_kernel(x, y1, mean, var, scale, bias, w2, b2, seed=0, rate: float 
     out = torch.empty_like(x)
     if n == 0:
         return out
-    if x.dtype == torch.bfloat16 and d > MAX_D:
-        raise ValueError(f"model width {d} > {MAX_D} is not supported by the bf16 kernel")
     lib = _build.build()
     with torch.cuda.device(x.device):
         err = lib.tfasr_conv_back(
@@ -305,8 +333,6 @@ def conv_back_bwd_kernel_f32(y1, mean, var, scale, bias, w2, dout, seed=0, rate:
     global back_bwd_launches
     n, d, code = _check_back(y1, y1, mean, var, scale, bias, w2, w2[0])
     _build.require(dout, "dout", device=y1.device, dtype=y1.dtype, shape=tuple(y1.shape))
-    if y1.dtype == torch.bfloat16 and d > MAX_D:
-        raise ValueError(f"model width {d} > {MAX_D} is not supported by the bf16 kernel")
     f32 = dict(dtype=torch.float32, device=y1.device)
     dy1 = torch.empty_like(y1)
     cols = torch.zeros(3 * d, **f32)  # db2, dbias, dscale: the bf16 kernels write them as one row
@@ -353,10 +379,11 @@ def conv_back(x, y1, mean, var, scale, bias, w2, b2, seed=0, rate: float = 0.0, 
     kernels; a CPU tensor takes :func:`conv_back_plain` and
     :func:`conv_back_plain_bwd`. Under ``torch.export`` the call is the
     custom operator ``tfasr::conv_back`` (``ops/cuda/library.py``), the
-    forward only."""
+    forward only, at the widths :func:`supported` takes."""
     if torch.compiler.is_exporting():
         from tensorflowasr_tpu_torch.ops.cuda import library
 
+        _width(x.shape[-1], x.dtype)
         return library.conv_back(x, y1, mean, var, scale, bias, w2, b2, int(seed), float(rate), float(factor), float(eps))
     _cuda(x)
     dr.keep_params(rate)

@@ -35,6 +35,12 @@ launches = 0  # kernel launches since the last reset (set to 0 to reset)
 MAX_STATES = 1024  # one lane per extended state, at most 32 warps a sweep
 
 
+def supported(s: int) -> bool:
+    """Whether the kernel takes ``s`` = 2U+1 extended states (up to 1024: a
+    lane each, at most 32 warps a sweep). A pure function of the shapes."""
+    return s <= MAX_STATES
+
+
 def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch.Tensor, label_length: torch.Tensor):
     """The kernel on CUDA tensors: (occupancy [B, T, S], loss [B]), f32; no
     autograd. Lengths are clamped to the lattice (1 ≤ T_b ≤ T, 2U_b+1 ≤ S).
@@ -47,7 +53,7 @@ def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch
     dev = lp_ext.device
     _build.require(lp_ext, "lp_ext", device=dev, dtype=torch.float32, shape=(b, t, s))
     _build.require(skip_add, "skip_add", device=dev, dtype=torch.float32, shape=(b, s))
-    if s > MAX_STATES:
+    if not supported(s):
         raise ValueError(f"S = 2U+1 = {s} > {MAX_STATES} extended states is not supported by the kernel")
     t_len = logit_length.to(dev, torch.int32).contiguous()
     u_len = label_length.to(dev, torch.int32).contiguous()

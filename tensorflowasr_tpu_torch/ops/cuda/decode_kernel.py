@@ -286,6 +286,17 @@ def decode_plan(e: int, hidden: int, p: int, j: int, vocab: int, n_layers: int, 
     return DecodePlan(cluster, mats, tuple(rows), tuple(resident), smem, sum(r * m.k * elt for r, m in zip(resident, mats)), slice_bytes)
 
 
+def supported(e: int, hidden: int, p: int, j: int, vocab: int, n_layers: int) -> bool:
+    """Whether the kernel takes a prediction net of ``n_layers`` LSTM layers
+    (1 to 4) whose vectors fit one block's shared memory at every cluster
+    size it may choose (:func:`decode_plan`; the weights stream from L2
+    where they do not fit). A pure function of the widths; the recognizer
+    runs the eager WIND loop for any other net."""
+    if not 1 <= n_layers <= MAX_LAYERS:
+        return False
+    return all(SMEM_LIMIT - SMEM_RESERVE - 4 * _vec_floats(e, hidden, p, j, n_layers, c) >= 0 for c in CLUSTER_SIZES)
+
+
 _occupancy: dict = {}
 
 
@@ -341,6 +352,8 @@ def _check(encoded, encoded_length, params: FusedDecodeParams, initial_tokens, i
             _build.require(lyr.proj[0], f"layer {i} projection", device=dev, dtype=dt, shape=(p, hidden))
             _build.require(lyr.proj[1], f"layer {i} projection bias", device=dev, dtype=torch.float32, shape=(p,))
         in_dim = p or hidden
+    if not supported(e, hidden, p, j, vocab, n_layers):
+        raise ValueError(f"the decode's vectors (E {e}, H {hidden}, P {p}, J {j}) need more than {SMEM_LIMIT} bytes of shared memory per block")
     _build.require(params.embed, "embed", device=dev, dtype=dt, shape=(vocab, e))
     _build.require(params.wp, "wp", device=dev, dtype=dt, shape=(j, in_dim))
     _build.require(params.bp, "bp", device=dev, dtype=torch.float32, shape=(j,))

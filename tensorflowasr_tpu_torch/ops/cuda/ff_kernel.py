@@ -13,10 +13,14 @@ device memory: a block holds its rows' LN output in shared memory and walks
 F in 64-wide chunks, staging each chunk's W1 and W2 slices. bf16 runs on the
 tensor cores (``csrc/ff_mma.cu``: mma.sync, 64 rows per block backward
 and 64 or 32 forward by :func:`ff_fwd_rows`, the weight chunks
-double-buffered with cp.async, any width padded in shared memory;
-:func:`ff_mma_plan` gives its tile and shared memory); f32 keeps the
+double-buffered with cp.async, any width padded in shared memory; above D
+256, to Conformer-L's D 512, F 2048, the wide kernels: 32 rows a block
+backward and 32 or 64 forward (by :func:`ff_fwd_rows` as the narrow
+forward), 32-column F chunks, the output columns split over four warps;
+:func:`ff_mma_plan` gives the tile and shared memory); f32 keeps the
 CUDA-core kernels of ``csrc/ff.cu`` (16 rows per block; TF32 would break
-the f32 card/CPU parity). Both dropout sites run in-kernel from the counter
+the f32 card/CPU parity). :func:`supported` says which widths the kernels
+take; the Conformer's ``FFModule`` runs its plain modules at any other. Both dropout sites run in-kernel from the counter
 hash of ``ops/dropout.py`` (site 1 with ``seed``, site 2 with ``seed +
 7919``, indexed by global row and column), regenerated in the backward.
 
@@ -42,9 +46,18 @@ from tensorflowasr_tpu_torch.ops.cuda import _build
 launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
 bwd_launches = 0  # backward kernel launches since the last reset
 
-_RT, _THREADS, _Z_PER_THREAD = 16, 256, 16  # csrc/ff.cu (the f32 kernels)
 _MMA_ROWS, _MMA_THREADS, _MMA_FC, _MMA_PAD = 64, 256, 64, 8  # csrc/ff_mma.cu (the bf16 kernels)
 FWD_ROWS = (64, 32)  # the bf16 forward's row tiles: 4 row groups of 16 with each chunk split over 2 warps, or 2 over 4
+NARROW_D, MAX_D = 256, 512  # padded widths of the narrow bf16 kernels; widths the kernels take (both dtypes)
+_WIDE_ROWS, _WIDE_FC = 32, 32  # csrc/ff_mma.cu's wide kernels: rows a block backward, F columns a chunk
+
+
+def supported(d: int, f: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels (forward and backward) take model width ``d`` and
+    inner width ``f`` in ``dtype``: f32 or bf16, 1 ≤ D ≤ 512 (f32: 16 rows ×
+    D within 256 threads × 32 accumulators; bf16: D padded to 16 within the
+    wide kernels' 512), any F ≥ 1. A pure function of the shapes."""
+    return dtype in (torch.float32, torch.bfloat16) and 1 <= d <= MAX_D and f >= 1
 SM_SHARED_BYTES, BLOCK_RESERVED_BYTES, MAX_BLOCK_SHARED_BYTES, SMS = 228 * 1024, 1024, 227 * 1024, 132  # H100 SXM
 
 
@@ -69,15 +82,25 @@ def ff_mma_plan(d: int, f: int, fwd_rows: int = _MMA_ROWS) -> FFPlan:
     inner width F, with the forward at ``fwd_rows`` rows a block: the LN
     output (and, backward, dz) as bf16 rows of Dp + 8, two W1 chunks
     [Dp][72] and two W2 chunks [64][Dp + 8] in bf16, and the backward's row
-    mean and rstd in f32."""
+    mean and rstd in f32. Above Dp 256 the wide kernels: ``fwd_rows`` rows
+    forward (8 warps a 16-row group: 512 threads at 64 rows) and 32
+    backward, two W1 chunks [Dp][40] and two W2 chunks [32][Dp + 8], the
+    chunk's activation (dh) [rows][40], and the backward's mean, rstd and
+    LayerNorm row sums [2][4][32] in f32."""
     if fwd_rows not in FWD_ROWS:
         raise ValueError(f"the forward takes {FWD_ROWS} rows a block, not {fwd_rows}")
     dp = -(-d // 16) * 16
     ldd = dp + _MMA_PAD
+    per_sm = lambda b, threads: min(SM_SHARED_BYTES // (b + BLOCK_RESERVED_BYTES), 2048 // threads, 32)
+    if dp > NARROW_D:
+        ldf = _WIDE_FC + _MMA_PAD
+        fwd_at = lambda rows: 2 * (rows * ldd + 2 * dp * ldf + 2 * _WIDE_FC * ldd + rows * ldf)
+        bwd = fwd_at(_WIDE_ROWS) + 2 * _WIDE_ROWS * ldd + 4 * (2 * _WIDE_ROWS + 8 * 32)
+        return FFPlan(_WIDE_ROWS, _MMA_THREADS, fwd_rows, _WIDE_FC, dp, -(-f // _WIDE_FC), fwd_at(fwd_rows), bwd, per_sm(fwd_at(fwd_rows), 8 * fwd_rows),
+                      per_sm(bwd, _MMA_THREADS))
     weights = 2 * dp * (_MMA_FC + _MMA_PAD) + 2 * _MMA_FC * ldd
     fwd = 2 * (fwd_rows * ldd + weights)
     bwd = 2 * (_MMA_ROWS * ldd + weights) + 2 * _MMA_ROWS * ldd + 4 * 2 * _MMA_ROWS
-    per_sm = lambda b, threads: min(SM_SHARED_BYTES // (b + BLOCK_RESERVED_BYTES), 2048 // threads, 32)
     return FFPlan(_MMA_ROWS, _MMA_THREADS, fwd_rows, _MMA_FC, dp, -(-f // _MMA_FC), fwd, bwd, per_sm(fwd, _MMA_THREADS),
                   per_sm(bwd, _MMA_THREADS))
 
@@ -201,8 +224,8 @@ def _check(x, gamma, beta, w1, b1, w2, b2):
         _build.require(p, name, device=dev, dtype=torch.float32, shape=(d,))
     for name, p, shape in (("w1", w1, (d, f)), ("b1", b1, (f,)), ("w2", w2, (f, d)), ("b2", b2, (d,))):
         _build.require(p, name, device=dev, dtype=dt, shape=shape)
-    if _RT * d > _THREADS * _Z_PER_THREAD:  # both routes: 256
-        raise ValueError(f"model width {d} > {_THREADS * _Z_PER_THREAD // _RT} is not supported by the kernel")
+    if not supported(d, f, dt):
+        raise ValueError(f"model width {d} > {MAX_D} is not supported by the kernel")
     return n, d, f, code
 
 
@@ -287,11 +310,14 @@ def fused_ff(x, gamma, beta, w1, b1, w2, b2, seed=0, rate: float = 0.0, factor: 
     kernels (forward, and backward under autograd); a CPU tensor takes
     :func:`fused_ff_plain` and :func:`fused_ff_plain_bwd`. Under
     ``torch.export`` the call is the custom operator ``tfasr::fused_ff``
-    (``ops/cuda/library.py``), the forward only.
+    (``ops/cuda/library.py``), the forward only, at the widths
+    :func:`supported` takes (a caller routes any other to its plain modules).
     """
     if torch.compiler.is_exporting():
         from tensorflowasr_tpu_torch.ops.cuda import library
 
+        if not supported(x.shape[-1], w1.shape[-1], x.dtype):
+            raise ValueError(f"model width {x.shape[-1]} > {MAX_D} is not supported by the kernel")
         return library.fused_ff(x, gamma, beta, w1, b1, w2, b2, int(seed), float(rate), float(factor), float(eps))
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no feed-forward kernel for device {x.device}")

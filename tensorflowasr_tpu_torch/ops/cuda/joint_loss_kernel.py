@@ -20,7 +20,8 @@ backward 4.06e11), run on the tensor cores in bf16: ``mma.sync`` over
 64-cell tiles of 8 frames × 8 label positions, the logits and dlog kept in
 registers; the forward keeps Wv resident in a persistent grid where it fits
 (V ≤ 256 at J 320), else streams it, as the backward does, in vocabulary
-chunks. f32 inputs (the parity path) run the CUDA-core kernels of
+chunks; joint widths above 384 (to Conformer-L's 640) take their own
+instantiations, whose rows pass holds one Wv chunk at a time. f32 inputs (the parity path) run the CUDA-core kernels of
 ``csrc/joint_loss.cu``. The forward saves lse, gbl and gem [B, T, U+1] f32
 (9.9 MB) for the backward.
 
@@ -39,7 +40,15 @@ from tensorflowasr_tpu_torch.ops.rnnt_loss import labels_per_cell, logits_to_log
 launches = 0  # forward (joint statistics) kernel launches since the last reset (set to 0 to reset)
 bwd_launches = 0  # backward kernel launches since the last reset
 
-MAX_J = 384  # both routes: the backward's shared-memory tiles hold [rows, J]; J a multiple of 8
+MAX_J = 640  # both routes: the shared-memory tiles hold [rows, J] (bf16 above 384: one Wv chunk in the rows pass); J a multiple of 8
+
+
+def supported(j: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels (forward and backward) take joint width ``j`` in
+    ``dtype``: f32 or bf16, J a multiple of 8 from 8 to 640 (any V, B, T,
+    U+1; the loss's DP takes U+1 ≤ 1024, :func:`rnnt_kernel.supported`). A
+    pure function of the shapes."""
+    return dtype in (torch.float32, torch.bfloat16) and 8 <= j <= MAX_J and j % 8 == 0
 
 
 def _activations(enc_p: torch.Tensor, pred_p: torch.Tensor) -> torch.Tensor:
@@ -51,6 +60,13 @@ def _activations(enc_p: torch.Tensor, pred_p: torch.Tensor) -> torch.Tensor:
 def _logits(a: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor) -> torch.Tensor:
     """a in wv's dtype times wvᵀ, accumulated in f32, plus f32 bv: [B, T, U+1, V] f32."""
     return torch.matmul(a.float(), wv.float().t()) + bv.float()
+
+
+def joint_logits_plain(enc_p, pred_p, wv, bv):
+    """The joint's logits [B, T, U+1, V] f32 with the kernel's rounding
+    points (differentiable by autograd): the plain route where the kernel
+    refuses the joint width, fed to the plain DP."""
+    return _logits(_activations(enc_p, pred_p), wv, bv)
 
 
 def joint_logprobs_plain(enc_p, pred_p, wv, bv, labels):
@@ -110,7 +126,7 @@ def _check(enc_p, pred_p, wv, bv, labels):
     _build.require(bv, "bv", device=dev, dtype=torch.float32, shape=(v,))
     if tuple(labels.shape) != (b, u1 - 1):
         raise ValueError(f"labels: shape {tuple(labels.shape)}, expected {(b, u1 - 1)} (pred_p must be U+1 rows)")
-    if j > MAX_J or j % 8:
+    if not supported(j, dt):
         raise ValueError(f"joint width {j}: the kernel takes a multiple of 8 up to {MAX_J}")
     for name, x in (("enc_p", enc_p), ("pred_p", pred_p), ("wv", wv)):
         if x.data_ptr() % 16:

@@ -90,6 +90,20 @@ def lstm_mma_plan(h: int) -> LstmMmaPlan:
     return LstmMmaPlan(*out)
 
 
+MAX_BF16_UNITS, H100_SMS = 1024, 132
+
+
+def supported(h: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels (forward and backward) take ``h`` hidden units in
+    ``dtype``: bf16 up to 1024 (a cluster of 16 blocks of 8 groups of 8
+    units, :func:`lstm_mma_plan`); f32 up to 8 units a block on one block per
+    SM of the H100's 132 (1,056). A pure function of the shapes; the LSTM
+    layer runs its cell loop at any other."""
+    if dtype == torch.bfloat16:
+        return 1 <= h <= MAX_BF16_UNITS
+    return dtype == torch.float32 and 1 <= h <= MAX_UNITS * H100_SMS
+
+
 def _split(g: torch.Tensor):
     return g.chunk(4, dim=-1)
 
@@ -164,6 +178,8 @@ def _check(xg, wh, h0, c0, units=None):
         _build.require(x, name, device=xg.device, dtype=xg.dtype, shape=shape)
     if b * t * h == 0:
         raise ValueError(f"empty LSTM input [B, T, 4H] = {tuple(xg.shape)}")
+    if not supported(h, xg.dtype):
+        raise ValueError(f"an LSTM of H = {h} units in {xg.dtype} is not supported by the kernel (bf16 H ≤ {MAX_BF16_UNITS})")
     if xg.dtype == torch.bfloat16:
         if units is not None:
             raise ValueError("units applies to the f32 kernel; the bf16 kernel's blocks follow lstm_mma_plan")
@@ -258,6 +274,8 @@ def lstm_core(xg: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, c0: torch.Te
     if torch.compiler.is_exporting():
         from tensorflowasr_tpu_torch.ops.cuda import library
 
+        if not supported(wh.shape[0], xg.dtype):
+            raise ValueError(f"an LSTM of {wh.shape[0]} units in {xg.dtype} is not supported by the kernel")
         dt = xg.dtype
         return library.lstm(xg.contiguous(), wh.to(dt).contiguous(), h0.to(dt).contiguous(), c0.to(dt).contiguous())
     if xg.device.type not in ("cpu", "cuda"):

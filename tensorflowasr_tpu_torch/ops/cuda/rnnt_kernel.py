@@ -49,9 +49,16 @@ MAX_U1 = 1024  # label positions: 32 warps of 32 lanes per sweep
 LP_TILE_BYTES = 4096  # a warp's tile: as many whole rows as fit, at most 32 (at least one)
 
 
+def supported(u1: int) -> bool:
+    """Whether the DP kernel takes ``u1`` = U+1 label positions (up to 1024,
+    one lane each over at most 32 warps a sweep), and with it the unfused
+    loss's row kernels (any V). A pure function of the shapes."""
+    return u1 <= MAX_U1
+
+
 def dp_warps(u1: int) -> int:
     """Warps per sweep at U+1 = ``u1``: one label position per lane."""
-    if u1 > MAX_U1:
+    if not supported(u1):
         raise ValueError(f"U+1 = {u1} > {MAX_U1} label positions is not supported by the kernel")
     return -(-u1 // 32)
 

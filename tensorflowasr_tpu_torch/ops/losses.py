@@ -17,11 +17,20 @@ For a CTC model (:func:`get_ctc_loss_fn`, JAX ``get_ctc_loss_fn``):
 ``"fused-joint"`` (a transducer-only path, which JAX maps to the scan for a
 CTC model) take the plain α recursion with autograd
 (``ops/ctc_loss.py:ctc_loss``).
+
+The kernels' routes check their shapes at each call: a label length the
+DP kernel refuses (U+1 above 1024, ``rnnt_kernel.supported``) or the CTC
+kernel refuses (2U+1 above 1024, ``ctc_kernel.supported``) takes the plain
+loss, recorded in ``ops/routes.py``.
 """
 
 from __future__ import annotations
 
+import functools
+
+from tensorflowasr_tpu_torch.ops import routes
 from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_loss
+from tensorflowasr_tpu_torch.ops.cuda import ctc_kernel, rnnt_kernel
 from tensorflowasr_tpu_torch.ops.cuda.ctc_kernel import ctc_loss_pallas
 from tensorflowasr_tpu_torch.ops.cuda.rnnt_kernel import rnnt_loss_pallas
 from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss, sanitize_lengths, valid_mean
@@ -48,13 +57,30 @@ def _check(loss_impl: str) -> None:
         raise ValueError(f"loss_impl {loss_impl!r} is not one of {LOSS_IMPLS}")
 
 
+def _routed(kernel_fn, plain_fn, name: str, ok):
+    """``kernel_fn`` (whose name it keeps) where ``ok(logits, labels)``, else ``plain_fn``."""
+
+    @functools.wraps(kernel_fn)
+    def fn(logits, logit_length, labels, label_length, blank: int = 0):
+        loss = kernel_fn if routes.take(name, ok(logits, labels)) else plain_fn
+        return loss(logits, logit_length, labels, label_length, blank)
+
+    return fn
+
+
+# the unfused loss kernels where the DP takes U+1 = logits.shape[2], else the plain DP
+rnnt_loss_routed = _routed(rnnt_loss_pallas, rnnt_loss, "rnnt_dp", lambda logits, labels: rnnt_kernel.supported(logits.shape[2]))
+# the CTC kernel where it takes S = 2U+1, else the plain α recursion
+ctc_loss_routed = _routed(ctc_loss_pallas, ctc_loss, "ctc_loss", lambda logits, labels: ctc_kernel.supported(2 * labels.shape[1] + 1))
+
+
 def get_rnnt_loss_fn(loss_impl: str = "auto", group=None):
     """The masked-mean RNN-T loss over logits for ``loss_impl`` (``group``: :func:`masked_mean`)."""
     _check(loss_impl)
-    return masked_mean(rnnt_loss if loss_impl == "xla" else rnnt_loss_pallas, group)
+    return masked_mean(rnnt_loss if loss_impl == "xla" else rnnt_loss_routed, group)
 
 
 def get_ctc_loss_fn(loss_impl: str = "auto", group=None):
     """The masked-mean CTC loss over logits [B, T, V] for ``loss_impl`` (``group``: :func:`masked_mean`)."""
     _check(loss_impl)
-    return masked_mean(ctc_loss_pallas if loss_impl in ("auto", "pallas") else ctc_loss, group)
+    return masked_mean(ctc_loss_routed if loss_impl in ("auto", "pallas") else ctc_loss, group)

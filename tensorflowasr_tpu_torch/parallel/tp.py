@@ -39,8 +39,10 @@ import torch.distributed as dist
 from tensorflowasr_tpu_torch import schemas
 from tensorflowasr_tpu_torch.models.layers.general import BatchNorm, Dense
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
+from tensorflowasr_tpu_torch.ops import routes
+from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel
 from tensorflowasr_tpu_torch.ops.cuda.rnnt_kernel import rnnt_loss_from_logprobs
-from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, sanitize_lengths, valid_mean
+from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, rnnt_loss_from_logprobs_plain, sanitize_lengths, valid_mean
 from tensorflowasr_tpu_torch.optimizers import build_optimizer
 from tensorflowasr_tpu_torch.parallel.collectives import all_reduce_, pmax, psum_replicated, sum_no_grad
 from tensorflowasr_tpu_torch.parallel.sharding import replicate
@@ -134,10 +136,29 @@ def init_tp_state(model: Transducer, optimizer_config: dict, mesh, seed: int = 4
     return make_state(local, build_optimizer(optimizer_config, local.parameters(), **chain_kwargs), seed, mesh.get_local_rank("data"))
 
 
+class _PlainLossFromLogprobs(torch.autograd.Function):
+    """The DP's plain version with the gradients it returns: the route where
+    the DP kernel refuses U+1 (``rnnt_kernel.supported``)."""
+
+    @staticmethod
+    def forward(ctx, lp_blank, lp_emit, logit_length, label_length):
+        loss, gbl, gem = rnnt_loss_from_logprobs_plain(lp_blank, lp_emit, logit_length, label_length)
+        ctx.save_for_backward(gbl, gem)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        gbl, gem = ctx.saved_tensors
+        scale = g.float()[:, None, None]
+        return gbl * scale, gem * scale, None, None
+
+
 def tp_rnnt_loss(local_logits: torch.Tensor, logit_length: torch.Tensor, labels: torch.Tensor, label_length: torch.Tensor, vocab_size: int,
                  group=None) -> torch.Tensor:
     """Per-row RNN-T loss [B] (replicated over ``group``, the ``model`` axis)
-    from vocab-sharded logits [B, T, U+1, V/m] (JAX ``tp_rnnt_loss``)."""
+    from vocab-sharded logits [B, T, U+1, V/m] (JAX ``tp_rnnt_loss``); the
+    DP kernel where it takes U+1, else its plain version (recorded in
+    ``ops/routes.py``)."""
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     b, t, u1, v_local = local_logits.shape
     if v_local * n != vocab_size:
@@ -154,7 +175,8 @@ def tp_rnnt_loss(local_logits: torch.Tensor, logit_length: torch.Tensor, labels:
     sumexp, blank, sel = psum_replicated(torch.stack([sumexp, blank, sel]), group).unbind(0)
     lse = gmax + torch.log(sumexp)
     lp_emit = torch.cat([sel[..., :u1 - 1] - lse[..., :u1 - 1], torch.full_like(lse[..., :1], LOG_0)], dim=-1)
-    return rnnt_loss_from_logprobs(blank - lse, lp_emit, logit_length, label_length)
+    loss = rnnt_loss_from_logprobs if routes.take("rnnt_dp", rnnt_kernel.supported(u1)) else _PlainLossFromLogprobs.apply
+    return loss(blank - lse, lp_emit, logit_length, label_length)
 
 
 def make_tp_train_step(model: Transducer, mesh):

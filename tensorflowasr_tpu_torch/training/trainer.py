@@ -88,9 +88,11 @@ import torch.distributed as dist
 from tensorflowasr_tpu_torch import schemas
 from tensorflowasr_tpu_torch.models.ctc.base import CtcModel
 from tensorflowasr_tpu_torch.models.transducer.base import Transducer
+from tensorflowasr_tpu_torch.ops import routes
+from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel, rnnt_kernel
 from tensorflowasr_tpu_torch.ops.cuda.joint_loss_kernel import rnnt_loss_fused_joint
 from tensorflowasr_tpu_torch.ops.losses import get_ctc_loss_fn, get_rnnt_loss_fn
-from tensorflowasr_tpu_torch.ops.rnnt_loss import sanitize_lengths, valid_mean
+from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss, sanitize_lengths, valid_mean
 from tensorflowasr_tpu_torch.optimizers import OptimizerChain, build_optimizer
 from tensorflowasr_tpu_torch.optimizers.optimizers import global_norm, unit_normals
 from tensorflowasr_tpu_torch.parallel import sharding
@@ -179,12 +181,20 @@ def fused_joint_loss(model: Transducer, inputs: schemas.TrainInput, labels: sche
     forward to the prejoint projections, the lengths sanitised as
     ``masked_mean`` does, the fused joint+loss on this rank's rows, and the
     mean over valid rows (under a data-parallel ``group``, this rank's share
-    of the global one: ``valid_mean``). ``mark("forward")`` is called after the forward."""
+    of the global one: ``valid_mean``). ``mark("forward")`` is called after the forward.
+    Where the kernels refuse the joint width (``joint_loss_kernel.supported``)
+    or the DP the label positions (``rnnt_kernel.supported``), the joint's
+    plain logits and the plain DP, with autograd (JAX's fused joint has no
+    shape guard: the plain route is the port's, recorded in ``ops/routes.py``)."""
     enc_p, pred_p, elens = model.forward_joint_inputs(inputs, train=True, generator=generator, augment_generator=augment_generator)
     mark("forward")
     valid, safe_t, safe_u = sanitize_lengths(elens.to(enc_p.device), labels.labels_length, enc_p.shape[1])
     wv, bv = model.joint.vocab.weight.to(enc_p.dtype), model.joint.vocab.bias.float()
-    return valid_mean(rnnt_loss_fused_joint(enc_p, pred_p, wv, bv, safe_t, labels.labels, safe_u), valid, group)
+    if routes.take("rnnt_fused_joint", joint_loss_kernel.supported(enc_p.shape[-1], enc_p.dtype) and rnnt_kernel.supported(pred_p.shape[1])):
+        loss = rnnt_loss_fused_joint(enc_p, pred_p, wv, bv, safe_t, labels.labels, safe_u)
+    else:
+        loss = rnnt_loss(joint_loss_kernel.joint_logits_plain(enc_p, pred_p, wv, bv), safe_t, labels.labels, safe_u)
+    return valid_mean(loss, valid, group)
 
 
 def _loss_for(model: torch.nn.Module, loss_impl: str, group=None) -> Callable:

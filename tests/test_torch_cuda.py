@@ -435,7 +435,7 @@ def test_conv_back_mma_plan_matches_the_kernels(dev, d):
 
 
 def test_conv_back_refuses_what_the_kernels_do_not_take(dev):
-    x, y1, stats, w2, b2, dout = _conv_back_args(dev, torch.bfloat16, 1, 3, 264)
+    x, y1, stats, w2, b2, dout = _conv_back_args(dev, torch.bfloat16, 1, 3, 520)
     with pytest.raises(ValueError, match="model width"):
         ck.conv_back_kernel(x, y1, *stats, w2, b2)
     with pytest.raises(ValueError, match="model width"):
@@ -533,9 +533,9 @@ def test_joint_bf16_backward_is_deterministic(dev, b, t, u, j, v):
 
 def test_joint_and_conv_front_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="joint width"):
-        jk.joint_logprobs_kernel(*_joint_args(dev, torch.bfloat16, 2, 5, 3, 392, 20))
+        jk.joint_logprobs_kernel(*_joint_args(dev, torch.bfloat16, 2, 5, 3, 648, 20))
     with pytest.raises(ValueError, match="model width"):
-        ck.conv_front_kernel(*_conv_front_args(dev, torch.bfloat16, 1, 3, 264)[0])
+        ck.conv_front_kernel(*_conv_front_args(dev, torch.bfloat16, 1, 3, 520)[0])
 
 
 def test_rel_attention_bf16_autograd_reads_the_forward_stats(dev):
@@ -567,8 +567,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="on cpu"):
         ck.conv_front(q, v.cpu(), v, torch.randn(8, 8, device=dev), v, torch.randn(8, 8, device=dev), v)
     with pytest.raises(ValueError, match="model width"):
-        x, w = torch.randn(4, 272, device=dev, dtype=torch.bfloat16), torch.randn(272, 16, device=dev, dtype=torch.bfloat16)
-        fk.fused_ff(x, torch.ones(272, device=dev), torch.zeros(272, device=dev), w, w[0], w.t().contiguous(), x[0])
+        x, w = torch.randn(4, 520, device=dev, dtype=torch.bfloat16), torch.randn(520, 16, device=dev, dtype=torch.bfloat16)
+        fk.fused_ff(x, torch.ones(520, device=dev), torch.zeros(520, device=dev), w, w[0], w.t().contiguous(), x[0])
     with pytest.raises(ValueError, match="row statistics"):
         ak.fused_rel_attention_kernel(q, q, q, q, torch.randn(2, 7, 8, device=dev), None, None, with_stats=True)
     with pytest.raises(ValueError, match="rows a block"):
@@ -1417,3 +1417,106 @@ def test_bidirectional_rnn_pallas_route_matches_its_plain_route(dev, dtype):
     for got, ref in zip(outs, ref_outs):
         torch.testing.assert_close(got.detach().cpu().float(), ref.detach().float(), **TOL[dtype])
     _grads_close([g_.cpu() for g_ in grads], ref_grads, GRAD_REL[dtype], "bidirectional pallas rnn")
+
+
+# ------------------- the widened rows 5-8 (Conformer-L: D 512, F 2048, J 640) and the routed shapes ------------------- #
+# Tolerances as above (chip_smoke.py holds the same): forward f32 1e-4 / bf16 2e-2, backward 1e-4 / 3e-2 of each gradient's scale.
+WIDE_FF = [(6400, 512, 2048), (37, 500, 1000), (70, 264, 1056)]  # Conformer-L's training rows; D padded with element staging; the narrowest wide D
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d,f", WIDE_FF)
+def test_wide_ff_kernels(dev, dtype, n, d, f, rate):
+    """The FF's wide kernels (bf16 csrc/ff_mma.cu 32-row tiles, the forward
+    also at 64 rows; f32 csrc/ff.cu 16-column chunks) against the plain version."""
+    args, dout = _ff_args(dev, dtype, n, d, f)
+    before = (fk.launches, fk.bwd_launches)
+    torch.testing.assert_close(fk.fused_ff(*args, 77, rate), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
+    got = fk.fused_ff_bwd_kernel(*args[:6], dout, 77, rate)
+    assert (fk.launches, fk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    _grads_close(got, fk.fused_ff_plain_bwd(*args[:6], dout, 77, rate), GRAD_REL[dtype], f"wide ff {n}x{d}x{f}")
+    if dtype == torch.bfloat16:
+        for rows in fk.FWD_ROWS:
+            torch.testing.assert_close(fk.fused_ff_kernel(*args, 77, rate, rows=rows), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,d", [(16, 400, 512), (3, 17, 264), (1, 5, 500)])
+def test_wide_conv_kernels(dev, dtype, b, t, d, rate):
+    """conv_front's wide kernels and conv_back at D above 256 against the plain versions, forward and backward."""
+    front, dout = _conv_front_args(dev, dtype, b, t, d)
+    before = (ck.front_launches, ck.front_bwd_launches)
+    torch.testing.assert_close(ck.conv_front(*front), ck.conv_front_plain(*front), **TOL[dtype])
+    got = ck.conv_front_bwd_kernel(*front, dout)
+    assert (ck.front_launches, ck.front_bwd_launches) == (before[0] + 1, before[1] + 1)
+    _grads_close(got, ck.conv_front_plain_bwd(*front, dout), GRAD_REL[dtype], f"wide conv_front {b}x{t}x{d}")
+    x, y1, stats, w2, b2, dout = _conv_back_args(dev, dtype, b, t, d)
+    torch.testing.assert_close(ck.conv_back_kernel(x, y1, *stats, w2, b2, 21, rate, 0.5), ck.conv_back_plain(x, y1, *stats, w2, b2, 21, rate, 0.5),
+                               **TOL[dtype])
+    _grads_close(ck.conv_back_bwd_kernel(y1, *stats, w2, dout, 21, rate, 0.5), ck.conv_back_plain_bwd(y1, *stats, w2, dout, 21, rate, 0.5),
+                 GRAD_REL[dtype], f"wide conv_back {b}x{t}x{d}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,u,j,v", [(4, 100, 40, 640, 1024), (2, 21, 9, 520, 70), (3, 13, 6, 392, 20)])
+def test_wide_joint_kernels(dev, dtype, b, t, u, j, v):
+    """The fused joint at joint widths above 384 (Conformer-L's J 640 at V 1024) against the plain version, forward and backward."""
+    args = _joint_args(dev, dtype, b, t, u, j, v)
+    for name, x, r in zip(("lp_blank", "lp_emit", "lse"), jk.joint_logprobs_kernel(*args), jk.joint_logprobs_plain(*args)):
+        torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
+    t_len, u_len = _lengths(dev, b, t, u, 3)
+    _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
+    bargs = (*args, lse, gbl, gem)
+    _grads_close(jk.rnnt_loss_fused_joint_bwd_kernel(*bargs), jk.rnnt_loss_fused_joint_plain_bwd(*bargs), GRAD_REL[dtype], f"wide joint J {j}")
+
+
+@pytest.mark.parametrize("d", [264, 512, 500])
+def test_wide_plans_match_the_kernels(dev, d):
+    """The wide kernels' shared memory in the library equals the plans
+    (``ff_mma_plan``, ``conv_kernel.front_wide_smem``; the joint's rows pass
+    with one Wv chunk at J 640), and the card runs a block of each."""
+    lib = _build.build()
+    for rows in fk.FWD_ROWS:
+        plan = fk.ff_mma_plan(d, 4 * d, rows)
+        assert (lib.tfasr_ff_mma_smem(d, rows), lib.tfasr_ff_mma_smem(d, 0)) == (plan.fwd_smem_bytes, plan.bwd_smem_bytes)
+        assert lib.tfasr_ff_mma_occupancy(d, rows) >= 1 and lib.tfasr_ff_mma_occupancy(d, 0) >= 1
+    assert (lib.tfasr_conv_mma_smem(d, 0), lib.tfasr_conv_mma_smem(d, 1)) == ck.front_wide_smem(d)
+    for which in range(4):
+        assert lib.tfasr_conv_mma_occupancy(d, which) >= 1, which
+    lda = 640 + 8
+    assert [lib.tfasr_joint_mma_smem(640, w) for w in range(3)] == [(64 + 64) * lda * 2 + 64 * 4 * 4,
+                                                                    (64 + 64 + 16) * lda * 2 + 16 * 2 * 4 * 32 * 4 + 8 * 640 * 4,
+                                                                    (64 + 64 + 16) * lda * 2 + 64 * 72 * 2 + 4 * 64 * 4]
+    assert all(lib.tfasr_joint_mma_occupancy(640, w) >= 1 for w in range(3)) and lib.tfasr_joint_mma_fwd_resident(640, 64) == 0
+
+
+def test_routed_shapes_run_on_the_card(dev):
+    """Each shape a kernel refuses runs one call of its layer on the card without raising, through the plain route (recorded), and equals the plain version."""
+    from tensorflowasr_tpu_torch.models.layers import attention as tattn
+    from tensorflowasr_tpu_torch.models.layers import rnn as trnn
+    from tensorflowasr_tpu_torch.ops import losses, routes
+    from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_loss
+    from tensorflowasr_tpu_torch.ops.rnnt_loss import rnnt_loss
+
+    routes.counts.clear()
+    g = _gen(dev, 30)
+    rel = tattn.MultiHeadRelativeAttention(512, 2, 256).to(dev)
+    x, relpe = _r(g, dev, (2, 20, 512), 1.0), _r(g, dev, (2, 39, 512), 1.0)
+    with torch.no_grad():
+        got, _ = rel(x, x, relpe=relpe)
+    assert routes.counts[("fused_rel_attention", "plain")] == 1 and torch.isfinite(got).all()
+    layer = trnn.RNN(64, 1280, dtype=torch.bfloat16, rnn_impl="pallas").to(dev)
+    before = lk.launches
+    with torch.no_grad():
+        y, _ = layer(_r(g, dev, (2, 9, 64), 1.0, torch.bfloat16))
+    assert lk.launches == before and routes.counts[("lstm", "plain")] == 1 and torch.isfinite(y.float()).all()
+    logits = _r(g, dev, (1, 3, 1025, 5), 1.0)
+    labels = torch.randint(1, 5, (1, 1024), generator=torch.Generator().manual_seed(1)).to(dev)
+    t_len, u_len = torch.tensor([3], device=dev), torch.tensor([2], device=dev)
+    torch.testing.assert_close(losses.get_rnnt_loss_fn("auto")(logits, t_len, labels, u_len), rnnt_loss(logits, t_len, labels, u_len).mean())
+    clog, clab = _r(g, dev, (1, 520, 5), 1.0), torch.randint(1, 5, (1, 512), generator=torch.Generator().manual_seed(2)).to(dev)
+    ct, cu = torch.tensor([520], device=dev), torch.tensor([3], device=dev)
+    torch.testing.assert_close(losses.get_ctc_loss_fn("auto")(clog, ct, clab, cu), ctc_loss(clog, ct, clab, cu).mean())
+    assert routes.counts[("rnnt_dp", "plain")] == 1 and routes.counts[("ctc_loss", "plain")] == 1
