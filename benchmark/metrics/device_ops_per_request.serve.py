@@ -1,0 +1,7 @@
+"""Device operations (kernels, copies and sets) in the profiled sub-window, per request."""
+
+from benchmark.harness import readers
+
+
+def read(record: dict):
+    return readers.device_ops(record, "serve")
