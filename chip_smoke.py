@@ -925,12 +925,14 @@ def frontend_line(sig: torch.Tensor, cfg, what: str) -> tuple:
     against float64, their times, the bound, and the earlier kernel's time
     at this shape where PERF.md has one. Returns (err, ms, plain ms, bound)."""
     from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
+    from tensorflowasr_tpu_torch.utils.tracing import launches
 
     fft = fek.uses_fft(cfg.fft_length)
-    before = (fek.launches, fek.dft_launches)
+    before = (launches["kernel.frontend"], launches["kernel.frontend.dft"])
     got = fek.log_mel_spectrogram_pallas(sig, cfg)
-    if (fek.launches - before[0], fek.dft_launches - before[1]) != ((1, 0) if fft else (0, 1)):
-        raise AssertionError(f"frontend ({what}): launched FFT {fek.launches - before[0]}, DFT {fek.dft_launches - before[1]} times")
+    ran, dft = launches["kernel.frontend"] - before[0], launches["kernel.frontend.dft"] - before[1]
+    if (ran, dft) != ((1, 0) if fft else (1, 1)):
+        raise AssertionError(f"frontend ({what}): launched FFT {ran - dft}, DFT {dft} times")
     plain = fek.log_mel_spectrogram_plain(sig, cfg)
     err = _close(f"frontend f32 ({what})", got, plain, 1e-3, 0.0)
     ref = frontend_float64(sig, cfg)
@@ -1670,27 +1672,29 @@ PER_STEP_PALLAS = _per(**ENCODER_FWD, **ENCODER_BWD, rnnt_logprobs=1, rnnt_dp=1,
 PER_STEP_AUTO_LSTM = {**PER_STEP, "lstm": 1, "lstm_bwd": 1}
 
 
-def launch_counts() -> dict:
-    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ctc_kernel as ctk, ff_kernel as fk, frontend_kernel as fek
-    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk, joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
+# the kernels' names in the JSON line and the launch counts (``utils/tracing.launches``, by kernel span) each reads
+LAUNCH_KEYS = {"log_mel_spectrogram": "frontend", "fused_rel_attention": "rel_attention.fwd", "fused_rel_attention_bwd": "rel_attention.bwd",
+               "fused_ff": "ff.fwd", "fused_ff_bwd": "ff.bwd", "conv_front": "conv_front.fwd", "conv_front_bwd": "conv_front.bwd",
+               "conv_back": "conv_back.fwd", "conv_back_bwd": "conv_back.bwd", "rnnt_dp": "rnnt_dp", "rnnt_fused_joint": "joint_loss.fwd",
+               "rnnt_fused_joint_bwd": "joint_loss.bwd", "rnnt_logprobs": "rnnt_logprobs", "rnnt_dlogits": "rnnt_dlogits", "lstm": "lstm.fwd",
+               "lstm_bwd": "lstm.bwd", "ctc_loss": "ctc", "fused_attention": "attention.fwd", "fused_attention_bwd": "attention.bwd",
+               "fused_decode": "decode", "rnnt_logprobs_scalar": "rnnt_logprobs.scalar"}
 
-    return {"log_mel_spectrogram": fek.launches, "fused_rel_attention": ak.launches, "fused_rel_attention_bwd": ak.bwd_launches, "fused_ff": fk.launches,
-            "fused_ff_bwd": fk.bwd_launches, "conv_front": ck.front_launches, "conv_front_bwd": ck.front_bwd_launches, "conv_back": ck.back_launches,
-            "conv_back_bwd": ck.back_bwd_launches, "rnnt_dp": rk.launches, "rnnt_fused_joint": jk.launches, "rnnt_fused_joint_bwd": jk.bwd_launches,
-            "rnnt_logprobs": rk.logprobs_launches - rk.logprobs_scalar_launches, "rnnt_dlogits": rk.dlogits_launches, "lstm": lk.launches,
-            "lstm_bwd": lk.bwd_launches, "ctc_loss": ctk.launches, "fused_attention": ak.attention_launches,
-            "fused_attention_bwd": ak.attention_bwd_launches, "fused_decode": dk.launches, "rnnt_logprobs_scalar": rk.logprobs_scalar_launches}
+
+def launch_counts() -> dict:
+    """Launches by kernel since the last reset: the FFT frontend's (the DFT's left out) and each row kernel's form apart."""
+    from tensorflowasr_tpu_torch.utils.tracing import launches
+
+    counts = {name: launches[f"kernel.{key}"] for name, key in LAUNCH_KEYS.items()}
+    counts["log_mel_spectrogram"] -= launches["kernel.frontend.dft"]
+    counts["rnnt_logprobs"] -= counts["rnnt_logprobs_scalar"]
+    return counts
 
 
 def reset_launch_counts() -> None:
-    from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak, conv_kernel as ck, ctc_kernel as ctk, ff_kernel as fk, frontend_kernel as fek
-    from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk, joint_loss_kernel as jk, lstm_kernel as lk, rnnt_kernel as rk
+    from tensorflowasr_tpu_torch.utils.tracing import launches
 
-    fek.launches = ak.launches = ak.bwd_launches = fk.launches = fk.bwd_launches = 0
-    ck.front_launches = ck.front_bwd_launches = ck.back_launches = ck.back_bwd_launches = 0
-    rk.launches = jk.launches = jk.bwd_launches = rk.logprobs_launches = rk.logprobs_scalar_launches = rk.dlogits_launches = 0
-    lk.launches = lk.bwd_launches = 0
-    ctk.launches = ak.attention_launches = ak.attention_bwd_launches = dk.launches = 0
+    launches.clear()
 
 
 def flagship(dtype, device, num_blocks: int = 16, dropout: float = 0.1, rnn_impl: str = "auto") -> torch.nn.Module:
@@ -4347,6 +4351,7 @@ def data_train_kernels(dev, model, batch) -> dict:
     from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
     from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel as rk
     from tensorflowasr_tpu_torch.ops.rnnt_loss import logits_to_logprobs_plain, sanitize_lengths
+    from tensorflowasr_tpu_torch.utils.tracing import launches
 
     batch = batch.to(dev)
     labels = batch.labels.labels
@@ -4374,10 +4379,10 @@ def data_train_kernels(dev, model, batch) -> dict:
     errs = {}
     for tag, dt in DTYPES:
         x = logits.to(dt).contiguous()
-        plan, before = rk.logprobs_plan(v, x.element_size(), x.data_ptr() % 16 == 0), rk.logprobs_scalar_launches
+        plan, before = rk.logprobs_plan(v, x.element_size(), x.data_ptr() % 16 == 0), launches["kernel.rnnt_logprobs.scalar"]
         got = torch.stack(rk.logits_to_logprobs_kernel(x, labels))
-        if plan.route != "scalar" or rk.logprobs_scalar_launches != before + 1:
-            raise AssertionError(f"rnnt_logprobs_scalar {tag} (V {v}): route {plan.route!r}, {rk.logprobs_scalar_launches - before} scalar launches")
+        if plan.route != "scalar" or launches["kernel.rnnt_logprobs.scalar"] != before + 1:
+            raise AssertionError(f"rnnt_logprobs_scalar {tag} (V {v}): route {plan.route!r}, {launches['kernel.rnnt_logprobs.scalar'] - before} scalar launches")
         errs[tag] = _close(f"rnnt_logprobs_scalar {tag} ({shape})", got, torch.stack(logits_to_logprobs_plain(x, labels)), *ROWS_TOL[tag])
     ms, plain_ms = time_ms(_stacked(rk.logits_to_logprobs_kernel), x, labels), time_ms(_stacked(logits_to_logprobs_plain), x, labels)
     lse_ms = time_ms(torch.logsumexp, x, -1)  # the library yardstick, as row 10a's tiled form has it: one output of three, same logits
@@ -5581,6 +5586,7 @@ def layers_kernels(dev, rows: list[dict]) -> None:
     from tensorflowasr_tpu_torch.ops import frontend
     from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
     from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
+    from tensorflowasr_tpu_torch.utils.tracing import launches
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     t_np, _ = loss_lengths(np.random.default_rng(SEED + 2), TRAIN_B)
@@ -5632,9 +5638,10 @@ def layers_kernels(dev, rows: list[dict]) -> None:
         fe[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], kernel="fft" if fek.uses_fft(nfft) else "dft")
         module = FeatureExtraction(**{"sample_rate": 16000, "frame_ms": 25, "stride_ms": 10, "nfft": nfft, "num_feature_bins": 80}).to(dev)
         lens = torch.full((shape[0],), shape[1], device=dev)
-        before = (fek.launches, fek.dft_launches)
+        before = (launches["kernel.frontend"], launches["kernel.frontend.dft"])
         feats, _ = module(sig, lens)
-        launched = (fek.launches - before[0], fek.dft_launches - before[1])
+        dft = launches["kernel.frontend.dft"] - before[1]
+        launched = (launches["kernel.frontend"] - before[0] - dft, dft)  # (FFT, DFT)
         plain, _ = frontend.extract_features(sig, lens, cfg)
         ferr = _close(f"FeatureExtraction nfft {nfft}", feats, plain, 1e-3, 0.0)
         if launched != ((1, 0) if fek.uses_fft(nfft) else (0, 1)):

@@ -18,6 +18,7 @@ from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtr
 from tensorflowasr_tpu_torch.models.layers.general import Dense, random_init
 from tensorflowasr_tpu_torch.ops import ctc_decode
 from tensorflowasr_tpu_torch.utils import device as device_util
+from tensorflowasr_tpu_torch.utils import tracing
 
 
 class CtcModel(nn.Module):
@@ -76,13 +77,18 @@ def recognize(model: CtcModel, inputs: schemas.PredictInput, beam_width: int = 0
     audio (JAX ``recognize`` minus ``variables``: the module holds its
     weights): tokens [B, T] left-packed and padded with blank;
     ``next_tokens`` all blank. ``lm``, an ``NGramLM``, adds ``lm_weight``
-    times its score to the beam's extensions (shallow fusion)."""
-    logits, logits_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
-    if beam_width and beam_width > 0:
-        tokens, _ = ctc_decode.ctc_beam_search_decode(logits, logits_length, beam_width=beam_width, blank=model.blank,
-                                                      lm_score_fn=lm.beam_score_fn() if lm is not None else None,
-                                                      lm_weight=lm_weight if lm is not None else 0.0)
-    else:
-        tokens, _ = ctc_decode.ctc_greedy_decode(logits, logits_length, blank=model.blank)
-    next_tokens = torch.full((tokens.shape[0],), model.blank, dtype=torch.int64, device=tokens.device)
+    times its score to the beam's extensions (shallow fusion). Spans
+    (``utils/tracing.py``): ``recognize`` ⊃ ``recognize.encode``, ``recognize.decode``."""
+    with tracing.span("recognize", inputs.inputs):
+        with tracing.span("recognize.encode", inputs.inputs):
+            logits, logits_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length,
+                                                                      initial_state=inputs.previous_encoder_states)
+        with tracing.span("recognize.decode", logits):
+            if beam_width and beam_width > 0:
+                tokens, _ = ctc_decode.ctc_beam_search_decode(logits, logits_length, beam_width=beam_width, blank=model.blank,
+                                                              lm_score_fn=lm.beam_score_fn() if lm is not None else None,
+                                                              lm_weight=lm_weight if lm is not None else 0.0)
+            else:
+                tokens, _ = ctc_decode.ctc_greedy_decode(logits, logits_length, blank=model.blank)
+            next_tokens = torch.full((tokens.shape[0],), model.blank, dtype=torch.int64, device=tokens.device)
     return schemas.PredictOutput(tokens=tokens, next_tokens=next_tokens, next_encoder_states=next_encoder_states, next_decoder_states=None)

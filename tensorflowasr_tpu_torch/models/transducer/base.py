@@ -29,6 +29,7 @@ from tensorflowasr_tpu_torch.ops import routes, transducer_decode
 from tensorflowasr_tpu_torch.ops.cuda import decode_kernel
 from tensorflowasr_tpu_torch.ops.cuda.decode_kernel import FusedDecodeParams, FusedLayer, fused_greedy_decode
 from tensorflowasr_tpu_torch.utils import device as device_util
+from tensorflowasr_tpu_torch.utils import tracing
 
 JOINT_MODES = ("add", "mul")
 
@@ -295,8 +296,20 @@ def recognize(model: Transducer, inputs: schemas.PredictInput, beam_width: int =
     (one kernel launch on the card, its plain version on the CPU) for every
     configuration :func:`extract_decode_params` takes, else the eager loop.
     Beam: ``transducer_beam_search_decode`` over ``decode_step`` (3 rounds a
-    frame, as in JAX; the other options do not apply)."""
-    encoded, encoded_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length, initial_state=inputs.previous_encoder_states)
+    frame, as in JAX; the other options do not apply). Spans (``utils/tracing.py``):
+    ``recognize`` ⊃ ``recognize.encode`` (``model.encode``), ``recognize.decode`` (the rest)."""
+    with tracing.span("recognize", inputs.inputs):
+        with tracing.span("recognize.encode", inputs.inputs):
+            encoded, encoded_length, next_encoder_states = model.encode(inputs.inputs, inputs.inputs_length,
+                                                                        initial_state=inputs.previous_encoder_states)
+        with tracing.span("recognize.decode", encoded):
+            return _decode(model, inputs, encoded, encoded_length, next_encoder_states, beam_width, max_token_factor, max_symbols_per_frame,
+                           decode_mode, window)
+
+
+def _decode(model: Transducer, inputs: schemas.PredictInput, encoded, encoded_length, next_encoder_states, beam_width: int, max_token_factor: int,
+            max_symbols_per_frame, decode_mode: str, window: int) -> schemas.PredictOutput:
+    """:func:`recognize` after the encoder: the decoder's states and the greedy or beam decode."""
     batch, dev = encoded.shape[0], encoded.device
     prev_tokens = inputs.previous_tokens
     prev_tokens = torch.full((batch,), model.blank, dtype=torch.int64, device=dev) if prev_tokens is None else prev_tokens.reshape(batch).to(dev)

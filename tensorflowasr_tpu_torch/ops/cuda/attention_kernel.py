@@ -42,11 +42,7 @@ import torch
 
 from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda import _build
-
-launches = 0  # kernel B forward launches since the last reset (set to 0 to reset)
-bwd_launches = 0  # kernel B backward launches since the last reset
-attention_launches = 0  # kernel A forward launches since the last reset
-attention_bwd_launches = 0  # kernel A backward launches since the last reset
+from tensorflowasr_tpu_torch.utils import tracing
 
 _TQ, _KT, _THREADS = 16, 64, 256  # csrc/rel_attention.cu (the f32 kernels)
 _REL_MAX_D = 128  # both routes: the f32 kernels' accumulators and the bf16 kernels' DMAX 128 instantiation
@@ -250,7 +246,6 @@ def fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: 
     """The forward kernel on CUDA tensors (no autograd): the output, and with
     ``with_stats`` (bf16 only) also the rows' softmax statistics [2, BH, T]
     f32 (max m, sum l), which the bf16 backward reads."""
-    global launches
     dims, has_chunk, code = _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal)
     if with_stats and qc.dtype != torch.bfloat16:
         raise ValueError("only the bf16 kernels return the row statistics (f32 recomputes them)")
@@ -258,14 +253,13 @@ def fused_rel_attention_kernel(qc, qp, k, v, pos, kv_bias, q_len, seed=0, rate: 
     stats = torch.empty((2, dims[0], dims[2]), dtype=torch.float32, device=qc.device) if with_stats else None
     if out.numel() > 0:
         lib = _build.build()
-        with torch.cuda.device(qc.device):
+        with tracing.kernel("kernel.rel_attention.fwd", qc, qp, k, v, pos), torch.cuda.device(qc.device):
             err = lib.tfasr_rel_attention(
                 qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
                 _build.ptr(stats), *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
                 *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
             )
-        _build.check(err, "fused_rel_attention")
-        launches += 1
+            _build.check(err, "fused_rel_attention")
     return (out, stats) if with_stats else out
 
 
@@ -274,7 +268,6 @@ def fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout,
     """The backward kernel on CUDA tensors: ``out`` is the forward's output
     and ``stats`` its row statistics (required for bf16; f32 recomputes
     them); same results as :func:`fused_rel_attention_plain_bwd`."""
-    global bwd_launches
     dims, has_chunk, code = _check(qc, qp, k, v, pos, kv_bias, q_len, chunk_size, history_size, pe_causal)
     for name, x in (("out", out), ("dout", dout)):
         _build.require(x, name, device=qc.device, dtype=qc.dtype, shape=tuple(qc.shape))
@@ -286,25 +279,24 @@ def fused_rel_attention_bwd_kernel(qc, qp, k, v, pos, kv_bias, q_len, out, dout,
         _build.require(stats, "stats", device=qc.device, dtype=torch.float32, shape=(2, bh, t))
     elif stats is not None:
         raise ValueError("the f32 backward recomputes the row statistics: pass no stats")
-    grads = [torch.zeros_like(x) for x in (qc, qp, k, v, pos)]
     if qc.numel() == 0:
-        return tuple(grads)
+        return tuple(torch.zeros_like(x) for x in (qc, qp, k, v, pos))
     lib = _build.build()
-    if bf16:  # the tensor-core kernels: bf16 ds and pd (hi and lo planes) with rows padded to 8 columns
-        sp = -(-s // 8) * 8
-        ds, pd = (torch.empty((n, bh, t, sp), dtype=torch.bfloat16, device=qc.device) for n in (1, 2))
-    else:
-        ds = torch.empty((bh, t, s), dtype=qc.dtype, device=qc.device)
-        pd = torch.empty((bh, t, s), dtype=torch.float32, device=qc.device)
-    with torch.cuda.device(qc.device):
+    with tracing.kernel("kernel.rel_attention.bwd", qc, qp, k, v, pos), torch.cuda.device(qc.device):
+        grads = [torch.zeros_like(x) for x in (qc, qp, k, v, pos)]
+        if bf16:  # the tensor-core kernels: bf16 ds and pd (hi and lo planes) with rows padded to 8 columns
+            sp = -(-s // 8) * 8
+            ds, pd = (torch.empty((n, bh, t, sp), dtype=torch.bfloat16, device=qc.device) for n in (1, 2))
+        else:
+            ds = torch.empty((bh, t, s), dtype=qc.dtype, device=qc.device)
+            pd = torch.empty((bh, t, s), dtype=torch.float32, device=qc.device)
         err = lib.tfasr_rel_attention_bwd(
             qc.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), _build.ptr(kv_bias), _build.ptr(q_len), out.data_ptr(),
             dout.data_ptr(), _build.ptr(stats), ds.data_ptr(), pd.data_ptr(), *(g.data_ptr() for g in grads),
             *dims, int(bool(causal)), int(has_chunk), int(chunk_size or 0), int(history_size if has_chunk else 0),
             *dr.kernel_args(seed, rate), code, _build.stream_of(qc),
         )
-    _build.check(err, "fused_rel_attention backward")
-    bwd_launches += 1
+        _build.check(err, "fused_rel_attention backward")
     return tuple(grads)
 
 
@@ -471,17 +463,15 @@ def fused_attention_kernel(q, k, v, bias, seed=0, rate: float = 0.0, with_stats:
     ``with_stats`` also the rows' statistics [2, BH, T] f32 (as
     :func:`fused_attention_plain_stats`), which the bf16 backward reads;
     without it the kernel computes no statistics."""
-    global attention_launches
     bh, t, s, d, code = _attention_check(q, k, v, bias)
     out = torch.empty_like(q)
     stats = torch.empty((2, bh, t), dtype=torch.float32, device=q.device) if with_stats else None
     if out.numel() > 0:
         lib = _build.build()
-        with torch.cuda.device(q.device):
+        with tracing.kernel("kernel.attention.fwd", q, k, v, bias), torch.cuda.device(q.device):
             err = lib.tfasr_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), _build.ptr(stats), bh, t, s, d,
                                       bias.shape[0], *dr.kernel_args(seed, rate), code, _build.stream_of(q))
-        _build.check(err, "fused_attention")
-        attention_launches += 1
+            _build.check(err, "fused_attention")
     return (out, stats) if with_stats else out
 
 
@@ -489,7 +479,6 @@ def fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed=0, rate: float = 0
     """Kernel A's backward on CUDA tensors: ``out`` is the forward's output
     and ``stats`` its row statistics (required for bf16; f32 recomputes
     them); same results as :func:`fused_attention_plain_bwd`."""
-    global attention_bwd_launches
     bh, t, s, d, code = _attention_check(q, k, v, bias)
     for name, x in (("out", out), ("dout", dout)):
         _build.require(x, name, device=q.device, dtype=q.dtype, shape=tuple(q.shape))
@@ -498,22 +487,22 @@ def fused_attention_bwd_kernel(q, k, v, bias, out, dout, seed=0, rate: float = 0
         if stats is None:
             raise ValueError("the bf16 backward reads the forward's row statistics: pass stats from fused_attention_kernel(..., with_stats=True)")
         _build.require(stats, "stats", device=q.device, dtype=torch.float32, shape=(2, bh, t))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbias = torch.zeros((bh, t, s), dtype=torch.float32, device=q.device) if bias_grad else None
     if q.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_(), None if dbias is None else dbias[:bias.shape[0]].to(bias.dtype)
-    if bf16:  # the tensor-core kernels: a [BH, T] delta, no score-shaped scratch
-        delta, ds, pd = torch.empty((bh, t), dtype=torch.float32, device=q.device), None, None
-    else:
-        delta, ds = None, torch.empty((bh, t, s), dtype=q.dtype, device=q.device)
-        pd = torch.empty((bh, t, s), dtype=torch.float32, device=q.device)
+        dbias = torch.zeros((bh, t, s), dtype=torch.float32, device=q.device) if bias_grad else None
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v), None if dbias is None else dbias[:bias.shape[0]].to(bias.dtype)
     lib = _build.build()
-    with torch.cuda.device(q.device):
+    with tracing.kernel("kernel.attention.bwd", q, k, v, bias), torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dbias = torch.zeros((bh, t, s), dtype=torch.float32, device=q.device) if bias_grad else None
+        if bf16:  # the tensor-core kernels: a [BH, T] delta, no score-shaped scratch
+            delta, ds, pd = torch.empty((bh, t), dtype=torch.float32, device=q.device), None, None
+        else:
+            delta, ds = None, torch.empty((bh, t, s), dtype=q.dtype, device=q.device)
+            pd = torch.empty((bh, t, s), dtype=torch.float32, device=q.device)
         err = lib.tfasr_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), dout.data_ptr(), _build.ptr(stats),
                                       _build.ptr(delta), _build.ptr(ds), _build.ptr(pd), _build.ptr(dbias), dq.data_ptr(), dk.data_ptr(),
                                       dv.data_ptr(), bh, t, s, d, bias.shape[0], *dr.kernel_args(seed, rate), code, _build.stream_of(q))
-    _build.check(err, "fused_attention backward")
-    attention_bwd_launches += 1
+        _build.check(err, "fused_attention backward")
     if dbias is not None:
         dbias = (dbias.sum(dim=0, keepdim=True) if bias.shape[0] == 1 else dbias).to(bias.dtype)
     return dq, dk, dv, dbias

@@ -48,14 +48,11 @@ import torch.nn.functional as F
 from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda.ff_kernel import _ln_parts, dot_as, layer_norm_f32, ln_backward
+from tensorflowasr_tpu_torch.utils import tracing
 
 MAX_D = 512  # both halves, both dtypes
 _PAD, _WIDE_CC = 8, 32  # csrc/conv_mma.cu: bf16 row padding; the wide kernels' weight-chunk columns
 
-front_launches = 0  # conv_front forward kernel launches since the last reset
-back_launches = 0  # conv_back forward kernel launches since the last reset
-front_bwd_launches = 0  # conv_front backward kernel launches since the last reset
-back_bwd_launches = 0  # conv_back backward kernel launches since the last reset
 
 
 def supported(d: int, dtype: torch.dtype) -> bool:
@@ -146,19 +143,17 @@ def _check_front(x, gamma, beta, wa, ba, wb, bb):
 
 def conv_front_kernel(x, gamma, beta, wa, ba, wb, bb, eps: float = 1e-3):
     """The conv_front forward kernel on CUDA tensors (no autograd)."""
-    global front_launches
     n, d, code = _check_front(x, gamma, beta, wa, ba, wb, bb)
     out = torch.empty_like(x)
     if n == 0:
         return out
     lib = _build.build()
-    with torch.cuda.device(x.device):
+    with tracing.kernel("kernel.conv_front.fwd", x, wa), torch.cuda.device(x.device):
         err = lib.tfasr_conv_front(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(), bb.data_ptr(), out.data_ptr(),
             n, d, float(eps), code, _build.stream_of(x),
         )
-    _build.check(err, "conv_front")
-    front_launches += 1
+        _build.check(err, "conv_front")
     return out
 
 
@@ -169,26 +164,25 @@ def conv_front_bwd_kernel(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-
 
 def conv_front_bwd_kernel_f32(x, gamma, beta, wa, ba, wb, bb, dout, eps: float = 1e-3):
     """:func:`conv_front_bwd_kernel` before the final casts: dx in x's dtype, the parameter gradients in f32."""
-    global front_bwd_launches
     n, d, code = _check_front(x, gamma, beta, wa, ba, wb, bb)
     _build.require(dout, "dout", device=x.device, dtype=x.dtype, shape=tuple(x.shape))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    cols = torch.zeros(4 * d, **f32)  # dba, dbb, dgamma, dbeta: the bf16 kernels write them as one row
-    dba, dbb, dg, db = cols.split(d)
-    dwa, dwb = torch.zeros((d, d), **f32), torch.zeros((d, d), **f32)
-    if n > 0:
-        lib = _build.build()
-        floats = lib.tfasr_conv_front_mma_scratch(n, d) if x.dtype == torch.bfloat16 else lib.tfasr_conv_bwd_scratch(n, d)
-        scratch = torch.empty(int(floats), **f32)
-        with torch.cuda.device(x.device):
-            err = lib.tfasr_conv_front_bwd(
-                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(), bb.data_ptr(), dout.data_ptr(),
-                dx.data_ptr(), dg.data_ptr(), db.data_ptr(), dwa.data_ptr(), dba.data_ptr(), dwb.data_ptr(), dbb.data_ptr(), scratch.data_ptr(),
-                n, d, float(eps), code, _build.stream_of(x),
-            )
-        _build.check(err, "conv_front backward")
-        front_bwd_launches += 1
+    lib = _build.build() if n > 0 else None
+    with tracing.kernel("kernel.conv_front.bwd", x, wa, dout) if n > 0 else tracing.NULL:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        cols = torch.zeros(4 * d, **f32)  # dba, dbb, dgamma, dbeta: the bf16 kernels write them as one row
+        dba, dbb, dg, db = cols.split(d)
+        dwa, dwb = torch.zeros((d, d), **f32), torch.zeros((d, d), **f32)
+        if n > 0:
+            floats = lib.tfasr_conv_front_mma_scratch(n, d) if x.dtype == torch.bfloat16 else lib.tfasr_conv_bwd_scratch(n, d)
+            scratch = torch.empty(int(floats), **f32)
+            with torch.cuda.device(x.device):
+                err = lib.tfasr_conv_front_bwd(
+                    x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(), bb.data_ptr(), dout.data_ptr(),
+                    dx.data_ptr(), dg.data_ptr(), db.data_ptr(), dwa.data_ptr(), dba.data_ptr(), dwb.data_ptr(), dbb.data_ptr(), scratch.data_ptr(),
+                    n, d, float(eps), code, _build.stream_of(x),
+                )
+            _build.check(err, "conv_front backward")
     return dx, dg, db, dwa, dba, dwb, dbb
 
 
@@ -307,19 +301,17 @@ def _check_back(x, y1, mean, var, scale, bias, w2, b2):
 
 def conv_back_kernel(x, y1, mean, var, scale, bias, w2, b2, seed=0, rate: float = 0.0, factor: float = 1.0, eps: float = 1e-3):
     """The conv_back forward kernel on CUDA tensors (no autograd)."""
-    global back_launches
     n, d, code = _check_back(x, y1, mean, var, scale, bias, w2, b2)
     out = torch.empty_like(x)
     if n == 0:
         return out
     lib = _build.build()
-    with torch.cuda.device(x.device):
+    with tracing.kernel("kernel.conv_back.fwd", x, y1, w2), torch.cuda.device(x.device):
         err = lib.tfasr_conv_back(
             x.data_ptr(), y1.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             out.data_ptr(), n, d, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
         )
-    _build.check(err, "conv_back")
-    back_launches += 1
+        _build.check(err, "conv_back")
     return out
 
 
@@ -330,27 +322,26 @@ def conv_back_bwd_kernel(y1, mean, var, scale, bias, w2, dout, seed=0, rate: flo
 
 def conv_back_bwd_kernel_f32(y1, mean, var, scale, bias, w2, dout, seed=0, rate: float = 0.0, factor: float = 1.0, eps: float = 1e-3):
     """:func:`conv_back_bwd_kernel` before the final casts: dy1 in y1's dtype, the parameter gradients in f32."""
-    global back_bwd_launches
     n, d, code = _check_back(y1, y1, mean, var, scale, bias, w2, w2[0])
     _build.require(dout, "dout", device=y1.device, dtype=y1.dtype, shape=tuple(y1.shape))
-    f32 = dict(dtype=torch.float32, device=y1.device)
-    dy1 = torch.empty_like(y1)
-    cols = torch.zeros(3 * d, **f32)  # db2, dbias, dscale: the bf16 kernels write them as one row
-    db2, dbias, dscale = cols.split(d)
-    dmean, dvar = torch.zeros(d, **f32), torch.zeros(d, **f32)
-    dw2 = torch.zeros((d, d), **f32)
-    if n > 0:
-        lib = _build.build()
-        floats = lib.tfasr_conv_back_mma_scratch(n, d) if y1.dtype == torch.bfloat16 else lib.tfasr_conv_bwd_scratch(n, d)
-        scratch = torch.empty(int(floats), **f32)
-        with torch.cuda.device(y1.device):
-            err = lib.tfasr_conv_back_bwd(
-                y1.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(), w2.data_ptr(), dout.data_ptr(), dy1.data_ptr(),
-                dmean.data_ptr(), dvar.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(),
-                n, d, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(y1),
-            )
-        _build.check(err, "conv_back backward")
-        back_bwd_launches += 1
+    lib = _build.build() if n > 0 else None
+    with tracing.kernel("kernel.conv_back.bwd", y1, w2, dout) if n > 0 else tracing.NULL:
+        f32 = dict(dtype=torch.float32, device=y1.device)
+        dy1 = torch.empty_like(y1)
+        cols = torch.zeros(3 * d, **f32)  # db2, dbias, dscale: the bf16 kernels write them as one row
+        db2, dbias, dscale = cols.split(d)
+        dmean, dvar = torch.zeros(d, **f32), torch.zeros(d, **f32)
+        dw2 = torch.zeros((d, d), **f32)
+        if n > 0:
+            floats = lib.tfasr_conv_back_mma_scratch(n, d) if y1.dtype == torch.bfloat16 else lib.tfasr_conv_bwd_scratch(n, d)
+            scratch = torch.empty(int(floats), **f32)
+            with torch.cuda.device(y1.device):
+                err = lib.tfasr_conv_back_bwd(
+                    y1.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(), w2.data_ptr(), dout.data_ptr(), dy1.data_ptr(),
+                    dmean.data_ptr(), dvar.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(),
+                    n, d, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(y1),
+                )
+            _build.check(err, "conv_back backward")
     return dy1, dmean, dvar, dscale, dbias, dw2, db2
 
 

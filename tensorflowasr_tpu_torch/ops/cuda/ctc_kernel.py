@@ -29,8 +29,7 @@ import torch
 
 from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
 from tensorflowasr_tpu_torch.ops.cuda import _build
-
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+from tensorflowasr_tpu_torch.utils import tracing
 
 MAX_STATES = 1024  # one lane per extended state, at most 32 warps a sweep
 
@@ -44,9 +43,8 @@ def supported(s: int) -> bool:
 def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch.Tensor, label_length: torch.Tensor):
     """The kernel on CUDA tensors: (occupancy [B, T, S], loss [B]), f32; no
     autograd. Lengths are clamped to the lattice (1 ≤ T_b ≤ T, 2U_b+1 ≤ S).
-    One call, one count in :data:`launches` (its two launches: the sweeps
-    and the occupancy pass)."""
-    global launches
+    One call, one count in ``tracing.launches["kernel.ctc"]`` (its two
+    launches: the sweeps and the occupancy pass)."""
     if lp_ext.dim() != 3:
         raise ValueError("lp_ext must be [B, T, S]")
     b, t, s = lp_ext.shape
@@ -59,17 +57,16 @@ def ctc_kernel(lp_ext: torch.Tensor, skip_add: torch.Tensor, logit_length: torch
     u_len = label_length.to(dev, torch.int32).contiguous()
     for name, x in (("logit_length", t_len), ("label_length", u_len)):
         _build.require(x, name, device=dev, dtype=torch.int32, shape=(b,))
-    occ = torch.empty_like(lp_ext)
-    loss = torch.empty(b, dtype=torch.float32, device=dev)
     if b * t * s == 0:
-        return occ.zero_(), loss.zero_()
-    beta = torch.empty_like(lp_ext)  # the β rows
+        return torch.zeros_like(lp_ext), torch.zeros(b, dtype=torch.float32, device=dev)
     lib = _build.build()
-    with torch.cuda.device(dev):
+    with tracing.kernel("kernel.ctc", lp_ext, skip_add), torch.cuda.device(dev):
+        occ = torch.empty_like(lp_ext)
+        loss = torch.empty(b, dtype=torch.float32, device=dev)
+        beta = torch.empty_like(lp_ext)  # the β rows
         err = lib.tfasr_ctc(lp_ext.data_ptr(), skip_add.data_ptr(), t_len.data_ptr(), u_len.data_ptr(), occ.data_ptr(), loss.data_ptr(), beta.data_ptr(),
                             b, t, s, _build.stream_of(lp_ext))
-    _build.check(err, "ctc")
-    launches += 1
+        _build.check(err, "ctc")
     return occ, loss
 
 

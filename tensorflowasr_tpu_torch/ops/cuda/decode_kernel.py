@@ -52,8 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.ops.cuda import _build
+from tensorflowasr_tpu_torch.utils import tracing
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
 last_launch: Optional[dict] = None  # the last launch's cluster size, occupancy and shared-memory plan
 
 MAX_LAYERS = 4  # csrc/decode.cu DEC_MAX_LAYERS
@@ -385,7 +385,7 @@ def fused_greedy_decode_kernel_stacked(encoded, encoded_length, params: FusedDec
                                        window: int = 16, max_token_factor: int = 2, cluster: Optional[int] = None):
     """:func:`fused_greedy_decode_kernel` with the states carried out as one
     [L, 2, B, H] f32 tensor (c then h per layer)."""
-    global launches, last_launch
+    global last_launch
     code, (e, hidden, p, j, vocab) = _check(encoded, encoded_length, params, initial_tokens, initial_states)
     dev = encoded.device
     enc_p = project_encoder(encoded, params).contiguous()
@@ -394,10 +394,12 @@ def fused_greedy_decode_kernel_stacked(encoded, encoded_length, params: FusedDec
     lens = encoded_length.to(torch.int32).reshape(batch).contiguous()
     tok0 = initial_tokens.to(torch.int32).reshape(batch).contiguous()
     st0 = stack_states(initial_states)
-    tokens = torch.full((batch, max_tokens), blank, dtype=torch.int32, device=dev)
-    out_len, next_tok = torch.zeros(batch, dtype=torch.int32, device=dev), tok0.clone()
-    st_out = st0.clone()
-    if batch > 0:
+    if batch == 0:
+        return torch.full((0, max_tokens), blank, dtype=torch.long, device=dev), torch.zeros(0, dtype=torch.long, device=dev), tok0.long(), st0.clone()
+    with tracing.kernel("kernel.decode", enc_p, params.wv):
+        tokens = torch.full((batch, max_tokens), blank, dtype=torch.int32, device=dev)
+        out_len, next_tok = torch.zeros(batch, dtype=torch.int32, device=dev), tok0.clone()
+        st_out = st0.clone()
         n = len(params.layers)
         elt = params.wv.element_size()
         sizes = (cluster,) if cluster is not None else CLUSTER_SIZES
@@ -428,7 +430,6 @@ def fused_greedy_decode_kernel_stacked(encoded, encoded_length, params: FusedDec
                 code, _build.stream_of(enc_p),
             )
         _build.check(err, "fused_greedy_decode")
-        launches += 1
         last_launch = dict(cluster=plan.cluster, occupancy=occ, smem_bytes=plan.smem_bytes, resident_bytes=plan.resident_bytes,
                            slice_bytes=plan.slice_bytes, whole=plan.whole, batch=batch)
     return tokens.long(), out_len.long(), next_tok.long(), st_out

@@ -42,9 +42,7 @@ import torch
 
 from tensorflowasr_tpu_torch.ops import dropout as dr
 from tensorflowasr_tpu_torch.ops.cuda import _build
-
-launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
-bwd_launches = 0  # backward kernel launches since the last reset
+from tensorflowasr_tpu_torch.utils import tracing
 
 _MMA_ROWS, _MMA_THREADS, _MMA_FC, _MMA_PAD = 64, 256, 64, 8  # csrc/ff_mma.cu (the bf16 kernels)
 FWD_ROWS = (64, 32)  # the bf16 forward's row tiles: 4 row groups of 16 with each chunk split over 2 warps, or 2 over 4
@@ -233,23 +231,21 @@ def fused_ff_kernel(x, gamma, beta, w1, b1, w2, b2, seed=0, rate: float = 0.0, f
     """The forward kernel on CUDA tensors (no autograd). ``rows``: the bf16
     forward's rows per block (one of ``FWD_ROWS``; default
     :func:`ff_fwd_rows` for this N and card)."""
-    global launches
     n, d, f, code = _check(x, gamma, beta, w1, b1, w2, b2)
-    out = torch.empty_like(x)
     if n == 0:
-        return out
+        return torch.empty_like(x)
     if rows is None:
         rows = ff_fwd_rows(n, one_wave_blocks(x.device.index if x.device.index is not None else torch.cuda.current_device(), d))
     elif rows not in FWD_ROWS:
         raise ValueError(f"the forward takes {FWD_ROWS} rows a block, not {rows}")
     lib = _build.build()
-    with torch.cuda.device(x.device):
+    with tracing.kernel("kernel.ff.fwd", x, w1), torch.cuda.device(x.device):
+        out = torch.empty_like(x)
         err = lib.tfasr_fused_ff(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             n, d, f, int(rows), float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
         )
-    _build.check(err, "fused_ff")
-    launches += 1
+        _build.check(err, "fused_ff")
     return out
 
 
@@ -261,25 +257,24 @@ def fused_ff_bwd_kernel(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 
 
 def fused_ff_bwd_kernel_f32(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: float = 0.0, factor: float = 0.5, eps: float = 1e-3):
     """:func:`fused_ff_bwd_kernel` before the final casts: dx in x's dtype, the parameter gradients in f32."""
-    global bwd_launches
     n, d, f, code = _check(x, gamma, beta, w1, b1, w2, b1.new_empty(x.shape[1]))
     _build.require(dout, "dout", device=x.device, dtype=x.dtype, shape=(n, d))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    cols = torch.zeros(f + 3 * d, **f32)  # db1, db2, dgamma, dbeta: the bf16 kernels write them as one row
-    db1, db2, dg, db = cols.split((f, d, d, d))
-    dw1, dw2 = torch.zeros((d, f), **f32), torch.zeros((f, d), **f32)
-    if n > 0:
-        lib = _build.build()
-        scratch = torch.empty(int(lib.tfasr_fused_ff_bwd_scratch(n, d, f, code)), **f32)
-        with torch.cuda.device(x.device):
-            err = lib.tfasr_fused_ff_bwd(
-                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-                dg.data_ptr(), db.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(),
-                n, d, f, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
-            )
-        _build.check(err, "fused_ff backward")
-        bwd_launches += 1
+    lib = _build.build() if n > 0 else None
+    with tracing.kernel("kernel.ff.bwd", x, w1, dout) if n > 0 else tracing.NULL:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        cols = torch.zeros(f + 3 * d, **f32)  # db1, db2, dgamma, dbeta: the bf16 kernels write them as one row
+        db1, db2, dg, db = cols.split((f, d, d, d))
+        dw1, dw2 = torch.zeros((d, f), **f32), torch.zeros((f, d), **f32)
+        if n > 0:
+            scratch = torch.empty(int(lib.tfasr_fused_ff_bwd_scratch(n, d, f, code)), **f32)
+            with torch.cuda.device(x.device):
+                err = lib.tfasr_fused_ff_bwd(
+                    x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+                    dg.data_ptr(), db.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(),
+                    n, d, f, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
+                )
+            _build.check(err, "fused_ff backward")
     return dx, dg, db, dw1, db1, dw2, db2
 
 

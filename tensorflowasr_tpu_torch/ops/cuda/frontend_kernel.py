@@ -44,9 +44,7 @@ import torch
 
 from tensorflowasr_tpu_torch.ops import frontend
 from tensorflowasr_tpu_torch.ops.cuda import _build
-
-launches = 0  # FFT kernel launches since the last reset (set to 0 to reset)
-dft_launches = 0  # direct-DFT kernel launches since the last reset
+from tensorflowasr_tpu_torch.utils import tracing
 
 FFT_SIZES = (256, 512, 1024, 2048)  # the nfft the FFT kernel takes
 
@@ -144,7 +142,6 @@ def log_mel_spectrogram_pallas(signal: torch.Tensor, config: frontend.FrontendCo
 
 def log_mel_spectrogram_kernel(signal: torch.Tensor, config: frontend.FrontendConfig) -> torch.Tensor:
     """The FFT or direct-DFT kernel on a CUDA tensor (see :func:`log_mel_spectrogram_pallas`)."""
-    global launches, dft_launches
     _check_config(config)
     if signal.dim() != 2:
         raise ValueError("signal must be [B, N]")
@@ -159,13 +156,11 @@ def log_mel_spectrogram_kernel(signal: torch.Tensor, config: frontend.FrontendCo
     lib = _build.build()
     fft = uses_fft(nfft)
     sizes = (nfft, nmel, consts[2].numel()) if fft else (nfft // 2 + 1, nmel)
-    with torch.cuda.device(signal.device):
+    with tracing.kernel("kernel.frontend", signal, out), torch.cuda.device(signal.device):
         launch = lib.tfasr_log_mel_fft if fft else lib.tfasr_log_mel_dft
         err = launch(signal.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(), b, n, t, kernel_frame_length(config), config.frame_step, *sizes,
                      float(config.epsilon), _build.stream_of(signal))
-    _build.check(err, "log_mel_spectrogram_pallas")
-    if fft:
-        launches += 1
-    else:
-        dft_launches += 1
+        _build.check(err, "log_mel_spectrogram_pallas")
+    if not fft:
+        tracing.launches["kernel.frontend.dft"] += 1
     return out

@@ -36,9 +36,7 @@ import torch
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda import rnnt_kernel
 from tensorflowasr_tpu_torch.ops.rnnt_loss import labels_per_cell, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
-
-launches = 0  # forward (joint statistics) kernel launches since the last reset (set to 0 to reset)
-bwd_launches = 0  # backward kernel launches since the last reset
+from tensorflowasr_tpu_torch.utils import tracing
 
 MAX_J = 640  # both routes: the shared-memory tiles hold [rows, J] (bf16 above 384: one Wv chunk in the rows pass); J a multiple of 8
 
@@ -136,7 +134,6 @@ def _check(enc_p, pred_p, wv, bv, labels):
 
 def joint_logprobs_kernel(enc_p, pred_p, wv, bv, labels):
     """The forward kernel on CUDA tensors: (lp_blank, lp_emit, lse) as :func:`joint_logprobs_plain`."""
-    global launches
     b, t, u1, j, v, code = _check(enc_p, pred_p, wv, bv, labels)
     f32 = dict(dtype=torch.float32, device=enc_p.device)
     lpb, lpe, lse = (torch.empty((b, t, u1), **f32) for _ in range(3))
@@ -144,11 +141,10 @@ def joint_logprobs_kernel(enc_p, pred_p, wv, bv, labels):
         return lpb, lpe, lse
     lab = labels.to(torch.int32).contiguous()
     lib = _build.build()
-    with torch.cuda.device(enc_p.device):
+    with tracing.kernel("kernel.joint_loss.fwd", enc_p, pred_p, wv), torch.cuda.device(enc_p.device):
         err = lib.tfasr_joint_fwd(enc_p.data_ptr(), pred_p.data_ptr(), wv.data_ptr(), bv.data_ptr(), lab.data_ptr(), lpb.data_ptr(), lpe.data_ptr(),
                                   lse.data_ptr(), b, t, u1, j, v, code, _build.stream_of(enc_p))
-    _build.check(err, "joint_logprobs")
-    launches += 1
+        _build.check(err, "joint_logprobs")
     return lpb, lpe, lse
 
 
@@ -159,23 +155,23 @@ def rnnt_loss_fused_joint_bwd_kernel(enc_p, pred_p, wv, bv, labels, lse, gbl, ge
 
 def rnnt_loss_fused_joint_bwd_kernel_f32(enc_p, pred_p, wv, bv, labels, lse, gbl, gem):
     """:func:`rnnt_loss_fused_joint_bwd_kernel` before the final casts: every gradient in f32."""
-    global bwd_launches
     b, t, u1, j, v, code = _check(enc_p, pred_p, wv, bv, labels)
     for name, x in (("lse", lse), ("gbl", gbl), ("gem", gem)):
         _build.require(x, name, device=enc_p.device, dtype=torch.float32, shape=(b, t, u1))
-    f32 = dict(dtype=torch.float32, device=enc_p.device)
-    denc, dpred = torch.zeros((b, t, j), **f32), torch.zeros((b, u1, j), **f32)
-    dwv, dbv = torch.zeros((v, j), **f32), torch.zeros(v, **f32)
-    if b * t * u1 > 0:
-        lab = labels.to(torch.int32).contiguous()
-        lib = _build.build()
-        scratch = torch.empty(int(lib.tfasr_joint_bwd_scratch(b, t, u1, j, v, code)), **f32)
-        with torch.cuda.device(enc_p.device):
-            err = lib.tfasr_joint_bwd(enc_p.data_ptr(), pred_p.data_ptr(), wv.data_ptr(), bv.data_ptr(), lab.data_ptr(), lse.data_ptr(), gbl.data_ptr(),
-                                      gem.data_ptr(), denc.data_ptr(), dpred.data_ptr(), dwv.data_ptr(), dbv.data_ptr(), scratch.data_ptr(), b, t, u1, j,
-                                      v, code, _build.stream_of(enc_p))
-        _build.check(err, "joint backward")
-        bwd_launches += 1
+    launched = b * t * u1 > 0
+    lib = _build.build() if launched else None
+    with tracing.kernel("kernel.joint_loss.bwd", enc_p, pred_p, wv) if launched else tracing.NULL:
+        f32 = dict(dtype=torch.float32, device=enc_p.device)
+        denc, dpred = torch.zeros((b, t, j), **f32), torch.zeros((b, u1, j), **f32)
+        dwv, dbv = torch.zeros((v, j), **f32), torch.zeros(v, **f32)
+        if launched:
+            lab = labels.to(torch.int32).contiguous()
+            scratch = torch.empty(int(lib.tfasr_joint_bwd_scratch(b, t, u1, j, v, code)), **f32)
+            with torch.cuda.device(enc_p.device):
+                err = lib.tfasr_joint_bwd(enc_p.data_ptr(), pred_p.data_ptr(), wv.data_ptr(), bv.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+                                          gbl.data_ptr(), gem.data_ptr(), denc.data_ptr(), dpred.data_ptr(), dwv.data_ptr(), dbv.data_ptr(),
+                                          scratch.data_ptr(), b, t, u1, j, v, code, _build.stream_of(enc_p))
+            _build.check(err, "joint backward")
     return denc, dpred, dwv, dbv
 
 

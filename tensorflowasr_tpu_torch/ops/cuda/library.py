@@ -8,7 +8,7 @@ serve, train and eval paths call the kernels as before. Each operator has
 
 - a CUDA implementation: the wrapper's kernel launch (its ``_check``, its
   plan, occupancy and row choices, the ``nvcc`` build at first use), which
-  adds one to the wrapper's launch counter;
+  adds one to the wrapper's count in ``utils/tracing.launches``;
 - a CPU implementation: the kernel's plain version;
 - a fake implementation, the output shapes from the input shapes alone,
   which is all that runs while ``torch.export`` traces.

@@ -43,9 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from tensorflowasr_tpu_torch.ops.cuda import _build
-
-launches = 0  # forward kernel launches since the last reset (set to 0 to reset)
-bwd_launches = 0  # backward kernel launches since the last reset
+from tensorflowasr_tpu_torch.utils import tracing
 
 MAX_UNITS = 8  # csrc/lstm.cu (f32): hidden units per block; the grid holds ceil(H / units) co-resident blocks
 
@@ -197,12 +195,11 @@ def lstm_fwd_kernel(xg, wh, h0, c0, units: int | None = None):
     bf16: the cluster kernel as :func:`lstm_mma_plan` lays it out; f32: the
     cooperative grid, ``units`` hidden units per block (default as
     :func:`_units` picks)."""
-    global launches
     b, t, h, code, units, plan = _check(xg, wh, h0, c0, units)
-    y, cseq = torch.empty((b, t, h), dtype=xg.dtype, device=xg.device), torch.empty((b, t, h), dtype=xg.dtype, device=xg.device)
-    gates = torch.empty_like(xg)
     lib = _build.build()
-    with torch.cuda.device(xg.device):
+    with tracing.kernel("kernel.lstm.fwd", xg, wh), torch.cuda.device(xg.device):
+        y, cseq = torch.empty((b, t, h), dtype=xg.dtype, device=xg.device), torch.empty((b, t, h), dtype=xg.dtype, device=xg.device)
+        gates = torch.empty_like(xg)
         if plan is not None:
             pack = _pack(plan.fwd_pack_bytes, xg.device)
             err = lib.tfasr_lstm_mma_fwd(xg.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(), cseq.data_ptr(), gates.data_ptr(),
@@ -212,34 +209,31 @@ def lstm_fwd_kernel(xg, wh, h0, c0, units: int | None = None):
             vec = int(h * xg.element_size() % 16 == 0 and h0.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)  # 16-byte loads of h rows
             err = lib.tfasr_lstm_fwd(xg.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(), cseq.data_ptr(), gates.data_ptr(),
                                      counter.data_ptr(), b, t, h, units, code, vec, _build.stream_of(xg))
-    _build.check(err, "lstm_fwd")
-    launches += 1
+        _build.check(err, "lstm_fwd")
     return y, cseq, gates
 
 
 def lstm_bwd_kernel(gates, cseq, c0, wh, dy, dcseq, units: int | None = None):
     """The backward kernel on CUDA tensors: (dxg, dh0, dc0) as :func:`lstm_bwd_plain`.
     ``units`` as :func:`lstm_fwd_kernel`."""
-    global bwd_launches
     b, t, h, code, units, plan = _check(gates, wh, c0, c0, units)
     _build.require(cseq, "cseq", device=gates.device, dtype=gates.dtype, shape=(b, t, h))
     dy, dcseq = dy.float().contiguous(), dcseq.float().contiguous()
     for name, x in (("dy", dy), ("dcseq", dcseq)):
         _build.require(x, name, device=gates.device, dtype=torch.float32, shape=(b, t, h))
-    f32 = dict(dtype=torch.float32, device=gates.device)
-    dxg, dh0, dc0 = torch.empty((b, t, 4 * h), **f32), torch.empty((b, h), **f32), torch.empty((b, h), **f32)
     lib = _build.build()
-    ins = (dy.data_ptr(), dcseq.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), wh.data_ptr())
-    outs = (dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr())
-    with torch.cuda.device(gates.device):
+    with tracing.kernel("kernel.lstm.bwd", gates, wh), torch.cuda.device(gates.device):
+        f32 = dict(dtype=torch.float32, device=gates.device)
+        dxg, dh0, dc0 = torch.empty((b, t, 4 * h), **f32), torch.empty((b, h), **f32), torch.empty((b, h), **f32)
+        ins = (dy.data_ptr(), dcseq.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), wh.data_ptr())
+        outs = (dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr())
         if plan is not None:
             pack = _pack(plan.bwd_pack_bytes, gates.device)
             err = lib.tfasr_lstm_mma_bwd(*ins, pack.data_ptr() if pack is not None else None, *outs, b, t, h, _build.stream_of(gates))
         else:
             counter = torch.zeros(1, dtype=torch.int32, device=gates.device)
             err = lib.tfasr_lstm_bwd(*ins, *outs, counter.data_ptr(), b, t, h, units, code, _build.stream_of(gates))
-    _build.check(err, "lstm_bwd")
-    bwd_launches += 1
+        _build.check(err, "lstm_bwd")
     return dxg, dh0, dc0
 
 

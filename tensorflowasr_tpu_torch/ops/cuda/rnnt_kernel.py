@@ -38,11 +38,7 @@ import torch
 
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.rnnt_loss import dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
-
-launches = 0  # DP kernel launches since the last reset (set to 0 to reset)
-logprobs_launches = 0  # log-probability row kernel launches (either form)
-logprobs_scalar_launches = 0  # ... of which took the one-element form
-dlogits_launches = 0  # d_logits row kernel launches
+from tensorflowasr_tpu_torch.utils import tracing
 
 MAX_U1 = 1024  # label positions: 32 warps of 32 lanes per sweep
 
@@ -65,7 +61,6 @@ def dp_warps(u1: int) -> int:
 
 def rnnt_dp_kernel(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit_length: torch.Tensor, label_length: torch.Tensor):
     """The kernel on CUDA tensors: (loss [B], gbl, gem [B, T, U+1]), f32; no autograd."""
-    global launches
     if lp_blank.dim() != 3:
         raise ValueError("lp_blank must be [B, T, U+1]")
     b, t, u1 = lp_blank.shape
@@ -77,18 +72,17 @@ def rnnt_dp_kernel(lp_blank: torch.Tensor, lp_emit: torch.Tensor, logit_length: 
     u_len = label_length.to(dev, torch.int32).contiguous()
     for name, x in (("logit_length", t_len), ("label_length", u_len)):
         _build.require(x, name, device=dev, dtype=torch.int32, shape=(b,))
-    loss = torch.empty(b, dtype=torch.float32, device=dev)
-    gbl, gem = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
     if b * t * u1 == 0:
-        return loss.zero_(), gbl.zero_(), gem.zero_()
-    # the skewed operands (3) and the α and β lattices, each [B, T + U, 32·W] f32
-    scratch = torch.empty(5 * b * (t + u1 - 1) * 32 * w, dtype=torch.float32, device=dev)
+        return torch.zeros(b, dtype=torch.float32, device=dev), torch.zeros_like(lp_blank), torch.zeros_like(lp_blank)
     lib = _build.build()
-    with torch.cuda.device(dev):
+    with tracing.kernel("kernel.rnnt_dp", lp_blank, lp_emit), torch.cuda.device(dev):
+        loss = torch.empty(b, dtype=torch.float32, device=dev)
+        gbl, gem = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
+        # the skewed operands (3) and the α and β lattices, each [B, T + U, 32·W] f32
+        scratch = torch.empty(5 * b * (t + u1 - 1) * 32 * w, dtype=torch.float32, device=dev)
         err = lib.tfasr_rnnt_dp(lp_blank.data_ptr(), lp_emit.data_ptr(), t_len.data_ptr(), u_len.data_ptr(), loss.data_ptr(), gbl.data_ptr(),
                                 gem.data_ptr(), scratch.data_ptr(), b, t, u1, _build.stream_of(lp_blank))
-    _build.check(err, "rnnt_dp")
-    launches += 1
+        _build.check(err, "rnnt_dp")
     return loss, gbl, gem
 
 
@@ -168,25 +162,23 @@ def logits_to_logprobs_kernel(logits: torch.Tensor, labels: torch.Tensor):
     as :func:`logits_to_logprobs_plain`, in the form :func:`logprobs_plan`
     picks by shape: the tiles for 16-byte aligned rows, the one-element
     kernel for any other row."""
-    global logprobs_launches, logprobs_scalar_launches
     b, t, u1, v, code, vec, lab = _check_logits(logits, labels)
     plan = logprobs_plan(v, logits.element_size(), bool(vec))
     lpb, lpe, lse = (torch.empty((b, t, u1), dtype=torch.float32, device=logits.device) for _ in range(3))
     if b * t * u1 == 0:
         return lpb, lpe, lse
     lib = _build.build()
-    with torch.cuda.device(logits.device):
+    with tracing.kernel("kernel.rnnt_logprobs", logits), torch.cuda.device(logits.device):
         err = lib.tfasr_rnnt_logprobs(logits.data_ptr(), lab.data_ptr(), lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), b, t, u1, v, code,
                                       plan.tile_rows, _build.stream_of(logits))
-    _build.check(err, "rnnt_logprobs")
-    logprobs_launches += 1
-    logprobs_scalar_launches += plan.route == "scalar"
+        _build.check(err, "rnnt_logprobs")
+    if plan.route == "scalar":
+        tracing.launches["kernel.rnnt_logprobs.scalar"] += 1
     return lpb, lpe, lse
 
 
 def dlogits_assemble_kernel(logits, lse, gbl, gem, labels, g):
     """The d_logits row kernel on CUDA tensors: as :func:`dlogits_assemble_plain`."""
-    global dlogits_launches
     b, t, u1, v, code, vec, lab = _check_logits(logits, labels)
     for name, x in (("lse", lse), ("gbl", gbl), ("gem", gem)):
         _build.require(x, name, device=logits.device, dtype=torch.float32, shape=(b, t, u1))
@@ -196,11 +188,10 @@ def dlogits_assemble_kernel(logits, lse, gbl, gem, labels, g):
     if b * t * u1 == 0:
         return out
     lib = _build.build()
-    with torch.cuda.device(logits.device):
+    with tracing.kernel("kernel.rnnt_dlogits", logits), torch.cuda.device(logits.device):
         err = lib.tfasr_rnnt_dlogits(logits.data_ptr(), lse.data_ptr(), gbl.data_ptr(), gem.data_ptr(), lab.data_ptr(), gs.data_ptr(), out.data_ptr(),
                                      b, t, u1, v, code, vec, _build.stream_of(logits))
-    _build.check(err, "rnnt_dlogits")
-    dlogits_launches += 1
+        _build.check(err, "rnnt_dlogits")
     return out
 
 

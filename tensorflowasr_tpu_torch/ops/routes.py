@@ -6,7 +6,7 @@ The layers decide from shapes and dtype before any launch, beside the JAX
 package's configuration conditions (which stay as they are: a configuration
 JAX runs without its kernel runs here without one too, and is not counted).
 ``counts[(kernel, "kernel" | "plain")]`` counts each decision since the last
-``counts.clear()``; a plain route leaves the kernel's launch counter alone.
+``counts.clear()``; a plain route leaves the kernel's count in ``utils/tracing.launches`` alone.
 """
 
 from __future__ import annotations

@@ -46,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("--epochs", type=int, default=None)
     p_train.add_argument("--steps-per-epoch", type=int, default=None)
     p_train.add_argument("--mxp", default="strict", choices=["strict", "auto", "none"])
-    p_train.add_argument("--profile", default=None, help="write a torch.profiler trace of 5 steps after one warm-up step to this dir")
+    p_train.add_argument("--profile", default=None, help="write a torch.profiler trace of 5 steps after one warm-up step to this dir, "
+                         "with the program's spans (train.step and its phases, each kernel.*) collected into it")
 
     p_test = sub.add_parser("test", help="evaluate WER/CER on test datasets")
     _add_common(p_test)

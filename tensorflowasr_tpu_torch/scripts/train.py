@@ -26,6 +26,7 @@ import torch
 
 from tensorflowasr_tpu_torch import pipeline
 from tensorflowasr_tpu_torch.scripts import common
+from tensorflowasr_tpu_torch.utils import tracing
 
 logger = logging.getLogger("tensorflowasr_tpu_torch")
 
@@ -89,12 +90,12 @@ def _train(args, rank: int, world: int):
         state, _ = trainer.train_step(state, sample)  # warm-up: builds the kernels and the allocator's blocks outside the trace
         activities = [torch.profiler.ProfilerActivity.CPU] + ([torch.profiler.ProfilerActivity.CUDA] if trainer.device.type == "cuda" else [])
         os.makedirs(args.profile, exist_ok=True)
-        with torch.profiler.profile(activities=activities) as prof:
+        with tracing.collect() as spans, torch.profiler.profile(activities=activities) as prof:  # the trace names the program's phases and kernels
             for _ in range(PROFILE_STEPS):
                 state, _ = trainer.train_step(state, sample)
         path = os.path.join(args.profile, "train_steps.trace.json")
         prof.export_chrome_trace(path)
-        logger.info("wrote the profiler trace of %d steps to %s", PROFILE_STEPS, path)
+        logger.info("wrote the profiler trace of %d steps (%d program spans) to %s", PROFILE_STEPS, len(spans), path)
 
     epochs = args.epochs or lc.num_epochs
     steps_per_epoch = args.steps_per_epoch or (train_ds.num_entries // shapes["batch_size"] if train_ds.num_entries else None)

@@ -98,6 +98,7 @@ from tensorflowasr_tpu_torch.optimizers.optimizers import global_norm, unit_norm
 from tensorflowasr_tpu_torch.parallel import sharding
 from tensorflowasr_tpu_torch.parallel.collectives import all_reduce_, pmax, sum_no_grad
 from tensorflowasr_tpu_torch.utils import device as device_util
+from tensorflowasr_tpu_torch.utils import tracing
 
 logger = logging.getLogger("tensorflowasr_tpu_torch")
 
@@ -237,7 +238,10 @@ def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], N
     """Returns ``step_fn(state, batch: TrainData) -> (state, metrics)``, one
     micro-step; the state is updated in place and returned. ``on_phase``
     (for timing) is called with "forward", "loss" and "update" as each
-    phase is enqueued. ``loss_impl``: see the module docstring.
+    phase is enqueued; the spans ``train.step`` ⊃ ``train.zero_grad``,
+    ``train.forward``, ``train.loss``, ``train.backward``, ``train.update``
+    (``utils/tracing.py``) follow the same marks. ``loss_impl``: see the
+    module docstring.
     ``weight_noise``: the loss and gradients are taken at noised parameters
     from micro-step ``weight_noise.start`` on (JAX gates on ``state.step``).
     ``group``: data-parallel over its ranks (the module docstring); the
@@ -246,22 +250,30 @@ def make_train_step(model: torch.nn.Module, on_phase: Optional[Callable[[str], N
     mark = on_phase or (lambda phase: None)
 
     def step_fn(state: TrainState, batch: schemas.TrainData):
-        state.optimizer.zero_grad(set_to_none=True)
-        clean = weight_noise.perturb(state.weight_noise_generator) if weight_noise and state.step >= weight_noise.start else None
-        loss = train_loss(state.model, batch.inputs, batch.labels, state.generator, mark, state.augment_generator)
-        mark("loss")
-        loss.backward()
-        if clean is not None:
-            weight_noise.restore(clean)
-        params = [p for p in state.model.parameters() if p.grad is not None]
-        if group is not None:
-            all_reduce_([p.grad for p in params], group)
-            loss = sum_no_grad(loss, group)
-        grad_norm = global_norm([p.grad for p in params])
-        state.optimizer.step(grad_norm=grad_norm if _same(params, [p for p in state.optimizer.params if p.grad is not None]) else None)
-        mark("update")
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+        with tracing.span("train.step", batch.inputs.inputs, batch.labels.labels):
+            with tracing.span("train.zero_grad"):
+                state.optimizer.zero_grad(set_to_none=True)
+            phases = tracing.Phases(on_phase, "train.forward", {"forward": "train.loss"})
+            try:
+                clean = weight_noise.perturb(state.weight_noise_generator) if weight_noise and state.step >= weight_noise.start else None
+                loss = train_loss(state.model, batch.inputs, batch.labels, state.generator, phases.mark, state.augment_generator)
+                phases.mark("loss")
+            finally:
+                phases.close()
+            with tracing.span("train.backward"):
+                loss.backward()
+                if clean is not None:
+                    weight_noise.restore(clean)
+            with tracing.span("train.update"):
+                params = [p for p in state.model.parameters() if p.grad is not None]
+                if group is not None:
+                    all_reduce_([p.grad for p in params], group)
+                    loss = sum_no_grad(loss, group)
+                grad_norm = global_norm([p.grad for p in params])
+                state.optimizer.step(grad_norm=grad_norm if _same(params, [p for p in state.optimizer.params if p.grad is not None]) else None)
+            mark("update")
+            state.step += 1
+            return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
 
     return step_fn
 

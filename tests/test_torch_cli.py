@@ -19,6 +19,8 @@ synthetic corpus.
   cpu`` is given.
 """
 
+import collections
+import json
 import os
 import subprocess
 import sys
@@ -132,6 +134,8 @@ def test_cli_train_profile(workspace, tmp_path):
     assert main(["train", *common, "--epochs", "1", "--steps-per-epoch", "1", "--mxp", "none", "--profile", str(trace)]) == 0
     assert os.listdir(trace) == ["train_steps.trace.json"] and os.path.getsize(trace / "train_steps.trace.json") > 0
     assert os.listdir(modeldir / "checkpoints") == ["7"]  # 1 warm-up and 5 profiled steps, then the epoch's 1
+    names = collections.Counter(e.get("name") for e in json.load(open(trace / "train_steps.trace.json"))["traceEvents"])
+    assert all(names[f"train.{p}"] == 5 for p in ("step", "zero_grad", "forward", "loss", "backward", "update")), names  # the program's spans
 
 
 def test_cli_test(workspace):

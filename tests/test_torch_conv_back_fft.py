@@ -50,6 +50,7 @@ from tensorflowasr_tpu_torch.ops import frontend
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
 from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fek
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 SEED = 1010
 CB_ROWS, CB_CC, PAD = 32, 64, 8  # csrc/conv_mma.cu: rows a block of cb_fwd and cb_bwd_rows, W2 columns per chunk, row padding
@@ -526,7 +527,7 @@ def test_fit_freezes_once_after_the_first_step(monkeypatch):
 def test_cpu_conv_back_and_frontend_take_the_plain_versions(dtype):
     """On CPU tensors conv_back (with autograd) and the frontend equal their
     plain versions bit for bit and launch no kernel (no library is built)."""
-    before = (ck.back_launches, ck.back_bwd_launches, fek.launches, fek.dft_launches)
+    before = tuple(launches[n] for n in ("kernel.conv_back.fwd", "kernel.conv_back.bwd", "kernel.frontend", "kernel.frontend.dft"))
     y1, dout, mean, var, scale, bias, w2, b2 = _conv_back_inputs(SEED + 2, 2, 7, 24)
     x = torch.tensor(_conv_back_inputs(SEED + 3, 2, 7, 24)[0]).to(dtype).requires_grad_(True)
     leaves = [torch.tensor(y1).to(dtype)] + [torch.tensor(a) for a in (mean, var, scale, bias)] + [torch.tensor(a).to(dtype) for a in (w2, b2)]
@@ -543,5 +544,5 @@ def test_cpu_conv_back_and_frontend_take_the_plain_versions(dtype):
         cfg = frontend.FrontendConfig(**kw)
         sig = torch.tensor(_signal((1, 3200), SEED + 4))
         assert torch.equal(fek.log_mel_spectrogram_pallas(sig, cfg), fek.log_mel_spectrogram_plain(sig, cfg))
-    assert (ck.back_launches, ck.back_bwd_launches, fek.launches, fek.dft_launches) == before
+    assert tuple(launches[n] for n in ("kernel.conv_back.fwd", "kernel.conv_back.bwd", "kernel.frontend", "kernel.frontend.dft")) == before
     assert _build._lib is None

@@ -44,6 +44,7 @@ from tensorflowasr_tpu_torch.models.ctc.conformer import ConformerCtc, conformer
 from tensorflowasr_tpu_torch.models.ctc.transformer import TransformerCtc, transformer_ctc_base_config
 from tensorflowasr_tpu_torch.ops.ctc_loss import ctc_occupancy_plain, ctc_prep
 from tensorflowasr_tpu_torch.ops.rnnt_loss import LOG_0, dlogits_assemble_plain, logits_to_logprobs_plain, rnnt_loss_from_logprobs_plain
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 pytestmark = pytest.mark.cuda
 
@@ -75,9 +76,9 @@ def test_frontend_kernel(dev, shape):
     below one frame; one launch, no DFT launch."""
     cfg = frontend.FrontendConfig()
     sig = _r(_gen(dev), dev, shape, 0.3)
-    before = (fek.launches, fek.dft_launches)
+    before = (launches["kernel.frontend"], launches["kernel.frontend.dft"])
     got = fek.log_mel_spectrogram_pallas(sig, cfg)
-    assert (fek.launches, fek.dft_launches) == (before[0] + 1, before[1])
+    assert (launches["kernel.frontend"], launches["kernel.frontend.dft"]) == (before[0] + 1, before[1])
     torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
 
 
@@ -108,9 +109,9 @@ def test_rel_attention_kernel(dev, case, dtype):
         kvb = torch.where(valid, 0.0, -1e9).float()[:, None, :].contiguous()
     q_len = torch.tensor([t - 9 * i for i in range(b)], dtype=torch.int32, device=dev) if with_qlen else None
     args = (qc, qp, k, v, pos, kvb, q_len, 0, 0.0, causal, chunk, hist, pe_causal)
-    before = ak.launches
+    before = launches["kernel.rel_attention.fwd"]
     got = ak.fused_rel_attention(*args)
-    assert ak.launches == before + 1
+    assert launches["kernel.rel_attention.fwd"] == before + 1
     torch.testing.assert_close(got, ak.fused_rel_attention_plain(*args), **TOL[dtype])
 
 
@@ -167,9 +168,9 @@ def _ff_args(dev, dtype, n, d, f, seed=2):
 def test_ff_backward_kernel(dev, dtype, n, d, f, rate):
     args, dout = _ff_args(dev, dtype, n, d, f)
     torch.testing.assert_close(fk.fused_ff(*args, 77, rate), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
-    before = fk.bwd_launches
+    before = launches["kernel.ff.bwd"]
     got = fk.fused_ff_bwd_kernel(*args[:6], dout, 77, rate)
-    assert fk.bwd_launches == before + 1
+    assert launches["kernel.ff.bwd"] == before + 1
     _grads_close(got, fk.fused_ff_plain_bwd(*args[:6], dout, 77, rate), GRAD_REL[dtype], f"ff {n}x{d}x{f}")
 
 
@@ -181,17 +182,17 @@ def test_conv_backward_kernels(dev, dtype, b, t, d, rate):
     x, dout = _r(g, dev, (b, t, d), 1.0, dtype), _r(g, dev, (b, t, d), 1.0, dtype)
     front = (x, 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, d), d ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype),
              _r(g, dev, (d, d), d ** -0.5, dtype), _r(g, dev, (d,), 0.1, dtype))
-    before = ck.front_bwd_launches
+    before = launches["kernel.conv_front.bwd"]
     got = ck.conv_front_bwd_kernel(*front, dout)
-    assert ck.front_bwd_launches == before + 1
+    assert launches["kernel.conv_front.bwd"] == before + 1
     _grads_close(got, ck.conv_front_plain_bwd(*front, dout), GRAD_REL[dtype], "conv_front")
     back = (_r(g, dev, (b, t, d), 1.0, dtype), _r(g, dev, (d,), 0.1), 1.0 + torch.rand((d,), generator=g, device=dev),
             1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), _r(g, dev, (d, d), d ** -0.5, dtype))
     b2 = _r(g, dev, (d,), 0.1, dtype)
     torch.testing.assert_close(ck.conv_back(x, *back, b2, 9, rate), ck.conv_back_plain(x, *back, b2, 9, rate), **TOL[dtype])
-    before = ck.back_bwd_launches
+    before = launches["kernel.conv_back.bwd"]
     got = ck.conv_back_bwd_kernel(*back, dout, 9, rate)
-    assert ck.back_bwd_launches == before + 1
+    assert launches["kernel.conv_back.bwd"] == before + 1
     _grads_close(got, ck.conv_back_plain_bwd(*back, dout, 9, rate), GRAD_REL[dtype], "conv_back")
 
 
@@ -226,9 +227,9 @@ def test_rel_attention_backward_kernel(dev, case, dtype, rate):
     bf16 = dtype == torch.bfloat16
     out, stats = ak.fused_rel_attention_kernel(*inputs, *cfg, with_stats=True) if bf16 else (ak.fused_rel_attention_kernel(*inputs, *cfg), None)
     torch.testing.assert_close(out, ak.fused_rel_attention_plain(*inputs, *cfg), **TOL[dtype])
-    before = ak.bwd_launches
+    before = launches["kernel.rel_attention.bwd"]
     got = ak.fused_rel_attention_bwd_kernel(*inputs, out, dout, *cfg, stats=stats)
-    assert ak.bwd_launches == before + 1
+    assert launches["kernel.rel_attention.bwd"] == before + 1
     _grads_close(got, ak.fused_rel_attention_plain_bwd(*inputs, dout, *cfg), GRAD_REL[dtype], f"attention {case}")
 
 
@@ -236,9 +237,9 @@ def test_autograd_routes_cuda_tensors_through_the_kernels(dev):
     """Under autograd a CUDA tensor launches the forward and the backward kernel once each."""
     args, dout = _ff_args(dev, torch.float32, 40, 16, 64)
     leaves = [a.clone().requires_grad_(True) for a in args]
-    f0, b0 = fk.launches, fk.bwd_launches
+    f0, b0 = launches["kernel.ff.fwd"], launches["kernel.ff.bwd"]
     fk.fused_ff(*leaves, 3, 0.1).backward(dout)
-    assert (fk.launches, fk.bwd_launches) == (f0 + 1, b0 + 1)
+    assert (launches["kernel.ff.fwd"], launches["kernel.ff.bwd"]) == (f0 + 1, b0 + 1)
     _grads_close([x.grad for x in leaves[:6]], fk.fused_ff_plain_bwd(*args[:6], dout, 3, 0.1), GRAD_REL[torch.float32], "ff autograd")
 
 
@@ -402,11 +403,11 @@ def test_conv_back_bf16_kernels(dev, b, t, d, rate):
     the plain version at the training widths, serving, a streaming chunk
     and ragged N, with and without dropout; one launch each."""
     x, y1, stats, w2, b2, dout = _conv_back_args(dev, torch.bfloat16, b, t, d)
-    before = (ck.back_launches, ck.back_bwd_launches)
+    before = (launches["kernel.conv_back.fwd"], launches["kernel.conv_back.bwd"])
     torch.testing.assert_close(ck.conv_back_kernel(x, y1, *stats, w2, b2, 21, rate, 0.5),
                                ck.conv_back_plain(x, y1, *stats, w2, b2, 21, rate, 0.5), **TOL[torch.bfloat16])
     got = ck.conv_back_bwd_kernel(y1, *stats, w2, dout, 21, rate, 0.5)
-    assert (ck.back_launches, ck.back_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (launches["kernel.conv_back.fwd"], launches["kernel.conv_back.bwd"]) == (before[0] + 1, before[1] + 1)
     _grads_close(got, ck.conv_back_plain_bwd(y1, *stats, w2, dout, 21, rate, 0.5), GRAD_REL[torch.bfloat16], f"conv_back {b}x{t}x{d}")
 
 
@@ -450,9 +451,9 @@ def test_frontend_fft_kernel_sizes(dev, kw):
     (each windowed frame cropped to its first 256 samples)."""
     cfg = frontend.FrontendConfig(**kw)
     sig = frontend.preemphasis_signal(_r(_gen(dev, 4), dev, (2, 16123), 0.1), cfg).contiguous()
-    before = (fek.launches, fek.dft_launches)
+    before = (launches["kernel.frontend"], launches["kernel.frontend.dft"])
     got = fek.log_mel_spectrogram_pallas(sig, cfg)
-    assert (fek.launches, fek.dft_launches) == (before[0] + 1, before[1])
+    assert (launches["kernel.frontend"], launches["kernel.frontend.dft"]) == (before[0] + 1, before[1])
     torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
 
 
@@ -462,9 +463,9 @@ def test_frontend_dft_kernel(dev, nfft, shape):
     frame, which crops it) takes the direct-DFT kernel, held against the plain chain."""
     cfg = frontend.FrontendConfig(nfft=nfft)
     sig = frontend.preemphasis_signal(_r(_gen(dev, 5), dev, shape, 0.1), cfg).contiguous()
-    before = (fek.launches, fek.dft_launches)
+    before = (launches["kernel.frontend"], launches["kernel.frontend.dft"])
     got = fek.log_mel_spectrogram_pallas(sig, cfg)
-    assert (fek.launches, fek.dft_launches) == (before[0], before[1] + 1)
+    assert (launches["kernel.frontend"], launches["kernel.frontend.dft"]) == (before[0] + 1, before[1] + 1)  # every frontend launch, the DFT's
     torch.testing.assert_close(got, fek.log_mel_spectrogram_plain(sig, cfg), rtol=0, atol=1e-3)
 
 
@@ -544,9 +545,9 @@ def test_rel_attention_bf16_autograd_reads_the_forward_stats(dev):
     bf16 = torch.bfloat16
     inputs = [_r(g, dev, (8, n, 36), sc, bf16).requires_grad_(True) for n, sc in ((50, 0.3), (50, 0.3), (50, 1.0), (50, 1.0), (99, 1.0))]
     dout = _r(g, dev, (8, 50, 36), 1.0, bf16)
-    f0, b0 = ak.launches, ak.bwd_launches
+    f0, b0 = launches["kernel.rel_attention.fwd"], launches["kernel.rel_attention.bwd"]
     ak.fused_rel_attention(*inputs, None, None, 4, 0.1).backward(dout)
-    assert (ak.launches, ak.bwd_launches) == (f0 + 1, b0 + 1)
+    assert (launches["kernel.rel_attention.fwd"], launches["kernel.rel_attention.bwd"]) == (f0 + 1, b0 + 1)
     ref = ak.fused_rel_attention_plain_bwd(*(x.detach() for x in inputs), None, None, dout, 4, 0.1)
     _grads_close([x.grad for x in inputs], ref, GRAD_REL[bf16], "rel attention bf16 autograd")
 
@@ -616,9 +617,9 @@ def test_rnnt_dp_kernel(dev, b, t, u, j, v):
     lpb, lpe = lp[..., 0].contiguous(), lp[..., 1].contiguous()
     lpe[..., u] = LOG_0
     t_len, u_len = _lengths(dev, b, t, u, 1)
-    before = rk.launches
+    before = launches["kernel.rnnt_dp"]
     loss, gbl, gem = rk.rnnt_dp_kernel(lpb, lpe, t_len, u_len)
-    assert rk.launches == before + 1
+    assert launches["kernel.rnnt_dp"] == before + 1
     ref_loss, ref_gbl, ref_gem = rnnt_loss_from_logprobs_plain(lpb, lpe, t_len, u_len)
     for name, x, r in (("loss", loss, ref_loss), ("gbl", gbl, ref_gbl), ("gem", gem, ref_gem)):  # the same operations: max abs error 0
         assert torch.equal(x, r), f"{name}: max abs err {(x - r).abs().max().item()}"
@@ -651,18 +652,18 @@ def _joint_args(dev, dtype, b, t, u, j, v, seed=8):
 @pytest.mark.parametrize("b,t,u,j,v", LOSS_CASES)
 def test_joint_loss_kernels(dev, dtype, b, t, u, j, v):
     args = _joint_args(dev, dtype, b, t, u, j, v)
-    before = jk.launches
+    before = launches["kernel.joint_loss.fwd"]
     got = jk.joint_logprobs_kernel(*args)
-    assert jk.launches == before + 1
+    assert launches["kernel.joint_loss.fwd"] == before + 1
     for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, jk.joint_logprobs_plain(*args)):
         torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
     t_len, u_len = _lengths(dev, b, t, u, 2)
     _, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
     scale = torch.linspace(0.5, 1.5, b, device=dev)[:, None, None]
     bargs = (*args, lse, (gbl * scale).contiguous(), (gem * scale).contiguous())
-    before = jk.bwd_launches
+    before = launches["kernel.joint_loss.bwd"]
     grads = jk.rnnt_loss_fused_joint_bwd_kernel(*bargs)
-    assert jk.bwd_launches == before + 1
+    assert launches["kernel.joint_loss.bwd"] == before + 1
     _grads_close(grads, jk.rnnt_loss_fused_joint_plain_bwd(*bargs), GRAD_REL[dtype], f"joint {b}x{t}x{u + 1}x{j}x{v}")
 
 
@@ -672,10 +673,10 @@ def test_fused_joint_loss_autograd_runs_the_three_kernels(dev):
     args = _joint_args(dev, torch.float32, b, t, u, j, v)
     t_len, u_len = _lengths(dev, b, t, u, 3)
     leaves = [a.clone().requires_grad_(True) for a in args[:4]]
-    counts = (jk.launches, rk.launches, jk.bwd_launches)
+    counts = (launches["kernel.joint_loss.fwd"], launches["kernel.rnnt_dp"], launches["kernel.joint_loss.bwd"])
     loss = jk.rnnt_loss_fused_joint(*leaves, t_len, args[4], u_len)
     loss.sum().backward()
-    assert (jk.launches, rk.launches, jk.bwd_launches) == tuple(c + 1 for c in counts)
+    assert (launches["kernel.joint_loss.fwd"], launches["kernel.rnnt_dp"], launches["kernel.joint_loss.bwd"]) == tuple(c + 1 for c in counts)
     ref_loss, lse, gbl, gem = jk.rnnt_loss_fused_joint_plain(*args[:4], t_len, args[4], u_len)
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
     _grads_close([x.grad for x in leaves], jk.rnnt_loss_fused_joint_plain_bwd(*args, lse, gbl, gem), GRAD_REL[torch.float32], "fused joint autograd")
@@ -700,19 +701,19 @@ def _row_args(dev, dtype, b, t, u, v, seed=9):
 def test_rnnt_row_kernels(dev, dtype, b, t, u, v):
     logits, labels = _row_args(dev, dtype, b, t, u, v)
     plan = rk.logprobs_plan(v, logits.element_size())
-    before, scalar = rk.logprobs_launches, rk.logprobs_scalar_launches
+    before, scalar = launches["kernel.rnnt_logprobs"], launches["kernel.rnnt_logprobs.scalar"]
     got = rk.logits_to_logprobs_kernel(logits, labels)
-    assert rk.logprobs_launches == before + 1
-    assert rk.logprobs_scalar_launches == scalar + (plan.route == "scalar")  # which kernel ran
+    assert launches["kernel.rnnt_logprobs"] == before + 1
+    assert launches["kernel.rnnt_logprobs.scalar"] == scalar + (plan.route == "scalar")  # which kernel ran
     ref = logits_to_logprobs_plain(logits, labels)
     for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, ref):
         torch.testing.assert_close(x, r, **TOL[torch.float32], msg=name)
     t_len, u_len = _lengths(dev, b, t, u, 4)
     _, gbl, gem = rnnt_loss_from_logprobs_plain(*ref[:2], t_len, u_len)
     cot = torch.linspace(0.5, 1.5, b, device=dev)
-    before = rk.dlogits_launches
+    before = launches["kernel.rnnt_dlogits"]
     d = rk.dlogits_assemble_kernel(logits, ref[2], gbl, gem, labels, cot)
-    assert rk.dlogits_launches == before + 1 and d.dtype == dtype
+    assert launches["kernel.rnnt_dlogits"] == before + 1 and d.dtype == dtype
     torch.testing.assert_close(d, dlogits_assemble_plain(logits, ref[2], gbl, gem, labels, cot), **TOL[dtype])
 
 
@@ -732,9 +733,9 @@ def test_rnnt_logprobs_by_shape(dev, dtype):
         logits = flat[offset:].view(b, t, u1, v)
         labels = torch.randint(0, v + 2, (b, u1 - 1), generator=torch.Generator().manual_seed(3)).to(dev)
         assert rk.logprobs_plan(v, elt, logits.data_ptr() % 16 == 0).route == route
-        scalar = rk.logprobs_scalar_launches
+        scalar = launches["kernel.rnnt_logprobs.scalar"]
         got = rk.logits_to_logprobs_kernel(logits, labels)
-        assert rk.logprobs_scalar_launches == scalar + (route == "scalar"), (b, t, u1, v, offset)
+        assert launches["kernel.rnnt_logprobs.scalar"] == scalar + (route == "scalar"), (b, t, u1, v, offset)
         for name, x, r in zip(("lp_blank", "lp_emit", "lse"), got, logits_to_logprobs_plain(logits, labels)):
             torch.testing.assert_close(x, r, **TOL[torch.float32], msg=f"{name} {(b, t, u1, v, offset)}")
 
@@ -759,10 +760,10 @@ def test_rnnt_loss_pallas_autograd_runs_the_three_kernels(dev):
     logits, labels = _row_args(dev, torch.float32, b, t, u, v)
     t_len, u_len = _lengths(dev, b, t, u, 5)
     x = logits.clone().requires_grad_(True)
-    counts = (rk.logprobs_launches, rk.launches, rk.dlogits_launches)
+    counts = (launches["kernel.rnnt_logprobs"], launches["kernel.rnnt_dp"], launches["kernel.rnnt_dlogits"])
     loss = rk.rnnt_loss_pallas(x, t_len, labels, u_len)
     loss.sum().backward()
-    assert (rk.logprobs_launches, rk.launches, rk.dlogits_launches) == tuple(c + 1 for c in counts)
+    assert (launches["kernel.rnnt_logprobs"], launches["kernel.rnnt_dp"], launches["kernel.rnnt_dlogits"]) == tuple(c + 1 for c in counts)
     xc = logits.cpu().requires_grad_(True)
     ref = rk.rnnt_loss_pallas(xc, t_len.cpu(), labels.cpu(), u_len.cpu())
     ref.sum().backward()
@@ -789,17 +790,17 @@ def test_lstm_kernels(dev, dtype, b, t, h):
     """bf16 takes the cluster kernels (csrc/lstm_mma.cu; H 1000 streams part of
     each Wh slice from L2); f32 the cooperative grid."""
     (xg, wh, h0, c0), (dy, dc) = _lstm_args(dev, dtype, b, t, h)
-    before = lk.launches
+    before = launches["kernel.lstm.fwd"]
     got = lk.lstm_fwd_kernel(xg, wh, h0, c0)
-    assert lk.launches == before + 1
+    assert launches["kernel.lstm.fwd"] == before + 1
     ref = lk.lstm_fwd_plain(xg, wh, h0, c0)
     for name, x, r in zip(("y", "cseq", "gates"), got, ref):
         assert x.dtype == dtype
         torch.testing.assert_close(x, r, **TOL[dtype], msg=name)
     _, cseq, gates = ref
-    before = lk.bwd_launches
+    before = launches["kernel.lstm.bwd"]
     grads = lk.lstm_bwd_kernel(gates, cseq, c0, wh, dy, dc)
-    assert lk.bwd_launches == before + 1
+    assert launches["kernel.lstm.bwd"] == before + 1
     _grads_close(grads, lk.lstm_bwd_plain(gates, cseq, c0, wh, dy, dc), GRAD_REL[dtype], f"lstm {b}x{t}x{h}")
 
 
@@ -913,11 +914,11 @@ def test_lstm_layer_autograd_runs_the_kernels(dev):
     results = []
     for d in (dev, torch.device("cpu")):
         leaves = [a.to(d).requires_grad_(True) for a in (x, *params, h0, c0)]
-        counts = (lk.launches, lk.bwd_launches)
+        counts = (launches["kernel.lstm.fwd"], launches["kernel.lstm.bwd"])
         y, (c_t, h_t) = lk.lstm_layer_fused(*leaves, lengths.to(d))
         (y.square().sum() + (c_t * h_t).sum()).backward()
         if d.type == "cuda":
-            assert (lk.launches, lk.bwd_launches) == (counts[0] + 1, counts[1] + 1)
+            assert (launches["kernel.lstm.fwd"], launches["kernel.lstm.bwd"]) == (counts[0] + 1, counts[1] + 1)
         results.append([y.detach().cpu(), c_t.detach().cpu(), h_t.detach().cpu()] + [a.grad.cpu() for a in leaves])
     for got, ref in zip(*results):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
@@ -952,9 +953,9 @@ def test_ctc_kernel(dev, b, t, u, v):
     """Bit-equal to the plain version: the kernel repeats its operations in the same order."""
     logits, t_len, labels, u_len = _ctc_args(dev, b, t, u, v)
     lp_ext, skip, _ = ctc_prep(logits, labels)
-    before = ctk.launches
+    before = launches["kernel.ctc"]
     occ, loss = ctk.ctc_kernel(lp_ext, skip, t_len, u_len)
-    assert ctk.launches == before + 1
+    assert launches["kernel.ctc"] == before + 1
     ref_occ, ref_loss = ctc_occupancy_plain(lp_ext, skip, t_len, u_len)
     assert torch.isfinite(loss).all() and torch.isfinite(occ).all()
     assert torch.equal(loss, ref_loss), f"loss: max abs err {(loss - ref_loss).abs().max().item()}"
@@ -973,10 +974,10 @@ def test_ctc_loss_autograd_runs_the_kernel(dev, dtype):
     the gradient (in the logits' dtype) equal the CPU plain path's."""
     logits, t_len, labels, u_len = _ctc_args(dev, 4, 29, 7, 33, seed=13)
     x = logits.to(dtype).requires_grad_(True)
-    before = ctk.launches
+    before = launches["kernel.ctc"]
     loss = ctk.ctc_loss_pallas(x, t_len, labels, u_len)
     (loss[:2].sum() + 0.5 * loss[3]).backward()
-    assert ctk.launches == before + 1 and x.grad.dtype == dtype
+    assert launches["kernel.ctc"] == before + 1 and x.grad.dtype == dtype
     xc = x.detach().cpu().requires_grad_(True)
     ref = ctk.ctc_loss_pallas(xc, t_len.cpu(), labels.cpu(), u_len.cpu())
     (ref[:2].sum() + 0.5 * ref[3]).backward()
@@ -1009,13 +1010,13 @@ def test_attention_kernels(dev, bh, t, s, d, bias_bh, dtype, rate):
     another order) and backward against the plain versions; the dropout
     masks are the same hash on both sides."""
     q, k, v, bias, dout = _attention_args(dev, dtype, bh, t, s, d, bias_bh)
-    before = (ak.attention_launches, ak.attention_bwd_launches)
+    before = (launches["kernel.attention.fwd"], launches["kernel.attention.bwd"])
     out, stats = ak.fused_attention_kernel(q, k, v, bias, 31, rate, with_stats=True)
     assert out.dtype == dtype
     torch.testing.assert_close(out, ak.fused_attention_plain(q, k, v, bias, 31, rate), **TOL[dtype])
     torch.testing.assert_close(stats, ak.fused_attention_plain_stats(q, k, bias), rtol=1e-5, atol=1e-5)
     grads = ak.fused_attention_bwd_kernel(q, k, v, bias, out, dout, 31, rate, stats=stats)
-    assert (ak.attention_launches, ak.attention_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (launches["kernel.attention.fwd"], launches["kernel.attention.bwd"]) == (before[0] + 1, before[1] + 1)
     _grads_close(grads, ak.fused_attention_plain_bwd(q, k, v, bias, dout, 31, rate), GRAD_REL[dtype], f"attention {bh}x{t}x{s}x{d}")
 
 
@@ -1141,13 +1142,13 @@ def test_ctc_train_step_on_the_card(dev, name):
     train_loss = make_train_loss(cpu_model, "auto")
     results = []
     for m, b in ((model, batch.to(dev)), (cpu_model, batch)):
-        counts = (ctk.launches, ak.attention_launches, ak.attention_bwd_launches, ak.launches, ak.bwd_launches)
+        names = ("kernel.ctc", "kernel.attention.fwd", "kernel.attention.bwd", "kernel.rel_attention.fwd", "kernel.rel_attention.bwd")
+        counts = tuple(launches[n] for n in names)
         loss = train_loss(m, b.inputs, b.labels)
         loss.backward()
         if b.labels.labels.device.type == "cuda":
             heads = (2, 2, 0, 0) if name == "transformer" else (0, 0, 2, 2)
-            assert tuple(c - c0 for c, c0 in zip((ctk.launches, ak.attention_launches, ak.attention_bwd_launches, ak.launches, ak.bwd_launches),
-                                                   counts)) == (1, *heads)
+            assert tuple(launches[n] - c0 for n, c0 in zip(names, counts)) == (1, *heads)
         results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
     assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), (loss_gpu, loss_cpu)
@@ -1196,9 +1197,9 @@ def test_decode_kernel(dev, b, t, layers, ln, proj, vocab, dtype):
     lens[0] = t
     tok0 = torch.randint(0, vocab, (b,), generator=torch.Generator().manual_seed(4)).to(dev)
     states = tuple((_r(gen, dev, (b, 320), 0.5), _r(gen, dev, (b, 320), 0.5)) for _ in range(layers))
-    before = dk.launches
+    before = launches["kernel.decode"]
     got = dk.fused_greedy_decode(enc.to(dtype), lens, params, tok0, states)
-    assert dk.launches == before + 1
+    assert launches["kernel.decode"] == before + 1
     ref = dk.fused_greedy_decode_plain(enc.to(dtype), lens, params, tok0, states)
     torch.cuda.synchronize()
     for g, r in zip(got[:3], ref[:3]):
@@ -1218,9 +1219,9 @@ def test_recognize_launches_the_decode_kernel(dev):
     model = _decode_model(dev, torch.float32)
     sig = torch.tensor((np.random.default_rng(5).standard_normal((2, 48000)) * 0.1).astype(np.float32), device=dev)
     lens = torch.tensor([48000, 30000], device=dev)
-    before = dk.launches
+    before = launches["kernel.decode"]
     out = recognize(model, schemas.PredictInput(sig, lens))
-    assert dk.launches == before + 1
+    assert launches["kernel.decode"] == before + 1
     with torch.inference_mode():
         enc, enc_len, _ = model.encode(sig, lens)
         eager = transducer_decode.transducer_greedy_decode_wind(enc, enc_len, model.pred_step, model.joint_window,
@@ -1273,9 +1274,9 @@ def test_decode_kernel_chunk_by_chunk(dev):
     for c in range(16):
         chunk = enc[:, 5 * c:5 * c + 5].contiguous()
         lens = torch.tensor([5], device=dev)
-        before = dk.launches
+        before = launches["kernel.decode"]
         got = dk.fused_greedy_decode(chunk, lens, params, tok_k, st_k)
-        assert dk.launches == before + 1
+        assert launches["kernel.decode"] == before + 1
         ref = dk.fused_greedy_decode_plain(chunk, lens, params, tok_p, st_p)
         for g, r in zip(got[:3], ref[:3]):
             assert torch.equal(g, r), c
@@ -1292,11 +1293,11 @@ def test_decode_wrapper_raises_on_a_cluster_the_card_cannot_launch(dev):
 
     model = _decode_model(dev, torch.float32)
     enc = _r(_gen(dev, 24), dev, (2, 10, 144))
-    before = dk.launches
+    before = launches["kernel.decode"]
     with pytest.raises(RuntimeError, match="cannot launch"):
         dk.fused_greedy_decode_kernel(enc, torch.tensor([10, 7], device=dev), model.decode_params(), torch.zeros(2, dtype=torch.int64, device=dev),
                                       model.init_decoder_states(2, dev), cluster=32)
-    assert dk.launches == before
+    assert launches["kernel.decode"] == before
 
 
 @pytest.mark.parametrize("cluster", [8, 16])
@@ -1378,9 +1379,9 @@ def test_evaluate_dataset_on_the_card_equals_the_cpu_rows(dev, tmp_path):
     for m in (model, cpu_model):
         ds = datasets.ASRSliceDataset(tok, stage="test", data_paths=[str(tmp_path / "m.tsv")])
         ds.compute_metadata()
-        before = dk.launches
+        before = launches["kernel.decode"]
         reports.append(evaluate_dataset(m, ds, tok, batch_size=3, collect_rows=True, num_workers=2))
-        reports[-1]["decode_launches"] = dk.launches - before
+        reports[-1]["decode_launches"] = launches["kernel.decode"] - before
     assert reports[0]["rows"] == reports[1]["rows"] and reports[0]["greedy"] == reports[1]["greedy"]
     assert (reports[0]["decode_launches"], reports[1]["decode_launches"]) == (2, 0)
 
@@ -1407,11 +1408,11 @@ def test_bidirectional_rnn_pallas_route_matches_its_plain_route(dev, dtype):
     results = []
     for m, xx, ll, dd in ((card, x, lengths, dy), (cpu, x.cpu(), lengths.cpu(), dy.cpu())):
         xx = xx.clone().requires_grad_(True)
-        before = (lk.launches, lk.bwd_launches)
+        before = (launches["kernel.lstm.fwd"], launches["kernel.lstm.bwd"])
         y, ((cf, hf), (cb, hb)) = m(xx, ll)
         (y.float() * dd).sum().backward()
         if m is card:
-            assert (lk.launches, lk.bwd_launches) == (before[0] + 2, before[1] + 2)
+            assert (launches["kernel.lstm.fwd"], launches["kernel.lstm.bwd"]) == (before[0] + 2, before[1] + 2)
         results.append(([y, cf, hf, cb, hb], [xx.grad] + [p.grad for p in m.parameters()]))
     (outs, grads), (ref_outs, ref_grads) = results
     for got, ref in zip(outs, ref_outs):
@@ -1431,10 +1432,10 @@ def test_wide_ff_kernels(dev, dtype, n, d, f, rate):
     """The FF's wide kernels (bf16 csrc/ff_mma.cu 32-row tiles, the forward
     also at 64 rows; f32 csrc/ff.cu 16-column chunks) against the plain version."""
     args, dout = _ff_args(dev, dtype, n, d, f)
-    before = (fk.launches, fk.bwd_launches)
+    before = (launches["kernel.ff.fwd"], launches["kernel.ff.bwd"])
     torch.testing.assert_close(fk.fused_ff(*args, 77, rate), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
     got = fk.fused_ff_bwd_kernel(*args[:6], dout, 77, rate)
-    assert (fk.launches, fk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (launches["kernel.ff.fwd"], launches["kernel.ff.bwd"]) == (before[0] + 1, before[1] + 1)
     _grads_close(got, fk.fused_ff_plain_bwd(*args[:6], dout, 77, rate), GRAD_REL[dtype], f"wide ff {n}x{d}x{f}")
     if dtype == torch.bfloat16:
         for rows in fk.FWD_ROWS:
@@ -1447,10 +1448,10 @@ def test_wide_ff_kernels(dev, dtype, n, d, f, rate):
 def test_wide_conv_kernels(dev, dtype, b, t, d, rate):
     """conv_front's wide kernels and conv_back at D above 256 against the plain versions, forward and backward."""
     front, dout = _conv_front_args(dev, dtype, b, t, d)
-    before = (ck.front_launches, ck.front_bwd_launches)
+    before = (launches["kernel.conv_front.fwd"], launches["kernel.conv_front.bwd"])
     torch.testing.assert_close(ck.conv_front(*front), ck.conv_front_plain(*front), **TOL[dtype])
     got = ck.conv_front_bwd_kernel(*front, dout)
-    assert (ck.front_launches, ck.front_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (launches["kernel.conv_front.fwd"], launches["kernel.conv_front.bwd"]) == (before[0] + 1, before[1] + 1)
     _grads_close(got, ck.conv_front_plain_bwd(*front, dout), GRAD_REL[dtype], f"wide conv_front {b}x{t}x{d}")
     x, y1, stats, w2, b2, dout = _conv_back_args(dev, dtype, b, t, d)
     torch.testing.assert_close(ck.conv_back_kernel(x, y1, *stats, w2, b2, 21, rate, 0.5), ck.conv_back_plain(x, y1, *stats, w2, b2, 21, rate, 0.5),
@@ -1508,10 +1509,10 @@ def test_routed_shapes_run_on_the_card(dev):
         got, _ = rel(x, x, relpe=relpe)
     assert routes.counts[("fused_rel_attention", "plain")] == 1 and torch.isfinite(got).all()
     layer = trnn.RNN(64, 1280, dtype=torch.bfloat16, rnn_impl="pallas").to(dev)
-    before = lk.launches
+    before = launches["kernel.lstm.fwd"]
     with torch.no_grad():
         y, _ = layer(_r(g, dev, (2, 9, 64), 1.0, torch.bfloat16))
-    assert lk.launches == before and routes.counts[("lstm", "plain")] == 1 and torch.isfinite(y.float()).all()
+    assert launches["kernel.lstm.fwd"] == before and routes.counts[("lstm", "plain")] == 1 and torch.isfinite(y.float()).all()
     logits = _r(g, dev, (1, 3, 1025, 5), 1.0)
     labels = torch.randint(1, 5, (1, 1024), generator=torch.Generator().manual_seed(1)).to(dev)
     t_len, u_len = torch.tensor([3], device=dev), torch.tensor([2], device=dev)

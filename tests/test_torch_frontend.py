@@ -18,6 +18,7 @@ from tensorflowasr_tpu_torch.models.layers.feature_extraction import FeatureExtr
 from tensorflowasr_tpu_torch.ops import frontend
 from tensorflowasr_tpu_torch.ops.cuda import frontend_kernel as fk
 from tensorflowasr_tpu_torch.utils import math_util
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 LOG_TOL = dict(rtol=0, atol=1e-3)
 SHAPES = [(2, 16000), (1, 16123), (3, 4000)]
@@ -104,10 +105,10 @@ def test_math_util_matches_jax():
 
 
 def test_wrapper_cpu_dispatch_and_unsupported_config():
-    before = fk.launches
+    before = launches["kernel.frontend"]
     sig = torch.tensor(_signal((1, 3200)))
     torch.testing.assert_close(fk.log_mel_spectrogram_pallas(sig, frontend.FrontendConfig()), frontend.log_mel_spectrogram(sig, frontend.FrontendConfig()))
-    assert fk.launches == before
+    assert launches["kernel.frontend"] == before
     with pytest.raises(ValueError, match="pad_end"):
         fk.log_mel_spectrogram_pallas(sig, frontend.FrontendConfig(log_base="10"))
     # mfcc, which raised until the port took it, builds and matches JAX's chain

@@ -41,6 +41,7 @@ import torch
 from tensorflowasr_tpu_torch.ops.cuda import _build
 from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
 from tensorflowasr_tpu_torch.ops.cuda import joint_loss_kernel as jk
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 SEED = 909
 TILE_T, TILE_U, FWD_CHUNK, BWD_CHUNK, SMS = 8, 8, 32, 64, 132  # csrc/joint_loss_mma.cu
@@ -449,7 +450,7 @@ def test_cpu_joint_and_conv_front_take_the_plain_versions(dtype):
     """On CPU tensors the fused joint loss and conv_front, with autograd,
     equal their plain versions bit for bit and launch no kernel (no
     library is built)."""
-    before = (jk.launches, jk.bwd_launches, ck.front_launches, ck.front_bwd_launches)
+    before = tuple(launches[n] for n in ("kernel.joint_loss.fwd", "kernel.joint_loss.bwd", "kernel.conv_front.fwd", "kernel.conv_front.bwd"))
     enc_p, pred_p, wv, bv, labels = (torch.tensor(x) for x in _joint_inputs(SEED + 2, 2, 9, 5, 16, 20))
     leaves = [x.to(dtype).requires_grad_(True) for x in (enc_p, pred_p, wv)] + [bv.clone().requires_grad_(True)]
     t_len, u_len = torch.tensor([9, 6]), torch.tensor([5, 2])
@@ -470,5 +471,5 @@ def test_cpu_joint_and_conv_front_take_the_plain_versions(dtype):
     ref_grads = ck.conv_front_plain_bwd(xt.detach(), *[p.detach() for p in pt], torch.tensor(dout).to(dtype))
     for g, r in zip([xt.grad] + [p.grad for p in pt], ref_grads):
         assert torch.equal(g, r)
-    assert (jk.launches, jk.bwd_launches, ck.front_launches, ck.front_bwd_launches) == before
+    assert tuple(launches[n] for n in ("kernel.joint_loss.fwd", "kernel.joint_loss.bwd", "kernel.conv_front.fwd", "kernel.conv_front.bwd")) == before
     assert _build._lib is None

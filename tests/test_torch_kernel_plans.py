@@ -19,6 +19,7 @@ import torch
 from tensorflowasr_tpu.ops.pallas import attention_kernel as jak
 from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
 from tensorflowasr_tpu_torch.ops.cuda import decode_kernel as dk
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 SEED = 4242
 
@@ -147,14 +148,14 @@ def test_cpu_attention_takes_the_plain_versions():
     """On CPU tensors ``fused_attention`` is the plain forward and backward, bit for bit, and launches nothing."""
     q, k, v, bias = (torch.tensor(a) for a in _attention_inputs(np.random.default_rng(SEED + 1), 4, 9, 12, 16, 4))
     dout = torch.tensor(np.random.default_rng(SEED + 2).standard_normal((4, 9, 16)).astype(np.float32))
-    before = (ak.attention_launches, ak.attention_bwd_launches)
+    before = (launches["kernel.attention.fwd"], launches["kernel.attention.bwd"])
     leaves = [a.clone().requires_grad_(True) for a in (q, k, v, bias)]
     out = ak.fused_attention(*leaves, SEED, 0.1)
     out.backward(dout)
     assert torch.equal(out.detach(), ak.fused_attention_plain(q, k, v, bias, SEED, 0.1))
     for got, want in zip((x.grad for x in leaves), ak.fused_attention_plain_bwd(q, k, v, bias, dout, SEED, 0.1)):
         assert torch.equal(got, want)
-    assert (ak.attention_launches, ak.attention_bwd_launches) == before
+    assert (launches["kernel.attention.fwd"], launches["kernel.attention.bwd"]) == before
 
 
 def _decode_params(rng, e=12, h=10, j=14, v=16, enc=9):
@@ -170,11 +171,11 @@ def test_cpu_decode_takes_the_plain_version():
     enc = torch.tensor(rng.standard_normal((3, 11, 9)).astype(np.float32))
     lens, tok0 = torch.tensor([11, 6, 1]), torch.tensor([0, 3, 5])
     states = ((torch.zeros(3, 10), torch.zeros(3, 10)),)
-    before, plan = dk.launches, dk.last_launch
+    before, plan = launches["kernel.decode"], dk.last_launch
     got = dk.fused_greedy_decode(enc, lens, params, tok0, states)
     want = dk.fused_greedy_decode_plain(enc, lens, params, tok0, states)
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
     for (gc, gh), (wc, wh) in zip(got[3], want[3]):
         assert torch.equal(gc, wc) and torch.equal(gh, wh)
-    assert dk.launches == before and dk.last_launch is plan
+    assert launches["kernel.decode"] == before and dk.last_launch is plan

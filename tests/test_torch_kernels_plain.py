@@ -21,6 +21,7 @@ from tensorflowasr_tpu_torch.models.layers import attention as tattn
 from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
 from tensorflowasr_tpu_torch.ops.cuda import conv_kernel as ck
 from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -215,7 +216,7 @@ def test_dropout_rate_raises(name):
 
 
 def _counts():
-    return (ak.launches, ak.bwd_launches, fk.launches, fk.bwd_launches, ck.front_launches, ck.front_bwd_launches, ck.back_launches, ck.back_bwd_launches)
+    return tuple(launches[f"kernel.{k}.{p}"] for k in ("rel_attention", "ff", "conv_front", "conv_back") for p in ("fwd", "bwd"))
 
 
 def test_cpu_tensors_take_plain_path_without_counting():

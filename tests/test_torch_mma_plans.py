@@ -26,6 +26,7 @@ from jax.experimental import pallas as pl
 from tensorflowasr_tpu.ops.pallas import attention_kernel as jak
 from tensorflowasr_tpu_torch.ops.cuda import attention_kernel as ak
 from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
+from tensorflowasr_tpu_torch.utils.tracing import launches
 
 SEED = 808
 KT, BLOCK, WIN, BAND = 64, 64, 128, 80  # csrc/rel_attention_mma.cu: key tile, rows per block, pos window, band columns
@@ -288,7 +289,7 @@ def test_cpu_rel_attention_and_ff_take_the_plain_versions(dtype):
     t, d = 9, 12
     att = [f(4, t, d), f(4, t, d), f(4, t, d), f(4, t, d), f(4, 2 * t - 1, d)]
     dout = f(4, t, d)
-    before = (ak.launches, ak.bwd_launches, fk.launches, fk.bwd_launches)
+    before = tuple(launches[n] for n in ("kernel.rel_attention.fwd", "kernel.rel_attention.bwd", "kernel.ff.fwd", "kernel.ff.bwd"))
     leaves = [a.clone().requires_grad_(True) for a in att]
     out = ak.fused_rel_attention(*leaves, None, None, SEED, 0.1)
     out.backward(dout)
@@ -303,4 +304,4 @@ def test_cpu_rel_attention_and_ff_take_the_plain_versions(dtype):
     assert torch.equal(out.detach(), fk.fused_ff_plain(*ff, SEED, 0.1))
     for got, want in zip((x.grad for x in leaves), fk.fused_ff_plain_bwd(*ff[:6], dout, SEED, 0.1)):
         assert torch.equal(got, want)
-    assert (ak.launches, ak.bwd_launches, fk.launches, fk.bwd_launches) == before
+    assert tuple(launches[n] for n in ("kernel.rel_attention.fwd", "kernel.rel_attention.bwd", "kernel.ff.fwd", "kernel.ff.bwd")) == before
