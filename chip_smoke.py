@@ -215,7 +215,9 @@ Gulati et al. 2020, Table 1: 17 blocks, D 512, 8 heads of 64, conv kernel
 ``build_model``): rows 5-8 at its training shapes (the FF's and
 ``conv_front``'s wide kernels, ``conv_back`` at D 512, the fused joint at J
 640) against their plain versions with the bound, beside the flagship's
-times in the same call; bf16 serving of 3 requests of 8 × 6-10 s, 4
+times in the same call; the FF backward at N 6,400 and 12,800 against its
+plain version, with its wgmma rows pass timed by kernel beside that pass's
+bound (:func:`wide_ff_rows_pass`); bf16 serving of 3 requests of 8 × 6-10 s, 4
 default steps of 16 × ≤ 16 s and eval steps, each path's launches checked
 (every Pallas counterpart a kernel, no plain route) with walls, busy share
 and peak memory; the f32 card/CPU parity of a 2-block step; and each shape a
@@ -6065,6 +6067,66 @@ def conformer_l_kernels(dev, rows: list[dict]) -> None:
               f"backward {pair[1]['ms']:.4f} ms; flagship (D {D_MODEL} / J {JOINT}) forward {flagship_ms[0]:.4f} ms backward {flagship_ms[1]:.4f} ms")
 
 
+def cost_ff_wide_rows(n: int, d: int, f: int):
+    """The wide FF backward's rows pass alone: x, dout read and dx written in
+    bf16, the weight-gradient operands y, dz [N, D] and ad, dh [N, F] written
+    as bf16 hi + lo; three products (h, da, dy)."""
+    return 3 * n * d * 2 + 2 * n * d * 4 + 2 * n * f * 4, 6 * n * d * f
+
+
+def wide_ff_rows_pass(dev, rows: list[dict]) -> None:
+    """The wide FF backward at Conformer-L's D 512, F 2048, bf16, rate 0.1,
+    for N 6,400 and 12,800 (the benchmark's 32 × 400 rows), through
+    ``fused_ff_bwd_kernel``: each gradient against ``fused_ff_plain_bwd``
+    within 3e-2 of its scale and the same bits on two calls; the device time
+    of its rows pass (the prologue, the products pass and the dy pass on
+    wgmma, by kernel from the profiler inside the call) beside that pass's
+    bound, and of the whole call; the three kernels' registers and spills
+    from ptxas when this process ran the build. Recorded as ``rows_pass`` on
+    the fused_ff_bwd row's ``conformer_l`` entry."""
+    from tensorflowasr_tpu_torch.ops.cuda import _build
+    from tensorflowasr_tpu_torch.ops.cuda import ff_kernel as fk
+
+    _build.build()
+    usage = ptxas_usage(_build.build_log)
+    names = {"prologue": "ffw_bwd_prologue", "products": "ffw_bwd_products", "dy": "ffw_bwd_dy"}
+    regs = {}
+    for name in names.values():
+        use = next((u for m, u in usage.items() if name in m), None) if usage else None
+        if usage and not use:
+            raise AssertionError(f"{name}: no ptxas record in this build's log")
+        regs[name] = use
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    entry, parts = {}, []
+    for n in (TRAIN_B * T_ENC, 2 * TRAIN_B * T_ENC):
+        x, dout = _randn(gen, (n, L_D), 1.0, torch.bfloat16), _randn(gen, (n, L_D), 1.0, torch.bfloat16)
+        gamma, beta = 1.0 + _randn(gen, (L_D,), 0.1), _randn(gen, (L_D,), 0.1)
+        w1, b1 = _randn(gen, (L_D, L_FF), L_D ** -0.5, torch.bfloat16), _randn(gen, (L_FF,), 0.1, torch.bfloat16)
+        w2 = _randn(gen, (L_FF, L_D), L_FF ** -0.5, torch.bfloat16)
+        args = (x, gamma, beta, w1, b1, w2, dout, 13, TRAIN_RATE, 0.5, 1e-3)
+        got = fk.fused_ff_bwd_kernel(*args)
+        err = _grads_close(f"fused_ff bwd wide bf16 (N {n})", got, fk.fused_ff_plain_bwd(*args), GRAD_REL["bf16"])
+        if not all(torch.equal(a, b) for a, b in zip(got, fk.fused_ff_bwd_kernel(*args))):
+            raise AssertionError(f"fused_ff bwd wide bf16 (N {n}): two calls differ")
+        dev_ms = device_ms_by_kernel(fk.fused_ff_bwd_kernel, args, names)
+        if any(dev_ms[k] is None for k in names):
+            raise AssertionError(f"fused_ff bwd wide bf16 (N {n}): the profiler saw no {[names[k] for k in names if dev_ms[k] is None]}")
+        ms = sum(dev_ms[k] for k in names)
+        least, by = bound(*cost_ff_wide_rows(n, L_D, L_FF), "bf16")
+        entry[str(n)] = {"ms": ms, "by_kernel_ms": {k: dev_ms[k] for k in names}, "call_ms": dev_ms["all"], "bound_ms": least, "bound_by": by,
+                         "max_abs_err": err, "same_bits": True}
+        parts.append(f"N {n} {ms:.4f} ms (" + ", ".join(f"{k} {dev_ms[k]:.4f}" for k in names) + f"; bound {least:.4f} ms by {by}, "
+                     f"{100 * least / ms:.1f}%; the whole call {dev_ms['all']:.4f} ms; max_abs_err {err:.3e} within {GRAD_REL['bf16']} of each "
+                     f"gradient's scale, the same bits on two calls)")
+    entry["kernels"] = regs
+    next(row for row in rows if row["name"] == "fused_ff_bwd")["conformer_l"]["rows_pass"] = entry
+    print(f"kernel fused_ff_bwd wide rows pass (conformer-l, D {L_D} F {L_FF}, bf16, rate {TRAIN_RATE}; prologue, products and dy on wgmma; "
+          "profiler): " + "; ".join(parts) + "; " + "; ".join(f"{k} " + (f"{u.get('registers')} registers, {u.get('spill_stores')}/"
+                                                                         f"{u.get('spill_loads')} B spilled" if u else
+                                                                         "registers not read (the library was built by another process)")
+                                                                for k, u in regs.items()))
+
+
 def phase_conformer_l(dev, rows: list[dict]) -> dict:
     """Conformer-L at full width and depth in bf16 (random weights, dropout
     0.1): its kernels (:func:`conformer_l_kernels`); serving 3 requests of 8 ×
@@ -6078,6 +6140,7 @@ def phase_conformer_l(dev, rows: list[dict]) -> dict:
     from tensorflowasr_tpu_torch.ops import routes
 
     conformer_l_kernels(dev, rows)
+    wide_ff_rows_pass(dev, rows)
     model = conformer_l_model(torch.bfloat16, dev).eval()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"conformer_l: {model.source}; through Config and build_model: {type(model).__name__}, {n_params} parameters, bf16 compute, f32 params, "

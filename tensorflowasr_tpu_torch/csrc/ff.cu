@@ -290,6 +290,7 @@ int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const 
                       void* dx, float* cols, float* dw1, float* dw2, float* scratch, int N, int D, int F, float eps, float factor, Dropout dp,
                       cudaStream_t stream);
 long long ff_mma_bwd_scratch(int N, int D, int F);
+bool ff_mma_bwd_wide(int D);
 
 // Scratch layout of the f32 backward, in floats.
 struct FFBwdScratch {
@@ -358,6 +359,10 @@ extern "C" int tfasr_fused_ff(const void* x, const void* gamma, const void* beta
 extern "C" long long tfasr_fused_ff_bwd_scratch(int N, int D, int F, int dtype) {
   return dtype == tfasr::kBF16 ? tfasr::ff_mma_bwd_scratch(N, D, F) : (long long)tfasr::FFBwdScratch(N, D, F).total;
 }
+
+// Whether tfasr_fused_ff_bwd at width D in this dtype takes the wide bf16
+// rows pass on wgmma (ff_mma.cu), as its own dispatch decides.
+extern "C" int tfasr_fused_ff_bwd_wide(int D, int dtype) { return dtype == tfasr::kBF16 && tfasr::ff_mma_bwd_wide(D); }
 
 // Gradients of tfasr_fused_ff: dout [N, D] in x's dtype → dx [N, D] in x's
 // dtype; dgamma, dbeta [D], dw1 [D, F], db1 [F], dw2 [F, D], db2 [D] in f32.

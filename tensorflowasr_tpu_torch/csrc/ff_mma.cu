@@ -6,7 +6,8 @@
 //
 // Counterpart of tensorflowasr_tpu/ops/pallas/ff_kernel.py fused_ff
 // (_fwd_kernel, _bwd_kernel, ff_kernel.py:63-159). Every product is an
-// mma.sync m16n8k16 with bf16 operands and f32 accumulators; operands come
+// mma.sync m16n8k16 with bf16 operands and f32 accumulators (the wide
+// backward's rows pass: wgmma, below); operands come
 // from shared memory by ldmatrix. Widths need no alignment: D is padded to a
 // multiple of 16 and F to the 64-wide chunk with zeros in shared memory only
 // (D 144 = 9 x 16 and 176 = 11 x 16 need no padding).
@@ -59,7 +60,7 @@
 // work (~10 us at 989 TFLOP/s), beside ~37 MB of split scratch written and
 // read once (~22 us at 3.35 TB/s); mma.sync and one block per SM reach a fraction
 // of either.
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace tfasr {
 
@@ -432,19 +433,17 @@ __global__ void __launch_bounds__(FM_THREADS, 1) ff_mma_bwd_rows(const bf16* __r
 //
 // At Conformer-L's D 512, F 2048 the narrow tile does not fit: a warp's
 // [16, D] accumulator would take 256 f32 a thread, and two 64-column chunks
-// of W1 and W2 beside 64 rows take 347 KB of shared memory. The wide kernels
-// take 32 rows a block (WD_ROWS, 8 warps; the forward 64 rows, 16 warps,
-// where the 32-row grid would take more than one wave) and 32-column F chunks, still
+// of W1 and W2 beside 64 rows take 347 KB of shared memory. The wide
+// forward takes 32 rows a block (8 warps) or 64 rows (16 warps, where the
+// 32-row grid would take more than one wave) and 32-column F chunks, still
 // double-buffered (W1c [Dp][40], W2c [32][Dp + 8]), and each chunk runs as
 // two products with a barrier between: (1) h [32, 32] = y . W1c, warp (rg,
 // q) the 16 rows rg and the 8 columns 8q over the whole of D (one n-tile);
 // the activation goes to shared memory as bf16; (2) z [32, D] += a . W2c,
 // warp (rg, q) the rows rg and the output columns q * 128 .. (16 n-tiles,
-// 64 f32 a thread). The backward does the same with h and da = dz . W2c^T in
-// (1) and dy += dh . W1c^T in (2), and the LayerNorm backward's row sums meet
-// across the four column quarters (wide_ln_bwd). Shared memory at Dp 512:
-// 184,320 bytes forward (220,160 at 64 rows), 218,880 backward: one block
-// per SM. The forward's first product alternates its k-steps between two
+// 64 f32 a thread). Shared memory at Dp 512: 184,320 bytes (220,160 at 64
+// rows): one block per SM. The backward's rows pass runs on wgmma (below).
+// The forward's first product alternates its k-steps between two
 // accumulators (two independent mma chains a warp; with the 64-row tile it
 // took the forward from 0.539 to 0.361 ms at N 6400, PERF.md §6, row 5).
 constexpr int FW_FC = 32;  // F columns per chunk of the wide kernels: 8 a warp quarter
@@ -554,144 +553,499 @@ __global__ void __launch_bounds__(128 * RG, 1) ffw_fwd(const bf16* __restrict__ 
   }
 }
 
-// The wide backward rows pass; as ff_mma_bwd_rows, with part [2 * blocks][F + 3D].
-__global__ void __launch_bounds__(FM_THREADS, 1) ffw_bwd_rows(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-                                                             const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                                                             const bf16* __restrict__ dout, bf16* __restrict__ dx, Split y_o, Split dz_o, Split ad_o,
-                                                             Split dh_o, float* __restrict__ part, FFArgs a, Dropout dp) {
-  extern __shared__ __align__(16) unsigned char fm_smem[];
-  const int Dp = a.Dp, LDD = Dp + AM_PAD, nk = Dp / 16, D = a.D, F = a.F, N = a.N;
-  bf16* y_s = reinterpret_cast<bf16*>(fm_smem);                     // [32][LDD] LN output
-  bf16* dz_s = y_s + WD_ROWS * LDD;                                 // [32][LDD] dz
-  bf16* w1_s = dz_s + WD_ROWS * LDD;                                // [2][Dp][FW_LDF]
-  bf16* w2_s = w1_s + 2 * Dp * FW_LDF;                              // [2][FW_FC][LDD]
-  bf16* dh_s = w2_s + 2 * FW_FC * LDD;                              // [32][FW_LDF] the chunk's dh
-  float* mu_s = reinterpret_cast<float*>(dh_s + WD_ROWS * FW_LDF);  // [32]
-  float* rstd_s = mu_s + WD_ROWS;                                   // [32]
-  float* red_s = rstd_s + WD_ROWS;                                  // [2][4][32] the LayerNorm backward's row sums
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
-  const int rg = warp & 1, q = warp >> 1, d0 = q * WD_DQ;
-  const int row0 = blockIdx.x * WD_ROWS, row_lo = row0 + rg * 16 + g;
-  const int C = F + 3 * D;
-  float* prow = part + (size_t)(blockIdx.x * 2 + rg) * C;  // this row group's column sums
+// ------------------- the wide backward rows pass on wgmma (256 < Dp <= 512) ------------------- //
+//
+// Three kernels in place of one row loop, so that every product runs as a
+// wgmma warpgroup product on operands the TMA brings (hopper.cuh):
+//  1. ffw_bwd_prologue, per row: the LayerNorm statistics from x (f32), y =
+//     LN(x) and dz = factor * dout * keep2 as bf16 hi + lo (the products'
+//     operands are exactly the hi halves, bf16(y) and bf16(dz)), mean and
+//     rstd, and per 64 rows the column sums of dz (db2). Blocks past the rows
+//     transpose W1 into W1^T [F][Dq], so that every product reads both
+//     operands K-major, and copy W1, W2 into padded rows where the TMA cannot
+//     read them as they are (D or F not a multiple of 8, or unaligned).
+//  2. ffw_bwd_products, persistent (a block per SM walks the tiles t, t +
+//     grid, ... in order, F tiles fastest): a [128 rows x 128 F] tile of h =
+//     y . W1 and da = dz . W2^T over K = D, two consumer warpgroups of 64 rows
+//     each holding both accumulators (m64n128k16, 2 x 64 f32 a thread), fed
+//     by a producer warp through a 3-stage ring of [128][64] tiles of y, dz,
+//     W1^T and W2 (64 KB a stage); the epilogue forms ad and dh (swish with
+//     sigmoid_f32, as the other FF kernels; dropout keep1) without branches,
+//     writes them as hi + lo through a [64][128] staging tile a warpgroup in
+//     16-byte row chunks, and the db1 partials, while the producer already
+//     fills the ring with the next tile.
+//  3. ffw_bwd_dy, a block per 64 rows: dy = dh . W1^T over K = F, the two
+//     consumer warpgroups 256 columns each (m64n256k16, 128 f32 a thread; a
+//     64 x 512 f32 tile is too large for one), a 3-stage ring of dh [64][64]
+//     and W1 [512][64] (72 KB a stage); its epilogue is the LayerNorm
+//     backward on the block's x rows staged in the free ring, the row sums
+//     meeting across the two warpgroups in shared memory, dx staged and
+//     written in 16-byte row chunks, and the dgamma, dbeta partials.
+// Kept as the mma.sync kernel was: bf16 operands with f32 accumulation, f32
+// LayerNorm statistics, the same swish and dropout_keep calls, the splits' layout
+// (FMScratch) and the column-sum partials, now one row per 64 rows summed in
+// fixed orders (the same bits on every run, no atomics).
+// What bounds it at N 12,800, D 512, F 2048: three products of 26.8 GFLOP
+// (0.081 ms at 989 TFLOP/s) and ~302 MB of operands and splits (0.090 ms at
+// 3.35 TB/s); the 32-row mma.sync loop took 1.78 ms, these three 0.32-0.38
+// ms (PERF.md, row 5).
+constexpr int WB_THREADS = 384;                         // a producer warpgroup and two consumer warpgroups
+constexpr int WB_BK = 64;                               // k columns a stage: one 128-byte swizzled row
+constexpr int WB_STAGES = 3;                            // the ring's stages
+constexpr int WB_ROWS = 128, WB_FC = 128;               // the products' tile: rows x F columns
+constexpr int WB_OPER = WB_ROWS * WB_BK * 2;            // bytes of one operand tile [128][64]: 16 KB
+constexpr int WB_STAGE = 4 * WB_OPER;                   // y, dz, W1^T, W2
+constexpr int WC_ROWS = 64;                             // rows of a dy block, of a prologue block and of a column-sum partial
+constexpr int WC_HALF = WD_DMAX / 2;                    // dy columns of a consumer warpgroup, and the rows of a W1 box
+constexpr int WC_STAGE = (WC_ROWS + WD_DMAX) * WB_BK * 2;  // dh [64][64], W1 [512][64]: 72 KB
+constexpr int WB_ALIGN = 1024;                          // the 128-byte swizzle's tiles start on 1024-byte boundaries
 
-  fm_stage_w<FW_FC>(w1_s, w2_s, w1, w2, 0, a);
-  cp_async_commit();
-  for (int r = warp; r < WD_ROWS; r += FM_THREADS / 32) {
-    const int row = row0 + r;
-    bf16* ys = y_s + r * LDD;
-    bf16* dzs = dz_s + r * LDD;
-    if (row >= N) {
-      for (int c = lane; c < D; c += 32) ys[c] = dzs[c] = __float2bfloat16(0.f);
-      if (lane == 0) mu_s[r] = 0.f, rstd_s[r] = 0.f;
-      continue;
-    }
-    const bf16* xr = x + (size_t)row * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += to_f32(xr[c]);
-    const float mu = warp_sum(s) / (float)D;
-    float qv = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float cx = to_f32(xr[c]) - mu;
-      qv = fmaf(cx, cx, qv);
-    }
-    const float rstd = rsqrtf(warp_sum(qv) / (float)D + a.eps);
-    if (lane == 0) mu_s[r] = mu, rstd_s[r] = rstd;
-    for (int c = lane; c < D; c += 32) {
-      const size_t off = (size_t)row * D + c;
-      const float y = (to_f32(xr[c]) - mu) * rstd * gamma[c] + beta[c];
-      ys[c] = __float2bfloat16(y);
-      put_split(y_o, row, c, y);
-      float dz = a.factor * to_f32(dout[off]);
-      if (dp.on) dz *= dropout_keep(dp, dp.seed + FM_SALT_SITE2, row, c);
-      dzs[c] = __float2bfloat16(dz);
-      put_split(dz_o, row, c, dz);
-    }
-  }
-  fm_zero_pad(y_s, WD_ROWS, LDD, D, Dp);
-  fm_zero_pad(dz_s, WD_ROWS, LDD, D, Dp);
+// Dynamic shared memory of the two wgmma kernels: the ring (aligned by hand, hence the slack), the products' staging
+// tiles [2][64][128] bf16, and the ring's full and empty barriers.
+size_t wb_products_smem() { return WB_ALIGN + (size_t)WB_STAGES * WB_STAGE + 2 * WC_ROWS * WB_FC * sizeof(bf16) + 2 * WB_STAGES * sizeof(uint64_t); }
+size_t wb_dy_smem() { return WB_ALIGN + (size_t)WB_STAGES * WC_STAGE + 2 * WB_STAGES * sizeof(uint64_t); }
 
-  float dy[WD_DQ / 8][4];
+__device__ __forceinline__ unsigned char* wb_aligned(unsigned char* raw) { return raw + ((WB_ALIGN - (smem_u32(raw) & (WB_ALIGN - 1))) & (WB_ALIGN - 1)); }
+
+// Eight consecutive values as bf16 hi + lo into a split's 16-byte-aligned row chunk.
+__device__ __forceinline__ void put_split8(const Split& s, int row, int col, const float (&v)[8]) {
+  uint32_t hi[4], lo[4];
 #pragma unroll
-  for (int dt = 0; dt < WD_DQ / 8; ++dt) dy[dt][0] = dy[dt][1] = dy[dt][2] = dy[dt][3] = 0.f;
-  const bf16* yw = y_s + rg * 16 * LDD;
-  const bf16* dzw = dz_s + rg * 16 * LDD;
-  for (int c = 0; c < a.nch; ++c) {
-    if (c + 1 < a.nch) {
-      fm_stage_w<FW_FC>(w1_s + ((c + 1) & 1) * Dp * FW_LDF, w2_s + ((c + 1) & 1) * FW_FC * LDD, w1, w2, c + 1, a);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(v[2 * i] - __low2float(h), v[2 * i + 1] - __high2float(h));
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+  const size_t off = (size_t)row * s.ld + col;
+  *reinterpret_cast<uint4*>(s.hi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(s.lo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// Columns 8q .. 8q + 7 of a bf16 row (zeros past D): one 16-byte load where the row allows it.
+__device__ __forceinline__ void load8(float (&v)[8], const bf16* row, int c0, int D, bool vec) {
+  if (vec && c0 + 8 <= D) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + c0);
+    const bf16* b = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = to_f32(b[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = c0 + e < D ? to_f32(row[c0 + e]) : 0.f;
+  }
+}
+
+// 1. The prologue; see above. A row block of WP_WARPS warps takes 64 rows, 4 a warp; lane l the column chunks l and
+// l + 32 (8 columns each). stats [2][N]: mean, rstd. part [P][F + 3D]: this kernel writes db2 (columns F .. F + D).
+constexpr int WP_WARPS = 16;
+__global__ void __launch_bounds__(32 * WP_WARPS) ffw_bwd_prologue(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                                                      const bf16* __restrict__ w1, const bf16* __restrict__ w2, const bf16* __restrict__ dout, Split y_o,
+                                                      Split dz_o, float* __restrict__ stats, float* __restrict__ part, bf16* __restrict__ w1t,
+                                                      bf16* __restrict__ w1p, bf16* __restrict__ w2p, FFArgs a, int vec_rows, Dropout dp) {
+  __shared__ __align__(16) float cs[WP_WARPS][WD_DMAX];  // the warps' dz column sums; a block past the rows: the W1 tile
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int D = a.D, F = a.F, N = a.N, Dq = y_o.ld, Fq = (F + 7) / 8 * 8;
+  const int row_blocks = (N + WC_ROWS - 1) / WC_ROWS;
+  if ((int)blockIdx.x >= row_blocks) {
+    const int tf = (F + 63) / 64, tt = blockIdx.x - row_blocks, d0 = (tt / tf) * 64, f0 = (tt % tf) * 64;
+    bf16* tile = reinterpret_cast<bf16*>(cs);  // [64][66]: W1[d0 + d][f0 + f] at d * 66 + f
+    for (int i = threadIdx.x; i < 64 * 64; i += blockDim.x) {
+      const int d = d0 + i / 64, f = f0 + i % 64;
+      const bf16 v = d < D && f < F ? w1[(size_t)d * F + f] : __float2bfloat16(0.f);
+      tile[(i / 64) * 66 + i % 64] = v;
+      if (!a.vec && d < D && f < Fq) w1p[(size_t)d * Fq + f] = v;
     }
     __syncthreads();
-    const bf16* w1c = w1_s + (c & 1) * Dp * FW_LDF;
-    const bf16* w2c = w2_s + (c & 1) * FW_FC * LDD;
-    float h[4] = {0.f, 0.f, 0.f, 0.f}, da[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int kk = 0; kk < nk; ++kk) {
-      uint32_t af[4], b[2];
-      load_a(af, yw + kk * 16, LDD, lane);
-      load_b_kn_x2(b, w1c + kk * 16 * FW_LDF + q * 8, FW_LDF, lane);
-      mma16816(h, af, b[0], b[1]);
-      load_a(af, dzw + kk * 16, LDD, lane);
-      load_b_nk_x2(b, w2c + q * 8 * LDD + kk * 16, LDD, lane);  // dz . W2c^T: W2c's rows are da's columns
-      mma16816(da, af, b[0], b[1]);
+    for (int i = threadIdx.x; i < 64 * 64; i += blockDim.x) {
+      const int f = f0 + i / 64, d = d0 + i % 64;
+      if (f < F && d < Dq) {
+        w1t[(size_t)f * Dq + d] = tile[(i % 64) * 66 + i / 64];
+        if (!a.vec) w2p[(size_t)f * Dq + d] = d < D ? w2[(size_t)f * D + d] : __float2bfloat16(0.f);
+      }
     }
-    const int fc = c * FW_FC + q * 8 + 2 * tig;
-    float ad[4];
+    return;
+  }
+  const int m0 = blockIdx.x * WC_ROWS;
+  float zs[2][8];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) zs[k][e] = 0.f;
+  for (int i = 0; i < WC_ROWS / WP_WARPS; ++i) {
+    const int row = m0 + warp * (WC_ROWS / WP_WARPS) + i;
+    if (row >= N) break;
+    const bf16* xr = x + (size_t)row * D;
+    const bf16* dr = dout + (size_t)row * D;
+    float xv[2][8], s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      load8(xv[k], xr, 8 * (lane + 32 * k), D, vec_rows);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += xv[k][e];
+    }
+    const float mu = warp_sum(s) / (float)D;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (8 * (lane + 32 * k) + e < D) {
+          const float cx = xv[k][e] - mu;
+          q = fmaf(cx, cx, q);
+        }
+    const float rstd = rsqrtf(warp_sum(q) / (float)D + a.eps);
+    if (lane == 0) stats[row] = mu, stats[N + row] = rstd;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int c0 = 8 * (lane + 32 * k);
+      if (c0 < D) {
+        float y[8], dz[8];
+        load8(dz, dr, c0, D, vec_rows);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int c = c0 + e;
+          y[e] = 0.f;
+          if (c < D) {
+            y[e] = (xv[k][e] - mu) * rstd * gamma[c] + beta[c];
+            dz[e] *= a.factor;
+            if (dp.on) dz[e] *= dropout_keep(dp, dp.seed + FM_SALT_SITE2, row, c);
+            zs[k][e] += dz[e];
+          }
+        }
+        put_split8(y_o, row, c0, y);
+        put_split8(dz_o, row, c0, dz);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cs[warp][8 * (lane + 32 * k) + e] = zs[k][e];
+  __syncthreads();
+  const int C = F + 3 * D;
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WP_WARPS; ++w) s += cs[w][c];  // in warp (row) order
+    part[(size_t)blockIdx.x * C + F + c] = s;
+  }
+}
+
+// A [64][cols] bf16 tile in shared memory with its 16-byte chunks XOR-ed with the row (chunk q of row r at q ^ (r & 7)):
+// the fragment's 8 rows g of one column pair fall in distinct banks, and 8 lanes on 8 chunks of a row too.
+__device__ __forceinline__ int sw_off(int r, int col, int cols) { return r * cols + ((((col >> 3) ^ (r & 7))) << 3) + (col & 7); }
+
+// Copy a warpgroup's (or block's) staged [64][cols] bf16 tile to rows r0 .. of a [n][ld] array in 16-byte chunks
+// (`threads` threads, this one t): rows past n and chunks from `limit` on are left out.
+__device__ __forceinline__ void sw_copy_out(bf16* dst, const bf16* tile, int cols, int r0, int n, int ld, int c0, int limit, int t, int threads) {
+  for (int i = t; i < WC_ROWS * (cols / 8); i += threads) {
+    const int r = i / (cols / 8), q = i % (cols / 8);
+    if (r0 + r < n && c0 + 8 * q < limit)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + c0 + 8 * q) = *reinterpret_cast<const uint4*>(tile + sw_off(r, 8 * q, cols));
+  }
+}
+
+// The products' epilogue on a warpgroup's accumulators (rows r0, r0 + 8; columns f0 + 8 j + 2 tig, + 1): h and da
+// become ad = swish(h + b1) keep1 and dh = da keep1 swish'(h + b1) in place. No branch: rows past N and columns past
+// F arrive as zeros from the TMA, so their dh is 0 and their ad either 0 (columns) or never stored (rows).
+template <bool DROP>
+__device__ __forceinline__ void wb_activation(float (&h)[WB_FC / 2], float (&da)[WB_FC / 2], const bf16* __restrict__ b1, int r0, int f0, int F,
+                                              int tig, const Dropout& dp) {
+#pragma unroll
+  for (int j = 0; j < WB_FC / 8; ++j) {
+    const int fc = f0 + 8 * j + 2 * tig;
+    const float bb[2] = {fc < F ? to_f32(b1[fc]) : 0.f, fc + 1 < F ? to_f32(b1[fc + 1]) : 0.f};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int f = fc + (e & 1), row = row_lo + (e >> 1) * 8;
-      float dh = 0.f;
-      ad[e] = 0.f;
-      if (f < F && row < N) {
-        const float hh = h[e] + to_f32(b1[f]);
-        const float sig = sigmoid_f32(hh);
-        float dav = da[e];
-        ad[e] = hh * sig;
-        if (dp.on) {
-          const float keep = dropout_keep(dp, dp.seed, row, f);
-          ad[e] *= keep;
-          dav *= keep;
-        }
-        dh = dav * (sig + hh * sig * (1.f - sig));
+      const float hh = h[4 * j + e] + bb[e & 1];
+      const float sig = sigmoid_f32(hh);
+      float ad = hh * sig, dav = da[4 * j + e];
+      if (DROP) {
+        const float keep = dropout_keep(dp, dp.seed, r0 + 8 * (e >> 1), fc + (e & 1));
+        ad *= keep;
+        dav *= keep;
       }
-      h[e] = dh;
+      h[4 * j + e] = ad;
+      da[4 * j + e] = dav * (sig + hh * sig * (1.f - sig));
     }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {  // F columns fc, fc + 1 of rows row_lo, row_lo + 8 (fc + 1 < Fq: both even)
-      const int row = row_lo + 8 * hf;
-      if (fc < F && row < N) {
-        put_split2(ad_o, row, fc, ad[2 * hf], ad[2 * hf + 1]);
-        put_split2(dh_o, row, fc, h[2 * hf], h[2 * hf + 1]);
-      }
-      *reinterpret_cast<uint32_t*>(dh_s + (rg * 16 + g + 8 * hf) * FW_LDF + q * 8 + 2 * tig) = pack_bf16(h[2 * hf], h[2 * hf + 1]);
-    }
-    const float s0 = col_sum8(h[0] + h[2]), s1 = col_sum8(h[1] + h[3]);
-    if (g == 0) {
-      if (fc < F) prow[fc] = s0;
-      if (fc + 1 < F) prow[fc + 1] = s1;
-    }
-    __syncthreads();
-    // dy += dh_bf16 . W1c^T: W1c's rows (d) are the output columns, its columns the summed index
-#pragma unroll
-    for (int ks = 0; ks < FW_FC / 16; ++ks) {
-      uint32_t af[4];
-      load_a(af, dh_s + rg * 16 * FW_LDF + ks * 16, FW_LDF, lane);
-#pragma unroll
-      for (int np = 0; np < WD_DQ / 16; ++np) {
-        if (d0 + np * 16 < Dp) {
-          uint32_t b[4];
-          load_b_nk(b, w1c + (d0 + np * 16) * FW_LDF + ks * 16, FW_LDF, lane);
-          mma16816(dy[2 * np], af, b[0], b[1]);
-          mma16816(dy[2 * np + 1], af, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // before the next chunk's copy refills this buffer and dh_s is rewritten
   }
-  wide_ln_bwd(dy, red_s, mu_s, rstd_s, x, gamma, dout, dx, prow, F + D, F + 2 * D, F, a.factor, dp, dp.seed + FM_SALT_SITE2, row0, N, D, Dp, lane, warp);
+}
+
+// 2. The products pass; see above. Tile t: rows (t / tiles_f) * 128, F columns (t % tiles_f) * 128; nkb k-steps of
+// 64 over D. part: db1 (columns 0 .. F) of each 64-row group. The epilogue turns h, da into ad, dh in place, then
+// writes ad hi, ad lo, dh hi, dh lo in turn through the warpgroup's [64][128] staging tile as 16-byte row chunks,
+// then the warps' db1 sums through the same tile.
+__global__ void __launch_bounds__(WB_THREADS, 1) ffw_bwd_products(const __grid_constant__ CUtensorMap y_map, const __grid_constant__ CUtensorMap dz_map,
+                                                                  const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ CUtensorMap w2_map,
+                                                                  const bf16* __restrict__ b1, Split ad_o, Split dh_o, float* __restrict__ part, int N,
+                                                                  int F, int C, int nkb, int tiles_f, int tiles, Dropout dp) {
+  extern __shared__ unsigned char wb_raw[];
+  unsigned char* ring = wb_aligned(wb_raw);
+  bf16* staging = reinterpret_cast<bf16*>(ring + WB_STAGES * WB_STAGE);  // [2][64][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * WC_ROWS * WB_FC);
+  uint64_t* empty = full + WB_STAGES;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WB_STAGES; ++s) mbar_init(&full[s], 1), mbar_init(&empty[s], 2);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 0) {  // the producer: one thread keeps the ring full
+    warpgroup_regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_f) * WB_ROWS, f0 = (t % tiles_f) * WB_FC;
+        for (int kb = 0; kb < nkb; ++kb) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = ring + s * WB_STAGE;
+          mbar_expect_tx(&full[s], WB_STAGE);
+          tma_load_2d(st, &y_map, &full[s], kb * WB_BK, m0);
+          tma_load_2d(st + WB_OPER, &dz_map, &full[s], kb * WB_BK, m0);
+          tma_load_2d(st + 2 * WB_OPER, &w1t_map, &full[s], kb * WB_BK, f0);
+          tma_load_2d(st + 3 * WB_OPER, &w2_map, &full[s], kb * WB_BK, f0);
+          if (++s == WB_STAGES) s = 0, ph ^= 1;
+        }
+      }
+    }
+  } else {  // consumer warpgroup c: rows 64 c .. 64 c + 63 of the tile
+    warpgroup_regs_inc<232>();
+    const int c = wg - 1, t128 = threadIdx.x - 128 * wg, w = t128 >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+    bf16* stg = staging + c * WC_ROWS * WB_FC;
+    float h[WB_FC / 2], da[WB_FC / 2];  // after the epilogue's first loop: ad and dh
+#pragma unroll
+    for (int i = 0; i < WB_FC / 2; ++i) h[i] = da[i] = 0.f;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_f) * WB_ROWS, f0 = (t % tiles_f) * WB_FC;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(&full[s], ph);
+        const unsigned char* st = ring + s * WB_STAGE;
+        const uint64_t ay = wgmma_desc(st + c * (WB_OPER / 2)), adz = wgmma_desc(st + WB_OPER + c * (WB_OPER / 2));
+        const uint64_t bw1 = wgmma_desc(st + 2 * WB_OPER), bw2 = wgmma_desc(st + 3 * WB_OPER);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < WB_BK / 16; ++k) {  // k-step k16: 32 bytes on in the swizzled rows, 2 in the descriptor
+          wgmma_128(h, ay + 2 * k, bw1 + 2 * k, kb > 0 || k > 0);
+          wgmma_128(da, adz + 2 * k, bw2 + 2 * k, kb > 0 || k > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_fence_acc(h);
+        wgmma_fence_acc(da);
+        if (t128 == 0) mbar_arrive(&empty[s]);
+        if (++s == WB_STAGES) s = 0, ph ^= 1;
+      }
+      const int r0 = m0 + c * 64 + 16 * w + g;  // rows r0, r0 + 8 (tile rows 16 w + g, + 8 of the warpgroup's 64)
+      if (dp.on)
+        wb_activation<true>(h, da, b1, r0, f0, F, tig, dp);
+      else
+        wb_activation<false>(h, da, b1, r0, f0, F, tig, dp);
+      const int tr0 = m0 + 64 * c;  // the warpgroup's first row
+#pragma unroll
+      for (int which = 0; which < 4; ++which) {  // ad hi, ad lo, dh hi, dh lo
+#pragma unroll
+        for (int j = 0; j < WB_FC / 8; ++j) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float v0 = which < 2 ? h[4 * j + 2 * hf] : da[4 * j + 2 * hf];
+            const float v1 = which < 2 ? h[4 * j + 2 * hf + 1] : da[4 * j + 2 * hf + 1];
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+            const __nv_bfloat162 out = (which & 1) ? __floats2bfloat162_rn(v0 - __low2float(hi), v1 - __high2float(hi)) : hi;
+            *reinterpret_cast<__nv_bfloat162*>(stg + sw_off(16 * w + g + 8 * hf, 8 * j + 2 * tig, WB_FC)) = out;
+          }
+        }
+        named_sync(1 + c, 128);
+        const Split& o = which < 2 ? ad_o : dh_o;
+        sw_copy_out((which & 1) ? o.lo : o.hi, stg, WB_FC, tr0, N, o.ld, f0, F, t128, 128);
+        named_sync(1 + c, 128);  // before the tile is written again
+      }
+      float* red = reinterpret_cast<float*>(stg);  // [4][WB_FC]: each warp's db1 sums over its 16 rows
+#pragma unroll
+      for (int j = 0; j < WB_FC / 8; ++j) {
+        const float s0 = col_sum8(da[4 * j] + da[4 * j + 2]), s1 = col_sum8(da[4 * j + 1] + da[4 * j + 3]);
+        if (g == 0) red[w * WB_FC + 8 * j + 2 * tig] = s0, red[w * WB_FC + 8 * j + 2 * tig + 1] = s1;
+      }
+      named_sync(1 + c, 128);
+      if (tr0 < N && f0 + t128 < F)  // this warpgroup's 64-row group, column f0 + t128, the warps in row order
+        part[(size_t)(tr0 >> 6) * C + f0 + t128] = ((red[t128] + red[WB_FC + t128]) + red[2 * WB_FC + t128]) + red[3 * WB_FC + t128];
+      named_sync(1 + c, 128);  // before the next tile's values overwrite the staging tile
+    }
+  }
+}
+
+// 3. The dy pass with the LayerNorm backward; see above. Block b: rows 64 b ..; nkb k-steps of 64 over F. part:
+// dgamma, dbeta (columns F + D .. F + 3D) of the block's 64 rows. Once both warpgroups are past their last product the
+// ring holds the block's x rows [64][512] (read twice), its dx rows [64][512] (written out in 16-byte chunks) and the
+// sums that meet across warps; vec: D % 8 == 0 and x, dout, dx 16-byte aligned, else element copies.
+__global__ void __launch_bounds__(WB_THREADS, 1) ffw_bwd_dy(const __grid_constant__ CUtensorMap dh_map, const __grid_constant__ CUtensorMap w1_map,
+                                                            const bf16* __restrict__ x, const float* __restrict__ gamma, const bf16* __restrict__ dout,
+                                                            bf16* __restrict__ dx, const float* __restrict__ stats, float* __restrict__ part, int N, int D,
+                                                            int F, int nkb, int vec) {
+  extern __shared__ unsigned char wb_raw[];
+  unsigned char* ring = wb_aligned(wb_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WB_STAGES * WC_STAGE);
+  uint64_t* empty = full + WB_STAGES;
+  const int wg = threadIdx.x / 128, m0 = blockIdx.x * WC_ROWS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WB_STAGES; ++s) mbar_init(&full[s], 1), mbar_init(&empty[s], 2);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 0) {
+    warpgroup_regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* st = ring + s * WC_STAGE;
+        mbar_expect_tx(&full[s], WC_STAGE);
+        tma_load_2d(st, &dh_map, &full[s], kb * WB_BK, m0);
+        tma_load_2d(st + WC_ROWS * WB_BK * 2, &w1_map, &full[s], kb * WB_BK, 0);
+        tma_load_2d(st + (WC_ROWS + WC_HALF) * WB_BK * 2, &w1_map, &full[s], kb * WB_BK, WC_HALF);
+        if (++s == WB_STAGES) s = 0, ph ^= 1;
+      }
+    }
+  } else {  // consumer warpgroup c: dy columns 256 c .. 256 c + 255 of the block's 64 rows
+    warpgroup_regs_inc<232>();
+    const int c = wg - 1, t128 = threadIdx.x - 128 * wg, t256 = threadIdx.x - 128, w = t128 >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+    float dy[WC_HALF / 2];
+#pragma unroll
+    for (int i = 0; i < WC_HALF / 2; ++i) dy[i] = 0.f;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(&full[s], ph);
+      const unsigned char* st = ring + s * WC_STAGE;
+      const uint64_t adh = wgmma_desc(st), bw1 = wgmma_desc(st + (WC_ROWS + c * WC_HALF) * WB_BK * 2);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < WB_BK / 16; ++k) wgmma_256(dy, adh + 2 * k, bw1 + 2 * k, kb > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_acc(dy);
+      if (t128 == 0) mbar_arrive(&empty[s]);
+      if (++s == WB_STAGES) s = 0, ph ^= 1;
+    }
+    named_sync(1, 256);  // both warpgroups past their last product: the ring is free
+    bf16* xs = reinterpret_cast<bf16*>(ring);                     // [64][512] x, swizzled chunks
+    bf16* dxs = xs + WC_ROWS * WD_DMAX;                           // [64][512] dx
+    float* rrow = reinterpret_cast<float*>(dxs + WC_ROWS * WD_DMAX);  // [2][64][2]: each warpgroup's row sums of dxn and dxn * xhat
+    float* rcol = rrow + 2 * WC_ROWS * 2;                         // [2][4][256][2]: each warp's column sums of dy * xhat and dy
+    for (int i = t256; i < WC_ROWS * (WD_DMAX / 8); i += 256) {
+      const int r = i / (WD_DMAX / 8), c0 = 8 * (i % (WD_DMAX / 8)), row = m0 + r;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (row < N && c0 < D) {
+        if (vec) {
+          u = *reinterpret_cast<const uint4*>(x + (size_t)row * D + c0);
+        } else {
+          bf16* b = reinterpret_cast<bf16*>(&u);
+          for (int e = 0; e < 8 && c0 + e < D; ++e) b[e] = x[(size_t)row * D + c0 + e];
+        }
+      }
+      *reinterpret_cast<uint4*>(xs + sw_off(r, c0, WD_DMAX)) = u;
+    }
+    named_sync(1, 256);
+    const int rl = 16 * w + g, r0 = m0 + rl;  // rows r0, r0 + 8 (block rows rl, rl + 8); columns 256 c + 8 j + 2 tig (+1)
+    float mu[2], rstd[2], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r0 + 8 * hf;
+      mu[hf] = row < N ? stats[row] : 0.f;
+      rstd[hf] = row < N ? stats[N + row] : 0.f;
+    }
+    // rows past N and columns past D hold dy = 0 (the TMA's zeros in dh and W1) and x = 0: no branch needed
+#pragma unroll
+    for (int j = 0; j < WC_HALF / 8; ++j) {
+      const int col = c * WC_HALF + 8 * j + 2 * tig;
+      const float gm[2] = {col < D ? gamma[col] : 0.f, col + 1 < D ? gamma[col + 1] : 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const __nv_bfloat162 xp = *reinterpret_cast<const __nv_bfloat162*>(xs + sw_off(rl + 8 * hf, col, WD_DMAX));
+        const float xv[2] = {__low2float(xp), __high2float(xp)};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float xhat = (xv[jj] - mu[hf]) * rstd[hf];
+          const float dxn = dy[4 * j + 2 * hf + jj] * gm[jj];
+          s1[hf] += dxn;
+          s2[hf] = fmaf(dxn, xhat, s2[hf]);
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      s1[hf] = quad_sum(s1[hf]);
+      s2[hf] = quad_sum(s2[hf]);
+      if (tig == 0) {
+        const int r = c * WC_ROWS + rl + 8 * hf;
+        rrow[2 * r] = s1[hf];
+        rrow[2 * r + 1] = s2[hf];
+      }
+    }
+    named_sync(1, 256);
+    float m1[2], m2[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = rl + 8 * hf;
+      m1[hf] = (rrow[2 * r] + rrow[2 * (WC_ROWS + r)]) / (float)D;
+      m2[hf] = (rrow[2 * r + 1] + rrow[2 * (WC_ROWS + r) + 1]) / (float)D;
+    }
+    float* rc = rcol + c * 4 * WC_HALF * 2;
+#pragma unroll
+    for (int j = 0; j < WC_HALF / 8; ++j) {
+      const int col = c * WC_HALF + 8 * j + 2 * tig;
+      const float gm[2] = {col < D ? gamma[col] : 0.f, col + 1 < D ? gamma[col + 1] : 0.f};
+      float sg[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};  // column sums of dy * xhat and dy
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 8 * hf;
+        const __nv_bfloat162 xp = *reinterpret_cast<const __nv_bfloat162*>(xs + sw_off(rl + 8 * hf, col, WD_DMAX));
+        const float xv[2] = {__low2float(xp), __high2float(xp)};
+        float o[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float xhat = (xv[jj] - mu[hf]) * rstd[hf];
+          const float v = dy[4 * j + 2 * hf + jj];
+          const float res = row < N && col + jj < D ? to_f32(dout[(size_t)row * D + col + jj]) : 0.f;
+          o[jj] = res + rstd[hf] * (v * gm[jj] - m1[hf] - xhat * m2[hf]);
+          sg[jj] += v * xhat;
+          sb[jj] += v;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dxs + sw_off(rl + 8 * hf, col, WD_DMAX)) = __floats2bfloat162_rn(o[0], o[1]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float tg = col_sum8(sg[jj]), tb = col_sum8(sb[jj]);
+        if (g == 0) {
+          const int q = 8 * j + 2 * tig + jj;
+          rc[2 * (w * WC_HALF + q)] = tg;
+          rc[2 * (w * WC_HALF + q) + 1] = tb;
+        }
+      }
+    }
+    named_sync(1, 256);
+    if (vec) {
+      sw_copy_out(dx, dxs, WD_DMAX, m0, N, D, 0, D, t256, 256);
+    } else {
+      for (int i = t256; i < WC_ROWS * WD_DMAX; i += 256) {
+        const int r = i / WD_DMAX, col = i % WD_DMAX;
+        if (m0 + r < N && col < D) dx[(size_t)(m0 + r) * D + col] = dxs[sw_off(r, col, WD_DMAX)];
+      }
+    }
+    const int C = F + 3 * D;
+    for (int q = t128; q < WC_HALF; q += 128) {
+      const int col = c * WC_HALF + q;
+      if (col < D) {  // the warps in row order
+        const float sgv = ((rc[2 * q] + rc[2 * (WC_HALF + q)]) + rc[2 * (2 * WC_HALF + q)]) + rc[2 * (3 * WC_HALF + q)];
+        const float sbv = ((rc[2 * q + 1] + rc[2 * (WC_HALF + q) + 1]) + rc[2 * (2 * WC_HALF + q) + 1]) + rc[2 * (3 * WC_HALF + q) + 1];
+        part[(size_t)blockIdx.x * C + F + D + col] = sgv;
+        part[(size_t)blockIdx.x * C + F + 2 * D + col] = sbv;
+      }
+    }
+  }
 }
 
 // partial[split][M][K] = sum over the split's rows n of A[n, m] B[n, k], A and
@@ -776,12 +1130,14 @@ int fm_rows_per_split(int N, int splits) { return ((N + splits - 1) / splits + F
 // Scratch of the backward: the weight-gradient operands y, dz [N, Dq] and ad,
 // dh [N, Fq] as bf16 hi and lo (Dq, Fq: D, F rounded up to 8, so that every
 // row is 16-byte aligned), then f32 column-sum partials and weight-gradient
-// partials; offsets in floats.
+// partials; the wide pass adds the rows' mean and rstd [2][N], W1^T [F][Dq]
+// and the padded weights W1 [D][Fq], W2 [F][Dq] (bf16; each region 128-byte
+// aligned for the TMA). Offsets in floats.
 struct FMScratch {
-  int Dq, Fq;
-  size_t y, dz, ad, dh, part, partial, total;
-  // rows: the rows pass's block rows (FM_ROWS, or WD_ROWS for the wide kernels); one column-sum row per 16
-  FMScratch(int N, int D, int F, int rows = FM_ROWS) {
+  int Dq, Fq, part_rows;
+  size_t y, dz, ad, dh, part, partial, stats, w1t, w1p, w2p, total;
+  // one column-sum partial per 16 rows (the narrow kernels) or per 64 rows (the wide pass)
+  FMScratch(int N, int D, int F, bool wide = false) {
     Dq = (D + 7) / 8 * 8;
     Fq = (F + 7) / 8 * 8;
     const size_t nd = (size_t)N * Dq, nf = (size_t)N * Fq;  // floats per hi + lo pair
@@ -790,9 +1146,19 @@ struct FMScratch {
     ad = dz + nd;
     dh = ad + nf;
     part = dh + nf;
-    partial = part + (size_t)(rows / 16) * ((N + rows - 1) / rows) * (F + 3 * D);
+    part_rows = (wide ? 1 : FM_ROWS / 16) * ((N + FM_ROWS - 1) / FM_ROWS);
+    partial = part + (size_t)part_rows * (F + 3 * D);
     const size_t p1 = (size_t)fm_splits(N, D, F) * D * F, p2 = (size_t)fm_splits(N, F, D) * F * D;
     total = partial + (p1 > p2 ? p1 : p2);
+    stats = w1t = w1p = w2p = total;
+    if (wide) {
+      auto up = [](size_t n) { return (n + 31) / 32 * 32; };
+      stats = up(total);
+      w1t = up(stats + 2 * (size_t)N);
+      w1p = up(w1t + (size_t)F * Dq / 2);
+      w2p = up(w1p + (size_t)D * Fq / 2);
+      total = up(w2p + (size_t)F * Dq / 2);
+    }
   }
   // the pair at float offset off, n rows of ld bf16 each
   static Split split(float* scratch, size_t off, int N, int ld) {
@@ -805,6 +1171,39 @@ FFArgs fm_args(int N, int D, int F, float eps, float factor, const void* w1, con
   const bool aligned = ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) & 15) == 0;
   return FFArgs{N, D, F, (D + 15) / 16 * 16, (F + FM_FC - 1) / FM_FC, D % 8 == 0 && F % 8 == 0 && aligned, eps, factor};
 }
+
+}  // namespace
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library links only the runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int hopper_tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+namespace {
 
 // The kernel at a width: DMAX the padded width's bound among 64, 128, 160, 192, 256.
 template <template <int> class K, typename... Args>
@@ -820,10 +1219,6 @@ int fm_dispatch(int Dp, Args... args) {
 size_t fw_fwd_smem(int Dp, int rows) {
   return (size_t)(rows * (Dp + AM_PAD) + 2 * Dp * FW_LDF + 2 * FW_FC * (Dp + AM_PAD) + rows * FW_LDF) * sizeof(bf16);
 }
-size_t fw_bwd_smem(int Dp) {
-  return fw_fwd_smem(Dp, WD_ROWS) + (size_t)WD_ROWS * (Dp + AM_PAD) * sizeof(bf16) + (2 * WD_ROWS + 8 * 32) * sizeof(float);
-}
-int fw_part_rows(int N) { return 2 * ((N + WD_ROWS - 1) / WD_ROWS); }
 
 // The wide kernels' arguments: F walked in FW_FC-column chunks.
 FFArgs fw_args(FFArgs a) {
@@ -842,16 +1237,61 @@ int fw_fwd_launch(const void* x, const void* gamma, const void* beta, const void
   return (int)cudaGetLastError();
 }
 
+// The products pass's tiles and persistent grid at N rows, F columns, on a card of `sms` SMs: tiles_f F tiles a row
+// tile, and block b takes the tiles b, b + grid, ... in order (ffw_bwd_products).
+struct WBSchedule {
+  int tiles_f, tiles, grid;
+  WBSchedule(int N, int F, int sms) {
+    tiles_f = (F + WB_FC - 1) / WB_FC;
+    tiles = ((N + WB_ROWS - 1) / WB_ROWS) * tiles_f;
+    grid = tiles < sms ? tiles : sms;
+  }
+};
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
+  return sms > 0 ? sms : 1;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The wide rows pass (the three kernels above) into the scratch of FMScratch(N, D, F, true).
 int fw_bwd_launch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1, const void* w2, const void* dout, void* dx,
                   float* scratch, FFArgs a, Dropout dp, cudaStream_t stream) {
-  const FMScratch L(a.N, a.D, a.F, WD_ROWS);
-  const size_t smem = fw_bwd_smem(a.Dp);
-  cudaError_t err = allow_smem(ffw_bwd_rows, smem);
+  const int N = a.N, D = a.D, F = a.F, C = F + 3 * D;
+  const FMScratch L(N, D, F, true);
+  const Split y = FMScratch::split(scratch, L.y, N, L.Dq), dz = FMScratch::split(scratch, L.dz, N, L.Dq);
+  const Split ad = FMScratch::split(scratch, L.ad, N, L.Fq), dh = FMScratch::split(scratch, L.dh, N, L.Fq);
+  bf16* w1t = reinterpret_cast<bf16*>(scratch + L.w1t);
+  bf16* w1p = reinterpret_cast<bf16*>(scratch + L.w1p);
+  bf16* w2p = reinterpret_cast<bf16*>(scratch + L.w2p);
+  float* stats = scratch + L.stats;
+  float* part = scratch + L.part;
+  const int row_blocks = (N + WC_ROWS - 1) / WC_ROWS, w_tiles = ((D + 63) / 64) * ((F + 63) / 64);
+  ffw_bwd_prologue<<<row_blocks + w_tiles, 32 * WP_WARPS, 0, stream>>>((const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)w1, (const bf16*)w2,
+                                                            (const bf16*)dout, y, dz, stats, part, w1t, w1p, w2p, a,
+                                                            D % 8 == 0 && aligned16(x) && aligned16(dout), dp);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ffw_bwd_rows<<<(a.N + WD_ROWS - 1) / WD_ROWS, FM_THREADS, smem, stream>>>(
-      (const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)dout, (bf16*)dx,
-      FMScratch::split(scratch, L.y, a.N, L.Dq), FMScratch::split(scratch, L.dz, a.N, L.Dq), FMScratch::split(scratch, L.ad, a.N, L.Fq),
-      FMScratch::split(scratch, L.dh, a.N, L.Fq), scratch + L.part, fw_args(a), dp);
+  // W1 [D][F] and W2 [F][D] as the TMA reads them: as they are (a.vec) or the prologue's padded copies
+  const bf16* w1k = a.vec ? (const bf16*)w1 : w1p;
+  const bf16* w2k = a.vec ? (const bf16*)w2 : w2p;
+  CUtensorMap ym, dzm, w1tm, w2m, dhm, w1m;
+  int e;
+  if ((e = hopper_tensor_map(&ym, y.hi, N, D, L.Dq, WB_ROWS)) || (e = hopper_tensor_map(&dzm, dz.hi, N, D, L.Dq, WB_ROWS)) ||
+      (e = hopper_tensor_map(&w1tm, w1t, F, D, L.Dq, WB_FC)) || (e = hopper_tensor_map(&w2m, w2k, F, D, a.vec ? D : L.Dq, WB_FC)) ||
+      (e = hopper_tensor_map(&dhm, dh.hi, N, F, L.Fq, WC_ROWS)) || (e = hopper_tensor_map(&w1m, w1k, D, F, a.vec ? F : L.Fq, WC_HALF)))
+    return e;
+  const WBSchedule S(N, F, sm_count());
+  const int nkd = (D + WB_BK - 1) / WB_BK, nkf = (F + WB_BK - 1) / WB_BK;
+  if ((err = allow_smem(ffw_bwd_products, wb_products_smem())) != cudaSuccess) return (int)err;
+  ffw_bwd_products<<<S.grid, WB_THREADS, wb_products_smem(), stream>>>(ym, dzm, w1tm, w2m, (const bf16*)b1, ad, dh, part, N, F, C, nkd, S.tiles_f,
+                                                                         S.tiles, dp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(ffw_bwd_dy, wb_dy_smem())) != cudaSuccess) return (int)err;
+  ffw_bwd_dy<<<row_blocks, WB_THREADS, wb_dy_smem(), stream>>>(dhm, w1m, (const bf16*)x, (const float*)gamma, (const bf16*)dout, (bf16*)dx, stats, part, N,
+                                                              D, F, nkf, D % 8 == 0 && aligned16(x) && aligned16(dout) && aligned16(dx));
   return (int)cudaGetLastError();
 }
 
@@ -948,7 +1388,10 @@ int launch_ff_mma(const void* x, const void* gamma, const void* beta, const void
   return fm_dispatch<FwdRun>(a.Dp, rows, x, gamma, beta, w1, b1, w2, b2, out, a, dp, stream);
 }
 
-long long ff_mma_bwd_scratch(int N, int D, int F) { return (long long)FMScratch(N, D, F, (D + 15) / 16 * 16 > 256 ? WD_ROWS : FM_ROWS).total; }
+// Whether the bf16 backward at width D takes the wide rows pass (the three wgmma kernels) rather than ff_mma_bwd_rows.
+bool ff_mma_bwd_wide(int D) { return (D + 15) / 16 * 16 > 256; }
+
+long long ff_mma_bwd_scratch(int N, int D, int F) { return (long long)FMScratch(N, D, F, ff_mma_bwd_wide(D)).total; }
 
 // dgamma, dbeta [D], db1 [F], db2 [D] f32 are views of one column-sum output
 // cols [F + 3D] (db1, db2, dgamma, dbeta); dw1 [D, F], dw2 [F, D] f32.
@@ -956,14 +1399,13 @@ int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const 
                       void* dx, float* cols, float* dw1, float* dw2, float* scratch, int N, int D, int F, float eps, float factor, Dropout dp,
                       cudaStream_t stream) {
   const FFArgs a = fm_args(N, D, F, eps, factor, w1, w2);
-  const bool wide = a.Dp > 256;
+  const bool wide = ff_mma_bwd_wide(D);
   if (a.Dp > WD_DMAX) return (int)cudaErrorInvalidValue;
-  const FMScratch L(N, D, F, wide ? WD_ROWS : FM_ROWS);
+  const FMScratch L(N, D, F, wide);
   int e = wide ? fw_bwd_launch(x, gamma, beta, w1, b1, w2, dout, dx, scratch, a, dp, stream)
                : fm_dispatch<BwdRun>(a.Dp, x, gamma, beta, w1, b1, w2, dout, dx, scratch, a, dp, stream);
   if (e) return e;
-  const int part_rows = wide ? fw_part_rows(N) : 4 * ((N + FM_ROWS - 1) / FM_ROWS);
-  if ((e = launch_sum_partials(scratch + L.part, cols, part_rows, (size_t)F + 3 * D, stream))) return e;
+  if ((e = launch_sum_partials(scratch + L.part, cols, L.part_rows, (size_t)F + 3 * D, stream))) return e;
   const Split y = FMScratch::split(scratch, L.y, N, L.Dq), dz = FMScratch::split(scratch, L.dz, N, L.Dq);
   const Split ad = FMScratch::split(scratch, L.ad, N, L.Fq), dh = FMScratch::split(scratch, L.dh, N, L.Fq);
   if ((e = launch_split_atb(y, dh, dw1, scratch + L.partial, N, D, F, stream))) return e;
@@ -973,12 +1415,15 @@ int launch_ff_mma_bwd(const void* x, const void* gamma, const void* beta, const 
 }  // namespace tfasr
 
 // Dynamic shared memory (bytes) of the bf16 backward rows kernel (rows 0) or
-// of the forward at 64 or 32 rows, at width D (above 256 the wide kernels,
-// whose forward takes 32 rows); ops/cuda/ff_kernel.py: ff_mma_plan computes
-// the same.
+// of the forward at 64 or 32 rows, at width D (above 256 the wide kernels:
+// rows 0 is the larger of the rows pass's two wgmma kernels);
+// ops/cuda/ff_kernel.py: ff_mma_plan computes the same.
 extern "C" long long tfasr_ff_mma_smem(int D, int rows) {
   const int Dp = (D + 15) / 16 * 16;
-  if (Dp > 256) return rows == 0 ? (long long)tfasr::fw_bwd_smem(Dp) : rows == 32 || rows == 64 ? (long long)tfasr::fw_fwd_smem(Dp, rows) : -1;
+  if (Dp > 256) {
+    if (rows == 0) return (long long)(tfasr::wb_products_smem() > tfasr::wb_dy_smem() ? tfasr::wb_products_smem() : tfasr::wb_dy_smem());
+    return rows == 32 || rows == 64 ? (long long)tfasr::fw_fwd_smem(Dp, rows) : -1;
+  }
   return (long long)(rows == 0 ? tfasr::fm_bwd_smem(Dp) : tfasr::fm_fwd_smem(Dp, rows));
 }
 
@@ -989,7 +1434,10 @@ extern "C" int tfasr_ff_mma_occupancy(int D, int rows) {
   const int Dp = (D + 15) / 16 * 16;
   if (Dp > WD_DMAX) return -(int)cudaErrorInvalidValue;
   if (Dp > 256) {
-    if (rows == 0) return fm_occupancy(ffw_bwd_rows, FM_THREADS, fw_bwd_smem(Dp));
+    if (rows == 0) {  // the fewer of the two wgmma kernels'
+      const int p = fm_occupancy(ffw_bwd_products, WB_THREADS, wb_products_smem()), q = fm_occupancy(ffw_bwd_dy, WB_THREADS, wb_dy_smem());
+      return p < q ? p : q;
+    }
     if (rows == 32) return fm_occupancy(ffw_fwd<2>, 256, fw_fwd_smem(Dp, 32));
     return rows == 64 ? fm_occupancy(ffw_fwd<4>, 512, fw_fwd_smem(Dp, 64)) : -(int)cudaErrorInvalidValue;
   }

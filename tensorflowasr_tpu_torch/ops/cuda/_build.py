@@ -37,7 +37,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("frontend.cu", "rel_attention.cu", "rel_attention_mma.cu", "ff.cu", "ff_mma.cu", "conv_module.cu", "conv_mma.cu", "row_reduce.cu", "rnnt_dp.cu",
            "joint_loss.cu", "joint_loss_mma.cu", "rnnt_rows.cu", "lstm.cu", "lstm_mma.cu", "ctc.cu", "attention.cu", "attention_mma.cu", "decode.cu")
-HEADERS = ("common.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "tfasr_fused_ff": ([_P] * 8 + [_I] * 4 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_fused_ff_bwd": ([_P] * 15 + [_I] * 3 + [_F, _F] + _DROP + [_I, _P], ctypes.c_int),
     "tfasr_fused_ff_bwd_scratch": ([_I] * 4, ctypes.c_longlong),
+    "tfasr_fused_ff_bwd_wide": ([_I] * 2, ctypes.c_int),
     "tfasr_ff_mma_smem": ([_I] * 2, ctypes.c_longlong),
     "tfasr_ff_mma_occupancy": ([_I] * 2, ctypes.c_int),
     "tfasr_ff_mma_splits": ([_I] * 3 + [_P], ctypes.c_int),

@@ -14,10 +14,12 @@ F in 64-wide chunks, staging each chunk's W1 and W2 slices. bf16 runs on the
 tensor cores (``csrc/ff_mma.cu``: mma.sync, 64 rows per block backward
 and 64 or 32 forward by :func:`ff_fwd_rows`, the weight chunks
 double-buffered with cp.async, any width padded in shared memory; above D
-256, to Conformer-L's D 512, F 2048, the wide kernels: 32 rows a block
-backward and 32 or 64 forward (by :func:`ff_fwd_rows` as the narrow
-forward), 32-column F chunks, the output columns split over four warps;
-:func:`ff_mma_plan` gives the tile and shared memory); f32 keeps the
+256, to Conformer-L's D 512, F 2048, the wide kernels: the forward 32 or 64
+rows a block (by :func:`ff_fwd_rows` as the narrow forward), 32-column F
+chunks, the output columns split over four warps; the backward's rows pass
+on wgmma with TMA-fed rings (a row prologue, a persistent products pass over
+[128 × 128] tiles, a dy pass of 64-row blocks); :func:`ff_mma_plan` gives
+the tiles and shared memory); f32 keeps the
 CUDA-core kernels of ``csrc/ff.cu`` (16 rows per block; TF32 would break
 the f32 card/CPU parity). :func:`supported` says which widths the kernels
 take; the Conformer's ``FFModule`` runs its plain modules at any other. Both dropout sites run in-kernel from the counter
@@ -47,7 +49,10 @@ from tensorflowasr_tpu_torch.utils import tracing
 _MMA_ROWS, _MMA_THREADS, _MMA_FC, _MMA_PAD = 64, 256, 64, 8  # csrc/ff_mma.cu (the bf16 kernels)
 FWD_ROWS = (64, 32)  # the bf16 forward's row tiles: 4 row groups of 16 with each chunk split over 2 warps, or 2 over 4
 NARROW_D, MAX_D = 256, 512  # padded widths of the narrow bf16 kernels; widths the kernels take (both dtypes)
-_WIDE_ROWS, _WIDE_FC = 32, 32  # csrc/ff_mma.cu's wide kernels: rows a block backward, F columns a chunk
+_WIDE_FC = 32  # csrc/ff_mma.cu's wide forward: F columns a chunk
+# csrc/ff_mma.cu's wide backward: a producer and two consumer warpgroups, the ring's stages, the products' tile (rows, F
+# columns), the dy pass's rows a block (and a column-sum partial's), k columns a stage, the ring's alignment
+_WB_THREADS, _WB_STAGES, _WB_TILE, _WB_DY_ROWS, _WB_BK, _WB_ALIGN = 384, 3, (128, 128), 64, 64, 1024
 
 
 def supported(d: int, f: int, dtype: torch.dtype) -> bool:
@@ -81,10 +86,16 @@ def ff_mma_plan(d: int, f: int, fwd_rows: int = _MMA_ROWS) -> FFPlan:
     output (and, backward, dz) as bf16 rows of Dp + 8, two W1 chunks
     [Dp][72] and two W2 chunks [64][Dp + 8] in bf16, and the backward's row
     mean and rstd in f32. Above Dp 256 the wide kernels: ``fwd_rows`` rows
-    forward (8 warps a 16-row group: 512 threads at 64 rows) and 32
-    backward, two W1 chunks [Dp][40] and two W2 chunks [32][Dp + 8], the
-    chunk's activation (dh) [rows][40], and the backward's mean, rstd and
-    LayerNorm row sums [2][4][32] in f32."""
+    forward (8 warps a 16-row group: 512 threads at 64 rows), two W1 chunks
+    [Dp][40], two W2 chunks [32][Dp + 8] and the chunk's activation
+    [rows][40]; the backward's rows pass on wgmma (``rows`` 64, the dy
+    pass's and a column-sum partial's; 384 threads), ``bwd_smem_bytes`` the
+    larger of its two kernels' rings of 3 stages of [rows][64] bf16 tiles
+    behind 1,024 bytes of alignment slack with a full and an empty barrier a
+    stage: the products pass's [128][64] tiles of y, dz, W1ᵀ and W2 (64 KB a
+    stage) with its two warpgroups' [64][128] bf16 staging tiles of the
+    outputs, and the dy pass's dh [64][64] and W1 [512][64] (72 KB a
+    stage)."""
     if fwd_rows not in FWD_ROWS:
         raise ValueError(f"the forward takes {FWD_ROWS} rows a block, not {fwd_rows}")
     dp = -(-d // 16) * 16
@@ -93,9 +104,13 @@ def ff_mma_plan(d: int, f: int, fwd_rows: int = _MMA_ROWS) -> FFPlan:
     if dp > NARROW_D:
         ldf = _WIDE_FC + _MMA_PAD
         fwd_at = lambda rows: 2 * (rows * ldd + 2 * dp * ldf + 2 * _WIDE_FC * ldd + rows * ldf)
-        bwd = fwd_at(_WIDE_ROWS) + 2 * _WIDE_ROWS * ldd + 4 * (2 * _WIDE_ROWS + 8 * 32)
-        return FFPlan(_WIDE_ROWS, _MMA_THREADS, fwd_rows, _WIDE_FC, dp, -(-f // _WIDE_FC), fwd_at(fwd_rows), bwd, per_sm(fwd_at(fwd_rows), 8 * fwd_rows),
-                      per_sm(bwd, _MMA_THREADS))
+        tile_rows, tile_f = _WB_TILE
+        barriers = 2 * _WB_STAGES * 8
+        products = _WB_ALIGN + _WB_STAGES * 4 * tile_rows * _WB_BK * 2 + 2 * _WB_DY_ROWS * tile_f * 2 + barriers
+        dy = _WB_ALIGN + _WB_STAGES * (_WB_DY_ROWS + MAX_D) * _WB_BK * 2 + barriers
+        bwd = max(products, dy)
+        return FFPlan(_WB_DY_ROWS, _WB_THREADS, fwd_rows, _WIDE_FC, dp, -(-f // _WIDE_FC), fwd_at(fwd_rows), bwd,
+                      per_sm(fwd_at(fwd_rows), 8 * fwd_rows), per_sm(bwd, _WB_THREADS))
     weights = 2 * dp * (_MMA_FC + _MMA_PAD) + 2 * _MMA_FC * ldd
     fwd = 2 * (fwd_rows * ldd + weights)
     bwd = 2 * (_MMA_ROWS * ldd + weights) + 2 * _MMA_ROWS * ldd + 4 * 2 * _MMA_ROWS
@@ -275,6 +290,8 @@ def fused_ff_bwd_kernel_f32(x, gamma, beta, w1, b1, w2, dout, seed=0, rate: floa
                     n, d, f, float(eps), float(factor), *dr.kernel_args(seed, rate), code, _build.stream_of(x),
                 )
             _build.check(err, "fused_ff backward")
+            if lib.tfasr_fused_ff_bwd_wide(d, code):
+                tracing.launches["kernel.ff.bwd.wide"] += 1  # the library took the rows pass on wgmma
     return dx, dg, db, dw1, db1, dw2, db2
 
 

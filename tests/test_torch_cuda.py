@@ -257,7 +257,7 @@ def test_ff_kernel_misaligned_weights(dev):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("n,d,f", [(6400, 144, 576), (6400, 176, 704)])
+@pytest.mark.parametrize("n,d,f", [(6400, 144, 576), (6400, 176, 704), (6400, 512, 2048), (70, 264, 1056)])
 def test_ff_bf16_backward_is_deterministic(dev, n, d, f, rate):
     """Two runs of the bf16 backward give the same bits: a fixed row split, partials summed in order, no atomics."""
     args, dout = _ff_args(dev, torch.bfloat16, n, d, f, seed=8)
@@ -1422,7 +1422,8 @@ def test_bidirectional_rnn_pallas_route_matches_its_plain_route(dev, dtype):
 
 # ------------------- the widened rows 5-8 (Conformer-L: D 512, F 2048, J 640) and the routed shapes ------------------- #
 # Tolerances as above (chip_smoke.py holds the same): forward f32 1e-4 / bf16 2e-2, backward 1e-4 / 3e-2 of each gradient's scale.
-WIDE_FF = [(6400, 512, 2048), (37, 500, 1000), (70, 264, 1056)]  # Conformer-L's training rows; D padded with element staging; the narrowest wide D
+# Conformer-L's training rows at batch 16 and at the benchmark's 32; D padded with element staging; the narrowest wide D
+WIDE_FF = [(6400, 512, 2048), (12800, 512, 2048), (37, 500, 1000), (70, 264, 1056)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -1440,6 +1441,32 @@ def test_wide_ff_kernels(dev, dtype, n, d, f, rate):
     if dtype == torch.bfloat16:
         for rows in fk.FWD_ROWS:
             torch.testing.assert_close(fk.fused_ff_kernel(*args, 77, rate, rows=rows), fk.fused_ff_plain(*args, 77, rate), **TOL[dtype])
+
+
+def test_wide_ff_backward_counts_its_launches(dev):
+    """``kernel.ff.bwd.wide`` grows by one with each bf16 backward above D 256
+    (the rows pass on wgmma), and not at D 144 nor in f32, as the library's
+    own dispatch (``tfasr_fused_ff_bwd_wide``) says."""
+    wide, _ = _ff_args(dev, torch.bfloat16, 70, 512, 2048)
+    narrow, _ = _ff_args(dev, torch.bfloat16, 70, 144, 576)
+    f32, _ = _ff_args(dev, torch.float32, 70, 512, 2048)
+    lib = _build.build()
+    assert [lib.tfasr_fused_ff_bwd_wide(d, code) for d, code in ((512, 1), (264, 1), (257, 1), (256, 1), (144, 1), (512, 0))] == [1, 1, 1, 0, 0, 0]
+    for args, grows in ((wide, 1), (narrow, 0), (wide, 1), (f32, 0)):
+        before = (launches["kernel.ff.bwd"], launches["kernel.ff.bwd.wide"])
+        fk.fused_ff_bwd_kernel(*args[:6], torch.ones_like(args[0]), 3, 0.1)
+        assert (launches["kernel.ff.bwd"], launches["kernel.ff.bwd.wide"]) == (before[0] + 1, before[1] + grows)
+
+
+def test_wide_ff_misaligned_weights(dev):
+    """Wide weights that are contiguous but not 16-byte aligned: the prologue copies them into padded rows that the TMA reads."""
+    g = _gen(dev, 4)
+    d, f, bf16 = 512, 2048, torch.bfloat16
+    w1 = _r(g, dev, (d * f + 1,), d ** -0.5, bf16)[1:].view(d, f)
+    w2 = _r(g, dev, (f * d + 1,), f ** -0.5, bf16)[1:].view(f, d)
+    args = (_r(g, dev, (300, d), 1.0, bf16), 1.0 + _r(g, dev, (d,), 0.1), _r(g, dev, (d,), 0.1), w1, _r(g, dev, (f,), 0.1, bf16), w2)
+    dout = _r(g, dev, (300, d), 1.0, bf16)
+    _grads_close(fk.fused_ff_bwd_kernel(*args, dout, 5, 0.1), fk.fused_ff_plain_bwd(*args, dout, 5, 0.1), GRAD_REL[bf16], "wide ff misaligned")
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

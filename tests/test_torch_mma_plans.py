@@ -237,6 +237,23 @@ def test_ff_backward_has_no_occupancy_cliff_at_conformer_ctc_width():
         assert -(-6400 // plan.rows) <= fk.SMS * min(plan.fwd_blocks_per_sm, plan.bwd_blocks_per_sm)
 
 
+@pytest.mark.parametrize("d,f", [(512, 2048), (500, 1000), (264, 1056), (257, 64)])
+def test_wide_ff_backward_plan_fits_the_card(d, f):
+    """The wide backward's rows pass (csrc/ff_mma.cu, on wgmma): the larger of
+    its two rings of 3 stages (the products pass's [128][64] tiles of y, dz,
+    W1ᵀ and W2 with its two [64][128] staging tiles; the dy pass's dh [64][64]
+    and W1 [512][64]), each behind 1,024 bytes of alignment slack with two
+    barriers a stage, fits a block's shared memory, one block of 384 threads
+    per SM of 64-row dy blocks; a function of the padded width's range only."""
+    plan = fk.ff_mma_plan(d, f)
+    assert plan.padded_d > fk.NARROW_D and (plan.threads, plan.rows) == (384, 64)
+    products = 1024 + 3 * 4 * 128 * 64 * 2 + 2 * 64 * 128 * 2 + 2 * 3 * 8
+    dy = 1024 + 3 * (64 + 512) * 64 * 2 + 2 * 3 * 8
+    assert plan.bwd_smem_bytes == max(products, dy) == products == 230448
+    assert plan.bwd_smem_bytes <= fk.MAX_BLOCK_SHARED_BYTES == 232448
+    assert plan.bwd_blocks_per_sm == 1
+
+
 @pytest.mark.parametrize("n,m,k", [(6400, 144, 576), (6400, 576, 144), (6400, 176, 704), (37, 16, 64), (5, 144, 100), (300, 40, 136)])
 def test_weight_gradient_split_is_fixed_and_covers_every_row_once(n, m, k):
     splits = _weight_grad_splits(n, m, k)
